@@ -1,0 +1,27 @@
+"""Architecture registry of the port: ``get_config(name)`` / ``list_archs()``."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (ModelConfig, MoEConfig, SSMConfig,
+                                      torch_dtype)
+
+_ARCH_MODULES = {
+    "stablelm-1.6b": "stablelm_1p6b",
+    "llava-onevision-0.5b": "llava_onevision_0p5b",
+}
+
+
+def list_archs():
+    return list(_ARCH_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
+    return mod.CONFIG
+
+
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "get_config",
+           "list_archs", "torch_dtype"]

@@ -1,0 +1,99 @@
+"""Plain PyTorch versions of the fused cohort-decode kernels.
+
+Each is the composed path its kernel replaces — the dequantize -> einsum
+chains of ``models/attention`` and ``models/mlp`` and the paged scatter —
+written with torch ops only.  The wrappers in ``ops.py`` run these for
+CPU tensors; the tests hold them against the reference package, and the
+card's checks hold each kernel against them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.quantize import QTensor, dequantize
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import model as M
+
+
+def _dq(w):
+    return dequantize(w) if isinstance(w, QTensor) else w
+
+
+def ref_fused_qkv(h, wq, wk, wv, bq: Optional[torch.Tensor] = None,
+                  bk: Optional[torch.Tensor] = None,
+                  bv: Optional[torch.Tensor] = None):
+    """Dequantize, then ``qkv_proj``."""
+    p = {"wq": _dq(wq), "wk": _dq(wk), "wv": _dq(wv)}
+    if bq is not None:
+        p.update(bq=_dq(bq), bk=_dq(bk), bv=_dq(bv))
+    return attn.qkv_proj(p, h)
+
+
+def ref_fused_mlp(h, w_up, w_down, w_gate=None, *, act: str):
+    """Dequantize, then ``apply_mlp`` (``act`` is the config's name)."""
+    p = {"w_up": _dq(w_up), "w_down": _dq(w_down)}
+    if w_gate is not None:
+        p["w_gate"] = _dq(w_gate)
+    return mlp_mod.apply_mlp(p, act, h)
+
+
+def ref_kv_scatter(blk, off, k_rows, v_rows, k_pool, v_pool):
+    """In place, like the kernel: row (g, b) lands at pool[g, blk[b],
+    off[b]]; rows whose block id is out of range (the sentinel
+    ``n_blocks``) write nothing.  Returns the pools."""
+    n_blocks, bs = k_pool.shape[1:3]
+    blk = blk.to(torch.long)
+    off = off.to(torch.long)
+    ok = (blk >= 0) & (blk < n_blocks) & (off >= 0) & (off < bs)
+    k_pool[:, blk[ok], off[ok]] = k_rows[:, ok].to(k_pool.dtype)
+    v_pool[:, blk[ok], off[ok]] = v_rows[:, ok].to(v_pool.dtype)
+    return k_pool, v_pool
+
+
+def gather_context(pool_leaf, tables):
+    """(L, n_blocks, bs, ...) pool + (bc, W) block tables -> each row's
+    context (L, bc, W*bs, ...); sentinel ids (>= n_blocks) read zeros."""
+    n_blocks, bs = pool_leaf.shape[1:3]
+    bc, W = tables.shape
+    valid = tables < n_blocks
+    g = pool_leaf[:, tables.clamp(max=n_blocks - 1).to(torch.long)]
+    mask = valid.reshape((1, bc, W) + (1,) * (g.dim() - 3))
+    g = torch.where(mask, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    return g.reshape((g.shape[0], bc, W * bs) + tuple(g.shape[4:]))
+
+
+def block_and_offset(tables, lengths, block_size: int):
+    """The block holding each row's next position, and its offset."""
+    blk = torch.gather(tables, 1,
+                       (lengths // block_size)[:, None].to(torch.long))[:, 0]
+    return blk, lengths % block_size
+
+
+def ref_cohort_step(params, cfg, tokens, lengths, slot_ids, tables, pool, *,
+                    block_size: int, paged):
+    """The composed cohort step: gather every row's context through its
+    block table, one ``lm_decode_step`` over the cohort, then write each
+    row's new K/V position back through the table.  Returns (logits,
+    new pool); the input pool is not modified."""
+    del slot_ids                    # slot-state layers are not ported
+    if not all(paged):
+        raise NotImplementedError("slot-state (SSM / linear attention) "
+                                  "cache positions are not ported")
+    bc = tokens.shape[0]
+    layers = tuple(tuple(gather_context(l, tables) for l in pool[pos])
+                   for pos in range(len(paged)))
+    cache = {"layers": layers, "index": lengths}
+    logits, new = M.lm_decode_step(params, cfg, tokens, cache)
+    blk, off = block_and_offset(tables, lengths, block_size)
+    rows = torch.arange(bc, device=tokens.device)
+    idx = lengths.to(torch.long)
+    out = []
+    for pos in range(len(paged)):
+        (k_pool, v_pool), (nk, nv) = pool[pos], new["layers"][pos]
+        out.append(ref_kv_scatter(blk, off, nk[:, rows, idx],
+                                  nv[:, rows, idx], k_pool.clone(),
+                                  v_pool.clone()))
+    return logits, tuple(out)

@@ -1,0 +1,192 @@
+"""Block-paged KV cache for continuous batching.
+
+Attention K/V live as fixed-size blocks ``(L, n_blocks, block_size, KV,
+hd)``; every admitted request owns a block table (host-side list of
+granted block ids) and decode gathers its context through it.  Admission
+grants a request the blocks its lifetime needs, charged per slot class,
+and retirement returns them to the free deque at once.  Padded cohort
+rows carry the out-of-range sentinels slot ``n_slots`` and block
+``n_blocks``: gathers read zeros for them and scatters drop them.
+
+Prefilled caches land with ONE in-place indexed write per leaf
+(``insert_many``).  Slot-state caches (SSM / linear attention) and the
+disaggregation export/import of blocks are not ported yet.
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import decoder as dec
+
+
+def paged_positions(cfg: ModelConfig) -> Tuple[bool, ...]:
+    """Which group positions carry a length-indexed attention cache (all
+    of them for the dense stacks the port covers)."""
+    dec.check_supported(cfg)
+    return (True,) * dec.group_size(cfg)
+
+
+def _insert_blocks(pool_leaf: torch.Tensor, batch_leaf: torch.Tensor,
+                   block_ids: torch.Tensor, block_size: int):
+    """In place: a batch-K prefilled leaf (L, K, S, ...) with S =
+    nb*block_size lands in each request's granted blocks — ``block_ids``
+    (K, nb) — of the (L, n_blocks, block_size, ...) pool.  Sentinel ids
+    (>= n_blocks) are dropped."""
+    L, K, S = batch_leaf.shape[:3]
+    nb = S // block_size
+    resh = batch_leaf.reshape((L, K * nb, block_size)
+                              + tuple(batch_leaf.shape[3:]))
+    ids = block_ids.reshape(-1).to(torch.long)
+    ok = ids < pool_leaf.shape[1]
+    pool_leaf[:, ids[ok]] = resh[:, ok].to(pool_leaf.dtype)
+
+
+class PagedKVCache:
+    """Block-paged decode state: the device pools plus the host-side block
+    allocator (free deques, per-request block tables, per-class block
+    accounting, per-slot lengths as a host numpy vector)."""
+
+    def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
+                 block_size: int = 64, total_blocks: Optional[int] = None,
+                 device="cuda"):
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.block_size = block_size
+        self.device = torch.device(device)
+        self.blocks_per_slot = -(-max_len // block_size)
+        self.n_blocks = (n_slots * self.blocks_per_slot
+                         if total_blocks is None else int(total_blocks))
+        self.paged = paged_positions(cfg)
+        shape = (cfg.n_layers, self.n_blocks, block_size, cfg.n_kv_heads,
+                 cfg.hd)
+        self.pool: Tuple[Tuple[torch.Tensor, torch.Tensor], ...] = tuple(
+            (torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device),
+             torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device))
+            for _ in self.paged)
+        self.free: Deque[int] = deque(range(n_slots))
+        self.free_blocks: Deque[int] = deque(range(self.n_blocks))
+        self.block_tables: Dict[int, List[int]] = {}
+        self.slot_class_of: Dict[int, Optional[str]] = {}
+        self.used_blocks: Dict[Optional[str], int] = {}
+        self.lengths = np.zeros((n_slots,), np.int32)
+
+    # -- admission ----------------------------------------------------------
+    @property
+    def free_block_count(self) -> int:
+        return len(self.free_blocks)
+
+    def take_slot(self) -> Optional[int]:
+        return self.free.popleft() if self.free else None
+
+    def grant_blocks(self, slot: int, n: int,
+                     slot_class: Optional[str] = None) -> List[int]:
+        """Grant ``n`` blocks to ``slot``, charged to ``slot_class``; an
+        unfulfillable or double grant raises."""
+        if slot in self.block_tables:
+            raise RuntimeError(f"slot {slot} already holds a block grant")
+        if n > len(self.free_blocks):
+            raise RuntimeError(
+                f"grant of {n} blocks with only {len(self.free_blocks)} "
+                f"free (admission must check first)")
+        blocks = [self.free_blocks.popleft() for _ in range(n)]
+        self.block_tables[slot] = blocks
+        self.slot_class_of[slot] = slot_class
+        self.used_blocks[slot_class] = \
+            self.used_blocks.get(slot_class, 0) + n
+        return blocks
+
+    def insert_many(self, slots: List[int], prefill_cache,
+                    prompt_lens: List[int]):
+        """Land a batch-K prefilled cache — prefilled at a block-aligned
+        width S = nb*block_size — in each request's first nb granted
+        blocks, one indexed write per leaf."""
+        layers = prefill_cache["layers"]
+        bs = self.block_size
+        S = layers[0][0].shape[2]
+        if S % bs:
+            raise RuntimeError(f"prefill width {S} is not block-aligned "
+                               f"(block_size {bs})")
+        nb = S // bs
+        host = np.full((len(slots), nb), self.n_blocks, np.int32)
+        for b, slot in enumerate(slots):
+            tbl = self.block_tables.get(slot, [])
+            if len(tbl) < nb:
+                raise RuntimeError(f"slot {slot} holds {len(tbl)} blocks, "
+                                   f"prefill needs {nb}")
+            host[b] = tbl[:nb]
+        ids = torch.from_numpy(host).to(self.device)
+        for pos in range(len(self.paged)):
+            for pool_leaf, leaf in zip(self.pool[pos], layers[pos]):
+                _insert_blocks(pool_leaf, leaf, ids, bs)
+        for slot, n in zip(slots, prompt_lens):
+            self.lengths[slot] = int(n)
+
+    def release(self, slot: int):
+        """Retire a request: its blocks return to the free deque now."""
+        blocks = self.block_tables.pop(slot, None)
+        cls = self.slot_class_of.pop(slot, None)
+        if blocks:
+            self.used_blocks[cls] = \
+                self.used_blocks.get(cls, 0) - len(blocks)
+            self.free_blocks.extend(blocks)
+        self.lengths[slot] = 0
+        self.free.append(slot)
+
+    # -- decode-cohort views ------------------------------------------------
+    def bump(self, slot: int):
+        self.lengths[slot] += 1
+
+    def gather_tables(self, slots: Sequence[int]) -> np.ndarray:
+        """Block tables of ``slots`` as one (len(slots), blocks_per_slot)
+        int32 array padded with the sentinel ``n_blocks``."""
+        out = np.full((len(slots), self.blocks_per_slot), self.n_blocks,
+                      np.int32)
+        for i, slot in enumerate(slots):
+            tbl = self.block_tables.get(slot, ())
+            out[i, :len(tbl)] = tbl
+        return out
+
+    # -- invariants / reporting ---------------------------------------------
+    def check_block_invariants(self):
+        """Raise unless every block is free xor granted to exactly one
+        slot and the per-class charge matches the tables."""
+        granted = [b for t in self.block_tables.values() for b in t]
+        if len(granted) != len(set(granted)):
+            raise AssertionError(f"double-granted block in "
+                                 f"{self.block_tables}")
+        free = list(self.free_blocks)
+        if len(free) != len(set(free)):
+            raise AssertionError(f"duplicate free block in {free}")
+        if set(granted) & set(free):
+            raise AssertionError("block both granted and free")
+        if len(granted) + len(free) != self.n_blocks:
+            raise AssertionError(
+                f"block leak: {len(granted)} granted + {len(free)} free "
+                f"!= {self.n_blocks}")
+        by_class: Dict[Optional[str], int] = {}
+        for slot, tbl in self.block_tables.items():
+            cls = self.slot_class_of.get(slot)
+            by_class[cls] = by_class.get(cls, 0) + len(tbl)
+        used = {c: n for c, n in self.used_blocks.items() if n}
+        if by_class != used:
+            raise AssertionError(f"class charge drift: tables say "
+                                 f"{by_class}, used_blocks says {used}")
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for pos in self.pool for t in pos)
+
+
+def bucket_length(n: int, buckets=(128, 256, 512, 1024, 2048, 4096)) -> int:
+    """Static-shape prompt bucketing: the nearest bucket at or above n."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]

@@ -27,3 +27,8 @@ settings.load_profile("ci")
 @pytest.fixture
 def key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skipped without one)")

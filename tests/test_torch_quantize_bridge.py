@@ -1,0 +1,136 @@
+"""The port's quantization and parameter bridge against the reference.
+
+* ``quantize`` gives codes and scales array-equal to the reference's on
+  the same fp32 / bf16 input (MSE scale search and its tie order
+  included); ``dequantize`` is bit-equal, bf16 compared as uint16 bits.
+* The port's ``init_params`` gives the reference's tree, shapes, dtypes
+  and init scales (its own random numbers).
+* The bridge carries every leaf of reduced llava — plain and after
+  ``quantize_tree(nanomind-serve)`` — reference -> port -> numpy bit for
+  bit, and the port's own ``quantize_tree`` packs the same leaves the
+  same way.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import bits, flat, jax_to_numpy, to_port
+from repro.configs import get_config as ref_config
+from repro.core import quantize as RQ
+from repro.launch.steps import init_params as ref_init
+from repro_torch import bridge
+from repro_torch.configs import get_config
+from repro_torch.core import quantize as TQ
+from repro_torch.models.model import init_params
+from repro_torch.tree import tree_leaves
+
+
+def _pair(bits_, group):
+    return RQ.QuantSpec(bits_, group_size=group), TQ.QuantSpec(
+        bits_, group_size=group)
+
+
+@pytest.mark.parametrize("shape,nbits,group", [
+    ((2, 128, 4, 32), 4, 32),   # main path: q4 g32 along hd (as wq)
+    ((96, 256), 8, 64),
+    ((3, 64, 96), 2, 64)])      # 96 pads to 128 along the packed axis
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_matches_reference(shape, nbits, group, dtype):
+    rng = np.random.default_rng(len(shape) * 7 + nbits)
+    rspec, tspec = _pair(nbits, group)
+    normal = rng.standard_normal(shape).astype(np.float32)
+    grid = rng.integers(-7, 8, shape).astype(np.float32) * 0.25
+    for w in (normal, grid):   # grid: exact groups, the max-abs tie wins
+        wj = jnp.asarray(w).astype(dtype)
+        rq = RQ.quantize(wj, rspec)
+        tq = TQ.quantize(bridge.array_to_tensor(np.asarray(wj)), tspec)
+        assert np.array_equal(np.asarray(rq.codes), tq.codes.numpy())
+        assert np.array_equal(bits(np.asarray(rq.scales)),
+                              bits(tq.scales.numpy()))
+        assert tq.shape == tuple(rq.shape)
+        rd = bits(np.asarray(RQ.dequantize(rq)))
+        td = bits(bridge.tensor_to_array(TQ.dequantize(tq)))
+        assert np.array_equal(rd, td)
+
+
+@pytest.mark.parametrize("nbits", [2, 4, 8])
+def test_unpack_codes_matches_reference(nbits):
+    rng = np.random.default_rng(nbits)
+    codes = rng.integers(-2 ** 31, 2 ** 31, (5, 6), dtype=np.int64).astype(
+        np.int32)
+    rspec, tspec = _pair(nbits, 64)
+    want = np.asarray(RQ.unpack_codes(jnp.asarray(codes), rspec))
+    got = TQ.unpack_codes(torch.from_numpy(codes), tspec).numpy()
+    assert np.array_equal(want, got)
+
+
+ARCH = "llava-onevision-0.5b"
+
+
+@functools.lru_cache(maxsize=None)
+def ref_params(policy=None):
+    """Reduced llava initialized by the reference (seed 0), optionally
+    quantized by the reference's policy.  The init runs under one jit
+    (the same bits as eager, half the compile time); quantize_tree stays
+    eager, as the reference serves it."""
+    cfg = ref_config(ARCH).reduced()
+    params = jax.jit(ref_init, static_argnums=1)(jax.random.PRNGKey(0), cfg)
+    if policy is not None:
+        params = RQ.quantize_tree(params, RQ.PROFILES[policy])
+    return params
+
+
+def _leaves_equal(a, b):
+    """Two numpy trees (bridge form) equal path for path, bits exact."""
+    fa, fb = flat(a), flat(b)
+    assert sorted(fa) == sorted(fb)
+    for path, x in fa.items():
+        y = fb[path]
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            assert np.array_equal(bits(np.asarray(x)), bits(np.asarray(y)))
+        else:
+            assert x == y
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_bridge_round_trip_is_bit_exact(quantized):
+    params = ref_params("nanomind-serve" if quantized else None)
+    src = jax_to_numpy(params)
+    port = bridge.from_numpy(src)
+    n_q = sum(isinstance(l, TQ.QTensor) for l in tree_leaves(port))
+    assert (n_q > 0) == quantized
+    back = bridge.to_numpy(port)
+    _leaves_equal(src, back)
+
+
+def test_port_quantize_tree_matches_reference():
+    """The port's quantize_tree of the bridged plain params packs the same
+    leaves to the same codes and scales as the reference's."""
+    policy = "nanomind-serve"
+    params = ref_params()
+    qparams = ref_params(policy)
+    want = jax_to_numpy(qparams)
+    got = bridge.to_numpy(TQ.quantize_tree(to_port(params),
+                                           TQ.PROFILES[policy]))
+    _leaves_equal(want, got)
+    assert RQ.tree_bytes(qparams) == TQ.tree_bytes(bridge.from_numpy(want))
+
+
+def test_init_params_has_reference_shapes_and_scales():
+    """The port's own init: the reference's tree, shapes and dtypes, and
+    init scales within sampling noise (numbers differ by design)."""
+    ref = flat(jax_to_numpy(ref_params()))
+    port = flat(init_params(get_config(ARCH).reduced(), device="cpu",
+                            seed=3))
+    assert sorted(ref) == sorted(port)
+    for path, leaf in ref.items():
+        t = port[path]
+        assert tuple(t.shape) == leaf.shape, path
+        assert str(t.dtype).replace("torch.", "") == str(leaf.dtype), path
+        want = float(np.std(np.asarray(leaf, np.float32)))
+        got = float(t.float().std()) if t.numel() > 1 else 0.0
+        assert abs(got - want) <= 0.1 * want + 1e-6, (path, got, want)
