@@ -9,6 +9,7 @@ from repro_torch.configs.base import (ModelConfig, MoEConfig, SSMConfig,
 _ARCH_MODULES = {
     "stablelm-1.6b": "stablelm_1p6b",
     "llava-onevision-0.5b": "llava_onevision_0p5b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
 }
 
 

@@ -90,11 +90,10 @@ def _apply_embed(p, cfg, ctx):
 
 def _apply_decoder(p, cfg, ctx):
     from repro_torch.models import decoder as dec
-    from repro_torch.models.common import default_positions
-    from repro_torch.models.model import make_rope_fn
+    from repro_torch.models.model import prompt_rope_fn
     x = ctx["hidden"]
     B, S, _ = x.shape
-    rope_fn = make_rope_fn(cfg, default_positions(B, S, x.device))
+    rope_fn = prompt_rope_fn(cfg, B, S, x.device)
     x, _, _ = dec.stack_forward(p["layers"], cfg, x, rope_fn, causal=True)
     return x
 

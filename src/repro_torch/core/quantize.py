@@ -138,15 +138,17 @@ def _mse_scale(grp: torch.Tensor, scale: torch.Tensor,
 # rows of groups per MSE-search chunk: bounds the (rows, G, g, n) fp32
 # temporaries to ~128 MB whatever the weight's size
 _CHUNK_ELEMS = 1 << 22
+# weight elements quantized at a time: rows are independent (groups lie
+# along the last axis), so a large leaf packs in slices with the same
+# codes while its fp32/int64 temporaries stay ~0.5 GB
+_PACK_ELEMS = 1 << 24
 
 
-def quantize(w: torch.Tensor, spec: QuantSpec) -> QTensor:
-    """Group-wise symmetric quantization along the last axis."""
-    orig_shape, orig_dtype = tuple(w.shape), w.dtype
-    wf = w.to(torch.float32)
-    wf, _ = _pad_last(wf, max(spec.group_size, spec.per_word))
+def _quantize_rows(rows: torch.Tensor, spec: QuantSpec):
+    """(R, K) -> int32 codes (R, kp / per_word), scales (R, kp / g)."""
+    wf, _ = _pad_last(rows.to(torch.float32),
+                      max(spec.group_size, spec.per_word))
     kp = wf.shape[-1]
-    lead = wf.shape[:-1]
     g = spec.group_size
     grp = wf.reshape(-1, kp // g, g)
     scales = []
@@ -161,16 +163,30 @@ def quantize(w: torch.Tensor, spec: QuantSpec) -> QTensor:
     scale = torch.cat(scales, dim=0)                     # (R, G, 1)
     safe = torch.where(scale == 0, torch.ones_like(scale), scale)
     q = torch.clamp(torch.round(grp / safe), spec.qmin, spec.qmax)
-    q = q.to(torch.int64).reshape(*lead, kp)
+    q = q.to(torch.int64).reshape(-1, kp)
     pw = spec.per_word
-    qu = (q & ((1 << spec.bits) - 1)).reshape(*lead, kp // pw, pw)
-    shifts = torch.arange(pw, device=w.device, dtype=torch.int64) * spec.bits
+    qu = (q & ((1 << spec.bits) - 1)).reshape(-1, kp // pw, pw)
+    shifts = torch.arange(pw, device=rows.device,
+                          dtype=torch.int64) * spec.bits
     words = (qu << shifts).sum(dim=-1)                   # in [0, 2^32)
     words = words - ((words >> 31) & 1) * (1 << 32)      # two's complement
-    codes = words.to(torch.int32)
-    scales_t = scale[..., 0].reshape(*lead, kp // g).to(
-        getattr(torch, spec.scale_dtype))
-    return QTensor(codes, scales_t, spec, orig_shape, orig_dtype)
+    return words.to(torch.int32), scale[..., 0].reshape(-1, kp // g)
+
+
+def quantize(w: torch.Tensor, spec: QuantSpec) -> QTensor:
+    """Group-wise symmetric quantization along the last axis."""
+    orig_shape, orig_dtype = tuple(w.shape), w.dtype
+    rows = w.reshape(-1, orig_shape[-1])
+    step = max(1, _PACK_ELEMS // max(1, orig_shape[-1]))
+    parts = [_quantize_rows(rows[r0:r0 + step], spec)
+             for r0 in range(0, rows.shape[0], step)]
+    codes = torch.cat([c for c, _ in parts])
+    scales = torch.cat([s for _, s in parts])
+    lead = orig_shape[:-1]
+    return QTensor(codes.reshape(*lead, codes.shape[-1]),
+                   scales.reshape(*lead, scales.shape[-1]).to(
+                       getattr(torch, spec.scale_dtype)),
+                   spec, orig_shape, orig_dtype)
 
 
 def unpack_codes(codes: torch.Tensor, spec: QuantSpec) -> torch.Tensor:

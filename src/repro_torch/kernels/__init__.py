@@ -1,2 +1,30 @@
 """Hand-written Hopper kernels of the port (CUDA C++ under ``csrc/``),
-each beside its plain PyTorch version."""
+each beside its plain PyTorch version.
+
+Every kernel wrapper counts its calls into the compiled libraries in one
+registry, so a run can show that it went through the kernels: reset the
+counts just before the run with :func:`reset_launch_counts` and read them
+just after with :func:`launch_counts`.
+"""
+from typing import Dict
+
+_LAUNCHES: Dict[str, int] = {}
+
+
+def register_kernels(*names: str) -> None:
+    """Give each wrapper ``name`` a count (0) in the registry."""
+    for name in names:
+        _LAUNCHES.setdefault(name, 0)
+
+
+def count_launch(name: str, n: int = 1) -> None:
+    _LAUNCHES[name] += n
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0

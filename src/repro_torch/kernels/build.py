@@ -48,33 +48,58 @@ def _digest(sources: Sequence[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def _out_dir(name: str, sources: Sequence[str]) -> Path:
+    return BUILD_ROOT / f"{name}-{_digest([CSRC / s for s in sources])}"
+
+
+def _compile(libs: Dict[str, Sequence[str]]) -> None:
+    """Compile each library of ``libs`` (name -> file names under
+    ``csrc/``) whose hashed build is missing: one nvcc each, all started
+    at once; raises if any fails."""
+    jobs = []
+    for name, sources in libs.items():
+        out_dir = _out_dir(name, sources)
+        if (out_dir / f"lib{name}.so").exists():
+            continue
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(CSRC / s) for s in sources]]
+        log = out_dir / "build.log"
+        log.write_text(" ".join(cmd) + "\n")
+        with open(log, "a") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        jobs.append((name, proc, tmp, out_dir, log))
+    failed = []
+    for name, proc, tmp, out_dir, log in jobs:
+        if proc.wait() != 0:
+            failed.append(f"nvcc failed for {name}:\n{log.read_text()}")
+        else:
+            os.replace(tmp, out_dir / f"lib{name}.so")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def build_all(libs: Dict[str, Sequence[str]]) -> None:
+    """Build every missing library of ``libs`` at once (first use on a
+    machine compiles them all in the time of the slowest)."""
+    with _LOCK:
+        _compile(libs)
+
+
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Compile ``sources`` (file names under ``csrc/``) into
     ``lib<name>.so`` unless the hashed build exists, then load it."""
     with _LOCK:
-        if name in _LIBS:
-            return _LIBS[name]
-        paths = [CSRC / s for s in sources]
-        out_dir = BUILD_ROOT / f"{name}-{_digest(paths)}"
-        lib_path = out_dir / f"lib{name}.so"
-        if not lib_path.exists():
-            out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(p) for p in paths]]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            (out_dir / "build.log").write_text(
-                " ".join(cmd) + "\n" + res.stdout + res.stderr)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
-            os.replace(tmp, lib_path)
-        _LIBS[name] = ctypes.CDLL(str(lib_path))
+        if name not in _LIBS:
+            _compile({name: sources})
+            _LIBS[name] = ctypes.CDLL(
+                str(_out_dir(name, sources) / f"lib{name}.so"))
         return _LIBS[name]
 
 
 def build_log(name: str, sources: Sequence[str]) -> str:
     """The compiler output (``-Xptxas -v``: registers, shared memory,
     spills) of the current build of ``name``, or '' if none exists."""
-    paths = [CSRC / s for s in sources]
-    log = BUILD_ROOT / f"{name}-{_digest(paths)}" / "build.log"
+    log = _out_dir(name, sources) / "build.log"
     return log.read_text() if log.exists() else ""

@@ -17,6 +17,7 @@ import torch
 from repro_torch.core.quantize import QTensor
 from repro_torch.kernels.build import load_library
 
+LIBRARY = "fused_decode"
 SOURCES = ("fused_decode.cu",)
 MAX_ROWS = 8          # cohort rows per launch (kMaxRows)
 ACTS = {"silu": 0, "gelu": 1, "relu": 2, "squared_relu": 3}
@@ -26,7 +27,7 @@ _I = ctypes.c_int
 
 
 def library() -> ctypes.CDLL:
-    lib = load_library("fused_decode", SOURCES)
+    lib = load_library(LIBRARY, SOURCES)
     if not getattr(lib, "_typed", False):
         lib.rt_fused_qkv.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                      _P, _P, _I, _P]

@@ -3,9 +3,9 @@
 Each wrapper dispatches on the device of its tensors alone: CPU tensors
 run the plain version (``ref.py``); CUDA tensors launch the Hopper kernel
 (``kernel.py``) or raise — there is no fallback.  Each wrapper counts its
-calls into the compiled library in ``<wrapper>.launches`` (see
-:func:`launch_counts` / :func:`reset_launch_counts`), so a run can show
-that it went through the kernels.  One such call runs several device
+calls into the compiled library under its own name in the kernels'
+launch-count registry (``repro_torch.kernels``), so a run can show that
+it went through the kernels.  One such call runs several device
 kernels: ``fused_qkv`` two (partial GEMV, epilogue) when its three
 weights share a bit width, ``fused_mlp`` four (two per GEMV stage),
 ``kv_scatter`` one.  The GEMV kernels take bf16 activations only; an
@@ -20,11 +20,12 @@ the new K/V rows of every layer land in the pool in one
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
 from repro_torch.core.quantize import QTensor, dequantize, dequantize_tree
+from repro_torch.kernels import count_launch, register_kernels
 from repro_torch.kernels.fused_decode import kernel as K
 from repro_torch.kernels.fused_decode.ref import (block_and_offset,
                                                   gather_context,
@@ -52,7 +53,7 @@ def fused_qkv(h, wq, wk, wv, bq=None, bk=None, bv=None):
     if _on_cpu(h):
         return ref_fused_qkv(h, wq, wk, wv, bq, bk, bv)
     outs, n = K.launch_fused_qkv(h, wq, wk, wv, bq, bk, bv)
-    fused_qkv.launches += n
+    count_launch("fused_qkv", n)
     return outs
 
 
@@ -64,7 +65,7 @@ def fused_mlp(h, w_up, w_down, w_gate=None, *, act: str):
     gated = w_gate is not None
     out, n = K.launch_fused_mlp(h, w_up, w_down, w_gate,
                                 GATED[act] if gated else act, gated)
-    fused_mlp.launches += n
+    count_launch("fused_mlp", n)
     return out
 
 
@@ -75,22 +76,11 @@ def kv_scatter(blk, off, k_rows, v_rows, k_pool, v_pool):
     if _on_cpu(k_pool):
         return ref_kv_scatter(blk, off, k_rows, v_rows, k_pool, v_pool)
     out = K.launch_kv_row_scatter(blk, off, k_rows, v_rows, k_pool, v_pool)
-    kv_scatter.launches += 1
+    count_launch("kv_scatter")
     return out
 
 
-_WRAPPERS = (fused_qkv, fused_mlp, kv_scatter)
-for _w in _WRAPPERS:
-    _w.launches = 0
-
-
-def launch_counts() -> Dict[str, int]:
-    return {w.__name__: w.launches for w in _WRAPPERS}
-
-
-def reset_launch_counts():
-    for w in _WRAPPERS:
-        w.launches = 0
+register_kernels("fused_qkv", "fused_mlp", "kv_scatter")
 
 
 def fused_supported(cfg) -> bool:
@@ -115,8 +105,8 @@ def _fused_cohort_step(params, cfg, tokens, lengths, tables, pool, *,
     -> fused MLP, one scatter of every layer's new row, head)."""
     k_pool, v_pool = pool[0]
     L = k_pool.shape[0]
-    rope_fn = M.make_rope_fn(cfg, M.decode_positions(lengths, tokens.shape[0],
-                                                     tokens.device))
+    rope_fn = M.decode_rope_fn(cfg, M.decode_positions(
+        lengths, tokens.shape[0], tokens.device))
     x = M._embed(params, cfg, tokens)
     gk = gather_context(k_pool, tables)
     gv = gather_context(v_pool, tables)

@@ -5,6 +5,13 @@ policy, on the card unless ``--device cpu``.
         --arch llava-onevision-0.5b --requests 16 --battery 0.9 \\
         --quantize nanomind-serve --full
 
+Qwen2-VL-7B's prompts carry its 1024 vision tokens, so they need the
+2048 prefill bucket, and the engine's buckets stop below ``--max-len``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen2-vl-7b --requests 4 --quantize nanomind-serve \\
+        --full --max-len 4096
+
 Submits synthetic prompts (with stub vision features for vlm archs; a
 vision request's prompt carries one placeholder token per vision token,
 then its text), runs the engine to completion and prints tokens/s,

@@ -1,4 +1,5 @@
-"""GQA attention: chunked online-softmax (prefill) + cached decode.
+"""GQA attention: prefill through the flash kernel (``attn_q_chunk ==
+0``) or chunked online softmax, and cached decode.
 
 GQA layout: q (B,S,H,hd), k/v (B,S,KV,hd) with H = KV*G.  Scores,
 softmax statistics and the context accumulate in fp32; masked scores are
@@ -10,6 +11,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import dense_init
 
 NEG_INF = -1e30
@@ -104,11 +106,13 @@ def attn_train(p, cfg, x, rope_fn, *, causal=True):
     q, k, v = qkv_proj(p, x)
     q, k = rope_fn(q), rope_fn(k)
     if cfg.attn_q_chunk == 0:
-        raise NotImplementedError(
-            "attn_q_chunk == 0 selects the flash-attention kernel, which "
-            "is not ported yet")
-    o = chunked_attention(q, k, v, causal=causal, q_chunk=cfg.attn_q_chunk,
-                          kv_chunk=cfg.attn_kv_chunk)
+        # one attention region: the flash kernel on the card, its plain
+        # (dense) version on the CPU
+        o = flash_attention(q, k, v, causal=causal)
+    else:
+        o = chunked_attention(q, k, v, causal=causal,
+                              q_chunk=cfg.attn_q_chunk,
+                              kv_chunk=cfg.attn_kv_chunk)
     return out_proj(p, o), (k, v)
 
 

@@ -83,7 +83,7 @@ def activation(name: str):
 
 
 # ---------------------------------------------------------------------------
-# rotary position embeddings (RoPE / partial RoPE)
+# rotary position embeddings (RoPE / partial RoPE / M-RoPE)
 # ---------------------------------------------------------------------------
 
 def _rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
@@ -116,6 +116,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([x_rot, x[..., rot:]], dim=-1)
 
 
+# M-RoPE (Qwen2-VL): the rotated half of head_dim is split into
+# (temporal, height, width) frequency sections, each rotated with its own
+# position stream.
+MROPE_SECTIONS = (0.25, 0.375, 0.375)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """x (B, S, H, hd); positions3 (3, B, S) int (t, h, w streams).
+    Angles in fp32; cos/sin cast to ``x.dtype`` before the rotation."""
+    hd = x.shape[-1]
+    half = hd // 2
+    sec = [int(half * f) for f in MROPE_SECTIONS]
+    sec[-1] = half - sec[0] - sec[1]
+    freqs = _rope_freqs(hd, theta, x.device)              # (half,)
+    parts = []
+    off = 0
+    for i, s in enumerate(sec):
+        pos = positions3[i].to(torch.float32)             # (B, S)
+        parts.append(pos[..., None] * freqs[off:off + s])
+        off += s
+    ang = torch.cat(parts, dim=-1)                        # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    return _rotate(x, cos, sin)
+
+
 def default_positions(batch: int, seq: int, device):
     return torch.arange(seq, dtype=torch.int32,
                         device=device)[None, :].expand(batch, seq)
+
+
+def default_mrope_positions(batch: int, seq: int, device):
+    """Text-only M-RoPE positions: three equal streams, (3, B, S)."""
+    p = default_positions(batch, seq, device)
+    return torch.stack([p, p, p], dim=0)

@@ -10,7 +10,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantize import QTensor, dequantize
 from repro_torch.models import decoder as dec
-from repro_torch.models.common import (apply_norm, apply_rope,
+from repro_torch.models.common import (apply_mrope, apply_norm,
+                                       apply_rope, default_mrope_positions,
                                        default_positions, dense_init,
                                        embed_init, init_norm)
 
@@ -53,12 +54,22 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         return init_lm(cfg, generator, device)
 
 
-def make_rope_fn(cfg, positions):
+def make_rope_fn(cfg, positions, mrope_positions=None):
+    """The rotary map of q/k: ``positions`` (B, S) for RoPE,
+    ``mrope_positions`` (3, B, S) for M-RoPE."""
     if cfg.rope == "none":
         return lambda t: t
     if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet")
+        return lambda t: apply_mrope(t, mrope_positions, cfg.rope_theta)
     return lambda t: apply_rope(t, positions, cfg.rope_theta, cfg.rope_frac)
+
+
+def prompt_rope_fn(cfg, batch: int, seq: int, device):
+    """The rotary map of a prompt at positions 0..seq-1 (M-RoPE: three
+    equal text streams)."""
+    mrope = (default_mrope_positions(batch, seq, device)
+             if cfg.rope == "mrope" else None)
+    return make_rope_fn(cfg, default_positions(batch, seq, device), mrope)
 
 
 def _vocab_bias(cfg, device) -> torch.Tensor:
@@ -96,11 +107,15 @@ def _head(params, cfg, x):
 
 
 def lm_prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
-               vision_feats=None):
+               vision_feats=None, mrope_positions=None):
     """Run the prompt; caches padded to ``max_len``.  Returns
-    (last-token logits (B, V), cache)."""
+    (last-token logits (B, V), cache).  M-RoPE configs default to three
+    equal text position streams."""
     B, S = tokens.shape
-    rope_fn = make_rope_fn(cfg, default_positions(B, S, tokens.device))
+    rope_fn = (prompt_rope_fn(cfg, B, S, tokens.device)
+               if mrope_positions is None else
+               make_rope_fn(cfg, default_positions(B, S, tokens.device),
+                            mrope_positions))
     x = _embed(params, cfg, tokens, vision_feats)
     x, caches, _ = dec.stack_forward(params["layers"], cfg, x, rope_fn,
                                      causal=True, want_cache=True,
@@ -118,12 +133,19 @@ def decode_positions(index, batch: int, device) -> torch.Tensor:
     return index[:, None].to(torch.int32)
 
 
+def decode_rope_fn(cfg, positions):
+    """The rotary map of one decode step: M-RoPE repeats the (B, 1)
+    positions on all three streams."""
+    mrope = (torch.stack([positions] * 3) if cfg.rope == "mrope" else None)
+    return make_rope_fn(cfg, positions, mrope)
+
+
 def lm_decode_step(params, cfg: ModelConfig, tokens, cache):
     """One decode step: tokens (B,1) -> (logits (B,V), new cache).
     ``cache["index"]`` is a scalar or a (B,) vector of per-row lengths."""
     B = tokens.shape[0]
     index = torch.as_tensor(cache["index"], device=tokens.device)
-    rope_fn = make_rope_fn(cfg, decode_positions(index, B, tokens.device))
+    rope_fn = decode_rope_fn(cfg, decode_positions(index, B, tokens.device))
     x = _embed(params, cfg, tokens)
     x, new_caches = dec.stack_decode(params["layers"], cfg, x,
                                      cache["layers"], index, rope_fn)

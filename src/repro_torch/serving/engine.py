@@ -53,7 +53,6 @@ from repro_torch.core.tabm import SlotClassPool, TABMError
 from repro_torch.kernels.fused_decode import cohort_step, fused_supported
 from repro_torch.models import decoder as dec
 from repro_torch.models import model as M
-from repro_torch.models.common import default_positions
 from repro_torch.serving.kv_cache import PagedKVCache, bucket_length
 from repro_torch.serving.sampling import greedy, sample
 from repro_torch.telemetry.ledger import Ledger
@@ -493,7 +492,7 @@ class ServingEngine:
         B, S = tokens.shape
         bs = self.slots.block_size
         decode_len = -(-S // bs) * bs
-        rope_fn = M.make_rope_fn(cfg, default_positions(B, S, self.device))
+        rope_fn = M.prompt_rope_fn(cfg, B, S, self.device)
         with torch.no_grad():
             x = self.params["embed"][tokens]
             if vision_embeds is not None:

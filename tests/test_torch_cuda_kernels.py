@@ -11,12 +11,12 @@ import pytest
 import torch
 
 from repro_torch.core.quantize import QuantSpec, dequantize, quantize
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.flash_attention import flash_attention, ref_attention
 from repro_torch.kernels.fused_decode import (cohort_step, fused_mlp,
                                               fused_qkv, kv_scatter,
-                                              launch_counts, ref_cohort_step,
-                                              ref_fused_mlp, ref_fused_qkv,
-                                              ref_kv_scatter,
-                                              reset_launch_counts)
+                                              ref_cohort_step, ref_fused_mlp,
+                                              ref_fused_qkv, ref_kv_scatter)
 
 pytestmark = pytest.mark.cuda
 
@@ -236,3 +236,73 @@ def test_engine_on_card_decodes_through_the_kernels(cuda):
             cfg.n_layers * steps
         eng.slots.check_block_invariants()
         assert eng.tabm.stats["writes"] == eng.tabm.stats["reads"]
+
+
+def _qkv(dev, B, Sq, Sk, H, KV, hd, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((B, Sq, H, hd), (B, Sk, KV, hd),
+                               (B, Sk, KV, hd)))
+
+
+def _close_rows(got, want):
+    """Attention output rows (b, i, h): each row's max error within
+    TOL_REL of that row's max |ref| (a row over n keys is ~n^-1/2 in
+    size, so the whole output's max would make a loose bound for the
+    long rows)."""
+    got, want = got.float(), want.float()
+    assert got.isfinite().all()
+    err = (got - want).abs().amax(-1)
+    ratio = err / want.abs().amax(-1)
+    worst = ratio.max().item()
+    assert worst <= TOL_REL, (
+        f"row {int(ratio.argmax())}: err/max {worst:.3e}")
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 63, 128, 2048])
+def test_flash_attention_kernel_matches_plain(cuda, hd, causal, S):
+    """bf16 kernel vs the plain version: both keep scores and softmax
+    statistics in fp32 and round p to bf16 before P.V, but the kernel
+    rescales a running sum tile by tile; within 2e-2 of the largest
+    output row (the reference kernel tests' bf16 bound, per row)."""
+    q, k, v = _qkv(cuda, 2, S, S, 8, 2, hd, seed=S + hd)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    want = ref_attention(q, k, v, causal=causal)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _close_rows(got, want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk", [(100, 300), (300, 100), (1, 777)])
+def test_flash_attention_kernel_sq_ne_sk(cuda, causal, Sq, Sk):
+    q, k, v = _qkv(cuda, 1, Sq, Sk, 28, 4, 128, seed=Sq)
+    _close_rows(flash_attention(q, k, v, causal=causal),
+                ref_attention(q, k, v, causal=causal))
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """q/k/v as head-slices of one fused projection (the kernel reads
+    them through their strides): the same result as contiguous copies."""
+    B, S, H, KV, hd = 2, 200, 28, 4, 128
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn((B, S, H + 2 * KV, hd), generator=g,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+    _close_rows(got, ref_attention(q, k, v))
+
+
+def test_flash_attention_kernel_refuses_fp32(cuda):
+    q, k, v = _qkv(cuda, 1, 16, 16, 4, 2, 64, dtype=torch.float32)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(q, k, v)
+    assert launch_counts()["flash_attention"] == 0

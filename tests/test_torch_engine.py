@@ -3,8 +3,10 @@
 A README-style mix on fp32 reduced llava under ``nanomind-serve``: mixed
 slot classes (thumbnail, full resolution, 4-image), more requests than
 KV slots (mid-flight admit and retire), and one request whose vision
-bytes repeat another's (shared staging).  Both engines get the same
-weights (through the bridge) and the same requests.
+bytes repeat another's (shared staging).  A smaller mix on fp32 reduced
+qwen2-vl with ``attn_q_chunk=0`` (single-region prefill attention,
+M-RoPE).  Both engines get the same weights (through the bridge) and the
+same requests.
 
 Greedy tokens are compared step by step until the first step whose
 reference top-1 margin is below 1e-4: random-init logits are nearly
@@ -12,6 +14,8 @@ uniform, so beyond a near-tie a benign rounding difference may
 legitimately pick the other token and fork the rest of the trajectory.
 At least 3/4 of all tokens must be compared.
 """
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -29,17 +33,22 @@ ARCH = "llava-onevision-0.5b"
 MARGIN = 1e-4
 
 
-def _mix(request_cls, cfg):
-    """(vision tokens, images, max_new, prompt length) per request; the
-    last request repeats request 0's vision bytes."""
-    spec = [(8, 1, 6, 7), (2, 1, 3, 6), (32, 4, 5, 9), (2, 1, 4, 8),
-            (8, 1, 3, 6), (8, 1, 4, 7)]
+# (vision tokens, images, max_new, prompt length) per request
+LLAVA_MIX = [(8, 1, 6, 7), (2, 1, 3, 6), (32, 4, 5, 9), (2, 1, 4, 8),
+             (8, 1, 3, 6), (8, 1, 4, 7)]
+# both resolution buckets (8 and 2 tokens per image) and a 4-image request
+QWEN_MIX = [(8, 1, 5, 10), (2, 1, 4, 6), (8, 4, 5, 9)]
+
+
+def _mix(request_cls, cfg, spec=LLAVA_MIX, share_last=True):
+    """Requests of ``spec``; with ``share_last`` the last request repeats
+    request 0's vision bytes."""
     rng = np.random.default_rng(0)
     reqs = []
     for rid, (nt, ni, new, plen) in enumerate(spec):
         feats = (rng.standard_normal((1, nt, cfg.vision_feat_dim)) * 0.02
                  ).astype(np.float32)
-        if rid == len(spec) - 1:
+        if share_last and rid == len(spec) - 1:
             feats = reqs[0].vision_feats.copy()
         reqs.append(request_cls(
             rid=rid, tokens=(np.arange(plen) % 50 + 3).astype(np.int32),
@@ -47,7 +56,7 @@ def _mix(request_cls, cfg):
     return reqs
 
 
-def _run_reference(cfg, params):
+def _run_reference(cfg, params, reqs):
     """Reference engine run, recording each picked token's top-1 margin."""
     margins = {}
     with RServingEngine(cfg, params, n_slots=2, max_len=128,
@@ -59,7 +68,7 @@ def _run_reference(cfg, params):
             margins.setdefault(req.rid, []).append(float(row[-1] - row[-2]))
             return pick(logits, req)
         eng._pick = recording_pick
-        for r in _mix(RRequest, cfg):
+        for r in reqs:
             eng.submit(r)
         done = eng.run()
     assert all(r.error is None for r in done)
@@ -69,7 +78,7 @@ def _run_reference(cfg, params):
 def test_engine_serves_mix_like_reference():
     rcfg, rparams, tcfg, tparams = shared_params(ARCH, "float32",
                                                  "nanomind-serve")
-    want, margins = _run_reference(rcfg, rparams)
+    want, margins = _run_reference(rcfg, rparams, _mix(RRequest, rcfg))
     with ServingEngine(tcfg, tparams, n_slots=2, max_len=128, block_size=32,
                        device="cpu") as eng:
         assert eng.use_fused            # decodes through the fused step
@@ -87,6 +96,12 @@ def test_engine_serves_mix_like_reference():
         assert any(e == "prefill" for e, _ in events[first_finish:])
         assert max(k for e, k in events if e == "decode_cohort") > 1
         got = {r.rid: r.out_tokens for r in done}
+    _check_tokens(want, margins, got)
+
+
+def _check_tokens(want, margins, got):
+    """Greedy tokens equal up to each request's first near-tie; at least
+    3/4 of all tokens compared."""
     compared = total = 0
     for rid, toks in want.items():
         total += len(toks)
@@ -96,6 +111,34 @@ def test_engine_serves_mix_like_reference():
             assert got[rid][i] == tok, (rid, i, got[rid], toks)
             compared += 1
     assert compared >= 0.75 * total, (compared, total)
+
+
+def test_qwen2_vl_engine_serves_mix_like_reference():
+    """Reduced qwen2-vl (fp32, nanomind-serve) with ``attn_q_chunk=0``:
+    prefill through the single-region attention (the reference's
+    ``dense_attention``; the port's flash wrapper, its plain version on
+    the CPU), M-RoPE decode through the fused step; both resolution
+    buckets and a 4-image request."""
+    rcfg, rparams, tcfg, tparams = shared_params("qwen2-vl-7b", "float32",
+                                                 "nanomind-serve")
+    rcfg = dataclasses.replace(rcfg, attn_q_chunk=0)
+    tcfg = dataclasses.replace(tcfg, attn_q_chunk=0)
+    want, margins = _run_reference(
+        rcfg, rparams, _mix(RRequest, rcfg, QWEN_MIX, share_last=False))
+    with ServingEngine(tcfg, tparams, n_slots=2, max_len=128, block_size=32,
+                       device="cpu") as eng:
+        assert eng.use_fused
+        reqs = _mix(Request, tcfg, QWEN_MIX, share_last=False)
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run()
+        assert len(done) == len(reqs) and all(r.error is None for r in done)
+        assert len({r.slot_class for r in reqs}) == 3
+        stats = eng.tabm.stats
+        assert stats["writes"] == stats["reads"] == len(reqs)
+        eng.slots.check_block_invariants()
+        got = {r.rid: r.out_tokens for r in done}
+    _check_tokens(want, margins, got)
 
 
 def test_plan_run_same_on_device_and_host_backends():

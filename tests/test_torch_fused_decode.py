@@ -13,8 +13,8 @@ plain versions there).  Here:
   unchanged;
 * the composed and the fused ``cohort_step`` both match the reference's
   ``ref_cohort_step`` on logits and pools, across cohort buckets 1/2/4
-  with sentinel rows (the reference's step under ``jax.jit``, as its
-  engine runs it).
+  with sentinel rows, on reduced llava and (M-RoPE) reduced qwen2-vl
+  (the reference's step under ``jax.jit``, as its engine runs it).
 """
 import jax
 import jax.numpy as jnp
@@ -31,6 +31,9 @@ from repro_torch.kernels import fused_decode as TF
 SPEC = {"dense": None, "q4": (4, 32), "q8": (8, 64)}
 ref_cohort_step = jax.jit(RF.ref_cohort_step, static_argnums=(1,),
                           static_argnames=("block_size", "paged"))
+# the composed oracles, compiled once per shape (tolerance checks only)
+ref_fused_qkv = jax.jit(RF.ref_fused_qkv)
+ref_fused_mlp = jax.jit(RF.ref_fused_mlp, static_argnames=("act",))
 
 
 def _tol(dtype, m):
@@ -70,7 +73,7 @@ def test_fused_qkv_plain_matches_reference(dtype, label):
     th = bridge.array_to_tensor(np.asarray(h))
     tb = [bridge.array_to_tensor(np.asarray(b)) for b in bs]
     for bias in (False, True):
-        want = RF.ref_fused_qkv(h, *[w[0] for w in ws],
+        want = ref_fused_qkv(h, *[w[0] for w in ws],
                                 *(bs if bias else (None,) * 3))
         got = TF.fused_qkv(th, *[w[1] for w in ws],
                            *(tb if bias else (None,) * 3))
@@ -95,7 +98,7 @@ def test_fused_mlp_plain_matches_reference(dtype, label):
     gate = _weight(rng, (D, F), label, dtype)
     for act in ("swiglu", "geglu", "gelu"):
         g = gate if act != "gelu" else (None, None)
-        want = RF.ref_fused_mlp(h, up[0], down[0], g[0], act=act)
+        want = ref_fused_mlp(h, up[0], down[0], g[0], act=act)
         got = TF.fused_mlp(th, up[1], down[1], g[1], act=act)
         _check(want, got, dtype)
     if label == "q4":                 # one interpret-mode Pallas call
@@ -154,8 +157,19 @@ def test_cohort_step_matches_reference(dtype, bc):
     ``ref_cohort_step``: logits within 1e-4 (fp32) / 5e-2 (bf16, the
     model tests' bound) of the largest logit; pools bit-equal outside
     the written cells, written cells within 1e-4 / 2e-2."""
-    rcfg, rparams, tcfg, tparams = shared_params(
-        "llava-onevision-0.5b", dtype, "nanomind-serve")
+    _check_cohort_step("llava-onevision-0.5b", dtype, bc)
+
+
+@pytest.mark.parametrize("bc", [1, 2])
+def test_qwen2_vl_cohort_step_matches_reference(bc):
+    """The same on reduced qwen2-vl: an M-RoPE decode (positions stacked
+    on three streams) through the fused and the composed step."""
+    _check_cohort_step("qwen2-vl-7b", "float32", bc)
+
+
+def _check_cohort_step(arch, dtype, bc):
+    rcfg, rparams, tcfg, tparams = shared_params(arch, dtype,
+                                                 "nanomind-serve")
     tokens, lengths, slot_ids, tables, pool, bs = _cohort_state(rcfg, bc)
     rl, rpool = ref_cohort_step(
         rparams, rcfg, jnp.asarray(tokens), jnp.asarray(lengths),

@@ -1,7 +1,10 @@
 """The port's model against the reference's, same parameters (through
 the bridge) and the same numpy inputs: teacher-forced prefill logits and
-one decode step's logits, for reduced llava (VLM, qkv biases, projector)
-and reduced stablelm (LayerNorm, partial RoPE, plain weights).
+one decode step's logits, for reduced llava (VLM, qkv biases, projector),
+reduced stablelm (LayerNorm, partial RoPE, plain weights) and reduced
+qwen2-vl (M-RoPE, untied packed head, single-region attention:
+``attn_q_chunk=0``), plus ``apply_mrope`` on three distinct position
+streams.
 
 fp32 agrees within 1e-4 of the largest logit.  In bf16 both frameworks
 round every activation to bf16, but at different points (and in
@@ -9,6 +12,8 @@ different summation orders), so the logits agree to about 1.5e-2 of the
 largest logit on these configs; the test holds them to 5e-2.  The
 reference runs under ``jax.jit``, as its serving engine runs it.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +22,12 @@ import torch
 
 from _torch_parity import f32, shared_params
 from repro.models import model as RM
+from repro.models.common import apply_mrope
+from repro_torch import bridge
+from repro_torch.configs import get_config, list_archs, torch_dtype
+from repro_torch.core.quantize import QTensor
 from repro_torch.models import model as TM
+from repro_torch.models.common import apply_mrope as port_apply_mrope
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 ref_prefill = jax.jit(RM.lm_prefill, static_argnums=(1, 3))
@@ -74,3 +84,82 @@ def test_init_cache_matches_reference_layout():
     for w, g in zip(want[0], got[0]):
         assert tuple(g.shape) == w.shape and not g.any()
         assert str(g.dtype).replace("torch.", "") == str(w.dtype)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_config_matches_reference(arch):
+    """The port's own copy of each config, and its ``reduced()`` (which
+    the parity tests run), field for field the reference's."""
+    from repro.configs import get_config as ref_config
+    for overrides in (None, {}, {"dtype": "float32", "attn_q_chunk": 0}):
+        want, got = ref_config(arch), get_config(arch)
+        if overrides is not None:
+            want, got = want.reduced(**overrides), got.reduced(**overrides)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_mrope_matches_reference(dtype):
+    """Three different position streams, so a wrong section split shows:
+    fp32 within 1e-6 of max|x|, bf16 within one bf16 step of max|x|."""
+    rng = np.random.default_rng(4)
+    x = jnp.asarray(rng.standard_normal((2, 6, 3, 32)).astype(np.float32)
+                    .astype(jnp.dtype(dtype)))
+    pos = np.stack([rng.integers(0, n, (2, 6)) for n in (4, 600, 3000)]
+                   ).astype(np.int32)
+    assert len({tuple(p.ravel()) for p in pos}) == 3
+    want = f32(apply_mrope(x, jnp.asarray(pos), 1e6))
+    got = port_apply_mrope(bridge.array_to_tensor(np.asarray(x)),
+                      torch.from_numpy(pos), 1e6)
+    assert got.dtype == torch_dtype(dtype)
+    m = float(np.abs(f32(x)).max())
+    tol = 1e-6 * m if dtype == "float32" else 2.0 ** (np.floor(np.log2(m))
+                                                        - 7)
+    assert float(np.abs(want - f32(got)).max()) <= tol
+
+
+@pytest.fixture(scope="module")
+def qwen_reference():
+    """Reduced qwen2-vl (fp32, nanomind-serve) run once by the reference
+    with ``attn_q_chunk=0`` (its off-TPU stand-in for the flash kernel,
+    ``dense_attention``): prefill with three distinct M-RoPE streams,
+    then one decode step."""
+    rcfg, rparams, tcfg, tparams = shared_params("qwen2-vl-7b", "float32",
+                                                 "nanomind-serve")
+    rcfg = dataclasses.replace(rcfg, attn_q_chunk=0)
+    rng = np.random.default_rng(6)
+    toks = rng.integers(3, rcfg.vocab_size, (2, 16)).astype(np.int32)
+    feats = (rng.standard_normal((2, rcfg.vision_tokens,
+                                  rcfg.vision_feat_dim)) * 0.02
+             ).astype(np.float32)
+    mrope = np.stack([np.broadcast_to(np.arange(16) * m, (2, 16))
+                      for m in (0, 1, 3)]).astype(np.int32)
+    nxt = np.array([[5], [7]], np.int32)
+    rl, rcache = jax.jit(RM.lm_prefill, static_argnums=(1, 3))(
+        rparams, rcfg, jnp.asarray(toks), 32,
+        vision_feats=jnp.asarray(feats), mrope_positions=jnp.asarray(mrope))
+    rl2, _ = ref_decode_step(rparams, rcfg, jnp.asarray(nxt), rcache)
+    return tcfg, tparams, (toks, feats, mrope, nxt), (rl, rcache, rl2)
+
+
+@pytest.mark.parametrize("q_chunk", [0, 512])
+def test_qwen2_vl_logits_match_reference(qwen_reference, q_chunk):
+    """The port's flash branch (``attn_q_chunk=0``; on the CPU the
+    kernel's plain version) and its chunked branch both give the
+    reference's single-region logits within 1e-4 of the largest logit;
+    the head is the untied q4-packed ``lm_head``."""
+    tcfg, tparams, (toks, feats, mrope, nxt), (rl, rcache, rl2) = \
+        qwen_reference
+    tcfg = dataclasses.replace(tcfg, attn_q_chunk=q_chunk)
+    assert isinstance(tparams["lm_head"], QTensor)
+    with torch.no_grad():
+        tl, tcache = TM.lm_prefill(
+            tparams, tcfg, torch.from_numpy(toks), 32,
+            vision_feats=torch.from_numpy(feats),
+            mrope_positions=torch.from_numpy(mrope))
+        tl2, _ = TM.lm_decode_step(tparams, tcfg, torch.from_numpy(nxt),
+                                   tcache)
+    assert _rel_err(rl, tl) <= TOL["float32"]
+    for r, t in zip(rcache["layers"][0], tcache["layers"][0]):
+        assert _rel_err(r, t) <= TOL["float32"]
+    assert _rel_err(rl2, tl2) <= TOL["float32"]
