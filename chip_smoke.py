@@ -38,12 +38,38 @@ Phases (any failure raises and exits non-zero):
    within bf16 tolerance; for Qwen2-VL one captured prefill group runs
    again with chunked attention, whose logits must agree with the flash
    path's;
-5. time each kernel, its plain version and a PyTorch library call: the
+5. serve Mamba-2-1.3B the same way (text only): prefill through the SSD
+   kernel in every layer, decode through the composed step over the
+   slot-state pool; four requests of 1024, 1000, 300 and 100 tokens
+   (four chunks of 256; padding 1000 -> 1024 and 300 -> 512; the
+   one-chunk 128 bucket), 16 new tokens each, greedy.  The SSD kernel
+   is first held against its plain version at B 2, S 2048, H 64, P 64,
+   G 1, N 128, chunk 256 (bf16 x/B/C, fp32 dt): h_final within 1e-4
+   (max abs err over max abs), every (b, h) head's y within 2e-2 of
+   that head's largest plain |y|, and with dt = 0 past position 1000
+   the state equal to the 1024-position call's; then every kernel call
+   of the serve (each layer of the 2 x 1024, 1 x 512 and one-chunk
+   1 x 128 groups) against the plain version on its own inputs, with
+   the same tolerances.  The engine is held against the port's own
+   model: the 1024- and 100-token requests' first two decode steps
+   against ``lm_prefill`` on the unpadded prompt plus
+   ``lm_decode_step``; the 1000- and 300-token prompts prefilled padded
+   to the next bucket and the one above give the same next-step logits;
+   the largest prefill group rerun through the plain ``ssd_chunked``
+   gives the same logits.  A second serve of the full config in fp32
+   holds these within 5e-2 of the largest logit, the bf16 serve within
+   0.5: in bf16 one rounding step grows through the 48 layers past 5e-2
+   (kernel and plain SSD alike), which a rounding witness measures (the
+   plain SSD with as many y elements moved by one bf16 step as the
+   kernel's differ from it, against the plain SSD);
+6. time each kernel, its plain version and a PyTorch library call: the
    fused-decode kernels at cohort size 4 rotating over the layers'
    weights (so the weights come from device memory, not the 50 MB L2)
-   at both models' widths, the flash kernel at Qwen2-VL's prefill shape;
-   beside the bound the card's published rates set (3.35 TB/s, 989
-   TFLOP/s bf16).
+   at both models' widths, the flash kernel at Qwen2-VL's prefill shape,
+   the SSD kernel at its check shape (no single PyTorch call computes
+   SSD); beside the bound the card's published rates set (3.35 TB/s,
+   989 TFLOP/s bf16, 67 TFLOP/s fp32 for the SSD's fp32 arithmetic, whose
+   operations ``ssd_work`` counts).
 
 Output: build, check and serve lines, the ``nvidia-smi`` name/power-limit
 line, one JSON line ``{"kernels": [...]}``, and as the last line
@@ -62,6 +88,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16, published
+FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 (SIMT FFMA), published
 TIME_BC = 4
 # kernel vs plain version, bf16 outputs: both accumulate in fp32 in
 # different orders, so an output may differ by one bf16 rounding step
@@ -74,7 +101,8 @@ STEP_TOL = 5e-2
 # max_len 4096, because the engine's prefill buckets stop below max_len
 # and a 1040-token prompt needs the 2048 bucket
 N_SLOTS, BLOCK_SIZE = 4, 64
-MAX_LEN = {"llava-onevision-0.5b": 2048, "qwen2-vl-7b": 4096}
+MAX_LEN = {"llava-onevision-0.5b": 2048, "qwen2-vl-7b": 4096,
+           "mamba2-1.3b": 2048}
 # weights' layers rotated through in the decode-kernel timings: LLaVA's 24
 # (the qkv weights of one layer would sit in L2), Qwen2-VL's first 8
 # (one layer's q4 MLP weights alone are 127 MB)
@@ -85,6 +113,21 @@ FLASH_SHAPES = (  # (B, Sq, Sk, H, KV, hd, causal)
     (1, 777, 777, 28, 4, 128, True),       # ragged tile edges
     (2, 300, 1000, 14, 2, 64, False))      # non-causal, Sq != Sk
 FLASH_TIME_SHAPE = FLASH_SHAPES[1]
+# the SSD kernel's check and timing shape: (B, S, H, P, G, N, chunk),
+# Mamba-2-1.3B's widths at a 2 x 2048 prefill
+SSD_SHAPE = (2, 2048, 64, 64, 1, 128, 256)
+# SSD kernel vs plain: h_final (fp32 in both) within 1e-4 of its
+# largest magnitude; y per (b, h) head within KERNEL_TOL of its largest
+SSD_H_TOL = 1e-4
+# Mamba-2 logit checks of the bf16 serve.  Random-weight Mamba-2 in bf16
+# grows a one-step rounding difference through its 48 layers' exp(dt A)
+# decay to 6-28 % of the largest logit (a bf16 rounding witness in the
+# smoke measures it), so STEP_TOL gates the fp32 serve and this bound,
+# under 2x the largest bf16 reading, the bf16 one: logits of unrelated
+# states differ by more than the largest logit
+BF16_LOGIT_TOL = 0.5
+# Mamba-2 requests: prompt lengths, 16 new tokens each
+MAMBA_PROMPTS = (1024, 1000, 300, 100)
 
 
 def fail(msg):
@@ -152,9 +195,9 @@ def dev_or_call(t):
     return t[0] if t[0] is not None else t[1]
 
 
-def bound(byt, fl):
+def bound(byt, fl, flops_per_s=BF16_FLOPS_PER_S):
     """(least ms on the card, what bounds it)."""
-    t_b, t_f = byt / HBM_BYTES_PER_S, fl / BF16_FLOPS_PER_S
+    t_b, t_f = byt / HBM_BYTES_PER_S, fl / flops_per_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -167,8 +210,10 @@ class Smoke:
         self.dev = torch.device(device)
         self.gen = torch.Generator(device=self.dev).manual_seed(1)
         self.errs = {"fused_qkv": 0.0, "fused_mlp": 0.0,
-                     "kv_row_scatter": 0.0, "flash_attention": 0.0}
+                     "kv_row_scatter": 0.0, "flash_attention": 0.0,
+                     "ssd": 0.0}
         self.worst_row_ratio = 0.0       # flash: max over rows err/max
+        self.ssd_check = {}
 
     def randn(self, *shape, scale=1.0):
         torch = self.torch
@@ -268,6 +313,74 @@ class Smoke:
                                                err.max().item())
             self.worst_row_ratio = max(self.worst_row_ratio, worst)
         self.torch.cuda.synchronize()
+
+    def ssd_inputs(self, B, S, H, P, G, N):
+        """bf16 x/B/C and fp32 dt, A drawn like the reference kernel
+        tests: dt = softplus(normal), A = -exp(0.5 normal), B and C =
+        0.3 normal."""
+        torch = self.torch
+
+        def rn(*shape):
+            return torch.randn(shape, generator=self.gen, device=self.dev)
+        x = rn(B, S, H, P).to(torch.bfloat16)
+        dt = torch.nn.functional.softplus(rn(B, S, H))
+        A = -torch.exp(rn(H) * 0.5)
+        return (x, dt, A, (rn(B, S, G, N) * 0.3).to(torch.bfloat16),
+                (rn(B, S, G, N) * 0.3).to(torch.bfloat16))
+
+    def check_ssd(self):
+        """The SSD kernel against ``ssd_chunked`` at SSD_SHAPE, then the
+        pad check: dt = 0 past position 1000 of 2048 leaves the state of
+        the 1024-position call on the same inputs."""
+        from repro_torch.kernels.ssd import ssd
+        B, S, H, P, G, N, chunk = SSD_SHAPE
+        args = self.ssd_inputs(B, S, H, P, G, N)
+        h_rel, head, y_abs, h_abs, _ = ssd_errors(
+            args, ssd(*args, chunk=chunk), chunk, "ssd")
+        x, dt, A, Bm, Cm = args
+        dt = dt.clone()
+        dt[:, 1000:] = 0.0
+        _, h_long = ssd(x, dt, A, Bm, Cm, chunk=chunk)
+        _, h_short = ssd(x[:, :1024], dt[:, :1024], A, Bm[:, :1024],
+                         Cm[:, :1024], chunk=chunk)
+        pad_rel = ((h_long - h_short).abs().max()
+                   / h_short.abs().max()).item()
+        if pad_rel > SSD_H_TOL:
+            fail(f"ssd pad check: h_final rel err {pad_rel}")
+        self.errs["ssd"] = y_abs
+        self.ssd_check = {"shape": list(SSD_SHAPE), "h_rel_err": h_rel,
+                          "worst_head_y_err_over_max": head,
+                          "y_max_abs_err": y_abs, "h_max_abs_err": h_abs,
+                          "pad_check_h_rel_err": pad_rel,
+                          "tol": {"h": SSD_H_TOL, "y_head": KERNEL_TOL}}
+        self.torch.cuda.synchronize()
+
+
+def ssd_errors(args, out, chunk, what):
+    """The SSD kernel's (y, h_final) ``out`` on ``args`` against the plain
+    ``ssd_chunked``: fails unless both are finite, of the plain shapes,
+    h_final within SSD_H_TOL of its largest magnitude and every (b, h)
+    head's y within KERNEL_TOL of that head's largest plain |y|.
+    Returns (h rel err, worst head's y err / max, y max abs err, h max
+    abs err, the number of y elements that differ)."""
+    import torch
+    from repro_torch.kernels.ssd import ref_ssd_chunked
+    y, h = out
+    ry, rh = ref_ssd_chunked(*args, chunk=chunk)
+    if not (y.shape == ry.shape and h.shape == rh.shape
+            and y.isfinite().all() and h.isfinite().all()):
+        fail(f"{what}: shape or non-finite output")
+    h_err = (h - rh).abs().max().item()
+    h_rel = h_err / rh.abs().max().item()
+    y_err = (y.float() - ry.float()).abs()
+    tiny = torch.finfo(torch.float32).tiny
+    head = (y_err.amax(dim=(1, 3)) / ry.float().abs().amax(
+        dim=(1, 3)).clamp_min(tiny)).max().item()
+    if not (h_rel <= SSD_H_TOL and head <= KERNEL_TOL):
+        fail(f"{what}: h_final rel err {h_rel}, worst head y err/max "
+             f"{head}")
+    return (h_rel, head, y_err.max().item(), h_err,
+            int((y != ry).sum().item()))
 
 
 def serve_path(sm, cfg, reqs):
@@ -410,17 +523,17 @@ def serve_path(sm, cfg, reqs):
     return serve, eng, prefills[0]
 
 
-def logit_check(cfg, got, want, what):
+def logit_check(cfg, got, want, what, tol=STEP_TOL):
     """Real rows, real vocabulary (padded vocab rows carry a -1e30 bias):
-    max abs error within STEP_TOL of the largest logit."""
+    max abs error within ``tol`` of the largest logit."""
     got, want = got[:, :cfg.vocab_size], want[:, :cfg.vocab_size]
     if not (got.isfinite().all() and want.isfinite().all()):
         fail(f"{cfg.name}: non-finite logits in the {what} comparison")
     err = (got - want).abs().max().item()
     m = want.abs().max().item()
-    if err > STEP_TOL * m:
+    if err > tol * m:
         fail(f"{cfg.name} {what}: max err {err} vs max {m}")
-    return {"max_abs_err": err, "max_abs_logit": m, "tol_rel": STEP_TOL,
+    return {"max_abs_err": err, "max_abs_logit": m, "tol_rel": tol,
             "same_top1": int((got.argmax(-1) == want.argmax(-1)).sum()),
             "rows_compared": int(got.shape[0])}
 
@@ -581,6 +694,335 @@ def time_flash(sm):
     return t_k, t_p, t_l, None, byt, fl
 
 
+def serve_mamba(sm, cfg):
+    """Serve Mamba-2-1.3B's four text requests at full width with ``cfg``'s
+    dtype, and hold every SSD kernel call of the serve (each layer of each
+    prefill group, at the served shapes and dtype) against the plain
+    ``ssd_chunked`` on the same inputs.  Returns (serve record, engine,
+    run) with ``run`` the requests, every prefill group's inputs and
+    logits, and the first two decode steps' slot ids and logits."""
+    import numpy as np
+    from repro_torch.core.quantize import PROFILES, quantize_tree
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import Request, ServingEngine
+    torch = sm.torch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = quantize_tree(init_params(cfg, device=sm.dev, seed=0),
+                               PROFILES["nanomind-serve"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    eng = ServingEngine(cfg, params, n_slots=N_SLOTS,
+                        max_len=MAX_LEN[cfg.name], block_size=BLOCK_SIZE,
+                        device=sm.dev)
+    del params
+    if eng.use_fused or eng.slots.paged != (False,):
+        fail(f"{cfg.name}: expected the composed step over a slot pool")
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, tokens=rng.integers(
+        3, cfg.vocab_size - 1, n).astype(np.int32), max_new_tokens=16)
+        for i, n in enumerate(MAMBA_PROMPTS)]
+    groups, steps, ssd_calls = [], [], []
+    decode, prefill, kernel_ssd = eng._decode, eng._prefill, ssd_ops.ssd
+
+    def recording_prefill(tokens, vision_embeds, last_idx):
+        logits, cache = prefill(tokens, vision_embeds, last_idx)
+        groups.append((tokens.clone(), last_idx.clone(), logits.clone()))
+        return logits, cache
+
+    def recording_decode(tokens, lengths, slot_ids, tables):
+        logits, pool = decode(tokens, lengths, slot_ids, tables)
+        if len(steps) < 2:
+            steps.append((slot_ids.tolist(), logits.clone()))
+        return logits, pool
+
+    def recording_ssd(x, dt, A, Bm, Cm, *, chunk):
+        # kept by reference, not copied: the model writes none of these
+        # after the call
+        out = kernel_ssd(x, dt, A, Bm, Cm, chunk=chunk)
+        ssd_calls.append(((x, dt, A, Bm, Cm), out, chunk))
+        return out
+    eng._decode, eng._prefill = recording_decode, recording_prefill
+    ssd_ops.ssd = recording_ssd
+    for r in reqs:
+        eng.submit(r)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with eng:
+        done = eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    eng._decode, eng._prefill, ssd_ops.ssd = decode, prefill, kernel_ssd
+    decode_steps = sum(1 for e in eng.trace if e.event == "decode_step")
+    errors = [r for r in done if r.error is not None]
+    if len(done) != len(reqs) or errors:
+        fail(f"{cfg.name}: requests failed: "
+             f"{[repr(r.error) for r in errors]}")
+    eng.slots.check_block_invariants()
+    for r in done:
+        if not (len(r.out_tokens) == r.max_new_tokens and all(
+                0 <= t < cfg.vocab_size for t in r.out_tokens)):
+            fail(f"{cfg.name}: request {r.rid} tokens {r.out_tokens}")
+    others = sum(v for k, v in launches.items() if k != "ssd")
+    if not (launches["ssd"] == cfg.n_layers * len(groups)
+            == len(ssd_calls) and groups and decode_steps > 0
+            and others == 0):
+        fail(f"{cfg.name}: launch counts {launches} for {decode_steps} "
+             f"decode steps and {len(groups)} prefill calls")
+    spans = eng.probe.samples()
+    pre = [s for s in spans if s.brick == "decoder" and s.phase == "prefill"]
+    decs = [s for s in spans if s.brick == "decoder" and s.phase == "decode"]
+    serve = {"arch": cfg.name, "dtype": cfg.dtype, "requests": len(done),
+             "prompt_tokens": list(MAMBA_PROMPTS),
+             "decode_steps": decode_steps,
+             "decoded_tokens": eng.stats.decoded_tokens,
+             "setup_s": round(setup_s, 3), "serve_s": round(serve_s, 3),
+             "prefill_calls": len(groups),
+             "prefill_batch": [int(g[0].shape[0]) for g in groups],
+             "prefill_width": [int(g[0].shape[1]) for g in groups],
+             "prefill_ms": [round(s.dt * 1e3, 3) for s in pre],
+             "prefill_tokens": [s.tokens for s in pre],
+             "decode_step_ms_mean": round(1e3 * sum(s.dt for s in decs)
+                                          / max(1, len(decs)), 3),
+             "decode_tok_s": round(sum(s.tokens for s in decs)
+                                   / max(1e-9, sum(s.dt for s in decs)), 3),
+             "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9,
+                                  3),
+             "state_pool_mb": round(eng.slots.nbytes / 1e6, 3),
+             "launches": launches,
+             "ssd_served_check": served_ssd_check(cfg, ssd_calls)}
+    return serve, eng, (reqs, groups, steps)
+
+
+def served_ssd_check(cfg, calls):
+    """Every recorded SSD kernel call of a serve against the plain version
+    on its own inputs, with ``ssd_errors``' tolerances; the worst errors,
+    the share of y elements where kernel and plain differ, and the (B, S,
+    chunk, dtype) of the calls."""
+    import torch
+    keys = ("h_rel_err", "worst_head_y_err_over_max", "y_max_abs_err",
+            "h_max_abs_err")
+    worst = dict.fromkeys(keys, 0.0)
+    shapes, differ, total = set(), 0, 0
+    with torch.no_grad():
+        for args, out, chunk in calls:
+            x = args[0]
+            dtype = str(x.dtype).replace("torch.", "")
+            *errs, n = ssd_errors(args, out, chunk, f"{cfg.name}: served "
+                                  f"ssd at {tuple(x.shape)} {dtype}")
+            for k, v in zip(keys, errs):
+                worst[k] = max(worst[k], v)
+            differ, total = differ + n, total + out[0].numel()
+            shapes.add((int(x.shape[0]), int(x.shape[1]), chunk, dtype))
+    torch.cuda.synchronize()
+    return dict(worst, calls=len(calls), y_differing_share=differ / total,
+                shapes_B_S_chunk_dtype=sorted(shapes),
+                tol={"h": SSD_H_TOL, "y_head": KERNEL_TOL})
+
+
+def mamba_checks(sm, cfg, eng, run, tol, witness_share=None):
+    """The engine against the port's own model, each within ``tol`` of the
+    largest logit: (a) the 1024- and 100-token requests' first two decode
+    steps against ``lm_prefill`` on the unpadded prompt plus
+    teacher-forced ``lm_decode_step``; (b) the 1000- and 300-token
+    prompts prefilled padded to the next bucket and the one above: the
+    same next-step logits; (c) the largest prefill group rerun through
+    the plain ``ssd_chunked``: the same prefill logits.  With
+    ``witness_share`` (bf16) also the rounding witness: that group
+    through the plain SSD again with that share of every layer's y
+    elements (the share where the served kernel and the plain version
+    differ) moved by one bf16 step up or down at random, against (c)'s
+    plain logits — how far rounding alone carries through the stack."""
+    import contextlib
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import model as M
+    torch = sm.torch
+    reqs, groups, steps = run
+    dev = sm.dev
+
+    def tok(t):
+        return torch.tensor([[int(t)]], dtype=torch.int32, device=dev)
+
+    @contextlib.contextmanager
+    def swapped_ssd(fn):
+        kernel_ssd = ssd_ops.ssd
+        ssd_ops.ssd = fn
+        try:
+            yield
+        finally:
+            ssd_ops.ssd = kernel_ssd
+
+    checks = {}
+    with torch.no_grad():
+        for r in reqs:
+            n = len(r.tokens)
+            if n % min(cfg.ssm.chunk_size, n):
+                continue                  # the chunk does not admit n
+            _, cache = M.lm_prefill(eng.params, cfg, torch.from_numpy(
+                r.tokens[None]).to(dev), MAX_LEN[cfg.name])
+            got, want = [], []
+            for i, (slot_ids, logits) in enumerate(steps):
+                lw, cache = M.lm_decode_step(eng.params, cfg,
+                                             tok(r.out_tokens[i]), cache)
+                want.append(lw[0])
+                got.append(logits[slot_ids.index(r.slot)])
+            checks[f"unpadded_{n}"] = logit_check(
+                cfg, torch.stack(got), torch.stack(want),
+                f"engine vs unpadded model ({n} tokens)", tol)
+        if sorted(int(k.split("_")[1]) for k in checks) != [100, 1024]:
+            fail(f"{cfg.name}: unpadded checks ran for {sorted(checks)}")
+
+        def next_step(tokens, n, width):
+            padded = torch.zeros((1, width), dtype=torch.int32, device=dev)
+            padded[0, :n] = torch.from_numpy(tokens).to(dev)
+            last = torch.tensor([n], dtype=torch.int32, device=dev)
+            logits, cache = eng._prefill(padded, None, last)
+            lw, _ = M.lm_decode_step(
+                eng.params, cfg, logits.argmax(-1, keepdim=True).to(
+                    torch.int32), {"layers": cache["layers"], "index": last})
+            return lw
+        for n, widths in ((1000, (1024, 2048)), (300, (512, 1024))):
+            r = next(q for q in reqs if len(q.tokens) == n)
+            a, b = (next_step(r.tokens, n, w) for w in widths)
+            checks[f"pad_{n}_{widths[0]}_vs_{widths[1]}"] = logit_check(
+                cfg, a, b, f"pad invariance ({n} tokens)", tol)
+
+        tokens, last, logits = max(groups, key=lambda g: g[0].numel())
+        shape = {"batch": int(tokens.shape[0]),
+                 "width": int(tokens.shape[1])}
+        with swapped_ssd(ssd_ops.ref_ssd_chunked):
+            plain_logits, _ = eng._prefill(tokens, None, last)
+        checks["kernel_vs_plain_prefill"] = dict(logit_check(
+            cfg, logits, plain_logits, "kernel vs plain SSD prefill", tol),
+            **shape)
+
+        if witness_share is not None:
+            gen = torch.Generator(device=dev).manual_seed(3)
+
+            def one_step_off(x, dt, A, Bm, Cm, *, chunk):
+                y, h = ssd_ops.ref_ssd_chunked(x, dt, A, Bm, Cm,
+                                               chunk=chunk)
+                u = torch.rand(y.shape, generator=gen, device=dev)
+                # +-1 on the bits of a nonzero bf16 is one step of its
+                # magnitude (sign-magnitude); zeros stay
+                step = ((u < witness_share / 2).to(torch.int16)
+                        - (u > 1 - witness_share / 2).to(torch.int16))
+                step = torch.where(y != 0, step, torch.zeros_like(step))
+                return (y.view(torch.int16) + step).view(torch.bfloat16), h
+            with swapped_ssd(one_step_off):
+                off_logits, _ = eng._prefill(tokens, None, last)
+            checks["bf16_rounding_witness"] = dict(logit_check(
+                cfg, off_logits, plain_logits,
+                "plain SSD one bf16 step off vs plain SSD prefill", tol),
+                **shape)
+    torch.cuda.synchronize()
+    return checks
+
+
+def mamba_decode_breakdown(sm, cfg, eng):
+    """Where one composed cohort-4 decode step's time goes, on the served
+    slot pool (each slot holds its request's final state): wall time
+    (host clock, synchronized, median of 5) against the card's kernel
+    time, by kernel."""
+    from repro_torch.kernels.fused_decode import cohort_step
+    torch = sm.torch
+    n = eng.slots.n_slots
+    args = (torch.full((n, 1), 5, dtype=torch.int32, device=sm.dev),
+            torch.full((n,), 1100, dtype=torch.int32, device=sm.dev),
+            torch.arange(n, dtype=torch.int32, device=sm.dev),
+            torch.zeros((n, eng.slots.blocks_per_slot), dtype=torch.int32,
+                        device=sm.dev))
+
+    def step():
+        with torch.no_grad():
+            cohort_step(eng.params, cfg, *args, eng.slots.pool,
+                        block_size=eng.slots.block_size,
+                        paged=eng.slots.paged)
+        torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        walls.append(time.perf_counter() - t0)
+    kernel_us, by_name, _ = device_time(step)
+    wall_ms = sorted(walls)[2] * 1e3
+    return {"bc": n, "wall_ms": wall_ms, "device_ms": kernel_us / 1e3,
+            "device_busy_share": kernel_us / 1e3 / wall_ms,
+            "top_kernels_ms": [[k[:96], us / 1e3]
+                               for k, us, _ in by_name[:8]]}
+
+
+def mamba_prefill_breakdown(sm, eng, run):
+    """Where one prefill call's time goes (the largest group): wall time
+    (host clock, synchronized, median of 3) against the card's kernel
+    time, the SSD kernels' share and the largest kernels."""
+    torch = sm.torch
+    tokens, last, _ = max(run[1], key=lambda g: g[0].numel())
+
+    def call():
+        with torch.no_grad():
+            eng._prefill(tokens, None, last)
+        torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        call()
+        walls.append(time.perf_counter() - t0)
+    kernel_us, by_name, _ = device_time(call)
+    wall_ms = sorted(walls)[1] * 1e3
+    return {"batch": int(tokens.shape[0]), "width": int(tokens.shape[1]),
+            "wall_ms": wall_ms, "device_ms": kernel_us / 1e3,
+            "device_busy_share": kernel_us / 1e3 / wall_ms,
+            "ssd_kernels_ms": sum(us for k, us, _ in by_name
+                                  if "ssd_" in k) / 1e3,
+            "top_kernels_ms": [[k[:96], us / 1e3]
+                               for k, us, _ in by_name[:8]]}
+
+
+def ssd_work(B, S, H, P, G, N, chunk):
+    """(bytes, operations) the SSD function needs: bf16 x, B, C and y,
+    fp32 dt, A and h_final, each read or written once; the operations of
+    the chunked form with nothing computed twice.  Per chunk of L rows
+    (L(L+1)/2 causal pairs):
+    - C.B^T once per (b, group), causal half: 2 N per pair;
+    - the decay weights per head, CB exp(cum_i - cum_j) dt_j: 4 per pair;
+    - the weights times x: 2 P per pair and head;
+    - the inter-chunk term exp(cum_i) C_i.h_prev, from the second chunk
+      on (h_prev = 0 before it): 2 N P + 2 P per row and head;
+    - the chunk's state, x^T (B exp(cum_last - cum) dt): 2 N P + N per
+      row and head; the scan over chunks, h = a h + s: 2 P N per head
+      from the second chunk on; dt A and the cumsum: 2 per row and head.
+    """
+    L = min(chunk, S)
+    nc, pairs = S // L, L * (L + 1) // 2
+    byt = (2 * B * S * H * P * 2 + B * S * H * 4 + H * 4
+           + 2 * B * S * G * N * 2 + B * H * P * N * 4)
+    fl = (B * G * nc * 2 * N * pairs
+          + B * H * nc * (4 + 2 * P) * pairs
+          + B * H * (nc - 1) * (L * (2 * N * P + 2 * P) + 2 * P * N)
+          + B * H * nc * L * (2 * N * P + N + 2))
+    return byt, fl
+
+
+def time_ssd(sm):
+    """The SSD kernel and its plain version at SSD_SHAPE, and the work
+    (``ssd_work``) that sets its bound."""
+    import torch
+    from repro_torch.kernels.ssd import ref_ssd_chunked, ssd
+    B, S, H, P, G, N, chunk = SSD_SHAPE
+    args = sm.ssd_inputs(B, S, H, P, G, N)
+    with torch.no_grad():
+        t_k = timed(lambda i: ssd(*args, chunk=chunk), 1, iters=20)
+        t_p = timed(lambda i: ref_ssd_chunked(*args, chunk=chunk), 1,
+                    iters=3)
+    return (t_k, t_p) + ssd_work(*SSD_SHAPE)
+
+
 def requests(cfg, specs, seed):
     """Requests of ``specs`` ((vision tokens, images, repeat-of index or
     None)): one placeholder token per vision token, then 16 text tokens;
@@ -616,19 +1058,20 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.fused_decode import kernel as K
+    from repro_torch.kernels.ssd import kernel as SK
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. build: one nvcc per library, all at once ------------------------
     t0 = time.perf_counter()
-    build.build_all({m.LIBRARY: m.SOURCES for m in (K, FK)})
-    for m in (K, FK):
+    build.build_all({m.LIBRARY: m.SOURCES for m in (K, FK, SK)})
+    for m in (K, FK, SK):
         m.library()
     build_s = time.perf_counter() - t0
     ptxas = {m.LIBRARY: [ln.strip() for ln in build.build_log(
         m.LIBRARY, m.SOURCES).splitlines() if "Used" in ln or "spill" in ln][
-        :40] for m in (K, FK)}
+        :40] for m in (K, FK, SK)}
     print(json.dumps({"build": {"seconds": round(build_s, 3),
                                 "ptxas": ptxas}}))
 
@@ -639,10 +1082,12 @@ def main() -> int:
     sm.check_fused(llava, (1, 2, 4, 8))
     sm.check_fused(qwen, (1, 2, 4))
     sm.check_flash()
+    sm.check_ssd()
     free()
     print(json.dumps({"kernel_checks": {
         "fused_bc": {llava.name: [1, 2, 4, 8], qwen.name: [1, 2, 4]},
         "flash_shapes": [list(s) for s in FLASH_SHAPES],
+        "ssd": sm.ssd_check,
         "max_abs_err": sm.errs, "tol_rel": KERNEL_TOL,
         "flash_worst_row_err_over_row_max": sm.worst_row_ratio,
         "kv_pool_blocks": {a: N_SLOTS * n // BLOCK_SIZE
@@ -671,20 +1116,52 @@ def main() -> int:
     del eng, captured
     free()
 
-    # -- 5. the flash kernel at the Qwen2-VL prefill shape ------------------
+    # -- 5. serve Mamba-2-1.3B, prefill through the SSD kernel -------------
+    # The logit checks hold at STEP_TOL on an fp32 instance of the same
+    # config and at BF16_LOGIT_TOL in bf16, where a one-step rounding
+    # difference anywhere (kernel vs plain SSD, cohort 4 vs 1) grows
+    # through the 48 layers' dt -> exp(dt A) decay past STEP_TOL
+    mamba = get_config("mamba2-1.3b")
+    serve, eng, run = serve_mamba(sm, mamba)
+    serve["checks"] = mamba_checks(
+        sm, mamba, eng, run, BF16_LOGIT_TOL,
+        witness_share=serve["ssd_served_check"]["y_differing_share"])
+    serve["prefill_breakdown"] = mamba_prefill_breakdown(sm, eng, run)
+    serve["decode_step_breakdown"] = mamba_decode_breakdown(sm, mamba, eng)
+    del eng, run
+    free()
+    mamba32 = dataclasses.replace(mamba, dtype="float32")
+    serve32, eng, run = serve_mamba(sm, mamba32)
+    serve["fp32"] = {k: serve32[k] for k in (
+        "prefill_calls", "prefill_ms", "decode_tok_s", "launches",
+        "ssd_served_check")}
+    serve["fp32"]["checks"] = mamba_checks(sm, mamba32, eng, run, STEP_TOL)
+    sm.errs["ssd"] = max(sm.errs["ssd"],
+                         serve["ssd_served_check"]["y_max_abs_err"])
+    print(json.dumps({"serve": serve}))
+    serves[mamba.name] = serve
+    del eng, run
+    free()
+
+    # -- 6. the flash kernel at the Qwen2-VL prefill shape, the SSD kernel
+    # at its check shape ---------------------------------------------------
     flash_t = time_flash(sm)
+    ssd_t = time_ssd(sm)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     launch_key = {"fused_qkv": "fused_qkv", "fused_mlp": "fused_mlp",
                   "kv_row_scatter": "kv_scatter",
-                  "flash_attention": "flash_attention"}
+                  "flash_attention": "flash_attention", "ssd": "ssd"}
     replaces = {
         "fused_qkv": "src/repro/kernels/fused_decode/kernel.py:92",
         "fused_mlp": "src/repro/kernels/fused_decode/kernel.py:138",
         "kv_row_scatter": "src/repro/kernels/fused_decode/kernel.py:174",
-        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:55"}
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:55",
+        "ssd": "src/repro/kernels/ssd/kernel.py:69"}
+    sources = {"flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+               "ssd": "src/repro_torch/csrc/ssd.cu"}
 
     def numbers(t):
         t_k, t_p, t_l, t_d, byt, fl = t
@@ -703,13 +1180,12 @@ def main() -> int:
 
     kernels = []
     for name in ("fused_qkv", "fused_mlp", "kv_row_scatter",
-                 "flash_attention"):
+                 "flash_attention", "ssd"):
         by_path = {a: s["launches"][launch_key[name]]
                    for a, s in serves.items()}
         entry = {"name": name, "route": "cuda",
-                 "source": ("src/repro_torch/csrc/flash_attention.cu"
-                            if name == "flash_attention" else
-                            "src/repro_torch/csrc/fused_decode.cu"),
+                 "source": sources.get(
+                     name, "src/repro_torch/csrc/fused_decode.cu"),
                  "replaces": replaces[name],
                  "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -719,6 +1195,29 @@ def main() -> int:
             entry["shape"] = dict(zip(("B", "Sq", "Sk", "H", "KV", "hd",
                                        "causal"), FLASH_TIME_SHAPE))
             entry["library"] = "F.scaled_dot_product_attention(enable_gqa)"
+        elif name == "ssd":
+            t_k, t_p, byt, fl = ssd_t
+            b_ms, b_by = bound(byt, fl, FP32_FLOPS_PER_S)
+            entry.update({
+                "ms": dev_or_call(t_k), "plain_ms": dev_or_call(t_p),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "bound_ms_at_bf16_peak": bound(byt, fl)[0],
+                "bound_by_at_bf16_peak": bound(byt, fl)[1],
+                "bound_note": ("bound_ms at the fp32 FFMA peak (67 "
+                               "TFLOP/s): the kernel's contract is fp32 "
+                               "arithmetic; operations as ssd_work counts "
+                               "them (C.B^T once per group, causal "
+                               "halves)"),
+                "ms_source": ("profiler device time" if t_k[0] is not None
+                              else "CUDA events per call"),
+                "device_kernels_per_call": t_k[2], "call_ms": t_k[1],
+                "plain_call_ms": t_p[1], "bytes": byt, "flops": fl,
+                "shape": dict(zip(("B", "S", "H", "P", "G", "N", "chunk"),
+                                  SSD_SHAPE)),
+                "launches_per_prefill_call": (
+                    serves[mamba.name]["launches"]["ssd"]
+                    / serves[mamba.name]["prefill_calls"]),
+                "served_check": serves[mamba.name]["ssd_served_check"]})
         else:
             entry.update(numbers(timings[llava.name][name]))
             entry["bc"] = TIME_BC

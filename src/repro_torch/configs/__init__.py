@@ -10,6 +10,7 @@ _ARCH_MODULES = {
     "stablelm-1.6b": "stablelm_1p6b",
     "llava-onevision-0.5b": "llava_onevision_0p5b",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "mamba2-1.3b": "mamba2_1p3b",
 }
 
 

@@ -2,9 +2,11 @@
 
 Each is the composed path its kernel replaces — the dequantize -> einsum
 chains of ``models/attention`` and ``models/mlp`` and the paged scatter —
-written with torch ops only.  The wrappers in ``ops.py`` run these for
-CPU tensors; the tests hold them against the reference package, and the
-card's checks hold each kernel against them.
+written with torch ops only; ``ref_cohort_step`` is the composed decode
+step over the pool (paged attention K/V and slot-indexed state).  The
+wrappers in ``ops.py`` run these for CPU tensors; the tests hold them
+against the reference package, and the card's checks hold each kernel
+against them.
 """
 from __future__ import annotations
 
@@ -72,26 +74,49 @@ def block_and_offset(tables, lengths, block_size: int):
     return blk, lengths % block_size
 
 
+def gather_slots(pool_leaf, slot_ids):
+    """(L, n_slots, ...) slot-state pool + (bc,) slot ids -> each row's
+    state (L, bc, ...); the sentinel id (>= n_slots) reads zeros."""
+    n_slots = pool_leaf.shape[1]
+    valid = slot_ids < n_slots
+    g = pool_leaf[:, slot_ids.clamp(max=n_slots - 1).to(torch.long)]
+    mask = valid.reshape((1, -1) + (1,) * (g.dim() - 2))
+    return torch.where(mask, g, torch.zeros((), dtype=g.dtype,
+                                            device=g.device))
+
+
+def scatter_slots(pool_leaf, slot_ids, rows):
+    """A copy of the (L, n_slots, ...) pool with each row's new state
+    (L, bc, ...) written at its slot; sentinel rows write nothing."""
+    ok = slot_ids < pool_leaf.shape[1]
+    out = pool_leaf.clone()
+    out[:, slot_ids[ok].to(torch.long)] = rows[:, ok].to(out.dtype)
+    return out
+
+
 def ref_cohort_step(params, cfg, tokens, lengths, slot_ids, tables, pool, *,
                     block_size: int, paged):
     """The composed cohort step: gather every row's context through its
-    block table, one ``lm_decode_step`` over the cohort, then write each
-    row's new K/V position back through the table.  Returns (logits,
-    new pool); the input pool is not modified."""
-    del slot_ids                    # slot-state layers are not ported
-    if not all(paged):
-        raise NotImplementedError("slot-state (SSM / linear attention) "
-                                  "cache positions are not ported")
+    block table (attention) or its slot (slot state), one
+    ``lm_decode_step`` over the cohort, then write each row's new K/V
+    position back through the table and its new state back by slot.
+    Returns (logits, new pool); the input pool is not modified."""
     bc = tokens.shape[0]
-    layers = tuple(tuple(gather_context(l, tables) for l in pool[pos])
-                   for pos in range(len(paged)))
+    layers = tuple(
+        tuple(gather_context(l, tables) if is_paged
+              else gather_slots(l, slot_ids) for l in pool[pos])
+        for pos, is_paged in enumerate(paged))
     cache = {"layers": layers, "index": lengths}
     logits, new = M.lm_decode_step(params, cfg, tokens, cache)
-    blk, off = block_and_offset(tables, lengths, block_size)
     rows = torch.arange(bc, device=tokens.device)
     idx = lengths.to(torch.long)
     out = []
-    for pos in range(len(paged)):
+    for pos, is_paged in enumerate(paged):
+        if not is_paged:
+            out.append(tuple(scatter_slots(l, slot_ids, nl)
+                             for l, nl in zip(pool[pos], new["layers"][pos])))
+            continue
+        blk, off = block_and_offset(tables, lengths, block_size)
         (k_pool, v_pool), (nk, nv) = pool[pos], new["layers"][pos]
         out.append(ref_kv_scatter(blk, off, nk[:, rows, idx],
                                   nv[:, rows, idx], k_pool.clone(),

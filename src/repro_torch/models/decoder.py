@@ -1,21 +1,25 @@
-"""Decoder stack, dense path with group size 1.
+"""Decoder stack with group size 1: dense softmax attention or Mamba-2.
 
 Layer params are stacked on a leading ``L`` axis, as in the reference:
 ``params["layers"]`` is a 1-tuple (one sublayer per group) holding
-``{"norm1", "mixer", "norm2", "ffn"}``, every leaf ``(L, ...)``.  The
-reference's ``lax.scan`` over layers is a Python loop here; each layer
-dequantizes its packed weights at use (``dequantize_tree`` of the slice).
-MoE, Mamba-2, linear attention and hybrid groups are not ported yet.
+``{"norm1", "mixer"}`` plus ``{"norm2", "ffn"}`` when the sublayer has
+an FFN, every leaf ``(L, ...)``.  The reference's ``lax.scan`` over
+layers is a Python loop here; each layer dequantizes its packed weights
+at use (``dequantize_tree`` of the slice).  Caches are one tuple per
+group position: ``(k, v)`` for attention, ``(conv_tail, ssd_state)`` for
+Mamba-2.  MoE, linear attention, hybrid groups and the encoder-decoder
+are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quantize import QTensor, dequantize_tree
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import apply_norm, init_norm
 from repro_torch.tree import tree_map
@@ -25,25 +29,44 @@ def group_size(cfg) -> int:
     return cfg.hybrid_group or 1
 
 
+def sublayer_spec(cfg, pos: int) -> Tuple[str, str]:
+    """(mixer_kind, ffn_kind) for position ``pos`` within a group."""
+    if cfg.family == "ssm":
+        return "mamba", ("none" if cfg.d_ff == 0 else "mlp")
+    if cfg.hybrid_group:
+        mixer = "attn" if pos == cfg.attn_every else "mamba"
+        ffn = "moe" if (cfg.moe and pos % cfg.moe.every == cfg.moe.every - 1) \
+            else "mlp"
+        return mixer, ffn
+    ffn = "moe" if cfg.moe is not None else "mlp"
+    return "attn", ffn
+
+
 def check_supported(cfg):
-    """The port's decoder covers dense softmax-attention stacks only."""
-    if (group_size(cfg) != 1 or cfg.family == "ssm" or cfg.moe is not None
+    """The port's decoder covers uniform stacks (group size 1) of softmax
+    attention or Mamba-2 mixers with a dense FFN or none."""
+    if (group_size(cfg) != 1 or cfg.moe is not None
             or cfg.attn_impl != "softmax" or cfg.encdec):
         raise NotImplementedError(
-            f"{cfg.name}: only dense softmax-attention decoders with group "
-            f"size 1 are ported")
+            f"{cfg.name}: only uniform softmax-attention or Mamba-2 "
+            f"decoders with group size 1 are ported")
 
 
 def init_stack(generator, cfg, device, qkv_bias: bool = False):
     """Stacked layer params, leading dim ``n_layers``."""
     check_supported(cfg)
     L, D = cfg.n_layers, cfg.d_model
-    sub = {"norm1": init_norm(cfg, D, device, lead=(L,)),
-           "mixer": attn.init_attn(generator, cfg, D, device, qkv_bias,
-                                   lead=(L,)),
-           "norm2": init_norm(cfg, D, device, lead=(L,)),
-           "ffn": mlp_mod.init_mlp(generator, cfg, D, cfg.d_ff, device,
-                                   lead=(L,))}
+    mixer_kind, ffn_kind = sublayer_spec(cfg, 0)
+    sub = {"norm1": init_norm(cfg, D, device, lead=(L,))}
+    if mixer_kind == "attn":
+        sub["mixer"] = attn.init_attn(generator, cfg, D, device, qkv_bias,
+                                      lead=(L,))
+    else:
+        sub["mixer"] = mamba2.init_mamba(generator, cfg, device, lead=(L,))
+    if ffn_kind != "none":
+        sub["norm2"] = init_norm(cfg, D, device, lead=(L,))
+        sub["ffn"] = mlp_mod.init_mlp(generator, cfg, D, cfg.d_ff, device,
+                                      lead=(L,))
     return (sub,)
 
 
@@ -53,26 +76,43 @@ def layer_slice(params_layers, i: int):
                     params_layers)
 
 
+def _ffn(sub, cfg, x):
+    if "ffn" not in sub:
+        return x
+    h2 = apply_norm(sub["norm2"], x)
+    return x + mlp_mod.apply_mlp(sub["ffn"], cfg.act, h2)
+
+
 def stack_forward(params_layers, cfg, x, rope_fn, *, causal=True,
-                  want_cache=False, decode_len=0):
-    """Run the whole stack.  Returns (x, caches, aux) with caches
-    ``((k, v),)`` stacked ``(L, B, decode_len, KV, hd)`` when
-    ``want_cache``."""
+                  want_cache=False, decode_len=0,
+                  valid_len: Optional[torch.Tensor] = None):
+    """Run the whole stack.  Returns (x, caches, aux).  With
+    ``want_cache``, caches are ``((k, v),)`` stacked ``(L, B, decode_len,
+    KV, hd)`` for attention, ``((conv_tail, ssd_state),)`` stacked
+    ``(L, B, ...)`` for Mamba-2.  ``valid_len`` (B,) marks right-padded
+    rows: Mamba-2 state is taken at each row's true end (attention caches
+    keep the pad positions, which decode's length mask never reads)."""
     check_supported(cfg)
-    ks, vs = [], []
+    mamba = sublayer_spec(cfg, 0)[0] == "mamba"
+    c0, c1 = [], []
     for i in range(cfg.n_layers):
         sub = dequantize_tree(layer_slice(params_layers, i))[0]
         h = apply_norm(sub["norm1"], x)
-        y, (k, v) = attn.attn_train(sub["mixer"], cfg, h, rope_fn,
-                                    causal=causal)
-        x = x + y
+        if mamba:
+            y, (a, b) = mamba2.mamba_forward(sub["mixer"], cfg, h,
+                                             valid_len=valid_len)
+        else:
+            y, (a, b) = attn.attn_train(sub["mixer"], cfg, h, rope_fn,
+                                        causal=causal)
+            if want_cache:
+                pad = decode_len - a.shape[1]
+                a = F.pad(a, (0, 0, 0, 0, 0, pad))
+                b = F.pad(b, (0, 0, 0, 0, 0, pad))
+        x = _ffn(sub, cfg, x + y)
         if want_cache:
-            pad = decode_len - k.shape[1]
-            ks.append(F.pad(k, (0, 0, 0, 0, 0, pad)))
-            vs.append(F.pad(v, (0, 0, 0, 0, 0, pad)))
-        h2 = apply_norm(sub["norm2"], x)
-        x = x + mlp_mod.apply_mlp(sub["ffn"], cfg.act, h2)
-    caches = ((torch.stack(ks), torch.stack(vs)),) if want_cache else None
+            c0.append(a)
+            c1.append(b)
+    caches = ((torch.stack(c0), torch.stack(c1)),) if want_cache else None
     return x, caches, 0.0
 
 
@@ -80,26 +120,33 @@ def stack_decode(params_layers, cfg, x, caches, index, rope_fn
                  ) -> Tuple[torch.Tensor, tuple]:
     """One decode step through every layer; returns (x, new caches)."""
     check_supported(cfg)
-    cache_k, cache_v = caches[0]
-    new_k, new_v = [], []
+    mamba = sublayer_spec(cfg, 0)[0] == "mamba"
+    c0, c1 = caches[0]
+    new0, new1 = [], []
     for i in range(cfg.n_layers):
         sub = dequantize_tree(layer_slice(params_layers, i))[0]
         h = apply_norm(sub["norm1"], x)
-        y, k_new, v_new = attn.attn_decode(sub["mixer"], cfg, h, cache_k[i],
-                                           cache_v[i], index, rope_fn)
-        ck, cv = attn.update_cache(cache_k[i], cache_v[i], k_new, v_new,
-                                   index)
-        new_k.append(ck)
-        new_v.append(cv)
-        x = x + y
-        h2 = apply_norm(sub["norm2"], x)
-        x = x + mlp_mod.apply_mlp(sub["ffn"], cfg.act, h2)
-    return x, ((torch.stack(new_k), torch.stack(new_v)),)
+        if mamba:
+            y, (a, b) = mamba2.mamba_decode(sub["mixer"], cfg, h, c0[i],
+                                            c1[i])
+        else:
+            y, k_new, v_new = attn.attn_decode(sub["mixer"], cfg, h, c0[i],
+                                               c1[i], index, rope_fn)
+            a, b = attn.update_cache(c0[i], c1[i], k_new, v_new, index)
+        new0.append(a)
+        new1.append(b)
+        x = _ffn(sub, cfg, x + y)
+    return x, ((torch.stack(new0), torch.stack(new1)),)
 
 
 def init_cache(cfg, batch: int, max_len: int, device):
-    """Zero caches ``((k, v),)``, each ``(L, batch, max_len, KV, hd)``."""
+    """Zero caches stacked ``(L, ...)``: ``((k, v),)`` each ``(L, batch,
+    max_len, KV, hd)`` for attention; ``((conv_tail, ssd_state),)`` for
+    Mamba-2, which has no length axis."""
     check_supported(cfg)
+    if sublayer_spec(cfg, 0)[0] == "mamba":
+        return (mamba2.init_mamba_cache(cfg, batch, device,
+                                        lead=(cfg.n_layers,)),)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return ((torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
              torch.zeros(shape, dtype=cfg.torch_dtype, device=device)),)

@@ -1,5 +1,5 @@
 """Top-level language-model API: init / prefill / decode (decoder-only
-dense and VLM families)."""
+dense, VLM and SSM families)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -153,12 +153,36 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, cache):
     return logits[:, 0], {"layers": new_caches, "index": index + 1}
 
 
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      start_index: Optional[int] = None, device="cuda"):
+    """Cache for a decode-only entry: zero caches of ``max_len`` positions
+    (attention) or zero state (Mamba-2), index ``max_len - 1`` unless
+    ``start_index`` is given."""
+    idx = max_len - 1 if start_index is None else start_index
+    return {"layers": dec.init_cache(cfg, batch, max_len, device),
+            "index": torch.tensor(idx, dtype=torch.int32,
+                                  device=torch.device(device))}
+
+
 def count_params_analytic(cfg: ModelConfig) -> int:
-    """Analytic parameter count of the dense/VLM stacks the port covers."""
+    """Analytic parameter count of the stacks the port covers (dense or
+    Mamba-2 mixers, dense FFN or none), the reference's formula."""
+    dec.check_supported(cfg)
     D, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    n_mats = 3 if cfg.act in ("swiglu", "geglu") else 2
-    per_layer = D * hd * (H + 2 * KV) + H * hd * D + n_mats * D * cfg.d_ff \
-        + 2 * D
+    mixer, ffn = dec.sublayer_spec(cfg, 0)
+    if mixer == "attn":
+        per_layer = D * hd * (H + 2 * KV) + H * hd * D
+    else:
+        s = cfg.ssm
+        d_inner = s.expand * D
+        ch = d_inner + 2 * s.n_groups * s.d_state
+        Hm = d_inner // s.head_dim
+        per_layer = (D * (2 * d_inner + 2 * s.n_groups * s.d_state + Hm)
+                     + s.d_conv * ch + ch + 3 * Hm + d_inner + d_inner * D)
+    if ffn == "mlp":
+        n_mats = 3 if cfg.act in ("swiglu", "geglu") else 2
+        per_layer += n_mats * D * cfg.d_ff
+    per_layer += 2 * D                      # norms
     total = per_layer * cfg.n_layers
     total += cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2)
     if cfg.vlm:

@@ -313,7 +313,7 @@ class StagingWorker:
 
 
 class ServingEngine:
-    """Decoder-only (dense / vlm) continuous-batching engine."""
+    """Decoder-only (dense / vlm / ssm) continuous-batching engine."""
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 8,
                  max_len: int = 2048, executor: Optional[
@@ -487,7 +487,10 @@ class ServingEngine:
         """Right-padded bucket prefill of a bucket-matched group: tokens
         (B, bucket); logits read at each true prompt end (last_idx - 1).
         The cache width is the bucket rounded up to whole KV blocks, so a
-        short prompt's prefill writes only the blocks its grant covers."""
+        short prompt's prefill writes only the blocks its grant covers.
+        ``last_idx`` is also the stack's ``valid_len``: Mamba-2 state is
+        taken at each true prompt end, not after the padding (the
+        reference engine's SSM padding fault, ROADMAP §3)."""
         cfg = self.cfg
         B, S = tokens.shape
         bs = self.slots.block_size
@@ -500,7 +503,7 @@ class ServingEngine:
                                x[:, vision_embeds.shape[1]:]], dim=1)
             x, caches, _ = dec.stack_forward(
                 self.params["layers"], cfg, x, rope_fn, causal=True,
-                want_cache=True, decode_len=decode_len)
+                want_cache=True, decode_len=decode_len, valid_len=last_idx)
             x_last = x[torch.arange(B, device=self.device),
                        (last_idx - 1).to(torch.long)][:, None]
             logits = M._head(self.params, cfg, x_last)

@@ -2,15 +2,19 @@
 
 Attention K/V live as fixed-size blocks ``(L, n_blocks, block_size, KV,
 hd)``; every admitted request owns a block table (host-side list of
-granted block ids) and decode gathers its context through it.  Admission
-grants a request the blocks its lifetime needs, charged per slot class,
-and retirement returns them to the free deque at once.  Padded cohort
-rows carry the out-of-range sentinels slot ``n_slots`` and block
-``n_blocks``: gathers read zeros for them and scatters drop them.
+granted block ids) and decode gathers its context through it.  Mamba-2
+state (conv tail + SSD state) has no length axis: it is fixed-size per
+request, so those group positions stay slot-indexed, leaves ``(L,
+n_slots, ...)``.  Admission grants a request the blocks its lifetime
+needs, charged per slot class, and retirement returns them to the free
+deque at once.  Padded cohort rows carry the out-of-range sentinels slot
+``n_slots`` and block ``n_blocks``: gathers read zeros for them and
+scatters drop them.
 
 Prefilled caches land with ONE in-place indexed write per leaf
-(``insert_many``).  Slot-state caches (SSM / linear attention) and the
-disaggregation export/import of blocks are not ported yet.
+(``insert_many``): into the granted blocks (attention) or by slot
+(slot state).  The disaggregation export/import of blocks is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -25,10 +29,12 @@ from repro_torch.models import decoder as dec
 
 
 def paged_positions(cfg: ModelConfig) -> Tuple[bool, ...]:
-    """Which group positions carry a length-indexed attention cache (all
-    of them for the dense stacks the port covers)."""
+    """Which group positions carry a length-indexed attention K/V cache —
+    the positions the pool blocks.  Mamba-2 state is fixed-size per
+    request, so it stays slot-indexed."""
     dec.check_supported(cfg)
-    return (True,) * dec.group_size(cfg)
+    return tuple(dec.sublayer_spec(cfg, pos)[0] == "attn"
+                 for pos in range(dec.group_size(cfg)))
 
 
 def _insert_blocks(pool_leaf: torch.Tensor, batch_leaf: torch.Tensor,
@@ -46,10 +52,21 @@ def _insert_blocks(pool_leaf: torch.Tensor, batch_leaf: torch.Tensor,
     pool_leaf[:, ids[ok]] = resh[:, ok].to(pool_leaf.dtype)
 
 
+def _insert_slots(pool_leaf: torch.Tensor, batch_leaf: torch.Tensor,
+                  slots: torch.Tensor):
+    """In place: a batch-K slot-state leaf (L, K, ...) lands in rows
+    ``slots`` of the (L, n_slots, ...) pool."""
+    pool_leaf[:, slots.to(torch.long)] = batch_leaf.to(pool_leaf.dtype)
+
+
 class PagedKVCache:
     """Block-paged decode state: the device pools plus the host-side block
     allocator (free deques, per-request block tables, per-class block
-    accounting, per-slot lengths as a host numpy vector)."""
+    accounting, per-slot lengths as a host numpy vector).
+
+    One pool entry per group position (``paged_positions``): paged
+    attention leaves ``(L, n_blocks, block_size, KV, hd)``, slot-state
+    leaves ``(L, n_slots, ...)`` as ``decoder.init_cache`` builds them."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
                  block_size: int = 64, total_blocks: Optional[int] = None,
@@ -59,16 +76,25 @@ class PagedKVCache:
         self.max_len = max_len
         self.block_size = block_size
         self.device = torch.device(device)
-        self.blocks_per_slot = -(-max_len // block_size)
+        self.paged = paged_positions(cfg)
+        # with no paged position (Mamba-2) a request needs no block: the
+        # pool has none, and admission grants empty tables
+        self.blocks_per_slot = (-(-max_len // block_size)
+                                if any(self.paged) else 0)
         self.n_blocks = (n_slots * self.blocks_per_slot
                          if total_blocks is None else int(total_blocks))
-        self.paged = paged_positions(cfg)
-        shape = (cfg.n_layers, self.n_blocks, block_size, cfg.n_kv_heads,
-                 cfg.hd)
-        self.pool: Tuple[Tuple[torch.Tensor, torch.Tensor], ...] = tuple(
-            (torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device),
-             torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device))
-            for _ in self.paged)
+        pool = []
+        for pos, paged in enumerate(self.paged):
+            if paged:
+                shape = (cfg.n_layers, self.n_blocks, block_size,
+                         cfg.n_kv_heads, cfg.hd)
+                pool.append(tuple(
+                    torch.zeros(shape, dtype=cfg.torch_dtype,
+                                device=self.device) for _ in range(2)))
+            else:
+                pool.append(dec.init_cache(cfg, n_slots, max_len,
+                                           self.device)[pos])
+        self.pool: Tuple[Tuple[torch.Tensor, torch.Tensor], ...] = tuple(pool)
         self.free: Deque[int] = deque(range(n_slots))
         self.free_blocks: Deque[int] = deque(range(self.n_blocks))
         self.block_tables: Dict[int, List[int]] = {}
@@ -103,25 +129,33 @@ class PagedKVCache:
 
     def insert_many(self, slots: List[int], prefill_cache,
                     prompt_lens: List[int]):
-        """Land a batch-K prefilled cache — prefilled at a block-aligned
-        width S = nb*block_size — in each request's first nb granted
-        blocks, one indexed write per leaf."""
+        """Land a batch-K prefilled cache, one indexed write per leaf:
+        attention leaves — prefilled at a block-aligned width S =
+        nb*block_size — in each request's first nb granted blocks;
+        slot-state leaves by slot."""
         layers = prefill_cache["layers"]
         bs = self.block_size
-        S = layers[0][0].shape[2]
-        if S % bs:
-            raise RuntimeError(f"prefill width {S} is not block-aligned "
-                               f"(block_size {bs})")
-        nb = S // bs
-        host = np.full((len(slots), nb), self.n_blocks, np.int32)
-        for b, slot in enumerate(slots):
-            tbl = self.block_tables.get(slot, [])
-            if len(tbl) < nb:
-                raise RuntimeError(f"slot {slot} holds {len(tbl)} blocks, "
-                                   f"prefill needs {nb}")
-            host[b] = tbl[:nb]
-        ids = torch.from_numpy(host).to(self.device)
-        for pos in range(len(self.paged)):
+        idx = torch.tensor(slots, dtype=torch.int32, device=self.device)
+        ids = None
+        for pos, paged in enumerate(self.paged):
+            if not paged:
+                for pool_leaf, leaf in zip(self.pool[pos], layers[pos]):
+                    _insert_slots(pool_leaf, leaf, idx)
+                continue
+            if ids is None:
+                S = layers[pos][0].shape[2]
+                if S % bs:
+                    raise RuntimeError(f"prefill width {S} is not "
+                                       f"block-aligned (block_size {bs})")
+                nb = S // bs
+                host = np.full((len(slots), nb), self.n_blocks, np.int32)
+                for b, slot in enumerate(slots):
+                    tbl = self.block_tables.get(slot, [])
+                    if len(tbl) < nb:
+                        raise RuntimeError(f"slot {slot} holds {len(tbl)} "
+                                           f"blocks, prefill needs {nb}")
+                    host[b] = tbl[:nb]
+                ids = torch.from_numpy(host).to(self.device)
             for pool_leaf, leaf in zip(self.pool[pos], layers[pos]):
                 _insert_blocks(pool_leaf, leaf, ids, bs)
         for slot, n in zip(slots, prompt_lens):
@@ -180,6 +214,7 @@ class PagedKVCache:
 
     @property
     def nbytes(self) -> int:
+        """Device bytes of every pool leaf, paged blocks and slot state."""
         return sum(t.numel() * t.element_size()
                    for pos in self.pool for t in pos)
 

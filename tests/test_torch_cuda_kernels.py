@@ -17,6 +17,7 @@ from repro_torch.kernels.fused_decode import (cohort_step, fused_mlp,
                                               fused_qkv, kv_scatter,
                                               ref_cohort_step, ref_fused_mlp,
                                               ref_fused_qkv, ref_kv_scatter)
+from repro_torch.kernels.ssd import ref_ssd_chunked, ssd
 
 pytestmark = pytest.mark.cuda
 
@@ -306,3 +307,200 @@ def test_flash_attention_kernel_refuses_fp32(cuda):
     with pytest.raises(ValueError, match="bfloat16"):
         flash_attention(q, k, v)
     assert launch_counts()["flash_attention"] == 0
+
+
+# (B, S, H, P, G, N, chunk): reduced Mamba-2 (P 16, N 16, chunk 32), the
+# reference kernel tests' shapes, the one-chunk 128 bucket, two groups,
+# and Mamba-2-1.3B's full width (H 64, P 64, N 128, chunk 256)
+SSD_SHAPES = [(2, 64, 16, 16, 1, 16, 32), (2, 128, 4, 32, 1, 32, 64),
+              (1, 256, 8, 64, 2, 64, 32), (2, 64, 4, 16, 4, 16, 32),
+              (1, 128, 64, 64, 1, 128, 256), (2, 512, 8, 64, 2, 128, 256),
+              (2, 2048, 64, 64, 1, 128, 256), (1, 96, 3, 24, 1, 40, 48)]
+
+
+def _ssd_inputs(dev, B, S, H, P, G, N, dtype=torch.bfloat16, seed=0):
+    """Drawn like the reference kernel tests: dt = softplus(normal),
+    A = -exp(0.5 normal), B and C = 0.3 normal."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    x = rn(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, S, H))
+    A = -torch.exp(rn(H) * 0.5)
+    return x, dt, A, (rn(B, S, G, N) * 0.3).to(dtype), \
+        (rn(B, S, G, N) * 0.3).to(dtype)
+
+
+def _ssd_close(got, want, dtype):
+    """y: every (b, h) head within 2e-2 (bf16 output: one rounding step)
+    or 1e-4 (fp32) of that head's largest plain |y|; h_final (fp32
+    arithmetic in both) within 1e-4 of its largest magnitude."""
+    (y, h), (ry, rh) = got, want
+    assert y.shape == ry.shape and y.dtype == ry.dtype
+    assert h.shape == rh.shape and h.dtype == torch.float32
+    assert y.isfinite().all() and h.isfinite().all()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    err = (y.float() - ry.float()).abs().amax(dim=(1, 3))     # (B, H)
+    ratio = err / ry.float().abs().amax(dim=(1, 3))
+    assert ratio.max().item() <= tol, f"head err/max {ratio.max().item()}"
+    herr = (h - rh).abs().max().item() / rh.abs().max().item()
+    assert herr <= 1e-4, f"h_final rel err {herr}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda, shape, dtype):
+    B, S, H, P, G, N, chunk = shape
+    args = _ssd_inputs(cuda, B, S, H, P, G, N, dtype, seed=S + N)
+    reset_launch_counts()
+    got = ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd"] == 1
+    _ssd_close(got, ref_ssd_chunked(*args, chunk=chunk), dtype)
+
+
+def test_ssd_kernel_state_at_mamba2_decay_rates(cuda):
+    """Mamba-2-1.3B's widths and decay rates (A = -linspace(1, 16), dt
+    up to ~5, 256-position chunks: log-decay sums in the thousands).
+    The chunk-state weights exp(cum_last - cum_j) sum their exponent from
+    the chunk's end in both versions, so h_final agrees within 1e-6 of
+    its largest magnitude (as a difference of two prefix sums it moved
+    by ~1e-4 on the served inputs)."""
+    x, dt, _, Bm, Cm = _ssd_inputs(cuda, 2, 1024, 64, 64, 1, 128, seed=7)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    dt = torch.nn.functional.softplus(
+        torch.randn(dt.shape, generator=g, device=cuda) + 1.0)
+    A = -torch.linspace(1.0, 16.0, 64, device=cuda)
+    (y, h), (ry, rh) = (ssd(x, dt, A, Bm, Cm, chunk=256),
+                        ref_ssd_chunked(x, dt, A, Bm, Cm, chunk=256))
+    _ssd_close((y, h), (ry, rh), torch.bfloat16)
+    herr = (h - rh).abs().max().item() / rh.abs().max().item()
+    assert herr <= 1e-6, f"h_final rel err {herr}"
+
+
+def test_ssd_kernel_zero_dt_tail_leaves_the_state(cuda):
+    """dt = 0 past position 1000 of 2048: the final state equals the
+    1024-position call's on the same zeroed inputs (chunks that are
+    padding throughout change nothing), and the plain version's."""
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 2, 2048, 64, 64, 1, 128, seed=4)
+    dt[:, 1000:] = 0.0
+    _, h_long = ssd(x, dt, A, Bm, Cm, chunk=256)
+    _, h_short = ssd(x[:, :1024], dt[:, :1024], A, Bm[:, :1024],
+                     Cm[:, :1024], chunk=256)
+    assert torch.equal(h_long, h_short)
+    _, rh = ref_ssd_chunked(x[:, :1024], dt[:, :1024], A, Bm[:, :1024],
+                            Cm[:, :1024], chunk=256)
+    assert (h_long - rh).abs().max().item() <= 1e-4 * rh.abs().max().item()
+
+
+def test_ssd_kernel_reads_strided_views(cuda):
+    """x, B and C as column slices of one conv output (B, S, C), the
+    model's layout: read through strides, the same as contiguous copies."""
+    B, S, H, P, G, N = 2, 256, 16, 64, 1, 128
+    g = torch.Generator(device=cuda).manual_seed(6)
+    xbc = torch.randn((B, S, H * P + 2 * G * N), generator=g,
+                      device=cuda).to(torch.bfloat16)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm = xbc[..., H * P:H * P + G * N].reshape(B, S, G, N) * 0.3
+    Cm = xbc[..., H * P + G * N:].reshape(B, S, G, N)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g,
+                                                  device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=g, device=cuda) * 0.5)
+    assert not x.is_contiguous() and not Cm.is_contiguous()
+    got = ssd(x, dt, A, Bm, Cm, chunk=256)
+    want = ssd(x.contiguous(), dt, A, Bm, Cm.contiguous(), chunk=256)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _ssd_close(got, ref_ssd_chunked(x, dt, A, Bm, Cm, chunk=256),
+               torch.bfloat16)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 64, 4, 16, 1, 16)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        ssd(x.half(), dt, A, Bm.half(), Cm.half(), chunk=32)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd(x[:, :48], dt[:, :48], A, Bm[:, :48], Cm[:, :48], chunk=32)
+    big = torch.zeros((1, 64, 1, 256), dtype=x.dtype, device=cuda)
+    with pytest.raises(ValueError, match="state size"):
+        ssd(x, dt, A, big, big, chunk=32)
+    assert launch_counts()["ssd"] == 0
+
+
+def test_mamba2_prefill_on_card_matches_cpu(cuda):
+    """Reduced Mamba-2 (fp32): ``lm_prefill`` on the card (the SSD kernel
+    in every layer) against the same weights on the CPU (the plain
+    chunked form), logits and state within 1e-4; then one decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    cfg = get_config("mamba2-1.3b").reduced(dtype="float32")
+    params = M.init_params(cfg, device="cpu", seed=0)
+    gpu = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        3, cfg.vocab_size, (2, 64)).astype(np.int32))
+    with torch.no_grad():
+        want, wc = M.lm_prefill(params, cfg, toks, 64)
+        reset_launch_counts()
+        got, gc = M.lm_prefill(gpu, cfg, toks.to(cuda), 64)
+        torch.cuda.synchronize()
+        assert launch_counts()["ssd"] == cfg.n_layers
+        m = want.abs().max().item()
+        assert (got.cpu() - want).abs().max().item() <= 1e-4 * m
+        for w, g in zip(wc["layers"][0], gc["layers"][0]):
+            assert (g.cpu() - w).abs().max().item() <= \
+                1e-4 * w.abs().max().item()
+        nxt = torch.tensor([[5], [7]], dtype=torch.int32)
+        w2, _ = M.lm_decode_step(params, cfg, nxt, wc)
+        g2, _ = M.lm_decode_step(gpu, cfg, nxt.to(cuda), gc)
+        assert (g2.cpu() - w2).abs().max().item() <= \
+            1e-4 * w2.abs().max().item()
+
+
+def test_mamba2_engine_on_card_prefills_through_the_kernel(cuda):
+    """ServingEngine on the card (reduced Mamba-2, bf16, q4): every
+    prefill layer launches the SSD kernel, decode runs the composed step
+    over the slot-state pool, requests finish; each padded request's
+    first decode logits agree with the model on its unpadded prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import PROFILES, quantize_tree
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = get_config("mamba2-1.3b").reduced()
+    params = quantize_tree(M.init_params(cfg, device=cuda),
+                           PROFILES["nanomind-serve"])
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for n in (64, 20, 32)]
+    first = {}
+    with ServingEngine(cfg, params, n_slots=4, max_len=256,
+                       device=cuda) as eng:
+        assert not eng.use_fused and eng.slots.paged == (False,)
+        decode = eng._decode
+
+        def recording_decode(tokens, lengths, slot_ids, tables):
+            logits, pool = decode(tokens, lengths, slot_ids, tables)
+            for b, s in enumerate(slot_ids.tolist()):
+                first.setdefault(s, logits[b].clone())
+            return logits, pool
+        eng._decode = recording_decode
+        reqs = [Request(rid=i, tokens=p, max_new_tokens=3)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        reset_launch_counts()
+        done = eng.run()
+        counts = launch_counts()
+        assert all(r.error is None for r in done) and len(done) == 3
+        prefills = sum(1 for e in eng.trace if e.event == "prefill_batch")
+    assert counts["ssd"] == cfg.n_layers * prefills and prefills > 0
+    with torch.no_grad():
+        for r, p in zip(reqs, prompts):
+            _, cache = M.lm_prefill(eng.params, cfg,
+                                    torch.from_numpy(p[None]).to(cuda), 256)
+            want, _ = M.lm_decode_step(eng.params, cfg, torch.tensor(
+                [[r.out_tokens[0]]], dtype=torch.int32, device=cuda), cache)
+            got = first[r.slot]
+            assert (got - want[0]).abs().max().item() <= \
+                5e-2 * want.abs().max().item()

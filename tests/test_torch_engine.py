@@ -13,13 +13,23 @@ reference top-1 margin is below 1e-4: random-init logits are nearly
 uniform, so beyond a near-tie a benign rounding difference may
 legitimately pick the other token and fork the rest of the trajectory.
 At least 3/4 of all tokens must be compared.
+
+Reduced Mamba-2 (fp32, nanomind-serve) is held against the reference's
+MODEL, not its engine: the reference engine right-pads prompts into the
+SSM state (ROADMAP §3).  Each request's prefill logits and its first
+three decode steps' logits must match the reference's ``lm_prefill`` on
+the unpadded prompt plus teacher-forced ``lm_decode_step`` within 1e-4
+of the largest logit.
 """
 import dataclasses
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_parity import shared_params
+from _torch_parity import f32, shared_params
+from repro.models import model as RM
 from repro.serving.engine import Request as RRequest
 from repro.serving.engine import ServingEngine as RServingEngine
 from repro_torch.core.backends import DeviceBackend
@@ -141,6 +151,64 @@ def test_qwen2_vl_engine_serves_mix_like_reference():
     _check_tokens(want, margins, got)
 
 
+def test_mamba2_engine_matches_the_unpadded_reference_model():
+    """Prompts of 20, 32 and 64 tokens share the 128 bucket, so each is
+    right-padded by 108, 96 and 64 positions in one batch-3 prefill; the
+    engine takes each row's SSM state and conv tail at its true end, and
+    its logits then follow the reference model run on the unpadded
+    prompt (chunk 32 admits these lengths) through three decode steps,
+    teacher-forced with the engine's own tokens."""
+    rcfg, rparams, tcfg, tparams = shared_params("mamba2-1.3b", "float32",
+                                                 "nanomind-serve")
+    rng = np.random.default_rng(5)
+    lens, new = (20, 32, 64), 4
+    prompts = [rng.integers(3, tcfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    pre, steps = {}, []
+    with ServingEngine(tcfg, tparams, n_slots=4, max_len=256,
+                       device="cpu") as eng:
+        assert not eng.use_fused and eng.slots.paged == (False,)
+        assert eng.slots.n_blocks == eng.slots.blocks_per_slot == 0
+        prefill, decode = eng._prefill, eng._decode
+
+        def recording_prefill(tokens, vision, last_idx):
+            logits, cache = prefill(tokens, vision, last_idx)
+            assert tuple(tokens.shape) == (len(lens), 128)
+            pre.update(logits=logits.clone(), lens=last_idx.tolist())
+            return logits, cache
+
+        def recording_decode(tokens, lengths, slot_ids, tables):
+            logits, pool = decode(tokens, lengths, slot_ids, tables)
+            steps.append((slot_ids.tolist(), logits.clone()))
+            return logits, pool
+        eng._prefill, eng._decode = recording_prefill, recording_decode
+        reqs = [Request(rid=i, tokens=p, max_new_tokens=new)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run()
+        assert all(r.error is None for r in done)
+        eng.slots.check_block_invariants()
+        slot_of = {r.rid: r.slot for r in reqs}
+    assert pre["lens"] == list(lens) and len(steps) == new - 1
+    prefill_fn = jax.jit(RM.lm_prefill, static_argnums=(1, 3))
+    decode_fn = jax.jit(RM.lm_decode_step, static_argnums=(1,))
+    for b, req in enumerate(reqs):
+        rl, cache = prefill_fn(rparams, rcfg, jnp.asarray(prompts[b][None]),
+                               256)
+        got = [pre["logits"][b]]
+        want = [rl[0]]
+        for t, (slot_ids, logits) in enumerate(steps):
+            got.append(logits[slot_ids.index(slot_of[req.rid])])
+            rl, cache = decode_fn(rparams, rcfg, jnp.asarray(
+                [[req.out_tokens[t]]], jnp.int32), cache)
+            want.append(rl[0])
+        for w, g in zip(want, got):
+            w, g = f32(w), f32(g)
+            assert float(np.abs(w - g).max()) <= 1e-4 * float(
+                np.abs(w).max())
+
+
 def test_plan_run_same_on_device_and_host_backends():
     """One full pass through the brick plan (TABM crossing included) on
     the device backend (here the CPU) and on the pinned-thread host
@@ -186,3 +254,17 @@ def test_serve_launcher_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "finished=3/3" in out and "on cpu" in out
     assert "tabm ring: {'writes': 3, 'reads': 3" in out
+
+
+def test_serve_launcher_runs_mamba2_on_cpu(capsys):
+    """``--arch mamba2-1.3b``: text-only prompts, no TABM ring, every
+    request finishes through the slot-state pool.  ``--max-len 256``
+    gives the 128 prefill bucket, a multiple of the SSD chunk (at
+    ``--max-len`` 128 the engine's one bucket would be 127)."""
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", "mamba2-1.3b", "--device", "cpu",
+                       "--requests", "3", "--slots", "2", "--max-len", "256",
+                       "--max-new", "3", "--quantize", "nanomind-serve"]) == 0
+    out = capsys.readouterr().out
+    assert "finished=3/3" in out and "mamba2-1.3b on cpu" in out
+    assert "tabm ring" not in out

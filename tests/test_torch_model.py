@@ -1,7 +1,8 @@
 """The port's model against the reference's, same parameters (through
 the bridge) and the same numpy inputs: teacher-forced prefill logits and
 one decode step's logits, for reduced llava (VLM, qkv biases, projector),
-reduced stablelm (LayerNorm, partial RoPE, plain weights) and reduced
+reduced stablelm (LayerNorm, partial RoPE, plain weights), reduced
+mamba2 (SSD mixers, conv tail and SSD state as the cache) and reduced
 qwen2-vl (M-RoPE, untied packed head, single-region attention:
 ``attn_q_chunk=0``), plus ``apply_mrope`` on three distinct position
 streams.
@@ -40,7 +41,8 @@ def _rel_err(want, got):
 
 
 @pytest.mark.parametrize("arch,policy", [
-    ("llava-onevision-0.5b", "nanomind-serve"), ("stablelm-1.6b", None)])
+    ("llava-onevision-0.5b", "nanomind-serve"), ("stablelm-1.6b", None),
+    ("mamba2-1.3b", "nanomind-serve")])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_and_decode_logits_match_reference(arch, policy, dtype):
     rcfg, rparams, tcfg, tparams = shared_params(arch, dtype, policy)

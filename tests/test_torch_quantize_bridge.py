@@ -9,6 +9,11 @@
   ``quantize_tree(nanomind-serve)`` — reference -> port -> numpy bit for
   bit, and the port's own ``quantize_tree`` packs the same leaves the
   same way.
+* Mamba-2-1.3B's layer leaves at their full widths: ``nanomind-serve``
+  packs the same ones (the projections, the conv taps and bias, both
+  norm scales) to the same codes and scales in both packages, keeps
+  A_log, D and dt_bias fp32, and the per-layer dequantize the decoder
+  runs is bit-equal to the reference's.
 """
 import functools
 
@@ -134,3 +139,51 @@ def test_init_params_has_reference_shapes_and_scales():
         want = float(np.std(np.asarray(leaf, np.float32)))
         got = float(t.float().std()) if t.numel() > 1 else 0.0
         assert abs(got - want) <= 0.1 * want + 1e-6, (path, got, want)
+
+
+def _mamba_leaves():
+    """nanomind-serve's view of Mamba-2-1.3B: every layer leaf at its
+    full width and 48 stacked layers (so the size rule decides as at full
+    size), except the two projections, cut to 2 layers of 64 rows (their
+    grouped last axis, 8512 and 2048, kept)."""
+    rng = np.random.default_rng(9)
+    L = 48
+
+    def w(*shape, scale=0.05, base=0.0):
+        a = base + scale * rng.standard_normal(shape)
+        return jnp.asarray(a.astype(np.float32)).astype(jnp.bfloat16)
+
+    def f(*shape):
+        return jnp.asarray(rng.standard_normal(shape).astype(np.float32))
+    mixer = {"in_proj": w(2, 64, 8512), "conv_w": w(L, 4, 4352, scale=0.5),
+             "conv_b": w(L, 4352), "A_log": f(L, 64), "D": f(L, 64),
+             "dt_bias": f(L, 64), "norm_scale": w(L, 4096, base=1.0),
+             "out_proj": w(2, 64, 2048)}
+    return {"embed": w(64, 2048), "final_norm": {"scale": w(2048, base=1.0)},
+            "layers": ({"norm1": {"scale": w(L, 2048, base=1.0)},
+                        "mixer": mixer},)}
+
+
+def test_mamba_leaves_quantize_like_reference():
+    policy = "nanomind-serve"
+    params = _mamba_leaves()
+    rq = RQ.quantize_tree(params, RQ.PROFILES[policy])
+    tq = TQ.quantize_tree(to_port(params), TQ.PROFILES[policy])
+    _leaves_equal(jax_to_numpy(rq), bridge.to_numpy(tq))
+    packed = {path[-2] if path[-1] == "scale" else path[-1]
+              for path, leaf in flat(tq).items()
+              if isinstance(leaf, TQ.QTensor)}
+    assert packed == {"in_proj", "out_proj", "conv_w", "conv_b",
+                      "norm_scale", "norm1"}
+    mix = tq["layers"][0]["mixer"]
+    for name in ("A_log", "D", "dt_bias"):
+        assert mix[name].dtype == torch.float32
+    rmix = rq["layers"][0]["mixer"]
+    for name in ("in_proj", "conv_w", "conv_b", "norm_scale"):
+        r, t = rmix[name], mix[name]
+        full = TQ.dequantize(t)
+        assert np.array_equal(bits(np.asarray(RQ.dequantize(r))),
+                              bridge.tensor_to_array(full))
+        for i in (0, t.shape[0] - 1):   # the decoder's per-layer slice
+            assert torch.equal(TQ.dequantize(t.layer(i)).view(torch.int16),
+                               full[i].view(torch.int16))
