@@ -38,7 +38,27 @@ Phases (any failure raises and exits non-zero):
    within bf16 tolerance; for Qwen2-VL one captured prefill group runs
    again with chunked attention, whose logits must agree with the flash
    path's;
-5. serve Mamba-2-1.3B the same way (text only): prefill through the SSD
+5. serve LLaVA-OneVision-0.5B with the paper's streaming linear
+   attention (``attn_impl="linear"``) at full width and depth: the same
+   weights, engine settings and four requests as phase 3, prefill
+   through the linear-attention kernel in every layer (buckets 1024 and
+   256), decode through the composed step over the slot-indexed (state,
+   z) pool.  The kernel is first held against its plain version at B 2,
+   S 1024, H 14, KV 2, hd 64, chunk 256 and at the ragged S 127, bf16 and
+   fp32, without and with ``valid_len`` (one row at 700 or 100): state and
+   z within 1e-4 of their largest magnitude, every output row (b, i, h)
+   within 2e-2 (bf16) or 1e-4 (fp32) of that row's largest plain
+   magnitude, padded rows exactly zero; then every kernel call of the
+   serve on its own inputs, with the same gates.  The engine is held
+   against the port's own model within 5e-2 of the largest logit, in bf16
+   and on an fp32 instance of the full config: each request's first two
+   decode steps against its unpadded prompt (the plain chunked form at a
+   chunk that divides the prompt) plus ``lm_decode_step``; the 745- and
+   212-token prompts padded to two widths give the same next-step
+   logits; the largest prefill group rerun through the plain version
+   gives the same logits.  The (state, z) pool's bytes stand beside the
+   softmax LLaVA's paged pool at the same ``max_len``;
+6. serve Mamba-2-1.3B the same way (text only): prefill through the SSD
    kernel in every layer, decode through the composed step over the
    slot-state pool; four requests of 1024, 1000, 300 and 100 tokens
    (four chunks of 256; padding 1000 -> 1024 and 300 -> 512; the
@@ -61,20 +81,27 @@ Phases (any failure raises and exits non-zero):
    0.5: in bf16 one rounding step grows through the 48 layers past 5e-2
    (kernel and plain SSD alike), which a rounding witness measures (the
    plain SSD with as many y elements moved by one bf16 step as the
-   kernel's differ from it, against the plain SSD);
-6. time each kernel, its plain version and a PyTorch library call: the
+   kernel's differ from it, against the plain SSD).  The fp32 serve's
+   SSD calls are also held in the reference's own measure (max |y -
+   plain y| over the call's largest plain |y|) within 1e-4, and the
+   kernel and the plain version each against a float64 evaluation of
+   the same inputs within 1e-4;
+7. time each kernel, its plain version and a PyTorch library call: the
    fused-decode kernels at cohort size 4 rotating over the layers'
    weights (so the weights come from device memory, not the 50 MB L2)
    at both models' widths, the flash kernel at Qwen2-VL's prefill shape,
    the SSD kernel at its check shape (no single PyTorch call computes
-   SSD); beside the bound the card's published rates set (3.35 TB/s,
-   989 TFLOP/s bf16, 67 TFLOP/s fp32 for the SSD's fp32 arithmetic, whose
-   operations ``ssd_work`` counts).
+   SSD), the linear-attention kernel at its check shape (nor that);
+   beside the bound the card's published rates set (3.35 TB/s, 989
+   TFLOP/s bf16, 67 TFLOP/s fp32 for the SSD's and the linear
+   attention's fp32 arithmetic, whose operations ``ssd_work`` and
+   ``linear_attention_work`` count).
 
 Output: build, check and serve lines, the ``nvidia-smi`` name/power-limit
 line, one JSON line ``{"kernels": [...]}``, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -128,6 +155,26 @@ SSD_H_TOL = 1e-4
 BF16_LOGIT_TOL = 0.5
 # Mamba-2 requests: prompt lengths, 16 new tokens each
 MAMBA_PROMPTS = (1024, 1000, 300, 100)
+# the fp32 serve's SSD y in the reference's measure (max abs err over the
+# call's largest |y|, tests/test_kernels.py), kernel vs plain and each
+# against a float64 evaluation
+SSD_Y_FP32_TOL = 1e-4
+# the linear-attention kernel's check shapes (B, S, H, KV, hd, chunk,
+# valid_len or None): LLaVA-OneVision-0.5B's widths at its 2 x 1024
+# prefill, and the ragged one-chunk 127 of a short engine's bucket
+LA_SHAPE = (2, 1024, 14, 2, 64, 256)
+LA_CHECKS = ((2, 1024, 14, 2, 64, 256, None),
+             (2, 1024, 14, 2, 64, 256, (700, 1024)),
+             (2, 127, 14, 2, 64, 256, None),
+             (2, 127, 14, 2, 64, 256, (127, 100)))
+# the key of the linear-attention serve in the kernels line's
+# launches_by_path (its config keeps LLaVA's name)
+LINEAR_PATH = "llava-onevision-0.5b/linear"
+# kernel vs plain: state and z (fp32 in both) within 1e-4 of their
+# largest magnitude; each output row within KERNEL_TOL (bf16) or 1e-4
+# (fp32) of that row's largest plain magnitude
+LA_STATE_TOL = 1e-4
+LA_ROW_TOL = {"bfloat16": KERNEL_TOL, "float32": 1e-4}
 
 
 def fail(msg):
@@ -211,9 +258,10 @@ class Smoke:
         self.gen = torch.Generator(device=self.dev).manual_seed(1)
         self.errs = {"fused_qkv": 0.0, "fused_mlp": 0.0,
                      "kv_row_scatter": 0.0, "flash_attention": 0.0,
-                     "ssd": 0.0}
+                     "ssd": 0.0, "linear_attention": 0.0}
         self.worst_row_ratio = 0.0       # flash: max over rows err/max
         self.ssd_check = {}
+        self.la_check = []
 
     def randn(self, *shape, scale=1.0):
         torch = self.torch
@@ -355,6 +403,40 @@ class Smoke:
                           "tol": {"h": SSD_H_TOL, "y_head": KERNEL_TOL}}
         self.torch.cuda.synchronize()
 
+    def la_inputs(self, B, S, H, KV, hd, dtype):
+        """q, k = 0.5 normal and v = normal in ``dtype``, like the
+        reference kernel tests; k and v at kv-head width."""
+        torch = self.torch
+
+        def rn(heads, scale):
+            return (torch.randn((B, S, heads, hd), generator=self.gen,
+                                device=self.dev) * scale).to(dtype)
+        return rn(H, 0.5), rn(KV, 0.5), rn(KV, 1.0)
+
+    def check_linear_attention(self):
+        """The linear-attention kernel against its plain version at
+        LA_CHECKS, bf16 and fp32 (``linear_errors``' gates)."""
+        from repro_torch.kernels.linear_attention import linear_attention
+        torch = self.torch
+        for B, S, H, KV, hd, chunk, vl in LA_CHECKS:
+            for dtype in (torch.bfloat16, torch.float32):
+                args = self.la_inputs(B, S, H, KV, hd, dtype)
+                valid = (None if vl is None else
+                         torch.tensor(vl, dtype=torch.int32, device=self.dev))
+                name = str(dtype).replace("torch.", "")
+                rec = linear_errors(
+                    args, linear_attention(*args, chunk=chunk,
+                                           valid_len=valid),
+                    chunk, valid, f"linear_attention B={B} S={S} H={H} "
+                    f"KV={KV} hd={hd} {name} valid_len={vl}")
+                self.la_check.append(dict(
+                    shape=[B, S, H, KV, hd, chunk], dtype=name,
+                    valid_len=vl, **rec))
+                if dtype == torch.bfloat16:
+                    self.errs["linear_attention"] = max(
+                        self.errs["linear_attention"], rec["out_max_abs_err"])
+        torch.cuda.synchronize()
+
 
 def ssd_errors(args, out, chunk, what):
     """The SSD kernel's (y, h_final) ``out`` on ``args`` against the plain
@@ -482,6 +564,7 @@ def serve_path(sm, cfg, reqs):
                                    / max(1e-9, sum(s.dt for s in decs)), 3),
              "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9,
                                   3),
+             "kv_pool_mb": round(eng.slots.nbytes / 1e6, 3),
              "tabm": tstats, "launches": launches}
 
     # fused vs composed on the captured cohort state
@@ -694,19 +777,19 @@ def time_flash(sm):
     return t_k, t_p, t_l, None, byt, fl
 
 
-def serve_mamba(sm, cfg):
-    """Serve Mamba-2-1.3B's four text requests at full width with ``cfg``'s
-    dtype, and hold every SSD kernel call of the serve (each layer of each
-    prefill group, at the served shapes and dtype) against the plain
-    ``ssd_chunked`` on the same inputs.  Returns (serve record, engine,
-    run) with ``run`` the requests, every prefill group's inputs and
-    logits, and the first two decode steps' slot ids and logits."""
-    import numpy as np
+def serve_composed(sm, cfg, reqs, op_module, op_name):
+    """Serve ``reqs`` on ``cfg`` at full width with ``cfg``'s dtype
+    through the composed decode step over a slot-state pool, recording
+    every call of the prefill kernel wrapper ``op_module.<op_name>``
+    (arguments kept by reference, not copied: the model writes none of
+    them after the call).  Returns (serve record, engine, run) with
+    ``run`` = (requests, prefill groups [(tokens, vision embeds,
+    last_idx, logits)], decode steps [(slot ids, lengths, logits)],
+    kernel calls [(args, kwargs, out)])."""
     from repro_torch.core.quantize import PROFILES, quantize_tree
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.models.model import init_params
-    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.engine import ServingEngine
     torch = sm.torch
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -721,42 +804,41 @@ def serve_mamba(sm, cfg):
     del params
     if eng.use_fused or eng.slots.paged != (False,):
         fail(f"{cfg.name}: expected the composed step over a slot pool")
-    rng = np.random.default_rng(2)
-    reqs = [Request(rid=i, tokens=rng.integers(
-        3, cfg.vocab_size - 1, n).astype(np.int32), max_new_tokens=16)
-        for i, n in enumerate(MAMBA_PROMPTS)]
-    groups, steps, ssd_calls = [], [], []
-    decode, prefill, kernel_ssd = eng._decode, eng._prefill, ssd_ops.ssd
+    groups, steps, calls = [], [], []
+    decode, prefill = eng._decode, eng._prefill
+    kernel = getattr(op_module, op_name)
 
     def recording_prefill(tokens, vision_embeds, last_idx):
         logits, cache = prefill(tokens, vision_embeds, last_idx)
-        groups.append((tokens.clone(), last_idx.clone(), logits.clone()))
+        groups.append((tokens.clone(), None if vision_embeds is None
+                       else vision_embeds.clone(), last_idx.clone(),
+                       logits.clone()))
         return logits, cache
 
     def recording_decode(tokens, lengths, slot_ids, tables):
         logits, pool = decode(tokens, lengths, slot_ids, tables)
-        if len(steps) < 2:
-            steps.append((slot_ids.tolist(), logits.clone()))
+        steps.append((slot_ids.tolist(), lengths.tolist(), logits.clone()))
         return logits, pool
 
-    def recording_ssd(x, dt, A, Bm, Cm, *, chunk):
-        # kept by reference, not copied: the model writes none of these
-        # after the call
-        out = kernel_ssd(x, dt, A, Bm, Cm, chunk=chunk)
-        ssd_calls.append(((x, dt, A, Bm, Cm), out, chunk))
+    def recording_kernel(*args, **kwargs):
+        out = kernel(*args, **kwargs)
+        calls.append((args, kwargs, out))
         return out
     eng._decode, eng._prefill = recording_decode, recording_prefill
-    ssd_ops.ssd = recording_ssd
+    setattr(op_module, op_name, recording_kernel)
     for r in reqs:
         eng.submit(r)
     reset_launch_counts()
     t0 = time.perf_counter()
-    with eng:
-        done = eng.run()
-    torch.cuda.synchronize()
+    try:
+        with eng:
+            done = eng.run()
+        torch.cuda.synchronize()
+    finally:
+        setattr(op_module, op_name, kernel)
     serve_s = time.perf_counter() - t0
     launches = launch_counts()
-    eng._decode, eng._prefill, ssd_ops.ssd = decode, prefill, kernel_ssd
+    eng._decode, eng._prefill = decode, prefill
     decode_steps = sum(1 for e in eng.trace if e.event == "decode_step")
     errors = [r for r in done if r.error is not None]
     if len(done) != len(reqs) or errors:
@@ -767,17 +849,16 @@ def serve_mamba(sm, cfg):
         if not (len(r.out_tokens) == r.max_new_tokens and all(
                 0 <= t < cfg.vocab_size for t in r.out_tokens)):
             fail(f"{cfg.name}: request {r.rid} tokens {r.out_tokens}")
-    others = sum(v for k, v in launches.items() if k != "ssd")
-    if not (launches["ssd"] == cfg.n_layers * len(groups)
-            == len(ssd_calls) and groups and decode_steps > 0
-            and others == 0):
+    others = sum(v for k, v in launches.items() if k != op_name)
+    if not (launches[op_name] == cfg.n_layers * len(groups) == len(calls)
+            and groups and decode_steps > 0 and others == 0):
         fail(f"{cfg.name}: launch counts {launches} for {decode_steps} "
              f"decode steps and {len(groups)} prefill calls")
     spans = eng.probe.samples()
     pre = [s for s in spans if s.brick == "decoder" and s.phase == "prefill"]
     decs = [s for s in spans if s.brick == "decoder" and s.phase == "decode"]
     serve = {"arch": cfg.name, "dtype": cfg.dtype, "requests": len(done),
-             "prompt_tokens": list(MAMBA_PROMPTS),
+             "prompt_tokens": [len(r.tokens) for r in reqs],
              "decode_steps": decode_steps,
              "decoded_tokens": eng.stats.decoded_tokens,
              "setup_s": round(setup_s, 3), "serve_s": round(serve_s, 3),
@@ -793,21 +874,48 @@ def serve_mamba(sm, cfg):
              "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9,
                                   3),
              "state_pool_mb": round(eng.slots.nbytes / 1e6, 3),
-             "launches": launches,
-             "ssd_served_check": served_ssd_check(cfg, ssd_calls)}
-    return serve, eng, (reqs, groups, steps)
+             "launches": launches}
+    if eng.tabm is not None:
+        serve["tabm"] = eng.tabm.stats
+    return serve, eng, (reqs, groups, steps, calls)
+
+
+def serve_mamba(sm, cfg):
+    """Serve Mamba-2-1.3B's four text requests at full width with ``cfg``'s
+    dtype, and hold every SSD kernel call of the serve (each layer of each
+    prefill group, at the served shapes and dtype) against the plain
+    ``ssd_chunked`` on the same inputs.  Returns ``serve_composed``'s
+    (serve record, engine, run)."""
+    import numpy as np
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, tokens=rng.integers(
+        3, cfg.vocab_size - 1, n).astype(np.int32), max_new_tokens=16)
+        for i, n in enumerate(MAMBA_PROMPTS)]
+    serve, eng, run = serve_composed(sm, cfg, reqs, ssd_ops, "ssd")
+    serve["ssd_served_check"] = served_ssd_check(
+        cfg, [(args, out, kw["chunk"]) for args, kw, out in run[3]])
+    return serve, eng, run
 
 
 def served_ssd_check(cfg, calls):
     """Every recorded SSD kernel call of a serve against the plain version
     on its own inputs, with ``ssd_errors``' tolerances; the worst errors,
     the share of y elements where kernel and plain differ, and the (B, S,
-    chunk, dtype) of the calls."""
+    chunk, dtype) of the calls.  Beside the per-head measure, the
+    reference's own (max |y - plain y| over the call's largest plain |y|,
+    ``tests/test_kernels.py``); for fp32 calls also the kernel and the
+    plain version each against a float64 evaluation (``ssd_chunked`` on
+    float64 inputs), all three gated at SSD_Y_FP32_TOL."""
     import torch
+    from repro_torch.kernels.ssd import ref_ssd_chunked
     keys = ("h_rel_err", "worst_head_y_err_over_max", "y_max_abs_err",
             "h_max_abs_err")
     worst = dict.fromkeys(keys, 0.0)
-    shapes, differ, total = set(), 0, 0
+    ref_measure = {"kernel_vs_plain": 0.0, "kernel_vs_f64": 0.0,
+                   "plain_vs_f64": 0.0}
+    shapes, differ, total, fp32 = set(), 0, 0, False
     with torch.no_grad():
         for args, out, chunk in calls:
             x = args[0]
@@ -818,10 +926,74 @@ def served_ssd_check(cfg, calls):
                 worst[k] = max(worst[k], v)
             differ, total = differ + n, total + out[0].numel()
             shapes.add((int(x.shape[0]), int(x.shape[1]), chunk, dtype))
+            if x.dtype != torch.float32:
+                continue
+            fp32 = True
+            y = out[0].double()
+            py = ref_ssd_chunked(*args, chunk=chunk)[0].double()
+            fy = ref_ssd_chunked(*(t.double() for t in args),
+                                 chunk=chunk)[0]
+            for key, got, want in (("kernel_vs_plain", y, py),
+                                   ("kernel_vs_f64", y, fy),
+                                   ("plain_vs_f64", py, fy)):
+                ref_measure[key] = max(ref_measure[key], (
+                    (got - want).abs().max() / want.abs().max()).item())
+            del py, fy
     torch.cuda.synchronize()
-    return dict(worst, calls=len(calls), y_differing_share=differ / total,
-                shapes_B_S_chunk_dtype=sorted(shapes),
-                tol={"h": SSD_H_TOL, "y_head": KERNEL_TOL})
+    rec = dict(worst, calls=len(calls), y_differing_share=differ / total,
+               shapes_B_S_chunk_dtype=sorted(shapes),
+               tol={"h": SSD_H_TOL, "y_head": KERNEL_TOL})
+    if fp32:
+        rec["y_ref_measure"] = ref_measure
+        rec["tol"]["y_ref_measure"] = SSD_Y_FP32_TOL
+        if max(ref_measure.values()) > SSD_Y_FP32_TOL:
+            fail(f"{cfg.name}: fp32 served ssd y in the reference's "
+                 f"measure {ref_measure} (tol {SSD_Y_FP32_TOL})")
+    return rec
+
+
+def request_steps(r, steps, n_steps=2):
+    """Request ``r``'s logits rows in its first ``n_steps`` decode steps
+    (the steps whose row for its slot is at positions len(prompt),
+    len(prompt) + 1, ...)."""
+    n, rows = len(r.tokens), []
+    for slot_ids, lengths, logits in steps:
+        if r.slot in slot_ids:
+            b = slot_ids.index(r.slot)
+            if lengths[b] == n + len(rows):
+                rows.append(logits[b])
+        if len(rows) == n_steps:
+            return rows
+    fail(f"request {r.rid}: {len(rows)} of {n_steps} decode steps found")
+
+
+@contextlib.contextmanager
+def swapped(module, name, fn):
+    """``module.<name>`` replaced by ``fn`` for the block (the model looks
+    its kernel wrappers up at each call)."""
+    kernel = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, kernel)
+
+
+def padded_next_step(eng, cfg, tokens, vision, n, width):
+    """The first ``n`` of ``tokens`` (host ints) right-padded to ``width``
+    through the engine's prefill (with ``vision`` embeds or None), then
+    one ``lm_decode_step`` on its greedy token: the next-step logits."""
+    import torch
+    from repro_torch.models import model as M
+    dev = eng.device
+    padded = torch.zeros((1, width), dtype=torch.int32, device=dev)
+    padded[0, :n] = torch.as_tensor(tokens[:n], device=dev)
+    last = torch.tensor([n], dtype=torch.int32, device=dev)
+    logits, cache = eng._prefill(padded, vision, last)
+    lw, _ = M.lm_decode_step(
+        eng.params, cfg, logits.argmax(-1, keepdim=True).to(torch.int32),
+        {"layers": cache["layers"], "index": last})
+    return lw
 
 
 def mamba_checks(sm, cfg, eng, run, tol, witness_share=None):
@@ -837,25 +1009,14 @@ def mamba_checks(sm, cfg, eng, run, tol, witness_share=None):
     elements (the share where the served kernel and the plain version
     differ) moved by one bf16 step up or down at random, against (c)'s
     plain logits — how far rounding alone carries through the stack."""
-    import contextlib
-
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.models import model as M
     torch = sm.torch
-    reqs, groups, steps = run
+    reqs, groups, steps, _ = run
     dev = sm.dev
 
     def tok(t):
         return torch.tensor([[int(t)]], dtype=torch.int32, device=dev)
-
-    @contextlib.contextmanager
-    def swapped_ssd(fn):
-        kernel_ssd = ssd_ops.ssd
-        ssd_ops.ssd = fn
-        try:
-            yield
-        finally:
-            ssd_ops.ssd = kernel_ssd
 
     checks = {}
     with torch.no_grad():
@@ -865,37 +1026,28 @@ def mamba_checks(sm, cfg, eng, run, tol, witness_share=None):
                 continue                  # the chunk does not admit n
             _, cache = M.lm_prefill(eng.params, cfg, torch.from_numpy(
                 r.tokens[None]).to(dev), MAX_LEN[cfg.name])
-            got, want = [], []
-            for i, (slot_ids, logits) in enumerate(steps):
+            got, want = request_steps(r, steps), []
+            for i in range(len(got)):
                 lw, cache = M.lm_decode_step(eng.params, cfg,
                                              tok(r.out_tokens[i]), cache)
                 want.append(lw[0])
-                got.append(logits[slot_ids.index(r.slot)])
             checks[f"unpadded_{n}"] = logit_check(
                 cfg, torch.stack(got), torch.stack(want),
                 f"engine vs unpadded model ({n} tokens)", tol)
         if sorted(int(k.split("_")[1]) for k in checks) != [100, 1024]:
             fail(f"{cfg.name}: unpadded checks ran for {sorted(checks)}")
 
-        def next_step(tokens, n, width):
-            padded = torch.zeros((1, width), dtype=torch.int32, device=dev)
-            padded[0, :n] = torch.from_numpy(tokens).to(dev)
-            last = torch.tensor([n], dtype=torch.int32, device=dev)
-            logits, cache = eng._prefill(padded, None, last)
-            lw, _ = M.lm_decode_step(
-                eng.params, cfg, logits.argmax(-1, keepdim=True).to(
-                    torch.int32), {"layers": cache["layers"], "index": last})
-            return lw
         for n, widths in ((1000, (1024, 2048)), (300, (512, 1024))):
             r = next(q for q in reqs if len(q.tokens) == n)
-            a, b = (next_step(r.tokens, n, w) for w in widths)
+            a, b = (padded_next_step(eng, cfg, r.tokens, None, n, w)
+                    for w in widths)
             checks[f"pad_{n}_{widths[0]}_vs_{widths[1]}"] = logit_check(
                 cfg, a, b, f"pad invariance ({n} tokens)", tol)
 
-        tokens, last, logits = max(groups, key=lambda g: g[0].numel())
+        tokens, _, last, logits = max(groups, key=lambda g: g[0].numel())
         shape = {"batch": int(tokens.shape[0]),
                  "width": int(tokens.shape[1])}
-        with swapped_ssd(ssd_ops.ref_ssd_chunked):
+        with swapped(ssd_ops, "ssd", ssd_ops.ref_ssd_chunked):
             plain_logits, _ = eng._prefill(tokens, None, last)
         checks["kernel_vs_plain_prefill"] = dict(logit_check(
             cfg, logits, plain_logits, "kernel vs plain SSD prefill", tol),
@@ -914,7 +1066,7 @@ def mamba_checks(sm, cfg, eng, run, tol, witness_share=None):
                         - (u > 1 - witness_share / 2).to(torch.int16))
                 step = torch.where(y != 0, step, torch.zeros_like(step))
                 return (y.view(torch.int16) + step).view(torch.bfloat16), h
-            with swapped_ssd(one_step_off):
+            with swapped(ssd_ops, "ssd", one_step_off):
                 off_logits, _ = eng._prefill(tokens, None, last)
             checks["bf16_rounding_witness"] = dict(logit_check(
                 cfg, off_logits, plain_logits,
@@ -924,7 +1076,7 @@ def mamba_checks(sm, cfg, eng, run, tol, witness_share=None):
     return checks
 
 
-def mamba_decode_breakdown(sm, cfg, eng):
+def composed_decode_breakdown(sm, cfg, eng):
     """Where one composed cohort-4 decode step's time goes, on the served
     slot pool (each slot holds its request's final state): wall time
     (host clock, synchronized, median of 5) against the card's kernel
@@ -957,16 +1109,17 @@ def mamba_decode_breakdown(sm, cfg, eng):
                                for k, us, _ in by_name[:8]]}
 
 
-def mamba_prefill_breakdown(sm, eng, run):
+def composed_prefill_breakdown(sm, eng, run, prefix):
     """Where one prefill call's time goes (the largest group): wall time
     (host clock, synchronized, median of 3) against the card's kernel
-    time, the SSD kernels' share and the largest kernels."""
+    time, the share of the device kernels named ``prefix*`` and the
+    largest kernels."""
     torch = sm.torch
-    tokens, last, _ = max(run[1], key=lambda g: g[0].numel())
+    tokens, vision, last, _ = max(run[1], key=lambda g: g[0].numel())
 
     def call():
         with torch.no_grad():
-            eng._prefill(tokens, None, last)
+            eng._prefill(tokens, vision, last)
         torch.cuda.synchronize()
     walls = []
     for _ in range(3):
@@ -978,10 +1131,195 @@ def mamba_prefill_breakdown(sm, eng, run):
     return {"batch": int(tokens.shape[0]), "width": int(tokens.shape[1]),
             "wall_ms": wall_ms, "device_ms": kernel_us / 1e3,
             "device_busy_share": kernel_us / 1e3 / wall_ms,
-            "ssd_kernels_ms": sum(us for k, us, _ in by_name
-                                  if "ssd_" in k) / 1e3,
+            f"{prefix}kernels_ms": sum(us for k, us, _ in by_name
+                                       if prefix in k) / 1e3,
             "top_kernels_ms": [[k[:96], us / 1e3]
                                for k, us, _ in by_name[:8]]}
+
+
+def linear_errors(args, out, chunk, valid_len, what):
+    """The linear-attention kernel's (out, state, z) ``out`` on ``args``
+    (q, k, v) against the plain chunked form: fails unless all are
+    finite and of the plain shapes, state and z within LA_STATE_TOL of
+    their largest magnitude, every output row (b, i, h) within
+    LA_ROW_TOL of that row's largest plain magnitude, and every row at
+    or past ``valid_len`` exactly zero.  Returns the errors."""
+    import torch
+    from repro_torch.kernels.linear_attention import (
+        ref_linear_attention_chunked)
+    o, st, z = out
+    ro, rst, rz = ref_linear_attention_chunked(*args, chunk=chunk,
+                                               valid_len=valid_len)
+    if not (o.shape == ro.shape and st.shape == rst.shape
+            and z.shape == rz.shape and o.isfinite().all()
+            and st.isfinite().all() and z.isfinite().all()):
+        fail(f"{what}: shape or non-finite output")
+    s_rel = ((st - rst).abs().max() / rst.abs().max()).item()
+    z_rel = ((z - rz).abs().max() / rz.abs().max()).item()
+    err = (o.float() - ro.float()).abs().amax(-1)            # (B, S, H)
+    m = ro.float().abs().amax(-1)
+    ratio = torch.where(m > 0, err / m.clamp_min(1e-30),
+                        torch.where(err > 0, float("inf"), 0.0))
+    row = ratio.max().item()
+    pad_rows, pad_nonzero = 0, 0
+    if valid_len is not None:
+        pad = (torch.arange(o.shape[1], device=o.device)[None, :]
+               >= valid_len.to(o.device)[:, None])
+        pad_rows = int(pad.sum()) * o.shape[2]
+        pad_nonzero = int((o[pad] != 0).sum())
+    tol = LA_ROW_TOL[str(o.dtype).replace("torch.", "")]
+    if not (s_rel <= LA_STATE_TOL and z_rel <= LA_STATE_TOL and row <= tol
+            and pad_nonzero == 0):
+        fail(f"{what}: state rel err {s_rel}, z rel err {z_rel}, worst "
+             f"row err/max {row} (tol {tol}), {pad_nonzero} nonzero "
+             f"padded elements")
+    return {"state_rel_err": s_rel, "z_rel_err": z_rel,
+            "worst_row_err_over_max": row,
+            "out_max_abs_err": err.max().item(),
+            "padded_rows_exactly_zero": pad_rows}
+
+
+def serve_linear(sm, cfg, reqs):
+    """Serve ``reqs`` on LLaVA-OneVision-0.5B with ``attn_impl="linear"``
+    at full width with ``cfg``'s dtype, and hold every linear-attention
+    kernel call of the serve (each layer of each prefill group, at the
+    served shapes, dtype and ``valid_len``) against the plain chunked
+    form on the same inputs.  Returns ``serve_composed``'s (serve record,
+    engine, run)."""
+    from repro_torch.kernels.linear_attention import ops as la_ops
+    serve, eng, run = serve_composed(sm, cfg, reqs, la_ops,
+                                     "linear_attention")
+    tstats = serve["tabm"]
+    if tstats["writes"] != tstats["reads"] or tstats["shares"] != 1:
+        fail(f"{cfg.name} (linear): TABM writes/reads/shares {tstats}")
+    worst, shapes = {}, set()
+    with sm.torch.no_grad():
+        for args, kw, out in run[3]:
+            q, vl = args[0], kw.get("valid_len")
+            dtype = str(q.dtype).replace("torch.", "")
+            rec = linear_errors(args, out, kw["chunk"], vl,
+                                f"{cfg.name}: served linear attention at "
+                                f"{tuple(q.shape)} {dtype}")
+            for k, v in rec.items():
+                worst[k] = max(worst.get(k, 0), v)
+            shapes.add((int(q.shape[0]), int(q.shape[1]), kw["chunk"],
+                        dtype))
+    sm.torch.cuda.synchronize()
+    serve["linear_served_check"] = dict(
+        worst, calls=len(run[3]), shapes_B_S_chunk_dtype=sorted(shapes),
+        tol={"state_z": LA_STATE_TOL, "row": LA_ROW_TOL})
+    return serve, eng, run
+
+
+def linear_checks(sm, cfg, eng, run, tol):
+    """The linear-attention engine against the port's own model, each
+    within ``tol`` of the largest logit: (a) every request's prefill
+    logits and first two decode steps against its unpadded prompt (its
+    tokens and the served vision embeds) prefilled through the plain
+    chunked form at the largest chunk up to 256 that divides its length
+    (745 = 5 x 149 admits no 256-chunk), plus teacher-forced
+    ``lm_decode_step``; (b) the 745- and 212-token prompts padded to their
+    bucket and the one above: the same next-step logits; (c) the largest
+    prefill group rerun through the plain version: the same logits."""
+    from repro_torch.kernels.linear_attention import ops as la_ops
+    from repro_torch.models import model as M
+    torch = sm.torch
+    reqs, groups, steps, _ = run
+    dev = sm.dev
+
+    def served_row(r):
+        """(tokens (1, n), vision embeds, prefill logits) of ``r``'s row
+        in its prefill group."""
+        n = len(r.tokens)
+        want = torch.from_numpy(r.tokens).to(dev)
+        for tokens, vision, last, logits in groups:
+            for b in range(tokens.shape[0]):
+                if int(last[b]) == n and torch.equal(tokens[b, :n], want):
+                    return (tokens[b:b + 1, :n], None if vision is None
+                            else vision[b:b + 1], logits[b])
+        fail(f"request {r.rid}: no prefill row")
+
+    def divisor_chunk(q, k, v, *, chunk, valid_len=None):
+        S = q.shape[1]
+        c = max(d for d in range(1, min(chunk, S) + 1) if S % d == 0)
+        return la_ops.ref_linear_attention_chunked(q, k, v, chunk=c,
+                                                   valid_len=valid_len)
+
+    checks = {}
+    with torch.no_grad():
+        for r in reqs:
+            n = len(r.tokens)
+            tokens, vision, first = served_row(r)
+            last = torch.tensor([n], dtype=torch.int32, device=dev)
+            with swapped(la_ops, "linear_attention", divisor_chunk):
+                lw, cache = eng._prefill(tokens, vision, last)
+            cache = {"layers": cache["layers"], "index": last}
+            got, want = [first] + request_steps(r, steps), [lw[0]]
+            for t in r.out_tokens[:len(got) - 1]:
+                lw, cache = M.lm_decode_step(eng.params, cfg, torch.tensor(
+                    [[int(t)]], dtype=torch.int32, device=dev), cache)
+                want.append(lw[0])
+            checks[f"unpadded_r{r.rid}_{n}"] = logit_check(
+                cfg, torch.stack(got), torch.stack(want),
+                f"linear engine vs unpadded model (request {r.rid}, {n} "
+                f"tokens)", tol)
+        for n, widths in ((745, (1024, 2048)), (212, (256, 512))):
+            r = next(q for q in reqs if len(q.tokens) == n)
+            _, vision, _ = served_row(r)
+            a, b = (padded_next_step(eng, cfg, r.tokens, vision, n, w)
+                    for w in widths)
+            checks[f"pad_{n}_{widths[0]}_vs_{widths[1]}"] = logit_check(
+                cfg, a, b, f"linear pad invariance ({n} tokens)", tol)
+        tokens, vision, last, logits = max(groups,
+                                           key=lambda g: g[0].numel())
+        with swapped(la_ops, "linear_attention",
+                     la_ops.ref_linear_attention_chunked):
+            plain_logits, _ = eng._prefill(tokens, vision, last)
+        checks["kernel_vs_plain_prefill"] = dict(logit_check(
+            cfg, logits, plain_logits, "kernel vs plain linear prefill",
+            tol), batch=int(tokens.shape[0]), width=int(tokens.shape[1]))
+    torch.cuda.synchronize()
+    return checks
+
+
+def linear_attention_work(B, S, H, KV, hd, chunk, esize=2):
+    """(bytes, operations) the linear-attention function needs: q, k, v
+    (k and v at kv-head width) and out in ``esize``-byte elements, state
+    and z in fp32, each read or written once; the operations of the
+    chunked form with nothing computed twice.  Per chunk of L rows
+    (L(L+1)/2 causal pairs) and query head: phi(q).phi(k) and the
+    weights times v, 2 hd each per pair, and the row sum, 1 per pair;
+    from the second chunk on phi(q).S_prev and phi(q).z_prev, 2 hd^2 +
+    2 hd per row; per kv head the chunk states and normalizers, 2 hd^2 +
+    hd per row, and the scan over chunks, hd^2 + hd per chunk after the
+    first; phi of q and k and the division, one per element."""
+    L = min(chunk, S)
+    nc, pairs = S // L, L * (L + 1) // 2
+    byt = (esize * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+           + 4 * B * H * (hd * hd + hd))
+    fl = (B * H * nc * pairs * (4 * hd + 1)
+          + B * H * (nc - 1) * L * (2 * hd * hd + 2 * hd)
+          + B * KV * S * (2 * hd * hd + hd)
+          + B * KV * (nc - 1) * (hd * hd + hd)
+          + B * S * (2 * H + KV) * hd)
+    return byt, fl
+
+
+def time_linear(sm):
+    """The linear-attention kernel and its plain version at LA_SHAPE
+    (bf16, the served dtype), and the work (``linear_attention_work``)
+    that sets its bound."""
+    import torch
+    from repro_torch.kernels.linear_attention import (
+        linear_attention, ref_linear_attention_chunked)
+    B, S, H, KV, hd, chunk = LA_SHAPE
+    args = sm.la_inputs(B, S, H, KV, hd, torch.bfloat16)
+    with torch.no_grad():
+        t_k = timed(lambda i: linear_attention(*args, chunk=chunk), 1,
+                    iters=50)
+        t_p = timed(lambda i: ref_linear_attention_chunked(
+            *args, chunk=chunk), 1, iters=10)
+    return (t_k, t_p) + linear_attention_work(*LA_SHAPE)
 
 
 def ssd_work(B, S, H, P, G, N, chunk):
@@ -1058,20 +1396,22 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.fused_decode import kernel as K
+    from repro_torch.kernels.linear_attention import kernel as LK
     from repro_torch.kernels.ssd import kernel as SK
+    libs = (K, FK, SK, LK)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. build: one nvcc per library, all at once ------------------------
     t0 = time.perf_counter()
-    build.build_all({m.LIBRARY: m.SOURCES for m in (K, FK, SK)})
-    for m in (K, FK, SK):
+    build.build_all({m.LIBRARY: m.SOURCES for m in libs})
+    for m in libs:
         m.library()
     build_s = time.perf_counter() - t0
     ptxas = {m.LIBRARY: [ln.strip() for ln in build.build_log(
         m.LIBRARY, m.SOURCES).splitlines() if "Used" in ln or "spill" in ln][
-        :40] for m in (K, FK, SK)}
+        :40] for m in libs}
     print(json.dumps({"build": {"seconds": round(build_s, 3),
                                 "ptxas": ptxas}}))
 
@@ -1083,11 +1423,15 @@ def main() -> int:
     sm.check_fused(qwen, (1, 2, 4))
     sm.check_flash()
     sm.check_ssd()
+    sm.check_linear_attention()
     free()
     print(json.dumps({"kernel_checks": {
         "fused_bc": {llava.name: [1, 2, 4, 8], qwen.name: [1, 2, 4]},
         "flash_shapes": [list(s) for s in FLASH_SHAPES],
         "ssd": sm.ssd_check,
+        "linear_attention": {"cases": sm.la_check,
+                             "tol": {"state_z": LA_STATE_TOL,
+                                     "row": LA_ROW_TOL}},
         "max_abs_err": sm.errs, "tol_rel": KERNEL_TOL,
         "flash_worst_row_err_over_row_max": sm.worst_row_ratio,
         "kv_pool_blocks": {a: N_SLOTS * n // BLOCK_SIZE
@@ -1095,9 +1439,10 @@ def main() -> int:
 
     # -- 3. serve LLaVA-OneVision-0.5B --------------------------------------
     serves, timings = {}, {}
-    serve, eng, _ = serve_path(sm, llava, requests(
-        llava, [(729, 1, None), (196, 1, None), (729, 1, 0), (196, 1, None)],
-        seed=0))
+    llava_reqs = [(729, 1, None), (196, 1, None), (729, 1, 0),
+                  (196, 1, None)]
+    serve, eng, _ = serve_path(sm, llava, requests(llava, llava_reqs,
+                                                   seed=0))
     print(json.dumps({"serve": serve}))
     serves[llava.name] = serve
     timings[llava.name] = time_fused(sm, llava, eng)
@@ -1116,7 +1461,33 @@ def main() -> int:
     del eng, captured
     free()
 
-    # -- 5. serve Mamba-2-1.3B, prefill through the SSD kernel -------------
+    # -- 5. serve LLaVA-OneVision-0.5B with streaming linear attention,
+    # prefill through the linear-attention kernel --------------------------
+    linear = dataclasses.replace(llava, attn_impl="linear",
+                                 subquadratic=True)
+    serve, eng, run = serve_linear(sm, linear, requests(linear, llava_reqs,
+                                                        seed=0))
+    serve["checks"] = linear_checks(sm, linear, eng, run, STEP_TOL)
+    serve["prefill_breakdown"] = composed_prefill_breakdown(
+        sm, eng, run, "la_")
+    serve["decode_step_breakdown"] = composed_decode_breakdown(sm, linear,
+                                                               eng)
+    serve["softmax_kv_pool_mb"] = serves[llava.name]["kv_pool_mb"]
+    del eng, run
+    free()
+    linear32 = dataclasses.replace(linear, dtype="float32")
+    serve32, eng, run = serve_linear(sm, linear32, requests(
+        linear32, llava_reqs, seed=0))
+    serve["fp32"] = {k: serve32[k] for k in (
+        "prefill_calls", "prefill_ms", "decode_tok_s", "launches",
+        "linear_served_check")}
+    serve["fp32"]["checks"] = linear_checks(sm, linear32, eng, run, STEP_TOL)
+    print(json.dumps({"serve": serve}))
+    serves[LINEAR_PATH] = serve
+    del eng, run
+    free()
+
+    # -- 6. serve Mamba-2-1.3B, prefill through the SSD kernel -------------
     # The logit checks hold at STEP_TOL on an fp32 instance of the same
     # config and at BF16_LOGIT_TOL in bf16, where a one-step rounding
     # difference anywhere (kernel vs plain SSD, cohort 4 vs 1) grows
@@ -1126,8 +1497,10 @@ def main() -> int:
     serve["checks"] = mamba_checks(
         sm, mamba, eng, run, BF16_LOGIT_TOL,
         witness_share=serve["ssd_served_check"]["y_differing_share"])
-    serve["prefill_breakdown"] = mamba_prefill_breakdown(sm, eng, run)
-    serve["decode_step_breakdown"] = mamba_decode_breakdown(sm, mamba, eng)
+    serve["prefill_breakdown"] = composed_prefill_breakdown(sm, eng, run,
+                                                            "ssd_")
+    serve["decode_step_breakdown"] = composed_decode_breakdown(sm, mamba,
+                                                               eng)
     del eng, run
     free()
     mamba32 = dataclasses.replace(mamba, dtype="float32")
@@ -1143,25 +1516,29 @@ def main() -> int:
     del eng, run
     free()
 
-    # -- 6. the flash kernel at the Qwen2-VL prefill shape, the SSD kernel
-    # at its check shape ---------------------------------------------------
+    # -- 7. the flash kernel at the Qwen2-VL prefill shape, the SSD and
+    # linear-attention kernels at their check shapes -----------------------
     flash_t = time_flash(sm)
     ssd_t = time_ssd(sm)
+    la_t = time_linear(sm)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     launch_key = {"fused_qkv": "fused_qkv", "fused_mlp": "fused_mlp",
                   "kv_row_scatter": "kv_scatter",
-                  "flash_attention": "flash_attention", "ssd": "ssd"}
+                  "flash_attention": "flash_attention", "ssd": "ssd",
+                  "linear_attention": "linear_attention"}
     replaces = {
         "fused_qkv": "src/repro/kernels/fused_decode/kernel.py:92",
         "fused_mlp": "src/repro/kernels/fused_decode/kernel.py:138",
         "kv_row_scatter": "src/repro/kernels/fused_decode/kernel.py:174",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:55",
-        "ssd": "src/repro/kernels/ssd/kernel.py:69"}
+        "ssd": "src/repro/kernels/ssd/kernel.py:69",
+        "linear_attention": "src/repro/kernels/linear_attention/kernel.py:68"}
     sources = {"flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-               "ssd": "src/repro_torch/csrc/ssd.cu"}
+               "ssd": "src/repro_torch/csrc/ssd.cu",
+               "linear_attention": "src/repro_torch/csrc/linear_attention.cu"}
 
     def numbers(t):
         t_k, t_p, t_l, t_d, byt, fl = t
@@ -1179,8 +1556,29 @@ def main() -> int:
         return out
 
     kernels = []
+    def fp32_numbers(name, t, shape_names, shape, path, served_check):
+        """The entry of kernel ``name``, whose contract is fp32
+        arithmetic: its bound at the 67 TFLOP/s fp32 FFMA peak, and the
+        launches per prefill call measured on ``path``."""
+        t_k, t_p, byt, fl = t
+        b_ms, b_by = bound(byt, fl, FP32_FLOPS_PER_S)
+        return {
+            "ms": dev_or_call(t_k), "plain_ms": dev_or_call(t_p),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms_at_bf16_peak": bound(byt, fl)[0],
+            "bound_by_at_bf16_peak": bound(byt, fl)[1],
+            "ms_source": ("profiler device time" if t_k[0] is not None
+                          else "CUDA events per call"),
+            "device_kernels_per_call": t_k[2], "call_ms": t_k[1],
+            "plain_call_ms": t_p[1], "bytes": byt, "flops": fl,
+            "shape": dict(zip(shape_names, shape)),
+            "launches_per_prefill_call": (
+                serves[path]["launches"][launch_key[name]]
+                / serves[path]["prefill_calls"]),
+            "served_check": served_check}
+
     for name in ("fused_qkv", "fused_mlp", "kv_row_scatter",
-                 "flash_attention", "ssd"):
+                 "flash_attention", "ssd", "linear_attention"):
         by_path = {a: s["launches"][launch_key[name]]
                    for a, s in serves.items()}
         entry = {"name": name, "route": "cuda",
@@ -1196,28 +1594,22 @@ def main() -> int:
                                        "causal"), FLASH_TIME_SHAPE))
             entry["library"] = "F.scaled_dot_product_attention(enable_gqa)"
         elif name == "ssd":
-            t_k, t_p, byt, fl = ssd_t
-            b_ms, b_by = bound(byt, fl, FP32_FLOPS_PER_S)
-            entry.update({
-                "ms": dev_or_call(t_k), "plain_ms": dev_or_call(t_p),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "bound_ms_at_bf16_peak": bound(byt, fl)[0],
-                "bound_by_at_bf16_peak": bound(byt, fl)[1],
-                "bound_note": ("bound_ms at the fp32 FFMA peak (67 "
-                               "TFLOP/s): the kernel's contract is fp32 "
-                               "arithmetic; operations as ssd_work counts "
-                               "them (C.B^T once per group, causal "
-                               "halves)"),
-                "ms_source": ("profiler device time" if t_k[0] is not None
-                              else "CUDA events per call"),
-                "device_kernels_per_call": t_k[2], "call_ms": t_k[1],
-                "plain_call_ms": t_p[1], "bytes": byt, "flops": fl,
-                "shape": dict(zip(("B", "S", "H", "P", "G", "N", "chunk"),
-                                  SSD_SHAPE)),
-                "launches_per_prefill_call": (
-                    serves[mamba.name]["launches"]["ssd"]
-                    / serves[mamba.name]["prefill_calls"]),
-                "served_check": serves[mamba.name]["ssd_served_check"]})
+            entry.update(fp32_numbers(
+                name, ssd_t, ("B", "S", "H", "P", "G", "N", "chunk"), SSD_SHAPE,
+                mamba.name, serves[mamba.name]["ssd_served_check"]))
+            entry["bound_note"] = (
+                "bound_ms at the fp32 FFMA peak (67 TFLOP/s): the kernel's "
+                "contract is fp32 arithmetic; operations as ssd_work counts "
+                "them (C.B^T once per group, causal halves)")
+        elif name == "linear_attention":
+            entry.update(fp32_numbers(
+                name, la_t, ("B", "S", "H", "KV", "hd", "chunk"), LA_SHAPE,
+                LINEAR_PATH, serves[LINEAR_PATH]["linear_served_check"]))
+            entry["bound_note"] = (
+                "bound_ms at the fp32 FFMA peak (67 TFLOP/s): the kernel's "
+                "contract is fp32 arithmetic; operations as "
+                "linear_attention_work counts them (causal halves, chunk "
+                "states per kv head)")
         else:
             entry.update(numbers(timings[llava.name][name]))
             entry["bc"] = TIME_BC

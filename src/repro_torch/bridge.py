@@ -12,6 +12,9 @@ numpy dtype of its own: an array whose dtype is named ``bfloat16`` (the
 ``ml_dtypes`` type) crosses as its ``uint16`` bit pattern and is viewed
 back as ``torch.bfloat16``; :func:`to_numpy` returns bf16 tensors as
 ``uint16`` arrays of the same bits.
+
+Like every entry point of the port, the bridge puts tensors on the card
+unless the caller passes ``device="cpu"`` (as the CPU tests do).
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ def _is_packed(x) -> bool:
     return isinstance(x, dict) and set(x) == _PACKED_KEYS
 
 
-def array_to_tensor(a, device="cpu") -> torch.Tensor:
+def array_to_tensor(a, device="cuda") -> torch.Tensor:
     """One numpy array -> tensor, bf16 through its ``uint16`` bits."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
@@ -50,7 +53,7 @@ def tensor_to_array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def from_numpy(tree, device="cpu"):
+def from_numpy(tree, device="cuda"):
     """numpy tree (packed weights as mappings) -> the port's tree."""
     if _is_packed(tree):
         spec = QuantSpec(int(tree["bits"]), group_size=int(tree["group_size"]))

@@ -47,16 +47,21 @@
 //      term over the 64-column key tiles up to the diagonal (the causal
 //      half only): S = C B^T tile, w = S exp(cum_i - cum_j) dt_j masked
 //      to j <= i without evaluating exp on the masked half (so no
-//      overflow and no 0 * inf), y += w x.
+//      overflow and no 0 * inf), y += w x.  cum is summed in double
+//      (chunk_cumsum): near the diagonal cum_i - cum_j is small while
+//      cum reaches thousands at A = -16, and as a difference of two fp32
+//      prefix sums it moved the fp32 y by 1.6e-4 of its largest value on
+//      Mamba-2-1.3B's served inputs on an H100 (1e-4 is the reference's
+//      bound).
 // Tiles of 64 rows keep a 256 x 128 B or C chunk (128 KB) and the
 // 256 x 256 decay matrix (256 KB) out of shared memory: kernel 3 holds
-// one C row tile, one B (or state) tile, one x tile and one w tile, 99
+// one C row tile, one B (or state) tile, one x tile and one w tile, 100
 // KB at N 128.  Each thread owns a 4 x 4 register tile strided by 16 in
 // both directions, and shared rows are padded to an odd length, so the
 // operand reads are conflict-free broadcasts or consecutive words.  Plain
 // FFMA on SIMT cores.  Sharing C B^T across the H / G heads of a group,
 // wgmma and TMA are later work.  The per-chunk cumsum is recomputed by
-// each block (L <= 256 adds) instead of stored.
+// each block (L <= 256 adds, in double) instead of stored.
 //
 // Interface: one plain C entry point (loaded with ctypes); it launches on
 // the caller's stream, allocates nothing (the caller passes the
@@ -100,11 +105,12 @@ __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16(v); }
 
-// dt of chunk c into dts[0..L) and cum[j] = sum_{k<=j} dt_k A into cum.
-// Warp 0 scans: each lane adds up to 8 consecutive terms in order, then a
-// shuffle scan adds the lanes' totals.  Ends with __syncthreads().
+// dt of chunk c into dts[0..L) and cum[j] = sum_{k<=j} dt_k A into cum,
+// the fp32 terms dt_k A summed in double.  Warp 0 scans: each lane adds up
+// to 8 consecutive terms in order, then a shuffle scan adds the lanes'
+// totals.  Ends with __syncthreads().
 __device__ void chunk_cumsum(const Params& p, int b, int h, int c, float* dts,
-                             float* cum) {
+                             double* cum) {
   const float a = p.A[h];
   const float* dtg = p.dt + b * p.dt_sb + (long long)c * p.L * p.dt_ss + h * p.dt_sh;
   for (int j = threadIdx.x; j < p.L; j += blockDim.x) dts[j] = dtg[j * p.dt_ss];
@@ -113,21 +119,21 @@ __device__ void chunk_cumsum(const Params& p, int b, int h, int c, float* dts,
     const int lane = threadIdx.x;
     const int per = (p.L + 31) / 32;    // <= 8
     const int j0 = lane * per;
-    float loc[kMaxChunk / 32];
-    float run = 0.f;
+    double loc[kMaxChunk / 32];
+    double run = 0.0;
 #pragma unroll
     for (int k = 0; k < kMaxChunk / 32; ++k) {
       const int j = j0 + k;
-      if (k < per && j < p.L) run += dts[j] * a;
+      if (k < per && j < p.L) run += (double)(dts[j] * a);
       loc[k] = run;
     }
-    float incl = run;
+    double incl = run;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float t = __shfl_up_sync(kFull, incl, off);
+      const double t = __shfl_up_sync(kFull, incl, off);
       if (lane >= off) incl += t;
     }
-    const float base = incl - run;
+    const double base = incl - run;
 #pragma unroll
     for (int k = 0; k < kMaxChunk / 32; ++k) {
       const int j = j0 + k;
@@ -176,7 +182,8 @@ __device__ void chunk_suffix(const Params& p, int h, const float* dts, float* af
 // exp(cum_last).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_state_kernel(const Params p) {
-  __shared__ float dts[kMaxChunk], cum[kMaxChunk], after[kMaxChunk], wgt[kMaxChunk];
+  __shared__ double cum[kMaxChunk];
+  __shared__ float dts[kMaxChunk], after[kMaxChunk], wgt[kMaxChunk];
   __shared__ float xs[kTile * kPadTile], bs[kTile * kPadTile];
   const int c = blockIdx.x, bh = blockIdx.y;
   const int b = bh / p.H, h = bh - b * p.H;
@@ -189,7 +196,7 @@ __global__ void __launch_bounds__(kThreads) ssd_state_kernel(const Params p) {
   chunk_cumsum(p, b, h, c, dts, cum);
   chunk_suffix(p, h, dts, after);
   for (int j = tid; j < p.L; j += kThreads) wgt[j] = dts[j] * expf(after[j]);
-  if (blockIdx.z == 0 && tid == 0) p.decay[(long long)bh * p.nc + c] = expf(cum[p.L - 1]);
+  if (blockIdx.z == 0 && tid == 0) p.decay[(long long)bh * p.nc + c] = expf((float)cum[p.L - 1]);
   __syncthreads();
 
   const T* xg = static_cast<const T*>(p.x) + b * p.x_sb + (long long)c * p.L * p.x_ss +
@@ -267,9 +274,9 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_out_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   const int sn = p.N | 1;               // odd row stride of N-wide tiles
-  float* dts = smem;
-  float* cum = dts + kMaxChunk;
-  float* cs = cum + kMaxChunk;          // C rows of this tile      [64][sn]
+  double* cum = reinterpret_cast<double*>(smem);
+  float* dts = reinterpret_cast<float*>(cum + kMaxChunk);
+  float* cs = dts + kMaxChunk;          // C rows of this tile      [64][sn]
   float* bs = cs + kTile * sn;          // state tile, then B tiles [64][sn]
   float* xs = bs + kTile * sn;          // x tile                   [64][65]
   float* ws = xs + kTile * kPadTile;    // w tile                   [64][65]
@@ -321,7 +328,7 @@ __global__ void __launch_bounds__(kThreads) ssd_out_kernel(const Params p) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int i = i0 + ty + 16 * r;
-      const float ei = i < p.L ? expf(cum[i]) : 0.f;
+      const float ei = i < p.L ? expf((float)cum[i]) : 0.f;
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[r][q] *= ei;
     }
@@ -368,7 +375,8 @@ __global__ void __launch_bounds__(kThreads) ssd_out_kernel(const Params p) {
       for (int q = 0; q < 4; ++q) {
         const int j = j0 + tx + 16 * q;
         // masked entries never evaluate exp: cum_i - cum_j > 0 for j > i
-        const float w = (j <= i && i < p.L) ? s[r][q] * expf(cum[i] - cum[j]) * dts[j] : 0.f;
+        const float w =
+            (j <= i && i < p.L) ? s[r][q] * expf((float)(cum[i] - cum[j])) * dts[j] : 0.f;
         ws[(ty + 16 * r) * kPadTile + tx + 16 * q] = w;
       }
     }
@@ -403,7 +411,8 @@ __global__ void __launch_bounds__(kThreads) ssd_out_kernel(const Params p) {
 
 int out_smem_bytes(int N) {
   const int sn = N | 1;
-  return (int)sizeof(float) * (2 * kMaxChunk + 2 * kTile * sn + 2 * kTile * kPadTile);
+  return (int)sizeof(double) * kMaxChunk +
+         (int)sizeof(float) * (kMaxChunk + 2 * kTile * sn + 2 * kTile * kPadTile);
 }
 
 template <typename T>

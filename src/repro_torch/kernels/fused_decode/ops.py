@@ -13,8 +13,8 @@ fp32 config decodes on the card with ``use_fused=False``.
 
 ``cohort_step`` is the engine-facing entry: the batched decode step over
 the paged pool.  ``use_fused=False`` runs the composed path
-(``ref_cohort_step``), the only step for Mamba-2 (slot-state pool, as in
-the reference).  The fused step runs, per layer, :func:`fused_qkv`,
+(``ref_cohort_step``), the only step for Mamba-2 and linear attention
+(slot-state pool, as in the reference).  The fused step runs, per layer, :func:`fused_qkv`,
 the shared attention core and output projection, and :func:`fused_mlp`;
 the new K/V rows of every layer land in the pool in one
 :func:`kv_scatter` after the last layer.

@@ -1,4 +1,5 @@
-"""Decoder stack with group size 1: dense softmax attention or Mamba-2.
+"""Decoder stack with group size 1: dense softmax attention, the paper's
+streaming linear attention (``attn_impl="linear"``) or Mamba-2.
 
 Layer params are stacked on a leading ``L`` axis, as in the reference:
 ``params["layers"]`` is a 1-tuple (one sublayer per group) holding
@@ -6,9 +7,10 @@ Layer params are stacked on a leading ``L`` axis, as in the reference:
 an FFN, every leaf ``(L, ...)``.  The reference's ``lax.scan`` over
 layers is a Python loop here; each layer dequantizes its packed weights
 at use (``dequantize_tree`` of the slice).  Caches are one tuple per
-group position: ``(k, v)`` for attention, ``(conv_tail, ssd_state)`` for
-Mamba-2.  MoE, linear attention, hybrid groups and the encoder-decoder
-are not ported yet.
+group position: ``(k, v)`` for softmax attention, ``(state, z)`` for
+linear attention (per query head, as the reference lays out its state
+over repeated k/v), ``(conv_tail, ssd_state)`` for Mamba-2.  MoE, hybrid
+groups and the encoder-decoder are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.quantize import QTensor, dequantize_tree
 from repro_torch.models import attention as attn
+from repro_torch.models import linear_attention as lin
 from repro_torch.models import mamba2
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import apply_norm, init_norm
@@ -44,12 +47,25 @@ def sublayer_spec(cfg, pos: int) -> Tuple[str, str]:
 
 def check_supported(cfg):
     """The port's decoder covers uniform stacks (group size 1) of softmax
-    attention or Mamba-2 mixers with a dense FFN or none."""
+    attention, linear attention or Mamba-2 mixers with a dense FFN or
+    none."""
     if (group_size(cfg) != 1 or cfg.moe is not None
-            or cfg.attn_impl != "softmax" or cfg.encdec):
+            or cfg.attn_impl not in ("softmax", "linear") or cfg.encdec):
         raise NotImplementedError(
-            f"{cfg.name}: only uniform softmax-attention or Mamba-2 "
-            f"decoders with group size 1 are ported")
+            f"{cfg.name}: only uniform softmax- or linear-attention or "
+            f"Mamba-2 decoders with group size 1 are ported")
+
+
+def mixer_of(cfg) -> str:
+    """The mixer of the (uniform) stack: "attn", "linear" or "mamba"."""
+    kind = sublayer_spec(cfg, 0)[0]
+    return "linear" if kind == "attn" and cfg.attn_impl == "linear" else kind
+
+
+def _expand_kv(cfg, t):
+    """k/v (B,S,KV,hd) -> (B,S,H,hd): kv head g serves query heads
+    g*G .. g*G + G - 1, as the reference's ``jnp.repeat``."""
+    return torch.repeat_interleave(t, cfg.n_heads // cfg.n_kv_heads, dim=2)
 
 
 def init_stack(generator, cfg, device, qkv_bias: bool = False):
@@ -88,19 +104,27 @@ def stack_forward(params_layers, cfg, x, rope_fn, *, causal=True,
                   valid_len: Optional[torch.Tensor] = None):
     """Run the whole stack.  Returns (x, caches, aux).  With
     ``want_cache``, caches are ``((k, v),)`` stacked ``(L, B, decode_len,
-    KV, hd)`` for attention, ``((conv_tail, ssd_state),)`` stacked
-    ``(L, B, ...)`` for Mamba-2.  ``valid_len`` (B,) marks right-padded
-    rows: Mamba-2 state is taken at each row's true end (attention caches
-    keep the pad positions, which decode's length mask never reads)."""
+    KV, hd)`` for softmax attention, ``((state, z),)`` stacked ``(L, B,
+    H, hd, hd)`` and ``(L, B, H, hd)`` for linear attention,
+    ``((conv_tail, ssd_state),)`` stacked ``(L, B, ...)`` for Mamba-2.
+    ``valid_len`` (B,) marks right-padded rows: Mamba-2 and
+    linear-attention state is taken at each row's true end (softmax
+    caches keep the pad positions, which decode's length mask never
+    reads)."""
     check_supported(cfg)
-    mamba = sublayer_spec(cfg, 0)[0] == "mamba"
+    mixer = mixer_of(cfg)
     c0, c1 = [], []
     for i in range(cfg.n_layers):
         sub = dequantize_tree(layer_slice(params_layers, i))[0]
         h = apply_norm(sub["norm1"], x)
-        if mamba:
+        if mixer == "mamba":
             y, (a, b) = mamba2.mamba_forward(sub["mixer"], cfg, h,
                                              valid_len=valid_len)
+        elif mixer == "linear":
+            q, k, v = attn.qkv_proj(sub["mixer"], h)
+            q, k = rope_fn(q), rope_fn(k)
+            o, a, b = lin.linear_attn_prefill(q, k, v, valid_len=valid_len)
+            y = attn.out_proj(sub["mixer"], o)
         else:
             y, (a, b) = attn.attn_train(sub["mixer"], cfg, h, rope_fn,
                                         causal=causal)
@@ -118,17 +142,26 @@ def stack_forward(params_layers, cfg, x, rope_fn, *, causal=True,
 
 def stack_decode(params_layers, cfg, x, caches, index, rope_fn
                  ) -> Tuple[torch.Tensor, tuple]:
-    """One decode step through every layer; returns (x, new caches)."""
+    """One decode step through every layer; returns (x, new caches).
+    Linear attention takes the plain one-token step (the reference has
+    no decode kernel for it)."""
     check_supported(cfg)
-    mamba = sublayer_spec(cfg, 0)[0] == "mamba"
+    mixer = mixer_of(cfg)
     c0, c1 = caches[0]
     new0, new1 = [], []
     for i in range(cfg.n_layers):
         sub = dequantize_tree(layer_slice(params_layers, i))[0]
         h = apply_norm(sub["norm1"], x)
-        if mamba:
+        if mixer == "mamba":
             y, (a, b) = mamba2.mamba_decode(sub["mixer"], cfg, h, c0[i],
                                             c1[i])
+        elif mixer == "linear":
+            q, k, v = attn.qkv_proj(sub["mixer"], h)
+            q, k = rope_fn(q), rope_fn(k)
+            o, a, b = lin.linear_attn_decode(q, _expand_kv(cfg, k),
+                                             _expand_kv(cfg, v), c0[i],
+                                             c1[i])
+            y = attn.out_proj(sub["mixer"], o)
         else:
             y, k_new, v_new = attn.attn_decode(sub["mixer"], cfg, h, c0[i],
                                                c1[i], index, rope_fn)
@@ -141,12 +174,21 @@ def stack_decode(params_layers, cfg, x, caches, index, rope_fn
 
 def init_cache(cfg, batch: int, max_len: int, device):
     """Zero caches stacked ``(L, ...)``: ``((k, v),)`` each ``(L, batch,
-    max_len, KV, hd)`` for attention; ``((conv_tail, ssd_state),)`` for
-    Mamba-2, which has no length axis."""
+    max_len, KV, hd)`` for softmax attention; ``((state, z),)`` fp32
+    ``(L, batch, H, hd, hd)`` and ``(L, batch, H, hd)`` for linear
+    attention and ``((conv_tail, ssd_state),)`` for Mamba-2, neither of
+    which has a length axis."""
     check_supported(cfg)
-    if sublayer_spec(cfg, 0)[0] == "mamba":
+    mixer = mixer_of(cfg)
+    if mixer == "mamba":
         return (mamba2.init_mamba_cache(cfg, batch, device,
                                         lead=(cfg.n_layers,)),)
+    if mixer == "linear":
+        lead = (cfg.n_layers, batch, cfg.n_heads)
+        return ((torch.zeros(lead + (cfg.hd, cfg.hd), dtype=torch.float32,
+                             device=device),
+                 torch.zeros(lead + (cfg.hd,), dtype=torch.float32,
+                             device=device)),)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return ((torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
              torch.zeros(shape, dtype=cfg.torch_dtype, device=device)),)

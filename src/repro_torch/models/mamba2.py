@@ -62,7 +62,8 @@ def ssd_reference(x, dt, A, Bm, Cm):
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 256
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked dual-form SSD from h = 0 (matches ``ssd_reference`` to
-    fp32 tolerance), all arithmetic in fp32."""
+    fp32 tolerance), all arithmetic in fp32 — in float64 for float64
+    inputs (an evaluation to hold the fp32 versions against)."""
     b, S, H, P = x.shape
     N = Bm.shape[3]
     chunk = min(chunk, S)
@@ -70,12 +71,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 256
         raise ValueError(f"ssd: sequence {S} is not a multiple of the "
                          f"chunk {chunk}")
     nc = S // chunk
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
 
-    xf = x.to(torch.float32).reshape(b, nc, chunk, H, P)
-    dtf = dt.to(torch.float32).reshape(b, nc, chunk, H)
-    Bf = _per_head(Bm, H, 2).to(torch.float32).reshape(b, nc, chunk, H, N)
-    Cf = _per_head(Cm, H, 2).to(torch.float32).reshape(b, nc, chunk, H, N)
-    la = dtf * A.to(torch.float32)[None, None, None, :]     # log a
+    xf = x.to(acc).reshape(b, nc, chunk, H, P)
+    dtf = dt.to(acc).reshape(b, nc, chunk, H)
+    Bf = _per_head(Bm, H, 2).to(acc).reshape(b, nc, chunk, H, N)
+    Cf = _per_head(Cm, H, 2).to(acc).reshape(b, nc, chunk, H, N)
+    la = dtf * A.to(acc)[None, None, None, :]               # log a
     cum = torch.cumsum(la, dim=2)                           # within-chunk
 
     # intra-chunk: Y[i] = sum_{j<=i} exp(cum_i - cum_j) (C_i.B_j) dt_j x_j;
@@ -102,7 +104,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 256
 
     # inter-chunk recurrence: the state *before* each chunk
     chunk_decay = torch.exp(cum[:, :, -1, :])               # (b,nc,H)
-    h = torch.zeros((b, H, N, P), dtype=torch.float32, device=x.device)
+    h = torch.zeros((b, H, N, P), dtype=acc, device=x.device)
     h_prevs = []
     for k in range(nc):
         h_prevs.append(h)

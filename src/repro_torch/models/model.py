@@ -1,5 +1,8 @@
 """Top-level language-model API: init / prefill / decode (decoder-only
-dense, VLM and SSM families)."""
+dense, VLM and SSM families; softmax or linear attention).  The cache's
+``layers`` are the decoder's: ``((k, v),)`` for softmax attention,
+``((state, z),)`` for linear attention, ``((conv_tail, ssd_state),)``
+for Mamba-2."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -156,8 +159,8 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, cache):
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       start_index: Optional[int] = None, device="cuda"):
     """Cache for a decode-only entry: zero caches of ``max_len`` positions
-    (attention) or zero state (Mamba-2), index ``max_len - 1`` unless
-    ``start_index`` is given."""
+    (softmax attention) or zero state (linear attention, Mamba-2), index
+    ``max_len - 1`` unless ``start_index`` is given."""
     idx = max_len - 1 if start_index is None else start_index
     return {"layers": dec.init_cache(cfg, batch, max_len, device),
             "index": torch.tensor(idx, dtype=torch.int32,
@@ -165,8 +168,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def count_params_analytic(cfg: ModelConfig) -> int:
-    """Analytic parameter count of the stacks the port covers (dense or
-    Mamba-2 mixers, dense FFN or none), the reference's formula."""
+    """Analytic parameter count of the stacks the port covers (softmax or
+    linear attention, which share their weights, or Mamba-2 mixers; dense
+    FFN or none), the reference's formula."""
     dec.check_supported(cfg)
     D, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     mixer, ffn = dec.sublayer_spec(cfg, 0)

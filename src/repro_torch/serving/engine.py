@@ -488,9 +488,10 @@ class ServingEngine:
         (B, bucket); logits read at each true prompt end (last_idx - 1).
         The cache width is the bucket rounded up to whole KV blocks, so a
         short prompt's prefill writes only the blocks its grant covers.
-        ``last_idx`` is also the stack's ``valid_len``: Mamba-2 state is
-        taken at each true prompt end, not after the padding (the
-        reference engine's SSM padding fault, ROADMAP §3)."""
+        ``last_idx`` is also the stack's ``valid_len``: Mamba-2 and
+        linear-attention state is taken at each true prompt end, not
+        after the padding (the reference engine's padding fault, ROADMAP
+        §3)."""
         cfg = self.cfg
         B, S = tokens.shape
         bs = self.slots.block_size

@@ -3,11 +3,13 @@
 Attention K/V live as fixed-size blocks ``(L, n_blocks, block_size, KV,
 hd)``; every admitted request owns a block table (host-side list of
 granted block ids) and decode gathers its context through it.  Mamba-2
-state (conv tail + SSD state) has no length axis: it is fixed-size per
+state (conv tail + SSD state) and linear-attention state (the running
+summary and normalizer) have no length axis: they are fixed-size per
 request, so those group positions stay slot-indexed, leaves ``(L,
-n_slots, ...)``.  Admission grants a request the blocks its lifetime
-needs, charged per slot class, and retirement returns them to the free
-deque at once.  Padded cohort rows carry the out-of-range sentinels slot
+n_slots, ...)``, and a config with no paged position has no block
+pool.  Admission grants a request the blocks its lifetime needs,
+charged per slot class, and retirement returns them to the free deque
+at once.  Padded cohort rows carry the out-of-range sentinels slot
 ``n_slots`` and block ``n_blocks``: gathers read zeros for them and
 scatters drop them.
 
@@ -30,10 +32,11 @@ from repro_torch.models import decoder as dec
 
 def paged_positions(cfg: ModelConfig) -> Tuple[bool, ...]:
     """Which group positions carry a length-indexed attention K/V cache —
-    the positions the pool blocks.  Mamba-2 state is fixed-size per
-    request, so it stays slot-indexed."""
+    the positions the pool blocks.  Mamba-2 and linear-attention state is
+    fixed-size per request, so it stays slot-indexed."""
     dec.check_supported(cfg)
     return tuple(dec.sublayer_spec(cfg, pos)[0] == "attn"
+                 and cfg.attn_impl != "linear"
                  for pos in range(dec.group_size(cfg)))
 
 
@@ -77,8 +80,9 @@ class PagedKVCache:
         self.block_size = block_size
         self.device = torch.device(device)
         self.paged = paged_positions(cfg)
-        # with no paged position (Mamba-2) a request needs no block: the
-        # pool has none, and admission grants empty tables
+        # with no paged position (Mamba-2, linear attention) a request
+        # needs no block: the pool has none, and admission grants empty
+        # tables
         self.blocks_per_slot = (-(-max_len // block_size)
                                 if any(self.paged) else 0)
         self.n_blocks = (n_slots * self.blocks_per_slot

@@ -28,7 +28,7 @@ def jax_to_numpy(tree):
 
 
 def to_port(tree, device="cpu"):
-    return bridge.from_numpy(jax_to_numpy(tree), device)
+    return bridge.from_numpy(jax_to_numpy(tree), device=device)
 
 
 def bits(a):

@@ -17,6 +17,8 @@ from repro_torch.kernels.fused_decode import (cohort_step, fused_mlp,
                                               fused_qkv, kv_scatter,
                                               ref_cohort_step, ref_fused_mlp,
                                               ref_fused_qkv, ref_kv_scatter)
+from repro_torch.kernels.linear_attention import (
+    linear_attention, ref_linear_attention_chunked)
 from repro_torch.kernels.ssd import ref_ssd_chunked, ssd
 
 pytestmark = pytest.mark.cuda
@@ -379,6 +381,41 @@ def test_ssd_kernel_state_at_mamba2_decay_rates(cuda):
     assert herr <= 1e-6, f"h_final rel err {herr}"
 
 
+def _ref_measure(got, want):
+    """The reference kernel tests' measure (tests/test_kernels.py): max
+    abs error over the largest |want|."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("dt_scale,dt_shift", [(1.0, 0.0), (1.0, 1.0),
+                                               (2.0, 2.0)])
+def test_ssd_kernel_fp32_output_in_the_reference_measure(cuda, dt_scale,
+                                                         dt_shift):
+    """fp32 at Mamba-2-1.3B's widths and decay rates (A = -linspace(1,
+    16), dt = softplus(scale normal + shift) up to ~10, 256-position
+    chunks, so the within-chunk log-decay sums reach ten thousand): the
+    kernel's y and the plain version's within 1e-4 of each other in the
+    reference's measure (the reference holds its fp32 SSD to it), and
+    each within 1e-4 of a float64 evaluation of the same inputs."""
+    x, dt, _, Bm, Cm = _ssd_inputs(cuda, 2, 1024, 64, 64, 1, 128,
+                                   torch.float32, seed=9)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    dt = torch.nn.functional.softplus(
+        torch.randn(dt.shape, generator=g, device=cuda) * dt_scale
+        + dt_shift)
+    A = -torch.linspace(1.0, 16.0, 64, device=cuda)
+    args = (x, dt, A, Bm, Cm)
+    y, _ = ssd(*args, chunk=256)
+    py, _ = ref_ssd_chunked(*args, chunk=256)
+    fy, _ = ref_ssd_chunked(*(t.double() for t in args), chunk=256)
+    for got, want, what in ((y, py, "kernel vs plain"),
+                            (y, fy, "kernel vs float64"),
+                            (py, fy, "plain vs float64")):
+        err = _ref_measure(got, want)
+        assert err <= 1e-4, f"{what}: {err}"
+
+
 def test_ssd_kernel_zero_dt_tail_leaves_the_state(cuda):
     """dt = 0 past position 1000 of 2048: the final state equals the
     1024-position call's on the same zeroed inputs (chunks that are
@@ -495,6 +532,209 @@ def test_mamba2_engine_on_card_prefills_through_the_kernel(cuda):
         assert all(r.error is None for r in done) and len(done) == 3
         prefills = sum(1 for e in eng.trace if e.event == "prefill_batch")
     assert counts["ssd"] == cfg.n_layers * prefills and prefills > 0
+    with torch.no_grad():
+        for r, p in zip(reqs, prompts):
+            _, cache = M.lm_prefill(eng.params, cfg,
+                                    torch.from_numpy(p[None]).to(cuda), 256)
+            want, _ = M.lm_decode_step(eng.params, cfg, torch.tensor(
+                [[r.out_tokens[0]]], dtype=torch.int32, device=cuda), cache)
+            got = first[r.slot]
+            assert (got - want[0]).abs().max().item() <= \
+                5e-2 * want.abs().max().item()
+
+
+# (B, S, H, KV, hd, chunk, valid_len): LLaVA-OneVision-0.5B's widths at
+# its 2 x 1024 prefill (GQA 7) with and without padding, the ragged
+# one-chunk 127 of a short engine's bucket, GQA 1, the reference kernel
+# tests' shapes, hd 128 and a width that is no multiple of 16
+LA_SHAPES = [(2, 1024, 14, 2, 64, 256, None),
+             (2, 1024, 14, 2, 64, 256, (700, 1024)),
+             (2, 127, 14, 2, 64, 256, None),
+             (2, 127, 14, 2, 64, 256, (127, 100)),
+             (2, 512, 4, 4, 64, 256, (300, 1)),
+             (2, 128, 4, 4, 32, 32, None), (3, 64, 5, 5, 16, 64, None),
+             (1, 256, 8, 2, 128, 256, (200,)), (1, 96, 6, 3, 40, 48, None)]
+
+
+def _la_inputs(dev, B, S, H, KV, hd, dtype=torch.bfloat16, seed=0):
+    """q, k = 0.5 normal and v = normal, like the reference kernel
+    tests; k and v at kv-head width."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(heads, scale):
+        return (torch.randn((B, S, heads, hd), generator=g, device=dev)
+                * scale).to(dtype)
+    return rn(H, 0.5), rn(KV, 0.5), rn(KV, 1.0)
+
+
+def _la_close(got, want, dtype, valid_len=None):
+    """state and z (fp32 in both) within 1e-4 of their largest
+    magnitude; every output row (b, i, h) within 2e-2 (bf16: one rounding
+    step) or 1e-4 (fp32) of that row's largest plain magnitude; rows at
+    or past valid_len exactly zero."""
+    (o, st, z), (ro, rst, rz) = got, want
+    assert o.shape == ro.shape and o.dtype == ro.dtype
+    assert st.shape == rst.shape and z.shape == rz.shape
+    assert st.dtype == z.dtype == torch.float32
+    assert o.isfinite().all() and st.isfinite().all() and z.isfinite().all()
+    for g, w in ((st, rst), (z, rz)):
+        err = (g - w).abs().max().item() / w.abs().max().item()
+        assert err <= 1e-4, f"state/z rel err {err}"
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    err = (o.float() - ro.float()).abs().amax(-1)
+    m = ro.float().abs().amax(-1)
+    assert (err[m == 0] == 0).all()
+    ratio = (err[m > 0] / m[m > 0]).max().item()
+    assert ratio <= tol, f"row err/max {ratio}"
+    if valid_len is not None:
+        pad = (torch.arange(o.shape[1], device=o.device)[None, :]
+               >= valid_len[:, None])
+        assert not o[pad].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", LA_SHAPES)
+def test_linear_attention_kernel_matches_plain(cuda, shape, dtype):
+    B, S, H, KV, hd, chunk, vl = shape
+    args = _la_inputs(cuda, B, S, H, KV, hd, dtype, seed=S + hd)
+    valid = (None if vl is None
+             else torch.tensor(vl, dtype=torch.int32, device=cuda))
+    reset_launch_counts()
+    got = linear_attention(*args, chunk=chunk, valid_len=valid)
+    torch.cuda.synchronize()
+    assert launch_counts()["linear_attention"] == 1
+    _la_close(got, ref_linear_attention_chunked(*args, chunk=chunk,
+                                                valid_len=valid),
+              dtype, valid)
+
+
+def test_linear_attention_kernel_padding_drops_out(cuda):
+    """A row padded from 700 to 1024 (noise in the pads) leaves the state
+    of the 700-position prompt, and its rows before 700 are those of the
+    700-position call (one chunk boundary moves: 1e-4 of the largest)."""
+    q, k, v = _la_inputs(cuda, 1, 1024, 14, 2, 64, torch.float32, seed=3)
+    valid = torch.tensor([700], dtype=torch.int32, device=cuda)
+    o, st, z = linear_attention(q, k, v, chunk=256, valid_len=valid)
+    ro, rst, rz = linear_attention(q[:, :700], k[:, :700], v[:, :700],
+                                   chunk=140)
+    for g, w in ((st, rst), (z, rz), (o[:, :700], ro)):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+    assert not o[:, 700:].any()
+
+
+def test_linear_attention_kernel_reads_strided_views(cuda):
+    """q, k and v as column slices of one fused projection output (B, S,
+    (H + 2 KV) hd): read through strides, the same bits as contiguous
+    copies."""
+    B, S, H, KV, hd = 2, 512, 14, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = (torch.randn((B, S, (H + 2 * KV) * hd), generator=g, device=cuda)
+           * 0.5).to(torch.bfloat16)
+    q = qkv[..., :H * hd].reshape(B, S, H, hd)
+    k = qkv[..., H * hd:(H + KV) * hd].reshape(B, S, KV, hd)
+    v = qkv[..., (H + KV) * hd:].reshape(B, S, KV, hd)
+    assert not q.is_contiguous() and not k.is_contiguous()
+    got = linear_attention(q, k, v, chunk=256)
+    want = linear_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            chunk=256)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    _la_close(got, ref_linear_attention_chunked(q, k, v, chunk=256),
+              torch.bfloat16)
+
+
+def test_linear_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _la_inputs(cuda, 1, 64, 4, 2, 16)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        linear_attention(q.half(), k.half(), v.half(), chunk=32)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        linear_attention(q[:, :48], k[:, :48], v[:, :48], chunk=32)
+    wide = torch.zeros((1, 64, 2, 256), dtype=q.dtype, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        linear_attention(wide, wide, wide, chunk=32)
+    with pytest.raises(ValueError, match="query heads"):
+        linear_attention(q[:, :, :3], k, v, chunk=32)
+    assert launch_counts()["linear_attention"] == 0
+
+
+def _linear_cfg(dtype):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("llava-onevision-0.5b").reduced(dtype=dtype),
+        attn_impl="linear", subquadratic=True)
+
+
+def test_linear_attention_prefill_on_card_matches_cpu(cuda):
+    """Reduced llava with ``attn_impl="linear"`` (fp32): ``lm_prefill`` on
+    the card (the kernel in every layer) against the same weights on the
+    CPU (the plain chunked form), logits and (state, z) within 1e-4;
+    then one decode step."""
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    cfg = _linear_cfg("float32")
+    params = M.init_params(cfg, device="cpu", seed=0)
+    gpu = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        3, cfg.vocab_size, (2, 512)).astype(np.int32))
+    with torch.no_grad():
+        want, wc = M.lm_prefill(params, cfg, toks, 520)
+        reset_launch_counts()
+        got, gc = M.lm_prefill(gpu, cfg, toks.to(cuda), 520)
+        torch.cuda.synchronize()
+        assert launch_counts()["linear_attention"] == cfg.n_layers
+        m = want.abs().max().item()
+        assert (got.cpu() - want).abs().max().item() <= 1e-4 * m
+        for w, g in zip(wc["layers"][0], gc["layers"][0]):
+            assert (g.cpu() - w).abs().max().item() <= \
+                1e-4 * w.abs().max().item()
+        nxt = torch.tensor([[5], [7]], dtype=torch.int32)
+        w2, _ = M.lm_decode_step(params, cfg, nxt, wc)
+        g2, _ = M.lm_decode_step(gpu, cfg, nxt.to(cuda), gc)
+        assert (g2.cpu() - w2).abs().max().item() <= \
+            1e-4 * w2.abs().max().item()
+
+
+def test_linear_attention_engine_on_card_prefills_through_the_kernel(cuda):
+    """ServingEngine on the card (reduced llava with linear attention,
+    bf16, q4): every prefill layer launches the kernel, decode runs the
+    composed step over the slot-state pool, requests finish; each padded
+    request's first decode logits agree with the model on its unpadded
+    prompt."""
+    from repro_torch.core.quantize import PROFILES, quantize_tree
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = _linear_cfg("bfloat16")
+    params = quantize_tree(M.init_params(cfg, device=cuda),
+                           PROFILES["nanomind-serve"])
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for n in (64, 20, 100)]
+    first = {}
+    with ServingEngine(cfg, params, n_slots=4, max_len=256,
+                       device=cuda) as eng:
+        assert not eng.use_fused and eng.slots.paged == (False,)
+        decode = eng._decode
+
+        def recording_decode(tokens, lengths, slot_ids, tables):
+            logits, pool = decode(tokens, lengths, slot_ids, tables)
+            for b, s in enumerate(slot_ids.tolist()):
+                first.setdefault(s, logits[b].clone())
+            return logits, pool
+        eng._decode = recording_decode
+        reqs = [Request(rid=i, tokens=p, max_new_tokens=3)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        reset_launch_counts()
+        done = eng.run()
+        counts = launch_counts()
+        assert all(r.error is None for r in done) and len(done) == 3
+        prefills = sum(1 for e in eng.trace if e.event == "prefill_batch")
+    # the three prompts share the 128 bucket: one batch-3 prefill
+    assert counts["linear_attention"] == cfg.n_layers * prefills
+    assert prefills == 1
     with torch.no_grad():
         for r, p in zip(reqs, prompts):
             _, cache = M.lm_prefill(eng.params, cfg,

@@ -14,9 +14,11 @@ uniform, so beyond a near-tie a benign rounding difference may
 legitimately pick the other token and fork the rest of the trajectory.
 At least 3/4 of all tokens must be compared.
 
-Reduced Mamba-2 (fp32, nanomind-serve) is held against the reference's
-MODEL, not its engine: the reference engine right-pads prompts into the
-SSM state (ROADMAP §3).  Each request's prefill logits and its first
+Reduced Mamba-2 (fp32, nanomind-serve) and reduced llava with the
+paper's streaming linear attention are held against the reference's
+MODEL, not its engine: the reference engine right-pads prompts into SSM
+and linear-attention state (ROADMAP §3; a test here shows it for the
+linear-attention state).  Each request's prefill logits and its first
 three decode steps' logits must match the reference's ``lm_prefill`` on
 the unpadded prompt plus teacher-forced ``lm_decode_step`` within 1e-4
 of the largest logit.
@@ -151,21 +153,13 @@ def test_qwen2_vl_engine_serves_mix_like_reference():
     _check_tokens(want, margins, got)
 
 
-def test_mamba2_engine_matches_the_unpadded_reference_model():
-    """Prompts of 20, 32 and 64 tokens share the 128 bucket, so each is
-    right-padded by 108, 96 and 64 positions in one batch-3 prefill; the
-    engine takes each row's SSM state and conv tail at its true end, and
-    its logits then follow the reference model run on the unpadded
-    prompt (chunk 32 admits these lengths) through three decode steps,
-    teacher-forced with the engine's own tokens."""
-    rcfg, rparams, tcfg, tparams = shared_params("mamba2-1.3b", "float32",
-                                                 "nanomind-serve")
-    rng = np.random.default_rng(5)
-    lens, new = (20, 32, 64), 4
-    prompts = [rng.integers(3, tcfg.vocab_size, n).astype(np.int32)
-               for n in lens]
+def _serve_text(cfg, params, prompts, new, check_prefill=None):
+    """Serve text-only ``prompts`` (``new`` tokens each) on the port's
+    engine on the CPU; record the prefill logits and every decode step's
+    (slot ids, logits).  Returns (requests, prefill record, steps, slot
+    of each request id)."""
     pre, steps = {}, []
-    with ServingEngine(tcfg, tparams, n_slots=4, max_len=256,
+    with ServingEngine(cfg, params, n_slots=4, max_len=256,
                        device="cpu") as eng:
         assert not eng.use_fused and eng.slots.paged == (False,)
         assert eng.slots.n_blocks == eng.slots.blocks_per_slot == 0
@@ -173,7 +167,8 @@ def test_mamba2_engine_matches_the_unpadded_reference_model():
 
         def recording_prefill(tokens, vision, last_idx):
             logits, cache = prefill(tokens, vision, last_idx)
-            assert tuple(tokens.shape) == (len(lens), 128)
+            if check_prefill is not None:
+                check_prefill(tokens, cache)
             pre.update(logits=logits.clone(), lens=last_idx.tolist())
             return logits, cache
 
@@ -190,7 +185,16 @@ def test_mamba2_engine_matches_the_unpadded_reference_model():
         assert all(r.error is None for r in done)
         eng.slots.check_block_invariants()
         slot_of = {r.rid: r.slot for r in reqs}
-    assert pre["lens"] == list(lens) and len(steps) == new - 1
+    assert pre["lens"] == [len(p) for p in prompts]
+    assert len(steps) == new - 1
+    return reqs, pre, steps, slot_of
+
+
+def _hold_against_unpadded_model(rcfg, rparams, prompts, served):
+    """Each request's prefill logits and decode steps' logits against the
+    reference's ``lm_prefill`` on the unpadded prompt plus teacher-forced
+    ``lm_decode_step``, within 1e-4 of the largest logit."""
+    reqs, pre, steps, slot_of = served
     prefill_fn = jax.jit(RM.lm_prefill, static_argnums=(1, 3))
     decode_fn = jax.jit(RM.lm_decode_step, static_argnums=(1,))
     for b, req in enumerate(reqs):
@@ -207,6 +211,126 @@ def test_mamba2_engine_matches_the_unpadded_reference_model():
             w, g = f32(w), f32(g)
             assert float(np.abs(w - g).max()) <= 1e-4 * float(
                 np.abs(w).max())
+
+
+def test_mamba2_engine_matches_the_unpadded_reference_model():
+    """Prompts of 20, 32 and 64 tokens share the 128 bucket, so each is
+    right-padded by 108, 96 and 64 positions in one batch-3 prefill; the
+    engine takes each row's SSM state and conv tail at its true end, and
+    its logits then follow the reference model run on the unpadded
+    prompt (chunk 32 admits these lengths) through three decode steps,
+    teacher-forced with the engine's own tokens."""
+    rcfg, rparams, tcfg, tparams = shared_params("mamba2-1.3b", "float32",
+                                                 "nanomind-serve")
+    rng = np.random.default_rng(5)
+    lens, new = (20, 32, 64), 4
+    prompts = [rng.integers(3, tcfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+
+    def check_prefill(tokens, cache):
+        assert tuple(tokens.shape) == (len(lens), 128)
+    served = _serve_text(tcfg, tparams, prompts, new, check_prefill)
+    _hold_against_unpadded_model(rcfg, rparams, prompts, served)
+
+
+LINEAR = {"attn_impl": "linear", "subquadratic": True}
+
+
+def _linear_params():
+    """Reduced llava (fp32, nanomind-serve) with the paper's streaming
+    linear attention, for both packages: llava's own weights."""
+    rcfg, rparams, tcfg, tparams = shared_params(ARCH, "float32",
+                                                 "nanomind-serve")
+    return (dataclasses.replace(rcfg, **LINEAR), rparams,
+            dataclasses.replace(tcfg, **LINEAR), tparams)
+
+
+def test_linear_attention_engine_matches_the_unpadded_reference_model():
+    """Reduced llava with ``attn_impl="linear"``: text prompts of 20, 45
+    and 100 tokens right-padded into one batch-3 prefill of the 128
+    bucket; the engine keeps each row's (state, z) at its true end (the
+    kernel wrapper's ``valid_len``) in the slot pool, which holds no KV
+    blocks, and its logits follow the reference model run on the
+    unpadded prompt through three decode steps (the composed step)."""
+    rcfg, rparams, tcfg, tparams = _linear_params()
+    rng = np.random.default_rng(8)
+    lens, new = (20, 45, 100), 4
+    prompts = [rng.integers(3, tcfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+
+    def check_prefill(tokens, cache):
+        assert tuple(tokens.shape) == (len(lens), 128)
+        state, z = cache["layers"][0]
+        L, H, hd = tcfg.n_layers, tcfg.n_heads, tcfg.hd
+        assert tuple(state.shape) == (L, len(lens), H, hd, hd)
+        assert tuple(z.shape) == (L, len(lens), H, hd)
+    served = _serve_text(tcfg, tparams, prompts, new, check_prefill)
+    _hold_against_unpadded_model(rcfg, rparams, prompts, served)
+
+
+def test_linear_attention_engine_serves_the_vision_mix():
+    """The llava mix (three slot classes, mid-flight admit and retire,
+    one shared staging) on the linear-attention variant at ``max_len``
+    128: one ragged 127-position prefill chunk, vision spliced from the
+    TABM ring, every request finishes and releases its slot, and the
+    slot pool holds L x n_slots x H (hd^2 + hd) fp32 state whatever the
+    length."""
+    _, _, tcfg, tparams = _linear_params()
+    with ServingEngine(tcfg, tparams, n_slots=2, max_len=128, block_size=32,
+                       device="cpu") as eng:
+        reqs = _mix(Request, tcfg)
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run()
+        assert len(done) == len(reqs) and all(r.error is None for r in done)
+        assert all(len(r.out_tokens) == r.max_new_tokens for r in done)
+        stats = eng.tabm.stats
+        assert stats["writes"] == stats["reads"] and stats["shares"] == 1
+        eng.slots.check_block_invariants()
+        assert sorted(eng.slots.free) == [0, 1] and not eng.live
+        L, H, hd = tcfg.n_layers, tcfg.n_heads, tcfg.hd
+        assert eng.slots.nbytes == L * 2 * H * (hd * hd + hd) * 4
+
+
+def test_reference_engine_pads_into_linear_attention_state():
+    """The fault the port repairs (ROADMAP §3): the reference engine
+    right-pads a 20-token prompt to the 128 bucket and its prefill sums
+    phi(k) v^T and phi(k) over the 108 pads too, so the (state, z) it
+    lands in the slot is not the unpadded prompt's (phi > 0: z alone
+    grows with the 128 summed positions).  The port's engine lands the
+    unpadded prompt's state, within 1e-4."""
+    rcfg, rparams, tcfg, tparams = _linear_params()
+    prompt = np.random.default_rng(9).integers(
+        3, tcfg.vocab_size, 20).astype(np.int32)
+    _, want = jax.jit(RM.lm_prefill, static_argnums=(1, 3))(
+        rparams, rcfg, jnp.asarray(prompt[None]), 256)
+    want = [f32(t[:, 0]) for t in want["layers"][0]]
+    landed = {}
+    with RServingEngine(rcfg, rparams, n_slots=2, max_len=256) as eng:
+        insert = eng.slots.insert_many
+
+        def capture(slots, cache, lens):
+            landed["reference"] = [f32(t[:, 0]) for t in cache["layers"][0]]
+            return insert(slots, cache, lens)
+        eng.slots.insert_many = capture
+        eng.submit(RRequest(rid=0, tokens=prompt, max_new_tokens=2))
+        assert all(r.error is None for r in eng.run())
+    with ServingEngine(tcfg, tparams, n_slots=2, max_len=256,
+                       device="cpu") as eng:
+        insert = eng.slots.insert_many
+
+        def capture_port(slots, cache, lens):
+            landed["port"] = [f32(t[:, 0]) for t in cache["layers"][0]]
+            return insert(slots, cache, lens)
+        eng.slots.insert_many = capture_port
+        eng.submit(Request(rid=0, tokens=prompt, max_new_tokens=2))
+        assert all(r.error is None for r in eng.run())
+
+    def rel(w, g):
+        return float(np.abs(w - g).max() / np.abs(w).max())
+    for w, r, t in zip(want, landed["reference"], landed["port"]):
+        assert rel(w, r) > 0.5
+        assert rel(w, t) <= 1e-4
 
 
 def test_plan_run_same_on_device_and_host_backends():

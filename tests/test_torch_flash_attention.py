@@ -40,7 +40,8 @@ def _inputs(B, Sq, Sk, H, KV, hd, dtype, seed):
     arrs = [jnp.asarray(rng.standard_normal(s).astype(np.float32).astype(
         jnp.dtype(dtype)))
             for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
-    return arrs, [bridge.array_to_tensor(np.asarray(a)) for a in arrs]
+    return arrs, [bridge.array_to_tensor(np.asarray(a), device="cpu")
+                  for a in arrs]
 
 
 def _f32(t):

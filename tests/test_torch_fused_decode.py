@@ -45,7 +45,7 @@ def _weight(rng, shape, label, dtype):
     quantize (bit-equal to the reference's, test_torch_quantize_bridge)."""
     w = jnp.asarray(rng.standard_normal(shape).astype(np.float32)
                     / np.sqrt(shape[0])).astype(dtype)
-    tw = bridge.array_to_tensor(np.asarray(w))
+    tw = bridge.array_to_tensor(np.asarray(w), device="cpu")
     if SPEC[label] is None:
         return w, tw
     nbits, g = SPEC[label]
@@ -70,8 +70,8 @@ def test_fused_qkv_plain_matches_reference(dtype, label):
     ws = [_weight(rng, (D, n, hd), label, dtype) for n in (H, KV, KV)]
     bs = [jnp.asarray(rng.standard_normal((n, hd)).astype(np.float32)
                       ).astype(dtype) for n in (H, KV, KV)]
-    th = bridge.array_to_tensor(np.asarray(h))
-    tb = [bridge.array_to_tensor(np.asarray(b)) for b in bs]
+    th = bridge.array_to_tensor(np.asarray(h), device="cpu")
+    tb = [bridge.array_to_tensor(np.asarray(b), device="cpu") for b in bs]
     for bias in (False, True):
         want = ref_fused_qkv(h, *[w[0] for w in ws],
                                 *(bs if bias else (None,) * 3))
@@ -92,7 +92,7 @@ def test_fused_mlp_plain_matches_reference(dtype, label):
     D, F, bc = 64, 128, 3
     h = jnp.asarray(rng.standard_normal((bc, 1, D)).astype(np.float32)
                     ).astype(dtype)
-    th = bridge.array_to_tensor(np.asarray(h))
+    th = bridge.array_to_tensor(np.asarray(h), device="cpu")
     up = _weight(rng, (D, F), label, dtype)
     down = _weight(rng, (F, D), label, dtype)
     gate = _weight(rng, (D, F), label, dtype)
@@ -123,7 +123,8 @@ def test_kv_scatter_bit_exact_and_sentinel_writes_nothing():
                              vp)
     pallas = RF.kv_scatter(jnp.asarray(blk), jnp.asarray(off), kr, vr, kp,
                            vp, interpret=True)
-    t = [bridge.array_to_tensor(np.asarray(a)) for a in (kr, vr, kp, vp)]
+    t = [bridge.array_to_tensor(np.asarray(a), device="cpu")
+         for a in (kr, vr, kp, vp)]
     got = TF.kv_scatter(torch.from_numpy(blk), torch.from_numpy(off), *t)
     assert got[0] is t[2] and got[1] is t[3]       # written in place
     for w, p, g in zip(want, pallas, got):
@@ -182,7 +183,7 @@ def _check_cohort_step(arch, dtype, bc):
             written[:, blk, lengths[b] % bs] = True
     tol, wtol = (1e-4, 1e-4) if dtype == "float32" else (5e-2, 2e-2)
     for fused in (False, True):
-        tpool = tuple(tuple(bridge.array_to_tensor(np.asarray(l))
+        tpool = tuple(tuple(bridge.array_to_tensor(np.asarray(l), device="cpu")
                             for l in pos) for pos in pool)
         with torch.no_grad():
             tl, tpool2 = TF.cohort_step(

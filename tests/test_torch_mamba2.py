@@ -73,8 +73,8 @@ def test_mixer_forward_then_decode_match_reference(dtype):
     x = _hidden(rng, (2, 64, rcfg.d_model), dtype)
     ro, (rtail, rh) = RM2.mamba_forward(rp, rcfg, jnp.asarray(x))
     with torch.no_grad():
-        to, (ttail, th) = TM2.mamba_forward(tp, tcfg,
-                                            bridge.array_to_tensor(x))
+        to, (ttail, th) = TM2.mamba_forward(
+            tp, tcfg, bridge.array_to_tensor(x, device="cpu"))
     _check(ro, to, dtype)
     _check(rtail, ttail, dtype)
     assert th.dtype == torch.float32 and _rel_err(rh, th) < 1e-4
@@ -84,7 +84,7 @@ def test_mixer_forward_then_decode_match_reference(dtype):
                                            rh)
         with torch.no_grad():
             to, (ttail, th) = TM2.mamba_decode(
-                tp, tcfg, bridge.array_to_tensor(xn), ttail, th)
+                tp, tcfg, bridge.array_to_tensor(xn, device="cpu"), ttail, th)
         _check(ro, to, dtype)
         _check(rtail, ttail, dtype)
         assert _rel_err(rh, th) < 1e-4
@@ -102,7 +102,7 @@ def test_valid_len_matches_reference_on_the_truncated_input(dtype):
     x = _hidden(rng, (len(lens), 64, rcfg.d_model), dtype)
     with torch.no_grad():
         to, (ttail, th) = TM2.mamba_forward(
-            tp, tcfg, bridge.array_to_tensor(x),
+            tp, tcfg, bridge.array_to_tensor(x, device="cpu"),
             valid_len=torch.tensor(lens, dtype=torch.int32))
     for b, n in enumerate(lens):
         ro, (rtail, rh) = RM2.mamba_forward(rp, rcfg, jnp.asarray(x[b:b + 1,
@@ -142,7 +142,7 @@ def test_cohort_step_over_slot_state_matches_reference(dtype, bc):
         jnp.asarray(slot_ids), jnp.asarray(tables),
         tuple(tuple(jnp.asarray(l) for l in pos) for pos in pool),
         block_size=8, paged=(False,))
-    tpool = tuple(tuple(bridge.array_to_tensor(l) for l in pos)
+    tpool = tuple(tuple(bridge.array_to_tensor(l, device="cpu") for l in pos)
                   for pos in pool)
     args = [torch.from_numpy(a) for a in (tokens, lengths, slot_ids, tables)]
     with torch.no_grad():
@@ -228,7 +228,7 @@ def test_slot_pool_matches_reference_pool():
     rpool.insert_many([2, 0], {"layers": (tuple(
         jnp.asarray(b) for b in batch),)}, [5, 9])
     tpool.insert_many([2, 0], {"layers": (tuple(
-        bridge.array_to_tensor(b) for b in batch),)}, [5, 9])
+        bridge.array_to_tensor(b, device="cpu") for b in batch),)}, [5, 9])
     for r, t in zip(rpool.pool[0], tpool.pool[0]):
         assert tuple(t.shape) == r.shape
         assert np.array_equal(bits(np.asarray(r)),

@@ -4,8 +4,9 @@ one decode step's logits, for reduced llava (VLM, qkv biases, projector),
 reduced stablelm (LayerNorm, partial RoPE, plain weights), reduced
 mamba2 (SSD mixers, conv tail and SSD state as the cache) and reduced
 qwen2-vl (M-RoPE, untied packed head, single-region attention:
-``attn_q_chunk=0``), plus ``apply_mrope`` on three distinct position
-streams.
+``attn_q_chunk=0``) and reduced llava with the paper's streaming linear
+attention (``attn_impl="linear"``: the (state, z) caches per query
+head), plus ``apply_mrope`` on three distinct position streams.
 
 fp32 agrees within 1e-4 of the largest logit.  In bf16 both frameworks
 round every activation to bf16, but at different points (and in
@@ -111,7 +112,7 @@ def test_apply_mrope_matches_reference(dtype):
                    ).astype(np.int32)
     assert len({tuple(p.ravel()) for p in pos}) == 3
     want = f32(apply_mrope(x, jnp.asarray(pos), 1e6))
-    got = port_apply_mrope(bridge.array_to_tensor(np.asarray(x)),
+    got = port_apply_mrope(bridge.array_to_tensor(np.asarray(x), device="cpu"),
                       torch.from_numpy(pos), 1e6)
     assert got.dtype == torch_dtype(dtype)
     m = float(np.abs(f32(x)).max())
@@ -165,3 +166,59 @@ def test_qwen2_vl_logits_match_reference(qwen_reference, q_chunk):
     for r, t in zip(rcache["layers"][0], tcache["layers"][0]):
         assert _rel_err(r, t) <= TOL["float32"]
     assert _rel_err(rl2, tl2) <= TOL["float32"]
+
+
+LINEAR = {"attn_impl": "linear", "subquadratic": True}
+
+
+@pytest.mark.parametrize("dtype,seq", [("float32", 16), ("bfloat16", 16),
+                                       ("float32", 512)])
+def test_linear_attention_variant_matches_reference(dtype, seq):
+    """Reduced llava with ``attn_impl="linear"`` (the reference test's
+    variant), its ``nanomind-serve`` weights (llava's own tree): prefill
+    logits, the (state, z) caches of every layer and one decode step's
+    logits against the reference's.  At 512 positions the prefill runs
+    two chunks of 256."""
+    rcfg, rparams, tcfg, tparams = shared_params(
+        "llava-onevision-0.5b", dtype, "nanomind-serve")
+    rcfg = dataclasses.replace(rcfg, **LINEAR)
+    tcfg = dataclasses.replace(tcfg, **LINEAR)
+    rng = np.random.default_rng(7)
+    toks = rng.integers(3, rcfg.vocab_size, (2, seq)).astype(np.int32)
+    feats = (rng.standard_normal((2, rcfg.vision_tokens,
+                                  rcfg.vision_feat_dim)) * 0.02
+             ).astype(np.float32)
+    nxt = np.array([[5], [7]], np.int32)
+    rl, rcache = ref_prefill(rparams, rcfg, jnp.asarray(toks), seq + 16,
+                             vision_feats=jnp.asarray(feats))
+    rl2, rcache2 = ref_decode_step(rparams, rcfg, jnp.asarray(nxt), rcache)
+    with torch.no_grad():
+        tl, tcache = TM.lm_prefill(tparams, tcfg, torch.from_numpy(toks),
+                                   seq + 16,
+                                   vision_feats=torch.from_numpy(feats))
+        tl2, tcache2 = TM.lm_decode_step(tparams, tcfg,
+                                         torch.from_numpy(nxt), tcache)
+    L, H, hd = tcfg.n_layers, tcfg.n_heads, tcfg.hd
+    assert _rel_err(rl, tl) <= TOL[dtype]
+    assert _rel_err(rl2, tl2) <= TOL[dtype]
+    for want, got in ((rcache, tcache), (rcache2, tcache2)):
+        (rs, rz), (ts, tz) = want["layers"][0], got["layers"][0]
+        assert tuple(ts.shape) == rs.shape == (L, 2, H, hd, hd)
+        assert tuple(tz.shape) == rz.shape == (L, 2, H, hd)
+        assert ts.dtype == tz.dtype == torch.float32
+        assert _rel_err(rs, ts) <= TOL[dtype]
+        assert _rel_err(rz, tz) <= TOL[dtype]
+
+
+def test_linear_init_cache_matches_reference_layout():
+    from repro.configs import get_config as ref_config
+    from repro.models import decoder as RD
+    from repro_torch.models import decoder as TD
+    arch = "llava-onevision-0.5b"
+    rcfg = dataclasses.replace(ref_config(arch).reduced(), **LINEAR)
+    tcfg = dataclasses.replace(get_config(arch).reduced(), **LINEAR)
+    want = RD.init_cache(rcfg, 3, 16)
+    got = TD.init_cache(tcfg, 3, 16, "cpu")
+    for w, g in zip(want[0], got[0]):
+        assert tuple(g.shape) == w.shape and not g.any()
+        assert str(g.dtype).replace("torch.", "") == str(w.dtype)

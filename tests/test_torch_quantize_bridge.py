@@ -9,13 +9,18 @@
   ``quantize_tree(nanomind-serve)`` — reference -> port -> numpy bit for
   bit, and the port's own ``quantize_tree`` packs the same leaves the
   same way.
+* The bridge puts tensors on the card unless the caller asks for the
+  CPU, and carries the linear-attention variant's (state, z) caches
+  both ways bit for bit.
 * Mamba-2-1.3B's layer leaves at their full widths: ``nanomind-serve``
   packs the same ones (the projections, the conv taps and bias, both
   norm scales) to the same codes and scales in both packages, keeps
   A_log, D and dt_bias fp32, and the per-layer dequantize the decoder
   runs is bit-equal to the reference's.
 """
+import dataclasses
 import functools
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -23,13 +28,16 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import bits, flat, jax_to_numpy, to_port
+from _torch_parity import (bits, flat, from_numpy_to_ref, jax_to_numpy,
+                           shared_params, to_port)
 from repro.configs import get_config as ref_config
 from repro.core import quantize as RQ
 from repro.launch.steps import init_params as ref_init
+from repro.models import model as RM
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.core import quantize as TQ
+from repro_torch.models import model as TM
 from repro_torch.models.model import init_params
 from repro_torch.tree import tree_leaves
 
@@ -52,7 +60,8 @@ def test_quantize_matches_reference(shape, nbits, group, dtype):
     for w in (normal, grid):   # grid: exact groups, the max-abs tie wins
         wj = jnp.asarray(w).astype(dtype)
         rq = RQ.quantize(wj, rspec)
-        tq = TQ.quantize(bridge.array_to_tensor(np.asarray(wj)), tspec)
+        tq = TQ.quantize(bridge.array_to_tensor(np.asarray(wj), device="cpu"),
+                         tspec)
         assert np.array_equal(np.asarray(rq.codes), tq.codes.numpy())
         assert np.array_equal(bits(np.asarray(rq.scales)),
                               bits(tq.scales.numpy()))
@@ -105,7 +114,7 @@ def _leaves_equal(a, b):
 def test_bridge_round_trip_is_bit_exact(quantized):
     params = ref_params("nanomind-serve" if quantized else None)
     src = jax_to_numpy(params)
-    port = bridge.from_numpy(src)
+    port = bridge.from_numpy(src, device="cpu")
     n_q = sum(isinstance(l, TQ.QTensor) for l in tree_leaves(port))
     assert (n_q > 0) == quantized
     back = bridge.to_numpy(port)
@@ -122,7 +131,8 @@ def test_port_quantize_tree_matches_reference():
     got = bridge.to_numpy(TQ.quantize_tree(to_port(params),
                                            TQ.PROFILES[policy]))
     _leaves_equal(want, got)
-    assert RQ.tree_bytes(qparams) == TQ.tree_bytes(bridge.from_numpy(want))
+    assert RQ.tree_bytes(qparams) == TQ.tree_bytes(
+        bridge.from_numpy(want, device="cpu"))
 
 
 def test_init_params_has_reference_shapes_and_scales():
@@ -187,3 +197,44 @@ def test_mamba_leaves_quantize_like_reference():
         for i in (0, t.shape[0] - 1):   # the decoder's per-layer slice
             assert torch.equal(TQ.dequantize(t.layer(i)).view(torch.int16),
                                full[i].view(torch.int16))
+
+
+def test_bridge_defaults_to_the_card():
+    """Like every entry point of the port, the bridge defaults to
+    ``cuda``: without a card, a call that does not ask for the CPU
+    raises instead of quietly staying on the host."""
+    for fn in (bridge.array_to_tensor, bridge.from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    a = np.arange(6, dtype=np.float32).reshape(2, 3)
+    if torch.cuda.is_available():
+        assert bridge.array_to_tensor(a).is_cuda
+        assert bridge.from_numpy({"w": a})["w"].is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            bridge.array_to_tensor(a)
+        with pytest.raises((AssertionError, RuntimeError)):
+            bridge.from_numpy({"w": a})
+    assert bridge.array_to_tensor(a, device="cpu").device.type == "cpu"
+
+
+def test_bridge_carries_linear_attention_caches_both_ways():
+    """The variant's parameters are llava's tree (the bridge carries
+    them as they are), and its (state, z) caches cross reference ->
+    port -> numpy and port -> numpy -> reference bit for bit."""
+    linear = {"attn_impl": "linear", "subquadratic": True}
+    rcfg, rparams, tcfg, tparams = shared_params(ARCH, "float32",
+                                                 "nanomind-serve")
+    rcfg = dataclasses.replace(rcfg, **linear)
+    tcfg = dataclasses.replace(tcfg, **linear)
+    toks = np.random.default_rng(3).integers(3, 500, (2, 16)).astype(
+        np.int32)
+    _, rcache = RM.lm_prefill(rparams, rcfg, jnp.asarray(toks), 32)
+    src = jax_to_numpy(rcache["layers"])
+    port = bridge.from_numpy(src, device="cpu")
+    assert all(t.dtype == torch.float32 for t in port[0])
+    _leaves_equal(src, bridge.to_numpy(port))
+    with torch.no_grad():
+        _, tcache = TM.lm_prefill(tparams, tcfg, torch.from_numpy(toks), 32)
+    back = from_numpy_to_ref(bridge.to_numpy(tcache["layers"]))
+    for r, t in zip(back[0], tcache["layers"][0]):
+        assert np.array_equal(bits(np.asarray(r)), bits(t.numpy()))

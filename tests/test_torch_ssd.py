@@ -49,7 +49,7 @@ def _inputs(shape, dtype, seed=0):
 
 
 def _torch(*arrays):
-    return [bridge.array_to_tensor(a) for a in arrays]
+    return [bridge.array_to_tensor(a, device="cpu") for a in arrays]
 
 
 def _rel_err(want, got):
@@ -75,7 +75,7 @@ def test_plain_ssd_matches_reference(shape, chunk, dtype):
     before = launch_counts()["ssd"]
     y, h = ssd(*_torch(*arrs), chunk=chunk)
     assert launch_counts()["ssd"] == before
-    assert y.dtype == bridge.array_to_tensor(arrs[0]).dtype
+    assert y.dtype == bridge.array_to_tensor(arrs[0], device="cpu").dtype
     assert h.dtype == torch.float32
     jarrs = [jnp.asarray(a) for a in arrs]
     for ry, rh in (ref_ssd(*jarrs),
@@ -137,18 +137,21 @@ def test_ssd_refuses_a_ragged_chunk_and_unknown_devices():
         ssd(*(t.to("meta") for t in (x, dt, A, Bm, Cm)), chunk=16)
 
 
-def _state_f64(x, dt, A, Bm, Cm):
-    """h_final of the sequential recurrence in float64 (numpy)."""
+def _recurrence_f64(x, dt, A, Bm, Cm):
+    """(y, h_final) of the sequential recurrence in float64 (numpy)."""
     B, S, H, P = x.shape
     rep = H // Bm.shape[2]
     Bh = np.repeat(Bm.astype(np.float64), rep, axis=2)
+    Ch = np.repeat(Cm.astype(np.float64), rep, axis=2)
     dt, x = dt.astype(np.float64), x.astype(np.float64)
     a = np.exp(dt * A.astype(np.float64))
     h = np.zeros((B, H, P, Bm.shape[3]))
+    ys = []
     for t in range(S):
         h = (a[:, t, :, None, None] * h + dt[:, t, :, None, None]
              * x[:, t, :, :, None] * Bh[:, t, :, None, :])
-    return h
+        ys.append(np.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    return np.stack(ys, axis=1), h
 
 
 def test_plain_ssd_state_at_mamba2_decay_rates():
@@ -164,6 +167,23 @@ def test_plain_ssd_state_at_mamba2_decay_rates():
         np.float32)
     A = (-np.linspace(1.0, 16.0, 16)).astype(np.float32)
     _, h = ssd(*_torch(x, dt, A, Bm, Cm), chunk=256)
-    want = _state_f64(x, dt, A, Bm, Cm)
+    want = _recurrence_f64(x, dt, A, Bm, Cm)[1]
     err = float(np.abs(h.double().numpy() - want).max())
     assert err <= 1e-6 * float(np.abs(want).max()), err
+
+
+def test_plain_ssd_evaluates_float64_inputs_in_float64():
+    """Float64 inputs keep float64 arithmetic and outputs (the evaluation
+    the card's checks hold the fp32 kernel and plain version against):
+    y and h_final within 1e-12 of a float64 recurrence's largest
+    magnitude, at Mamba-2's decay rates over two 256-position chunks."""
+    x, dt, _, Bm, Cm = _inputs((1, 512, 8, 8, 1, 16), "float32", seed=7)
+    A = (-np.linspace(1.0, 16.0, 8)).astype(np.float32)
+    args = [torch.from_numpy(a.astype(np.float64)) for a in (x, dt, A, Bm,
+                                                             Cm)]
+    y, h = ssd(*args, chunk=256)
+    assert y.dtype == h.dtype == torch.float64
+    wy, wh = _recurrence_f64(x, dt, A, Bm, Cm)
+    for got, want in ((y, wy), (h, wh)):
+        err = float(np.abs(got.numpy() - want).max())
+        assert err <= 1e-12 * float(np.abs(want).max()), err
