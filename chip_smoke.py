@@ -1285,24 +1285,34 @@ def linear_checks(sm, cfg, eng, run, tol):
 def linear_attention_work(B, S, H, KV, hd, chunk, esize=2):
     """(bytes, operations) the linear-attention function needs: q, k, v
     (k and v at kv-head width) and out in ``esize``-byte elements, state
-    and z in fp32, each read or written once; the operations of the
-    chunked form with nothing computed twice.  Per chunk of L rows
-    (L(L+1)/2 causal pairs) and query head: phi(q).phi(k) and the
-    weights times v, 2 hd each per pair, and the row sum, 1 per pair;
-    from the second chunk on phi(q).S_prev and phi(q).z_prev, 2 hd^2 +
-    2 hd per row; per kv head the chunk states and normalizers, 2 hd^2 +
-    hd per row, and the scan over chunks, hd^2 + hd per chunk after the
-    first; phi of q and k and the division, one per element."""
-    L = min(chunk, S)
-    nc, pairs = S // L, L * (L + 1) // 2
+    and z in fp32, each read or written once; the operations of its
+    recurrent form, the least any form needs (the chunk changes only
+    rounding): per kv head and row, S += phi(k) v^T and z += phi(k),
+    2 hd^2 + hd; per query head and row, phi(q).S and phi(q).z, 2 hd^2 +
+    2 hd; phi of q and k and the division, one per element."""
     byt = (esize * (2 * B * S * H * hd + 2 * B * S * KV * hd)
            + 4 * B * H * (hd * hd + hd))
-    fl = (B * H * nc * pairs * (4 * hd + 1)
-          + B * H * (nc - 1) * L * (2 * hd * hd + 2 * hd)
-          + B * KV * S * (2 * hd * hd + hd)
-          + B * KV * (nc - 1) * (hd * hd + hd)
+    fl = (B * KV * S * (2 * hd * hd + hd)
+          + B * H * S * (2 * hd * hd + 2 * hd)
           + B * S * (2 * H + KV) * hd)
     return byt, fl
+
+
+def linear_attention_tile_ops(B, S, H, KV, hd, chunk, tile=64):
+    """The operations of the kernel's own form (``csrc/linear_attention.cu``),
+    64-row tiles of each chunk: per query head, the diagonal tile's causal
+    pairs (4 hd + 1 each) and phi(q).S_before and phi(q).z_before on every
+    row after the first tile (2 hd^2 + 2 hd); per kv head the tile states
+    (2 hd^2 + hd a row) and the scan over tiles (hd^2 + hd a tile after
+    the first); phi and the division as ``linear_attention_work``."""
+    L = min(chunk, S)
+    rows = [min(tile, L - i) for i in range(0, L, tile)] * (S // L)
+    pairs = sum(r * (r + 1) // 2 for r in rows)
+    return (B * H * pairs * (4 * hd + 1)
+            + B * H * (S - rows[0]) * (2 * hd * hd + 2 * hd)
+            + B * KV * S * (2 * hd * hd + hd)
+            + B * KV * (len(rows) - 1) * (hd * hd + hd)
+            + B * S * (2 * H + KV) * hd)
 
 
 def time_linear(sm):
@@ -1605,11 +1615,13 @@ def main() -> int:
             entry.update(fp32_numbers(
                 name, la_t, ("B", "S", "H", "KV", "hd", "chunk"), LA_SHAPE,
                 LINEAR_PATH, serves[LINEAR_PATH]["linear_served_check"]))
+            entry["flops_of_kernel_form"] = linear_attention_tile_ops(
+                *LA_SHAPE)
             entry["bound_note"] = (
                 "bound_ms at the fp32 FFMA peak (67 TFLOP/s): the kernel's "
-                "contract is fp32 arithmetic; operations as "
-                "linear_attention_work counts them (causal halves, chunk "
-                "states per kv head)")
+                "contract is fp32 arithmetic; operations of the recurrent "
+                "form, as linear_attention_work counts them; "
+                "flops_of_kernel_form counts the kernel's 64-row tiles")
         else:
             entry.update(numbers(timings[llava.name][name]))
             entry["bc"] = TIME_BC

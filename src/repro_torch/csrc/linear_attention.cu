@@ -7,11 +7,11 @@
 //   o_t = (phi(q_t) . S_t) / max(phi(q_t) . z_t, 1e-6),
 // returning o and the final (S, z) so that decode continues the stream.
 //
-// What it computes, per (batch b, query head h) and chunk of L positions,
-// all arithmetic in fp32, with S_prev and z_prev the sums over the
-// chunks before:
-//   o_i = [phi(q_i) S_prev + sum_{j<=i} (phi(q_i).phi(k_j)) v_j]
-//         / max(phi(q_i).z_prev + sum_{j<=i} phi(q_i).phi(k_j), eps)
+// What it computes, per (batch b, query head h) and 64-row tile of a
+// chunk of L positions, all arithmetic in fp32, with S_before and
+// z_before the sums over every row before the tile:
+//   o_i = [phi(q_i) S_before + sum_{j<=i in tile} (phi(q_i).phi(k_j)) v_j]
+//         / max(phi(q_i).z_before + sum_{j<=i in tile} phi(q_i).phi(k_j), eps)
 // Head h reads kv head h / (H / KV) (GQA by index, never a repeat).  Rows
 // at or past valid_len[b] add nothing to S and z, and their output is
 // zero.  q (B, S, H, hd) and k/v (B, S, KV, hd) are read in the model's
@@ -21,35 +21,36 @@
 // L <= 256 with S % L == 0 (L may be any size: a ragged 127-row chunk
 // is zero-filled and masked).
 //
-// What bounds it on an H100.  The function needs, per (b, h) and chunk,
-// phi(q).phi(k)^T and its product with v over the causal half (4 hd + 1
-// flop a pair, the row sums included), phi(q).S_prev and phi(q).z_prev
-// from the second chunk on (2 hd^2 + 2 hd a row), and per (b, kv head)
-// the chunk states (2 hd^2 + hd a row): 1.16 GFLOP at B 2, S 1024, H 14,
-// KV 2, hd 64, chunk 256 against 8.9 MB moved, so it is bound by
-// operations.  The contract is fp32 arithmetic (TF32 would break the
-// 1e-4 gate), so the bound is the 67 TFLOP/s of fp32 FFMA.
+// What bounds it on an H100.  The least work the function needs is its
+// recurrent form: per (b, kv head) and row, the state and normalizer
+// updates (2 hd^2 + hd), and per (b, h) and row, phi(q).S_t and
+// phi(q).z_t (2 hd^2 + 2 hd): 0.28 GFLOP at B 2, S 1024, H 14, KV 2,
+// hd 64 against 8.9 MB moved, so it is bound by operations.  The contract
+// is fp32 arithmetic (TF32 would break the 1e-4 gate), so the bound is
+// the 67 TFLOP/s of fp32 FFMA.  This kernel's 64-row-tile form does
+// about twice that: the diagonal tile's causal pairs (4 hd + 1 a pair)
+// besides phi(q).S_before.
 //
 // What the design does about it.  The Pallas grid (B*H, S/C) walks the
 // chunks in order with the (hd, hd) state in VMEM: at B 2, H 14 that is
 // 28 blocks for 132 SMs.  Linear attention is SSD with no decay plus a
 // normalizer, so the three phases of csrc/ssd.cu carry over, each
-// parallel over chunks:
+// parallel over row tiles:
 //   1. la_state_kernel: per (b, kv head, 64-row tile of a chunk, 64 x 64
 //      tile of S), the tile's own phi(k)^T v and sum phi(k) (the d-tile
 //      0 block), over the rows before valid_len: per kv head, H / KV
 //      times less work than per query head, and per row tile rather
 //      than per chunk, so that B * KV * S / 64 blocks share the work;
 //   2. la_scan_kernel: per (b, kv head, element of S or z), the short
-//      pass over the row tiles that leaves each tile the sums before it
-//      (the first tile of a chunk: the sums before the chunk) and writes
-//      the final S and z to each query head of the group;
-//   3. la_out_kernel: per (b, h, chunk, 64-row tile, 64-wide d tile), the
-//      inter term phi(q) S_prev and phi(q).z_prev, then the key tiles up
-//      to the diagonal (the causal half only): s = phi(q) phi(k)^T masked
-//      to j <= i, its row sums into the denominator (a 16-lane shuffle at
-//      the end), o += s v.  Tiles wholly past valid_len are skipped (key
-//      tiles) or written as zeros (row tiles).
+//      pass over the row tiles that leaves each tile the sums over every
+//      row before it and writes the final S and z to each query head of
+//      the group;
+//   3. la_out_kernel: per (b, h, 64-row tile, 64-wide d tile), the inter
+//      term phi(q) S_before and phi(q).z_before, then the diagonal key
+//      tile: s = phi(q) phi(k)^T masked to j <= i, its row sums into the
+//      denominator (a 16-lane shuffle at the end), o += s v.  With no
+//      decay the chunk changes only where the sums are cut, not the
+//      function.  Row tiles wholly past valid_len are written as zeros.
 // Every term of the denominator is positive (phi > 0), so it grows with
 // the prompt (like its length) and nothing cancels in it.  Each thread
 // owns a 4 x 4 register tile strided by 16 in both directions, and shared
@@ -204,22 +205,21 @@ __global__ void __launch_bounds__(kThreads) la_scan_kernel(const Params p) {
 }
 
 // Phase 3: grid (nc * row tiles, B*H, hd tiles); dynamic shared memory
-// (see out_smem_bytes).  Row tiles are issued longest (most key tiles)
-// first.
+// (see out_smem_bytes).  Row tile t = blockIdx.x is tile t % ceil(L / 64)
+// of chunk t / ceil(L / 64).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) la_out_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   const int sn = p.hd | 1;              // odd row stride of hd-wide tiles
   float* qs = smem;                     // phi(q) rows of this tile    [64][sn]
-  float* ks = qs + kTile * sn;          // S_prev tile, then phi(k)    [64][sn]
+  float* ks = qs + kTile * sn;          // S_before tile, then phi(k)  [64][sn]
   float* vs = ks + kTile * sn;          // v tile                      [64][65]
   float* ws = vs + kTile * kPadTile;    // masked scores               [64][65]
-  float* zsm = ws + kTile * kPadTile;   // z_prev                      [hd]
+  float* zsm = ws + kTile * kPadTile;   // z_before                    [hd]
 
   const int n_itiles = (p.L + kTile - 1) / kTile;
-  const int c = blockIdx.x / n_itiles;
-  const int it = n_itiles - 1 - (blockIdx.x - c * n_itiles);
-  const int i0 = it * kTile;
+  const int tile = blockIdx.x, c = tile / n_itiles;
+  const int i0 = (tile - c * n_itiles) * kTile;
   const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
   const int kh = h / p.G, bk = b * p.KV + kh;
   const int d0 = blockIdx.z * kTile;
@@ -253,13 +253,14 @@ __global__ void __launch_bounds__(kThreads) la_out_kernel(const Params p) {
     for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
   }
 
-  // inter-chunk term: phi(q_i) S_prev and phi(q_i).z_prev (zero in chunk 0)
-  if (c > 0) {
+  // inter term: phi(q_i) S_before and phi(q_i).z_before, the sums over
+  // every row before the tile (zero for the first tile)
+  if (tile > 0) {
     const long long HD2 = (long long)p.hd * p.hd;
-    const long long before = (long long)bk * p.nt + (long long)c * n_itiles;
+    const long long before = (long long)bk * p.nt + tile;
     const float* sg = p.states + before * HD2 + d0;
     for (int idx = tid; idx < kTile * p.hd; idx += kThreads) {
-      const int kk = idx >> 6, dd = idx & 63;   // S_prev[kk][d0 + dd] -> ks[dd][kk]
+      const int kk = idx >> 6, dd = idx & 63;   // S_before[kk][d0 + dd] -> ks[dd][kk]
       ks[dd * sn + kk] = d0 + dd < p.hd ? sg[(long long)kk * p.hd + dd] : 0.f;
     }
     const float* zg = p.zs + before * p.hd;
@@ -283,65 +284,61 @@ __global__ void __launch_bounds__(kThreads) la_out_kernel(const Params p) {
     __syncthreads();                    // ks is refilled below
   }
 
-  // intra-chunk term over the key tiles up to the diagonal
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + row0 * p.k_ss + kh * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + row0 * p.v_ss + kh * p.v_sh + d0;
-  for (int jt = 0; jt <= it; ++jt) {
-    const int j0 = jt * kTile;
-    if (j0 >= rows) break;              // key tiles past valid_len add nothing
-    for (int idx = tid; idx < kTile * p.hd; idx += kThreads) {
-      const int jj = idx / p.hd, e = idx - jj * p.hd;
-      ks[jj * sn + e] = j0 + jj < rows ? phi(to_f32(kg[(long long)(j0 + jj) * p.k_ss + e])) : 0.f;
-    }
-    for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
-      const int jj = idx >> 6, e = idx & 63;
-      vs[jj * kPadTile + e] = (j0 + jj < rows && d0 + e < p.hd)
-                                  ? to_f32(vg[(long long)(j0 + jj) * p.v_ss + e]) : 0.f;
-    }
-    __syncthreads();
+  // intra term: the diagonal key tile, masked to j <= i (rows past
+  // valid_len are zero-filled)
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + (row0 + i0) * p.k_ss + kh * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + (row0 + i0) * p.v_ss + kh * p.v_sh + d0;
+  for (int idx = tid; idx < kTile * p.hd; idx += kThreads) {
+    const int jj = idx / p.hd, e = idx - jj * p.hd;
+    ks[jj * sn + e] = i0 + jj < rows ? phi(to_f32(kg[(long long)jj * p.k_ss + e])) : 0.f;
+  }
+  for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
+    const int jj = idx >> 6, e = idx & 63;
+    vs[jj * kPadTile + e] = (i0 + jj < rows && d0 + e < p.hd)
+                                ? to_f32(vg[(long long)jj * p.v_ss + e]) : 0.f;
+  }
+  __syncthreads();
 
-    float s[4][4];
+  float s[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) s[r][q] = 0.f;
+#pragma unroll 4
+  for (int e = 0; e < p.hd; ++e) {
+    float qv[4], kv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) qv[r] = qs[(ty + 16 * r) * sn + e];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) kv[q] = ks[(tx + 16 * q) * sn + e];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) s[r][q] = 0.f;
+      for (int q = 0; q < 4; ++q) s[r][q] = fmaf(qv[r], kv[q], s[r][q]);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = ty + 16 * r;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = tx + 16 * q;
+      const float w = j <= i ? s[r][q] : 0.f;
+      part[r] += w;
+      ws[i * kPadTile + j] = w;
+    }
+  }
+  __syncthreads();
 #pragma unroll 4
-    for (int e = 0; e < p.hd; ++e) {
-      float qv[4], kv[4];
+  for (int jj = 0; jj < kTile; ++jj) {
+    float wv[4], vv[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) qv[r] = qs[(ty + 16 * r) * sn + e];
+    for (int r = 0; r < 4; ++r) wv[r] = ws[(ty + 16 * r) * kPadTile + jj];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) kv[q] = ks[(tx + 16 * q) * sn + e];
+    for (int q = 0; q < 4; ++q) vv[q] = vs[jj * kPadTile + tx + 16 * q];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) s[r][q] = fmaf(qv[r], kv[q], s[r][q]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + ty + 16 * r;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = j0 + tx + 16 * q;
-        const float w = j <= i ? s[r][q] : 0.f;
-        part[r] += w;
-        ws[(ty + 16 * r) * kPadTile + tx + 16 * q] = w;
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int jj = 0; jj < kTile; ++jj) {
-      float wv[4], vv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) wv[r] = ws[(ty + 16 * r) * kPadTile + jj];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) vv[q] = vs[jj * kPadTile + tx + 16 * q];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(wv[r], vv[q], acc[r][q]);
-    }
-    __syncthreads();                    // ks, vs, ws are refilled next round
+      for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(wv[r], vv[q], acc[r][q]);
   }
 
   // the row sums: each row's 64 columns lie with the 16 lanes sharing ty

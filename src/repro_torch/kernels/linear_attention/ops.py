@@ -5,8 +5,8 @@ tensors run the plain chunked form (``ref.ref_linear_attention_chunked``);
 CUDA tensors launch the Hopper kernel (``kernel.py``) or raise — there is
 no fallback.  Each launch adds one to the count ``linear_attention`` in
 the kernels' launch-count registry (``repro_torch.kernels``); one launch
-runs three device kernels (chunk states per kv head, the scan over
-chunks, the outputs).
+runs three device kernels (64-row-tile states per kv head, the scan
+over the tiles, the outputs).
 """
 from __future__ import annotations
 

@@ -56,9 +56,10 @@ def check_supported(cfg):
             f"Mamba-2 decoders with group size 1 are ported")
 
 
-def mixer_of(cfg) -> str:
-    """The mixer of the (uniform) stack: "attn", "linear" or "mamba"."""
-    kind = sublayer_spec(cfg, 0)[0]
+def mixer_of(cfg, pos: int = 0) -> str:
+    """The mixer at group position ``pos``: "attn", "linear" or
+    "mamba"."""
+    kind = sublayer_spec(cfg, pos)[0]
     return "linear" if kind == "attn" and cfg.attn_impl == "linear" else kind
 
 

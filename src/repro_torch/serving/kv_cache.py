@@ -35,8 +35,7 @@ def paged_positions(cfg: ModelConfig) -> Tuple[bool, ...]:
     the positions the pool blocks.  Mamba-2 and linear-attention state is
     fixed-size per request, so it stays slot-indexed."""
     dec.check_supported(cfg)
-    return tuple(dec.sublayer_spec(cfg, pos)[0] == "attn"
-                 and cfg.attn_impl != "linear"
+    return tuple(dec.mixer_of(cfg, pos) == "attn"
                  for pos in range(dec.group_size(cfg)))
 
 
