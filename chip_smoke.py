@@ -175,6 +175,22 @@ LINEAR_PATH = "llava-onevision-0.5b/linear"
 # (fp32) of that row's largest plain magnitude
 LA_STATE_TOL = 1e-4
 LA_ROW_TOL = {"bfloat16": KERNEL_TOL, "float32": 1e-4}
+# the packed-weight GEMM against its plain version, in the reference
+# kernel tests' measure (max |err| over max |plain|,
+# tests/test_kernels.py:43): a bf16 output may differ by one rounding
+# step (both accumulate in fp32, in other orders), fp32 ones by the order
+DG_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
+# the reference kernel tests' grid (tests/test_kernels.py:29-75): (M, K,
+# N) at bits 2/4/8, group 64, bf16 and fp32
+DG_NK_GRID = ((64, 512, 128), (8, 1024, 256), (130, 512, 200))
+# rows of the "kn" checks at the served projection shapes (ragged)
+DG_KN_ROWS = 1000
+# the GEMM's timing shape: Qwen2-VL-7B's MLP up projection in a 1 x 2048
+# prefill, (M, K, N), q4 g32, bf16
+DG_TIME_SHAPE = (2048, 3584, 18944)
+# projections a layer runs on packed weights: q, k, v, o, up, gate, down;
+# Mamba-2's in_proj and out_proj
+GEMMS_PER_LAYER = {"attn": 7, "linear": 7, "mamba": 2}
 
 
 def fail(msg):
@@ -258,10 +274,12 @@ class Smoke:
         self.gen = torch.Generator(device=self.dev).manual_seed(1)
         self.errs = {"fused_qkv": 0.0, "fused_mlp": 0.0,
                      "kv_row_scatter": 0.0, "flash_attention": 0.0,
-                     "ssd": 0.0, "linear_attention": 0.0}
+                     "ssd": 0.0, "linear_attention": 0.0,
+                     "dequant_gemm": 0.0}
         self.worst_row_ratio = 0.0       # flash: max over rows err/max
         self.ssd_check = {}
         self.la_check = []
+        self.dg_check = {}
 
     def randn(self, *shape, scale=1.0):
         torch = self.torch
@@ -437,6 +455,190 @@ class Smoke:
                         self.errs["linear_attention"], rec["out_max_abs_err"])
         torch.cuda.synchronize()
 
+    def check_dequant_gemm(self, cfgs):
+        """The packed-weight GEMM against its plain versions
+        (``gemm_error``'s gate): the reference kernel's layout ("nk",
+        ``dequant_gemm``) on the reference tests' grid, the four
+        epilogues with a bias, group sizes 32/64/128 and a 3-D x, in bf16
+        and fp32; the model's layout ("kn", ``quant_einsum``) at every
+        distinct projection shape of ``cfgs`` ((config, dtypes) pairs),
+        q4 g32 as served, DG_KN_ROWS rows."""
+        from repro_torch.core.quantize import QuantSpec, quantize
+        from repro_torch.kernels.dequant_gemm import (dequant_gemm,
+                                                      quant_einsum,
+                                                      ref_dequant_gemm,
+                                                      ref_quant_einsum)
+        torch = self.torch
+
+        def rn(shape, dtype, scale=1.0):
+            return (torch.randn(shape, generator=self.gen, device=self.dev)
+                    * scale).to(dtype)
+        worst, cases = {}, 0
+
+        def held(what, got, want):
+            nonlocal cases
+            dtype, rel, err = gemm_error(what, got, want)
+            worst[dtype] = max(worst.get(dtype, 0.0), rel)
+            self.errs["dequant_gemm"] = max(self.errs["dequant_gemm"], err)
+            cases += 1
+        for dtype in (torch.bfloat16, torch.float32):
+            for bits in (2, 4, 8):
+                for M, K, N in DG_NK_GRID:
+                    x = rn((M, K), dtype)
+                    qt = quantize(rn((N, K), dtype, 0.05), QuantSpec(bits))
+                    held(f"nk w{bits} M={M} K={K} N={N} {dtype}",
+                         dequant_gemm(x, qt), ref_dequant_gemm(x, qt))
+            x = rn((32, 512), dtype)
+            qt = quantize(rn((128, 512), dtype, 0.1), QuantSpec(4))
+            bias = torch.linspace(-0.5, 0.5, 128, device=self.dev)
+            for act in ("relu", "silu", "gelu", "squared_relu"):
+                held(f"nk epilogue {act} {dtype}",
+                     dequant_gemm(x, qt, bias, act),
+                     ref_dequant_gemm(x, qt, bias, act))
+            x = rn((16, 512), dtype)
+            for g in (32, 64, 128):
+                qt = quantize(rn((64, 512), dtype, 0.2),
+                              QuantSpec(4, group_size=g))
+                held(f"nk group {g} {dtype}", dequant_gemm(x, qt),
+                     ref_dequant_gemm(x, qt))
+            x = rn((2, 16, 512), dtype)
+            qt = quantize(rn((64, 512), dtype, 0.1), QuantSpec(4))
+            held(f"nk 3-D x {dtype}", dequant_gemm(x, qt),
+                 ref_dequant_gemm(x, qt))
+        shapes = sorted({(spec, w, x, str(dt)) for cfg, dtypes in cfgs
+                         for spec, w, x in gemm_shapes(cfg)
+                         for dt in dtypes})
+        spec32 = QuantSpec(4, group_size=32)
+        for spec, wshape, xshape, dt in shapes:
+            dtype = getattr(torch, dt.replace("torch.", ""))
+            x = rn((1, DG_KN_ROWS) + xshape, dtype)
+            w = quantize(rn(wshape, dtype, wshape[0] ** -0.5), spec32)
+            held(f"kn {spec} {wshape} {dtype}", quant_einsum(spec, x, w),
+                 ref_quant_einsum(spec, x, w))
+            del x, w
+        torch.cuda.synchronize()
+        self.dg_check = {"cases": cases,
+                         "worst_err_over_max": worst, "tol": DG_TOL,
+                         "nk_grid_MKN": [list(c) for c in DG_NK_GRID],
+                         "kn_shapes": [[sp, list(w), dt.replace("torch.", "")]
+                                       for sp, w, _, dt in shapes]}
+
+
+def gemm_error(what, got, want):
+    """A packed-weight GEMM's output against its plain version's: fails
+    unless finite, of the plain shape and dtype, and max |err| within
+    DG_TOL of max |plain|.  Returns (dtype name, err over max, max abs
+    err)."""
+    dtype = str(want.dtype).replace("torch.", "")
+    if not (got.shape == want.shape and got.dtype == want.dtype
+            and got.isfinite().all()):
+        fail(f"dequant_gemm {what}: shape, dtype or non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / max(want.float().abs().max().item(), 1e-30)
+    if rel > DG_TOL[dtype]:
+        fail(f"dequant_gemm {what}: max err {err} is {rel} of the largest "
+             f"plain magnitude (tol {DG_TOL[dtype]})")
+    return dtype, rel, err
+
+
+def gemm_shapes(cfg):
+    """(einsum, weight shape, x's contracted shape) of each projection of
+    a layer of ``cfg`` that takes a packed weight (its first axes are
+    contracted, as the model stores it)."""
+    from repro_torch.models import decoder, mamba2
+    D = cfg.d_model
+    if decoder.mixer_of(cfg) == "mamba":
+        s = cfg.ssm
+        d_inner, H, _ = mamba2._dims(cfg)
+        n_in = 2 * d_inner + 2 * s.n_groups * s.d_state + H
+        return [("bsd,de->bse", (D, n_in), (D,)),
+                ("bse,ed->bsd", (d_inner, D), (d_inner,))]
+    H, KV, hd, F = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    return [("bsd,dhk->bshk", (D, H, hd), (D,)),
+            ("bsd,dhk->bshk", (D, KV, hd), (D,)),
+            ("bshk,hkd->bsd", (H, hd, D), (H, hd)),
+            ("bsd,df->bsf", (D, F), (D,)),
+            ("bsf,fd->bsd", (F, D), (F,))]
+
+
+class GemmCalls:
+    """Keeps the packed-weight GEMM calls (spec, x, w, out; by reference:
+    the model writes none of them after the call) of one prefill call:
+    ``dequant_gemm.ops.quant_einsum`` is wrapped inside the ``with``
+    block and records while ``armed``."""
+
+    def __init__(self):
+        from repro_torch.core.quantize import QTensor
+        from repro_torch.kernels.dequant_gemm import ops
+        self.ops, self.inner, self.packed = ops, ops.quant_einsum, QTensor
+        self.calls, self.armed = [], False
+
+    def __call__(self, spec, x, w):
+        out = self.inner(spec, x, w)
+        if self.armed and isinstance(w, self.packed):
+            self.calls.append((spec, x, w, out))
+        return out
+
+    def __enter__(self):
+        self.ops.quant_einsum = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.quant_einsum = self.inner
+
+
+def served_gemm_check(cfg, calls, n_calls):
+    """Every recorded packed-weight GEMM call of one served prefill call
+    (``n_calls`` of them) against the plain version (``dequantize`` +
+    einsum) on its own inputs, with ``gemm_error``'s gate; the worst
+    error over the largest plain magnitude and the (einsum, x shape,
+    weight shape, dtype) of the calls."""
+    import torch
+    from repro_torch.kernels.dequant_gemm import ref_quant_einsum
+    if len(calls) != n_calls:
+        fail(f"{cfg.name}: {len(calls)} packed-weight GEMM calls recorded "
+             f"in one prefill call, expected {n_calls}")
+    worst, err_max, shapes = 0.0, 0.0, set()
+    with torch.no_grad():
+        for spec, x, w, out in calls:
+            _, rel, err = gemm_error(
+                f"{cfg.name}: served {spec} at {tuple(x.shape)}", out,
+                ref_quant_einsum(spec, x, w))
+            worst, err_max = max(worst, rel), max(err_max, err)
+            shapes.add((spec, tuple(x.shape), tuple(w.shape),
+                        str(x.dtype).replace("torch.", "")))
+    return {"calls": len(calls), "worst_err_over_max": worst,
+            "max_abs_err": err_max, "tol": DG_TOL,
+            "shapes_spec_x_w_dtype": sorted(shapes)}
+
+
+def time_dequant_gemm(sm):
+    """The packed-weight GEMM at DG_TIME_SHAPE (q4 g32, bf16) through
+    ``quant_einsum``, its plain version, the library convention of the
+    decode rows (``dequantize`` + ``torch.matmul``) and ``torch.matmul``
+    alone on the weight dequantized beforehand; the bytes (codes, scales,
+    x, y once each) and operations (2 M N K) that set its bound."""
+    import torch
+    from repro_torch.core.quantize import QuantSpec, dequantize, quantize
+    from repro_torch.kernels.dequant_gemm import (quant_einsum,
+                                                  ref_quant_einsum)
+    M, K, N = DG_TIME_SHAPE
+    x = sm.randn(1, M, K)
+    w = quantize(sm.randn(K, N, scale=K ** -0.5),
+                 QuantSpec(4, group_size=32))
+    dense = dequantize(w)
+    x2 = x.reshape(M, K)
+    with torch.no_grad():
+        t_k = timed(lambda i: quant_einsum("bsd,df->bsf", x, w), 1,
+                    iters=20)
+        t_p = timed(lambda i: ref_quant_einsum("bsd,df->bsf", x, w), 1,
+                    iters=10)
+        t_l = timed(lambda i: torch.matmul(x2, dequantize(w)), 1, iters=10)
+        t_d = timed(lambda i: torch.matmul(x2, dense), 1, iters=20)
+    byt = (w.codes.numel() * 4 + w.scales.numel() * 4
+           + 2 * M * K + 2 * M * N)
+    return t_k, t_p, t_l, t_d, byt, 2 * M * N * K
+
 
 def ssd_errors(args, out, chunk, what):
     """The SSD kernel's (y, h_final) ``out`` on ``args`` against the plain
@@ -467,8 +669,9 @@ def ssd_errors(args, out, chunk, what):
 
 def serve_path(sm, cfg, reqs):
     """Serve ``reqs`` on ``cfg`` at full width; check what the run must
-    show; return (serve record, engine, captured cohort state, captured
-    prefill)."""
+    show, the packed-weight GEMM calls of the first prefill call among it
+    (``GemmCalls``, ``served_gemm_check``); return (serve record, engine,
+    captured prefill: the largest group)."""
     from repro_torch.core.quantize import PROFILES, quantize_tree
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.fused_decode import ops, ref
@@ -501,7 +704,7 @@ def serve_path(sm, cfg, reqs):
                                      for pos in eng.slots.pool)
         return decode(tokens, lengths, slot_ids, tables)
 
-    def counting_prefill(tokens, vision_embeds, last_idx):
+    def counting_prefill_inner(tokens, vision_embeds, last_idx):
         logits, cache = prefill(tokens, vision_embeds, last_idx)
         if not prefills or tuple(tokens.shape) > tuple(prefills[0][0].shape):
             # keep the largest group's inputs and logits (batch, width)
@@ -514,12 +717,18 @@ def serve_path(sm, cfg, reqs):
         captured.setdefault("prefill_width", []).append(
             int(tokens.shape[1]))
         return logits, cache
+    def counting_prefill(tokens, vision_embeds, last_idx):
+        gemms.armed = "prefill_calls" not in captured   # the first call
+        try:
+            return counting_prefill_inner(tokens, vision_embeds, last_idx)
+        finally:
+            gemms.armed = False
     eng._decode, eng._prefill = capturing_decode, counting_prefill
     for r in reqs:
         eng.submit(r)
     reset_launch_counts()
     t0 = time.perf_counter()
-    with eng:
+    with GemmCalls() as gemms, eng:
         done = eng.run()
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
@@ -541,9 +750,11 @@ def serve_path(sm, cfg, reqs):
                 0 <= t < cfg.vocab_size for t in r.out_tokens)):
             fail(f"{cfg.name}: request {r.rid} tokens {r.out_tokens}")
     want_flash = L * n_prefill if cfg.attn_q_chunk == 0 else 0
+    per_call = GEMMS_PER_LAYER["attn"] * L
     if not (launches["fused_qkv"] == launches["fused_mlp"] == L * decode_steps
             and launches["kv_scatter"] == decode_steps and decode_steps > 0
-            and launches["flash_attention"] == want_flash and n_prefill > 0):
+            and launches["flash_attention"] == want_flash and n_prefill > 0
+            and launches["dequant_gemm"] == per_call * n_prefill):
         fail(f"{cfg.name}: launch counts {launches} for {decode_steps} "
              f"decode steps and {n_prefill} prefill calls")
     spans = eng.probe.samples()
@@ -566,6 +777,10 @@ def serve_path(sm, cfg, reqs):
                                   3),
              "kv_pool_mb": round(eng.slots.nbytes / 1e6, 3),
              "tabm": tstats, "launches": launches}
+    serve["gemm_served_check"] = dict(served_gemm_check(
+        cfg, gemms.calls, per_call), prefill_batch=captured[
+        "prefill_batch"][0], prefill_width=captured["prefill_width"][0])
+    del gemms
 
     # fused vs composed on the captured cohort state
     if "args" not in captured:
@@ -638,30 +853,44 @@ def prefill_branch_check(eng, cfg, captured):
     return out
 
 
-def prefill_breakdown(eng, captured):
-    """Where one flash-path prefill call's time goes: wall time (host
-    clock, synchronized, median of 3) against the card's kernel time, by
-    kernel."""
+def prefill_breakdown(eng, group, names):
+    """Where one prefill call's time goes (``group``, a captured prefill
+    group): wall time (host clock, synchronized, median of 3) against the
+    card's kernel time, the device time of the kernels whose names hold
+    each of ``names`` and the largest kernels; and the same for the same
+    call through the plain projection route (``dequantize`` + einsum per
+    projection, the route before the packed-weight GEMM kernel), run in
+    turn with it in this call of the script."""
     import torch
-    tokens, vision, last_idx, _ = captured
+    from repro_torch.kernels.dequant_gemm import ops as dg_ops
+    tokens, vision, last_idx = group[:3]
 
     def call():
-        eng._prefill(tokens, vision, last_idx)
+        with torch.no_grad():
+            eng._prefill(tokens, vision, last_idx)
         torch.cuda.synchronize()
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        call()
-        walls.append(time.perf_counter() - t0)
-    kernel_us, by_name, _ = device_time(call)
-    wall_ms = sorted(walls)[1] * 1e3
-    flash_us = sum(us for k, us, _ in by_name if "flash_attention" in k)
-    return {"batch": int(tokens.shape[0]), "width": int(tokens.shape[1]),
-            "wall_ms": wall_ms, "device_ms": kernel_us / 1e3,
-            "device_busy_share": kernel_us / 1e3 / wall_ms,
-            "flash_kernel_ms": flash_us / 1e3,
-            "top_kernels_ms": [[k[:96], us / 1e3]
-                               for k, us, _ in by_name[:8]]}
+
+    def measure():
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            walls.append(time.perf_counter() - t0)
+        kernel_us, by_name, n = device_time(call)
+        wall_ms = sorted(walls)[1] * 1e3
+        return {"wall_ms": wall_ms, "device_ms": kernel_us / 1e3,
+                "device_busy_share": kernel_us / 1e3 / wall_ms,
+                "device_kernels": n,
+                "kernels_ms_by_name": {
+                    nm: sum(us for k, us, _ in by_name if nm in k) / 1e3
+                    for nm in names},
+                "top_kernels_ms": [[k[:96], us / 1e3]
+                                   for k, us, _ in by_name[:10]]}
+    out = {"batch": int(tokens.shape[0]), "width": int(tokens.shape[1])}
+    out.update(measure())
+    with swapped(dg_ops, "quant_einsum", dg_ops.ref_quant_einsum):
+        out["plain_projection_route"] = measure()
+    return out
 
 
 def time_fused(sm, cfg, eng):
@@ -782,12 +1011,16 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
     through the composed decode step over a slot-state pool, recording
     every call of the prefill kernel wrapper ``op_module.<op_name>``
     (arguments kept by reference, not copied: the model writes none of
-    them after the call).  Returns (serve record, engine, run) with
+    them after the call) and the packed-weight GEMM calls of the first
+    prefill call (``GemmCalls``, checked by ``served_gemm_check`` into
+    the record's ``gemm_served_check``).  Returns (serve record, engine,
+    run) with
     ``run`` = (requests, prefill groups [(tokens, vision embeds,
     last_idx, logits)], decode steps [(slot ids, lengths, logits)],
     kernel calls [(args, kwargs, out)])."""
     from repro_torch.core.quantize import PROFILES, quantize_tree
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.decoder import mixer_of
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import ServingEngine
     torch = sm.torch
@@ -809,7 +1042,11 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
     kernel = getattr(op_module, op_name)
 
     def recording_prefill(tokens, vision_embeds, last_idx):
-        logits, cache = prefill(tokens, vision_embeds, last_idx)
+        gemms.armed = not groups                          # the first call
+        try:
+            logits, cache = prefill(tokens, vision_embeds, last_idx)
+        finally:
+            gemms.armed = False
         groups.append((tokens.clone(), None if vision_embeds is None
                        else vision_embeds.clone(), last_idx.clone(),
                        logits.clone()))
@@ -831,7 +1068,7 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
     reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        with eng:
+        with GemmCalls() as gemms, eng:
             done = eng.run()
         torch.cuda.synchronize()
     finally:
@@ -849,8 +1086,11 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
         if not (len(r.out_tokens) == r.max_new_tokens and all(
                 0 <= t < cfg.vocab_size for t in r.out_tokens)):
             fail(f"{cfg.name}: request {r.rid} tokens {r.out_tokens}")
-    others = sum(v for k, v in launches.items() if k != op_name)
+    others = sum(v for k, v in launches.items()
+                 if k not in (op_name, "dequant_gemm"))
+    per_call = GEMMS_PER_LAYER[mixer_of(cfg)] * cfg.n_layers
     if not (launches[op_name] == cfg.n_layers * len(groups) == len(calls)
+            and launches["dequant_gemm"] == per_call * len(groups)
             and groups and decode_steps > 0 and others == 0):
         fail(f"{cfg.name}: launch counts {launches} for {decode_steps} "
              f"decode steps and {len(groups)} prefill calls")
@@ -874,7 +1114,12 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
              "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9,
                                   3),
              "state_pool_mb": round(eng.slots.nbytes / 1e6, 3),
-             "launches": launches}
+             "launches": launches,
+             "gemm_served_check": dict(served_gemm_check(
+                 cfg, gemms.calls, per_call),
+                 prefill_batch=int(groups[0][0].shape[0]),
+                 prefill_width=int(groups[0][0].shape[1]))}
+    del gemms
     if eng.tabm is not None:
         serve["tabm"] = eng.tabm.stats
     return serve, eng, (reqs, groups, steps, calls)
@@ -1105,34 +1350,6 @@ def composed_decode_breakdown(sm, cfg, eng):
     wall_ms = sorted(walls)[2] * 1e3
     return {"bc": n, "wall_ms": wall_ms, "device_ms": kernel_us / 1e3,
             "device_busy_share": kernel_us / 1e3 / wall_ms,
-            "top_kernels_ms": [[k[:96], us / 1e3]
-                               for k, us, _ in by_name[:8]]}
-
-
-def composed_prefill_breakdown(sm, eng, run, prefix):
-    """Where one prefill call's time goes (the largest group): wall time
-    (host clock, synchronized, median of 3) against the card's kernel
-    time, the share of the device kernels named ``prefix*`` and the
-    largest kernels."""
-    torch = sm.torch
-    tokens, vision, last, _ = max(run[1], key=lambda g: g[0].numel())
-
-    def call():
-        with torch.no_grad():
-            eng._prefill(tokens, vision, last)
-        torch.cuda.synchronize()
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        call()
-        walls.append(time.perf_counter() - t0)
-    kernel_us, by_name, _ = device_time(call)
-    wall_ms = sorted(walls)[1] * 1e3
-    return {"batch": int(tokens.shape[0]), "width": int(tokens.shape[1]),
-            "wall_ms": wall_ms, "device_ms": kernel_us / 1e3,
-            "device_busy_share": kernel_us / 1e3 / wall_ms,
-            f"{prefix}kernels_ms": sum(us for k, us, _ in by_name
-                                       if prefix in k) / 1e3,
             "top_kernels_ms": [[k[:96], us / 1e3]
                                for k, us, _ in by_name[:8]]}
 
@@ -1404,11 +1621,12 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.dequant_gemm import kernel as DK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.fused_decode import kernel as K
     from repro_torch.kernels.linear_attention import kernel as LK
     from repro_torch.kernels.ssd import kernel as SK
-    libs = (K, FK, SK, LK)
+    libs = (K, FK, SK, LK, DK)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1429,16 +1647,23 @@ def main() -> int:
     sm = Smoke()
     llava = get_config("llava-onevision-0.5b")
     qwen = dataclasses.replace(get_config("qwen2-vl-7b"), attn_q_chunk=0)
+    mamba = get_config("mamba2-1.3b")
     sm.check_fused(llava, (1, 2, 4, 8))
     sm.check_fused(qwen, (1, 2, 4))
     sm.check_flash()
     sm.check_ssd()
     sm.check_linear_attention()
+    # LLaVA's projections serve in fp32 too (the fp32 linear-attention
+    # instance), Mamba-2's as well
+    sm.check_dequant_gemm(((llava, (torch.bfloat16, torch.float32)),
+                           (qwen, (torch.bfloat16,)),
+                           (mamba, (torch.bfloat16, torch.float32))))
     free()
     print(json.dumps({"kernel_checks": {
         "fused_bc": {llava.name: [1, 2, 4, 8], qwen.name: [1, 2, 4]},
         "flash_shapes": [list(s) for s in FLASH_SHAPES],
         "ssd": sm.ssd_check,
+        "dequant_gemm": sm.dg_check,
         "linear_attention": {"cases": sm.la_check,
                              "tol": {"state_z": LA_STATE_TOL,
                                      "row": LA_ROW_TOL}},
@@ -1451,12 +1676,14 @@ def main() -> int:
     serves, timings = {}, {}
     llava_reqs = [(729, 1, None), (196, 1, None), (729, 1, 0),
                   (196, 1, None)]
-    serve, eng, _ = serve_path(sm, llava, requests(llava, llava_reqs,
-                                                   seed=0))
+    serve, eng, captured = serve_path(sm, llava, requests(
+        llava, llava_reqs, seed=0))
+    serve["prefill_breakdown"] = prefill_breakdown(eng, captured,
+                                                   ("dequant_gemm",))
     print(json.dumps({"serve": serve}))
     serves[llava.name] = serve
     timings[llava.name] = time_fused(sm, llava, eng)
-    del eng
+    del eng, captured
     free()
 
     # -- 4. serve Qwen2-VL-7B, prefill through the flash kernel -------------
@@ -1464,7 +1691,8 @@ def main() -> int:
         qwen, [(1024, 1, None), (1024, 1, 0), (256, 1, None),
                (1024, 4, None)], seed=1))
     serve["prefill_branch_check"] = prefill_branch_check(eng, qwen, captured)
-    serve["prefill_breakdown"] = prefill_breakdown(eng, captured)
+    serve["prefill_breakdown"] = prefill_breakdown(
+        eng, captured, ("flash_attention", "dequant_gemm"))
     print(json.dumps({"serve": serve}))
     serves[qwen.name] = serve
     timings[qwen.name] = time_fused(sm, qwen, eng)
@@ -1478,8 +1706,9 @@ def main() -> int:
     serve, eng, run = serve_linear(sm, linear, requests(linear, llava_reqs,
                                                         seed=0))
     serve["checks"] = linear_checks(sm, linear, eng, run, STEP_TOL)
-    serve["prefill_breakdown"] = composed_prefill_breakdown(
-        sm, eng, run, "la_")
+    serve["prefill_breakdown"] = prefill_breakdown(
+        eng, max(run[1], key=lambda g: g[0].numel()),
+        ("la_", "dequant_gemm"))
     serve["decode_step_breakdown"] = composed_decode_breakdown(sm, linear,
                                                                eng)
     serve["softmax_kv_pool_mb"] = serves[llava.name]["kv_pool_mb"]
@@ -1490,7 +1719,7 @@ def main() -> int:
         linear32, llava_reqs, seed=0))
     serve["fp32"] = {k: serve32[k] for k in (
         "prefill_calls", "prefill_ms", "decode_tok_s", "launches",
-        "linear_served_check")}
+        "linear_served_check", "gemm_served_check")}
     serve["fp32"]["checks"] = linear_checks(sm, linear32, eng, run, STEP_TOL)
     print(json.dumps({"serve": serve}))
     serves[LINEAR_PATH] = serve
@@ -1502,13 +1731,13 @@ def main() -> int:
     # config and at BF16_LOGIT_TOL in bf16, where a one-step rounding
     # difference anywhere (kernel vs plain SSD, cohort 4 vs 1) grows
     # through the 48 layers' dt -> exp(dt A) decay past STEP_TOL
-    mamba = get_config("mamba2-1.3b")
     serve, eng, run = serve_mamba(sm, mamba)
     serve["checks"] = mamba_checks(
         sm, mamba, eng, run, BF16_LOGIT_TOL,
         witness_share=serve["ssd_served_check"]["y_differing_share"])
-    serve["prefill_breakdown"] = composed_prefill_breakdown(sm, eng, run,
-                                                            "ssd_")
+    serve["prefill_breakdown"] = prefill_breakdown(
+        eng, max(run[1], key=lambda g: g[0].numel()),
+        ("ssd_", "dequant_gemm"))
     serve["decode_step_breakdown"] = composed_decode_breakdown(sm, mamba,
                                                                eng)
     del eng, run
@@ -1517,7 +1746,7 @@ def main() -> int:
     serve32, eng, run = serve_mamba(sm, mamba32)
     serve["fp32"] = {k: serve32[k] for k in (
         "prefill_calls", "prefill_ms", "decode_tok_s", "launches",
-        "ssd_served_check")}
+        "ssd_served_check", "gemm_served_check")}
     serve["fp32"]["checks"] = mamba_checks(sm, mamba32, eng, run, STEP_TOL)
     sm.errs["ssd"] = max(sm.errs["ssd"],
                          serve["ssd_served_check"]["y_max_abs_err"])
@@ -1526,11 +1755,13 @@ def main() -> int:
     del eng, run
     free()
 
-    # -- 7. the flash kernel at the Qwen2-VL prefill shape, the SSD and
-    # linear-attention kernels at their check shapes -----------------------
+    # -- 7. the flash kernel and the packed-weight GEMM at Qwen2-VL's
+    # prefill shapes, the SSD and linear-attention kernels at their check
+    # shapes ----------------------------------------------------------------
     flash_t = time_flash(sm)
     ssd_t = time_ssd(sm)
     la_t = time_linear(sm)
+    dg_t = time_dequant_gemm(sm)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1538,17 +1769,25 @@ def main() -> int:
     launch_key = {"fused_qkv": "fused_qkv", "fused_mlp": "fused_mlp",
                   "kv_row_scatter": "kv_scatter",
                   "flash_attention": "flash_attention", "ssd": "ssd",
-                  "linear_attention": "linear_attention"}
+                  "linear_attention": "linear_attention",
+                  "dequant_gemm": "dequant_gemm"}
     replaces = {
         "fused_qkv": "src/repro/kernels/fused_decode/kernel.py:92",
         "fused_mlp": "src/repro/kernels/fused_decode/kernel.py:138",
         "kv_row_scatter": "src/repro/kernels/fused_decode/kernel.py:174",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:55",
         "ssd": "src/repro/kernels/ssd/kernel.py:69",
-        "linear_attention": "src/repro/kernels/linear_attention/kernel.py:68"}
+        "linear_attention": "src/repro/kernels/linear_attention/kernel.py:68",
+        "dequant_gemm": "src/repro/kernels/dequant_gemm/kernel.py:84"}
     sources = {"flash_attention": "src/repro_torch/csrc/flash_attention.cu",
                "ssd": "src/repro_torch/csrc/ssd.cu",
-               "linear_attention": "src/repro_torch/csrc/linear_attention.cu"}
+               "linear_attention": "src/repro_torch/csrc/linear_attention.cu",
+               "dequant_gemm": "src/repro_torch/csrc/dequant_gemm.cu"}
+    # every counted run: the four serves and the two fp32 instances
+    records = dict(serves)
+    records.update({f"{a}/fp32": s["fp32"] for a, s in serves.items()
+                    if "fp32" in s})
+    runs = {a: r["launches"] for a, r in records.items()}
 
     def numbers(t):
         t_k, t_p, t_l, t_d, byt, fl = t
@@ -1588,9 +1827,9 @@ def main() -> int:
             "served_check": served_check}
 
     for name in ("fused_qkv", "fused_mlp", "kv_row_scatter",
-                 "flash_attention", "ssd", "linear_attention"):
-        by_path = {a: s["launches"][launch_key[name]]
-                   for a, s in serves.items()}
+                 "flash_attention", "ssd", "linear_attention",
+                 "dequant_gemm"):
+        by_path = {a: n[launch_key[name]] for a, n in runs.items()}
         entry = {"name": name, "route": "cuda",
                  "source": sources.get(
                      name, "src/repro_torch/csrc/fused_decode.cu"),
@@ -1622,6 +1861,18 @@ def main() -> int:
                 "contract is fp32 arithmetic; operations of the recurrent "
                 "form, as linear_attention_work counts them; "
                 "flops_of_kernel_form counts the kernel's 64-row tiles")
+        elif name == "dequant_gemm":
+            entry.update(numbers(dg_t))
+            entry["dense_matmul_ms"] = entry.pop("dense_bf16_matmul_ms")
+            entry["shape"] = dict(zip(("M", "K", "N"), DG_TIME_SHAPE),
+                                  bits=4, group=32, dtype="bfloat16")
+            entry["library"] = "dequantize + torch.matmul"
+            entry["launches_per_prefill_call"] = {
+                a: r["launches"]["dequant_gemm"] / r["prefill_calls"]
+                for a, r in records.items()}
+            entry["served_check"] = {a: r["gemm_served_check"]
+                                     for a, r in records.items()}
+            entry["kernel_checks"] = sm.dg_check
         else:
             entry.update(numbers(timings[llava.name][name]))
             entry["bc"] = TIME_BC

@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Where the packed-weight GEMM's time goes, on one NVIDIA GPU.
+
+    python3 scripts/dequant_gemm_ablation.py
+
+Builds three versions of ``src/repro_torch/csrc/dequant_gemm.cu`` with
+nvcc (the build flags of ``repro_torch.kernels.build``) into
+``build/ablation/``:
+
+- ``kernel``: the source as it is;
+- ``no_unpack``: the unpack of every step after the first left out (the
+  products read the first step's W tile again);
+- ``no_products``: the mma.sync products replaced by one XOR of their
+  fragments, so the fragment loads stay.
+
+Each runs through ``quant_einsum`` at served projection shapes (q4 g32,
+bf16, Qwen2-VL-7B's and Mamba-2-1.3B's at a 2048-row prefill, LLaVA's
+at 1024), timed with CUDA events, in turns (each version twice, in
+order and then in reverse), beside ``torch.einsum`` on the weight
+dequantized beforehand (cuBLAS).  The ablated versions compute nothing
+useful: only their times are read.  Prints the card's name and power
+limit, then one JSON line of milliseconds per call.
+"""
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+SHAPES = (  # (name, einsum, x shape, weight shape)
+    ("qwen2-vl up", "bsd,df->bsf", (1, 2048, 3584), (3584, 18944)),
+    ("qwen2-vl down", "bsf,fd->bsd", (1, 2048, 18944), (18944, 3584)),
+    ("qwen2-vl q", "bsd,dhk->bshk", (1, 2048, 3584), (3584, 28, 128)),
+    ("mamba2 in_proj", "bsd,de->bse", (2, 1024, 2048), (2048, 8512)),
+    ("llava up", "bsd,df->bsf", (1, 1024, 896), (896, 4864)))
+UNPACK = ("    if (step + 1 < n_steps)             // the ALU work beside the "
+          "other warps' products\n")
+PRODUCT = ("mma_bf16(&acc[(mi * 4 + ni) * 4], a[mi], b[ni][0], b[ni][1]);")
+
+
+def variants(src):
+    for needle in (UNPACK, PRODUCT):
+        if src.count(needle) != 1:
+            raise SystemExit(f"ablation: {needle.strip()!r} not found once in "
+                             f"dequant_gemm.cu")
+    return {"kernel": src,
+            "no_unpack": src.replace(UNPACK, "    if (step + 1 < 0)\n"),
+            "no_products": src.replace(
+                PRODUCT, "acc[(mi * 4 + ni) * 4] += "
+                "__uint_as_float(a[mi][0] ^ b[ni][1]);")}
+
+
+def build(srcs):
+    from repro_torch.kernels.build import NVCC_FLAGS, nvcc_path
+    out_dir = os.path.join(ROOT, "build", "ablation")
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = {}
+    for name, text in srcs.items():
+        cu = os.path.join(out_dir, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        so = os.path.join(out_dir, f"lib{name}.so")
+        jobs[name] = (so, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs = {}
+    for name, (so, proc) in jobs.items():
+        log = proc.communicate()[0].decode()
+        if proc.returncode != 0:
+            raise SystemExit(f"ablation: nvcc failed for {name}:\n{log}")
+        lib = ctypes.CDLL(so)
+        lib.rt_dequant_gemm.argtypes = ([ctypes.c_void_p] * 5
+                                        + [ctypes.c_int] * 15
+                                        + [ctypes.c_void_p])
+        lib.rt_dequant_gemm.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def per_call_ms(torch, fn, iters=20):
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("ablation: no CUDA device visible", file=sys.stderr)
+        return 2
+    from repro_torch.core.quantize import QuantSpec, dequantize, quantize
+    from repro_torch.kernels.dequant_gemm import kernel as DK
+    from repro_torch.kernels.dequant_gemm import quant_einsum
+    with open(os.path.join(ROOT, "src", "repro_torch", "csrc",
+                           "dequant_gemm.cu")) as f:
+        libs = build(variants(f.read()))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for name, spec, xs, ws in SHAPES:
+        x = torch.randn(xs, generator=gen, device="cuda").to(torch.bfloat16)
+        w = quantize((torch.randn(ws, generator=gen, device="cuda")
+                      * ws[0] ** -0.5).to(torch.bfloat16),
+                     QuantSpec(4, group_size=32))
+        cases.append((name, spec, x, w))
+    times = {name: {v: [] for v in list(libs) + ["cublas_dense"]}
+             for name, *_ in SHAPES}
+    order = list(libs) + list(libs)[::-1]
+    with torch.no_grad():
+        for v in order:
+            DK.library = lambda lib=libs[v]: lib
+            for name, spec, x, w in cases:
+                times[name][v].append(per_call_ms(
+                    torch, lambda: quant_einsum(spec, x, w)))
+        for name, spec, x, w in cases:
+            dense = dequantize(w)
+            for _ in range(2):
+                times[name]["cublas_dense"].append(per_call_ms(
+                    torch, lambda: torch.einsum(spec, x, dense)))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip())
+    print(json.dumps({"ms_per_call": times,
+                      "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

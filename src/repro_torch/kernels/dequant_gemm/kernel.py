@@ -1,0 +1,155 @@
+"""Launcher of the Hopper packed-weight GEMM (``csrc/dequant_gemm.cu``).
+
+Checks device, dtypes, shapes, contiguity and alignment, allocates the
+output, launches on the current stream through the C entry point and
+raises if the entry returns a CUDA error.  It never copies an operand:
+a strided one raises, and the caller makes it contiguous.  The library
+is built on first use (``kernels/build.py``).  Runs on the card only;
+the CPU path is the plain version in ``ref.py``, chosen by the wrapper
+in ``ops.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.quantize import QTensor
+from repro_torch.kernels.build import load_library
+
+LIBRARY = "dequant_gemm"
+SOURCES = ("dequant_gemm.cu",)
+TILE_N = 128                   # output columns per block of the kernel
+NK, KN = 0, 1                  # layouts of the packed operand
+DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+ACT_IDS = {None: 0, "relu": 1, "silu": 2, "gelu": 3, "squared_relu": 4}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def library() -> ctypes.CDLL:
+    lib = load_library(LIBRARY, SOURCES)
+    if not getattr(lib, "_typed", False):
+        lib.rt_dequant_gemm.argtypes = [_P] * 5 + [_I] * 15 + [_P]
+        lib.rt_dequant_gemm.restype = _I
+        lib._typed = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def kn_spans(N: int, n2: int, n2p: int, pw: int, group: int
+             ) -> Tuple[int, int]:
+    """The most packed words and scale columns of one row that any
+    TILE_N-column tile of the "kn" layout reads (output n reads word
+    (n // n2) * (n2p // pw) + (n % n2) // pw, scale (n // n2) * (n2p //
+    group) + (n % n2) // group): the kernel stages that many a row."""
+    def word(n):
+        return (n // n2) * (n2p // pw) + (n % n2) // pw
+
+    def scale(n):
+        return (n // n2) * (n2p // group) + (n % n2) // group
+    span_w = span_s = 1
+    for n0 in range(0, N, TILE_N):
+        last = min(n0 + TILE_N, N) - 1
+        span_w = max(span_w, word(last) - word(n0) + 1)
+        span_s = max(span_s, scale(last) - scale(n0) + 1)
+    return span_w, span_s
+
+
+def _check_operands(x: torch.Tensor, qt: QTensor,
+                    bias: Optional[torch.Tensor], act: Optional[str]):
+    if not (x.is_cuda and qt.codes.is_cuda and qt.scales.is_cuda):
+        raise ValueError("dequant_gemm: the kernel takes CUDA tensors")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"dequant_gemm: the kernel takes bfloat16 or "
+                         f"float32 activations, got {x.dtype}")
+    if qt.dtype != x.dtype:
+        raise ValueError(f"dequant_gemm: weight dtype {qt.dtype} differs "
+                         f"from the activations' {x.dtype}")
+    if qt.codes.dtype != torch.int32 or qt.scales.dtype != torch.float32:
+        raise ValueError("dequant_gemm: codes must be int32, scales fp32")
+    pw, g = qt.spec.per_word, qt.spec.group_size
+    if g % pw:
+        raise ValueError(f"dequant_gemm: group {g} is no multiple of the "
+                         f"{pw} codes of a word")
+    for name, t in (("x", x), ("codes", qt.codes), ("scales", qt.scales)):
+        if not t.is_contiguous():
+            raise ValueError(f"dequant_gemm: {name} is not contiguous")
+    if act not in ACT_IDS:
+        raise ValueError(f"dequant_gemm: activation {act!r} not in "
+                         f"{tuple(ACT_IDS)}")
+    if bias is not None and not (bias.is_cuda and bias.dtype == torch.float32
+                                 and bias.is_contiguous()):
+        raise ValueError("dequant_gemm: bias must be a contiguous fp32 "
+                         "CUDA tensor")
+
+
+def _launch(x2, qt, bias, act, N, layout, ldw, lds, n2, n2p, span_w,
+            span_s) -> torch.Tensor:
+    M, K = x2.shape
+    if M < 1 or N < 1 or K < 1:
+        raise ValueError(f"dequant_gemm: empty product ({M}, {K}) x "
+                         f"({K}, {N})")
+    y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    x_vec = int(x2.data_ptr() % 16 == 0 and (K * x2.element_size()) % 16
+                == 0)
+    err = library().rt_dequant_gemm(
+        x2.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
+        None if bias is None else bias.data_ptr(), y.data_ptr(), M, N, K,
+        qt.spec.bits, qt.spec.group_size, layout, DTYPES[x2.dtype], ldw,
+        lds, n2, n2p, span_w, span_s, ACT_IDS[act], x_vec,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dequant_gemm: CUDA error {err}")
+    return y
+
+
+def launch_dequant_gemm(x2: torch.Tensor, qt: QTensor,
+                        bias: Optional[torch.Tensor] = None,
+                        act: Optional[str] = None) -> torch.Tensor:
+    """The "nk" layout: x2 (M, K) @ dequantize(qt (N, K))ᵀ, then bias
+    (N,) fp32 and ``act`` -> (M, N) in x2's dtype."""
+    _check_operands(x2, qt, bias, act)
+    if x2.dim() != 2 or len(qt.shape) != 2 or qt.codes.dim() != 2:
+        raise ValueError("dequant_gemm: expected x (M, K) and a 2-D packed "
+                         "weight (N, K)")
+    N, K = qt.shape
+    if x2.shape[1] != K or qt.codes.shape[0] != N:
+        raise ValueError(f"dequant_gemm: x {tuple(x2.shape)} against "
+                         f"weight {tuple(qt.shape)}")
+    if bias is not None and tuple(bias.shape) != (N,):
+        raise ValueError(f"dequant_gemm: bias {tuple(bias.shape)} for N "
+                         f"{N}")
+    return _launch(x2, qt, bias, act, N, NK, qt.codes.shape[1],
+                   qt.scales.shape[1], 1, 1, 1, 1)
+
+
+def launch_packed_matmul(x2: torch.Tensor, qt: QTensor, n_k: int
+                         ) -> torch.Tensor:
+    """The "kn" layout: x2 (M, K) @ dequantize(qt) with qt's first
+    ``n_k`` logical axes the K axes and the rest (N2,) or (N1, N2), each
+    N2 segment packed at its padded length -> (M, N1 * N2) in x2's
+    dtype."""
+    _check_operands(x2, qt, None, None)
+    shape = tuple(qt.shape)
+    if x2.dim() != 2 or len(shape) - n_k not in (1, 2):
+        raise ValueError(f"dequant_gemm: weight {shape} with {n_k} "
+                         f"contracted axes is not (K.., [N1,] N2)")
+    K = 1
+    for d in shape[:n_k]:
+        K *= d
+    N1 = shape[n_k] if len(shape) - n_k == 2 else 1
+    n2 = shape[-1]
+    pw, g = qt.spec.per_word, qt.spec.group_size
+    n2p = qt.codes.shape[-1] * pw
+    if (x2.shape[1] != K or qt.codes.numel() != K * N1 * n2p // pw
+            or qt.scales.numel() != K * N1 * n2p // g):
+        raise ValueError(f"dequant_gemm: x {tuple(x2.shape)} against "
+                         f"weight {shape}")
+    N = N1 * n2
+    span_w, span_s = kn_spans(N, n2, n2p, pw, g)
+    return _launch(x2, qt, None, None, N, KN, N1 * n2p // pw, N1 * n2p // g,
+                   n2, n2p, span_w, span_s)

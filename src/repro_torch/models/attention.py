@@ -11,6 +11,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.dequant_gemm import ops as dg
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import dense_init
 
@@ -40,16 +41,18 @@ def init_attn(generator, cfg, d_model: int, device, qkv_bias: bool = False,
 
 
 def qkv_proj(p, x):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    """Packed weights go through the packed-weight GEMM (prefill); the
+    bias adds after its rounding, as on dense weights."""
+    q = dg.quant_einsum("bsd,dhk->bshk", x, p["wq"])
+    k = dg.quant_einsum("bsd,dhk->bshk", x, p["wk"])
+    v = dg.quant_einsum("bsd,dhk->bshk", x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
 
 
 def out_proj(p, o):
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return dg.quant_einsum("bshk,hkd->bsd", o, p["wo"])
 
 
 def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,

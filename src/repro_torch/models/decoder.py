@@ -5,12 +5,16 @@ Layer params are stacked on a leading ``L`` axis, as in the reference:
 ``params["layers"]`` is a 1-tuple (one sublayer per group) holding
 ``{"norm1", "mixer"}`` plus ``{"norm2", "ffn"}`` when the sublayer has
 an FFN, every leaf ``(L, ...)``.  The reference's ``lax.scan`` over
-layers is a Python loop here; each layer dequantizes its packed weights
-at use (``dequantize_tree`` of the slice).  Caches are one tuple per
-group position: ``(k, v)`` for softmax attention, ``(state, z)`` for
-linear attention (per query head, as the reference lays out its state
-over repeated k/v), ``(conv_tail, ssd_state)`` for Mamba-2.  MoE, hybrid
-groups and the encoder-decoder are not ported yet.
+layers is a Python loop here.  Prefill (``stack_forward``) hands each
+layer's packed projection weights (``GEMM_LEAVES``) to the packed-weight
+GEMM (``kernels/dequant_gemm``) as they are and dequantizes only the
+small packed leaves (norm scales, q/k/v biases, Mamba-2's conv and norm);
+decode (``stack_decode``) dequantizes every packed leaf of the layer at
+use.  Caches are one tuple per group position: ``(k, v)`` for softmax
+attention, ``(state, z)`` for linear attention (per query head, as the
+reference lays out its state over repeated k/v), ``(conv_tail,
+ssd_state)`` for Mamba-2.  MoE, hybrid groups and the encoder-decoder
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,13 +23,17 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.quantize import QTensor, dequantize_tree
+from repro_torch.core.quantize import QTensor, dequantize, dequantize_tree
 from repro_torch.models import attention as attn
 from repro_torch.models import linear_attention as lin
 from repro_torch.models import mamba2
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import apply_norm, init_norm
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_map, tree_map_with_path
+
+# the projection weights prefill passes packed to ``quant_einsum``
+GEMM_LEAVES = frozenset(("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down",
+                         "in_proj", "out_proj"))
 
 
 def group_size(cfg) -> int:
@@ -93,6 +101,16 @@ def layer_slice(params_layers, i: int):
                     params_layers)
 
 
+def dequantize_small(sub):
+    """Every packed leaf of a layer dequantized except ``GEMM_LEAVES``."""
+    def visit(path, leaf):
+        if (isinstance(leaf, QTensor)
+                and path.rsplit("/", 1)[-1] not in GEMM_LEAVES):
+            return dequantize(leaf)
+        return leaf
+    return tree_map_with_path(visit, sub)
+
+
 def _ffn(sub, cfg, x):
     if "ffn" not in sub:
         return x
@@ -116,7 +134,7 @@ def stack_forward(params_layers, cfg, x, rope_fn, *, causal=True,
     mixer = mixer_of(cfg)
     c0, c1 = [], []
     for i in range(cfg.n_layers):
-        sub = dequantize_tree(layer_slice(params_layers, i))[0]
+        sub = dequantize_small(layer_slice(params_layers, i))[0]
         h = apply_norm(sub["norm1"], x)
         if mixer == "mamba":
             y, (a, b) = mamba2.mamba_forward(sub["mixer"], cfg, h,

@@ -9,8 +9,9 @@ attention-like products plus an inter-chunk state-passing scan.
 ``ssd_reference`` is the sequential recurrence (the tests' oracle),
 ``ssd_chunked`` the plain chunked form (the SSD kernel's plain version,
 ``kernels/ssd/ref.py``).  ``mamba_forward`` runs the SSD through
-``kernels/ssd/ops.ssd``: the Hopper kernel for CUDA tensors, the plain
-chunked form for CPU tensors.
+``kernels/ssd/ops.ssd`` and packed in/out projections through
+``kernels/dequant_gemm``: the Hopper kernels for CUDA tensors, the plain
+versions for CPU tensors.
 
 One addition to the reference: ``mamba_forward(valid_len=...)`` for
 right-padded prompts.  Positions at or past a row's ``valid_len`` get
@@ -26,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.dequant_gemm import ops as dg
 from repro_torch.models.common import dense_init
 
 # ---------------------------------------------------------------------------
@@ -236,7 +238,7 @@ def mamba_forward(p, cfg, x, valid_len: Optional[torch.Tensor] = None):
     B_, S, _ = x.shape
     gs = s.n_groups * s.d_state
 
-    proj = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    proj = dg.quant_einsum("bsd,de->bse", x, p["in_proj"])
     z, xbc, dt = _split_proj(cfg, proj)
     conv_tail = _conv_tail(xbc, s.d_conv - 1, valid_len)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
@@ -258,7 +260,7 @@ def mamba_forward(p, cfg, x, valid_len: Optional[torch.Tensor] = None):
     y = y + xs * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(B_, S, d_inner)
     y = _gated_norm(y, z, p["norm_scale"])
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = dg.quant_einsum("bse,ed->bsd", y, p["out_proj"])
     return out, (conv_tail, h)
 
 
@@ -270,7 +272,7 @@ def mamba_decode(p, cfg, x, conv_state, h):
     B_ = x.shape[0]
     gs = s.n_groups * s.d_state
 
-    proj = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    proj = dg.quant_einsum("bsd,de->bse", x, p["in_proj"])
     z, xbc, dt = _split_proj(cfg, proj)
     window = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)  # (B,K,C)
     conv_state_new = window[:, 1:, :]
@@ -286,7 +288,7 @@ def mamba_decode(p, cfg, x, conv_state, h):
     y = y + xs * p["D"][None, :, None].to(y.dtype)
     y = y.reshape(B_, 1, d_inner)
     y = _gated_norm(y, z, p["norm_scale"])
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = dg.quant_einsum("bse,ed->bsd", y, p["out_proj"])
     return out, (conv_state_new, h)
 
 

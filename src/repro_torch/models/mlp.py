@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.dequant_gemm import ops as dg
 from repro_torch.models.common import activation, dense_init
 
 GATED = {"swiglu": "silu", "geglu": "gelu"}
@@ -22,11 +23,13 @@ def init_mlp(generator, cfg, d_model: int, d_ff: int, device, lead=()):
 
 
 def apply_mlp(p, act: str, x):
-    """``act`` is the config's activation name (``cfg.act``)."""
-    up = torch.einsum("bsd,df->bsf", x, p["w_up"])
+    """``act`` is the config's activation name (``cfg.act``).  Packed
+    weights go through the packed-weight GEMM; the activation and the
+    gate's product stay outside it, as on dense weights."""
+    up = dg.quant_einsum("bsd,df->bsf", x, p["w_up"])
     if "w_gate" in p:
-        gate = torch.einsum("bsd,df->bsf", x, p["w_gate"])
+        gate = dg.quant_einsum("bsd,df->bsf", x, p["w_gate"])
         h = activation(GATED[act])(gate) * up
     else:
         h = activation(act)(up)
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    return dg.quant_einsum("bsf,fd->bsd", h, p["w_down"])

@@ -12,6 +12,9 @@ import torch
 
 from repro_torch.core.quantize import QuantSpec, dequantize, quantize
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.dequant_gemm import (dequant_gemm, quant_einsum,
+                                             ref_dequant_gemm,
+                                             ref_quant_einsum)
 from repro_torch.kernels.flash_attention import flash_attention, ref_attention
 from repro_torch.kernels.fused_decode import (cohort_step, fused_mlp,
                                               fused_qkv, kv_scatter,
@@ -744,3 +747,184 @@ def test_linear_attention_engine_on_card_prefills_through_the_kernel(cuda):
             got = first[r.slot]
             assert (got - want[0]).abs().max().item() <= \
                 5e-2 * want.abs().max().item()
+
+
+# -- packed-weight GEMM --------------------------------------------------
+# the reference kernel tests' measure (max |err| over max |plain|):
+# 5e-3 in bf16 (kernel and cuBLAS both accumulate in fp32, in other
+# orders; an output may differ by one bf16 step), 1e-5 in fp32 (the
+# kernel's FFMA and cuBLAS's full-fp32 GEMM differ in order only)
+DG_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
+DG_SPECS = {2: QuantSpec(2, group_size=32), 4: QuantSpec(4, group_size=32),
+            8: QuantSpec(8, group_size=32)}
+
+
+def _dg_close(got, want, dtype):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    got, want = got.float(), want.float()
+    assert got.isfinite().all()
+    m = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= DG_TOL[dtype] * m, f"max err {err:.3e} vs max {m:.3e}"
+
+
+def _dg_tensor(dev, shape, dtype, seed, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("mkn", [(64, 512, 128), (8, 1024, 256),
+                                 (130, 512, 200), (1, 100, 3),
+                                 (300, 4864, 896)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dequant_gemm_kernel_matches_plain(cuda, bits, mkn, dtype):
+    """The reference kernel's layout ("nk", packed along K), its test grid
+    plus an odd K (100 pads to 128) with N 3 and LLaVA's down
+    projection."""
+    M, K, N = mkn
+    x = _dg_tensor(cuda, (M, K), dtype, bits + M)
+    qt = quantize(_dg_tensor(cuda, (N, K), dtype, K, 0.05), DG_SPECS[bits])
+    reset_launch_counts()
+    got = dequant_gemm(x, qt)
+    torch.cuda.synchronize()
+    assert launch_counts()["dequant_gemm"] == 1
+    _dg_close(got, ref_dequant_gemm(x, qt), dtype)
+
+
+@pytest.mark.parametrize("act", [None, "relu", "silu", "gelu",
+                                 "squared_relu"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dequant_gemm_kernel_epilogue_matches_plain(cuda, act, dtype):
+    x = _dg_tensor(cuda, (2, 16, 512), dtype, 1)
+    qt = quantize(_dg_tensor(cuda, (128, 512), dtype, 2, 0.1),
+                  QuantSpec(4, group_size=64))
+    bias = torch.linspace(-0.5, 0.5, 128, device=cuda).to(dtype)
+    _dg_close(dequant_gemm(x, qt, bias, act),
+              ref_dequant_gemm(x, qt, bias, act), dtype)
+
+
+@pytest.mark.parametrize("group", [32, 64, 128])
+def test_dequant_gemm_kernel_group_sizes(cuda, group):
+    x = _dg_tensor(cuda, (16, 512), torch.float32, group)
+    qt = quantize(_dg_tensor(cuda, (64, 512), torch.float32, 3, 0.2),
+                  QuantSpec(4, group_size=group))
+    _dg_close(dequant_gemm(x, qt), ref_dequant_gemm(x, qt), torch.float32)
+
+
+# (spec, x shape, weight shape): the model's contractions at served widths
+# (LLaVA's q/k/v and out projection, Qwen2-VL's MLP up, Mamba-2's in_proj
+# whose 8512 outputs give 266-scale rows, not 16-byte aligned, and its
+# out_proj), ragged rows, an odd K, and head dims below the group (16 and
+# 8 pad to 32 per head)
+QE_CASES = [("bsd,dhk->bshk", (1, 77, 896), (896, 14, 64)),
+            ("bsd,dhk->bshk", (2, 64, 896), (896, 2, 64)),
+            ("bshk,hkd->bsd", (1, 130, 14, 64), (14, 64, 896)),
+            ("bsd,df->bsf", (1, 200, 3584), (3584, 18944)),
+            ("bsf,fd->bsd", (2, 33, 4864), (4864, 896)),
+            ("bsd,de->bse", (2, 100, 2048), (2048, 8512)),
+            ("bse,ed->bsd", (1, 128, 4096), (4096, 2048)),
+            ("bsd,df->bsf", (1, 19, 100), (100, 300)),
+            ("bsd,dhk->bshk", (2, 40, 64), (64, 4, 16)),
+            ("bsd,dhk->bshk", (1, 9, 48), (48, 6, 8))]
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("case", QE_CASES, ids=lambda c: f"{c[0]}-{c[2]}")
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quant_einsum_kernel_matches_plain(cuda, bits, case, dtype):
+    """The model's layout ("kn", packed along the output axis) against
+    ``dequantize`` + ``torch.einsum``."""
+    spec, xs, ws = case
+    x = _dg_tensor(cuda, xs, dtype, bits + xs[1])
+    w = quantize(_dg_tensor(cuda, ws, dtype, ws[-1], ws[0] ** -0.5),
+                 DG_SPECS[bits])
+    reset_launch_counts()
+    got = quant_einsum(spec, x, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["dequant_gemm"] == 1
+    _dg_close(got, ref_quant_einsum(spec, x, w), dtype)
+
+
+@pytest.mark.parametrize("layout", ["nk", "kn"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_dequant_gemm_kernel_unpack_is_dequantize(cuda, layout, bits):
+    """x = e_k: the output is row k of the dequantized weight (column k
+    in "nk"), bit for bit — the in-kernel unpack equals ``dequantize``,
+    the top field's sign bit included."""
+    K, N = 200, 300
+    shape = (K, 5, 60) if layout == "kn" else (N, K)
+    w = quantize(_dg_tensor(cuda, shape, torch.bfloat16, bits, 0.3),
+                 DG_SPECS[bits])
+    dense = dequantize(w)
+    for k in (0, 77, K - 1):
+        x = torch.zeros((1, 1, K), dtype=torch.bfloat16, device=cuda)
+        x[0, 0, k] = 1.0
+        if layout == "kn":
+            got, want = quant_einsum("bsd,dhk->bshk", x, w)[0, 0], dense[k]
+        else:
+            got, want = dequant_gemm(x, w)[0, 0], dense[:, k]
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_dequant_gemm_kernel_refuses_what_it_does_not_take(cuda):
+    """A strided operand, a dtype the kernel has no path for and
+    mismatched widths raise instead of launching (the binding copies
+    nothing; ``quant_einsum`` makes its operand contiguous itself)."""
+    from repro_torch.kernels.dequant_gemm import kernel as DK
+    w = quantize(_dg_tensor(cuda, (256, 384), torch.bfloat16, 0, 0.1),
+                 DG_SPECS[4])
+    x = _dg_tensor(cuda, (64, 512), torch.bfloat16, 1)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="not contiguous"):
+        DK.launch_packed_matmul(x[:, :256], w, 1)
+    with pytest.raises(ValueError, match="not contiguous"):
+        DK.launch_dequant_gemm(x[:, :384], quantize(
+            _dg_tensor(cuda, (32, 384), torch.bfloat16, 2), DG_SPECS[4]))
+    with pytest.raises(ValueError, match="float16"):
+        quant_einsum("bsd,df->bsf", x[None, :, :256].half(), w)
+    with pytest.raises(ValueError, match="against"):
+        quant_einsum("bsd,df->bsf", x[None], w)
+    assert launch_counts()["dequant_gemm"] == 0
+    strided = x[None, :, :256]
+    assert not strided.is_contiguous()
+    _dg_close(quant_einsum("bsd,df->bsf", strided, w),
+              ref_quant_einsum("bsd,df->bsf", strided, w), torch.bfloat16)
+
+
+@pytest.mark.parametrize("arch,variant,per_layer", [
+    ("llava-onevision-0.5b", None, 7), ("llava-onevision-0.5b", "linear", 7),
+    ("qwen2-vl-7b", None, 7), ("mamba2-1.3b", None, 2)])
+def test_one_layer_full_width_prefill_through_the_kernel(cuda, arch,
+                                                         variant, per_layer):
+    """One layer of each served model at full width, ``nanomind-serve``
+    weights: ``lm_prefill`` with every projection through the kernel
+    against the same prefill with the plain route (``dequantize`` +
+    einsum), logits within 5e-2 of the largest (the port's bf16 model
+    tolerance)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import PROFILES, quantize_tree
+    from repro_torch.kernels.dequant_gemm import ops as dg_ops
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(arch), n_layers=1)
+    if variant == "linear":
+        cfg = dataclasses.replace(cfg, attn_impl="linear", subquadratic=True)
+    with torch.no_grad():
+        params = quantize_tree(M.init_params(cfg, device=cuda, seed=0),
+                               PROFILES["nanomind-serve"])
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            3, cfg.vocab_size, (1, 512)).astype(np.int32)).to(cuda)
+        reset_launch_counts()
+        got, _ = M.lm_prefill(params, cfg, toks, 512)
+        torch.cuda.synchronize()
+        assert launch_counts()["dequant_gemm"] == per_layer
+        inner = dg_ops.quant_einsum
+        dg_ops.quant_einsum = ref_quant_einsum
+        try:
+            want, _ = M.lm_prefill(params, cfg, toks, 512)
+        finally:
+            dg_ops.quant_einsum = inner
+    assert got.isfinite().all()
+    err = (got - want).abs().max().item()
+    assert err <= 5e-2 * want.abs().max().item()

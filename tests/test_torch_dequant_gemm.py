@@ -1,0 +1,192 @@
+"""The port's packed-weight GEMM against the reference's, on the CPU.
+
+On CPU tensors ``dequant_gemm`` and ``quant_einsum`` run their plain
+versions (the kernel runs only on the card; ``test_torch_cuda_kernels.py``
+holds it against these plain versions there).  Every packed weight here
+is made by the reference's ``quantize`` and carried over by the bridge.
+
+* ``dequant_gemm`` (the reference kernel's "nk" layout, packed along K)
+  meets the reference's Pallas kernel in interpret mode and its oracle
+  ``ref_dequant_gemm`` on the grid of ``tests/test_kernels.py`` (bits,
+  shapes, dtypes, the four epilogues, group sizes, a 3-D x), at the
+  reference tests' 5e-3 of the largest magnitude in bf16 and 1e-5 in
+  fp32 (summation order only).
+* ``quant_einsum`` in each of the model's six contractions (the "kn"
+  layout, packed along the output axis; q/k/v per head, also with a head
+  dim below the group size, which ``quantize`` pads) is bit-equal to
+  ``torch.einsum`` on the reference's ``dequantize(w)`` and to
+  ``jnp.einsum`` on it in bf16; in fp32 within 1e-6 of the latter (the
+  two CPU BLAS libraries may sum in other orders).
+* Prefill hands every projection weight to ``quant_einsum`` still packed
+  (7 a layer with attention and a gated MLP, 2 a Mamba-2 layer), decode
+  hands it dense, and the prefill logits equal those of the dequantized
+  weights bit for bit.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import f32, shared_params, to_port
+from repro.core import quantize as RQ
+from repro.kernels.dequant_gemm import dequant_gemm as r_dequant_gemm
+from repro.kernels.dequant_gemm import ref_dequant_gemm as r_ref
+from repro_torch.core.quantize import QTensor, dequantize_tree
+from repro_torch.kernels.dequant_gemm import dequant_gemm, quant_einsum
+from repro_torch.kernels.dequant_gemm import ops as dg_ops
+from repro_torch.models import model as TM
+
+TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+
+
+def _rel_err(a, b):
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-9))
+
+
+def _arr(rng, shape, dtype, scale=1.0):
+    """A numpy draw as a reference array of ``dtype`` and the port's tensor
+    of the same bits."""
+    a = jnp.asarray((rng.standard_normal(shape) * scale).astype(
+        np.float32)).astype(dtype)
+    return a, torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+
+
+def _packed(rng, shape, dtype, bits=4, group=64, scale=0.05):
+    """A weight quantized by the reference, and the port's copy."""
+    w, _ = _arr(rng, shape, dtype, scale)
+    rw = RQ.quantize(w, RQ.QuantSpec(bits, group_size=group))
+    return rw, to_port(rw)
+
+
+def _against_reference(x, tx, rw, tw, dtype, bias=None, tbias=None,
+                       act=None, **pallas_kw):
+    got = dequant_gemm(tx, tw, tbias, act)
+    assert got.dtype == tx.dtype
+    assert tuple(got.shape) == x.shape[:-1] + (rw.shape[0],)
+    pallas = r_dequant_gemm(x, rw, bias, act, use_kernel=True,
+                            interpret=True, **pallas_kw)
+    assert _rel_err(f32(got), r_ref(x, rw, bias, act)) < TOL[dtype]
+    assert _rel_err(f32(got), pallas) < TOL[dtype]
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("mkn", [(64, 512, 128), (8, 1024, 256),
+                                 (130, 512, 200)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dequant_gemm_plain_matches_reference(bits, mkn, dtype):
+    M, K, N = mkn
+    rng = np.random.default_rng(bits * 1000 + M)
+    x, tx = _arr(rng, (M, K), dtype)
+    rw, tw = _packed(rng, (N, K), dtype, bits)
+    _against_reference(x, tx, rw, tw, dtype)
+
+
+@pytest.mark.parametrize("act", ["relu", "silu", "gelu", "squared_relu"])
+def test_dequant_gemm_plain_epilogue_matches_reference(act):
+    rng = np.random.default_rng(3)
+    x, tx = _arr(rng, (32, 512), "float32")
+    rw, tw = _packed(rng, (128, 512), "float32", scale=0.1)
+    bias = jnp.linspace(-0.5, 0.5, 128, dtype=jnp.float32)
+    _against_reference(x, tx, rw, tw, "float32", bias,
+                       torch.from_numpy(np.array(bias)), act)
+
+
+@pytest.mark.parametrize("group", [32, 64, 128])
+def test_dequant_gemm_plain_group_sizes_match_reference(group):
+    rng = np.random.default_rng(group)
+    x, tx = _arr(rng, (16, 512), "float32")
+    rw, tw = _packed(rng, (64, 512), "float32", group=group, scale=0.2)
+    _against_reference(x, tx, rw, tw, "float32", bk=256)
+
+
+def test_dequant_gemm_plain_3d_input_matches_reference():
+    rng = np.random.default_rng(5)
+    x, tx = _arr(rng, (2, 16, 512), "float32")
+    rw, tw = _packed(rng, (64, 512), "float32", scale=0.1)
+    _against_reference(x, tx, rw, tw, "float32")
+
+
+def test_dequant_gemm_refuses_an_unknown_activation():
+    rng = np.random.default_rng(6)
+    _, tx = _arr(rng, (4, 64), "float32")
+    _, tw = _packed(rng, (32, 64), "float32")
+    with pytest.raises(ValueError, match="activation"):
+        dequant_gemm(tx, tw, act="tanh")
+
+
+# (spec, x shape, weight shape): the model's six contractions at reduced
+# widths; Mamba-2's in_proj width 560 pads to 576 (g32); the last q/k/v
+# case has hd 16 < g 32, which quantize pads per head
+EINSUMS = [("bsd,dhk->bshk", (2, 8, 128), (128, 4, 32)),
+           ("bshk,hkd->bsd", (2, 8, 4, 32), (4, 32, 128)),
+           ("bsd,df->bsf", (2, 8, 128), (128, 256)),
+           ("bsf,fd->bsd", (2, 8, 256), (256, 128)),
+           ("bsd,de->bse", (2, 8, 128), (128, 560)),
+           ("bse,ed->bsd", (2, 8, 256), (256, 128)),
+           ("bsd,dhk->bshk", (2, 8, 64), (64, 4, 16))]
+
+
+@pytest.mark.parametrize("spec,xs,ws", EINSUMS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_quant_einsum_is_the_reference_dequantize_and_einsum(spec, xs, ws,
+                                                             dtype):
+    rng = np.random.default_rng(len(spec) + ws[-1])
+    x, tx = _arr(rng, xs, dtype)
+    rw, tw = _packed(rng, ws, dtype, group=32, scale=ws[0] ** -0.5)
+    assert tw.padded == (ws[-1] % 32 != 0)
+    dense = RQ.dequantize(rw)
+    got = quant_einsum(spec, tx, tw)
+    assert got.dtype == tx.dtype
+    composed = torch.einsum(spec, tx, torch.from_numpy(np.array(
+        dense.astype(jnp.float32))).to(tx.dtype))
+    assert torch.equal(got, composed)
+    want = np.asarray(jnp.einsum(spec, x, dense).astype(jnp.float32))
+    if dtype == "bfloat16":
+        assert np.array_equal(f32(got), want)
+    else:
+        assert _rel_err(f32(got), want) < 1e-6
+
+
+def test_quant_einsum_refuses_a_packed_weight_outside_the_model():
+    rng = np.random.default_rng(7)
+    _, tx = _arr(rng, (2, 8, 64), "float32")
+    _, tw = _packed(rng, (64, 32), "float32")
+    with pytest.raises(ValueError, match="no packed-weight path"):
+        quant_einsum("bsd,df->bfs", tx, tw)
+
+
+@pytest.mark.parametrize("arch,per_layer,variant", [
+    ("llava-onevision-0.5b", 7, None), ("qwen2-vl-7b", 7, None),
+    ("llava-onevision-0.5b", 7, "linear"), ("mamba2-1.3b", 2, None)])
+def test_prefill_hands_projection_weights_packed(monkeypatch, arch,
+                                                 per_layer, variant):
+    import dataclasses
+    _, _, cfg, params = shared_params(arch, "bfloat16", "nanomind-serve")
+    if variant == "linear":
+        cfg = dataclasses.replace(cfg, attn_impl="linear",
+                                  subquadratic=True)
+    calls = []
+    inner = dg_ops.quant_einsum
+
+    def recording(spec, x, w):
+        calls.append((spec, isinstance(w, QTensor)))
+        return inner(spec, x, w)
+    monkeypatch.setattr(dg_ops, "quant_einsum", recording)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        3, cfg.vocab_size, (2, 64)).astype(np.int32))
+    with torch.no_grad():
+        logits, cache = TM.lm_prefill(params, cfg, toks, 72)
+        assert len(calls) == per_layer * cfg.n_layers
+        assert all(packed for _, packed in calls)
+        calls.clear()
+        TM.lm_decode_step(params, cfg, torch.tensor([[5], [7]],
+                                                    dtype=torch.int32), cache)
+        assert len(calls) == per_layer * cfg.n_layers
+        assert not any(packed for _, packed in calls)
+        dense, _ = TM.lm_prefill({**params, "layers": dequantize_tree(
+            params["layers"])}, cfg, toks, 72)
+    assert torch.equal(logits, dense)
