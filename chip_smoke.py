@@ -16,13 +16,24 @@ Phases (any failure raises and exits non-zero):
      magnitude; the in-kernel unpack bit-equal to ``dequantize``
      (one-hot activations); the KV-row scatter bit-exact, sentinel rows
      writing nothing, on each model's served pool (n_slots x max_len /
-     block_size blocks);
+     block_size blocks); their fp32 instances at both widths, cohorts
+     1/2/4/8, q4 and dense fp32 weights, within 1e-5 of the largest
+     plain magnitude;
    - the flash-attention kernel at LLaVA's prefill shape (B 1, S 1024,
      H 14, KV 2, hd 64), Qwen2-VL's (B 2, S 2048, H 28, KV 4, hd 128), a
      ragged S = 777, and non-causal with Sq != Sk; every output row
      (b, i, h) within 2e-2 of that row's largest plain magnitude (a row
      over n keys is ~n^-1/2 in size, so one tolerance over the whole
-     output would be loose for the long rows);
+     output would be loose for the long rows); then the reference kernel
+     tests' grid (B, S, H, KV, hd of (2, 128, 4, 2, 32), (1, 256, 8, 8,
+     64), (2, 256, 6, 2, 32), (1, 128, 32, 4, 16)), causal and not, and
+     hd 160 at Qwen2-VL's head counts, in bf16 (rows as above) and fp32
+     (within the reference's 1e-4 of the largest plain magnitude);
+   - the cache-row-update kernel bit for bit against its plain version:
+     the reference tests' shapes (4, 64, 2, 16), (2, 128, 8, 32), (1,
+     256, 4, 64) with a per-row index, a scalar index and an
+     out-of-range row, and layer slices of a stacked cache at LLaVA's
+     widths (24 x 4 x 2048 x 2 x 64), bf16 and fp32 caches and rows;
 3. serve LLaVA-OneVision-0.5B at full width through ``ServingEngine``:
    random weights from ``init_params`` (seed 0) on the card, packed by
    ``quantize_tree(nanomind-serve)``; four requests (full-resolution and
@@ -33,11 +44,26 @@ Phases (any failure raises and exits non-zero):
    fused kernels; four requests (a 1024-token image, a repeat of its
    bytes, a 256-token image, a 4 x 256 request);
    for each served path the launch counts are reset just before and
-   read just after the run; one captured cohort state is decoded again
-   by the fused and by the composed (plain) step, which must agree
-   within bf16 tolerance; for Qwen2-VL one captured prefill group runs
-   again with chunked attention, whose logits must agree with the flash
-   path's;
+   read just after the run, and read around every decode step; one
+   captured cohort state is decoded again by the fused and by the plain
+   composed step (``ref_cohort_step``), which must agree within bf16
+   tolerance; for Qwen2-VL one captured prefill group runs again with
+   chunked attention, whose logits must agree with the flash path's;
+   3a. serve LLaVA-OneVision-0.5B again with the same weights and
+   requests through the composed decode step (``use_fused=False``): every
+   layer's new K and V rows written into the donated gathered caches by
+   the cache-row-update kernel (48 launches a step) and the pool by one
+   KV-row scatter; every row-update call of one step held bit for bit
+   against the plain version on its own inputs; that step's logits
+   against the fused step's and the plain step's on the same state
+   (teacher-forced) within 5e-2, its pool equal to the plain step's;
+   3b. serve LLaVA-OneVision-0.5B in fp32 with ``attn_q_chunk=0`` and the
+   engine's default ``use_fused``: prefill through the fp32 flash kernel
+   in every layer (each call held against the plain version within
+   1e-4), decode through the fp32 fused kernels; the largest prefill
+   group rerun through the plain versions (dense attention, dequantize +
+   einsum) and a captured cohort state through ``ref_cohort_step`` give
+   logits within 5e-2;
 5. serve LLaVA-OneVision-0.5B with the paper's streaming linear
    attention (``attn_impl="linear"``) at full width and depth: the same
    weights, engine settings and four requests as phase 3, prefill
@@ -89,7 +115,12 @@ Phases (any failure raises and exits non-zero):
 7. time each kernel, its plain version and a PyTorch library call: the
    fused-decode kernels at cohort size 4 rotating over the layers'
    weights (so the weights come from device memory, not the 50 MB L2)
-   at both models' widths, the flash kernel at Qwen2-VL's prefill shape,
+   at both models' widths (and the fp32 instances at LLaVA's over serve
+   3b's weights), the flash kernel at Qwen2-VL's prefill shape (and the
+   fp32 instance at LLaVA's, beside SDPA in fp32, and the bf16 instance at
+   hd 160 with Qwen2-VL's head counts), the cache-row-update
+   kernel at the composed step's shape (a layer of a cohort-4 gathered
+   context, beside ``index_put_``),
    the SSD kernel at its check shape (no single PyTorch call computes
    SSD), the linear-attention kernel at its check shape (nor that);
    beside the bound the card's published rates set (3.35 TB/s, 989
@@ -140,6 +171,26 @@ FLASH_SHAPES = (  # (B, Sq, Sk, H, KV, hd, causal)
     (1, 777, 777, 28, 4, 128, True),       # ragged tile edges
     (2, 300, 1000, 14, 2, 64, False))      # non-causal, Sq != Sk
 FLASH_TIME_SHAPE = FLASH_SHAPES[1]
+# the fp32 instance's timing shape: serve 3b's prefill (LLaVA, S 1024)
+FLASH_FP32_TIME_SHAPE = FLASH_SHAPES[0]
+# the reference kernel tests' flash grid (tests/test_kernels.py:163-198):
+# (B, S, H, KV, hd), each causal and not, in bf16 and fp32
+FLASH_REF_GRID = ((2, 128, 4, 2, 32), (1, 256, 8, 8, 64),
+                  (2, 256, 6, 2, 32), (1, 128, 32, 4, 16))
+# hd 160 (stablelm-12b) at Qwen2-VL's head counts: (B, Sq, Sk, H, KV, hd,
+# causal)
+FLASH_HD160 = ((2, 1024, 1024, 28, 4, 160, True),
+               (1, 300, 777, 28, 4, 160, False))
+# fp32 kernels vs plain, max |err| over the largest plain magnitude: the
+# reference's flash bound; the port's fp32 GEMM gate for the GEMVs (both
+# keep fp32 throughout, in other summation orders)
+FLASH_FP32_TOL = 1e-4
+FUSED_FP32_TOL = 1e-5
+# the cache-row-update checks: the reference tests' (B, S, KV, hd)
+CU_SHAPES = ((4, 64, 2, 16), (2, 128, 8, 32), (1, 256, 4, 64))
+# the keys of serves 3a and 3b in the kernels line's launches_by_path
+COMPOSED_PATH = "llava-onevision-0.5b/composed"
+FP32_PATH = "llava-onevision-0.5b/fp32"
 # the SSD kernel's check and timing shape: (B, S, H, P, G, N, chunk),
 # Mamba-2-1.3B's widths at a 2 x 2048 prefill
 SSD_SHAPE = (2, 2048, 64, 64, 1, 128, 256)
@@ -275,16 +326,18 @@ class Smoke:
         self.errs = {"fused_qkv": 0.0, "fused_mlp": 0.0,
                      "kv_row_scatter": 0.0, "flash_attention": 0.0,
                      "ssd": 0.0, "linear_attention": 0.0,
-                     "dequant_gemm": 0.0}
+                     "dequant_gemm": 0.0, "cache_row_update": 0.0}
         self.worst_row_ratio = 0.0       # flash: max over rows err/max
+        self.fp32_check = {}             # fp32 instances: worst err/max
+        self.cu_check = {}
         self.ssd_check = {}
         self.la_check = []
         self.dg_check = {}
 
-    def randn(self, *shape, scale=1.0):
+    def randn(self, *shape, scale=1.0, dtype=None):
         torch = self.torch
         return (torch.randn(shape, generator=self.gen, device=self.dev)
-                * scale).to(torch.bfloat16)
+                * scale).to(dtype or torch.bfloat16)
 
     @staticmethod
     def max_err(got, want):
@@ -353,32 +406,181 @@ class Smoke:
                     fail(f"kv_row_scatter {cfg.name} bc={bc}: pools differ")
         torch.cuda.synchronize()
 
+    def check_fused_fp32(self, cfg, bcs):
+        """The fp32 instances of the two GEMV kernels against their plain
+        versions at the widths of ``cfg``: q4 g32 weights packed from fp32
+        (dequantized to fp32 with no bf16 rounding) and the dense fp32
+        weights themselves, fp32 biases; max |err| within FUSED_FP32_TOL
+        of the largest plain magnitude."""
+        from repro_torch.core.quantize import QuantSpec, quantize
+        from repro_torch.kernels.fused_decode import ops, ref
+        torch = self.torch
+        f32 = torch.float32
+        D, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                           cfg.d_ff)
+        spec = QuantSpec(4, group_size=32)
+
+        def rn(*shape, scale=1.0):
+            return self.randn(*shape, scale=scale, dtype=f32)
+        dense = {"qkv": [rn(D, n, hd, scale=D ** -0.5) for n in (H, KV, KV)],
+                 "mlp": [rn(D, F, scale=D ** -0.5), rn(F, D, scale=F ** -0.5),
+                         rn(D, F, scale=D ** -0.5)]}
+        bias = [rn(n, hd, scale=0.1) for n in (H, KV, KV)]
+        worst = {}
+
+        def held(name, what, got, want):
+            if not (got.shape == want.shape and got.dtype == want.dtype == f32
+                    and got.isfinite().all()):
+                fail(f"{name} fp32 {what}: shape, dtype or non-finite output")
+            err, m = self.max_err(got, want)
+            if err > FUSED_FP32_TOL * m:
+                fail(f"{name} fp32 {what}: max err {err} vs max {m}")
+            worst[name] = max(worst.get(name, 0.0), err / m)
+        for label in ("q4", "dense"):
+            ws = {k: [quantize(w, spec) if label == "q4" else w for w in v]
+                  for k, v in dense.items()}
+            up, down, gate = ws["mlp"]
+            for bc in bcs:
+                h = rn(bc, 1, D)
+                for g, w in zip(ops.fused_qkv(h, *ws["qkv"], *bias),
+                                ref.ref_fused_qkv(h, *ws["qkv"], *bias)):
+                    held("fused_qkv", f"{cfg.name} {label} bc={bc}", g, w)
+                held("fused_mlp", f"{cfg.name} {label} bc={bc}",
+                     ops.fused_mlp(h, up, down, gate, act="swiglu"),
+                     ref.ref_fused_mlp(h, up, down, gate, act="swiglu"))
+            del ws, up, down, gate
+        torch.cuda.synchronize()
+        self.fp32_check[cfg.name] = {"bc": list(bcs),
+                                     "worst_err_over_max": worst,
+                                     "tol": FUSED_FP32_TOL}
+
+    def flash_held(self, q, k, v, causal, what):
+        """The flash kernel against its plain version on q, k, v: bf16
+        every output row within KERNEL_TOL of that row's largest plain
+        magnitude, fp32 within FLASH_FP32_TOL of the largest (the
+        reference's measure).  Returns (err/max measure, max abs err)."""
+        from repro_torch.kernels.flash_attention import (flash_attention,
+                                                         ref_attention)
+        got = flash_attention(q, k, v, causal=causal).float()
+        want = ref_attention(q, k, v, causal=causal).float()
+        if got.shape != want.shape or not got.isfinite().all():
+            fail(f"flash_attention {what}: shape {tuple(got.shape)} or "
+                 f"non-finite output")
+        err = (got - want).abs()
+        if q.dtype == self.torch.float32:
+            worst = (err.max() / want.abs().max()).item()
+            if worst > FLASH_FP32_TOL:
+                fail(f"flash_attention {what}: err/max {worst}")
+            return worst, err.max().item()
+        err = err.amax(-1)
+        ratio = (err / want.abs().amax(-1)).nan_to_num(nan=0.0, posinf=1e9)
+        worst = ratio.max().item()
+        if worst > KERNEL_TOL:
+            i = int(ratio.argmax())
+            fail(f"flash_attention {what}: row {i} err/max {worst}")
+        return worst, err.max().item()
+
     def check_flash(self):
         """Per output row (b, i, h): max |kernel - plain| within
         KERNEL_TOL of the row's max |plain|."""
-        from repro_torch.kernels.flash_attention import (flash_attention,
-                                                         ref_attention)
         for B, Sq, Sk, H, KV, hd, causal in FLASH_SHAPES:
-            what = (f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} "
-                    f"causal={causal}")
             q = self.randn(B, Sq, H, hd)
             k, v = self.randn(B, Sk, KV, hd), self.randn(B, Sk, KV, hd)
-            got = flash_attention(q, k, v, causal=causal).float()
-            want = ref_attention(q, k, v, causal=causal).float()
-            if got.shape != want.shape or not got.isfinite().all():
-                fail(f"flash_attention {what}: shape {tuple(got.shape)} "
-                     f"or non-finite output")
-            err = (got - want).abs().amax(-1)
-            ratio = (err / want.abs().amax(-1)).nan_to_num(nan=0.0,
-                                                           posinf=1e9)
-            worst = ratio.max().item()
-            if worst > KERNEL_TOL:
-                i = int(ratio.argmax())
-                fail(f"flash_attention {what}: row {i} err/max {worst}")
+            worst, err = self.flash_held(
+                q, k, v, causal, f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} "
+                f"hd={hd} causal={causal}")
             self.errs["flash_attention"] = max(self.errs["flash_attention"],
-                                               err.max().item())
+                                               err)
             self.worst_row_ratio = max(self.worst_row_ratio, worst)
         self.torch.cuda.synchronize()
+
+    def check_flash_grid(self):
+        """The reference kernel tests' grid (FLASH_REF_GRID, causal and
+        not) and hd 160 (FLASH_HD160), in bf16 and fp32."""
+        torch = self.torch
+        cases = [(B, S, S, H, KV, hd, c) for B, S, H, KV, hd in FLASH_REF_GRID
+                 for c in (True, False)] + list(FLASH_HD160)
+        worst = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            for B, Sq, Sk, H, KV, hd, causal in cases:
+                q = self.randn(B, Sq, H, hd, dtype=dtype)
+                k = self.randn(B, Sk, KV, hd, dtype=dtype)
+                v = self.randn(B, Sk, KV, hd, dtype=dtype)
+                w, err = self.flash_held(
+                    q, k, v, causal, f"{name} B={B} Sq={Sq} Sk={Sk} H={H} "
+                    f"KV={KV} hd={hd} causal={causal}")
+                worst[name] = max(worst.get(name, 0.0), w)
+                if dtype == torch.bfloat16:
+                    self.errs["flash_attention"] = max(
+                        self.errs["flash_attention"], err)
+        torch.cuda.synchronize()
+        self.fp32_check["flash_attention"] = {
+            "cases": [list(c) for c in cases], "dtypes": sorted(worst),
+            "worst": {"bfloat16_row_err_over_row_max": worst["bfloat16"],
+                      "float32_err_over_max": worst["float32"]},
+            "tol": {"bfloat16_row": KERNEL_TOL, "float32": FLASH_FP32_TOL}}
+
+    def check_cache_update(self, cfg):
+        """The cache-row-update kernel bit for bit against its plain
+        version (each on its own copy of the same inputs), in place and
+        finite: the reference tests' shapes (CU_SHAPES) with a per-row
+        index, a scalar index and an out-of-range row (left as it was),
+        and layer slices of a stacked (L, n_slots, max_len, KV, hd) cache
+        at ``cfg``'s widths; bf16 and fp32 caches, each with a row of
+        either dtype."""
+        from repro_torch.kernels.cache_update import (cache_row_update,
+                                                      ref_cache_row_update)
+        torch = self.torch
+        cases = 0
+
+        def held(what, cache, row, index):
+            nonlocal cases
+            want = ref_cache_row_update(cache.clone(), row, index)
+            got = cache_row_update(cache, row, index)
+            if not (got is cache and got.isfinite().all()
+                    and torch.equal(got, want)):
+                fail(f"cache_row_update {what}: differs from the plain "
+                     f"version")
+            cases += 1
+        dtypes = (torch.bfloat16, torch.float32)
+        for cdt in dtypes:
+            for rdt in dtypes:
+                what = f"cache {cdt} row {rdt}"
+                for B, S, KV, hd in CU_SHAPES:
+                    cache = self.randn(B, S, KV, hd, dtype=cdt)
+                    row = self.randn(B, KV, hd, dtype=rdt)
+                    idx = torch.tensor([(i * 7 + 3) % S for i in range(B)],
+                                       dtype=torch.int32, device=self.dev)
+                    held(f"{what} {(B, S, KV, hd)}", cache, row, idx)
+                    held(f"{what} {(B, S, KV, hd)} scalar index", cache, row,
+                         5)
+                    idx[0] = S
+                    before = cache[0].clone()
+                    held(f"{what} {(B, S, KV, hd)} out of range", cache, row,
+                         idx)
+                    if not torch.equal(cache[0], before):
+                        fail(f"cache_row_update {what}: an out-of-range "
+                             f"row was written")
+            L, B, S = cfg.n_layers, N_SLOTS, MAX_LEN[cfg.name]
+            stack = self.randn(L, B, S, cfg.n_kv_heads, cfg.hd, dtype=cdt)
+            row = self.randn(B, cfg.n_kv_heads, cfg.hd, dtype=cdt)
+            idx = torch.tensor([0, 700, 1400, S - 1], dtype=torch.int32,
+                               device=self.dev)
+            want = stack.clone()
+            for i in (0, L // 2, L - 1):
+                ref_cache_row_update(want[i], row, idx)
+                held(f"{cfg.name} layer slice {i} {cdt}", stack[i], row, idx)
+            if not torch.equal(stack, want):
+                fail("cache_row_update: a layer slice write reached another "
+                     "layer")
+            del stack, want
+        torch.cuda.synchronize()
+        self.cu_check = {"cases": cases, "bit_exact": True,
+                         "shapes": [list(c) for c in CU_SHAPES],
+                         "layer_slices_of": [cfg.n_layers, N_SLOTS,
+                                             MAX_LEN[cfg.name],
+                                             cfg.n_kv_heads, cfg.hd]}
 
     def ssd_inputs(self, B, S, H, P, G, N):
         """bf16 x/B/C and fp32 dt, A drawn like the reference kernel
@@ -667,11 +869,77 @@ def ssd_errors(args, out, chunk, what):
             int((y != ry).sum().item()))
 
 
-def serve_path(sm, cfg, reqs):
-    """Serve ``reqs`` on ``cfg`` at full width; check what the run must
-    show, the packed-weight GEMM calls of the first prefill call among it
-    (``GemmCalls``, ``served_gemm_check``); return (serve record, engine,
-    captured prefill: the largest group)."""
+class RowUpdateCalls:
+    """Holds every ``cache_update.ops.cache_row_update`` call made while
+    ``armed`` (the model looks the wrapper up at each call) against the
+    plain version on its own inputs, a copy of the cache taken just before
+    the call: bit for bit, in place, finite.  Wrapped inside the ``with``
+    block."""
+
+    def __init__(self):
+        from repro_torch.kernels.cache_update import ops, ref
+        self.ops, self.inner = ops, ops.cache_row_update
+        self.ref = ref.ref_cache_row_update
+        self.armed, self.calls, self.shapes = False, 0, set()
+
+    def __call__(self, cache, row, index):
+        import torch
+        if not self.armed:
+            return self.inner(cache, row, index)
+        before = cache.clone()
+        out = self.inner(cache, row, index)
+        want = self.ref(before, row, index)
+        if not (out is cache and out.isfinite().all()
+                and torch.equal(out, want)):
+            fail(f"served cache_row_update at {tuple(cache.shape)} differs "
+                 f"from the plain version")
+        self.calls += 1
+        self.shapes.add((tuple(cache.shape), str(cache.dtype), tuple(
+            cache.stride())))
+        return out
+
+    def __enter__(self):
+        self.ops.cache_row_update = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.cache_row_update = self.inner
+
+
+class FlashCalls:
+    """Keeps every flash-attention call of a serve (q, k, v, causal, out;
+    by reference: the model writes none of them after the call):
+    ``models.attention.flash_attention`` is wrapped inside the ``with``
+    block."""
+
+    def __init__(self):
+        from repro_torch.models import attention
+        self.mod, self.inner = attention, attention.flash_attention
+        self.calls = []
+
+    def __call__(self, q, k, v, *, causal=True):
+        out = self.inner(q, k, v, causal=causal)
+        self.calls.append((q, k, v, causal, out))
+        return out
+
+    def __enter__(self):
+        self.mod.flash_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.inner
+
+
+def serve_path(sm, cfg, reqs, use_fused=None):
+    """Serve ``reqs`` on ``cfg`` at full width with the engine's decode
+    step (``use_fused``: None, the engine's default, which must be the
+    fused step; False, the composed step); check what the run must show,
+    the launches of every decode step, the packed-weight GEMM calls of the
+    first prefill call among it (``GemmCalls``, ``served_gemm_check``),
+    every cache-row-update call of the captured step (``RowUpdateCalls``)
+    and every flash call (``FlashCalls``, fp32 within FLASH_FP32_TOL,
+    bf16 rows within KERNEL_TOL); return (serve record, engine, captured
+    prefill: the largest group)."""
     from repro_torch.core.quantize import PROFILES, quantize_tree
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.fused_decode import ops, ref
@@ -687,22 +955,38 @@ def serve_path(sm, cfg, reqs):
     setup_s = time.perf_counter() - t0
     eng = ServingEngine(cfg, params, n_slots=N_SLOTS,
                         max_len=MAX_LEN[cfg.name], block_size=BLOCK_SIZE,
-                        device=sm.dev)
+                        use_fused=use_fused, device=sm.dev)
     del params
-    if not eng.use_fused:
-        fail(f"{cfg.name}: the engine did not select the fused decode step")
-    captured, prefills = {}, []
+    fused = eng.use_fused
+    if fused != (use_fused is None):
+        fail(f"{cfg.name}: the engine selected use_fused={fused}")
+    captured, prefills, step_launches = {}, [], []
     decode, prefill = eng._decode, eng._prefill
 
     def capturing_decode(tokens, lengths, slot_ids, tables):
-        # keep one multi-row cohort state (inputs + pool before the step)
-        if "args" not in captured and int((tables[:, 0] <
-                                           eng.slots.n_blocks).sum()) >= 2:
+        # keep one multi-row cohort state (inputs + pool before the step,
+        # the step's logits and pool after it); count every step's launches
+        take = ("args" not in captured and int((tables[:, 0] <
+                                                eng.slots.n_blocks).sum()) >= 2)
+        if take:
             captured["args"] = tuple(t.clone() for t in
                                      (tokens, lengths, slot_ids, tables))
             captured["pool"] = tuple(tuple(t.clone() for t in pos)
                                      for pos in eng.slots.pool)
-        return decode(tokens, lengths, slot_ids, tables)
+        before = launch_counts()
+        rows.armed = take
+        try:
+            logits, pool = decode(tokens, lengths, slot_ids, tables)
+        finally:
+            rows.armed = False
+        after = launch_counts()
+        step_launches.append({k: after[k] - before[k] for k in after
+                              if after[k] != before[k]})
+        if take:
+            captured["logits"] = logits.clone()
+            captured["pool_after"] = tuple(tuple(t.clone() for t in p)
+                                           for p in pool)
+        return logits, pool
 
     def counting_prefill_inner(tokens, vision_embeds, last_idx):
         logits, cache = prefill(tokens, vision_embeds, last_idx)
@@ -728,7 +1012,8 @@ def serve_path(sm, cfg, reqs):
         eng.submit(r)
     reset_launch_counts()
     t0 = time.perf_counter()
-    with GemmCalls() as gemms, eng:
+    with GemmCalls() as gemms, RowUpdateCalls() as rows, \
+            FlashCalls() as flashes, eng:
         done = eng.run()
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
@@ -749,18 +1034,30 @@ def serve_path(sm, cfg, reqs):
         if not (len(r.out_tokens) == r.max_new_tokens and all(
                 0 <= t < cfg.vocab_size for t in r.out_tokens)):
             fail(f"{cfg.name}: request {r.rid} tokens {r.out_tokens}")
-    want_flash = L * n_prefill if cfg.attn_q_chunk == 0 else 0
+    # each decode step: the fused kernels, or two row updates a layer;
+    # one KV-row scatter either way
+    per_step = ({"fused_qkv": L, "fused_mlp": L, "kv_scatter": 1} if fused
+                else {"cache_row_update": 2 * L, "kv_scatter": 1})
     per_call = GEMMS_PER_LAYER["attn"] * L
-    if not (launches["fused_qkv"] == launches["fused_mlp"] == L * decode_steps
-            and launches["kv_scatter"] == decode_steps and decode_steps > 0
-            and launches["flash_attention"] == want_flash and n_prefill > 0
-            and launches["dequant_gemm"] == per_call * n_prefill):
+    want = {k: 0 for k in launches}
+    want.update({k: n * decode_steps for k, n in per_step.items()})
+    want["flash_attention"] = L * n_prefill if cfg.attn_q_chunk == 0 else 0
+    want["dequant_gemm"] = per_call * n_prefill
+    if not (launches == want and decode_steps > 0 and n_prefill > 0
+            and len(step_launches) == decode_steps
+            and all(d == per_step for d in step_launches)):
         fail(f"{cfg.name}: launch counts {launches} for {decode_steps} "
-             f"decode steps and {n_prefill} prefill calls")
+             f"decode steps and {n_prefill} prefill calls (want {want}; "
+             f"per step {per_step}, got {step_launches[:3]})")
+    if not fused and rows.calls != 2 * L:
+        fail(f"{cfg.name}: {rows.calls} row-update calls held in the "
+             f"captured step, expected {2 * L}")
     spans = eng.probe.samples()
     pre = [s for s in spans if s.brick == "decoder" and s.phase == "prefill"]
     decs = [s for s in spans if s.brick == "decoder" and s.phase == "decode"]
-    serve = {"arch": cfg.name, "attn_q_chunk": cfg.attn_q_chunk,
+    serve = {"arch": cfg.name, "dtype": cfg.dtype,
+             "attn_q_chunk": cfg.attn_q_chunk,
+             "decode_step": "fused" if fused else "composed",
              "requests": len(done), "decode_steps": decode_steps,
              "decoded_tokens": eng.stats.decoded_tokens,
              "setup_s": round(setup_s, 3), "serve_s": round(serve_s, 3),
@@ -776,13 +1073,32 @@ def serve_path(sm, cfg, reqs):
              "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9,
                                   3),
              "kv_pool_mb": round(eng.slots.nbytes / 1e6, 3),
-             "tabm": tstats, "launches": launches}
+             "tabm": tstats, "launches": launches,
+             "launches_per_decode_step": per_step}
     serve["gemm_served_check"] = dict(served_gemm_check(
         cfg, gemms.calls, per_call), prefill_batch=captured[
         "prefill_batch"][0], prefill_width=captured["prefill_width"][0])
     del gemms
+    if not fused:
+        serve["row_update_served_check"] = {
+            "calls": rows.calls, "bit_exact": True,
+            "cache_shape_dtype_strides": sorted(rows.shapes)}
+    if flashes.calls:
+        worst, err_max = 0.0, 0.0
+        with torch.no_grad():
+            for q, k, v, causal, _ in flashes.calls:
+                w, err = sm.flash_held(q, k, v, causal, f"{cfg.name}: served "
+                                       f"at {tuple(q.shape)}")
+                worst, err_max = max(worst, w), max(err_max, err)
+        serve["flash_served_check"] = {
+            "calls": len(flashes.calls), "max_abs_err": err_max,
+            "worst_err_over_max": worst, "dtype": cfg.dtype,
+            "tol": (FLASH_FP32_TOL if cfg.dtype == "float32"
+                    else KERNEL_TOL)}
+    del flashes
 
-    # fused vs composed on the captured cohort state
+    # the captured cohort state again through the fused and the plain
+    # composed step (teacher-forced: the same inputs and pool)
     if "args" not in captured:
         fail(f"{cfg.name}: no multi-row cohort state was captured")
     args = captured["args"]
@@ -791,18 +1107,34 @@ def serve_path(sm, cfg, reqs):
     with torch.no_grad():
         lf, _ = ops.cohort_step(eng.params, cfg, *args, pool_f,
                                 use_fused=True, **kw)
-        lr, _ = ref.ref_cohort_step(eng.params, cfg, *args,
-                                    captured["pool"], **kw)
-    rows = int((args[3][:, 0] < eng.slots.n_blocks).sum())
-    serve["cohort_check"] = logit_check(cfg, lf[:rows], lr[:rows],
-                                        "fused vs composed step")
-    serve["cohort_check"]["rows"] = rows
+        lr, pr = ref.ref_cohort_step(eng.params, cfg, *args,
+                                     captured["pool"], **kw)
+    nrows = int((args[3][:, 0] < eng.slots.n_blocks).sum())
+    if fused:
+        serve["cohort_check"] = logit_check(cfg, lf[:nrows], lr[:nrows],
+                                            "fused vs composed step")
+    else:
+        ls = captured["logits"]
+        same_pool = all(torch.equal(a, b) for a, b in
+                        zip(captured["pool_after"][0], pr[0]))
+        if not same_pool:
+            fail(f"{cfg.name}: the composed step's pool differs from the "
+                 f"plain step's")
+        serve["cohort_check"] = {
+            "served_vs_fused": logit_check(cfg, ls[:nrows], lf[:nrows],
+                                           "composed served vs fused step"),
+            "served_vs_plain": logit_check(cfg, ls[:nrows], lr[:nrows],
+                                           "composed served vs plain step"),
+            "logits_bit_equal_to_plain": bool(torch.equal(ls, lr)),
+            "pool_equal_to_plain": same_pool}
+    serve["cohort_check"]["rows"] = nrows
+    del pr, captured["pool_after"]
 
-    # where one fused decode step's time goes: wall time (host clock,
+    # where one decode step's time goes: wall time (host clock,
     # synchronized, median of 5) against the card's kernel time
     def step():
         with torch.no_grad():
-            ops.cohort_step(eng.params, cfg, *args, pool_f, use_fused=True,
+            ops.cohort_step(eng.params, cfg, *args, pool_f, use_fused=fused,
                             **kw)
         torch.cuda.synchronize()
     walls = []
@@ -819,6 +1151,26 @@ def serve_path(sm, cfg, reqs):
         "top_kernels_ms": [[k[:96], v / 1e3] for k, v, _ in by_name[:8]]}
     del captured["pool"], pool_f
     return serve, eng, prefills[0]
+
+
+def prefill_plain_check(eng, cfg, captured):
+    """The captured prefill group again with each prefill kernel swapped
+    for its plain version (dense attention for the flash kernel,
+    dequantize + einsum for the packed-weight GEMM): the same logits
+    within STEP_TOL."""
+    import torch
+    from repro_torch.kernels.dequant_gemm import ops as dg_ops
+    from repro_torch.kernels.flash_attention import ref_attention
+    from repro_torch.models import attention
+    tokens, vision, last_idx, logits = captured
+    with swapped(attention, "flash_attention", ref_attention), \
+            swapped(dg_ops, "quant_einsum", dg_ops.ref_quant_einsum), \
+            torch.no_grad():
+        plain, _ = eng._prefill(tokens, vision, last_idx)
+    torch.cuda.synchronize()
+    out = logit_check(cfg, logits, plain, "kernel vs plain prefill")
+    out["batch"], out["width"] = int(tokens.shape[0]), int(tokens.shape[1])
+    return out
 
 
 def logit_check(cfg, got, want, what, tol=STEP_TOL):
@@ -906,7 +1258,9 @@ def time_fused(sm, cfg, eng):
     n_rot = TIME_LAYERS[cfg.name]
     layers = [dec.layer_slice(eng.params["layers"], i)[0]
               for i in range(n_rot)]
-    h4 = sm.randn(TIME_BC, 1, D)
+    dt = cfg.torch_dtype
+    es = torch.finfo(dt).bits // 8
+    h4 = sm.randn(TIME_BC, 1, D, dtype=dt)
     x2 = h4.reshape(TIME_BC, D)
 
     def _b(t):
@@ -929,7 +1283,7 @@ def time_fused(sm, cfg, eng):
         w_bytes = sum(w.codes.numel() * 4 + w.scales.numel() * 4
                       for w in qkv_in[0][:3])
         n_out = (H + 2 * KV) * hd
-        byt = w_bytes + 2 * (TIME_BC * D + n_out + TIME_BC * n_out)
+        byt = w_bytes + es * (TIME_BC * D + n_out + TIME_BC * n_out)
         rec["fused_qkv"] = (t_k, t_p, t_l, t_d, byt,
                             2 * TIME_BC * D * n_out)
         del dense_qkv
@@ -957,13 +1311,13 @@ def time_fused(sm, cfg, eng):
         del dense_ffn
         w_bytes = sum(ffn[0][w].codes.numel() * 4 + ffn[0][w].scales.numel()
                       * 4 for w in ("w_up", "w_gate", "w_down"))
-        rec["fused_mlp"] = (t_k, t_p, t_l, t_d, w_bytes + 2 * 2 * TIME_BC * D,
+        rec["fused_mlp"] = (t_k, t_p, t_l, t_d, w_bytes + es * 2 * TIME_BC * D,
                             2 * TIME_BC * 3 * D * F)
 
         kp, vp = eng.slots.pool[0]
         nb, bs = kp.shape[1], kp.shape[2]
-        k_rows, v_rows = sm.randn(L, TIME_BC, KV, hd), sm.randn(L, TIME_BC,
-                                                                KV, hd)
+        k_rows = sm.randn(L, TIME_BC, KV, hd, dtype=dt)
+        v_rows = sm.randn(L, TIME_BC, KV, hd, dtype=dt)
         blk = torch.arange(TIME_BC, dtype=torch.int32, device=sm.dev) * 7 % nb
         off = torch.arange(TIME_BC, dtype=torch.int32, device=sm.dev) * 5 % bs
         g_idx = torch.arange(L, device=sm.dev)[:, None].expand(L, TIME_BC)
@@ -977,21 +1331,47 @@ def time_fused(sm, cfg, eng):
                                vp.index_put_((g_idx, b_idx, o_idx), v_rows)),
                     1)
         rec["kv_row_scatter"] = (t_k, t_p, t_l, None,
-                                 2 * 2 * (2 * L * TIME_BC * KV * hd)
+                                 2 * es * (2 * L * TIME_BC * KV * hd)
                                  + 2 * 4 * TIME_BC, 0)
     return rec
 
 
-def time_flash(sm):
+def time_cache_update(sm, cfg):
+    """The cache-row-update kernel, its plain version and ``index_put_``
+    (``cache[b, index] = row``) at the composed step's shape: a layer of a
+    cohort-4 gathered context (n_slots x max_len x KV x hd, bf16), rotated
+    over the layers of the stack; the bytes are the rows read and written
+    once and the index read."""
+    import torch
+    from repro_torch.kernels.cache_update import (cache_row_update,
+                                                  ref_cache_row_update)
+    L, B, S = cfg.n_layers, N_SLOTS, MAX_LEN[cfg.name]
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    stack = sm.randn(L, B, S, KV, hd)
+    row = sm.randn(B, KV, hd)
+    idx = torch.tensor([5, 700, 1400, S - 1], dtype=torch.int32,
+                       device=sm.dev)
+    b_idx, s_idx = torch.arange(B, device=sm.dev), idx.long()
+    with torch.no_grad():
+        t_k = timed(lambda i: cache_row_update(stack[i], row, idx), L)
+        t_p = timed(lambda i: ref_cache_row_update(stack[i], row, idx), L)
+        t_l = timed(lambda i: stack[i].index_put_((b_idx, s_idx), row), L)
+    return t_k, t_p, t_l, None, 2 * 2 * B * KV * hd + 4 * B, 0
+
+
+def time_flash(sm, shape=None, dtype=None):
     """The flash kernel, its plain version and SDPA (GQA through
-    ``enable_gqa``) at Qwen2-VL's prefill shape."""
+    ``enable_gqa``) at ``shape`` (FLASH_TIME_SHAPE by default) in
+    ``dtype`` (bf16 by default)."""
     import torch
     import torch.nn.functional as Fn
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      ref_attention)
-    B, Sq, Sk, H, KV, hd, causal = FLASH_TIME_SHAPE
-    q = sm.randn(B, Sq, H, hd)
-    k, v = sm.randn(B, Sk, KV, hd), sm.randn(B, Sk, KV, hd)
+    B, Sq, Sk, H, KV, hd, causal = shape or FLASH_TIME_SHAPE
+    dtype = dtype or torch.bfloat16
+    q = sm.randn(B, Sq, H, hd, dtype=dtype)
+    k = sm.randn(B, Sk, KV, hd, dtype=dtype)
+    v = sm.randn(B, Sk, KV, hd, dtype=dtype)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     with torch.no_grad():
         t_k = timed(lambda i: flash_attention(q, k, v, causal=causal), 1,
@@ -1000,7 +1380,7 @@ def time_flash(sm):
                     iters=5)
         t_l = timed(lambda i: Fn.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), 1, iters=20)
-    byt = 2 * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
+    byt = q.element_size() * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
     pairs = Sq * (Sq + 1) // 2 if causal and Sq == Sk else Sq * Sk
     fl = 4 * B * H * hd * pairs            # q.k and p.v, keys each row sees
     return t_k, t_p, t_l, None, byt, fl
@@ -1621,12 +2001,13 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.cache_update import kernel as CK
     from repro_torch.kernels.dequant_gemm import kernel as DK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.fused_decode import kernel as K
     from repro_torch.kernels.linear_attention import kernel as LK
     from repro_torch.kernels.ssd import kernel as SK
-    libs = (K, FK, SK, LK, DK)
+    libs = (K, FK, SK, LK, DK, CK)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1650,7 +2031,12 @@ def main() -> int:
     mamba = get_config("mamba2-1.3b")
     sm.check_fused(llava, (1, 2, 4, 8))
     sm.check_fused(qwen, (1, 2, 4))
+    sm.check_fused_fp32(llava, (1, 2, 4, 8))
+    sm.check_fused_fp32(qwen, (1, 2, 4, 8))
+    free()
     sm.check_flash()
+    sm.check_flash_grid()
+    sm.check_cache_update(llava)
     sm.check_ssd()
     sm.check_linear_attention()
     # LLaVA's projections serve in fp32 too (the fp32 linear-attention
@@ -1661,6 +2047,8 @@ def main() -> int:
     free()
     print(json.dumps({"kernel_checks": {
         "fused_bc": {llava.name: [1, 2, 4, 8], qwen.name: [1, 2, 4]},
+        "fp32": sm.fp32_check,
+        "cache_row_update": sm.cu_check,
         "flash_shapes": [list(s) for s in FLASH_SHAPES],
         "ssd": sm.ssd_check,
         "dequant_gemm": sm.dg_check,
@@ -1683,6 +2071,29 @@ def main() -> int:
     print(json.dumps({"serve": serve}))
     serves[llava.name] = serve
     timings[llava.name] = time_fused(sm, llava, eng)
+    del eng, captured
+    free()
+
+    # -- 3a. the same LLaVA serve through the composed decode step: the
+    # cache-row-update kernel on the donated gathered caches ---------------
+    serve, eng, _ = serve_path(sm, llava, requests(llava, llava_reqs, seed=0),
+                               use_fused=False)
+    print(json.dumps({"serve": serve}))
+    serves[COMPOSED_PATH] = serve
+    timings["cache_row_update"] = time_cache_update(sm, llava)
+    del eng
+    free()
+
+    # -- 3b. LLaVA in fp32 with the engine's default decode step: prefill
+    # through the fp32 flash kernel, decode through the fp32 fused kernels -
+    llava32 = dataclasses.replace(llava, dtype="float32", attn_q_chunk=0)
+    serve, eng, captured = serve_path(sm, llava32, requests(
+        llava32, llava_reqs, seed=0))
+    serve["prefill_plain_check"] = prefill_plain_check(eng, llava32,
+                                                       captured)
+    print(json.dumps({"serve": serve}))
+    serves[FP32_PATH] = serve
+    timings[FP32_PATH] = time_fused(sm, llava32, eng)
     del eng, captured
     free()
 
@@ -1759,6 +2170,8 @@ def main() -> int:
     # prefill shapes, the SSD and linear-attention kernels at their check
     # shapes ----------------------------------------------------------------
     flash_t = time_flash(sm)
+    flash32_t = time_flash(sm, FLASH_FP32_TIME_SHAPE, torch.float32)
+    flash160_t = time_flash(sm, FLASH_HD160[0])
     ssd_t = time_ssd(sm)
     la_t = time_linear(sm)
     dg_t = time_dequant_gemm(sm)
@@ -1770,7 +2183,8 @@ def main() -> int:
                   "kv_row_scatter": "kv_scatter",
                   "flash_attention": "flash_attention", "ssd": "ssd",
                   "linear_attention": "linear_attention",
-                  "dequant_gemm": "dequant_gemm"}
+                  "dequant_gemm": "dequant_gemm",
+                  "cache_row_update": "cache_row_update"}
     replaces = {
         "fused_qkv": "src/repro/kernels/fused_decode/kernel.py:92",
         "fused_mlp": "src/repro/kernels/fused_decode/kernel.py:138",
@@ -1778,20 +2192,22 @@ def main() -> int:
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:55",
         "ssd": "src/repro/kernels/ssd/kernel.py:69",
         "linear_attention": "src/repro/kernels/linear_attention/kernel.py:68",
-        "dequant_gemm": "src/repro/kernels/dequant_gemm/kernel.py:84"}
+        "dequant_gemm": "src/repro/kernels/dequant_gemm/kernel.py:84",
+        "cache_row_update": "src/repro/kernels/cache_update/kernel.py:31"}
     sources = {"flash_attention": "src/repro_torch/csrc/flash_attention.cu",
                "ssd": "src/repro_torch/csrc/ssd.cu",
                "linear_attention": "src/repro_torch/csrc/linear_attention.cu",
-               "dequant_gemm": "src/repro_torch/csrc/dequant_gemm.cu"}
+               "dequant_gemm": "src/repro_torch/csrc/dequant_gemm.cu",
+               "cache_row_update": "src/repro_torch/csrc/cache_update.cu"}
     # every counted run: the four serves and the two fp32 instances
     records = dict(serves)
     records.update({f"{a}/fp32": s["fp32"] for a, s in serves.items()
                     if "fp32" in s})
     runs = {a: r["launches"] for a, r in records.items()}
 
-    def numbers(t):
+    def numbers(t, flops_per_s=BF16_FLOPS_PER_S):
         t_k, t_p, t_l, t_d, byt, fl = t
-        b_ms, b_by = bound(byt, fl)
+        b_ms, b_by = bound(byt, fl, flops_per_s)
         out = {"ms": dev_or_call(t_k), "plain_ms": dev_or_call(t_p),
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": dev_or_call(t_l),
@@ -1828,7 +2244,7 @@ def main() -> int:
 
     for name in ("fused_qkv", "fused_mlp", "kv_row_scatter",
                  "flash_attention", "ssd", "linear_attention",
-                 "dequant_gemm"):
+                 "dequant_gemm", "cache_row_update"):
         by_path = {a: n[launch_key[name]] for a, n in runs.items()}
         entry = {"name": name, "route": "cuda",
                  "source": sources.get(
@@ -1842,6 +2258,22 @@ def main() -> int:
             entry["shape"] = dict(zip(("B", "Sq", "Sk", "H", "KV", "hd",
                                        "causal"), FLASH_TIME_SHAPE))
             entry["library"] = "F.scaled_dot_product_attention(enable_gqa)"
+            entry["fp32"] = dict(
+                numbers(flash32_t, FP32_FLOPS_PER_S),
+                shape=dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal"),
+                               FLASH_FP32_TIME_SHAPE)),
+                library="F.scaled_dot_product_attention(enable_gqa), fp32",
+                bound_note="bound_ms at the fp32 FFMA peak (67 TFLOP/s)",
+                launches_per_prefill_call=(
+                    serves[FP32_PATH]["launches"]["flash_attention"]
+                    / serves[FP32_PATH]["prefill_calls"]),
+                served_check=serves[FP32_PATH]["flash_served_check"],
+                checks=sm.fp32_check["flash_attention"])
+            entry["hd160"] = dict(
+                numbers(flash160_t),
+                shape=dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal"),
+                               FLASH_HD160[0])),
+                checked=[list(c) for c in FLASH_HD160])
         elif name == "ssd":
             entry.update(fp32_numbers(
                 name, ssd_t, ("B", "S", "H", "P", "G", "N", "chunk"), SSD_SHAPE,
@@ -1873,11 +2305,34 @@ def main() -> int:
             entry["served_check"] = {a: r["gemm_served_check"]
                                      for a, r in records.items()}
             entry["kernel_checks"] = sm.dg_check
+        elif name == "cache_row_update":
+            entry.update(numbers(timings[name]))
+            entry["shape"] = dict(zip(("B", "S", "KV", "hd"), (
+                N_SLOTS, MAX_LEN[llava.name], llava.n_kv_heads, llava.hd)),
+                layers_rotated=llava.n_layers, dtype="bfloat16")
+            entry["library"] = "cache[b, index] = row (index_put_)"
+            entry["bound_note"] = (
+                "bytes: the rows read and written once and the index read, "
+                "under a nanosecond at 3.35 TB/s; launch latency is the "
+                "whole cost (launch-latency territory)")
+            entry["launches_per_decode_step"] = {
+                a: r["launches"]["cache_row_update"] / r["decode_steps"]
+                for a, r in records.items()
+                if r["launches"].get("cache_row_update")}
+            entry["served_check"] = serves[COMPOSED_PATH][
+                "row_update_served_check"]
+            entry["kernel_checks"] = sm.cu_check
         else:
             entry.update(numbers(timings[llava.name][name]))
             entry["bc"] = TIME_BC
             entry["shape_of"] = llava.name
             entry["at_" + qwen.name] = numbers(timings[qwen.name][name])
+            entry["fp32_at_" + llava.name] = numbers(
+                timings[FP32_PATH][name], FP32_FLOPS_PER_S)
+            if name != "kv_row_scatter":
+                entry["fp32_checks"] = {
+                    a: c["worst_err_over_max"].get(name)
+                    for a, c in sm.fp32_check.items() if "bc" in c}
         kernels.append(entry)
     print(smi.stdout.strip())
     print(json.dumps({"kernels": kernels}))

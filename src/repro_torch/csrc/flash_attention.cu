@@ -13,14 +13,17 @@
 // p.astype(v.dtype)); the output is acc / max(l, 1e-30) rounded to bf16.
 // q (B, Sq, H, hd), k/v (B, Sk, KV, hd) and o (B, Sq, H, hd) are read and
 // written in the model's own layout through strides: the head axis must
-// be contiguous and rows 16-byte aligned.  bf16 only; hd 64 or 128.
+// be contiguous and rows 16-byte aligned.  Two instances, each at hd 16,
+// 32, 64, 128 and 160 (the reference's test grid and every served or
+// listed config): bf16 on the tensor cores, and fp32.
 //
 // What bounds it on an H100.  At prefill lengths it is bound by
 // operations: two products of 2 * B * H * Sq * Sk * hd flop each (half of
-// that when causal) against 989 TFLOP/s dense bf16, while it moves only
-// q, k, v and o once (the score matrix never reaches device memory).
+// that when causal) against 989 TFLOP/s dense bf16 (67 TFLOP/s fp32
+// FFMA), while it moves only q, k, v and o once (the score matrix never
+// reaches device memory).
 //
-// What the design does about it.  Both products run on the tensor cores
+// What the design does about it (bf16).  Both products run on the tensor cores
 // with mma.sync m16n8k16 (bf16 in, fp32 accumulate).  One block of four
 // warps owns 64 query rows of one (batch, head); each warp owns 16 rows
 // and keeps its Q fragments, its fp32 scores and its fp32 output
@@ -35,8 +38,19 @@
 // zeros and mask scores to -1e30.  wgmma, TMA and warp specialisation are
 // later work.
 //
-// Interface: one plain C entry point (loaded with ctypes); it launches on
-// the caller's stream, allocates nothing, and returns cudaGetLastError().
+// The fp32 instance keeps the same online-softmax structure on SIMT FFMA
+// (as csrc/ssd.cu and csrc/linear_attention.cu do): TF32 tensor cores
+// keep a 10-bit mantissa and would miss the reference's 1e-4 gate.  One
+// block of 128 threads owns 32 query rows of one (batch, head), four
+// threads a row; Q and 32-key K/V tiles sit in shared memory (rows padded
+// by 4 floats: conflict-free float4 reads), each thread holds 8 of its
+// row's 32 scores and hd / 4 output columns in registers, and the fp32
+// probabilities go through a small shared tile into P.V unrounded (the
+// Pallas p.astype(v.dtype) is the identity in fp32).
+//
+// Interface: two plain C entry points, bf16 and fp32 (loaded with ctypes);
+// each launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -289,6 +303,162 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params 
   }
 }
 
+// ---- fp32: SIMT FFMA -------------------------------------------------------
+
+constexpr int kBM32 = 32;               // query rows per block, 4 threads a row
+constexpr int kBN32 = 32;               // keys per K/V tile
+constexpr int kThreads32 = 128;
+
+struct ParamsF {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  int B, Sq, Sk, H, KV, causal;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;
+  float scale;
+};
+
+// 32 rows x HD of a strided fp32 source into a shared tile of row stride
+// HD + 4; rows at or past `valid` are zero-filled
+template <int HD>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              long long row_stride, int valid) {
+  constexpr int kV = HD / 4;            // float4 per row
+  for (int i = threadIdx.x; i < kBN32 * kV; i += kThreads32) {
+    const int r = i / kV, c = i - r * kV;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < valid) x = *reinterpret_cast<const float4*>(src + r * row_stride + c * 4);
+    *reinterpret_cast<float4*>(dst + r * (HD + 4) + c * 4) = x;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads32) flash_attention_f32_kernel(const ParamsF p) {
+  constexpr int kS = HD + 4;            // shared row stride (floats)
+  constexpr int kP = kBN32 + 1;         // probability tile row stride
+  constexpr int kN = kBN32 / 4;         // scores per thread
+  constexpr int kO = HD / 16;           // float4 output columns per thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ks = qs + kBM32 * kS;
+  float* vs = ks + kBN32 * kS;
+  float* ps = vs + kBN32 * kS;
+
+  const int nq = (p.Sq + kBM32 - 1) / kBM32;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * kBM32;   // longest rows first
+  const int b = blockIdx.y / p.H, h = blockIdx.y - b * p.H;
+  const int kvh = h / (p.H / p.KV);
+  const float* kg = p.k + b * p.k_sb + kvh * p.k_sh;
+  const float* vg = p.v + b * p.v_sb + kvh * p.v_sh;
+  int n_tiles = (p.Sk + kBN32 - 1) / kBN32;
+  if (p.causal) n_tiles = min(n_tiles, (min(q0 + kBM32, p.Sq) - 1) / kBN32 + 1);
+
+  load_rows_f32<HD>(qs, p.q + b * p.q_sb + q0 * p.q_ss + h * p.q_sh, p.q_ss, p.Sq - q0);
+
+  const int r = threadIdx.x >> 2, c = threadIdx.x & 3;  // row r; keys c + 4n
+  const int qpos = q0 + r;
+  float acc[kO][4];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m = kNegInf, l = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kBN32;
+    __syncthreads();                    // the last tile's readers are done
+    load_rows_f32<HD>(ks, kg + k0 * p.k_ss, p.k_ss, p.Sk - k0);
+    load_rows_f32<HD>(vs, vg + k0 * p.v_ss, p.v_ss, p.Sk - k0);
+    __syncthreads();
+
+    float s[kN];
+#pragma unroll
+    for (int n = 0; n < kN; ++n) s[n] = 0.f;
+    const float* qr = qs + r * kS;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      const float4 qv = *reinterpret_cast<const float4*>(qr + d);
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        const float4 kv = *reinterpret_cast<const float4*>(ks + (c + 4 * n) * kS + d);
+        s[n] = fmaf(qv.x, kv.x, s[n]);
+        s[n] = fmaf(qv.y, kv.y, s[n]);
+        s[n] = fmaf(qv.z, kv.z, s[n]);
+        s[n] = fmaf(qv.w, kv.w, s[n]);
+      }
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int kp = k0 + c + 4 * n;
+      float x = s[n] * p.scale;
+      if (kp >= p.Sk || (p.causal && kp > qpos)) x = kNegInf;
+      s[n] = x;
+      mx = fmaxf(mx, x);
+    }
+    // a row's 32 scores are spread over the 4 neighbouring lanes of its row
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float mn = fmaxf(m, mx);
+    const float corr = expf(m - mn);
+    m = mn;
+    float psum = 0.f;
+    float* pr = ps + r * kP;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const float e = expf(s[n] - mn);
+      psum += e;
+      pr[c + 4 * n] = e;
+    }
+    l = l * corr + psum;                // per-lane partial; lanes added at the end
+#pragma unroll
+    for (int i = 0; i < kO; ++i) {
+      acc[i][0] *= corr;
+      acc[i][1] *= corr;
+      acc[i][2] *= corr;
+      acc[i][3] *= corr;
+    }
+    __syncwarp();                       // row r's probabilities: its 4 lanes
+#pragma unroll 4
+    for (int n = 0; n < kBN32; ++n) {
+      const float pn = pr[n];
+      const float* vr = vs + n * kS + 4 * c;
+#pragma unroll
+      for (int i = 0; i < kO; ++i) {
+        const float4 vv = *reinterpret_cast<const float4*>(vr + 16 * i);
+        acc[i][0] = fmaf(pn, vv.x, acc[i][0]);
+        acc[i][1] = fmaf(pn, vv.y, acc[i][1]);
+        acc[i][2] = fmaf(pn, vv.z, acc[i][2]);
+        acc[i][3] = fmaf(pn, vv.w, acc[i][3]);
+      }
+    }
+  }
+
+  l += __shfl_xor_sync(kFull, l, 1);
+  l += __shfl_xor_sync(kFull, l, 2);
+  if (qpos < p.Sq) {
+    const float den = fmaxf(l, 1e-30f);
+    float* o = p.o + b * p.o_sb + qpos * p.o_ss + h * p.o_sh + 4 * c;
+#pragma unroll
+    for (int i = 0; i < kO; ++i)
+      *reinterpret_cast<float4*>(o + 16 * i) =
+          make_float4(acc[i][0] / den, acc[i][1] / den, acc[i][2] / den, acc[i][3] / den);
+  }
+}
+
+template <int HD>
+int launch_f32(const ParamsF& p, cudaStream_t stream) {
+  const int smem = (3 * kBM32 * (HD + 4) + kBM32 * (kBN32 + 1)) * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_f32_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((p.Sq + kBM32 - 1) / kBM32, p.B * p.H);
+  flash_attention_f32_kernel<HD><<<grid, kThreads32, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch(const Params& p, cudaStream_t stream) {
   const int smem = kTiles * kBlockN * (HD + kPad) * (int)sizeof(bf16);
@@ -306,7 +476,8 @@ extern "C" {
 
 // q (B, Sq, H, hd), k/v (B, Sk, KV, hd), o (B, Sq, H, hd), all bf16, with
 // (batch, seq, head) strides in elements (head axis contiguous, strides
-// multiples of 8, pointers 16-byte aligned).  hd is 64 or 128; H % KV == 0.
+// multiples of 8, pointers 16-byte aligned).  hd is 16, 32, 64, 128 or
+// 160; H % KV == 0.
 int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                        int Sk, int H, int KV, int hd, int causal, long long q_sb,
                        long long q_ss, long long q_sh, long long k_sb, long long k_ss,
@@ -322,8 +493,36 @@ int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int
                  scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16: return launch<16>(p, s);
+    case 32: return launch<32>(p, s);
     case 64: return launch<64>(p, s);
     case 128: return launch<128>(p, s);
+    case 160: return launch<160>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The same in fp32: strides multiples of 4, pointers 16-byte aligned.
+int rt_flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B,
+                           int Sq, int Sk, int H, int KV, int hd, int causal,
+                           long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                           long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                           long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+                           float scale, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H < KV || H % KV != 0 || B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const ParamsF p{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<float*>(o),
+                  B, Sq, Sk, H, KV, causal,
+                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+                  scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_f32<16>(p, s);
+    case 32: return launch_f32<32>(p, s);
+    case 64: return launch_f32<64>(p, s);
+    case 128: return launch_f32<128>(p, s);
+    case 160: return launch_f32<160>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

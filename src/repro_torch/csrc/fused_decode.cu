@@ -10,15 +10,16 @@
 //                                        pool[g, blk[b], off[b]] = row[g, b]
 //
 // What they compute.  Every GEMM here is a cohort GEMV: y[b, n] =
-// sum_k h[b, k] * W[k, n] for bc <= 8 rows b of bf16 activations.  W is
-// either dense (bf16) or packed: int32 words along n, each holding
+// sum_k h[b, k] * W[k, n] for bc <= 8 rows b of activations of the
+// model's dtype T (bf16 or fp32; every kernel is a template on it).  W is
+// either dense (T) or packed: int32 words along n, each holding
 // 32/BITS two's-complement codes (field j at bit j*BITS), with one fp32
 // scale per group of `group` consecutive n.  The weight is dequantized
 // exactly like the reference's `dequantize` (code -> fp32, x scale in
-// fp32, round to bf16) and never exists dense in device memory.  No fp32
-// path: every served config on the card runs in bf16.  Products
-// accumulate in fp32; the output rounds to bf16, then the bias adds and
-// rounds again (the reference's einsum-then-add order).
+// fp32, round to T: no rounding in fp32) and never exists dense in device
+// memory.  Products accumulate in fp32; the output rounds to T, then the
+// bias adds in fp32 and rounds again (the reference's einsum-then-add
+// order).  A dense unit is one 16-byte vector: 8 bf16 or 4 fp32 values.
 //
 // What bounds them on an H100.  At bc <= 8 a GEMV does 2*bc flops per
 // weight element, far below the ~295 flop/byte balance point of the card:
@@ -58,17 +59,24 @@ constexpr int kMaxSegs = 3;
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ bf16 from_f(float x) { return __float2bfloat16_rn(x); }
-// round an fp32 value to bf16 and back
-__device__ __forceinline__ float round_bf(float x) { return to_f(from_f(x)); }
+__device__ __forceinline__ float to_f(float x) { return x; }
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+// round an fp32 value to T and back (the identity for fp32)
+template <typename T> __device__ __forceinline__ float round_t(float x) {
+  return to_f(from_f<T>(x));
+}
 
 // outputs per weight unit: one int32 word of codes, or one 16-byte vector
-template <int BITS> struct Unit {
-  static constexpr int kOut = BITS ? 32 / BITS : 16 / (int)sizeof(bf16);
+template <int BITS, typename T> struct Unit {
+  static constexpr int kOut = BITS ? 32 / BITS : 16 / (int)sizeof(T);
 };
 
 struct Seg {
-  const void* w;         // codes (K, n / kOut) int32, or dense (K, n) bf16
+  const void* w;         // codes (K, n / kOut) int32, or dense (K, n) T
   const float* scales;   // (K, n / group) fp32; null when dense
   int n;                 // outputs of this segment
   int group;             // scale group size along n (packed only)
@@ -81,16 +89,16 @@ struct Segs {
   int count;
 };
 
-// dequantize one weight unit of row k into fp32 values already rounded to bf16
-template <int BITS>
+// dequantize one weight unit of row k into fp32 values already rounded to T
+template <int BITS, typename T>
 __device__ __forceinline__ void load_unit(const Seg& sg, size_t k, int unit,
-                                          float (&w)[Unit<BITS>::kOut]) {
-  constexpr int kOut = Unit<BITS>::kOut;
+                                          float (&w)[Unit<BITS, T>::kOut]) {
+  constexpr int kOut = Unit<BITS, T>::kOut;
   if constexpr (BITS == 0) {
     const uint4* row = reinterpret_cast<const uint4*>(
-        static_cast<const bf16*>(sg.w) + k * (size_t)sg.n);
+        static_cast<const T*>(sg.w) + k * (size_t)sg.n);
     const uint4 v = __ldg(row + unit);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
+    const T* e = reinterpret_cast<const T*>(&v);
 #pragma unroll
     for (int j = 0; j < kOut; ++j) w[j] = to_f(e[j]);
   } else {
@@ -103,17 +111,17 @@ __device__ __forceinline__ void load_unit(const Seg& sg, size_t k, int unit,
     for (int j = 0; j < kOut; ++j) {
       int f = (word >> (j * BITS)) & ((1 << BITS) - 1);
       if (f >= (1 << (BITS - 1))) f -= (1 << BITS);
-      w[j] = round_bf(static_cast<float>(f) * sc);
+      w[j] = round_t<T>(static_cast<float>(f) * sc);
     }
   }
 }
 
 // partial[ks, b, col + n] = sum over this block's K chunk of h[b, k] W[k, n]
-template <int BITS>
+template <int BITS, typename T>
 __global__ void __launch_bounds__(kThreads)
-gemv_partial_kernel(Segs segs, const bf16* __restrict__ h, int bc, int K,
+gemv_partial_kernel(Segs segs, const T* __restrict__ h, int bc, int K,
                     int k_chunk, int n_total, float* __restrict__ partial) {
-  constexpr int kOut = Unit<BITS>::kOut;
+  constexpr int kOut = Unit<BITS, T>::kOut;
   __shared__ float hs[kMaxRows * kMaxChunk];
   __shared__ float red[kWarps * kTile * kMaxRows * kOut];
 
@@ -148,7 +156,7 @@ gemv_partial_kernel(Segs segs, const bf16* __restrict__ h, int bc, int K,
 #pragma unroll 2
     for (int kk = krow; kk < kn; kk += kKRows) {
       float w[kOut];
-      load_unit<BITS>(sg, (size_t)(k0 + kk), unit, w);
+      load_unit<BITS, T>(sg, (size_t)(k0 + kk), unit, w);
 #pragma unroll
       for (int b = 0; b < kMaxRows; ++b) {
         if (b < bc) {
@@ -196,8 +204,8 @@ gemv_partial_kernel(Segs segs, const bf16* __restrict__ h, int bc, int K,
 }
 
 struct OutSeg {
-  void* out;           // (bc, n) bf16
-  const void* bias;    // (n,) bf16 or null
+  void* out;           // (bc, n) T
+  const void* bias;    // (n,) T or null
   int n;
   int col;             // first column in `partial`
 };
@@ -207,7 +215,8 @@ struct OutSegs {
   int count;
 };
 
-// out[b, n] = bf(bf(sum_ks partial[ks, b, col + n]) + bias[n]), bf = round to bf16
+// out[b, n] = rt(rt(sum_ks partial[ks, b, col + n]) + bias[n]), rt = round to T
+template <typename T>
 __global__ void store_epilogue_kernel(OutSegs segs, const float* __restrict__ partial,
                                       int ksplit, int bc, int n_total) {
   const int total = bc * n_total;
@@ -223,10 +232,10 @@ __global__ void store_epilogue_kernel(OutSegs segs, const float* __restrict__ pa
     float s = 0.f;
     for (int ks = 0; ks < ksplit; ++ks)
       s += partial[((size_t)ks * bc + b) * n_total + col];
-    float y = round_bf(s);
+    float y = round_t<T>(s);
     if (o.bias != nullptr)
-      y = round_bf(y + to_f(static_cast<const bf16*>(o.bias)[j]));
-    static_cast<bf16*>(o.out)[(size_t)b * o.n + j] = from_f(y);
+      y = round_t<T>(y + to_f(static_cast<const T*>(o.bias)[j]));
+    static_cast<T*>(o.out)[(size_t)b * o.n + j] = from_f<T>(y);
   }
 }
 
@@ -244,11 +253,12 @@ __device__ __forceinline__ float act_fn(int act, float x) {
   }
 }
 
-// mid[b, j] = bf(bf(act(bf(gate))) * bf(up))  (gated), or bf(act(bf(up)))
+// mid[b, j] = rt(rt(act(rt(gate))) * rt(up))  (gated), or rt(act(rt(up)))
 // partial columns: up at [0, F), gate at [F, 2F)
+template <typename T>
 __global__ void glu_epilogue_kernel(const float* __restrict__ partial, int ksplit,
                                     int bc, int F, int gated, int act,
-                                    bf16* __restrict__ mid) {
+                                    T* __restrict__ mid) {
   const int n_total = gated ? 2 * F : F;
   const int total = bc * F;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
@@ -260,15 +270,15 @@ __global__ void glu_epilogue_kernel(const float* __restrict__ partial, int kspli
       up += row[j];
       if (gated) gate += row[F + j];
     }
-    up = round_bf(up);
+    up = round_t<T>(up);
     float m;
     if (gated) {
-      const float a = round_bf(act_fn(act, round_bf(gate)));
-      m = round_bf(a * up);
+      const float a = round_t<T>(act_fn(act, round_t<T>(gate)));
+      m = round_t<T>(a * up);
     } else {
-      m = round_bf(act_fn(act, up));
+      m = round_t<T>(act_fn(act, up));
     }
-    mid[(size_t)b * F + j] = from_f(m);
+    mid[(size_t)b * F + j] = from_f<T>(m);
   }
 }
 
@@ -293,7 +303,8 @@ __global__ void kv_row_scatter_kernel(const int32_t* __restrict__ blk,
 int ksplit_of(int K, int k_chunk) { return (K + k_chunk - 1) / k_chunk; }
 
 // One partial-GEMV launch per distinct BITS among the segments.
-int launch_partials(const bf16* h, int bc, int K, int nseg, const void* const* w,
+template <typename T>
+int launch_partials(const T* h, int bc, int K, int nseg, const void* const* w,
                     const float* const* scales, const int* n, const int* bits,
                     const int* group, float* partial, int n_total, int k_chunk,
                     cudaStream_t stream) {
@@ -316,7 +327,7 @@ int launch_partials(const bf16* h, int bc, int K, int nseg, const void* const* w
     int tiles = 0;
     for (int i = 0; i < nseg; ++i) {
       if (bits[i] != kBits[bi]) continue;
-      const int out = bits[i] ? 32 / bits[i] : 16 / (int)sizeof(bf16);
+      const int out = bits[i] ? 32 / bits[i] : 16 / (int)sizeof(T);
       if (n[i] % out != 0 || (bits[i] && (group[i] % out != 0 || n[i] % group[i] != 0)))
         return (int)cudaErrorInvalidValue;
       Seg& s = segs.s[segs.count++];
@@ -331,10 +342,10 @@ int launch_partials(const bf16* h, int bc, int K, int nseg, const void* const* w
     if (segs.count == 0) continue;
     const dim3 grid(tiles, ks);
     switch (kBits[bi]) {
-      case 0: gemv_partial_kernel<0><<<grid, kThreads, 0, stream>>>(segs, h, bc, K, k_chunk, n_total, partial); break;
-      case 2: gemv_partial_kernel<2><<<grid, kThreads, 0, stream>>>(segs, h, bc, K, k_chunk, n_total, partial); break;
-      case 4: gemv_partial_kernel<4><<<grid, kThreads, 0, stream>>>(segs, h, bc, K, k_chunk, n_total, partial); break;
-      default: gemv_partial_kernel<8><<<grid, kThreads, 0, stream>>>(segs, h, bc, K, k_chunk, n_total, partial); break;
+      case 0: gemv_partial_kernel<0, T><<<grid, kThreads, 0, stream>>>(segs, h, bc, K, k_chunk, n_total, partial); break;
+      case 2: gemv_partial_kernel<2, T><<<grid, kThreads, 0, stream>>>(segs, h, bc, K, k_chunk, n_total, partial); break;
+      case 4: gemv_partial_kernel<4, T><<<grid, kThreads, 0, stream>>>(segs, h, bc, K, k_chunk, n_total, partial); break;
+      default: gemv_partial_kernel<8, T><<<grid, kThreads, 0, stream>>>(segs, h, bc, K, k_chunk, n_total, partial); break;
     }
   }
   return (int)cudaGetLastError();
@@ -342,14 +353,15 @@ int launch_partials(const bf16* h, int bc, int K, int nseg, const void* const* w
 
 int epilogue_blocks(int total) { return (total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024; }
 
+template <typename T>
 int fused_qkv_impl(const void* h, int bc, int K, int nseg, const void* const* w,
                    const float* const* scales, const int* n, const int* bits,
                    const int* group, const void* const* bias, void* const* out,
                    float* partial, int k_chunk, cudaStream_t stream) {
   int n_total = 0;
   for (int i = 0; i < nseg; ++i) n_total += n[i];
-  int err = launch_partials(static_cast<const bf16*>(h), bc, K, nseg, w, scales, n,
-                            bits, group, partial, n_total, k_chunk, stream);
+  int err = launch_partials<T>(static_cast<const T*>(h), bc, K, nseg, w, scales, n,
+                               bits, group, partial, n_total, k_chunk, stream);
   if (err) return err;
   OutSegs segs{};
   int col = 0;
@@ -361,11 +373,12 @@ int fused_qkv_impl(const void* h, int bc, int K, int nseg, const void* const* w,
     o.col = col;
     col += n[i];
   }
-  store_epilogue_kernel<<<epilogue_blocks(bc * n_total), 256, 0, stream>>>(
+  store_epilogue_kernel<T><<<epilogue_blocks(bc * n_total), 256, 0, stream>>>(
       segs, partial, ksplit_of(K, k_chunk), bc, n_total);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
 int fused_mlp_impl(const void* h, int bc, int D, int F, int gated, int act,
                    const void* const* w, const float* const* scales,
                    const int* bits, const int* group, void* mid, void* out,
@@ -378,11 +391,11 @@ int fused_mlp_impl(const void* h, int bc, int D, int F, int gated, int act,
   const int b1[2] = {bits[0], bits[1]};
   const int g1[2] = {group[0], group[1]};
   const int nseg1 = gated ? 2 : 1;
-  int err = launch_partials(static_cast<const bf16*>(h), bc, D, nseg1, w1, s1, n1,
-                            b1, g1, partial1, nseg1 * F, k_chunk1, stream);
+  int err = launch_partials<T>(static_cast<const T*>(h), bc, D, nseg1, w1, s1, n1,
+                               b1, g1, partial1, nseg1 * F, k_chunk1, stream);
   if (err) return err;
-  glu_epilogue_kernel<<<epilogue_blocks(bc * F), 256, 0, stream>>>(
-      partial1, ksplit_of(D, k_chunk1), bc, F, gated, act, static_cast<bf16*>(mid));
+  glu_epilogue_kernel<T><<<epilogue_blocks(bc * F), 256, 0, stream>>>(
+      partial1, ksplit_of(D, k_chunk1), bc, F, gated, act, static_cast<T*>(mid));
   err = (int)cudaGetLastError();
   if (err) return err;
   // stage 2: mid @ W_down
@@ -391,8 +404,8 @@ int fused_mlp_impl(const void* h, int bc, int D, int F, int gated, int act,
   const float* s2[1] = {scales[2]};
   const int b2[1] = {bits[2]};
   const int g2[1] = {group[2]};
-  err = launch_partials(static_cast<const bf16*>(mid), bc, F, 1, w2, s2, n2, b2, g2,
-                        partial2, D, k_chunk2, stream);
+  err = launch_partials<T>(static_cast<const T*>(mid), bc, F, 1, w2, s2, n2, b2, g2,
+                           partial2, D, k_chunk2, stream);
   if (err) return err;
   OutSegs segs{};
   segs.count = 1;
@@ -400,7 +413,7 @@ int fused_mlp_impl(const void* h, int bc, int D, int F, int gated, int act,
   segs.s[0].bias = nullptr;
   segs.s[0].n = D;
   segs.s[0].col = 0;
-  store_epilogue_kernel<<<epilogue_blocks(bc * D), 256, 0, stream>>>(
+  store_epilogue_kernel<T><<<epilogue_blocks(bc * D), 256, 0, stream>>>(
       segs, partial2, ksplit_of(F, k_chunk2), bc, D);
   return (int)cudaGetLastError();
 }
@@ -409,30 +422,39 @@ int fused_mlp_impl(const void* h, int bc, int D, int F, int gated, int act,
 
 extern "C" {
 
-// bf16 activations, outputs and dense weights.  Per segment i: w[i] (codes
-// or dense), scales[i] (null if dense), n[i] outputs, bits[i] (0 = dense),
-// group[i], bias[i] (null = none), out[i] (bc, n[i]).  partial: fp32
-// scratch of ceil(K / k_chunk) * bc * sum(n) floats.
+// Activations, outputs, biases and dense weights of one dtype: bf16, or
+// fp32 when fp32 != 0.  Per segment i: w[i] (codes or dense), scales[i]
+// (null if dense), n[i] outputs, bits[i] (0 = dense), group[i], bias[i]
+// (null = none), out[i] (bc, n[i]).  partial: fp32 scratch of
+// ceil(K / k_chunk) * bc * sum(n) floats.
 int rt_fused_qkv(const void* h, int bc, int K, int nseg, const void* const* w,
                  const float* const* scales, const int* n, const int* bits,
                  const int* group, const void* const* bias, void* const* out,
-                 float* partial, int k_chunk, void* stream) {
-  return fused_qkv_impl(h, bc, K, nseg, w, scales, n, bits, group, bias, out,
-                        partial, k_chunk, static_cast<cudaStream_t>(stream));
+                 float* partial, int k_chunk, int fp32, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fp32)
+    return fused_qkv_impl<float>(h, bc, K, nseg, w, scales, n, bits, group, bias, out,
+                                 partial, k_chunk, s);
+  return fused_qkv_impl<bf16>(h, bc, K, nseg, w, scales, n, bits, group, bias, out,
+                              partial, k_chunk, s);
 }
 
 // w/scales/bits/group: [up, gate, down] (gate ignored unless gated).
-// act: 0 silu, 1 gelu (tanh), 2 relu, 3 squared relu.  mid: (bc, F) bf16
-// scratch; partial1: ceil(D/k_chunk1)*bc*(gated ? 2F : F) floats;
-// partial2: ceil(F/k_chunk2)*bc*D floats.
+// act: 0 silu, 1 gelu (tanh), 2 relu, 3 squared relu.  mid: (bc, F)
+// scratch of the activations' dtype (bf16, or fp32 when fp32 != 0);
+// partial1: ceil(D/k_chunk1)*bc*(gated ? 2F : F) floats; partial2:
+// ceil(F/k_chunk2)*bc*D floats.
 int rt_fused_mlp(const void* h, int bc, int D, int F, int gated, int act,
                  const void* const* w, const float* const* scales,
                  const int* bits, const int* group, void* mid, void* out,
                  float* partial1, int k_chunk1, float* partial2, int k_chunk2,
-                 void* stream) {
-  return fused_mlp_impl(h, bc, D, F, gated, act, w, scales, bits, group, mid,
-                        out, partial1, k_chunk1, partial2, k_chunk2,
-                        static_cast<cudaStream_t>(stream));
+                 int fp32, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fp32)
+    return fused_mlp_impl<float>(h, bc, D, F, gated, act, w, scales, bits, group, mid,
+                                 out, partial1, k_chunk1, partial2, k_chunk2, s);
+  return fused_mlp_impl<bf16>(h, bc, D, F, gated, act, w, scales, bits, group, mid,
+                              out, partial1, k_chunk1, partial2, k_chunk2, s);
 }
 
 // Writes in place into k_pool / v_pool (L, n_blocks, block_size, row):

@@ -4,7 +4,11 @@ each beside its plain PyTorch version.
 Every kernel wrapper counts its calls into the compiled libraries in one
 registry, so a run can show that it went through the kernels: reset the
 counts just before the run with :func:`reset_launch_counts` and read them
-just after with :func:`launch_counts`.
+just after with :func:`launch_counts`.  The counts, one per wrapper:
+``fused_qkv``, ``fused_mlp``, ``kv_scatter`` (``fused_decode``),
+``flash_attention``, ``ssd``, ``linear_attention``, ``dequant_gemm`` and
+``cache_row_update`` (``cache_update``), each registered when its
+``ops`` module is imported.
 """
 from typing import Dict
 

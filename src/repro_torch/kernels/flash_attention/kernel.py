@@ -17,7 +17,10 @@ from repro_torch.kernels.build import load_library
 
 LIBRARY = "flash_attention"
 SOURCES = ("flash_attention.cu",)
-HEAD_DIMS = (64, 128)        # the kernel's template instantiations
+HEAD_DIMS = (16, 32, 64, 128, 160)   # the kernel's template instantiations
+# the instances: dtype -> C entry point
+ENTRIES = {torch.bfloat16: "rt_flash_attention",
+           torch.float32: "rt_flash_attention_f32"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -27,11 +30,13 @@ _L = ctypes.c_longlong
 def library() -> ctypes.CDLL:
     lib = load_library(LIBRARY, SOURCES)
     if not getattr(lib, "_typed", False):
-        lib.rt_flash_attention.argtypes = [
-            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-            _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-            ctypes.c_float, _P]
-        lib.rt_flash_attention.restype = _I
+        for name in ENTRIES.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [
+                _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                ctypes.c_float, _P]
+            fn.restype = _I
         lib._typed = True
     return lib
 
@@ -40,22 +45,24 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernel can read it through its strides (head
     axis contiguous, every row 16-byte aligned for the vector loads),
     else a contiguous copy."""
+    per_vec = 16 // t.element_size()
     if (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and not any(s % 8 for s in t.stride()[:3])):
+            and not any(s % per_vec for s in t.stride()[:3])):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
 
 def launch_flash_attention(q, k, v, *, causal: bool) -> torch.Tensor:
-    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) bf16 CUDA tensors in the model's
-    layout -> o (B,Sq,H,hd)."""
+    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) bf16 or fp32 CUDA tensors (one
+    dtype) in the model's layout -> o (B,Sq,H,hd)."""
     for t in (q, k, v):
         if not t.is_cuda:
             raise ValueError("flash_attention: the kernel takes CUDA "
                              "tensors")
-        if t.dtype != torch.bfloat16:
+        if t.dtype not in ENTRIES or t.dtype != q.dtype:
             raise ValueError(f"flash_attention: the kernel takes bfloat16 "
-                             f"inputs, got {t.dtype}")
+                             f"or float32 inputs of one dtype, got "
+                             f"{[x.dtype for x in (q, k, v)]}")
         if t.dim() != 4:
             raise ValueError("flash_attention: expected (B, S, heads, hd)")
     B, Sq, H, hd = q.shape
@@ -74,7 +81,7 @@ def launch_flash_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    err = library().rt_flash_attention(
+    err = getattr(library(), ENTRIES[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         B, Sq, Sk, H, KV, hd, int(causal), *strides,
         float(hd ** -0.5), torch.cuda.current_stream().cuda_stream)

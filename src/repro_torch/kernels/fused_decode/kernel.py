@@ -21,6 +21,8 @@ LIBRARY = "fused_decode"
 SOURCES = ("fused_decode.cu",)
 MAX_ROWS = 8          # cohort rows per launch (kMaxRows)
 ACTS = {"silu": 0, "gelu": 1, "relu": 2, "squared_relu": 3}
+# the GEMV kernels' instances: activation dtype -> the entries' fp32 flag
+DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,9 +32,9 @@ def library() -> ctypes.CDLL:
     lib = load_library(LIBRARY, SOURCES)
     if not getattr(lib, "_typed", False):
         lib.rt_fused_qkv.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                                     _P, _P, _I, _P]
+                                     _P, _P, _I, _I, _P]
         lib.rt_fused_mlp.argtypes = [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                                     _P, _P, _P, _I, _P, _I, _P]
+                                     _P, _P, _P, _I, _P, _I, _I, _P]
         lib.rt_kv_row_scatter.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                           _I, _I, _P]
         for fn in (lib.rt_fused_qkv, lib.rt_fused_mlp, lib.rt_kv_row_scatter):
@@ -70,7 +72,7 @@ def k_chunk_for(K: int, tiles: int) -> int:
 class _Weight:
     """One GEMM weight as the kernel reads it: a (K, n) matrix whose last
     logical axes are flattened, packed (int32 codes + fp32 scales) or
-    dense (bf16)."""
+    dense (the activations' dtype)."""
 
     def __init__(self, w, K: int, dtype: torch.dtype, name: str):
         if isinstance(w, QTensor):
@@ -115,12 +117,11 @@ def _tiles(w: _Weight, elem_bytes: int) -> int:
 
 
 def _activation_dtype(h: torch.Tensor, what: str) -> torch.dtype:
-    """The GEMV kernels take bf16 activations (and dense bf16 weights) only:
-    every served config on the card runs in bf16."""
-    if h.dtype != torch.bfloat16:
-        raise ValueError(f"{what}: the kernel takes bfloat16 activations, "
-                         f"got {h.dtype}; decode an fp32 config with "
-                         f"use_fused=False")
+    """The GEMV kernels' instances: bf16 or fp32 activations (and dense
+    weights of the same dtype)."""
+    if h.dtype not in DTYPES:
+        raise ValueError(f"{what}: the kernel takes bfloat16 or float32 "
+                         f"activations, got {h.dtype}")
     return h.dtype
 
 
@@ -170,7 +171,7 @@ def launch_fused_qkv(h, wq, wk, wv, bq=None, bk=None, bv=None):
             _int_array([w.group for w in ws]),
             _ptr_array([0 if b is None else b.data_ptr() for b in bias_t]),
             _ptr_array([o[r0:r1].data_ptr() for o in outs]),
-            partial.data_ptr(), kc, _stream())
+            partial.data_ptr(), kc, DTYPES[dtype], _stream())
         _check(err, "fused_qkv")
         launches += 1
     return tuple(outs), launches
@@ -216,7 +217,7 @@ def launch_fused_mlp(h, w_up, w_down, w_gate, act: str, gated: bool):
             _int_array([w.bits for w in ws]),
             _int_array([w.group for w in ws]), mid.data_ptr(),
             out[r0:r1].data_ptr(), p1.data_ptr(), kc1, p2.data_ptr(), kc2,
-            _stream())
+            DTYPES[dtype], _stream())
         _check(err, "fused_mlp")
         launches += 1
     return out, launches

@@ -8,16 +8,18 @@ launch-count registry (``repro_torch.kernels``), so a run can show that
 it went through the kernels.  One such call runs several device
 kernels: ``fused_qkv`` two (partial GEMV, epilogue) when its three
 weights share a bit width, ``fused_mlp`` four (two per GEMV stage),
-``kv_scatter`` one.  The GEMV kernels take bf16 activations only; an
-fp32 config decodes on the card with ``use_fused=False``.
+``kv_scatter`` one.  The GEMV kernels take bf16 or fp32 activations.
 
 ``cohort_step`` is the engine-facing entry: the batched decode step over
-the paged pool.  ``use_fused=False`` runs the composed path
-(``ref_cohort_step``), the only step for Mamba-2 and linear attention
-(slot-state pool, as in the reference).  The fused step runs, per layer, :func:`fused_qkv`,
-the shared attention core and output projection, and :func:`fused_mlp`;
-the new K/V rows of every layer land in the pool in one
-:func:`kv_scatter` after the last layer.
+the paged pool.  ``use_fused=False`` runs the composed step
+(:func:`_composed_cohort_step`: ``ref_cohort_step``'s structure with the
+gathered caches donated to ``lm_decode_step``, so each layer's new row
+goes in through the cache-row-update kernel, and the pool written in
+place by :func:`kv_scatter`), the only step for Mamba-2 and linear
+attention (slot-state pool, as in the reference).  The fused step runs,
+per layer, :func:`fused_qkv`, the shared attention core and output
+projection, and :func:`fused_mlp`; the new K/V rows of every layer land
+in the pool in one :func:`kv_scatter` after the last layer.
 """
 from __future__ import annotations
 
@@ -29,8 +31,8 @@ from repro_torch.core.quantize import QTensor, dequantize, dequantize_tree
 from repro_torch.kernels import count_launch, register_kernels
 from repro_torch.kernels.fused_decode import kernel as K
 from repro_torch.kernels.fused_decode.ref import (block_and_offset,
+                                                  composed_cohort_step,
                                                   gather_context,
-                                                  ref_cohort_step,
                                                   ref_fused_mlp,
                                                   ref_fused_qkv,
                                                   ref_kv_scatter)
@@ -98,6 +100,19 @@ def _dq(w):
     return dequantize(w) if isinstance(w, QTensor) else w
 
 
+def _composed_cohort_step(params, cfg, tokens, lengths, slot_ids, tables,
+                          pool, *, block_size: int, paged):
+    """The served composed step, ``ref_cohort_step``'s structure with the
+    gathered caches donated (they are this step's temporaries), so each
+    layer's new K and V rows go in through ``cache_row_update`` with no
+    copy, and each row's new K/V position written into the pool IN PLACE
+    by :func:`kv_scatter`.  Returns (logits, pool)."""
+    return composed_cohort_step(params, cfg, tokens, lengths, slot_ids,
+                                tables, pool, block_size=block_size,
+                                paged=paged, donate=True,
+                                kv_write=kv_scatter)
+
+
 def _fused_cohort_step(params, cfg, tokens, lengths, tables, pool, *,
                        block_size: int):
     """The fused replacement for ref_cohort_step (same structure as the
@@ -140,15 +155,15 @@ def cohort_step(params, cfg, tokens, lengths, slot_ids, tables, pool, *,
 
     tokens (bc,1); lengths/slot_ids (bc,); tables (bc, W) with sentinel
     ``n_blocks`` for padded rows; pool ``((k, v),)``.  Returns (logits
-    (bc, V), pool).  The fused step writes the pool in place; the
-    composed step returns new pool tensors.  ``use_fused=None`` resolves
-    to :func:`fused_supported`."""
+    (bc, V), pool).  Both steps write the paged pool in place; slot-state
+    positions come back as new tensors.  ``use_fused=None`` resolves to
+    :func:`fused_supported`."""
     if use_fused is None:
         use_fused = fused_supported(cfg)
     if not use_fused:
-        return ref_cohort_step(params, cfg, tokens, lengths, slot_ids,
-                               tables, pool, block_size=block_size,
-                               paged=paged)
+        return _composed_cohort_step(params, cfg, tokens, lengths, slot_ids,
+                                     tables, pool, block_size=block_size,
+                                     paged=paged)
     if not fused_supported(cfg):
         raise ValueError(
             "use_fused=True needs a uniform dense-attention arch "

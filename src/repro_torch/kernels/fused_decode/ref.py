@@ -94,20 +94,23 @@ def scatter_slots(pool_leaf, slot_ids, rows):
     return out
 
 
-def ref_cohort_step(params, cfg, tokens, lengths, slot_ids, tables, pool, *,
-                    block_size: int, paged):
+def composed_cohort_step(params, cfg, tokens, lengths, slot_ids, tables,
+                         pool, *, block_size: int, paged, donate: bool,
+                         kv_write):
     """The composed cohort step: gather every row's context through its
     block table (attention) or its slot (slot state), one
-    ``lm_decode_step`` over the cohort, then write each row's new K/V
-    position back through the table and its new state back by slot.
-    Returns (logits, new pool); the input pool is not modified."""
+    ``lm_decode_step`` over the cohort (``donate``: the gathered caches
+    are handed to it to be written in place), then write each row's new
+    K/V position back through the table with ``kv_write`` (a
+    ``kv_scatter``-like function returning the pools) and its new state
+    back by slot.  Returns (logits, pool)."""
     bc = tokens.shape[0]
     layers = tuple(
         tuple(gather_context(l, tables) if is_paged
               else gather_slots(l, slot_ids) for l in pool[pos])
         for pos, is_paged in enumerate(paged))
     cache = {"layers": layers, "index": lengths}
-    logits, new = M.lm_decode_step(params, cfg, tokens, cache)
+    logits, new = M.lm_decode_step(params, cfg, tokens, cache, donate=donate)
     rows = torch.arange(bc, device=tokens.device)
     idx = lengths.to(torch.long)
     out = []
@@ -118,7 +121,20 @@ def ref_cohort_step(params, cfg, tokens, lengths, slot_ids, tables, pool, *,
             continue
         blk, off = block_and_offset(tables, lengths, block_size)
         (k_pool, v_pool), (nk, nv) = pool[pos], new["layers"][pos]
-        out.append(ref_kv_scatter(blk, off, nk[:, rows, idx],
-                                  nv[:, rows, idx], k_pool.clone(),
-                                  v_pool.clone()))
+        out.append(kv_write(blk, off, nk[:, rows, idx], nv[:, rows, idx],
+                            k_pool, v_pool))
     return logits, tuple(out)
+
+
+def ref_cohort_step(params, cfg, tokens, lengths, slot_ids, tables, pool, *,
+                    block_size: int, paged):
+    """The plain composed step (:func:`composed_cohort_step` with nothing
+    donated and the plain scatter on copies of the pools).  Returns
+    (logits, new pool); the input pool is not modified."""
+    def write_copies(blk, off, k_rows, v_rows, k_pool, v_pool):
+        return ref_kv_scatter(blk, off, k_rows, v_rows, k_pool.clone(),
+                              v_pool.clone())
+    return composed_cohort_step(params, cfg, tokens, lengths, slot_ids,
+                                tables, pool, block_size=block_size,
+                                paged=paged, donate=False,
+                                kv_write=write_copies)

@@ -11,6 +11,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.cache_update import ops as cu
+from repro_torch.kernels.cache_update.ref import index_vector
 from repro_torch.kernels.dequant_gemm import ops as dg
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import dense_init
@@ -119,13 +121,6 @@ def attn_train(p, cfg, x, rope_fn, *, causal=True):
     return out_proj(p, o), (k, v)
 
 
-def _index_vector(index, batch: int, device) -> torch.Tensor:
-    idx = torch.as_tensor(index, device=device)
-    if idx.dim() == 0:
-        idx = idx.expand(batch)
-    return idx
-
-
 def attn_context(q, k_new, v_new, cache_k, cache_v, index, cfg
                  ) -> torch.Tensor:
     """Decode attention core: online softmax over the cache (positions <
@@ -138,7 +133,7 @@ def attn_context(q, k_new, v_new, cache_k, cache_v, index, cfg
     qg = q.reshape(B, 1, KV, G, hd)[:, 0].to(torch.float32)
     s = torch.einsum("bkgh,bskh->bkgs", qg,
                      cache_k.to(torch.float32)) * scale
-    idx = _index_vector(index, B, q.device)
+    idx = index_vector(index, B, q.device)
     valid = (torch.arange(S, device=q.device)[None, :]
              < idx[:, None])[:, None, None, :]
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
@@ -165,11 +160,18 @@ def attn_decode(p, cfg, x, cache_k, cache_v, index, rope_fn
     return out_proj(p, o), k_new, v_new
 
 
-def update_cache(cache_k, cache_v, k_new, v_new, index):
-    """New caches with each row's K/V written at ``index`` (out-of-range
-    positions are dropped); the inputs are not modified."""
+def update_cache(cache_k, cache_v, k_new, v_new, index, *,
+                 donate: bool = False):
+    """Each row's K/V written at ``index`` (out-of-range positions are
+    dropped).  With ``donate`` the caller hands both caches over: each is
+    written in place by the cache-row-update kernel (one launch per cache,
+    the reference's donation discipline) and returned.  Without it, new
+    caches are returned and the inputs are not modified."""
+    if donate:
+        return (cu.cache_row_update(cache_k, k_new[:, 0], index),
+                cu.cache_row_update(cache_v, v_new[:, 0], index))
     B, S = cache_k.shape[:2]
-    idx = _index_vector(index, B, cache_k.device).to(torch.long)
+    idx = index_vector(index, B, cache_k.device).to(torch.long)
     ok = idx < S
     b = torch.arange(B, device=cache_k.device)[ok]
     cache_k, cache_v = cache_k.clone(), cache_v.clone()

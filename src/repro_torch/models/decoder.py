@@ -159,11 +159,14 @@ def stack_forward(params_layers, cfg, x, rope_fn, *, causal=True,
     return x, caches, 0.0
 
 
-def stack_decode(params_layers, cfg, x, caches, index, rope_fn
-                 ) -> Tuple[torch.Tensor, tuple]:
+def stack_decode(params_layers, cfg, x, caches, index, rope_fn, *,
+                 donate: bool = False) -> Tuple[torch.Tensor, tuple]:
     """One decode step through every layer; returns (x, new caches).
     Linear attention takes the plain one-token step (the reference has
-    no decode kernel for it)."""
+    no decode kernel for it).  With ``donate`` the caller hands over the
+    stacked softmax caches: each layer's row is written into them in place
+    (``attention.update_cache(donate=True)``) and they come back as they
+    are, with no copy; other mixers' state is new either way."""
     check_supported(cfg)
     mixer = mixer_of(cfg)
     c0, c1 = caches[0]
@@ -184,10 +187,13 @@ def stack_decode(params_layers, cfg, x, caches, index, rope_fn
         else:
             y, k_new, v_new = attn.attn_decode(sub["mixer"], cfg, h, c0[i],
                                                c1[i], index, rope_fn)
-            a, b = attn.update_cache(c0[i], c1[i], k_new, v_new, index)
+            a, b = attn.update_cache(c0[i], c1[i], k_new, v_new, index,
+                                     donate=donate)
         new0.append(a)
         new1.append(b)
         x = _ffn(sub, cfg, x + y)
+    if donate and mixer == "attn":
+        return x, ((c0, c1),)
     return x, ((torch.stack(new0), torch.stack(new1)),)
 
 

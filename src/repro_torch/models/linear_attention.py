@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 
 EPS = 1e-6
+# the prefill's chunk (rows per chunk of the chunked form)
+PREFILL_CHUNK = 256
 
 
 def feature_map(x: torch.Tensor) -> torch.Tensor:
@@ -132,7 +134,7 @@ def linear_attention_sequential(q, k, v):
     return torch.stack(outs, dim=1).to(q.dtype), state, z
 
 
-def linear_attn_prefill(q, k, v, *, chunk: int = 256,
+def linear_attn_prefill(q, k, v, *, chunk: int = PREFILL_CHUNK,
                         valid_len: Optional[torch.Tensor] = None):
     """Causal linear attention over a prompt through the kernel wrapper.
     q (B,S,H,hd), k/v (B,S,KV,hd) (not expanded).  Returns (out, state

@@ -143,15 +143,19 @@ def decode_rope_fn(cfg, positions):
     return make_rope_fn(cfg, positions, mrope)
 
 
-def lm_decode_step(params, cfg: ModelConfig, tokens, cache):
+def lm_decode_step(params, cfg: ModelConfig, tokens, cache, *,
+                   donate: bool = False):
     """One decode step: tokens (B,1) -> (logits (B,V), new cache).
-    ``cache["index"]`` is a scalar or a (B,) vector of per-row lengths."""
+    ``cache["index"]`` is a scalar or a (B,) vector of per-row lengths.
+    ``donate`` hands the softmax caches over to be written in place
+    (``decoder.stack_decode``); the default leaves them unmodified."""
     B = tokens.shape[0]
     index = torch.as_tensor(cache["index"], device=tokens.device)
     rope_fn = decode_rope_fn(cfg, decode_positions(index, B, tokens.device))
     x = _embed(params, cfg, tokens)
     x, new_caches = dec.stack_decode(params["layers"], cfg, x,
-                                     cache["layers"], index, rope_fn)
+                                     cache["layers"], index, rope_fn,
+                                     donate=donate)
     logits = _head(params, cfg, x)
     return logits[:, 0], {"layers": new_caches, "index": index + 1}
 

@@ -21,8 +21,9 @@ here.
 Decode runs ``kernels/fused_decode.cohort_step``: on the card a
 fused-supported config decodes through the fused step (the Hopper
 fused-QKV, fused-MLP and KV-row-scatter kernels) unless the caller passes
-``use_fused=False`` for the composed path.  On the CPU the same wrappers
-run their plain versions.
+``use_fused=False`` for the composed step (softmax caches written by the
+cache-row-update kernel, the pool by the KV-row scatter).  On the CPU the
+same wrappers run their plain versions.
 
 The engine runs on ``device`` — the card unless the caller passes
 ``device="cpu"``.  Disaggregated prefill/decode (``prefill_step``,
@@ -52,6 +53,8 @@ from repro_torch.core.scheduler import class_staging_budgets, kv_block_budgets
 from repro_torch.core.tabm import SlotClassPool, TABMError
 from repro_torch.kernels.fused_decode import cohort_step, fused_supported
 from repro_torch.models import decoder as dec
+from repro_torch.models.linear_attention import \
+    PREFILL_CHUNK as LINEAR_PREFILL_CHUNK
 from repro_torch.models import model as M
 from repro_torch.serving.kv_cache import PagedKVCache, bucket_length
 from repro_torch.serving.sampling import greedy, sample
@@ -1048,7 +1051,23 @@ class ServingEngine:
     def _buckets(self):
         caps = [b for b in (128, 256, 512, 1024, 2048, 4096)
                 if b <= self.max_len - 1]
-        return tuple(caps) or (self.max_len - 1,)
+        if caps:
+            return tuple(caps)
+        # one short bucket: a chunked slot-state mixer's prefill takes a
+        # whole number of chunks (or one chunk), so its bucket is rounded
+        # up to the chunk; its pool has no length axis for it to outgrow
+        b, chunk = self.max_len - 1, self._prefill_chunk()
+        if chunk and b > chunk and b % chunk:
+            b = -(-b // chunk) * chunk
+        return (b,)
+
+    def _prefill_chunk(self) -> Optional[int]:
+        """The chunk of a chunked slot-state mixer's prefill (Mamba-2's
+        SSD, linear attention), None for softmax attention."""
+        mixer = dec.mixer_of(self.cfg)
+        if mixer == "mamba":
+            return self.cfg.ssm.chunk_size
+        return LINEAR_PREFILL_CHUNK if mixer == "linear" else None
 
     def step(self):
         self._admit()

@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.core.quantize import QuantSpec, dequantize, quantize
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.cache_update import (cache_row_update,
+                                              ref_cache_row_update)
 from repro_torch.kernels.dequant_gemm import (dequant_gemm, quant_einsum,
                                              ref_dequant_gemm,
                                              ref_quant_einsum)
@@ -77,18 +79,44 @@ def test_fused_qkv_kernel_matches_plain(cuda, label, bias, bc):
         _close(g, w)
 
 
-def test_fused_kernels_refuse_fp32_activations(cuda):
-    """No fp32 path on the card: an fp32 activation raises instead of
-    running anything."""
-    h = torch.zeros((1, 1, 64), dtype=torch.float32, device=cuda)
-    w = torch.zeros((64, 64), dtype=torch.float32, device=cuda)
+# fp32 GEMVs: the kernel and the plain version (cuBLAS) both keep fp32
+# throughout, in different summation orders: 1e-5 of the largest plain
+# magnitude (the port's fp32 GEMM gate)
+TOL_F32 = 1e-5
+
+
+def _close_f32(got, want):
+    assert got.dtype == want.dtype == torch.float32
+    m = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= TOL_F32 * m, f"max err {err:.3e} vs max |ref| {m:.3e}"
+
+
+@pytest.mark.parametrize("label", list(SPECS))
+@pytest.mark.parametrize("bc", [1, 3, 8, 11])
+def test_fused_kernels_fp32_match_plain(cuda, label, bc):
+    """The fp32 instances of both GEMV kernels (fp32 activations, dense
+    fp32 or packed weights dequantized to fp32 without bf16 rounding,
+    the bias added in fp32) against their plain versions."""
+    dtype = torch.float32
+    rng = np.random.default_rng(bc + 20)
+    D, H, KV, hd, F = 256, 4, 2, 64, 512
+    h = torch.from_numpy(rng.standard_normal((bc, 1, D)).astype(
+        np.float32)).to(cuda)
+    ws = [_w(rng, (D, n, hd), label, dtype, cuda) for n in (H, KV, KV)]
+    bs = [torch.from_numpy(rng.standard_normal((n, hd)).astype(
+        np.float32)).to(cuda) for n in (H, KV, KV)]
     reset_launch_counts()
-    with pytest.raises(ValueError, match="bfloat16"):
-        fused_qkv(h, w.reshape(64, 1, 64), w.reshape(64, 1, 64),
-                  w.reshape(64, 1, 64))
-    with pytest.raises(ValueError, match="bfloat16"):
-        fused_mlp(h, w, w, w, act="swiglu")
-    assert launch_counts()["fused_qkv"] == launch_counts()["fused_mlp"] == 0
+    got = fused_qkv(h, *ws, *bs)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_qkv"] == -(-bc // 8)
+    for g, w in zip(got, ref_fused_qkv(h, *ws, *bs)):
+        _close_f32(g, w)
+    w_up, w_gate = (_w(rng, (D, F), label, dtype, cuda) for _ in range(2))
+    w_down = _w(rng, (F, D), label, dtype, cuda)
+    for act, gate in (("swiglu", w_gate), ("gelu", None)):
+        _close_f32(fused_mlp(h, w_up, w_down, gate, act=act),
+                   ref_fused_mlp(h, w_up, w_down, gate, act=act))
 
 
 @pytest.mark.parametrize("label", ["dense", "q4", "q8"])
@@ -306,12 +334,121 @@ def test_flash_attention_kernel_reads_strided_views(cuda):
     _close_rows(got, ref_attention(q, k, v))
 
 
-def test_flash_attention_kernel_refuses_fp32(cuda):
-    q, k, v = _qkv(cuda, 1, 16, 16, 4, 2, 64, dtype=torch.float32)
+# the reference kernel tests' grid (tests/test_kernels.py:163-198):
+# (B, S, H, KV, hd) causal in fp32 and bf16, non-causal, and its block-shape
+# case (hd 16, one kv head)
+FLASH_GRID = [(2, 128, 4, 2, 32), (1, 256, 8, 8, 64), (2, 256, 6, 2, 32),
+              (1, 128, 32, 4, 16)]
+
+
+def _rel_err(got, want):
+    """The reference kernel tests' measure: max abs error over the
+    largest |want|."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_GRID + [(1, 128, 4, 4, 32),
+                                                (1, 128, 2, 1, 16)])
+def test_flash_attention_kernel_fp32_on_the_reference_grid(cuda, shape,
+                                                           causal):
+    """The fp32 instance (SIMT FFMA, p kept in fp32) within the
+    reference's fp32 bound, 1e-4 of the largest plain magnitude."""
+    B, S, H, KV, hd = shape
+    q, k, v = _qkv(cuda, B, S, S, H, KV, hd, dtype=torch.float32,
+                   seed=S + hd + H)
     reset_launch_counts()
-    with pytest.raises(ValueError, match="bfloat16"):
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    want = ref_attention(q, k, v, causal=causal)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert got.isfinite().all()
+    assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_GRID)
+def test_flash_attention_kernel_bf16_on_the_reference_grid(cuda, shape,
+                                                           causal):
+    B, S, H, KV, hd = shape
+    q, k, v = _qkv(cuda, B, S, S, H, KV, hd, seed=S + hd + H)
+    _close_rows(flash_attention(q, k, v, causal=causal),
+                ref_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [16, 32, 160])
+@pytest.mark.parametrize("Sq,Sk,causal", [(300, 300, True), (77, 200, False),
+                                          (1, 1, True)])
+def test_flash_attention_kernel_every_head_dim(cuda, dtype, hd, Sq, Sk,
+                                               causal):
+    """hd 16, 32 and 160 (stablelm-12b's; ten k-steps, 105 KB of shared
+    tiles in bf16) at Qwen2-VL's head counts, ragged tile edges: bf16
+    every row within 2e-2 of its largest, fp32 within 1e-4 of the
+    largest."""
+    q, k, v = _qkv(cuda, 2, Sq, Sk, 28, 4, hd, dtype=dtype, seed=Sq + hd)
+    got = flash_attention(q, k, v, causal=causal)
+    want = ref_attention(q, k, v, causal=causal)
+    if dtype == torch.bfloat16:
+        _close_rows(got, want)
+    else:
+        assert _rel_err(got, want) <= 1e-4
+
+
+def test_flash_attention_kernel_fp32_reads_strided_views(cuda):
+    B, S, H, KV, hd = 2, 100, 8, 2, 32
+    g = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn((B, S, H + 2 * KV, hd), generator=g, device=cuda)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    got = flash_attention(q, k, v)
+    assert torch.equal(got, flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous()))
+    assert _rel_err(got, ref_attention(q, k, v)) <= 1e-4
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 16, 16, 4, 2, 48)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, k, v)
+    q, k, v = _qkv(cuda, 1, 16, 16, 4, 2, 64, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention(q.float(), k.float(), v.to(torch.bfloat16))
     assert launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_prefill_through_the_flash_kernel(cuda, dtype):
+    """Reduced llava at hd 16 with ``attn_q_chunk=0``: ``lm_prefill`` on the
+    card runs the flash kernel in every layer; logits and caches against
+    the same weights on the CPU (the plain dense attention) within 1e-4
+    (fp32) or 5e-2 (bf16, the port's model tolerance) of the largest."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    cfg = get_config("llava-onevision-0.5b").reduced(
+        dtype=dtype, attn_q_chunk=0, head_dim=16)
+    assert cfg.hd == 16
+    params = M.init_params(cfg, device="cpu", seed=0)
+    gpu = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        3, cfg.vocab_size, (2, 96)).astype(np.int32))
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    with torch.no_grad():
+        want, wc = M.lm_prefill(params, cfg, toks, 128)
+        reset_launch_counts()
+        got, gc = M.lm_prefill(gpu, cfg, toks.to(cuda), 128)
+        torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    assert (got.cpu() - want).abs().max().item() <= \
+        tol * want.abs().max().item()
+    for w, g in zip(wc["layers"][0], gc["layers"][0]):
+        assert (g.cpu().float() - w.float()).abs().max().item() <= \
+            tol * w.float().abs().max().item()
 
 
 # (B, S, H, P, G, N, chunk): reduced Mamba-2 (P 16, N 16, chunk 32), the
@@ -928,3 +1065,191 @@ def test_one_layer_full_width_prefill_through_the_kernel(cuda, arch,
     assert got.isfinite().all()
     err = (got - want).abs().max().item()
     assert err <= 5e-2 * want.abs().max().item()
+
+
+# -- cache row update ---------------------------------------------------------
+
+def _cache_and_row(dev, shape, cdtype, rdtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, S, KV, hd = shape
+    return (torch.randn(shape, generator=g, device=dev).to(cdtype),
+            torch.randn((B, KV, hd), generator=g, device=dev).to(rdtype))
+
+
+def _update_matches_plain(cache, row, index):
+    """Kernel vs plain version on copies of the same inputs: bit for bit
+    (a cast rounds to nearest even in both), one launch, in place."""
+    want = ref_cache_row_update(cache.clone(), row, index)
+    reset_launch_counts()
+    got = cache_row_update(cache, row, index)
+    torch.cuda.synchronize()
+    assert launch_counts()["cache_row_update"] == 1
+    assert got is cache
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cdtype,rdtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("shape", [(4, 64, 2, 16), (2, 128, 8, 32),
+                                   (1, 256, 4, 64), (3, 40, 3, 5)])
+def test_cache_row_update_kernel_bit_exact(cuda, shape, cdtype, rdtype):
+    """The reference tests' shapes (a 16-byte vector copy) and an odd row
+    of 15 elements (elementwise), both dtypes and both casts."""
+    B, S = shape[:2]
+    cache, row = _cache_and_row(cuda, shape, cdtype, rdtype, seed=S)
+    idx = torch.tensor([(i * 7 + 3) % S for i in range(B)],
+                       dtype=torch.int32, device=cuda)
+    _update_matches_plain(cache, row, idx)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cache_row_update_kernel_scalar_and_out_of_range(cuda, dtype):
+    cache, row = _cache_and_row(cuda, (4, 64, 2, 16), dtype, dtype, seed=1)
+    _update_matches_plain(cache, row, 5)
+    _update_matches_plain(cache, row, torch.tensor(63, device=cuda))
+    before = cache.clone()
+    idx = torch.tensor([3, 64, -1, 10], dtype=torch.int32, device=cuda)
+    _update_matches_plain(cache, row, idx)
+    for b in (1, 2):                       # out of range: nothing written
+        assert torch.equal(cache[b], before[b])
+    before = cache.clone()
+    _update_matches_plain(cache, row, 64)  # every row dropped
+    assert torch.equal(cache, before)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cache_row_update_kernel_writes_strided_views(cuda, dtype):
+    """Layer slices of a stacked (L, B, S, KV, hd) cache at LLaVA's widths
+    are written where they lie; so are kv-head slices (one a contiguous
+    row, one not) and a (B, S) transposed view; the rest of the stack is
+    untouched."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    L, B, S, KV, hd = 24, 4, 2048, 2, 64
+    stack = torch.randn((L, B, S, KV, hd), generator=g,
+                        device=cuda).to(dtype)
+    row = torch.randn((B, KV, hd), generator=g, device=cuda).to(dtype)
+    idx = torch.tensor([0, 2047, 1000, 77], dtype=torch.int32, device=cuda)
+    want = stack.clone()
+    for i in (0, 11, 23):
+        ref_cache_row_update(want[i], row, idx)
+        _update_matches_plain(stack[i], row, idx)
+    assert torch.equal(stack, want)
+    wide = torch.randn((B, S, 4, hd), generator=g, device=cuda).to(dtype)
+    _update_matches_plain(wide[:, :, 1:3], row, idx)
+    _update_matches_plain(wide[:, :, ::2], row, idx)
+    t = torch.randn((S, B, KV, hd), generator=g,
+                    device=cuda).to(dtype).transpose(0, 1)
+    _update_matches_plain(t, row, idx)
+
+
+def test_cache_row_update_kernel_refuses_what_it_does_not_take(cuda):
+    cache = torch.zeros((2, 8, 2, 16), device=cuda)
+    row = torch.zeros((2, 2, 16), device=cuda)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        cache_row_update(cache.transpose(2, 3), row.transpose(1, 2), 0)
+    with pytest.raises(ValueError, match="does not match"):
+        cache_row_update(cache, row[:1], 0)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        cache_row_update(cache.half(), row, 0)
+    assert launch_counts()["cache_row_update"] == 0
+
+
+# -- the composed step and the fp32 fused step on the card ----------------------
+
+@pytest.mark.parametrize("bc", [1, 2, 4])
+def test_composed_cohort_step_through_the_row_update_kernel(cuda, bc):
+    """``cohort_step(use_fused=False)`` on reduced llava (bf16, softmax):
+    the gathered caches donated to ``lm_decode_step``, two row-update
+    launches a layer and one KV-row scatter; logits and pool equal the
+    plain ``ref_cohort_step``'s bit for bit (the kernels only move bits),
+    the pool written in place."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import PROFILES, quantize_tree
+    from repro_torch.models.model import init_params
+    cfg = get_config("llava-onevision-0.5b").reduced()
+    params = quantize_tree(init_params(cfg, device=cuda),
+                           PROFILES["nanomind-serve"])
+    tokens, lengths, slot_ids, tables, pool, bs = _cohort_state(cfg, cuda,
+                                                                bc)
+    kw = dict(block_size=bs, paged=(True,))
+    lr, pr = ref_cohort_step(params, cfg, tokens, lengths, slot_ids, tables,
+                             pool, **kw)
+    reset_launch_counts()
+    lc, pc = cohort_step(params, cfg, tokens, lengths, slot_ids, tables,
+                         pool, use_fused=False, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["cache_row_update"] == 2 * cfg.n_layers
+    assert counts["kv_scatter"] == 1
+    assert counts["fused_qkv"] == counts["fused_mlp"] == 0
+    assert pc[0][0] is pool[0][0] and pc[0][1] is pool[0][1]
+    assert torch.equal(lc, lr)
+    for new, ref in zip(pc[0], pr[0]):
+        assert torch.equal(new, ref)
+
+
+@pytest.mark.parametrize("bc", [1, 2, 4])
+def test_fp32_fused_cohort_step_on_card(cuda, bc):
+    """Reduced llava in fp32 on the card decodes through the fp32 fused
+    kernels by default (``fused_supported`` is dtype-blind); logits
+    within 1e-4 of the largest (the port's fp32 model tolerance) of the
+    plain ``ref_cohort_step``, written cells within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import PROFILES, quantize_tree
+    from repro_torch.kernels.fused_decode import fused_supported
+    from repro_torch.models.model import init_params
+    cfg = get_config("llava-onevision-0.5b").reduced(dtype="float32")
+    assert fused_supported(cfg)
+    params = quantize_tree(init_params(cfg, device=cuda),
+                           PROFILES["nanomind-serve"])
+    tokens, lengths, slot_ids, tables, pool, bs = _cohort_state(cfg, cuda,
+                                                                bc)
+    kw = dict(block_size=bs, paged=(True,))
+    lr, pr = ref_cohort_step(params, cfg, tokens, lengths, slot_ids, tables,
+                             pool, **kw)
+    reset_launch_counts()
+    lf, pf = cohort_step(params, cfg, tokens, lengths, slot_ids, tables,
+                         pool, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["fused_qkv"] == counts["fused_mlp"] == cfg.n_layers
+    m = lr.abs().max().item()
+    assert (lf - lr).abs().max().item() <= 1e-4 * m
+    for new, ref in zip(pf[0], pr[0]):
+        assert (new - ref).abs().max().item() <= \
+            1e-4 * ref.abs().max().item()
+
+
+def test_fp32_engine_on_card_runs_the_fp32_kernels(cuda):
+    """ServingEngine with default ``use_fused`` on reduced llava in fp32
+    with ``attn_q_chunk=0``: prefill through the fp32 flash kernel,
+    decode through the fp32 fused kernels; every request finishes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import PROFILES, quantize_tree
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = get_config("llava-onevision-0.5b").reduced(dtype="float32",
+                                                      attn_q_chunk=0)
+    params = quantize_tree(init_params(cfg, device=cuda),
+                           PROFILES["nanomind-serve"])
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, tokens=(np.arange(6 + i) % 50 + 3).astype(
+        np.int32), n_images=1, max_new_tokens=4,
+        vision_feats=(rng.standard_normal((1, n, cfg.vision_feat_dim))
+                      * 0.02).astype(np.float32))
+        for i, n in enumerate((8, 2, 8))]
+    with ServingEngine(cfg, params, n_slots=2, max_len=128, block_size=32,
+                       device=cuda) as eng:
+        assert eng.use_fused
+        for r in reqs:
+            eng.submit(r)
+        reset_launch_counts()
+        done = eng.run()
+        counts = launch_counts()
+        steps = sum(1 for e in eng.trace if e.event == "decode_step")
+        assert all(r.error is None for r in done) and len(done) == 3
+        assert counts["fused_qkv"] == cfg.n_layers * steps > 0
+        assert counts["flash_attention"] > 0
+        assert counts["flash_attention"] % cfg.n_layers == 0

@@ -28,6 +28,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from _torch_parity import f32, shared_params
@@ -153,13 +154,14 @@ def test_qwen2_vl_engine_serves_mix_like_reference():
     _check_tokens(want, margins, got)
 
 
-def _serve_text(cfg, params, prompts, new, check_prefill=None):
+def _serve_text(cfg, params, prompts, new, check_prefill=None,
+                max_len=256):
     """Serve text-only ``prompts`` (``new`` tokens each) on the port's
     engine on the CPU; record the prefill logits and every decode step's
     (slot ids, logits).  Returns (requests, prefill record, steps, slot
     of each request id)."""
     pre, steps = {}, []
-    with ServingEngine(cfg, params, n_slots=4, max_len=256,
+    with ServingEngine(cfg, params, n_slots=4, max_len=max_len,
                        device="cpu") as eng:
         assert not eng.use_fused and eng.slots.paged == (False,)
         assert eng.slots.n_blocks == eng.slots.blocks_per_slot == 0
@@ -231,6 +233,48 @@ def test_mamba2_engine_matches_the_unpadded_reference_model():
         assert tuple(tokens.shape) == (len(lens), 128)
     served = _serve_text(tcfg, tparams, prompts, new, check_prefill)
     _hold_against_unpadded_model(rcfg, rparams, prompts, served)
+
+
+def test_mamba2_engine_short_bucket_is_chunk_aligned():
+    """An engine with ``max_len=128`` has one prompt bucket.  At
+    ``max_len - 1`` = 127 the reduced config's 32-position SSD chunk would
+    not divide it; the bucket is rounded up to 128 (the slot-state pool has
+    no length axis), so prompts of 20, 64 and 96 tokens prefill in one
+    batch-3 call of width 128 and the logits follow the reference model on
+    the unpadded prompts through three decode steps."""
+    rcfg, rparams, tcfg, tparams = shared_params("mamba2-1.3b", "float32",
+                                                 "nanomind-serve")
+    assert tcfg.ssm.chunk_size == 32
+    rng = np.random.default_rng(6)
+    lens, new = (20, 64, 96), 4
+    prompts = [rng.integers(3, tcfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+
+    def check_prefill(tokens, cache):
+        assert tuple(tokens.shape) == (len(lens), 128)
+    served = _serve_text(tcfg, tparams, prompts, new, check_prefill,
+                         max_len=128)
+    _hold_against_unpadded_model(rcfg, rparams, prompts, served)
+
+
+@pytest.mark.parametrize("max_len,want", [(128, (128,)), (100, (128,)),
+                                          (33, (32,)), (20, (19,)),
+                                          (256, (128,))])
+def test_short_bucket_of_each_mixer(max_len, want):
+    """The engine's buckets: a chunked slot-state mixer's one short
+    bucket is a whole number of its chunks (or one chunk); softmax
+    attention keeps ``max_len - 1``."""
+    _, _, tcfg, tparams = shared_params("mamba2-1.3b", "float32",
+                                        "nanomind-serve")
+    with ServingEngine(tcfg, tparams, n_slots=2, max_len=max_len,
+                       device="cpu") as eng:
+        assert eng._buckets() == want
+    _, _, lcfg, lparams = shared_params(ARCH, "float32", "nanomind-serve")
+    for cfg in (lcfg, dataclasses.replace(lcfg, **LINEAR)):
+        with ServingEngine(cfg, lparams, n_slots=2, max_len=max_len,
+                           block_size=32, device="cpu") as eng:
+            assert eng._buckets() == ((128,) if max_len > 128
+                                      else (max_len - 1,))
 
 
 LINEAR = {"attn_impl": "linear", "subquadratic": True}
