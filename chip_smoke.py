@@ -44,7 +44,10 @@ Phases (any failure raises and exits non-zero):
    fused kernels; four requests (a 1024-token image, a repeat of its
    bytes, a 256-token image, a 4 x 256 request);
    for each served path the launch counts are reset just before and
-   read just after the run, and read around every decode step; one
+   read just after the run, and read around every decode step (every
+   bf16 GEMM and flash launch must take the warp-specialised wgmma
+   kernel, every fp32 one the tile / SIMT kernel: the counts per route
+   show it); one
    captured cohort state is decoded again by the fused and by the plain
    composed step (``ref_cohort_step``), which must agree within bf16
    tolerance; for Qwen2-VL one captured prefill group runs again with
@@ -116,9 +119,13 @@ Phases (any failure raises and exits non-zero):
    fused-decode kernels at cohort size 4 rotating over the layers'
    weights (so the weights come from device memory, not the 50 MB L2)
    at both models' widths (and the fp32 instances at LLaVA's over serve
-   3b's weights), the flash kernel at Qwen2-VL's prefill shape (and the
-   fp32 instance at LLaVA's, beside SDPA in fp32, and the bf16 instance at
-   hd 160 with Qwen2-VL's head counts), the cache-row-update
+   3b's weights), the flash kernel at Qwen2-VL's prefill shape and head
+   counts at hd 64, 128 and 160 beside SDPA (and the fp32 instance at
+   LLaVA's, beside SDPA in fp32), the packed-weight GEMM at every distinct
+   served projection shape (Qwen2-VL and Mamba-2 at 2048 rows, LLaVA at
+   1024) beside dequantize + ``matmul`` and ``matmul`` on a dense weight,
+   the flash and GEMM times both from the profiler and from CUDA events
+   around the loop, the cache-row-update
    kernel at the composed step's shape (a layer of a cohort-4 gathered
    context, beside ``index_put_``),
    the SSD kernel at its check shape (no single PyTorch call computes
@@ -242,6 +249,21 @@ DG_TIME_SHAPE = (2048, 3584, 18944)
 # projections a layer runs on packed weights: q, k, v, o, up, gate, down;
 # Mamba-2's in_proj and out_proj
 GEMMS_PER_LAYER = {"attn": 7, "linear": 7, "mamba": 2}
+# the kernel (launch-count route) every served call of a dtype must take:
+# bf16 the warp-specialised wgmma kernels, fp32 the GEMM's tile kernel and
+# the SIMT flash kernel
+GEMM_ROUTE = {"bfloat16": "wgmma", "float32": "tile"}
+FLASH_ROUTE = {"bfloat16": "wgmma", "float32": "simt"}
+# rows of each served model's largest prefill call: the GEMM's per-shape
+# timings run every distinct projection shape at these rows
+DG_SERVED_ROWS = {"qwen2-vl-7b": 2048, "llava-onevision-0.5b": 1024,
+                  "mamba2-1.3b": 2048}
+# the bf16 flash timings beside SDPA, (B, Sq, Sk, H, KV, hd, causal) at
+# Qwen2-VL's head counts: hd 64 and 128 at its 2 x 2048 prefill, hd 160 at
+# 2 x 1024 (FLASH_HD160's first shape)
+FLASH_HD_TIMES = ((2, 2048, 2048, 28, 4, 64, True),
+                  (2, 2048, 2048, 28, 4, 128, True),
+                  (2, 1024, 1024, 28, 4, 160, True))
 
 
 def fail(msg):
@@ -842,6 +864,62 @@ def time_dequant_gemm(sm):
     return t_k, t_p, t_l, t_d, byt, 2 * M * N * K
 
 
+def time_gemm_shapes(sm, cfgs):
+    """The packed-weight GEMM at every distinct projection shape of
+    ``cfgs`` (q, k/v, o, up/gate, down; Mamba-2's in_proj and out_proj),
+    q4 g32 bf16 at DG_SERVED_ROWS rows, through ``quant_einsum`` (the
+    kernel its route picks), beside ``dequantize`` + ``torch.matmul`` and
+    ``torch.matmul`` on the weight dequantized beforehand; each time from
+    the profiler (device ms) and from CUDA events around the loop (event
+    ms), and the bound from the codes, scales, x and y bytes and 2 M N K
+    operations."""
+    import torch
+    from repro_torch.core.quantize import QuantSpec, dequantize, quantize
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.dequant_gemm import quant_einsum
+    names = {"bsd,dhk->bshk": "q / k / v", "bshk,hkd->bsd": "o",
+             "bsd,df->bsf": "up / gate", "bsf,fd->bsd": "down",
+             "bsd,de->bse": "in_proj", "bse,ed->bsd": "out_proj"}
+    rows, seen = [], set()
+    for cfg in cfgs:
+        M = DG_SERVED_ROWS[cfg.name]
+        for spec, wshape, xshape in gemm_shapes(cfg):
+            if (cfg.name, wshape) in seen:
+                continue
+            seen.add((cfg.name, wshape))
+            x = sm.randn(1, M, *xshape)
+            w = quantize(sm.randn(*wshape, scale=wshape[0] ** -0.5),
+                         QuantSpec(4, group_size=32))
+            dense = dequantize(w)
+            K = x.shape[-len(xshape):].numel()
+            N = dense.numel() // K
+            x2, d2 = x.reshape(M, K), dense.reshape(K, N)
+            with torch.no_grad():
+                t_k = timed(lambda i: quant_einsum(spec, x, w), 1, iters=10)
+                t_l = timed(lambda i: torch.matmul(x2, dequantize(w).reshape(
+                    K, N)), 1, iters=5)
+                t_d = timed(lambda i: torch.matmul(x2, d2), 1, iters=10)
+            byt = (w.codes.numel() * 4 + w.scales.numel() * 4
+                   + 2 * M * K + 2 * M * N)
+            b_ms, b_by = bound(byt, 2 * M * N * K)
+            reset_launch_counts()       # the kernel this shape launches
+            with torch.no_grad():
+                quant_einsum(spec, x, w)
+            route = [r for r in GEMM_ROUTE.values()
+                     if launch_counts()[f"dequant_gemm/{r}"]]
+            rows.append({
+                "model": cfg.name, "proj": names[spec], "M": M, "K": K,
+                "N": N, "route": route,
+                "ms": dev_or_call(t_k), "event_ms": t_k[1],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "dequantize_matmul_ms": dev_or_call(t_l),
+                "dense_matmul_ms": dev_or_call(t_d),
+                "dense_matmul_event_ms": t_d[1]})
+            del x, w, dense, x2, d2
+    free()
+    return rows
+
+
 def ssd_errors(args, out, chunk, what):
     """The SSD kernel's (y, h_final) ``out`` on ``args`` against the plain
     ``ssd_chunked``: fails unless both are finite, of the plain shapes,
@@ -1041,8 +1119,11 @@ def serve_path(sm, cfg, reqs, use_fused=None):
     per_call = GEMMS_PER_LAYER["attn"] * L
     want = {k: 0 for k in launches}
     want.update({k: n * decode_steps for k, n in per_step.items()})
-    want["flash_attention"] = L * n_prefill if cfg.attn_q_chunk == 0 else 0
+    n_flash = L * n_prefill if cfg.attn_q_chunk == 0 else 0
+    want["flash_attention"] = n_flash
+    want[f"flash_attention/{FLASH_ROUTE[cfg.dtype]}"] = n_flash
     want["dequant_gemm"] = per_call * n_prefill
+    want[f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}"] = per_call * n_prefill
     if not (launches == want and decode_steps > 0 and n_prefill > 0
             and len(step_launches) == decode_steps
             and all(d == per_step for d in step_launches)):
@@ -1466,11 +1547,13 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
         if not (len(r.out_tokens) == r.max_new_tokens and all(
                 0 <= t < cfg.vocab_size for t in r.out_tokens)):
             fail(f"{cfg.name}: request {r.rid} tokens {r.out_tokens}")
+    gemm_route = f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}"
     others = sum(v for k, v in launches.items()
-                 if k not in (op_name, "dequant_gemm"))
+                 if k not in (op_name, "dequant_gemm", gemm_route))
     per_call = GEMMS_PER_LAYER[mixer_of(cfg)] * cfg.n_layers
     if not (launches[op_name] == cfg.n_layers * len(groups) == len(calls)
-            and launches["dequant_gemm"] == per_call * len(groups)
+            and launches["dequant_gemm"] == launches[gemm_route]
+            == per_call * len(groups)
             and groups and decode_steps > 0 and others == 0):
         fail(f"{cfg.name}: launch counts {launches} for {decode_steps} "
              f"decode steps and {len(groups)} prefill calls")
@@ -2169,12 +2252,14 @@ def main() -> int:
     # -- 7. the flash kernel and the packed-weight GEMM at Qwen2-VL's
     # prefill shapes, the SSD and linear-attention kernels at their check
     # shapes ----------------------------------------------------------------
-    flash_t = time_flash(sm)
+    flash_ts = {shape[5]: time_flash(sm, shape) for shape in FLASH_HD_TIMES}
+    flash_t = flash_ts[FLASH_TIME_SHAPE[5]]
     flash32_t = time_flash(sm, FLASH_FP32_TIME_SHAPE, torch.float32)
-    flash160_t = time_flash(sm, FLASH_HD160[0])
     ssd_t = time_ssd(sm)
     la_t = time_linear(sm)
     dg_t = time_dequant_gemm(sm)
+    gemm_rows = time_gemm_shapes(sm, (qwen, llava, mamba))
+    print(json.dumps({"gemm_shapes": gemm_rows}))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2242,6 +2327,12 @@ def main() -> int:
                 / serves[path]["prefill_calls"]),
             "served_check": served_check}
 
+    def by_route(name, routes):
+        """Launches of each kernel behind wrapper ``name`` over every
+        counted run."""
+        return {r: sum(n[f"{name}/{r}"] for n in runs.values())
+                for r in sorted(set(routes.values()))}
+
     for name in ("fused_qkv", "fused_mlp", "kv_row_scatter",
                  "flash_attention", "ssd", "linear_attention",
                  "dequant_gemm", "cache_row_update"):
@@ -2255,8 +2346,14 @@ def main() -> int:
                  "max_abs_err": sm.errs[name]}
         if name == "flash_attention":
             entry.update(numbers(flash_t))
+            entry["event_ms"] = flash_t[0][1]
+            entry["launches_by_route"] = by_route(name, FLASH_ROUTE)
             entry["shape"] = dict(zip(("B", "Sq", "Sk", "H", "KV", "hd",
                                        "causal"), FLASH_TIME_SHAPE))
+            entry["hd64"] = dict(
+                numbers(flash_ts[64]), event_ms=flash_ts[64][0][1],
+                shape=dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal"),
+                               FLASH_HD_TIMES[0])))
             entry["library"] = "F.scaled_dot_product_attention(enable_gqa)"
             entry["fp32"] = dict(
                 numbers(flash32_t, FP32_FLOPS_PER_S),
@@ -2270,7 +2367,7 @@ def main() -> int:
                 served_check=serves[FP32_PATH]["flash_served_check"],
                 checks=sm.fp32_check["flash_attention"])
             entry["hd160"] = dict(
-                numbers(flash160_t),
+                numbers(flash_ts[160]), event_ms=flash_ts[160][0][1],
                 shape=dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal"),
                                FLASH_HD160[0])),
                 checked=[list(c) for c in FLASH_HD160])
@@ -2295,6 +2392,9 @@ def main() -> int:
                 "flops_of_kernel_form counts the kernel's 64-row tiles")
         elif name == "dequant_gemm":
             entry.update(numbers(dg_t))
+            entry["event_ms"] = dg_t[0][1]
+            entry["launches_by_route"] = by_route(name, GEMM_ROUTE)
+            entry["served_shapes"] = gemm_rows
             entry["dense_matmul_ms"] = entry.pop("dense_bf16_matmul_ms")
             entry["shape"] = dict(zip(("M", "K", "N"), DG_TIME_SHAPE),
                                   bits=4, group=32, dtype="bfloat16")

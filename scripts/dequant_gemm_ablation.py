@@ -3,15 +3,18 @@
 
     python3 scripts/dequant_gemm_ablation.py
 
-Builds three versions of ``src/repro_torch/csrc/dequant_gemm.cu`` with
-nvcc (the build flags of ``repro_torch.kernels.build``) into
-``build/ablation/``:
+Builds versions of ``src/repro_torch/csrc/dequant_gemm.cu`` with nvcc
+(the build flags of ``repro_torch.kernels.build``) into
+``build/ablation/``, each leaving one part of the warp-specialised
+kernel (``dequant_gemm_wgmma_kernel``, the one every served bf16 call
+takes) out:
 
 - ``kernel``: the source as it is;
-- ``no_unpack``: the unpack of every step after the first left out (the
-  products read the first step's W tile again);
-- ``no_products``: the mma.sync products replaced by one XOR of their
-  fragments, so the fragment loads stay.
+- ``no_unpack``: the producer skips the unpack (the products read stale
+  W tiles);
+- ``no_staging``: no packed words (TMA) or scales (cp.async) are loaded
+  (the unpack reads stale slots);
+- ``no_products``: the consumers issue no wgmma.
 
 Each runs through ``quant_einsum`` at served projection shapes (q4 g32,
 bf16, Qwen2-VL-7B's and Mamba-2-1.3B's at a 2048-row prefill, LLaVA's
@@ -36,25 +39,34 @@ SHAPES = (  # (name, einsum, x shape, weight shape)
     ("qwen2-vl q", "bsd,dhk->bshk", (1, 2048, 3584), (3584, 28, 128)),
     ("mamba2 in_proj", "bsd,de->bse", (2, 1024, 2048), (2048, 8512)),
     ("llava up", "bsd,df->bsf", (1, 1024, 896), (896, 4864)))
-UNPACK = ("    if (step + 1 < n_steps)             // the ALU work beside the "
-          "other warps' products\n")
-PRODUCT = ("mma_bf16(&acc[(mi * 4 + ni) * 4], a[mi], b[ni][0], b[ni][1]);")
+UNPACK = ("      unpack_run<BITS, LAYOUT>(ws + st * kWTileBytes, staged + slot "
+          "* S::kBytes, pt, sslot);\n")
+STAGE_FIRST = "      if (s < n_steps) stage(s);\n"
+STAGE_AHEAD = "      if (step + kPre - 1 < n_steps) stage(step + kPre - 1);\n"
+PRODUCTS = ("      for (int kk = 0; kk < kWK / 16; ++kk) {\n"
+            "        const uint64_t da0")
 
 
 def variants(src):
-    for needle in (UNPACK, PRODUCT):
+    for needle in (UNPACK, STAGE_FIRST, STAGE_AHEAD, PRODUCTS):
         if src.count(needle) != 1:
             raise SystemExit(f"ablation: {needle.strip()!r} not found once in "
                              f"dequant_gemm.cu")
+    no_words = ("if (pt == 0) hopper::mbar_arrive_expect_tx(&words[{} % kPre], "
+                "0);\n")
     return {"kernel": src,
-            "no_unpack": src.replace(UNPACK, "    if (step + 1 < 0)\n"),
+            "no_unpack": src.replace(UNPACK, ""),
+            "no_staging": src.replace(
+                STAGE_FIRST, "      if (s < n_steps && " + no_words.format("s")
+                .replace("if (", "", 1)).replace(
+                STAGE_AHEAD, "      if (step + kPre - 1 < n_steps && "
+                + no_words.format("(step + kPre - 1)").replace("if (", "", 1)),
             "no_products": src.replace(
-                PRODUCT, "acc[(mi * 4 + ni) * 4] += "
-                "__uint_as_float(a[mi][0] ^ b[ni][1]);")}
+                PRODUCTS, PRODUCTS.replace("kk < kWK / 16", "kk < 0"))}
 
 
 def build(srcs):
-    from repro_torch.kernels.build import NVCC_FLAGS, nvcc_path
+    from repro_torch.kernels.build import CSRC, NVCC_FLAGS, nvcc_path
     out_dir = os.path.join(ROOT, "build", "ablation")
     os.makedirs(out_dir, exist_ok=True)
     jobs = {}
@@ -64,7 +76,7 @@ def build(srcs):
             f.write(text)
         so = os.path.join(out_dir, f"lib{name}.so")
         jobs[name] = (so, subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", so, cu],
+            [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     libs = {}
     for name, (so, proc) in jobs.items():
@@ -76,6 +88,11 @@ def build(srcs):
                                         + [ctypes.c_int] * 15
                                         + [ctypes.c_void_p])
         lib.rt_dequant_gemm.restype = ctypes.c_int
+        lib.rt_dequant_gemm_wgmma.argtypes = ([ctypes.c_void_p] * 5
+                                              + [ctypes.c_int] * 9
+                                              + [ctypes.c_void_p])
+        lib.rt_dequant_gemm_wgmma.restype = ctypes.c_int
+        lib._typed = True
         libs[name] = lib
     return libs
 

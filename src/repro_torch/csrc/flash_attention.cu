@@ -23,20 +23,28 @@
 // FFMA), while it moves only q, k, v and o once (the score matrix never
 // reaches device memory).
 //
-// What the design does about it (bf16).  Both products run on the tensor cores
-// with mma.sync m16n8k16 (bf16 in, fp32 accumulate).  One block of four
-// warps owns 64 query rows of one (batch, head); each warp owns 16 rows
-// and keeps its Q fragments, its fp32 scores and its fp32 output
-// accumulator in registers, so the score tile goes from the S product
-// straight into the A operand of the P.V product without touching shared
-// memory.  K/V stream through shared memory in 64-key tiles, double
-// buffered with 16-byte cp.async copies (the next tile loads while this
-// one computes); V's B fragments come from ldmatrix.trans.  Rows are
-// padded by 8 elements so the fragment loads hit 32 distinct banks.  A
-// causal block stops at its diagonal tile, and blocks are issued longest
-// rows first so the short ones fill the tail.  Ragged tile edges read
-// zeros and mask scores to -1e30.  wgmma, TMA and warp specialisation are
-// later work.
+// What the design does about it (bf16).  Both products run on wgmma (bf16
+// in, fp32 accumulate), fed by TMA, in a warp-specialised block of three
+// warpgroups.  One block owns 128 query rows of one (batch, head): two
+// consumer warpgroups of 64 rows each, and a producer warpgroup (one warp
+// of it issues every load) whose registers setmaxnreg hands to the
+// consumers (24 and 240 a thread).  The producer TMA-loads the block's Q
+// once, then K and V tiles of 128 keys into a ring of two stages (three at
+// hd <= 64), straight from the model's strided (B, S, heads, hd) layout
+// through 4D tensor maps; rows past the sequence arrive as zeros.  Each
+// tile is cut along hd into swizzle atoms of 16, 32 or 64 elements (32-,
+// 64- or 128-byte swizzle; hd 160 is five 32-element atoms), so one map
+// box fills one atom.  A consumer warpgroup waits for a stage, computes
+// S = Q Kᵀ (64 x 128, Q and K K-major in shared memory), masks and scales
+// it, runs the online softmax on its registers, rounds P to bf16 straight
+// into wgmma's A-register fragments (the accumulator layout maps onto
+// them), computes O += P V (V MN-major: the transpose bit), and releases
+// the stage to the producer.  The two consumers interleave, so one's
+// softmax overlaps the other's products.  A causal block stops at its
+// diagonal tile, blocks are issued longest rows first, and the output
+// is acc / max(l, 1e-30) written through o's strides.  Ping-pong
+// scheduling of the two consumers and softmax/GEMM overlap inside one
+// consumer (FA3's) are later work.
 //
 // The fp32 instance keeps the same online-softmax structure on SIMT FFMA
 // (as csrc/ssd.cu and csrc/linear_attention.cu do): TF32 tensor cores
@@ -50,73 +58,49 @@
 //
 // Interface: two plain C entry points, bf16 and fp32 (loaded with ctypes);
 // each launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError().
+// cudaGetLastError() (or the error of encoding a tensor map).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBlockM = 64;             // query rows per block, 16 per warp
-constexpr int kBlockN = 64;             // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPad = 8;                 // bf16 row padding in shared memory
-constexpr int kTiles = 5;               // shared tiles: Q, 2 x K, 2 x V
+using namespace hopper;
+
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
 
-struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;
-  int B, Sq, Sk, H, KV, causal;
-  long long q_sb, q_ss, q_sh;           // strides in elements
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
-  float scale;
+// ---- bf16: wgmma, TMA, warp specialisation ---------------------------------
+
+constexpr int kRows = 128;              // query rows per block: two consumer warpgroups
+constexpr int kKeys = 128;              // keys per K/V tile
+constexpr int kThreads = 384;           // warpgroups 0-1 consume, 2 produces
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+template <int HD>
+struct Flash {
+  static constexpr int kAtom = HD == 16 ? 16 : (HD == 32 || HD == 160) ? 32 : 64;
+  static constexpr int kSw = 2 * kAtom;           // swizzle width, bytes
+  static constexpr int kAtoms = HD / kAtom;
+  static constexpr int kStages = HD <= 64 ? 3 : 2;
+  static constexpr int kQBytes = kRows * HD * 2;
+  static constexpr int kTileBytes = kKeys * HD * 2;   // one K or V tile
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes + kBarBytes;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; src_bytes = 0 writes zeros instead
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four transposed 8x8 bf16 matrices; lanes 8m..8m+7 give matrix m's rows
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
+struct Params {
+  bf16* o;
+  int B, Sq, Sk, H, KV, causal;
+  long long o_sb, o_ss, o_sh;           // strides in elements
+  float scale_log2;                     // hd^-1/2 * log2(e)
+};
 
 // two fp32 values -> a bf16 pair, `lo` in the low half (the lower column)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -124,183 +108,208 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 64 rows x HD of a strided source into a padded shared tile; rows at or
-// past `valid` are zero-filled (a zero V row times a zero p stays 0)
 template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long row_stride,
-                                          int valid) {
-  constexpr int kChunks = HD / 8;       // 16-byte chunks per row
-  constexpr int kStride = HD + kPad;
-  for (int i = threadIdx.x; i < kBlockN * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i - r * kChunks;
-    const bool ok = r < valid;
-    cp_async16(dst + r * kStride + c * 8, src + (ok ? r * row_stride : 0) + c * 8,
-               ok ? 16 : 0);
-  }
-}
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const Params p) {
+  using C = Flash<HD>;
+  constexpr int kAtom = C::kAtom, kSw = C::kSw, kAtoms = C::kAtoms, kStages = C::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  unsigned char* smem = align1024(smem_tiles);
+  // Q [warpgroup][atom][64 rows][kAtom]; K and V [stage][atom][128 keys][kAtom]
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + kRows * HD;
+  bf16* vs = ks + kStages * kKeys * HD;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * kKeys * HD);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params p) {
-  constexpr int kStride = HD + kPad;
-  constexpr int kTile = kBlockN * kStride;
-  constexpr int kK = HD / 16;           // k-steps of the q.k product
-  constexpr int kN = kBlockN / 8;       // 8-key column tiles of a score tile
-  constexpr int kD = HD / 8;            // 8-wide column tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kTile;                // two buffers
-  bf16* vs = ks + 2 * kTile;            // two buffers
-
-  const int nq = (p.Sq + kBlockM - 1) / kBlockM;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * kBlockM;   // longest rows first
+  const int nq = (p.Sq + kRows - 1) / kRows;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * kRows;    // longest rows first
   const int b = blockIdx.y / p.H, h = blockIdx.y - b * p.H;
   const int kvh = h / (p.H / p.KV);
-  const bf16* qg = p.q + b * p.q_sb + q0 * p.q_ss + h * p.q_sh;
-  const bf16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
+  int n_tiles = (p.Sk + kKeys - 1) / kKeys;
+  if (p.causal) n_tiles = min(n_tiles, (min(q0 + kRows, p.Sq) - 1) / kKeys + 1);
 
-  int n_tiles = (p.Sk + kBlockN - 1) / kBlockN;
-  if (p.causal) n_tiles = min(n_tiles, (min(q0 + kBlockM, p.Sq) - 1) / kBlockN + 1);
-
-  load_tile<HD>(qs, qg, p.q_ss, p.Sq - q0);
-  load_tile<HD>(ks, kg, p.k_ss, p.Sk);
-  load_tile<HD>(vs, vg, p.v_ss, p.Sk);
-  cp_async_commit();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = warp * 16 + g;       // this thread's rows: row0, row0 + 8
-  const int qpos0 = q0 + row0, qpos1 = qpos0 + 8;
-
-  uint32_t qf[kK][4];
-  float acc[kD][4];
-#pragma unroll
-  for (int d = 0; d < kD; ++d)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[d][c] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {              // the next tile loads under this one
-      const int nb = (j + 1) & 1;
-      const int k1 = (j + 1) * kBlockN;
-      load_tile<HD>(ks + nb * kTile, kg + k1 * p.k_ss, p.k_ss, p.Sk - k1);
-      load_tile<HD>(vs + nb * kTile, vg + k1 * p.v_ss, p.v_ss, p.Sk - k1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);          // one arrival per consumer warp
     }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kK; ++kk) {
-        const bf16* r = qs + row0 * kStride + kk * 16 + 2 * t;
-        qf[kk][0] = lds32(r);
-        qf[kk][1] = lds32(r + 8 * kStride);
-        qf[kk][2] = lds32(r + 8);
-        qf[kk][3] = lds32(r + 8 * kStride + 8);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread issues every TMA load -------------------------
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(q_full, C::kQBytes);
+#pragma unroll 1
+      for (int w = 0; w < 2; ++w)
+#pragma unroll 1
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load_4d(qs + (w * kAtoms + a) * 64 * kAtom, &tq, q_full, a * kAtom, h,
+                      q0 + 64 * w, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages, use = j / kStages;
+        if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+        mbar_arrive_expect_tx(&full[st], 2 * C::kTileBytes);
+#pragma unroll 1
+        for (int a = 0; a < kAtoms; ++a) {
+          tma_load_4d(ks + (st * kAtoms + a) * kKeys * kAtom, &tk, &full[st], a * kAtom, kvh,
+                      j * kKeys, b);
+          tma_load_4d(vs + (st * kAtoms + a) * kKeys * kAtom, &tv, &full[st], a * kAtom, kvh,
+                      j * kKeys, b);
+        }
       }
     }
-    const bf16* kt = ks + (j & 1) * kTile;
-    const bf16* vt = vs + (j & 1) * kTile;
+  } else {
+    // ---- consumers: 64 query rows each --------------------------------------
+    reg_alloc<kConsumerRegs>();
+    const int t = threadIdx.x % 128, warp = t >> 5, lane = t & 31;
+    const int g = lane >> 2, tq4 = lane & 3;
+    const int r0 = q0 + 64 * wg;                    // this warpgroup's first row
+    const int qpos0 = r0 + 16 * warp + g, qpos1 = qpos0 + 8;
+    const uint32_t q_base = smem_u32(qs + wg * kAtoms * 64 * kAtom);
 
-    // scores of this warp's 16 rows x 64 keys
-    float s[kN][4];
+    float o[HD / 2];
 #pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const bf16* kr = kt + (n * 8 + g) * kStride + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < kK; ++kk)
-        mma_bf16(s[n], qf[kk], lds32(kr + kk * 16), lds32(kr + kk * 16 + 8));
-    }
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    mbar_wait(q_full, 0);
 
-    const int k0 = j * kBlockN;
-    const bool edge = k0 + kBlockN > p.Sk || (p.causal && k0 + kBlockN - 1 > q0);
-    float mx0 = kNegInf, mx1 = kNegInf;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      mbar_wait(&full[st], (j / kStages) & 1);
+      const uint32_t k_base = smem_u32(ks + st * kAtoms * kKeys * kAtom);
+      const uint32_t v_base = smem_u32(vs + st * kAtoms * kKeys * kAtom);
+
+      // S = Q Kᵀ: 64 rows x 128 keys, hd / 16 k-steps
+      float s[kKeys / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < kN; ++n)
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int a = kk * 16 / kAtom, off = (kk * 16 % kAtom) * 2;
+        const uint64_t da = make_desc(q_base + a * 64 * kSw + off, 16, 8 * kSw, kSw);
+        const uint64_t db = make_desc(k_base + a * kKeys * kSw + off, 16, 8 * kSw, kSw);
+        if (kk == 0)
+          wgmma_ss_n128_first<0>(s, da, db);   // the last tile's s is dead
+        else
+          wgmma_ss_n128<0>(s, da, db);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      const int k0 = j * kKeys;
+      const bool edge = k0 + kKeys > p.Sk || (p.causal && k0 + kKeys - 1 > r0);
+      float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[n][c] * p.scale;
+      for (int i = 0; i < kKeys / 2; ++i) {
+        float x = s[i] * p.scale_log2;
         if (edge) {
-          const int kp = k0 + n * 8 + 2 * t + (c & 1);
-          const int qp = c < 2 ? qpos0 : qpos1;
+          const int kp = k0 + 8 * (i >> 2) + 2 * tq4 + (i & 1);
+          const int qp = (i & 2) ? qpos1 : qpos0;
           if (kp >= p.Sk || (p.causal && kp > qp)) x = kNegInf;
         }
-        s[n][c] = x;
-        if (c < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+        s[i] = x;
+        if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
       }
-    // a row's 64 scores are spread over the 4 lanes of its quad
-    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
+      // a row's 128 scores are spread over the 4 lanes of its quad
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      s[n][0] = expf(s[n][0] - mn0);
-      s[n][1] = expf(s[n][1] - mn0);
-      s[n][2] = expf(s[n][2] - mn1);
-      s[n][3] = expf(s[n][3] - mn1);
-      ps0 += s[n][0] + s[n][1];
-      ps1 += s[n][2] + s[n][3];
-    }
-    // per-lane partial sums; the quad's lanes are added at the end
-    l0 = l0 * corr0 + ps0;
-    l1 = l1 * corr1 + ps1;
+      for (int i = 0; i < kKeys / 2; ++i) {
+        const float e = exp2f(s[i] - ((i & 2) ? mn1 : mn0));
+        s[i] = e;
+        if (i & 2) ps1 += e; else ps0 += e;
+      }
+      // per-lane partial sums; the quad's lanes are added at the end
+      l0 = l0 * corr0 + ps0;
+      l1 = l1 * corr1 + ps1;
 #pragma unroll
-    for (int d = 0; d < kD; ++d) {
-      acc[d][0] *= corr0;
-      acc[d][1] *= corr0;
-      acc[d][2] *= corr1;
-      acc[d][3] *= corr1;
+      for (int i = 0; i < HD / 2; ++i) o[i] *= (i & 2) ? corr1 : corr0;
+
+      // bf16(P) as A fragments: keys 16 kk .. 16 kk + 15 are the score
+      // accumulator's 8-column blocks 2 kk and 2 kk + 1
+      uint32_t pa[kKeys / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+      // O += P V: V MN-major, hd in atoms kKeys * kSw bytes apart
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wgmma_rs<HD, 1>(o, pa[kk],
+                        make_desc(v_base + kk * 16 * kSw, kKeys * kSw, 8 * kSw, kSw));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
     }
 
-    // acc += bf16(P) V: the score accumulators are the A fragments
-    const int mat = lane >> 3, mrow = lane & 7;
+    l0 += __shfl_xor_sync(kFull, l0, 1);
+    l0 += __shfl_xor_sync(kFull, l0, 2);
+    l1 += __shfl_xor_sync(kFull, l1, 1);
+    l1 += __shfl_xor_sync(kFull, l1, 2);
+    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+    bf16* o0 = p.o + b * p.o_sb + (long long)qpos0 * p.o_ss + h * p.o_sh + 2 * tq4;
+    bf16* o1 = o0 + 8 * p.o_ss;
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const bf16* vr = vt + (kk * 16 + (mat & 1) * 8 + mrow) * kStride + (mat >> 1) * 8;
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, vr + dp * 16);
-        mma_bf16(acc[2 * dp], a, r[0], r[1]);
-        mma_bf16(acc[2 * dp + 1], a, r[2], r[3]);
-      }
+    for (int c = 0; c < HD / 8; ++c) {
+      if (qpos0 < p.Sq)
+        *reinterpret_cast<uint32_t*>(o0 + c * 8) = pack_bf16(o[4 * c] / den0, o[4 * c + 1] / den0);
+      if (qpos1 < p.Sq)
+        *reinterpret_cast<uint32_t*>(o1 + c * 8) =
+            pack_bf16(o[4 * c + 2] / den1, o[4 * c + 3] / den1);
     }
-    __syncthreads();                    // this buffer is refilled next round
   }
+}
 
-  l0 += __shfl_xor_sync(kFull, l0, 1);
-  l0 += __shfl_xor_sync(kFull, l0, 2);
-  l1 += __shfl_xor_sync(kFull, l1, 1);
-  l1 += __shfl_xor_sync(kFull, l1, 2);
-  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
-  bf16* o0 = p.o + b * p.o_sb + qpos0 * p.o_ss + h * p.o_sh + 2 * t;
-  bf16* o1 = o0 + 8 * p.o_ss;
-#pragma unroll
-  for (int d = 0; d < kD; ++d) {
-    if (qpos0 < p.Sq)
-      *reinterpret_cast<uint32_t*>(o0 + d * 8) = pack_bf16(acc[d][0] / den0, acc[d][1] / den0);
-    if (qpos1 < p.Sq)
-      *reinterpret_cast<uint32_t*>(o1 + d * 8) = pack_bf16(acc[d][2] / den1, acc[d][3] / den1);
-  }
+// the 4D tile map of q, k or v: (hd, heads, S, B) with the tensor's
+// strides, one kAtom x rows box a load
+template <int HD>
+int encode_qkv(CUtensorMap* map, const void* base, int B, int S, int heads, long long sb,
+               long long ss, long long sh, int rows) {
+  const uint64_t dims[4] = {(uint64_t)HD, (uint64_t)heads, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2, (uint64_t)sb * 2};
+  const uint32_t box[4] = {(uint32_t)Flash<HD>::kAtom, 1, (uint32_t)rows, 1};
+  return hopper_host::encode_bf16(map, base, 4, dims, strides, box, Flash<HD>::kSw);
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const Params& p, long long q_sb,
+           long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+           long long v_sb, long long v_ss, long long v_sh, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int e = encode_qkv<HD>(&tq, q, p.B, p.Sq, p.H, q_sb, q_ss, q_sh, 64);
+  if (e == 0) e = encode_qkv<HD>(&tk, k, p.B, p.Sk, p.KV, k_sb, k_ss, k_sh, kKeys);
+  if (e == 0) e = encode_qkv<HD>(&tv, v, p.B, p.Sk, p.KV, v_sb, v_ss, v_sh, kKeys);
+  if (e != 0) return e;
+  const int smem = Flash<HD>::kSmem;
+  cudaError_t ce = cudaFuncSetAttribute(flash_attention_kernel<HD>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (ce != cudaSuccess) return (int)ce;
+  const dim3 grid((p.Sq + kRows - 1) / kRows, p.B * p.H);
+  flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
 }
 
 // ---- fp32: SIMT FFMA -------------------------------------------------------
@@ -458,26 +467,14 @@ int launch_f32(const ParamsF& p, cudaStream_t stream) {
   flash_attention_f32_kernel<HD><<<grid, kThreads32, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
-
-template <int HD>
-int launch(const Params& p, cudaStream_t stream) {
-  const int smem = kTiles * kBlockN * (HD + kPad) * (int)sizeof(bf16);
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<HD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((p.Sq + kBlockM - 1) / kBlockM, p.B * p.H);
-  flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
 // q (B, Sq, H, hd), k/v (B, Sk, KV, hd), o (B, Sq, H, hd), all bf16, with
 // (batch, seq, head) strides in elements (head axis contiguous, strides
-// multiples of 8, pointers 16-byte aligned).  hd is 16, 32, 64, 128 or
-// 160; H % KV == 0.
+// multiples of 8, q/k/v 16-byte aligned: TMA's conditions).  hd is 16, 32,
+// 64, 128 or 160; H % KV == 0.
 int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                        int Sk, int H, int KV, int hd, int causal, long long q_sb,
                        long long q_ss, long long q_sh, long long k_sb, long long k_ss,
@@ -486,18 +483,15 @@ int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int
                        void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H < KV || H % KV != 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  const Params p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                 static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                 B, Sq, Sk, H, KV, causal,
-                 q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-                 scale};
+  const Params p{static_cast<bf16*>(o), B, Sq, Sk, H, KV, causal, o_sb, o_ss, o_sh,
+                 scale * kLog2e};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16>(p, s);
-    case 32: return launch<32>(p, s);
-    case 64: return launch<64>(p, s);
-    case 128: return launch<128>(p, s);
-    case 160: return launch<160>(p, s);
+    case 16: return launch<16>(q, k, v, p, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, s);
+    case 32: return launch<32>(q, k, v, p, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, s);
+    case 64: return launch<64>(q, k, v, p, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, s);
+    case 128: return launch<128>(q, k, v, p, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, s);
+    case 160: return launch<160>(q, k, v, p, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,7 +8,12 @@ just after with :func:`launch_counts`.  The counts, one per wrapper:
 ``fused_qkv``, ``fused_mlp``, ``kv_scatter`` (``fused_decode``),
 ``flash_attention``, ``ssd``, ``linear_attention``, ``dequant_gemm`` and
 ``cache_row_update`` (``cache_update``), each registered when its
-``ops`` module is imported.
+``ops`` module is imported.  A wrapper with more than one kernel behind
+it also counts each launch under ``<wrapper>/<route>``:
+``flash_attention/wgmma`` (bf16) and ``flash_attention/simt`` (fp32);
+``dequant_gemm/wgmma`` (the warp-specialised bf16 kernel) and
+``dequant_gemm/tile`` (fp32, and bf16 calls outside the wgmma kernel's
+rule, ``dequant_gemm.kernel.route``).
 """
 from typing import Dict
 

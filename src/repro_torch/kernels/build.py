@@ -2,8 +2,9 @@
 
 Each library is compiled at first use from the sources under
 ``src/repro_torch/csrc`` into ``<repo>/build/kernels/<name>-<hash>/``
-(``.gitignore`` lists ``build/``), keyed on a hash of the sources and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+(``.gitignore`` lists ``build/``), keyed on a hash of the sources, every
+header (``*.cuh``) beside them and the flags, so an edited source or
+header rebuilds and an unchanged tree loads at once.
 Nothing is built when a module is imported: ``nvcc`` is needed only when
 a kernel is first launched.
 """
@@ -41,10 +42,13 @@ def nvcc_path() -> str:
 
 
 def _digest(sources: Sequence[Path]) -> str:
+    """Hash of the flags, ``sources`` and every ``*.cuh`` header in their
+    directories (a source may include any of them)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    headers = sorted({f for src in sources for f in src.parent.glob("*.cuh")})
+    for f in [*sources, *headers]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -1,8 +1,11 @@
-"""Launcher of the Hopper packed-weight GEMM (``csrc/dequant_gemm.cu``).
+"""Launcher of the Hopper packed-weight GEMMs (``csrc/dequant_gemm.cu``).
 
 Checks device, dtypes, shapes, contiguity and alignment, allocates the
-output, launches on the current stream through the C entry point and
-raises if the entry returns a CUDA error.  It never copies an operand:
+output, picks the kernel by shape before the launch (:func:`route`: the
+warp-specialised wgmma kernel for every bf16 call its rule admits, the
+tile kernel for the rest and for fp32), launches on the current stream
+through that kernel's C entry point and raises if the entry returns a
+CUDA error.  It never copies an operand:
 a strided one raises, and the caller makes it contiguous.  The library
 is built on first use (``kernels/build.py``).  Runs on the card only;
 the CPU path is the plain version in ``ref.py``, chosen by the wrapper
@@ -21,7 +24,7 @@ from repro_torch.kernels.build import load_library
 
 LIBRARY = "dequant_gemm"
 SOURCES = ("dequant_gemm.cu",)
-TILE_N = 128                   # output columns per block of the kernel
+TILE_N = 128                   # output columns per block of the tile kernel
 NK, KN = 0, 1                  # layouts of the packed operand
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 ACT_IDS = {None: 0, "relu": 1, "silu": 2, "gelu": 3, "squared_relu": 4}
@@ -35,8 +38,27 @@ def library() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.rt_dequant_gemm.argtypes = [_P] * 5 + [_I] * 15 + [_P]
         lib.rt_dequant_gemm.restype = _I
+        lib.rt_dequant_gemm_wgmma.argtypes = [_P] * 5 + [_I] * 9 + [_P]
+        lib.rt_dequant_gemm_wgmma.restype = _I
         lib._typed = True
     return lib
+
+
+def route(dtype: torch.dtype, K: int, N: int, group: int, layout: int,
+          n2: int, n2p: int, ldw: int, aligned: bool) -> str:
+    """The kernel a call takes, decided from its shape before launch:
+    "wgmma" (the warp-specialised kernel) for bf16 with K % 8 == 0 (TMA's
+    row stride), a group of 16, 32, 64 or a multiple of 128, x and the
+    codes 16-byte aligned (``aligned``) with 16-byte code rows (``ldw`` %
+    4 == 0), and in the "kn" layout unpadded segments (n2p == n2) with N %
+    64 == 0; "tile" (the tile kernel) otherwise.  The same rule as
+    ``rt_dequant_gemm_wgmma`` in the source."""
+    if (dtype == torch.bfloat16 and aligned and K % 8 == 0
+            and group >= 16 and (128 % group == 0 or group % 128 == 0)
+            and ldw % 4 == 0
+            and (layout == NK or (n2 == n2p and N % 64 == 0))):
+        return "wgmma"
+    return "tile"
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,30 +110,43 @@ def _check_operands(x: torch.Tensor, qt: QTensor,
 
 
 def _launch(x2, qt, bias, act, N, layout, ldw, lds, n2, n2p, span_w,
-            span_s) -> torch.Tensor:
+            span_s) -> Tuple[torch.Tensor, str]:
     M, K = x2.shape
     if M < 1 or N < 1 or K < 1:
         raise ValueError(f"dequant_gemm: empty product ({M}, {K}) x "
                          f"({K}, {N})")
     y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    aligned = x2.data_ptr() % 16 == 0 and qt.codes.data_ptr() % 16 == 0
+    kernel = route(x2.dtype, K, N, qt.spec.group_size, layout, n2, n2p, ldw,
+                   aligned)
+    stream = torch.cuda.current_stream().cuda_stream
+    bias_ptr = None if bias is None else bias.data_ptr()
+    if kernel == "wgmma":
+        err = library().rt_dequant_gemm_wgmma(
+            x2.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
+            bias_ptr, y.data_ptr(), M, N, K, qt.spec.bits,
+            qt.spec.group_size, layout, ldw, lds, ACT_IDS[act], stream)
+        if err != 0:
+            raise RuntimeError(f"dequant_gemm: CUDA error {err}")
+        return y, kernel
     x_vec = int(x2.data_ptr() % 16 == 0 and (K * x2.element_size()) % 16
                 == 0)
     err = library().rt_dequant_gemm(
         x2.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(), M, N, K,
-        qt.spec.bits, qt.spec.group_size, layout, DTYPES[x2.dtype], ldw,
-        lds, n2, n2p, span_w, span_s, ACT_IDS[act], x_vec,
-        torch.cuda.current_stream().cuda_stream)
+        bias_ptr, y.data_ptr(), M, N, K, qt.spec.bits, qt.spec.group_size,
+        layout, DTYPES[x2.dtype], ldw, lds, n2, n2p, span_w, span_s,
+        ACT_IDS[act], x_vec, stream)
     if err != 0:
         raise RuntimeError(f"dequant_gemm: CUDA error {err}")
-    return y
+    return y, kernel
 
 
 def launch_dequant_gemm(x2: torch.Tensor, qt: QTensor,
                         bias: Optional[torch.Tensor] = None,
-                        act: Optional[str] = None) -> torch.Tensor:
+                        act: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, str]:
     """The "nk" layout: x2 (M, K) @ dequantize(qt (N, K))ᵀ, then bias
-    (N,) fp32 and ``act`` -> (M, N) in x2's dtype."""
+    (N,) fp32 and ``act`` -> ((M, N) in x2's dtype, the kernel's route)."""
     _check_operands(x2, qt, bias, act)
     if x2.dim() != 2 or len(qt.shape) != 2 or qt.codes.dim() != 2:
         raise ValueError("dequant_gemm: expected x (M, K) and a 2-D packed "
@@ -128,11 +163,11 @@ def launch_dequant_gemm(x2: torch.Tensor, qt: QTensor,
 
 
 def launch_packed_matmul(x2: torch.Tensor, qt: QTensor, n_k: int
-                         ) -> torch.Tensor:
+                         ) -> Tuple[torch.Tensor, str]:
     """The "kn" layout: x2 (M, K) @ dequantize(qt) with qt's first
     ``n_k`` logical axes the K axes and the rest (N2,) or (N1, N2), each
-    N2 segment packed at its padded length -> (M, N1 * N2) in x2's
-    dtype."""
+    N2 segment packed at its padded length -> ((M, N1 * N2) in x2's
+    dtype, the kernel's route)."""
     _check_operands(x2, qt, None, None)
     shape = tuple(qt.shape)
     if x2.dim() != 2 or len(shape) - n_k not in (1, 2):

@@ -4,7 +4,9 @@ Both dispatch on the device of their activations alone: CPU tensors run
 the plain versions (``ref.py``); CUDA tensors launch the Hopper kernel
 (``kernel.py``) or raise — there is no fallback.  Each launch adds one
 to the count ``dequant_gemm`` in the kernels' launch-count registry
-(``repro_torch.kernels``).
+(``repro_torch.kernels``) and one to its kernel's,
+``dequant_gemm/wgmma`` or ``dequant_gemm/tile`` (``kernel.route``
+decides from the call's shape before the launch).
 
 - ``dequant_gemm(x, qt, bias, act)``: the reference's function, x (...,
   K) @ dequantize(qt (N, K))ᵀ with the bias + activation epilogue ("nk",
@@ -48,8 +50,9 @@ def dequant_gemm(x: torch.Tensor, qt: QTensor,
         return ref_dequant_gemm(x, qt, bias, act)
     lead = x.shape[:-1]
     b = None if bias is None else bias.to(torch.float32)   # exact widening
-    y = K.launch_dequant_gemm(x.reshape(-1, x.shape[-1]), qt, b, act)
+    y, kernel = K.launch_dequant_gemm(x.reshape(-1, x.shape[-1]), qt, b, act)
     count_launch("dequant_gemm")
+    count_launch(f"dequant_gemm/{kernel}")
     return y.reshape(*lead, qt.shape[0])
 
 
@@ -68,9 +71,10 @@ def quant_einsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
     lead = x.shape[:-n_k]
     # one row per output position; reshapes of a strided operand copy here
     x2 = x.contiguous().reshape(-1, x.shape[-n_k:].numel())
-    y = K.launch_packed_matmul(x2, w, n_k)
+    y, kernel = K.launch_packed_matmul(x2, w, n_k)
     count_launch("dequant_gemm")
+    count_launch(f"dequant_gemm/{kernel}")
     return y.reshape(*lead, *w.shape[n_k:])
 
 
-register_kernels("dequant_gemm")
+register_kernels("dequant_gemm", "dequant_gemm/wgmma", "dequant_gemm/tile")

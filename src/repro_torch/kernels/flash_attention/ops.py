@@ -4,7 +4,9 @@
 tensors run the plain version (``ref.ref_attention``); CUDA tensors
 launch the Hopper kernel (``kernel.py``) or raise — there is no
 fallback.  Each launch adds one to the count ``flash_attention`` in the
-kernels' launch-count registry (``repro_torch.kernels``).
+kernels' launch-count registry (``repro_torch.kernels``) and one to its
+kernel's, ``flash_attention/wgmma`` (bf16) or ``flash_attention/simt``
+(fp32).
 """
 from __future__ import annotations
 
@@ -24,7 +26,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     o = K.launch_flash_attention(q, k, v, causal=causal)
     count_launch("flash_attention")
+    count_launch(f"flash_attention/{K.ROUTES[q.dtype]}")
     return o
 
 
-register_kernels("flash_attention")
+register_kernels("flash_attention",
+                 *(f"flash_attention/{r}" for r in K.ROUTES.values()))

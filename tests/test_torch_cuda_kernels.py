@@ -1067,6 +1067,179 @@ def test_one_layer_full_width_prefill_through_the_kernel(cuda, arch,
     assert err <= 5e-2 * want.abs().max().item()
 
 
+# -- the warp-specialised GEMM's own cases ------------------------------------
+
+def _one_route(kernel):
+    """The launches since the last reset went to ``kernel`` only, once."""
+    counts = launch_counts()
+    assert counts["dequant_gemm"] == 1
+    assert counts[f"dequant_gemm/{kernel}"] == 1
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("layout", ["nk", "kn"])
+@pytest.mark.parametrize("M", [1, 17, 1000, 2048])
+def test_wgmma_gemm_matches_plain(cuda, bits, layout, M):
+    """bf16 calls the wgmma kernel takes, in both layouts: K 936 (a ragged
+    last 64-step, and 29.25 groups: "nk" pads its rows to 960) and N 448
+    (a ragged last 128-column tile), against the plain version."""
+    K, N = 936, 448
+    x = _dg_tensor(cuda, (M, K), torch.bfloat16, bits + M)
+    reset_launch_counts()
+    if layout == "nk":
+        qt = quantize(_dg_tensor(cuda, (N, K), torch.bfloat16, K, 0.05),
+                      DG_SPECS[bits])
+        got, want = dequant_gemm(x, qt), ref_dequant_gemm(x, qt)
+    else:
+        qt = quantize(_dg_tensor(cuda, (K, N), torch.bfloat16, N,
+                                 K ** -0.5), DG_SPECS[bits])
+        got = quant_einsum("bsd,df->bsf", x[None], qt)[0]
+        want = ref_quant_einsum("bsd,df->bsf", x[None], qt)[0]
+    torch.cuda.synchronize()
+    _one_route("wgmma")
+    _dg_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("act", [None, "relu", "silu", "gelu",
+                                 "squared_relu"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_wgmma_gemm_epilogue_matches_plain(cuda, act, bias):
+    x = _dg_tensor(cuda, (200, 512), torch.bfloat16, 5)
+    qt = quantize(_dg_tensor(cuda, (264, 512), torch.bfloat16, 6, 0.1),
+                  QuantSpec(4, group_size=64))
+    b = (torch.linspace(-0.5, 0.5, 264, device=cuda).to(torch.bfloat16)
+         if bias else None)
+    reset_launch_counts()
+    got = dequant_gemm(x, qt, b, act)
+    torch.cuda.synchronize()
+    _one_route("wgmma")
+    _dg_close(got, ref_dequant_gemm(x, qt, b, act), torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", [
+    ("bsd,dhk->bshk", (1, 100, 256), (256, 6, 40)),   # segments padded to 64
+    ("bsd,df->bsf", (1, 50, 100), (100, 256)),        # K % 8 != 0
+], ids=["padded-segments", "ragged-k"])
+def test_gemm_outside_the_rule_takes_the_tile_kernel(cuda, case):
+    """bf16 calls outside the wgmma kernel's rule go to the tile kernel,
+    decided from the shape before launch, and match the plain version."""
+    spec, xs, ws = case
+    x = _dg_tensor(cuda, xs, torch.bfloat16, 7)
+    w = quantize(_dg_tensor(cuda, ws, torch.bfloat16, 8, ws[0] ** -0.5),
+                 DG_SPECS[4])
+    reset_launch_counts()
+    got = quant_einsum(spec, x, w)
+    torch.cuda.synchronize()
+    _one_route("tile")
+    _dg_close(got, ref_quant_einsum(spec, x, w), torch.bfloat16)
+
+
+def _served_shapes(cfg):
+    """(einsum, weight shape, x's contracted shape) of every projection
+    of a layer of ``cfg`` on a packed weight."""
+    from repro_torch.models import decoder, mamba2
+    D = cfg.d_model
+    if decoder.mixer_of(cfg) == "mamba":
+        s = cfg.ssm
+        d_inner, H, _ = mamba2._dims(cfg)
+        n_in = 2 * d_inner + 2 * s.n_groups * s.d_state + H
+        return [("bsd,de->bse", (D, n_in), (D,)),
+                ("bse,ed->bsd", (d_inner, D), (d_inner,))]
+    H, KV, hd, F = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    return [("bsd,dhk->bshk", (D, H, hd), (D,)),
+            ("bsd,dhk->bshk", (D, KV, hd), (D,)),
+            ("bshk,hkd->bsd", (H, hd, D), (H, hd)),
+            ("bsd,df->bsf", (D, F), (D,)), ("bsf,fd->bsd", (F, D), (F,))]
+
+
+@pytest.mark.parametrize("arch", ["llava-onevision-0.5b", "qwen2-vl-7b",
+                                  "mamba2-1.3b"])
+def test_every_served_shape_runs_the_wgmma_kernel(cuda, arch):
+    """Every distinct projection shape of the served models (q4 g32, bf16,
+    64 rows; LLaVA's k/v is the small-N shape, N 128) launches the wgmma
+    kernel and matches the plain version."""
+    from repro_torch.configs import get_config
+    for spec, wshape, xshape in _served_shapes(get_config(arch)):
+        x = _dg_tensor(cuda, (1, 64) + xshape, torch.bfloat16, 9)
+        w = quantize(_dg_tensor(cuda, wshape, torch.bfloat16, 10,
+                                wshape[0] ** -0.5), DG_SPECS[4])
+        reset_launch_counts()
+        got = quant_einsum(spec, x, w)
+        torch.cuda.synchronize()
+        _one_route("wgmma")
+        _dg_close(got, ref_quant_einsum(spec, x, w), torch.bfloat16)
+
+
+# -- the warp-specialised flash kernel's own cases ---------------------------
+
+def _one_flash(dtype=torch.bfloat16):
+    counts = launch_counts()
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert counts["flash_attention"] == counts[f"flash_attention/{route}"] == 1
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 160])
+@pytest.mark.parametrize("Sq,Sk,causal", [(777, 777, True),
+                                          (300, 1000, False)])
+def test_flash_wgmma_ragged_tiles_every_head_dim(cuda, hd, Sq, Sk, causal):
+    """Sq and Sk off the 128-row and 128-key tiles (TMA's zero fill and
+    the masks), every head dim."""
+    q, k, v = _qkv(cuda, 1, Sq, Sk, 8, 2, hd, seed=hd + Sk)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _one_flash()
+    _close_rows(got, ref_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("G", [1, 4, 7])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_gqa_ratios(cuda, G, causal):
+    q, k, v = _qkv(cuda, 2, 333, 333, 2 * G, 2, 128, seed=G)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _one_flash()
+    _close_rows(got, ref_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("hd", [16, 64, 160])
+def test_flash_wgmma_reads_strided_views(cuda, hd):
+    """q/k/v as head-slices of one fused projection, read through 4D
+    tensor maps: the same output as contiguous copies."""
+    B, S, H, KV = 2, 200, 14, 2
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    qkv = torch.randn((B, S, H + 2 * KV, hd), generator=g,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    got = flash_attention(q, k, v)
+    assert torch.equal(got, flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous()))
+    _close_rows(got, ref_attention(q, k, v))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 160])
+def test_flash_wgmma_single_tile_patterned(cuda, hd):
+    """One 128-row, 128-key tile with patterned inputs: query i and key j
+    are one-hot on column i % hd and j % hd, so row i attends to the keys
+    j = i (mod hd); v[j, d] = ((7 j + d) % 13) / 13.  A misplaced
+    fragment, descriptor or swizzle moves whole rows or columns."""
+    S = 128
+    i = torch.arange(S, device=cuda)
+    q = torch.zeros((1, S, 1, hd), device=cuda)
+    q[0, i, 0, i % hd] = 8.0
+    k = torch.zeros((1, S, 1, hd), device=cuda)
+    k[0, i, 0, i % hd] = 8.0
+    d = torch.arange(hd, device=cuda)
+    v = (((7 * i[:, None] + d[None]) % 13).float() / 13)[None, :, None]
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _one_flash()
+    _close_rows(got, ref_attention(q, k, v, causal=False))
+
+
 # -- cache row update ---------------------------------------------------------
 
 def _cache_and_row(dev, shape, cdtype, rdtype, seed):

@@ -190,3 +190,66 @@ def test_prefill_hands_projection_weights_packed(monkeypatch, arch,
         dense, _ = TM.lm_prefill({**params, "layers": dequantize_tree(
             params["layers"])}, cfg, toks, 72)
     assert torch.equal(logits, dense)
+
+
+# -- the kernel a call takes on the card -------------------------------------
+
+def _served_projections(cfg):
+    """(K, N, n2, n2p) of each projection of a layer of ``cfg`` that
+    serves on a packed weight (q4 g32, ``nanomind-serve``): K the
+    contracted width, N the outputs, n2 the packed axis and n2p its length
+    padded as ``quantize`` pads it."""
+    from repro_torch.models import decoder, mamba2
+    D = cfg.d_model
+    if decoder.mixer_of(cfg) == "mamba":
+        s = cfg.ssm
+        d_inner, H, _ = mamba2._dims(cfg)
+        n_in = 2 * d_inner + 2 * s.n_groups * s.d_state + H
+        outs = [(D, n_in, n_in), (d_inner, D, D)]
+    else:
+        H, KV, hd, F = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+        outs = [(D, H * hd, hd), (D, KV * hd, hd), (H * hd, D, D),
+                (D, F, F), (F, D, D)]
+    return [(K, N, n2, -(-n2 // 32) * 32) for K, N, n2 in outs]
+
+
+@pytest.mark.parametrize("arch", ["llava-onevision-0.5b", "qwen2-vl-7b",
+                                  "mamba2-1.3b"])
+def test_every_served_projection_takes_the_wgmma_kernel(arch):
+    """The shape rule (``kernel.route``) sends every bf16 projection of
+    the served models to the warp-specialised kernel; fp32 calls to the
+    tile kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dequant_gemm import kernel as DK
+    cfg = get_config(arch)
+    shapes = _served_projections(cfg)
+    assert len(shapes) == (2 if arch.startswith("mamba") else 5)
+    for K, N, n2, n2p in shapes:
+        ldw = N // 8                    # q4: 8 codes a word, no padding
+        assert DK.route(torch.bfloat16, K, N, 32, DK.KN, n2, n2p, ldw,
+                        True) == "wgmma", (K, N)
+        assert DK.route(torch.float32, K, N, 32, DK.KN, n2, n2p, ldw,
+                        True) == "tile"
+
+
+@pytest.mark.parametrize("case,want", [
+    (dict(K=896, N=896, n2=64, n2p=64), "wgmma"),
+    (dict(K=100, N=896, n2=64, n2p=64), "tile"),        # TMA row stride
+    (dict(K=896, N=240, n2=40, n2p=64), "tile"),        # segment padding
+    (dict(K=896, N=416, n2=416, n2p=416), "tile"),      # N % 64
+    (dict(K=896, N=896, n2=64, n2p=64, aligned=False), "tile"),
+    (dict(K=896, N=896, n2=64, n2p=64, group=4), "tile"),
+    (dict(K=896, N=896, n2=64, n2p=64, group=8), "tile"),
+    (dict(K=896, N=1536, n2=1536, n2p=1536, group=96), "tile"),
+    (dict(K=896, N=1024, n2=1024, n2p=1024, group=256), "wgmma"),
+    (dict(K=896, N=200, n2=1, n2p=1, layout=0, ldw=112), "wgmma"),  # "nk"
+    (dict(K=200, N=300, n2=1, n2p=1, layout=0, ldw=14), "tile"),    # rows
+])
+def test_gemm_route_rule(case, want):
+    import torch
+    from repro_torch.kernels.dequant_gemm import kernel as DK
+    c = dict(dict(group=32, layout=DK.KN, aligned=True), **case)
+    ldw = c.get("ldw", c["N"] // 8)
+    assert DK.route(torch.bfloat16, c["K"], c["N"], c["group"], c["layout"],
+                    c["n2"], c["n2p"], ldw, c["aligned"]) == want
