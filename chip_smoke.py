@@ -46,8 +46,11 @@ Phases (any failure raises and exits non-zero):
    for each served path the launch counts are reset just before and
    read just after the run, and read around every decode step (every
    bf16 GEMM and flash launch must take the warp-specialised wgmma
-   kernel, every fp32 one the tile / SIMT kernel: the counts per route
-   show it); one
+   kernel, every fp32 one the tile / SIMT kernel, every fused-MLP launch
+   the split-K GEMV: the counts per route show it); every fused-MLP call
+   of one captured decode step is held against ``ref_fused_mlp`` on its
+   own inputs, each cohort row within 2e-2 (bf16) or 1e-5 (fp32) of its
+   largest plain value; one
    captured cohort state is decoded again by the fused and by the plain
    composed step (``ref_cohort_step``), which must agree within bf16
    tolerance; for Qwen2-VL one captured prefill group runs again with
@@ -93,11 +96,12 @@ Phases (any failure raises and exits non-zero):
    (four chunks of 256; padding 1000 -> 1024 and 300 -> 512; the
    one-chunk 128 bucket), 16 new tokens each, greedy.  The SSD kernel
    is first held against its plain version at B 2, S 2048, H 64, P 64,
-   G 1, N 128, chunk 256 (bf16 x/B/C, fp32 dt): h_final within 1e-4
+   G 1, N 128, chunk 256 (bf16 x/B/C, fp32 dt: the tensor-core route;
+   and the same inputs in fp32: the FFMA route): h_final within 1e-4
    (max abs err over max abs), every (b, h) head's y within 2e-2 of
    that head's largest plain |y|, and with dt = 0 past position 1000
    the state equal to the 1024-position call's; then every kernel call
-   of the serve (each layer of the 2 x 1024, 1 x 512 and one-chunk
+   of the serve (each on the route of its dtype) (each layer of the 2 x 1024, 1 x 512 and one-chunk
    1 x 128 groups) against the plain version on its own inputs, with
    the same tolerances.  The engine is held against the port's own
    model: the 1024- and 100-token requests' first two decode steps
@@ -114,7 +118,8 @@ Phases (any failure raises and exits non-zero):
    SSD calls are also held in the reference's own measure (max |y -
    plain y| over the call's largest plain |y|) within 1e-4, and the
    kernel and the plain version each against a float64 evaluation of
-   the same inputs within 1e-4;
+   the same inputs within 1e-4; the bf16 serve's y and h_final are
+   reported against a float64 evaluation beside them;
 7. time each kernel, its plain version and a PyTorch library call: the
    fused-decode kernels at cohort size 4 rotating over the layers'
    weights (so the weights come from device memory, not the 50 MB L2)
@@ -128,12 +133,15 @@ Phases (any failure raises and exits non-zero):
    around the loop, the cache-row-update
    kernel at the composed step's shape (a layer of a cohort-4 gathered
    context, beside ``index_put_``),
-   the SSD kernel at its check shape (no single PyTorch call computes
-   SSD), the linear-attention kernel at its check shape (nor that);
+   the SSD kernel at its check shape in bf16 and fp32, with the device
+   ms of its four phases (no single PyTorch call computes SSD), the
+   linear-attention kernel at its check shape (nor that);
    beside the bound the card's published rates set (3.35 TB/s, 989
    TFLOP/s bf16, 67 TFLOP/s fp32 for the SSD's and the linear
    attention's fp32 arithmetic, whose operations ``ssd_work`` and
-   ``linear_attention_work`` count).
+   ``linear_attention_work`` count; beside it the SSD's bf16 route's
+   own count, ``ssd_mma_bound``), the fused-decode kernels' effective
+   GB/s.
 
 Output: build, check and serve lines, the ``nvidia-smi`` name/power-limit
 line, one JSON line ``{"kernels": [...]}``, and as the last line
@@ -254,6 +262,14 @@ GEMMS_PER_LAYER = {"attn": 7, "linear": 7, "mamba": 2}
 # the SIMT flash kernel
 GEMM_ROUTE = {"bfloat16": "wgmma", "float32": "tile"}
 FLASH_ROUTE = {"bfloat16": "wgmma", "float32": "simt"}
+# the SSD kernel's route by dtype: bf16 the tensor-core products (split
+# fp32 operands), fp32 FFMA; every fused-MLP call takes the split-K GEMV
+SSD_ROUTE = {"bfloat16": "mma", "float32": "simt"}
+MLP_ROUTE = "gemv"
+# the fused-MLP calls of a captured decode step against the plain
+# version, each cohort row's max |err| over its largest plain value: one
+# bf16 rounding step, or the fp32 GEMVs' gate
+MLP_ROW_TOL = {"bfloat16": KERNEL_TOL, "float32": 1e-5}
 # rows of each served model's largest prefill call: the GEMM's per-shape
 # timings run every distinct projection shape at these rows
 DG_SERVED_ROWS = {"qwen2-vl-7b": 2048, "llava-onevision-0.5b": 1024,
@@ -619,7 +635,8 @@ class Smoke:
                 (rn(B, S, G, N) * 0.3).to(torch.bfloat16))
 
     def check_ssd(self):
-        """The SSD kernel against ``ssd_chunked`` at SSD_SHAPE, then the
+        """The SSD kernel against ``ssd_chunked`` at SSD_SHAPE (the bf16
+        route, and the fp32 route on the same inputs in fp32), then the
         pad check: dt = 0 past position 1000 of 2048 leaves the state of
         the 1024-position call on the same inputs."""
         from repro_torch.kernels.ssd import ssd
@@ -627,6 +644,11 @@ class Smoke:
         args = self.ssd_inputs(B, S, H, P, G, N)
         h_rel, head, y_abs, h_abs, _ = ssd_errors(
             args, ssd(*args, chunk=chunk), chunk, "ssd")
+        a32 = tuple(t.float() for t in args)
+        fp32 = dict(zip(("h_rel_err", "worst_head_y_err_over_max",
+                         "y_max_abs_err", "h_max_abs_err"), ssd_errors(
+            a32, ssd(*a32, chunk=chunk), chunk, "ssd fp32")[:4]))
+        del a32
         x, dt, A, Bm, Cm = args
         dt = dt.clone()
         dt[:, 1000:] = 0.0
@@ -641,7 +663,7 @@ class Smoke:
         self.ssd_check = {"shape": list(SSD_SHAPE), "h_rel_err": h_rel,
                           "worst_head_y_err_over_max": head,
                           "y_max_abs_err": y_abs, "h_max_abs_err": h_abs,
-                          "pad_check_h_rel_err": pad_rel,
+                          "pad_check_h_rel_err": pad_rel, "fp32": fp32,
                           "tol": {"h": SSD_H_TOL, "y_head": KERNEL_TOL}}
         self.torch.cuda.synchronize()
 
@@ -984,6 +1006,45 @@ class RowUpdateCalls:
         self.ops.cache_row_update = self.inner
 
 
+class MlpCalls:
+    """Holds every ``fused_decode.ops.fused_mlp`` call made while
+    ``armed`` (the fused step looks the wrapper up at each call) against
+    the plain ``ref_fused_mlp`` on its own inputs: finite, of the plain
+    shape and dtype, each cohort row's max |err| within MLP_ROW_TOL of its
+    largest plain value.  Wrapped inside the ``with`` block."""
+
+    def __init__(self):
+        from repro_torch.kernels.fused_decode import ops, ref
+        self.ops, self.inner, self.ref = ops, ops.fused_mlp, ref.ref_fused_mlp
+        self.armed, self.calls, self.worst, self.bc = False, 0, 0.0, 0
+
+    def __call__(self, h, w_up, w_down, w_gate=None, *, act):
+        out = self.inner(h, w_up, w_down, w_gate, act=act)
+        if not self.armed:
+            return out
+        want = self.ref(h, w_up, w_down, w_gate, act=act)
+        dtype = str(h.dtype).replace("torch.", "")
+        if not (out.shape == want.shape and out.dtype == want.dtype
+                and out.isfinite().all()):
+            fail(f"served fused_mlp at {tuple(h.shape)}: shape, dtype or "
+                 f"non-finite output")
+        err = (out.float() - want.float()).abs().amax(-1)
+        worst = (err / want.float().abs().amax(-1)).max().item()
+        if worst > MLP_ROW_TOL[dtype]:
+            fail(f"served fused_mlp at {tuple(h.shape)} {dtype}: row err/max "
+                 f"{worst}")
+        self.calls += 1
+        self.worst, self.bc = max(self.worst, worst), int(h.shape[0])
+        return out
+
+    def __enter__(self):
+        self.ops.fused_mlp = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.fused_mlp = self.inner
+
+
 class FlashCalls:
     """Keeps every flash-attention call of a serve (q, k, v, causal, out;
     by reference: the model writes none of them after the call):
@@ -1052,11 +1113,11 @@ def serve_path(sm, cfg, reqs, use_fused=None):
             captured["pool"] = tuple(tuple(t.clone() for t in pos)
                                      for pos in eng.slots.pool)
         before = launch_counts()
-        rows.armed = take
+        rows.armed = mlps.armed = take
         try:
             logits, pool = decode(tokens, lengths, slot_ids, tables)
         finally:
-            rows.armed = False
+            rows.armed = mlps.armed = False
         after = launch_counts()
         step_launches.append({k: after[k] - before[k] for k in after
                               if after[k] != before[k]})
@@ -1091,7 +1152,7 @@ def serve_path(sm, cfg, reqs, use_fused=None):
     reset_launch_counts()
     t0 = time.perf_counter()
     with GemmCalls() as gemms, RowUpdateCalls() as rows, \
-            FlashCalls() as flashes, eng:
+            FlashCalls() as flashes, MlpCalls() as mlps, eng:
         done = eng.run()
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
@@ -1114,7 +1175,8 @@ def serve_path(sm, cfg, reqs, use_fused=None):
             fail(f"{cfg.name}: request {r.rid} tokens {r.out_tokens}")
     # each decode step: the fused kernels, or two row updates a layer;
     # one KV-row scatter either way
-    per_step = ({"fused_qkv": L, "fused_mlp": L, "kv_scatter": 1} if fused
+    per_step = ({"fused_qkv": L, "fused_mlp": L, f"fused_mlp/{MLP_ROUTE}": L,
+                 "kv_scatter": 1} if fused
                 else {"cache_row_update": 2 * L, "kv_scatter": 1})
     per_call = GEMMS_PER_LAYER["attn"] * L
     want = {k: 0 for k in launches}
@@ -1133,6 +1195,9 @@ def serve_path(sm, cfg, reqs, use_fused=None):
     if not fused and rows.calls != 2 * L:
         fail(f"{cfg.name}: {rows.calls} row-update calls held in the "
              f"captured step, expected {2 * L}")
+    if fused and mlps.calls != L:
+        fail(f"{cfg.name}: {mlps.calls} fused-MLP calls held in the "
+             f"captured step, expected {L}")
     spans = eng.probe.samples()
     pre = [s for s in spans if s.brick == "decoder" and s.phase == "prefill"]
     decs = [s for s in spans if s.brick == "decoder" and s.phase == "decode"]
@@ -1160,6 +1225,10 @@ def serve_path(sm, cfg, reqs, use_fused=None):
         cfg, gemms.calls, per_call), prefill_batch=captured[
         "prefill_batch"][0], prefill_width=captured["prefill_width"][0])
     del gemms
+    if fused:
+        serve["mlp_served_check"] = {
+            "calls": mlps.calls, "worst_row_err_over_row_max": mlps.worst,
+            "bc": mlps.bc, "dtype": cfg.dtype, "tol": MLP_ROW_TOL[cfg.dtype]}
     if not fused:
         serve["row_update_served_check"] = {
             "calls": rows.calls, "bit_exact": True,
@@ -1548,10 +1617,14 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
                 0 <= t < cfg.vocab_size for t in r.out_tokens)):
             fail(f"{cfg.name}: request {r.rid} tokens {r.out_tokens}")
     gemm_route = f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}"
+    # the wrapper's route count, where it has routes (ssd/mma, ssd/simt)
+    op_route = (f"{op_name}/{SSD_ROUTE[cfg.dtype]}" if op_name == "ssd"
+                else op_name)
     others = sum(v for k, v in launches.items()
-                 if k not in (op_name, "dequant_gemm", gemm_route))
+                 if k not in (op_name, op_route, "dequant_gemm", gemm_route))
     per_call = GEMMS_PER_LAYER[mixer_of(cfg)] * cfg.n_layers
-    if not (launches[op_name] == cfg.n_layers * len(groups) == len(calls)
+    if not (launches[op_name] == launches[op_route]
+            == cfg.n_layers * len(groups) == len(calls)
             and launches["dequant_gemm"] == launches[gemm_route]
             == per_call * len(groups)
             and groups and decode_steps > 0 and others == 0):
@@ -1623,6 +1696,10 @@ def served_ssd_check(cfg, calls):
     worst = dict.fromkeys(keys, 0.0)
     ref_measure = {"kernel_vs_plain": 0.0, "kernel_vs_f64": 0.0,
                    "plain_vs_f64": 0.0}
+    # bf16 calls: y and h_final of the kernel and of the plain version
+    # against a float64 evaluation, in the reference's measure (reported)
+    bf16_f64 = {"kernel_y": 0.0, "kernel_h": 0.0, "plain_y": 0.0,
+                "plain_h": 0.0}
     shapes, differ, total, fp32 = set(), 0, 0, False
     with torch.no_grad():
         for args, out, chunk in calls:
@@ -1635,6 +1712,17 @@ def served_ssd_check(cfg, calls):
             differ, total = differ + n, total + out[0].numel()
             shapes.add((int(x.shape[0]), int(x.shape[1]), chunk, dtype))
             if x.dtype != torch.float32:
+                py, ph = ref_ssd_chunked(*args, chunk=chunk)
+                fy, fh = ref_ssd_chunked(*(t.double() for t in args),
+                                         chunk=chunk)
+                for key, got, want in (("kernel_y", out[0], fy),
+                                       ("kernel_h", out[1], fh),
+                                       ("plain_y", py, fy),
+                                       ("plain_h", ph, fh)):
+                    got, want = got.double(), want.double()
+                    bf16_f64[key] = max(bf16_f64[key], (
+                        (got - want).abs().max() / want.abs().max()).item())
+                del py, ph, fy, fh
                 continue
             fp32 = True
             y = out[0].double()
@@ -1651,6 +1739,8 @@ def served_ssd_check(cfg, calls):
     rec = dict(worst, calls=len(calls), y_differing_share=differ / total,
                shapes_B_S_chunk_dtype=sorted(shapes),
                tol={"h": SSD_H_TOL, "y_head": KERNEL_TOL})
+    if len(shapes) > sum(1 for sh in shapes if sh[3] == "float32"):
+        rec["bf16_vs_f64_ref_measure"] = bf16_f64
     if fp32:
         rec["y_ref_measure"] = ref_measure
         rec["tol"]["y_ref_measure"] = SSD_Y_FP32_TOL
@@ -2012,43 +2102,91 @@ def time_linear(sm):
     return (t_k, t_p) + linear_attention_work(*LA_SHAPE)
 
 
+def ssd_terms(B, S, H, P, G, N, chunk):
+    """The operations of the chunked form with nothing computed twice, by
+    term.  Per chunk of L rows (L(L+1)/2 causal pairs):
+    - ``cb``: C.B^T once per (b, group), causal half: 2 N per pair;
+    - ``decay``: the weights per head, CB exp(cum_i - cum_j) dt_j: 4 per
+      pair;
+    - ``wx``: the weights times x: 2 P per pair and head;
+    - ``inter``: exp(cum_i) C_i.h_prev, from the second chunk on (h_prev =
+      0 before it): 2 N P per row and head (the product) and ``inter_scale``
+      2 P;
+    - ``state``: the chunk's state, x^T (B exp(cum_last - cum) dt): 2 N P
+      per row and head, and ``state_scale`` N; the ``scan`` over chunks, h
+      = a h + s: 2 P N per head from the second chunk on; ``cumsum``: dt A
+      and the cumsum, 2 per row and head."""
+    L = min(chunk, S)
+    nc, pairs = S // L, L * (L + 1) // 2
+    return {"cb": B * G * nc * 2 * N * pairs,
+            "decay": B * H * nc * 4 * pairs,
+            "wx": B * H * nc * 2 * P * pairs,
+            "inter": B * H * (nc - 1) * L * 2 * N * P,
+            "inter_scale": B * H * (nc - 1) * L * 2 * P,
+            "state": B * H * nc * L * 2 * N * P,
+            "state_scale": B * H * nc * L * N,
+            "scan": B * H * (nc - 1) * 2 * P * N,
+            "cumsum": B * H * nc * L * 2}
+
+
 def ssd_work(B, S, H, P, G, N, chunk):
     """(bytes, operations) the SSD function needs: bf16 x, B, C and y,
     fp32 dt, A and h_final, each read or written once; the operations of
-    the chunked form with nothing computed twice.  Per chunk of L rows
-    (L(L+1)/2 causal pairs):
-    - C.B^T once per (b, group), causal half: 2 N per pair;
-    - the decay weights per head, CB exp(cum_i - cum_j) dt_j: 4 per pair;
-    - the weights times x: 2 P per pair and head;
-    - the inter-chunk term exp(cum_i) C_i.h_prev, from the second chunk
-      on (h_prev = 0 before it): 2 N P + 2 P per row and head;
-    - the chunk's state, x^T (B exp(cum_last - cum) dt): 2 N P + N per
-      row and head; the scan over chunks, h = a h + s: 2 P N per head
-      from the second chunk on; dt A and the cumsum: 2 per row and head.
-    """
-    L = min(chunk, S)
-    nc, pairs = S // L, L * (L + 1) // 2
+    ``ssd_terms`` summed."""
     byt = (2 * B * S * H * P * 2 + B * S * H * 4 + H * 4
            + 2 * B * S * G * N * 2 + B * H * P * N * 4)
-    fl = (B * G * nc * 2 * N * pairs
-          + B * H * nc * (4 + 2 * P) * pairs
-          + B * H * (nc - 1) * (L * (2 * N * P + 2 * P) + 2 * P * N)
-          + B * H * nc * L * (2 * N * P + N + 2))
-    return byt, fl
+    return byt, sum(ssd_terms(B, S, H, P, G, N, chunk).values())
 
 
-def time_ssd(sm):
-    """The SSD kernel and its plain version at SSD_SHAPE, and the work
-    (``ssd_work``) that sets its bound."""
+# the products the bf16 route runs on the tensor cores with a split fp32
+# operand (three bf16 products each); C.B^T takes one
+SSD_SPLIT_PRODUCTS = ("wx", "inter", "state")
+
+
+def ssd_mma_bound(B, S, H, P, G, N, chunk):
+    """The least ms of the bf16 route's own count: C.B^T once and each
+    split product three times at 989 TFLOP/s bf16, the elementwise terms
+    at the 67 TFLOP/s fp32 rate, against the bytes of ``ssd_work`` at 3.35
+    TB/s; (ms, what bounds it, tensor-core flop, fp32 flop)."""
+    terms = ssd_terms(B, S, H, P, G, N, chunk)
+    tc = terms["cb"] + 3 * sum(terms[k] for k in SSD_SPLIT_PRODUCTS)
+    simt = sum(v for k, v in terms.items()
+               if k != "cb" and k not in SSD_SPLIT_PRODUCTS)
+    t_ops = tc / BF16_FLOPS_PER_S + simt / FP32_FLOPS_PER_S
+    t_bytes = ssd_work(B, S, H, P, G, N, chunk)[0] / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes", tc, simt)
+
+
+SSD_PHASES = ("ssd_cb_", "ssd_state_", "ssd_scan_", "ssd_out_")
+
+
+def time_ssd(sm, dtype=None):
+    """The SSD kernel and its plain version at SSD_SHAPE (bf16 inputs,
+    the served route, or ``dtype``), the work (``ssd_work``) that sets
+    its bound, and the device ms of each of its four phases (profiler
+    rows by kernel name, per call)."""
     import torch
     from repro_torch.kernels.ssd import ref_ssd_chunked, ssd
     B, S, H, P, G, N, chunk = SSD_SHAPE
     args = sm.ssd_inputs(B, S, H, P, G, N)
+    if dtype is not None:
+        args = tuple(t.to(dtype) if t.dtype == torch.bfloat16 else t
+                     for t in args)
+    iters = 20
     with torch.no_grad():
-        t_k = timed(lambda i: ssd(*args, chunk=chunk), 1, iters=20)
+        t_k = timed(lambda i: ssd(*args, chunk=chunk), 1, iters=iters)
         t_p = timed(lambda i: ref_ssd_chunked(*args, chunk=chunk), 1,
                     iters=3)
-    return (t_k, t_p) + ssd_work(*SSD_SHAPE)
+
+        def loop():
+            for _ in range(iters):
+                ssd(*args, chunk=chunk)
+            torch.cuda.synchronize()
+        _, rows, _ = device_time(loop)
+    phases = {ph.rstrip("_"): sum(us for k, us, _ in rows if ph in k)
+              / iters / 1e3 for ph in SSD_PHASES}
+    return (t_k, t_p) + ssd_work(*SSD_SHAPE) + (phases,)
 
 
 def requests(cfg, specs, seed):
@@ -2256,6 +2394,7 @@ def main() -> int:
     flash_t = flash_ts[FLASH_TIME_SHAPE[5]]
     flash32_t = time_flash(sm, FLASH_FP32_TIME_SHAPE, torch.float32)
     ssd_t = time_ssd(sm)
+    ssd32_t = time_ssd(sm, torch.float32)
     la_t = time_linear(sm)
     dg_t = time_dequant_gemm(sm)
     gemm_rows = time_gemm_shapes(sm, (qwen, llava, mamba))
@@ -2300,7 +2439,9 @@ def main() -> int:
                              else "CUDA events per call"),
                "device_kernels_per_call": t_k[2], "call_ms": t_k[1],
                "plain_call_ms": t_p[1], "library_call_ms": t_l[1],
-               "bytes": byt, "flops": fl}
+               "bytes": byt, "flops": fl,
+               "event_ms": t_k[1],
+               "effective_GB_s": byt / dev_or_call(t_k) / 1e6}
         if t_d is not None:
             out["dense_bf16_matmul_ms"] = dev_or_call(t_d)
         return out
@@ -2373,12 +2514,31 @@ def main() -> int:
                 checked=[list(c) for c in FLASH_HD160])
         elif name == "ssd":
             entry.update(fp32_numbers(
-                name, ssd_t, ("B", "S", "H", "P", "G", "N", "chunk"), SSD_SHAPE,
-                mamba.name, serves[mamba.name]["ssd_served_check"]))
+                name, ssd_t[:4], ("B", "S", "H", "P", "G", "N", "chunk"),
+                SSD_SHAPE, mamba.name,
+                serves[mamba.name]["ssd_served_check"]))
             entry["bound_note"] = (
                 "bound_ms at the fp32 FFMA peak (67 TFLOP/s): the kernel's "
                 "contract is fp32 arithmetic; operations as ssd_work counts "
-                "them (C.B^T once per group, causal halves)")
+                "them (C.B^T once per group, causal halves); "
+                "bound_ms_mma_route: the bf16 route's own count, the split "
+                "products 3x at 989 TFLOP/s bf16 (ssd_mma_bound)")
+            m_ms, m_by, m_tc, m_simt = ssd_mma_bound(*SSD_SHAPE)
+            entry.update(route="cuda", event_ms=ssd_t[0][1],
+                         phases_ms=ssd_t[4], bound_ms_mma_route=m_ms,
+                         bound_by_mma_route=m_by,
+                         flops_mma_route={"tensor_core_bf16": m_tc,
+                                          "fp32": m_simt},
+                         launches_by_route=by_route(name, SSD_ROUTE),
+                         served_route=SSD_ROUTE)
+            entry["fp32_route"] = dict(
+                fp32_numbers(name, ssd32_t[:4], ("B", "S", "H", "P", "G",
+                                                 "N", "chunk"), SSD_SHAPE,
+                             mamba.name,
+                             serves[mamba.name]["fp32"]["ssd_served_check"]),
+                event_ms=ssd32_t[0][1], phases_ms=ssd32_t[4],
+                inputs="float32 x, B, C")
+            entry["fp32_route"].pop("launches_per_prefill_call")
         elif name == "linear_attention":
             entry.update(fp32_numbers(
                 name, la_t, ("B", "S", "H", "KV", "hd", "chunk"), LA_SHAPE,
@@ -2425,6 +2585,14 @@ def main() -> int:
         else:
             entry.update(numbers(timings[llava.name][name]))
             entry["bc"] = TIME_BC
+            if name == "fused_mlp":
+                entry["launches_by_route"] = by_route(name, {0: MLP_ROUTE})
+                entry["served_check"] = {a: r["mlp_served_check"]
+                                         for a, r in records.items()
+                                         if "mlp_served_check" in r}
+                entry["decode_step_device_ms"] = {
+                    a: serves[a]["decode_step_breakdown"]["device_ms"]
+                    for a in (llava.name, FP32_PATH, qwen.name)}
             entry["shape_of"] = llava.name
             entry["at_" + qwen.name] = numbers(timings[qwen.name][name])
             entry["fp32_at_" + llava.name] = numbers(

@@ -159,33 +159,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices; lanes 8m..8m+7 give matrix m's row addresses
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// code j of a word as an exact float: the field (a logical shift of the
-// unsigned word: the top field holds bit 31) with its sign bit flipped is
-// u = code + 2^(BITS-1); as the low mantissa bits of 2^23 it is the float
-// 2^23 + u, and subtracting 2^23 + 2^(BITS-1) leaves the code
-template <int BITS>
-__device__ __forceinline__ float code(uint32_t word, int j) {
-  constexpr uint32_t kMask = (1u << BITS) - 1u, kSign = 1u << (BITS - 1);
-  const uint32_t u = ((word >> (j * BITS)) & kMask) ^ (kSign | 0x4B000000u);
-  return __uint_as_float(u) - (8388608.f + static_cast<float>(kSign));
-}
+using hopper::code;
 
 // two adjacent values of a row of the W tile (dst 4-byte aligned for bf16)
 __device__ __forceinline__ void store_pair(bf16* dst, float a, float b) {
@@ -428,11 +402,11 @@ __global__ void __launch_bounds__(kThreads) dequant_gemm_kernel(const Params p) 
         uint32_t a[4][4], b[4][2];
 #pragma unroll
         for (int mi = 0; mi < 4; ++mi)
-          ldmatrix_x4(a[mi], xt + (wm * 64 + mi * 16 + (lane & 15)) * kXS + kk * 16 + (lane >> 4) * 8);
+          hopper::ldmatrix_x4(a[mi], xt + (wm * 64 + mi * 16 + (lane & 15)) * kXS + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
         for (int nj = 0; nj < 2; ++nj) {
           uint32_t r[4];
-          ldmatrix_x4(r, wt + (wn * 32 + nj * 16 + (lane >> 4) * 8 + (lane & 7)) * kWS + kk * 16 +
+          hopper::ldmatrix_x4(r, wt + (wn * 32 + nj * 16 + (lane >> 4) * 8 + (lane & 7)) * kWS + kk * 16 +
                              ((lane >> 3) & 1) * 8);
           b[2 * nj][0] = r[0];
           b[2 * nj][1] = r[1];
@@ -442,7 +416,7 @@ __global__ void __launch_bounds__(kThreads) dequant_gemm_kernel(const Params p) 
 #pragma unroll
         for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_bf16(&acc[(mi * 4 + ni) * 4], a[mi], b[ni][0], b[ni][1]);
+          for (int ni = 0; ni < 4; ++ni) hopper::mma_bf16(&acc[(mi * 4 + ni) * 4], a[mi], b[ni][0], b[ni][1]);
       }
     } else {
 #pragma unroll 4

@@ -19,32 +19,64 @@
 // fp32, round to T: no rounding in fp32) and never exists dense in device
 // memory.  Products accumulate in fp32; the output rounds to T, then the
 // bias adds in fp32 and rounds again (the reference's einsum-then-add
-// order).  A dense unit is one 16-byte vector: 8 bf16 or 4 fp32 values.
+// order); the MLP keeps the reference's order: up and gate each round to
+// T, mid = rt(rt(act(rt(gate))) * rt(up)), out rounds to T.
 //
 // What bounds them on an H100.  At bc <= 8 a GEMV does 2*bc flops per
 // weight element, far below the ~295 flop/byte balance point of the card:
 // all three are bound by device-memory bytes.  fused_qkv streams ~0.65 MB
-// of packed q4 weights per layer, fused_mlp ~8.2 MB, and the scatter
-// writes 2*L*bc*KV*hd*2 bytes (a few KB): launch overhead dominates it.
+// of packed q4 weights per layer at LLaVA-OneVision-0.5B's widths,
+// fused_mlp ~8.2 MB there and 127.3 MB at Qwen2-VL-7B's (0.038 ms at
+// 3.35 TB/s); the scatter writes 2*L*bc*KV*hd*2 bytes (a few KB): launch
+// overhead dominates it.
 //
-// What the design does about it.  The packed weights are read once, in
-// 32-byte sectors fully used: a warp covers 8 consecutive words (one
-// sector) of 4 consecutive K rows.  To keep enough loads in flight the K
-// axis is split twice: among the 8 warps of a block (reduced in shared
-// memory) and among blocks (grid.y).  Blocks cannot wait on each other,
-// so each block writes fp32 partial sums to a scratch buffer and a second
-// small kernel adds the K-splits in a fixed order and applies the
-// epilogue (rounding, bias, activation).  No atomics: results are
-// deterministic.  The TPU kernel fuses the whole MLP into one call; here
-// the down projection needs every column of `mid`, so the MLP is two
-// GEMV stages (gate/up -> act -> mid in scratch, then down).
+// What the design does about it.
+// fused_mlp runs one split-K GEMV kernel (gemv_kernel) per stage, two
+// device kernels a call: up and gate with the GLU epilogue into mid, then
+// down with the round-and-store epilogue.  Each thread owns one 16-byte
+// vector column of W (one uint4 of codes: 32 q4 outputs, one g32 scale
+// group and one scale load; q8 half a group, q2 two groups; dense 8 bf16
+// or 4 fp32) and walks the CTA's K rows through an 8-stage cp.async ring
+// in shared memory, so 7 independent 16-byte loads (43 KB an SM at three
+// CTAs) stay in flight with no registers held for them; a warp reads 16
+// or 32 consecutive vectors of a row.  A CTA's 128 threads are 16 or 32
+// vector columns ("slots"; for the gated stage half up, half the matching
+// gate columns) by 8 or 4 K sub-rows, reduced in shared memory in sub-row
+// order.  The K axis is split over CTAs to fill the 132 SMs (the down
+// projection has only 3584 outputs): a thread-block cluster of up to 8
+// CTAs along K adds its CTAs' partial sums over distributed shared
+// memory in rank order, each CTA a slice of the tile, and runs the
+// epilogue in the same launch; where the split goes past one cluster,
+// each cluster's sums go to an fp32 scratch, and for each slice the last
+// of the clusters' CTAs holding it to arrive (a counter per tile and
+// rank, reset by that CTA) adds them in cluster order and runs the
+// epilogue.  The reductions keep several clusters' (ranks') loads in
+// flight per thread: one load a round trip made them latency-bound.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py,
+// scripts/fused_mlp_ablation.py): 0.169 ms at Qwen2-VL-7B's widths and
+// cohort 4, 754 GB/s, of which the loads, ring and reductions alone take
+// 0.10 ms (1.0-1.5 TB/s) and the dequantize-and-multiply the rest; at
+// LLaVA-OneVision-0.5B's widths 0.053 ms, mostly fixed costs.  No float atomics: results are
+// bit-identical from run to run.  The plan (slots, K rows per CTA,
+// cluster size) is chosen by the wrapper (kernels/fused_decode/kernel.py
+// gemv_plan).  Cohorts past 4 rows (2 for q2) run in passes over the
+// CTA's weights, so the accumulators stay at 128 registers.
+// fused_qkv still runs the first design: a partial-GEMV kernel (a warp
+// covers 8 consecutive words of 4 K rows; the K axis split among the 8
+// warps of a block and among blocks, fp32 partial sums in a scratch) and
+// a second kernel that adds the K-splits in a fixed order and applies
+// the epilogue.  Moving it onto gemv_kernel needs three segments and a
+// bias in the store epilogue.
 //
 // Interface: plain C entry points (loaded with ctypes); each launches on
 // the caller's stream, allocates nothing, and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -68,6 +100,15 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 // round an fp32 value to T and back (the identity for fp32)
 template <typename T> __device__ __forceinline__ float round_t(float x) {
   return to_f(from_f<T>(x));
+}
+
+// round two fp32 values to T and back (one packed conversion for bf16)
+template <typename T> __device__ __forceinline__ void round2_t(float& a, float& b);
+template <> __device__ __forceinline__ void round2_t<float>(float&, float&) {}
+template <> __device__ __forceinline__ void round2_t<bf16>(float& a, float& b) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  a = __low2float(p);
+  b = __high2float(p);
 }
 
 // outputs per weight unit: one int32 word of codes, or one 16-byte vector
@@ -253,35 +294,6 @@ __device__ __forceinline__ float act_fn(int act, float x) {
   }
 }
 
-// mid[b, j] = rt(rt(act(rt(gate))) * rt(up))  (gated), or rt(act(rt(up)))
-// partial columns: up at [0, F), gate at [F, 2F)
-template <typename T>
-__global__ void glu_epilogue_kernel(const float* __restrict__ partial, int ksplit,
-                                    int bc, int F, int gated, int act,
-                                    T* __restrict__ mid) {
-  const int n_total = gated ? 2 * F : F;
-  const int total = bc * F;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    const int b = i / F, j = i - b * F;
-    float up = 0.f, gate = 0.f;
-    for (int ks = 0; ks < ksplit; ++ks) {
-      const float* row = partial + ((size_t)ks * bc + b) * n_total;
-      up += row[j];
-      if (gated) gate += row[F + j];
-    }
-    up = round_t<T>(up);
-    float m;
-    if (gated) {
-      const float a = round_t<T>(act_fn(act, round_t<T>(gate)));
-      m = round_t<T>(a * up);
-    } else {
-      m = round_t<T>(act_fn(act, up));
-    }
-    mid[(size_t)b * F + j] = from_f<T>(m);
-  }
-}
-
 __global__ void kv_row_scatter_kernel(const int32_t* __restrict__ blk,
                                       const int32_t* __restrict__ off,
                                       const uint4* __restrict__ k_rows,
@@ -378,44 +390,410 @@ int fused_qkv_impl(const void* h, int bc, int K, int nseg, const void* const* w,
   return (int)cudaGetLastError();
 }
 
+// ---- the MLP's split-K GEMV -------------------------------------------------
+
+constexpr int kGemvThreads = 128;
+constexpr int kRing = 8;            // cp.async ring stages: loads in flight per thread
+constexpr int kMaxCluster = 8;      // portable cluster size
+constexpr int kMaxKChunk = 1024;    // K rows per CTA (activations in shared memory)
+constexpr int kBatch = 8;           // items a thread reduces at once
+
+template <int BITS, typename T>
+struct Vec {
+  static constexpr int kOut = BITS ? 128 / BITS : 16 / (int)sizeof(T);  // outputs a vector
+  static constexpr int kScales = BITS == 2 ? 2 : (BITS ? 1 : 0);         // scale loads a vector
+};
+
+struct GemvSeg {
+  const void* w;         // codes (K, n / (32 / BITS)) int32, or dense (K, n) T
+  const float* scales;   // (K, n / group) fp32; null when dense
+  int group;
+};
+
+struct GemvArgs {
+  GemvSeg seg[2];        // up and gate (nseg 2: the GLU stage), or the one weight
+  const void* h;         // (bc, K) T
+  void* out;             // (bc, n) T
+  float* partial;        // (nck, bc, nseg * n) fp32 when nck > 1
+  unsigned* counters;    // (grid.x, ck) zero before and after the launch
+  int bc, K, n, nseg;
+  int ts;                // vector columns (slots) a CTA: 16 or 32
+  int kc;                // K rows a CTA
+  int ck, nck;           // CTAs a cluster along K, clusters along K
+  int act;               // -1: round and store; else the activation
+};
+
+// byte offsets of the GEMV's dynamic shared memory: the ring of weight
+// vectors [kRing][threads] and scales [kRing][threads][kScales], the
+// activations [passes * R][kcp], the sub-row reduction [nsub][ts][V + 4]
+// and the CTA's partial tile [R][ts][V]
+template <int BITS, typename T, int R>
+struct GemvSmem {
+  static constexpr int V = Vec<BITS, T>::kOut, NS = Vec<BITS, T>::kScales;
+  int scales, hs, red, part, total;
+  __host__ __device__ explicit GemvSmem(const GemvArgs& a) {
+    const int nsub = kGemvThreads / a.ts;
+    const int kcp = (a.kc + nsub - 1) / nsub * nsub;
+    const int passes = (a.bc + R - 1) / R;
+    scales = kRing * kGemvThreads * 16;
+    hs = scales + kRing * kGemvThreads * NS * 4;
+    red = hs + (passes * R * kcp * 4 + 15) / 16 * 16;
+    part = red + kGemvThreads * (V + 4) * 4;
+    total = part + R * a.ts * V * 4;
+  }
+};
+
+// the two stages' epilogues: round and store; mid = rt(rt(act(rt(gate)))
+// * rt(up)) (nseg 2); mid = rt(act(rt(up)))
+template <typename T>
+__device__ __forceinline__ void gemv_epilogue(const GemvArgs& a, int row, int col, float up,
+                                              float gate) {
+  T* out = static_cast<T*>(a.out) + (size_t)row * a.n + col;
+  if (a.act < 0) {
+    *out = from_f<T>(up);
+  } else if (a.nseg == 2) {
+    const float g = round_t<T>(act_fn(a.act, round_t<T>(gate)));
+    *out = from_f<T>(g * round_t<T>(up));
+  } else {
+    *out = from_f<T>(act_fn(a.act, round_t<T>(up)));
+  }
+}
+
+// grid (tiles, ck * nck), cluster (1, ck, 1), kGemvThreads threads, dynamic
+// shared memory GemvSmem<BITS, T, R>(a).total.  Thread (slot, sub) owns
+// vector `slot` of the tile and K rows k0 + sub + s nsub.
+template <int BITS, typename T, int R>
+__global__ void __launch_bounds__(kGemvThreads, 3) gemv_kernel(const GemvArgs a) {
+  constexpr int V = Vec<BITS, T>::kOut, NS = Vec<BITS, T>::kScales;
+  constexpr int PW = BITS ? 32 / BITS : 1;        // codes a word
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last;
+  const GemvSmem<BITS, T, R> L(a);
+  uint4* ring = reinterpret_cast<uint4*>(smem_raw);
+  float* sring = reinterpret_cast<float*>(smem_raw + L.scales);
+  float* hs = reinterpret_cast<float*>(smem_raw + L.hs);
+  float* red = reinterpret_cast<float*>(smem_raw + L.red);
+  float* part = reinterpret_cast<float*>(smem_raw + L.part);
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+
+  const int tid = threadIdx.x, ts = a.ts, nsub = kGemvThreads / ts;
+  const int slot = (tid & 31) % ts, sub = (tid & 31) / ts + (32 / ts) * (tid >> 5);
+  const int sps = ts / a.nseg;                     // slots a segment
+  const int nvec = a.n / V;
+  const int vec = blockIdx.x * sps + slot % sps;
+  const bool valid = vec < nvec;
+  const GemvSeg sg = slot < sps ? a.seg[0] : a.seg[1];   // no local copy of a.seg
+  const int k0 = blockIdx.y * a.kc;
+  const int kn = max(0, min(a.kc, a.K - k0));
+  const int steps = (a.kc + nsub - 1) / nsub, kcp = steps * nsub;
+  const int passes = (a.bc + R - 1) / R;
+
+  // the CTA's activations, zero past bc and past its K rows
+  const T* hg = static_cast<const T*>(a.h);
+  for (int i = tid; i < passes * R * kcp; i += kGemvThreads) {
+    const int b = i / kcp, kk = i - b * kcp;
+    hs[i] = (b < a.bc && kk < kn) ? to_f(hg[(size_t)b * a.K + k0 + kk]) : 0.f;
+  }
+  const uint4* wsrc = static_cast<const uint4*>(sg.w) + (size_t)k0 * nvec + vec;
+  const int ng = BITS ? a.n / sg.group : 0;
+  const float* ssrc = BITS ? sg.scales + (size_t)k0 * ng + (size_t)vec * V / sg.group : nullptr;
+  // stage s of the ring: row k0 + sub + s nsub (zeros past the CTA's rows)
+  auto issue = [&](int s) {
+    const int kk = sub + s * nsub;
+    if (s < steps) {
+      const bool ok = valid && kk < kn;
+      const int r = (s % kRing) * kGemvThreads + tid;
+      hopper::cp_async16_zfill(ring + r, ok ? wsrc + (size_t)kk * nvec : sg.w, ok);
+#pragma unroll
+      for (int q = 0; q < NS; ++q)
+        hopper::cp_async4_zfill(sring + r * NS + q,
+                                ok ? ssrc + (size_t)kk * ng + (q * (V / NS)) / sg.group
+                                   : sg.scales,
+                                ok);
+    }
+    hopper::cp_async_commit();
+  };
+
+  // this CTA's slice of the tile's items (an output, or an up/gate pair)
+  // in the cluster's reduction
+  const int items = sps * V, gate_off = a.nseg == 2 ? sps * V : 0;
+  const int rank = (int)cluster.block_rank();
+  const int e0 = rank * items / a.ck, ne = (rank + 1) * items / a.ck - e0;
+
+  float acc[R][V];
+  for (int pass = 0; pass < passes; ++pass) {
+#pragma unroll
+    for (int b = 0; b < R; ++b)
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[b][j] = 0.f;
+    for (int s = 0; s < kRing - 1; ++s) issue(s);
+    __syncthreads();                    // the activations are staged
+    const float* hrow = hs + pass * R * kcp;
+    for (int s = 0; s < steps; ++s) {
+      issue(s + kRing - 1);
+      hopper::cp_async_wait<kRing - 1>();
+      const int r = (s % kRing) * kGemvThreads + tid;
+      const uint4 v = ring[r];
+      const int kk = sub + s * nsub;
+      float hv[R];
+#pragma unroll
+      for (int b = 0; b < R; ++b) hv[b] = hrow[b * kcp + kk];
+      if constexpr (BITS == 0) {
+        const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float w = to_f(e[j]);
+#pragma unroll
+          for (int b = 0; b < R; ++b) acc[b][j] = fmaf(hv[b], w, acc[b][j]);
+        }
+      } else {
+        float sc[NS];
+#pragma unroll
+        for (int q = 0; q < NS; ++q) sc[q] = sring[r * NS + q];
+        const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int wi = 0; wi < 4; ++wi) {
+          const float s_w = sc[wi * NS / 4];
+#pragma unroll
+          for (int j = 0; j < PW; j += 2) {
+            float w0 = hopper::code<BITS>(words[wi], j) * s_w;
+            float w1 = hopper::code<BITS>(words[wi], j + 1) * s_w;
+            round2_t<T>(w0, w1);
+#pragma unroll
+            for (int b = 0; b < R; ++b) {
+              acc[b][wi * PW + j] = fmaf(hv[b], w0, acc[b][wi * PW + j]);
+              acc[b][wi * PW + j + 1] = fmaf(hv[b], w1, acc[b][wi * PW + j + 1]);
+            }
+          }
+        }
+      }
+    }
+    hopper::cp_async_wait<0>();         // the ring is refilled next pass
+
+    // the CTA's sub-rows, added in order, into its partial tile
+#pragma unroll
+    for (int b = 0; b < R; ++b) {
+      float* dst = red + (sub * ts + slot) * (V + 4);
+#pragma unroll
+      for (int j = 0; j < V; j += 4)
+        *reinterpret_cast<float4*>(dst + j) =
+            make_float4(acc[b][j], acc[b][j + 1], acc[b][j + 2], acc[b][j + 3]);
+      __syncthreads();
+      for (int o = tid; o < ts * V; o += kGemvThreads) {
+        const int sl = o / V, j = o - sl * V;
+        float sum = 0.f;
+        for (int q = 0; q < nsub; ++q) sum += red[(q * ts + sl) * (V + 4) + j];
+        part[b * ts * V + o] = sum;
+      }
+      __syncthreads();
+    }
+
+    // the cluster's CTAs, added in rank order, over this CTA's slice,
+    // kBatch items a thread at a time so their loads are in flight
+    // together
+    cluster.sync();
+    const int rows = min(R, a.bc - pass * R);
+    for (int i0 = tid; i0 < rows * ne; i0 += kBatch * kGemvThreads) {
+      int off[kBatch];
+      float up[kBatch], gate[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kGemvThreads;
+        const int b = i / ne, e = e0 + i - b * ne;
+        off[u] = i < rows * ne && blockIdx.x * sps + e / V < nvec ? b * ts * V + e : -1;
+        up[u] = gate[u] = 0.f;
+      }
+      // four ranks' loads in flight at a time, added in rank order
+      for (int q0 = 0; q0 < a.ck; q0 += 4) {
+        float vu[4][kBatch], vg[4][kBatch];
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) {
+          const float* rp = cluster.map_shared_rank(part, min(q0 + qq, a.ck - 1));
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const bool ok = q0 + qq < a.ck && off[u] >= 0;
+            vu[qq][u] = ok ? rp[off[u]] : 0.f;
+            vg[qq][u] = ok && a.nseg == 2 ? rp[off[u] + gate_off] : 0.f;
+          }
+        }
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq)
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u)
+            if (q0 + qq < a.ck) {
+              up[u] += vu[qq][u];
+              gate[u] += vg[qq][u];
+            }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (off[u] < 0) continue;
+        const int b = off[u] / (ts * V), e = off[u] - b * ts * V;
+        const int row = pass * R + b, col = (blockIdx.x * sps + e / V) * V + e % V;
+        if (a.nck == 1) {
+          gemv_epilogue<T>(a, row, col, up[u], gate[u]);
+        } else {
+          float* pp = a.partial + ((size_t)(blockIdx.y / a.ck) * a.bc + row) * a.nseg * a.n;
+          pp[col] = up[u];
+          if (a.nseg == 2) pp[a.n + col] = gate[u];
+        }
+      }
+    }
+    cluster.sync();                     // the partial tiles are rewritten next pass
+  }
+  if (a.nck == 1) return;
+
+  // past one cluster: each rank's slice of the column tile is added, in
+  // cluster order, by the last of the clusters' CTAs of that rank to
+  // arrive (a counter per tile and rank), which runs the epilogue
+  __threadfence();
+  __syncthreads();
+  unsigned* counter = a.counters + blockIdx.x * a.ck + rank;
+  if (tid == 0) last = atomicAdd(counter, 1u) == (unsigned)a.nck - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const size_t cstride = (size_t)a.bc * a.nseg * a.n;   // one cluster's sums
+  for (int i0 = tid; i0 < a.bc * ne; i0 += kBatch * kGemvThreads) {
+    long long off[kBatch];
+    float up[kBatch], gate[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kGemvThreads;
+      const int b = i / ne, e = e0 + i - b * ne;
+      const int v = blockIdx.x * sps + e / V;
+      off[u] = i < a.bc * ne && v < nvec ? (long long)b * a.nseg * a.n + v * V + e % V : -1;
+      up[u] = gate[u] = 0.f;
+    }
+    // four clusters' loads in flight at a time, added in cluster order
+    for (int q0 = 0; q0 < a.nck; q0 += 4) {
+      float vu[4][kBatch], vg[4][kBatch];
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const float* pq = a.partial + (q0 + qq) * cstride;
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const bool ok = q0 + qq < a.nck && off[u] >= 0;
+          vu[qq][u] = ok ? __ldcg(pq + off[u]) : 0.f;
+          vg[qq][u] = ok && a.nseg == 2 ? __ldcg(pq + off[u] + a.n) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq)
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (q0 + qq < a.nck) {
+            up[u] += vu[qq][u];
+            gate[u] += vg[qq][u];
+          }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (off[u] < 0) continue;
+      const int b = (int)(off[u] / (a.nseg * a.n));
+      gemv_epilogue<T>(a, b, (int)(off[u] - (long long)b * a.nseg * a.n), up[u], gate[u]);
+    }
+  }
+  if (tid == 0) *counter = 0u;
+}
+
+template <int BITS, typename T, int R>
+int launch_gemv_t(const GemvArgs& a, int tiles, cudaStream_t stream) {
+  const int smem = GemvSmem<BITS, T, R>(a).total;
+  cudaError_t e = cudaFuncSetAttribute(gemv_kernel<BITS, T, R>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, a.ck * a.nck, 1);
+  cfg.blockDim = dim3(kGemvThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = a.ck;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, gemv_kernel<BITS, T, R>, a);
+}
+
+template <int BITS, typename T>
+int launch_gemv_r(const GemvArgs& a, int R, int tiles, cudaStream_t stream) {
+  if (R == 1) return launch_gemv_t<BITS, T, 1>(a, tiles, stream);
+  if (R == 2) return launch_gemv_t<BITS, T, 2>(a, tiles, stream);
+  if constexpr (Vec<BITS, T>::kOut * 4 <= 128)
+    if (R == 4) return launch_gemv_t<BITS, T, 4>(a, tiles, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// plan = {R, ts, kc, ck, nck} (gemv_plan in kernels/fused_decode/kernel.py)
+template <typename T>
+int launch_gemv(GemvArgs a, int bits, const int* plan, cudaStream_t stream) {
+  const int R = plan[0];
+  a.ts = plan[1];
+  a.kc = plan[2];
+  a.ck = plan[3];
+  a.nck = plan[4];
+  const int V = bits ? 128 / bits : 16 / (int)sizeof(T);
+  const int NS = bits == 2 ? 2 : 1;
+  if (a.bc < 1 || a.bc > kMaxRows || (a.ts != 16 && a.ts != 32) || a.nseg < 1 || a.nseg > 2 ||
+      a.n < V || a.n % V != 0 || a.kc < 1 || a.kc > kMaxKChunk || a.ck < 1 ||
+      a.ck > kMaxCluster || a.nck < 1 || (long long)a.kc * a.ck * a.nck < a.K ||
+      (a.nck > 1 && (a.partial == nullptr || a.counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < a.nseg; ++i)
+    if (bits != 0 && (a.seg[i].group < 1 || a.seg[i].group % (V / NS) != 0 ||
+                      a.n % a.seg[i].group != 0))
+      return (int)cudaErrorInvalidValue;
+  const int sps = a.ts / a.nseg;
+  const int tiles = (a.n / V + sps - 1) / sps;
+  switch (bits) {
+    case 0: return launch_gemv_r<0, T>(a, R, tiles, stream);
+    case 2: return launch_gemv_r<2, T>(a, R, tiles, stream);
+    case 4: return launch_gemv_r<4, T>(a, R, tiles, stream);
+    case 8: return launch_gemv_r<8, T>(a, R, tiles, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 int fused_mlp_impl(const void* h, int bc, int D, int F, int gated, int act,
-                   const void* const* w, const float* const* scales,
-                   const int* bits, const int* group, void* mid, void* out,
-                   float* partial1, int k_chunk1, float* partial2, int k_chunk2,
+                   const void* const* w, const float* const* scales, const int* bits,
+                   const int* group, void* mid, void* out, const int* plan1, float* partial1,
+                   const int* plan2, float* partial2, unsigned* counters, int tiles1,
                    cudaStream_t stream) {
+  if (act < 0 || act > kSquaredRelu || (gated && (bits[1] != bits[0] || group[1] != group[0])))
+    return (int)cudaErrorInvalidValue;
   // stage 1: up (and gate) -> act -> mid
-  const int n1[2] = {F, F};
-  const void* w1[2] = {w[0], w[1]};
-  const float* s1[2] = {scales[0], scales[1]};
-  const int b1[2] = {bits[0], bits[1]};
-  const int g1[2] = {group[0], group[1]};
-  const int nseg1 = gated ? 2 : 1;
-  int err = launch_partials<T>(static_cast<const T*>(h), bc, D, nseg1, w1, s1, n1,
-                               b1, g1, partial1, nseg1 * F, k_chunk1, stream);
+  GemvArgs a{};
+  a.seg[0] = GemvSeg{w[0], scales[0], group[0]};
+  a.seg[1] = GemvSeg{w[1], scales[1], group[1]};
+  a.h = h;
+  a.out = mid;
+  a.partial = partial1;
+  a.counters = counters;
+  a.bc = bc;
+  a.K = D;
+  a.n = F;
+  a.nseg = gated ? 2 : 1;
+  a.act = act;
+  const int err = launch_gemv<T>(a, bits[0], plan1, stream);
   if (err) return err;
-  glu_epilogue_kernel<T><<<epilogue_blocks(bc * F), 256, 0, stream>>>(
-      partial1, ksplit_of(D, k_chunk1), bc, F, gated, act, static_cast<T*>(mid));
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  // stage 2: mid @ W_down
-  const int n2[1] = {D};
-  const void* w2[1] = {w[2]};
-  const float* s2[1] = {scales[2]};
-  const int b2[1] = {bits[2]};
-  const int g2[1] = {group[2]};
-  err = launch_partials<T>(static_cast<const T*>(mid), bc, F, 1, w2, s2, n2, b2, g2,
-                           partial2, D, k_chunk2, stream);
-  if (err) return err;
-  OutSegs segs{};
-  segs.count = 1;
-  segs.s[0].out = out;
-  segs.s[0].bias = nullptr;
-  segs.s[0].n = D;
-  segs.s[0].col = 0;
-  store_epilogue_kernel<T><<<epilogue_blocks(bc * D), 256, 0, stream>>>(
-      segs, partial2, ksplit_of(F, k_chunk2), bc, D);
-  return (int)cudaGetLastError();
+  // stage 2: mid @ W_down, rounded to T
+  GemvArgs d{};
+  d.seg[0] = GemvSeg{w[2], scales[2], group[2]};
+  d.h = mid;
+  d.out = out;
+  d.partial = partial2;
+  d.counters = counters + tiles1;
+  d.bc = bc;
+  d.K = F;
+  d.n = D;
+  d.nseg = 1;
+  d.act = -1;
+  return launch_gemv<T>(d, bits[2], plan2, stream);
 }
 
 }  // namespace
@@ -439,22 +817,25 @@ int rt_fused_qkv(const void* h, int bc, int K, int nseg, const void* const* w,
                               partial, k_chunk, s);
 }
 
-// w/scales/bits/group: [up, gate, down] (gate ignored unless gated).
-// act: 0 silu, 1 gelu (tanh), 2 relu, 3 squared relu.  mid: (bc, F)
-// scratch of the activations' dtype (bf16, or fp32 when fp32 != 0);
-// partial1: ceil(D/k_chunk1)*bc*(gated ? 2F : F) floats; partial2:
-// ceil(F/k_chunk2)*bc*D floats.
+// w/scales/bits/group: [up, gate, down] (gate ignored unless gated; a
+// gated pair shares bits and group).  act: 0 silu, 1 gelu (tanh), 2 relu,
+// 3 squared relu.  mid: (bc, F) scratch of the activations' dtype (bf16,
+// or fp32 when fp32 != 0).  plan1 / plan2: {R, ts, kc, ck, nck} of each
+// stage; partial1: nck1 * bc * (gated ? 2F : F) floats and partial2:
+// nck2 * bc * D floats (each unused when its nck is 1); counters: the
+// (tile, cluster rank) pairs of both stages (stage 2's from tiles1 on,
+// tiles1 = stage 1's tiles x ck1), zero before the call and left zero.
 int rt_fused_mlp(const void* h, int bc, int D, int F, int gated, int act,
                  const void* const* w, const float* const* scales,
                  const int* bits, const int* group, void* mid, void* out,
-                 float* partial1, int k_chunk1, float* partial2, int k_chunk2,
-                 int fp32, void* stream) {
+                 const int* plan1, float* partial1, const int* plan2, float* partial2,
+                 unsigned* counters, int tiles1, int fp32, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fp32)
-    return fused_mlp_impl<float>(h, bc, D, F, gated, act, w, scales, bits, group, mid,
-                                 out, partial1, k_chunk1, partial2, k_chunk2, s);
-  return fused_mlp_impl<bf16>(h, bc, D, F, gated, act, w, scales, bits, group, mid,
-                              out, partial1, k_chunk1, partial2, k_chunk2, s);
+    return fused_mlp_impl<float>(h, bc, D, F, gated, act, w, scales, bits, group, mid, out,
+                                 plan1, partial1, plan2, partial2, counters, tiles1, s);
+  return fused_mlp_impl<bf16>(h, bc, D, F, gated, act, w, scales, bits, group, mid, out, plan1,
+                              partial1, plan2, partial2, counters, tiles1, s);
 }
 
 // Writes in place into k_pool / v_pool (L, n_blocks, block_size, row):

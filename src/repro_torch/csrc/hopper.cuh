@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the port's warp-specialised kernels
-// (flash_attention.cu, dequant_gemm.cu), written in PTX by hand:
+// Hopper (sm_90a) building blocks of the port's hand-written kernels
+// (flash_attention.cu, dequant_gemm.cu, ssd.cu, fused_decode.cu), written
+// in PTX by hand:
 //
 //   - mbarriers: init, arrive, arrive with an expected transaction count,
 //     and a wait on a phase's parity;
@@ -14,8 +15,12 @@
 //     from shared memory (N 128; `_first` overwrites the accumulator) or
 //     from registers (N 16, 32, 64, 128, 160) and B K-major or MN-major
 //     (the transpose bit TB);
-//   - cp.async with zero fill, setmaxnreg, the async-proxy fence and named
-//     barriers.
+//   - cp.async with zero fill (4 and 16 bytes), setmaxnreg, the
+//     async-proxy fence and named barriers;
+//   - warp-level mma.sync m16n8k16 bf16 -> fp32 and ldmatrix (four 8x8
+//     bf16 matrices, as stored or transposed), for tiles that need no
+//     warpgroup;
+//   - the exact float of one code of a packed int32 weight word.
 //
 // Swizzled tiles.  A tile of rows of W bytes (W = 32, 64 or 128: the
 // swizzle width) is stored row after row, each 16-byte chunk of a row
@@ -125,6 +130,13 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 __device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// 16 bytes through L2 only (streamed once); zeros when !ok
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
                : "memory");
 }
 
@@ -348,6 +360,45 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
     static_assert(N == 160, "wgmma_rs: N is 16, 32, 64, 128 or 160");
     wgmma_rs_n160<TB>(d, a, db);
   }
+}
+
+// ---- mma.sync ------------------------------------------------------------------
+
+// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices; lanes 8m..8m+7 give matrix m's row addresses
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// the same, each matrix transposed (ldmatrix .trans)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// ---- packed weight codes ----------------------------------------------------------
+
+// code j of a word as an exact float: the field (a logical shift of the
+// unsigned word: the top field holds bit 31) with its sign bit flipped is
+// u = code + 2^(BITS-1); as the low mantissa bits of 2^23 it is the float
+// 2^23 + u, and subtracting 2^23 + 2^(BITS-1) leaves the code
+template <int BITS>
+__device__ __forceinline__ float code(uint32_t word, int j) {
+  constexpr uint32_t kMask = (1u << BITS) - 1u, kSign = 1u << (BITS - 1);
+  const uint32_t u = ((word >> (j * BITS)) & kMask) ^ (kSign | 0x4B000000u);
+  return __uint_as_float(u) - (8388608.f + static_cast<float>(kSign));
 }
 
 }  // namespace hopper

@@ -13,7 +13,9 @@ it also counts each launch under ``<wrapper>/<route>``:
 ``flash_attention/wgmma`` (bf16) and ``flash_attention/simt`` (fp32);
 ``dequant_gemm/wgmma`` (the warp-specialised bf16 kernel) and
 ``dequant_gemm/tile`` (fp32, and bf16 calls outside the wgmma kernel's
-rule, ``dequant_gemm.kernel.route``).
+rule, ``dequant_gemm.kernel.route``); ``ssd/mma`` (bf16, tensor-core
+products) and ``ssd/simt`` (fp32, FFMA); ``fused_mlp/gemv`` (the split-K
+GEMV of both MLP stages).
 """
 from typing import Dict
 

@@ -10,7 +10,8 @@ plain version in ``ref.py``, chosen by the wrappers in ``ops.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -34,7 +35,7 @@ def library() -> ctypes.CDLL:
         lib.rt_fused_qkv.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                      _P, _P, _I, _I, _P]
         lib.rt_fused_mlp.argtypes = [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                                     _P, _P, _P, _I, _P, _I, _I, _P]
+                                     _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]
         lib.rt_kv_row_scatter.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                           _I, _I, _P]
         for fn in (lib.rt_fused_qkv, lib.rt_fused_mlp, lib.rt_kv_row_scatter):
@@ -61,12 +62,130 @@ def _int_array(vals: Sequence[int]):
 
 
 def k_chunk_for(K: int, tiles: int) -> int:
-    """K rows per block: the largest of 128/64/32 that still gives the
-    grid ~2 blocks per SM (132 SMs), so enough loads are in flight."""
+    """K rows per block of the fused-QKV partial GEMV: the largest of
+    128/64/32 that still gives the grid ~2 blocks per SM (132 SMs), so
+    enough loads are in flight."""
     for c in (128, 64):
         if tiles * -(-K // c) >= 264:
             return min(c, K)
     return min(32, K)
+
+
+SMS = 132              # the H100's streaming multiprocessors
+GEMV_THREADS = 128     # the MLP GEMV's CTA (kGemvThreads)
+MAX_CLUSTER = 8        # portable thread-block cluster size
+MAX_K_CHUNK = 1024     # K rows a CTA (kMaxKChunk)
+MIN_ROWS_A_THREAD = 8  # K rows each thread walks at the least
+CTAS_AN_SM = 3         # the GEMV's occupancy (__launch_bounds__(128, 3))
+
+
+@dataclass(frozen=True)
+class GemvPlan:
+    """How the MLP's split-K GEMV (``gemv_kernel``) covers one stage: a
+    (bc, K) x (K, nseg * n) product whose segments are packed ``bits``
+    (or dense) weights of ``n`` outputs each.
+
+    ``vec`` outputs a 16-byte vector (one thread's column); ``rows``
+    cohort rows a pass (``passes`` of them); ``slots`` vector columns a
+    CTA (``slots // nseg`` of each segment: up beside the matching gate
+    columns); ``tiles`` CTAs along the outputs; ``k_chunk`` K rows a
+    CTA and ``k_split`` CTAs along K, ``cluster`` of them a thread-block
+    cluster (reduced over distributed shared memory) and ``clusters``
+    clusters (each rank's slice of a tile reduced by the last of that
+    rank's CTAs to arrive, through ``partial`` floats of scratch);
+    ``counters`` arrival counters (one a tile and rank)."""
+    vec: int
+    rows: int
+    passes: int
+    slots: int
+    tiles: int
+    k_chunk: int
+    k_split: int
+    cluster: int
+    clusters: int
+    partial: int
+    counters: int
+
+    def args(self) -> Tuple[int, ...]:
+        """The entry point's plan: {R, ts, kc, ck, nck}."""
+        return (self.rows, self.slots, self.k_chunk, self.cluster,
+                self.clusters)
+
+
+def gemv_plan(K: int, n: int, nseg: int, bits: int, elem_bytes: int,
+              bc: int) -> GemvPlan:
+    """The launch plan of one GEMV stage (pure Python; the kernel checks
+    it).  Vector columns a CTA: 32, or 16 where that leaves fewer idle;
+    CTAs along K: enough for one wave at CTAS_AN_SM CTAs an SM, each thread
+    walking at least MIN_ROWS_A_THREAD rows and a CTA at most MAX_K_CHUNK;
+    ``_cluster`` sizes the cluster."""
+    vec = 128 // bits if bits else 16 // elem_bytes
+    rows = min(4, 128 // vec, 1 << (bc - 1).bit_length())
+    nvec = n // vec
+
+    def tiles(ts):
+        return -(-nvec // (ts // nseg))
+    slots = min((32, 16), key=lambda ts: (tiles(ts) * ts - nvec * nseg, -ts))
+    nsub = GEMV_THREADS // slots
+    fit = max(1, CTAS_AN_SM * SMS // tiles(slots))
+    least = -(-K // MAX_K_CHUNK)
+    most = max(1, K // (nsub * MIN_ROWS_A_THREAD))
+    ks = max(least, min(fit, most))
+    if ks > MAX_CLUSTER and all(ks % c for c in range(2, MAX_CLUSTER + 1)):
+        ks += 1 if ks - 1 < least else -1  # a prime split takes no cluster
+    ck = _cluster(ks, bc, slots // nseg * vec)
+    nck = ks // ck
+    return GemvPlan(vec=vec, rows=rows, passes=-(-bc // rows), slots=slots,
+                    tiles=tiles(slots), k_chunk=-(-K // ks), k_split=ks,
+                    cluster=ck, clusters=nck,
+                    partial=nck * bc * nseg * n if nck > 1 else 0,
+                    counters=tiles(slots) * ck)
+
+
+GEMV_BATCH = 8         # items a thread reduces at once (kBatch)
+MAX_ROUNDS = 8         # load rounds of a cross-cluster reduction
+
+
+def _cluster(ks: int, bc: int, items: int) -> int:
+    """The cluster size along K for a split of ``ks`` CTAs over column
+    tiles of ``items`` items a row: the smallest of 2..MAX_CLUSTER that
+    divides ``ks`` and leaves the last CTA of each slice at most
+    MAX_ROUNDS rounds of loads (GEMV_BATCH items a thread, four clusters'
+    sums a round), else the largest divisor up to MAX_CLUSTER.  Small
+    clusters schedule better where many CTAs run (Qwen2-VL-7B's widths);
+    one column tile with a long K (LLaVA-OneVision-0.5B's down
+    projection) needs large ones, or the last CTAs' reduction dominates
+    (``scripts/fused_mlp_plan_sweep.py``)."""
+    def rounds(ck):
+        per_thread = -(-bc * items // (ck * GEMV_THREADS))
+        return -(-(ks // ck) // 4) * -(-per_thread // GEMV_BATCH)
+    divisors = [c for c in range(1, MAX_CLUSTER + 1) if ks % c == 0]
+    for c in divisors[1:]:
+        if rounds(c) <= MAX_ROUNDS:
+            return c
+    return divisors[-1]
+
+
+def mlp_plans(D: int, F: int, gated: bool, bits: Sequence[int],
+              elem_bytes: int, bc: int) -> Tuple[GemvPlan, GemvPlan]:
+    """The plans of the MLP's two stages: (bc, D) x (D, [up | gate]) with
+    the GLU epilogue, then (bc, F) x (F, D); ``bits`` of up and down."""
+    return (gemv_plan(D, F, 2 if gated else 1, bits[0], elem_bytes, bc),
+            gemv_plan(F, D, 1, bits[1], elem_bytes, bc))
+
+
+# arrival counters of the MLP GEMV, one buffer a device, zero between
+# calls (the last CTA of each tile and rank resets its counter); calls on
+# one stream run one after another
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
 
 
 class _Weight:
@@ -179,7 +298,8 @@ def launch_fused_qkv(h, wq, wk, wv, bq=None, bk=None, bv=None):
 
 def launch_fused_mlp(h, w_up, w_down, w_gate, act: str, gated: bool):
     """h (bc,1,D) -> (bc,1,D) on the card; ``act`` is the activation
-    applied to the gate (gated) or to up.  Returns (out, launches)."""
+    applied to the gate (gated) or to up.  Two device kernels a call (the
+    split-K GEMV of each stage, ``mlp_plans``).  Returns (out, launches)."""
     dtype = _activation_dtype(h, "fused_mlp")
     if act not in ACTS:
         raise ValueError(f"fused_mlp: unsupported activation {act!r}")
@@ -188,39 +308,53 @@ def launch_fused_mlp(h, w_up, w_down, w_gate, act: str, gated: bool):
     up = _Weight(w_up, D, dtype, "w_up")
     F = up.n
     gate = _Weight(w_gate, D, dtype, "w_gate") if gated else None
-    if gate is not None and gate.n != F:
-        raise ValueError("fused_mlp: w_gate and w_up differ in width")
+    if gate is not None and (gate.n != F or (gate.bits, gate.group)
+                             != (up.bits, up.group)):
+        raise ValueError("fused_mlp: w_gate and w_up differ in width, bits "
+                         "or group")
     down = _Weight(w_down, F, dtype, "w_down")
     if down.n != D:
         raise ValueError(f"fused_mlp: w_down gives {down.n} outputs, "
                          f"expected {D}")
+    for w, name in ((up, "w_up"), (down, "w_down")):
+        _gemv_takes(w, dtype, name)
     ws = [up, gate if gate is not None else up, down]
     x = h.reshape(bc, D).contiguous()
     out = torch.empty((bc, 1, D), dtype=dtype, device=h.device)
-    n1 = F * (2 if gated else 1)
-    tiles1 = (2 if gated else 1) * _tiles(up, h.element_size())
-    tiles2 = _tiles(down, h.element_size())
-    kc1, kc2 = k_chunk_for(D, tiles1), k_chunk_for(F, tiles2)
     lib = library()
     launches = 0
     for r0, r1 in _rows(h):
         rows = r1 - r0
+        p1, p2 = mlp_plans(D, F, gated, (up.bits, down.bits),
+                           h.element_size(), rows)
         mid = torch.empty((rows, F), dtype=dtype, device=h.device)
-        p1 = torch.empty((-(-D // kc1), rows, n1), dtype=torch.float32,
-                         device=h.device)
-        p2 = torch.empty((-(-F // kc2), rows, D), dtype=torch.float32,
-                         device=h.device)
+        s1 = torch.empty(p1.partial, dtype=torch.float32, device=h.device)
+        s2 = torch.empty(p2.partial, dtype=torch.float32, device=h.device)
+        counters = _counters(h.device, p1.counters + p2.counters)
         err = lib.rt_fused_mlp(
             x[r0:r1].data_ptr(), rows, D, F, int(gated),
             ACTS[act], _ptr_array([w.ptrs[0] for w in ws]),
             _ptr_array([w.ptrs[1] for w in ws]),
             _int_array([w.bits for w in ws]),
             _int_array([w.group for w in ws]), mid.data_ptr(),
-            out[r0:r1].data_ptr(), p1.data_ptr(), kc1, p2.data_ptr(), kc2,
-            DTYPES[dtype], _stream())
+            out[r0:r1].data_ptr(), _int_array(p1.args()), s1.data_ptr(),
+            _int_array(p2.args()), s2.data_ptr(), counters.data_ptr(),
+            p1.counters, DTYPES[dtype], _stream())
         _check(err, "fused_mlp")
         launches += 1
     return out, launches
+
+
+def _gemv_takes(w: "_Weight", dtype: torch.dtype, name: str):
+    """Raise unless the MLP GEMV takes weight ``w``: outputs a multiple of
+    the 16-byte vector's, and one scale group a vector (two for q2: the
+    group a multiple of 32 outputs)."""
+    vec = 128 // (w.bits or torch.finfo(dtype).bits)
+    per_scale = vec // 2 if w.bits == 2 else vec
+    if w.n % vec or (w.bits and w.group % per_scale):
+        raise ValueError(f"fused_mlp: {name} ({w.n} outputs, {w.bits} bits, "
+                         f"group {w.group}) needs outputs a multiple of "
+                         f"{vec} and a group a multiple of {per_scale}")
 
 
 def launch_kv_row_scatter(blk, off, k_rows, v_rows, k_pool, v_pool):

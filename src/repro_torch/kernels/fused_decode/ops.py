@@ -5,10 +5,12 @@ run the plain version (``ref.py``); CUDA tensors launch the Hopper kernel
 (``kernel.py``) or raise — there is no fallback.  Each wrapper counts its
 calls into the compiled library under its own name in the kernels'
 launch-count registry (``repro_torch.kernels``), so a run can show that
-it went through the kernels.  One such call runs several device
-kernels: ``fused_qkv`` two (partial GEMV, epilogue) when its three
-weights share a bit width, ``fused_mlp`` four (two per GEMV stage),
-``kv_scatter`` one.  The GEMV kernels take bf16 or fp32 activations.
+it went through the kernels; ``fused_mlp`` also counts each call under
+``fused_mlp/gemv``, its split-K GEMV kernel.  One such call runs several
+device kernels: ``fused_qkv`` two (partial GEMV, epilogue) when its
+three weights share a bit width, ``fused_mlp`` two (the GEMV of each
+stage, its epilogue inside), ``kv_scatter`` one.  The GEMV kernels take
+bf16 or fp32 activations.
 
 ``cohort_step`` is the engine-facing entry: the batched decode step over
 the paged pool.  ``use_fused=False`` runs the composed step
@@ -69,6 +71,7 @@ def fused_mlp(h, w_up, w_down, w_gate=None, *, act: str):
     out, n = K.launch_fused_mlp(h, w_up, w_down, w_gate,
                                 GATED[act] if gated else act, gated)
     count_launch("fused_mlp", n)
+    count_launch("fused_mlp/gemv", n)
     return out
 
 
@@ -83,7 +86,7 @@ def kv_scatter(blk, off, k_rows, v_rows, k_pool, v_pool):
     return out
 
 
-register_kernels("fused_qkv", "fused_mlp", "kv_scatter")
+register_kernels("fused_qkv", "fused_mlp", "fused_mlp/gemv", "kv_scatter")
 
 
 def fused_supported(cfg) -> bool:

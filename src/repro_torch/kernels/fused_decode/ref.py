@@ -6,7 +6,9 @@ written with torch ops only; ``ref_cohort_step`` is the composed decode
 step over the pool (paged attention K/V and slot-indexed state).  The
 wrappers in ``ops.py`` run these for CPU tensors; the tests hold them
 against the reference package, and the card's checks hold each kernel
-against them.
+against them.  ``emulate_fused_mlp`` repeats the MLP kernel's summation
+order (``kernel.gemv_plan``'s split-K plan) in plain PyTorch, for the
+tests to hold that order against the reference.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from repro_torch.core.quantize import QTensor, dequantize
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import model as M
+from repro_torch.models.common import activation
 
 
 def _dq(w):
@@ -40,6 +43,64 @@ def ref_fused_mlp(h, w_up, w_down, w_gate=None, *, act: str):
     if w_gate is not None:
         p["w_gate"] = _dq(w_gate)
     return mlp_mod.apply_mlp(p, act, h)
+
+
+def emulate_gemv(x, w, plan):
+    """fp32 sums x (bc, K) @ w (K, n) in the order of the MLP kernel's
+    split-K plan ``plan`` (``kernel.GemvPlan``): each thread adds its K
+    rows k0 + sub + s nsub in turn (a product then an add, where the
+    kernel fuses them), a CTA adds its sub-rows in order, a cluster its
+    CTAs in rank order, and the clusters' sums are added in cluster
+    order."""
+    x, w = x.float(), w.float()
+    bc, K = x.shape
+    nsub = 128 // plan.slots
+    steps = -(-plan.k_chunk // nsub)
+    clusters = []
+    for c in range(plan.clusters):
+        total = None
+        for r in range(plan.cluster):
+            k0 = (c * plan.cluster + r) * plan.k_chunk
+            kn = max(0, min(plan.k_chunk, K - k0))
+            acc = torch.zeros((bc, nsub, w.shape[1]), device=x.device)
+            for s in range(steps):
+                kk = torch.arange(nsub, device=x.device) + s * nsub
+                ok = kk < kn
+                rows = (k0 + kk).clamp(max=K - 1)
+                term = x[:, rows, None] * w[rows][None]
+                acc = acc + torch.where(ok[None, :, None], term,
+                                        torch.zeros((), device=x.device))
+            cta = acc[:, 0]
+            for q in range(1, nsub):
+                cta = cta + acc[:, q]
+            total = cta if total is None else total + cta
+        clusters.append(total)
+    out = clusters[0]
+    for t in clusters[1:]:
+        out = out + t
+    return out
+
+
+def emulate_fused_mlp(h, w_up, w_down, w_gate=None, *, act: str,
+                      plans):
+    """``ref_fused_mlp`` with the kernel's summation order (``plans``:
+    the two stages' ``GemvPlan``) and its roundings to h's dtype T: up
+    and gate each to T, mid = rt(rt(act(rt(gate))) * rt(up)) (or
+    rt(act(rt(up)))), out to T."""
+    dt = h.dtype
+    bc, _, D = h.shape
+    x = h.reshape(bc, D)
+
+    def rt(t):
+        return t.to(dt).float()
+    up = rt(emulate_gemv(x, _dq(w_up), plans[0]))
+    if w_gate is not None:
+        gate = rt(emulate_gemv(x, _dq(w_gate), plans[0]))
+        mid = rt(rt(activation(mlp_mod.GATED[act])(gate)) * up)
+    else:
+        mid = rt(activation(act)(up))
+    out = emulate_gemv(mid, _dq(w_down), plans[1])
+    return out.to(dt).reshape(bc, 1, D)
 
 
 def ref_kv_scatter(blk, off, k_rows, v_rows, k_pool, v_pool):

@@ -1,9 +1,12 @@
 """Launcher of the Hopper SSD chunked-scan kernel (``csrc/ssd.cu``).
 
 Checks device, dtypes, shapes and strides, allocates the outputs and the
-fp32 scratch (each chunk's state, each chunk's decay), launches on the
-current stream through the C entry point and raises if the entry returns
-a CUDA error.  The library is built on first use (``kernels/build.py``).
+fp32 scratch (each chunk's state, each chunk's decay, each chunk's C.B^T
+per group), launches on the current stream through the C entry point and
+raises if the entry returns a CUDA error.  :func:`route` names the
+kernels a call runs, from the inputs' dtype: ``mma`` (bf16: tensor-core
+products, the fp32 operand split into three bf16 terms) or ``simt``
+(fp32: FFMA).  The library is built on first use (``kernels/build.py``).
 Runs on the card only; the CPU path is the plain version in ``ref.py``,
 chosen by the wrapper in ``ops.py``.
 """
@@ -28,10 +31,16 @@ _L = ctypes.c_longlong
 def library() -> ctypes.CDLL:
     lib = load_library(LIBRARY, SOURCES)
     if not getattr(lib, "_typed", False):
-        lib.rt_ssd.argtypes = [_P] * 9 + [_I] * 8 + [_L] * 12 + [_P]
+        lib.rt_ssd.argtypes = [_P] * 10 + [_I] * 8 + [_L] * 12 + [_P]
         lib.rt_ssd.restype = _I
         lib._typed = True
     return lib
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernels a call with x/B/C of ``dtype`` runs: ``mma`` for bf16,
+    ``simt`` for fp32."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -79,11 +88,12 @@ def launch_ssd(x, dt, A, Bm, Cm, *, chunk: int):
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
     states = torch.empty((B, H, nc, P, N), dtype=torch.float32, device=dev)
     decay = torch.empty((B, H, nc), dtype=torch.float32, device=dev)
+    cb = torch.empty((B, G, nc, L, L), dtype=torch.float32, device=dev)
     strides = [s for t in (x, dt, Bm, Cm) for s in t.stride()[:3]]
     err = library().rt_ssd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), y.data_ptr(), h.data_ptr(), states.data_ptr(),
-        decay.data_ptr(), B, S, H, P, G, N, L,
+        decay.data_ptr(), cb.data_ptr(), B, S, H, P, G, N, L,
         int(x.dtype == torch.bfloat16), *strides,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -4,8 +4,10 @@
 the plain chunked form (``ref.ref_ssd_chunked``); CUDA tensors launch
 the Hopper kernel (``kernel.py``) or raise — there is no fallback.  Each
 launch adds one to the count ``ssd`` in the kernels' launch-count
-registry (``repro_torch.kernels``); one launch runs three device
-kernels (chunk states, the scan over chunks, the outputs).
+registry (``repro_torch.kernels``) and one to ``ssd/mma`` (bf16 inputs)
+or ``ssd/simt`` (fp32; ``kernel.route``); one launch runs four device
+kernels (C.B^T per group, chunk states, the scan over chunks, the
+outputs).
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd: unsupported device {x.device}")
     out = K.launch_ssd(x, dt, A, Bm, Cm, chunk=chunk)
     count_launch("ssd")
+    count_launch(f"ssd/{K.route(x.dtype)}")
     return out
 
 
-register_kernels("ssd")
+register_kernels("ssd", "ssd/mma", "ssd/simt")

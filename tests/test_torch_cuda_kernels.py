@@ -24,7 +24,10 @@ from repro_torch.kernels.fused_decode import (cohort_step, fused_mlp,
                                               ref_fused_qkv, ref_kv_scatter)
 from repro_torch.kernels.linear_attention import (
     linear_attention, ref_linear_attention_chunked)
+from repro_torch.kernels.fused_decode import kernel as FDK
+from repro_torch.kernels.fused_decode.ref import emulate_fused_mlp
 from repro_torch.kernels.ssd import ref_ssd_chunked, ssd
+from repro_torch.kernels.ssd.ref import emulate_ssd_mma
 
 pytestmark = pytest.mark.cuda
 
@@ -493,13 +496,22 @@ def _ssd_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", SSD_SHAPES)
 def test_ssd_kernel_matches_plain(cuda, shape, dtype):
+    """Both routes against the plain version; bf16 inputs launch the
+    tensor-core route and agree with the plain emulation of its
+    arithmetic (C.B^T once per group, split fp32 operands), fp32 the FFMA
+    route."""
     B, S, H, P, G, N, chunk = shape
     args = _ssd_inputs(cuda, B, S, H, P, G, N, dtype, seed=S + N)
     reset_launch_counts()
     got = ssd(*args, chunk=chunk)
     torch.cuda.synchronize()
-    assert launch_counts()["ssd"] == 1
+    counts = launch_counts()
+    route = "mma" if dtype == torch.bfloat16 else "simt"
+    assert counts["ssd"] == counts[f"ssd/{route}"] == 1
+    assert counts["ssd/mma"] + counts["ssd/simt"] == 1
     _ssd_close(got, ref_ssd_chunked(*args, chunk=chunk), dtype)
+    if dtype == torch.bfloat16:
+        _ssd_close(got, emulate_ssd_mma(*args, chunk=chunk), dtype)
 
 
 def test_ssd_kernel_state_at_mamba2_decay_rates(cuda):
@@ -1426,3 +1438,122 @@ def test_fp32_engine_on_card_runs_the_fp32_kernels(cuda):
         assert counts["fused_qkv"] == cfg.n_layers * steps > 0
         assert counts["flash_attention"] > 0
         assert counts["flash_attention"] % cfg.n_layers == 0
+
+
+# -- the redesigned SSD routes and the MLP's split-K GEMV ----------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_kernel_bit_equal_run_to_run(cuda, dtype):
+    """Both routes are deterministic: two calls on the same inputs at
+    Mamba-2-1.3B's prefill shape give the same bits."""
+    args = _ssd_inputs(cuda, 2, 2048, 64, 64, 1, 128, dtype, seed=11)
+    y1, h1 = ssd(*args, chunk=256)
+    y2, h2 = ssd(*args, chunk=256)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_ssd_kernel_refuses_mixed_dtypes(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 64, 4, 16, 1, 16)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="must share"):
+        ssd(x, dt, A, Bm.float(), Cm.float(), chunk=32)
+    with pytest.raises(ValueError, match="float32"):
+        ssd(x, dt.bfloat16(), A, Bm, Cm, chunk=32)
+    assert launch_counts()["ssd"] == 0
+
+
+MLP_WIDTHS = {"llava-onevision-0.5b": (896, 4864),
+              "qwen2-vl-7b": (3584, 18944)}
+MLP_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+
+
+def _mlp_weights(dev, D, F, dtype, spec, gated=True, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(shape):
+        t = (torch.randn(shape, generator=g, device=dev)
+             / shape[0] ** 0.5).to(dtype)
+        return t if spec is None else quantize(t, spec)
+    return w((D, F)), w((F, D)), (w((D, F)) if gated else None)
+
+
+def _mlp_close(got, want, dtype):
+    """Each cohort row within the gate of its largest plain value."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.isfinite().all()
+    err = (got.float() - want.float()).abs().amax(-1)
+    ratio = err / want.float().abs().amax(-1)
+    assert ratio.max().item() <= MLP_TOL[dtype], ratio.max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bc", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("arch", list(MLP_WIDTHS))
+def test_fused_mlp_gemv_at_served_widths(cuda, arch, bc, dtype):
+    """q4 g32 (the served packing) at each served model's widths: two
+    device kernels a call counted under ``fused_mlp/gemv``, each row
+    within 2e-2 (bf16) or 1e-5 (fp32) of the plain version's largest
+    value, within the same of the plain emulation of the kernel's
+    summation order, and the arrival counters left at zero."""
+    D, F = MLP_WIDTHS[arch]
+    up, down, gate = _mlp_weights(cuda, D, F, dtype,
+                                  QuantSpec(4, group_size=32), seed=bc)
+    h = torch.randn((bc, 1, D), generator=torch.Generator(
+        device=cuda).manual_seed(bc), device=cuda).to(dtype)
+    reset_launch_counts()
+    got = fused_mlp(h, up, down, gate, act="swiglu")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["fused_mlp"] == counts["fused_mlp/gemv"] == 1
+    _mlp_close(got, ref_fused_mlp(h, up, down, gate, act="swiglu"), dtype)
+    plans = FDK.mlp_plans(D, F, True, (4, 4), h.element_size(), bc)
+    _mlp_close(got, emulate_fused_mlp(h, up, down, gate, act="swiglu",
+                                      plans=plans), dtype)
+    assert not FDK._COUNTERS[h.device].any()
+
+
+@pytest.mark.parametrize("label", list(SPECS))
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_mlp_gemv_every_packing(cuda, label, act, dtype):
+    """Dense, q2, q4 and q8 weights, gated and not, at LLaVA's widths and
+    a cohort of 6 (two passes for q2, q4, q8 and dense alike)."""
+    D, F = MLP_WIDTHS["llava-onevision-0.5b"]
+    up, down, gate = _mlp_weights(cuda, D, F, dtype, SPECS[label],
+                                  gated=act == "swiglu", seed=3)
+    h = torch.randn((6, 1, D), generator=torch.Generator(
+        device=cuda).manual_seed(6), device=cuda).to(dtype)
+    got = fused_mlp(h, up, down, gate, act=act)
+    _mlp_close(got, ref_fused_mlp(h, up, down, gate, act=act), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", list(MLP_WIDTHS))
+def test_fused_mlp_gemv_bit_equal_run_to_run(cuda, arch, dtype):
+    """The split-K reduction runs in a fixed order (sub-rows, cluster
+    ranks, clusters): two calls on the same inputs give the same bits."""
+    D, F = MLP_WIDTHS[arch]
+    up, down, gate = _mlp_weights(cuda, D, F, dtype,
+                                  QuantSpec(4, group_size=32), seed=9)
+    h = torch.randn((4, 1, D), generator=torch.Generator(
+        device=cuda).manual_seed(9), device=cuda).to(dtype)
+    outs = [fused_mlp(h, up, down, gate, act="swiglu") for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_fused_mlp_gemv_refuses_what_it_does_not_take(cuda):
+    D, F = 256, 512
+    h = torch.randn((2, 1, D), device=cuda).to(torch.bfloat16)
+    up, down, gate = _mlp_weights(cuda, D, F, torch.bfloat16,
+                                  QuantSpec(4, group_size=32))
+    q8 = _mlp_weights(cuda, D, F, torch.bfloat16, QuantSpec(8))[2]
+    g16 = _mlp_weights(cuda, D, F, torch.bfloat16,
+                       QuantSpec(4, group_size=16))
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="differ in width, bits"):
+        fused_mlp(h, up, down, q8, act="swiglu")
+    with pytest.raises(ValueError, match="a group a multiple of 32"):
+        fused_mlp(h, g16[0], g16[1], g16[2], act="swiglu")
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fused_mlp(h.half(), up, down, gate, act="swiglu")
+    assert launch_counts()["fused_mlp"] == 0

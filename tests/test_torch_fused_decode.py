@@ -9,6 +9,10 @@ plain versions there).  Here:
   interpret-mode call of each Pallas kernel — within 1e-5 * (1 + max|ref|)
   in fp32 (summation order only) and 2e-2 * max|ref| in bf16 (one bf16
   rounding step, 2^-8, at different points of the two frameworks);
+* the MLP kernel's launch plan (``kernel.mlp_plans``) covers every
+  output and K row once at every served width, and its fixed-order
+  split-K reduction (``ref.emulate_fused_mlp``) matches the reference
+  within the same tolerances;
 * ``kv_scatter`` is bit-exact and sentinel rows leave the pool's bits
   unchanged;
 * the composed and the fused ``cohort_step`` both match the reference's
@@ -16,6 +20,8 @@ plain versions there).  Here:
   with sentinel rows, on reduced llava and (M-RoPE) reduced qwen2-vl
   (the reference's step under ``jax.jit``, as its engine runs it).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +33,8 @@ from repro.kernels import fused_decode as RF
 from repro_torch import bridge
 from repro_torch.core import quantize as TQ
 from repro_torch.kernels import fused_decode as TF
+from repro_torch.kernels.fused_decode import kernel as FK
+from repro_torch.kernels.fused_decode.ref import emulate_fused_mlp
 
 SPEC = {"dense": None, "q4": (4, 32), "q8": (8, 64)}
 ref_cohort_step = jax.jit(RF.ref_cohort_step, static_argnums=(1,),
@@ -203,3 +211,83 @@ def _check_cohort_step(arch, dtype, bc):
             if rw.size:
                 assert float(np.abs(rw - tw).max()) <= \
                     wtol * float(np.abs(rw).max())
+
+
+# -- the MLP kernel's split-K plan and its summation order ----------------------
+
+SERVED_MLP = {"llava-onevision-0.5b": (896, 4864), "qwen2-vl-7b": (3584, 18944)}
+
+
+@pytest.mark.parametrize("bc", range(1, 9))
+@pytest.mark.parametrize("bits", [0, 2, 4, 8])
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("arch", list(SERVED_MLP))
+def test_gemv_plan_covers_every_output_and_row_once(arch, elem_bytes, bits,
+                                                    bc):
+    """Both stages' plans at every served width, dtype, packing and
+    cohort: the column tiles cover every 16-byte vector of each segment
+    exactly once, the CTAs' K ranges every row exactly once, the K split
+    is whole clusters of at most 8 CTAs, each pass at most 4 rows and
+    128 accumulators a thread, the scratch sizes match, and at
+    Qwen2-VL-7B's widths each stage runs at least 132 CTAs."""
+    D, F = SERVED_MLP[arch]
+    plans = FK.mlp_plans(D, F, True, (bits, bits), elem_bytes, bc)
+    for p, (K, n, nseg) in zip(plans, ((D, F, 2), (F, D, 1))):
+        assert p.vec == (128 // bits if bits else 16 // elem_bytes)
+        nvec = n // p.vec
+        sps = p.slots // nseg
+        hits = np.zeros((nseg, p.tiles * sps), int)
+        for tile in range(p.tiles):
+            for slot in range(p.slots):
+                hits[slot // sps, tile * sps + slot % sps] += 1
+        assert (hits[:, :nvec] == 1).all() and hits.shape[1] - nvec < sps
+        rows = np.zeros(K, int)
+        for kb in range(p.k_split):
+            rows[kb * p.k_chunk:min(K, (kb + 1) * p.k_chunk)] += 1
+        assert (rows == 1).all() and p.k_chunk <= FK.MAX_K_CHUNK
+        assert p.k_split == p.cluster * p.clusters
+        assert 1 <= p.cluster <= FK.MAX_CLUSTER
+        assert p.rows * p.passes >= bc and p.rows <= 4
+        assert p.rows * p.vec <= 128
+        assert p.partial == (p.clusters * bc * nseg * n if p.clusters > 1
+                             else 0)
+        assert p.counters == p.tiles * p.cluster
+        assert p.args() == (p.rows, p.slots, p.k_chunk, p.cluster,
+                            p.clusters)
+        if arch == "qwen2-vl-7b":
+            assert p.tiles * p.k_split >= FK.SMS
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("split", ["plan", "clusters", "ragged"])
+def test_mlp_reduction_order_matches_reference(dtype, split):
+    """The kernel's fixed-order split-K reduction (``emulate_fused_mlp``:
+    thread rows, CTA sub-rows, cluster ranks, clusters, each in order)
+    against the reference's ``fused_mlp_pallas`` in interpret mode and its
+    ``ref_fused_mlp``: the plan of these widths, a split over two
+    clusters of 8 CTAs, and 3 clusters of 5 with empty CTAs past K."""
+    rng = np.random.default_rng(11)
+    D, F, bc = 64, 128, 3
+    h = jnp.asarray(rng.standard_normal((bc, 1, D)).astype(np.float32)
+                    ).astype(dtype)
+    th = bridge.array_to_tensor(np.asarray(h), device="cpu")
+    up, down, gate = (_weight(rng, s, "q4", dtype)
+                      for s in ((D, F), (F, D), (D, F)))
+    p1, p2 = FK.mlp_plans(D, F, True, (4, 4), th.element_size(), bc)
+    if split == "clusters":
+        p1 = dataclasses.replace(p1, k_chunk=4, k_split=16, cluster=8,
+                                 clusters=2)
+        p2 = dataclasses.replace(p2, k_chunk=8, k_split=16, cluster=8,
+                                 clusters=2)
+    elif split == "ragged":
+        p1 = dataclasses.replace(p1, k_chunk=5, k_split=15, cluster=5,
+                                 clusters=3)
+        p2 = dataclasses.replace(p2, k_chunk=9, k_split=15, cluster=5,
+                                 clusters=3)
+    got = emulate_fused_mlp(th, up[1], down[1], gate[1], act="swiglu",
+                            plans=(p1, p2))
+    assert got.dtype == th.dtype and tuple(got.shape) == (bc, 1, D)
+    _check(ref_fused_mlp(h, up[0], down[0], gate[0], act="swiglu"), got,
+           dtype)
+    _check(RF.fused_mlp(h, up[0], down[0], gate[0], act="swiglu",
+                        interpret=True), got, dtype)

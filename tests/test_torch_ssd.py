@@ -9,6 +9,10 @@ oracle ``ref_ssd`` and its Pallas kernel in interpret mode at the
 reference tests' three shapes and two chunks; the port's own sequential
 oracle and one-token step against the reference's.
 
+The arithmetic of the kernel's bf16 route (``emulate_ssd_mma``: the
+hi/mid/lo split of ``split3``) is held against the reference the same
+way.
+
 fp32: within 1e-4 of the largest magnitude (the reference kernel tests'
 bound).  bf16 inputs (x, B, C): y is rounded to bf16 after fp32
 arithmetic in both packages, in different summation orders, so it may
@@ -27,6 +31,7 @@ from repro_torch import bridge
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.ssd import ref_ssd as port_ref_ssd
 from repro_torch.kernels.ssd import ssd
+from repro_torch.kernels.ssd.ref import emulate_ssd_mma, split3
 from repro_torch.models.mamba2 import ssd_decode_step
 
 SHAPES = [(2, 128, 4, 32, 1, 32), (1, 256, 8, 64, 2, 64),
@@ -187,3 +192,78 @@ def test_plain_ssd_evaluates_float64_inputs_in_float64():
     for got, want in ((y, wy), (h, wh)):
         err = float(np.abs(got.numpy() - want).max())
         assert err <= 1e-12 * float(np.abs(want).max()), err
+
+
+# -- the kernel's bf16 ("mma") route in plain PyTorch ---------------------------
+
+def _split_exact(v):
+    hi, mid, lo = split3(v)
+    total = hi.double() + mid.double() + lo.double()
+    return torch.equal(total, v.double())
+
+
+def _above_the_floor(v):
+    """The values split3 holds exactly: 0 and |v| >= 2^-110."""
+    return v[(v == 0) | (v.abs() >= 2.0 ** -110)]
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e-6, 1.0, 1e6, 1e30])
+def test_split3_terms_sum_to_the_value(scale):
+    """hi + mid + lo equals the fp32 value exactly, signs and magnitudes
+    spread over each decade around ``scale`` (and zero), at or above
+    2^-110."""
+    rng = np.random.default_rng(int(np.log10(scale)) + 40)
+    v = (rng.standard_normal(20000) * scale
+         * np.exp(rng.uniform(-2.3, 2.3, 20000))).astype(np.float32)
+    v[:3] = 0.0
+    v = _above_the_floor(torch.from_numpy(v))
+    assert v.numel() > 19000
+    assert _split_exact(v)
+    assert all(t.dtype == torch.bfloat16 for t in split3(v))
+
+
+def test_split3_exact_on_the_served_operands():
+    """The three fp32 operands the route splits, at Mamba-2's decay rates
+    (A = -linspace(1, 16), dt up to ~5, 256-position chunks): the intra
+    weights C.B^T exp(cum_i - cum_j) dt_j (down to exp of -thousands,
+    where they flush), the state weights B dt exp(sum after j) and the
+    states before each chunk."""
+    x, dt, _, Bm, Cm = _inputs((1, 512, 8, 16, 1, 32), "float32", seed=12)
+    rng = np.random.default_rng(13)
+    dt = np.log1p(np.exp(rng.standard_normal(dt.shape) + 1.0)).astype(
+        np.float32)
+    A = (-np.linspace(1.0, 16.0, 8)).astype(np.float32)
+    tx, tdt, tA, tB, tC = _torch(x, dt, A, Bm, Cm)
+    L = 256
+    la = (tdt * tA).reshape(1, 2, L, 8)
+    cum = torch.cumsum(la.double(), 2)
+    dec = torch.exp((cum[:, :, :, None] - cum[:, :, None, :]).float())
+    cb = torch.einsum("bkin,bkjn->bkij", tC.reshape(1, 2, L, 32),
+                      tB.reshape(1, 2, L, 32))
+    w = torch.tril(cb[..., None] * dec.clamp(max=1.0)
+                   * tdt.reshape(1, 2, L, 8)[:, :, None])
+    after = torch.flip(torch.cumsum(torch.flip(la, [2]), 2), [2]) - la
+    bw = tB.reshape(1, 2, L, 1, 32) * (tdt.reshape(1, 2, L, 8)
+                                       * torch.exp(after))[..., None]
+    _, h = ssd(tx, tdt, tA, tB, tC, chunk=L)
+    for v in (w, bw, h):
+        assert _split_exact(_above_the_floor(v.flatten()))
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_mma_route_emulation_matches_reference(shape, chunk):
+    """The bf16 route's arithmetic (C.B^T once per group, the fp32
+    operand of every other product split into three bf16 terms, each
+    product summed in fp32) against ``ref_ssd`` and interpret-mode
+    ``ssd_pallas`` on the reference tests' grid: h within 1e-4 of its
+    largest value, y within one bf16 step of its largest magnitude."""
+    arrs = _inputs(shape, "bfloat16", seed=4)
+    y, h = emulate_ssd_mma(*_torch(*arrs), chunk=chunk)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    jarrs = [jnp.asarray(a) for a in arrs]
+    for ry, rh in (ref_ssd(*jarrs),
+                   ref_kernel_ssd(*jarrs, chunk=chunk, interpret=True)):
+        assert tuple(y.shape) == ry.shape and tuple(h.shape) == rh.shape
+        _check_y(ry, y, "bfloat16")
+        assert _rel_err(rh, h) < 1e-4
