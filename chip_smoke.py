@@ -46,11 +46,13 @@ Phases (any failure raises and exits non-zero):
    for each served path the launch counts are reset just before and
    read just after the run, and read around every decode step (every
    bf16 GEMM and flash launch must take the warp-specialised wgmma
-   kernel, every fp32 one the tile / SIMT kernel, every fused-MLP launch
-   the split-K GEMV: the counts per route show it); every fused-MLP call
-   of one captured decode step is held against ``ref_fused_mlp`` on its
-   own inputs, each cohort row within 2e-2 (bf16) or 1e-5 (fp32) of its
-   largest plain value; one
+   kernel, every fp32 one the GEMM's tile kernel and the split-TF32 flash
+   kernel, every fused-MLP launch and every fused-QKV device kernel the
+   split-K GEMV, one a QKV call: the counts per route show it); every
+   fused-QKV and fused-MLP call of one captured decode step is held
+   against ``ref_fused_qkv`` / ``ref_fused_mlp`` on its own inputs, each
+   cohort row within 2e-2 (bf16) or 1e-5 (fp32) of its largest plain
+   value; one
    captured cohort state is decoded again by the fused and by the plain
    composed step (``ref_cohort_step``), which must agree within bf16
    tolerance; for Qwen2-VL one captured prefill group runs again with
@@ -66,7 +68,8 @@ Phases (any failure raises and exits non-zero):
    3b. serve LLaVA-OneVision-0.5B in fp32 with ``attn_q_chunk=0`` and the
    engine's default ``use_fused``: prefill through the fp32 flash kernel
    in every layer (each call held against the plain version within
-   1e-4), decode through the fp32 fused kernels; the largest prefill
+   1e-4, kernel and plain each also against a float64 evaluation),
+   decode through the fp32 fused kernels; the largest prefill
    group rerun through the plain versions (dense attention, dequantize +
    einsum) and a captured cohort state through ``ref_cohort_step`` give
    logits within 5e-2;
@@ -126,7 +129,8 @@ Phases (any failure raises and exits non-zero):
    at both models' widths (and the fp32 instances at LLaVA's over serve
    3b's weights), the flash kernel at Qwen2-VL's prefill shape and head
    counts at hd 64, 128 and 160 beside SDPA (and the fp32 instance at
-   LLaVA's, beside SDPA in fp32), the packed-weight GEMM at every distinct
+   LLaVA's, beside SDPA in fp32, with its route's own bound: three TF32
+   products at 495 TFLOP/s), the packed-weight GEMM at every distinct
    served projection shape (Qwen2-VL and Mamba-2 at 2048 rows, LLaVA at
    1024) beside dequantize + ``matmul`` and ``matmul`` on a dense weight,
    the flash and GEMM times both from the profiler and from CUDA events
@@ -162,6 +166,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16, published
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 (SIMT FFMA), published
+TF32_FLOPS_PER_S = 495e12        # H100 SXM dense TF32, published
 TIME_BC = 4
 # kernel vs plain version, bf16 outputs: both accumulate in fp32 in
 # different orders, so an output may differ by one bf16 rounding step
@@ -259,17 +264,18 @@ DG_TIME_SHAPE = (2048, 3584, 18944)
 GEMMS_PER_LAYER = {"attn": 7, "linear": 7, "mamba": 2}
 # the kernel (launch-count route) every served call of a dtype must take:
 # bf16 the warp-specialised wgmma kernels, fp32 the GEMM's tile kernel and
-# the SIMT flash kernel
+# the split-TF32 flash kernel on the tensor cores
 GEMM_ROUTE = {"bfloat16": "wgmma", "float32": "tile"}
-FLASH_ROUTE = {"bfloat16": "wgmma", "float32": "simt"}
+FLASH_ROUTE = {"bfloat16": "wgmma", "float32": "tf32x3"}
 # the SSD kernel's route by dtype: bf16 the tensor-core products (split
-# fp32 operands), fp32 FFMA; every fused-MLP call takes the split-K GEMV
+# fp32 operands), fp32 FFMA; every fused-MLP call and every fused-QKV
+# device kernel takes the split-K GEMV
 SSD_ROUTE = {"bfloat16": "mma", "float32": "simt"}
 MLP_ROUTE = "gemv"
 # the fused-MLP calls of a captured decode step against the plain
 # version, each cohort row's max |err| over its largest plain value: one
 # bf16 rounding step, or the fp32 GEMVs' gate
-MLP_ROW_TOL = {"bfloat16": KERNEL_TOL, "float32": 1e-5}
+MLP_ROW_TOL = {"bfloat16": KERNEL_TOL, "float32": 1e-5}   # and the QKV's
 # rows of each served model's largest prefill call: the GEMM's per-shape
 # timings run every distinct projection shape at these rows
 DG_SERVED_ROWS = {"qwen2-vl-7b": 2048, "llava-onevision-0.5b": 1024,
@@ -351,6 +357,22 @@ def bound(byt, fl, flops_per_s=BF16_FLOPS_PER_S):
     """(least ms on the card, what bounds it)."""
     t_b, t_f = byt / HBM_BYTES_PER_S, fl / flops_per_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def attention_f64(q, k, v, causal):
+    """Dense GQA attention evaluated in float64 throughout (the yardstick
+    of the fp32 flash route's accuracy)."""
+    import torch
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    qg = q.double().reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bikgh,bjkh->bkgij", qg, k.double()) * hd ** -0.5
+    if causal:
+        keep = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None])
+        s = s.masked_fill(~keep, -1e30)
+    o = torch.einsum("bkgij,bjkh->bikgh", torch.softmax(s, -1), v.double())
+    return o.reshape(B, Sq, H, hd)
 
 
 class Smoke:
@@ -492,11 +514,13 @@ class Smoke:
                                      "worst_err_over_max": worst,
                                      "tol": FUSED_FP32_TOL}
 
-    def flash_held(self, q, k, v, causal, what):
+    def flash_held(self, q, k, v, causal, what, f64=None):
         """The flash kernel against its plain version on q, k, v: bf16
         every output row within KERNEL_TOL of that row's largest plain
         magnitude, fp32 within FLASH_FP32_TOL of the largest (the
-        reference's measure).  Returns (err/max measure, max abs err)."""
+        reference's measure); fp32 kernel and plain each also against a
+        float64 evaluation in that measure, the worst of each kept in
+        ``f64`` where given.  Returns (err/max measure, max abs err)."""
         from repro_torch.kernels.flash_attention import (flash_attention,
                                                          ref_attention)
         got = flash_attention(q, k, v, causal=causal).float()
@@ -509,6 +533,12 @@ class Smoke:
             worst = (err.max() / want.abs().max()).item()
             if worst > FLASH_FP32_TOL:
                 fail(f"flash_attention {what}: err/max {worst}")
+            if f64 is not None:
+                exact = attention_f64(q, k, v, causal)
+                den = exact.abs().max()
+                for key, t in (("kernel", got), ("plain", want)):
+                    f64[key] = max(f64.get(key, 0.0), (
+                        (t.double() - exact).abs().max() / den).item())
             return worst, err.max().item()
         err = err.amax(-1)
         ratio = (err / want.abs().amax(-1)).nan_to_num(nan=0.0, posinf=1e9)
@@ -538,7 +568,7 @@ class Smoke:
         torch = self.torch
         cases = [(B, S, S, H, KV, hd, c) for B, S, H, KV, hd in FLASH_REF_GRID
                  for c in (True, False)] + list(FLASH_HD160)
-        worst = {}
+        worst, f64 = {}, {}
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).replace("torch.", "")
             for B, Sq, Sk, H, KV, hd, causal in cases:
@@ -547,7 +577,7 @@ class Smoke:
                 v = self.randn(B, Sk, KV, hd, dtype=dtype)
                 w, err = self.flash_held(
                     q, k, v, causal, f"{name} B={B} Sq={Sq} Sk={Sk} H={H} "
-                    f"KV={KV} hd={hd} causal={causal}")
+                    f"KV={KV} hd={hd} causal={causal}", f64)
                 worst[name] = max(worst.get(name, 0.0), w)
                 if dtype == torch.bfloat16:
                     self.errs["flash_attention"] = max(
@@ -557,6 +587,7 @@ class Smoke:
             "cases": [list(c) for c in cases], "dtypes": sorted(worst),
             "worst": {"bfloat16_row_err_over_row_max": worst["bfloat16"],
                       "float32_err_over_max": worst["float32"]},
+            "float32_vs_float64_err_over_max": f64,
             "tol": {"bfloat16_row": KERNEL_TOL, "float32": FLASH_FP32_TOL}}
 
     def check_cache_update(self, cfg):
@@ -1045,6 +1076,45 @@ class MlpCalls:
         self.ops.fused_mlp = self.inner
 
 
+class QkvCalls(MlpCalls):
+    """``MlpCalls`` for ``fused_decode.ops.fused_qkv``: each call made
+    while ``armed`` against ``ref_fused_qkv`` on its own inputs, each
+    cohort row of q, k and v within MLP_ROW_TOL of its largest plain
+    value."""
+
+    def __init__(self):
+        from repro_torch.kernels.fused_decode import ops, ref
+        self.ops, self.inner, self.ref = ops, ops.fused_qkv, ref.ref_fused_qkv
+        self.armed, self.calls, self.worst, self.bc = False, 0, 0.0, 0
+
+    def __call__(self, h, *args):
+        outs = self.inner(h, *args)
+        if not self.armed:
+            return outs
+        dtype = str(h.dtype).replace("torch.", "")
+        for out, want in zip(outs, self.ref(h, *args)):
+            if not (out.shape == want.shape and out.dtype == want.dtype
+                    and out.isfinite().all()):
+                fail(f"served fused_qkv at {tuple(h.shape)}: shape, dtype "
+                     f"or non-finite output")
+            o, w = out.float().flatten(1), want.float().flatten(1)
+            worst = ((o - w).abs().amax(-1) / w.abs().amax(-1)).max().item()
+            if worst > MLP_ROW_TOL[dtype]:
+                fail(f"served fused_qkv at {tuple(h.shape)} {dtype}: row "
+                     f"err/max {worst}")
+            self.worst = max(self.worst, worst)
+        self.calls += 1
+        self.bc = int(h.shape[0])
+        return outs
+
+    def __enter__(self):
+        self.ops.fused_qkv = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.fused_qkv = self.inner
+
+
 class FlashCalls:
     """Keeps every flash-attention call of a serve (q, k, v, causal, out;
     by reference: the model writes none of them after the call):
@@ -1113,11 +1183,11 @@ def serve_path(sm, cfg, reqs, use_fused=None):
             captured["pool"] = tuple(tuple(t.clone() for t in pos)
                                      for pos in eng.slots.pool)
         before = launch_counts()
-        rows.armed = mlps.armed = take
+        rows.armed = mlps.armed = qkvs.armed = take
         try:
             logits, pool = decode(tokens, lengths, slot_ids, tables)
         finally:
-            rows.armed = mlps.armed = False
+            rows.armed = mlps.armed = qkvs.armed = False
         after = launch_counts()
         step_launches.append({k: after[k] - before[k] for k in after
                               if after[k] != before[k]})
@@ -1152,7 +1222,8 @@ def serve_path(sm, cfg, reqs, use_fused=None):
     reset_launch_counts()
     t0 = time.perf_counter()
     with GemmCalls() as gemms, RowUpdateCalls() as rows, \
-            FlashCalls() as flashes, MlpCalls() as mlps, eng:
+            FlashCalls() as flashes, MlpCalls() as mlps, \
+            QkvCalls() as qkvs, eng:
         done = eng.run()
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
@@ -1175,8 +1246,8 @@ def serve_path(sm, cfg, reqs, use_fused=None):
             fail(f"{cfg.name}: request {r.rid} tokens {r.out_tokens}")
     # each decode step: the fused kernels, or two row updates a layer;
     # one KV-row scatter either way
-    per_step = ({"fused_qkv": L, "fused_mlp": L, f"fused_mlp/{MLP_ROUTE}": L,
-                 "kv_scatter": 1} if fused
+    per_step = ({"fused_qkv": L, f"fused_qkv/{MLP_ROUTE}": L, "fused_mlp": L,
+                 f"fused_mlp/{MLP_ROUTE}": L, "kv_scatter": 1} if fused
                 else {"cache_row_update": 2 * L, "kv_scatter": 1})
     per_call = GEMMS_PER_LAYER["attn"] * L
     want = {k: 0 for k in launches}
@@ -1195,6 +1266,9 @@ def serve_path(sm, cfg, reqs, use_fused=None):
     if not fused and rows.calls != 2 * L:
         fail(f"{cfg.name}: {rows.calls} row-update calls held in the "
              f"captured step, expected {2 * L}")
+    if fused and qkvs.calls != L:
+        fail(f"{cfg.name}: {qkvs.calls} fused-QKV calls held in the "
+             f"captured step, expected {L}")
     if fused and mlps.calls != L:
         fail(f"{cfg.name}: {mlps.calls} fused-MLP calls held in the "
              f"captured step, expected {L}")
@@ -1226,25 +1300,30 @@ def serve_path(sm, cfg, reqs, use_fused=None):
         "prefill_batch"][0], prefill_width=captured["prefill_width"][0])
     del gemms
     if fused:
-        serve["mlp_served_check"] = {
-            "calls": mlps.calls, "worst_row_err_over_row_max": mlps.worst,
-            "bc": mlps.bc, "dtype": cfg.dtype, "tol": MLP_ROW_TOL[cfg.dtype]}
+        for key, held in (("qkv_served_check", qkvs),
+                          ("mlp_served_check", mlps)):
+            serve[key] = {
+                "calls": held.calls, "worst_row_err_over_row_max": held.worst,
+                "bc": held.bc, "dtype": cfg.dtype,
+                "tol": MLP_ROW_TOL[cfg.dtype]}
     if not fused:
         serve["row_update_served_check"] = {
             "calls": rows.calls, "bit_exact": True,
             "cache_shape_dtype_strides": sorted(rows.shapes)}
     if flashes.calls:
-        worst, err_max = 0.0, 0.0
+        worst, err_max, f64 = 0.0, 0.0, {}
         with torch.no_grad():
             for q, k, v, causal, _ in flashes.calls:
                 w, err = sm.flash_held(q, k, v, causal, f"{cfg.name}: served "
-                                       f"at {tuple(q.shape)}")
+                                       f"at {tuple(q.shape)}", f64)
                 worst, err_max = max(worst, w), max(err_max, err)
         serve["flash_served_check"] = {
             "calls": len(flashes.calls), "max_abs_err": err_max,
             "worst_err_over_max": worst, "dtype": cfg.dtype,
             "tol": (FLASH_FP32_TOL if cfg.dtype == "float32"
                     else KERNEL_TOL)}
+        if f64:
+            serve["flash_served_check"]["vs_float64_err_over_max"] = f64
     del flashes
 
     # the captured cohort state again through the fused and the plain
@@ -2496,12 +2575,18 @@ def main() -> int:
                 shape=dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal"),
                                FLASH_HD_TIMES[0])))
             entry["library"] = "F.scaled_dot_product_attention(enable_gqa)"
+            r_ms, r_by = bound(flash32_t[4], 3 * flash32_t[5],
+                               TF32_FLOPS_PER_S)
             entry["fp32"] = dict(
                 numbers(flash32_t, FP32_FLOPS_PER_S),
                 shape=dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal"),
                                FLASH_FP32_TIME_SHAPE)),
                 library="F.scaled_dot_product_attention(enable_gqa), fp32",
-                bound_note="bound_ms at the fp32 FFMA peak (67 TFLOP/s)",
+                route=FLASH_ROUTE["float32"],
+                bound_ms_tf32x3_route=r_ms, bound_by_tf32x3_route=r_by,
+                bound_note=("bound_ms at the fp32 FFMA peak (67 TFLOP/s); "
+                            "bound_ms_tf32x3_route: the route's own count, "
+                            "three TF32 products at 495 TFLOP/s dense"),
                 launches_per_prefill_call=(
                     serves[FP32_PATH]["launches"]["flash_attention"]
                     / serves[FP32_PATH]["prefill_calls"]),
@@ -2585,11 +2670,14 @@ def main() -> int:
         else:
             entry.update(numbers(timings[llava.name][name]))
             entry["bc"] = TIME_BC
-            if name == "fused_mlp":
+            if name in ("fused_qkv", "fused_mlp"):
                 entry["launches_by_route"] = by_route(name, {0: MLP_ROUTE})
-                entry["served_check"] = {a: r["mlp_served_check"]
+                check = ("qkv" if name == "fused_qkv" else "mlp") + \
+                    "_served_check"
+                entry["served_check"] = {a: r[check]
                                          for a, r in records.items()
-                                         if "mlp_served_check" in r}
+                                         if check in r}
+            if name == "fused_mlp":
                 entry["decode_step_device_ms"] = {
                     a: serves[a]["decode_step_breakdown"]["device_ms"]
                     for a in (llava.name, FP32_PATH, qwen.name)}

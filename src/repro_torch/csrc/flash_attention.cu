@@ -15,13 +15,14 @@
 // written in the model's own layout through strides: the head axis must
 // be contiguous and rows 16-byte aligned.  Two instances, each at hd 16,
 // 32, 64, 128 and 160 (the reference's test grid and every served or
-// listed config): bf16 on the tensor cores, and fp32.
+// listed config): bf16 and fp32, both on the tensor cores.
 //
 // What bounds it on an H100.  At prefill lengths it is bound by
 // operations: two products of 2 * B * H * Sq * Sk * hd flop each (half of
-// that when causal) against 989 TFLOP/s dense bf16 (67 TFLOP/s fp32
-// FFMA), while it moves only q, k, v and o once (the score matrix never
-// reaches device memory).
+// that when causal) against 989 TFLOP/s dense bf16 (fp32: 67 TFLOP/s
+// FFMA, or three TF32 products at 495 TFLOP/s on the route below), while
+// it moves only q, k, v and o once (the score matrix never reaches device
+// memory).
 //
 // What the design does about it (bf16).  Both products run on wgmma (bf16
 // in, fp32 accumulate), fed by TMA, in a warp-specialised block of three
@@ -46,15 +47,33 @@
 // scheduling of the two consumers and softmax/GEMM overlap inside one
 // consumer (FA3's) are later work.
 //
-// The fp32 instance keeps the same online-softmax structure on SIMT FFMA
-// (as csrc/ssd.cu and csrc/linear_attention.cu do): TF32 tensor cores
-// keep a 10-bit mantissa and would miss the reference's 1e-4 gate.  One
-// block of 128 threads owns 32 query rows of one (batch, head), four
-// threads a row; Q and 32-key K/V tiles sit in shared memory (rows padded
-// by 4 floats: conflict-free float4 reads), each thread holds 8 of its
-// row's 32 scores and hd / 4 output columns in registers, and the fp32
-// probabilities go through a small shared tile into P.V unrounded (the
-// Pallas p.astype(v.dtype) is the identity in fp32).
+// The fp32 instance keeps the same online-softmax structure on the tensor
+// cores in split TF32 ("3xTF32"): plain TF32 keeps a 10-bit mantissa and
+// would miss the reference's 1e-4 gate, so each fp32 operand x is split
+// into hi = tf32(x) and lo = tf32(x - hi) (round to nearest, ties away,
+// in integer operations: a conversion instruction issues at a quarter of
+// their rate; hi + lo is x within 2^-22 |x|), and both products run as
+// hi.hi + hi.lo + lo.hi on warp-level mma.sync m16n8k8 with fp32
+// accumulate: three products at 495 TFLOP/s dense TF32, 2.5x FFMA's 67.  wgmma's tf32 form
+// takes K-major operands only, so P.V would need V transposed in shared
+// memory; mma.sync reads V as stored.  One block owns 64 query rows of one
+// (batch, head), 16 a warp; at hd <= 64 two groups of four warps take
+// alternate K/V tiles and merge their running max, sums and outputs at the
+// end (a causal block's longest rows need every tile; the split halves
+// that path), above one group; blocks are issued longest rows first over
+// all heads, so the short ones fill in behind them.  Q and 64-key K/V tiles sit in shared
+// memory (rows padded by 4 floats: conflict-free fragment reads), K and V
+// staged by cp.async into a ring of two stages, rows past the sequence
+// zero-filled.  Operands are split as their fragments are
+// read.  Each pair of k-steps' six products (and each tile's P.V, every
+// 8-column block of hd in flight at once) are summed in a fresh
+// accumulator, then added to the running fp32 sums, so the tensor cores'
+// own summation sees few terms.  Scores are kept in base 2 (scaled by
+// hd^-1/2 log2(e), exp2).  The score accumulator's (row, key
+// 2t / 2t + 1) is read as P's A fragment (columns t / t + 4) with no
+// shuffle by taking V's rows in the matching order; P stays unrounded
+// (the Pallas p.astype(v.dtype) is the identity in fp32).  Causal blocks
+// stop at the diagonal tile (a warp above it skips the tile).
 //
 // Interface: two plain C entry points, bf16 and fp32 (loaded with ctypes);
 // each launches on the caller's stream, allocates nothing, and returns
@@ -312,11 +331,10 @@ int launch(const void* q, const void* k, const void* v, const Params& p, long lo
   return (int)cudaGetLastError();
 }
 
-// ---- fp32: SIMT FFMA -------------------------------------------------------
+// ---- fp32: split TF32 on mma.sync -------------------------------------------
 
-constexpr int kBM32 = 32;               // query rows per block, 4 threads a row
-constexpr int kBN32 = 32;               // keys per K/V tile
-constexpr int kThreads32 = 128;
+constexpr int kRowsF = 64;              // query rows per block: 4 warps of 16 a key group
+constexpr int kKeysF = 64;              // keys per K/V tile
 
 struct ParamsF {
   const float* q;
@@ -328,143 +346,261 @@ struct ParamsF {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  float scale;
+  float scale_log2;                     // hd^-1/2 * log2(e): scores in base 2
 };
 
-// 32 rows x HD of a strided fp32 source into a shared tile of row stride
-// HD + 4; rows at or past `valid` are zero-filled
 template <int HD>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
-                                              long long row_stride, int valid) {
-  constexpr int kV = HD / 4;            // float4 per row
-  for (int i = threadIdx.x; i < kBN32 * kV; i += kThreads32) {
+struct FlashF {
+  // key groups: at hd <= 64 two sets of 4 warps over the block's rows, each
+  // taking alternate K/V tiles, merged at the end (a causal block's longest
+  // rows need every tile: the split halves that path); above, one (two
+  // groups' tiles would not fit in shared memory)
+  static constexpr int kGroups = HD <= 64 ? 2 : 1;
+  static constexpr int kThreads = 128 * kGroups;
+  static constexpr int kS = HD + 4;     // shared row stride, floats: conflict-free fragments
+  static constexpr int kTile = kKeysF * kS;
+  // Q, then K and V tiles [stage][group] in a ring of two stages
+  static constexpr int kSmem = (kRowsF * kS + 4 * kGroups * kTile) * (int)sizeof(float);
+};
+
+// 64 rows x HD of a strided fp32 source into a shared tile of row stride
+// HD + 4 by cp.async; rows at or past `valid` are zero-filled
+template <int HD>
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
+                                               long long row_stride, int valid) {
+  constexpr int kV = HD / 4;            // 16-byte chunks a row
+  for (int i = threadIdx.x; i < kKeysF * kV; i += FlashF<HD>::kThreads) {
     const int r = i / kV, c = i - r * kV;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid) x = *reinterpret_cast<const float4*>(src + r * row_stride + c * 4);
-    *reinterpret_cast<float4*>(dst + r * (HD + 4) + c * 4) = x;
+    const bool ok = r < valid;
+    cp_async16_zfill(dst + r * FlashF<HD>::kS + 4 * c, ok ? src + r * row_stride + 4 * c : src,
+                     ok);
   }
 }
 
+// d += a b as lo.hi + hi.lo + hi.hi of tf32 terms, the small products
+// first; b's fragment (b0, b1) split here
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
 template <int HD>
-__global__ void __launch_bounds__(kThreads32) flash_attention_f32_kernel(const ParamsF p) {
-  constexpr int kS = HD + 4;            // shared row stride (floats)
-  constexpr int kP = kBN32 + 1;         // probability tile row stride
-  constexpr int kN = kBN32 / 4;         // scores per thread
-  constexpr int kO = HD / 16;           // float4 output columns per thread
+__global__ void __launch_bounds__(FlashF<HD>::kThreads)
+    flash_attention_f32_kernel(const ParamsF p) {
+  using C = FlashF<HD>;
+  constexpr int kS = C::kS, kG = C::kGroups;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
-  float* ks = qs + kBM32 * kS;
-  float* vs = ks + kBN32 * kS;
-  float* ps = vs + kBN32 * kS;
+  float* ks = qs + kRowsF * kS;         // [stage][group][key][kS]
+  float* vs = ks + 2 * kG * C::kTile;
 
-  const int nq = (p.Sq + kBM32 - 1) / kBM32;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * kBM32;   // longest rows first
-  const int b = blockIdx.y / p.H, h = blockIdx.y - b * p.H;
+  // grid (B H, row blocks): every head's longest rows are issued first
+  const int nq = (p.Sq + kRowsF - 1) / kRowsF;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kRowsF;
+  const int b = blockIdx.x / p.H, h = blockIdx.x - b * p.H;
   const int kvh = h / (p.H / p.KV);
   const float* kg = p.k + b * p.k_sb + kvh * p.k_sh;
   const float* vg = p.v + b * p.v_sb + kvh * p.v_sh;
-  int n_tiles = (p.Sk + kBN32 - 1) / kBN32;
-  if (p.causal) n_tiles = min(n_tiles, (min(q0 + kBM32, p.Sq) - 1) / kBN32 + 1);
+  int n_tiles = (p.Sk + kKeysF - 1) / kKeysF;
+  if (p.causal) n_tiles = min(n_tiles, (min(q0 + kRowsF, p.Sq) - 1) / kKeysF + 1);
+  const int n_iter = (n_tiles + kG - 1) / kG;     // tiles it kG + group
 
-  load_rows_f32<HD>(qs, p.q + b * p.q_sb + q0 * p.q_ss + h * p.q_sh, p.q_ss, p.Sq - q0);
-
-  const int r = threadIdx.x >> 2, c = threadIdx.x & 3;  // row r; keys c + 4n
-  const int qpos = q0 + r;
-  float acc[kO][4];
+  // iteration it's tiles into stage it & 1
+  auto stage = [&](int it) {
 #pragma unroll
-  for (int i = 0; i < kO; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m = kNegInf, l = 0.f;
+    for (int gi = 0; gi < kG; ++gi) {
+      const int k0 = (it * kG + gi) * kKeysF;
+      if (k0 < n_tiles * kKeysF) {
+        stage_rows_f32<HD>(ks + ((it & 1) * kG + gi) * C::kTile, kg + k0 * p.k_ss, p.k_ss,
+                           p.Sk - k0);
+        stage_rows_f32<HD>(vs + ((it & 1) * kG + gi) * C::kTile, vg + k0 * p.v_ss, p.v_ss,
+                           p.Sk - k0);
+      }
+    }
+  };
+  stage_rows_f32<HD>(qs, p.q + b * p.q_sb + q0 * p.q_ss + h * p.q_sh, p.q_ss, p.Sq - q0);
+  stage(0);
+  cp_async_commit();
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBN32;
-    __syncthreads();                    // the last tile's readers are done
-    load_rows_f32<HD>(ks, kg + k0 * p.k_ss, p.k_ss, p.Sk - k0);
-    load_rows_f32<HD>(vs, vg + k0 * p.v_ss, p.v_ss, p.Sk - k0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp >> 2;                      // the warp's key group
+  const int r0 = 16 * (warp & 3);                 // the warp's first row in the block
+  const int qpos0 = q0 + r0 + g, qpos1 = qpos0 + 8;
+  float o[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int st = it & 1, k0 = (it * kG + grp) * kKeysF;
+    if (it + 1 < n_iter) stage(it + 1);  // stage it + 1 was last read in iteration it - 1
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
+    // past the block's tiles, or a causal warp whose rows all precede the
+    // tile, the warp skips it (p = 0, corr = 1)
+    if (k0 < n_tiles * kKeysF && !(p.causal && k0 > q0 + r0 + 15)) {
+      const float* kt = ks + (st * kG + grp) * C::kTile;
+      const float* vt = vs + (st * kG + grp) * C::kTile;
 
-    float s[kN];
+      // S = Q Kᵀ: 16 rows x 64 keys, HD / 8 k-steps
+      float s[kKeysF / 8][4];
 #pragma unroll
-    for (int n = 0; n < kN; ++n) s[n] = 0.f;
-    const float* qr = qs + r * kS;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(qr + d);
+      for (int nb = 0; nb < kKeysF / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+      // two k-steps' products at a time summed apart, then added in fp32:
+      // the tensor cores' own sums keep no more than fp32's bits
+#pragma unroll 2
+      for (int kk = 0; kk < HD / 8; kk += 2) {
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        const float4 kv = *reinterpret_cast<const float4*>(ks + (c + 4 * n) * kS + d);
-        s[n] = fmaf(qv.x, kv.x, s[n]);
-        s[n] = fmaf(qv.y, kv.y, s[n]);
-        s[n] = fmaf(qv.z, kv.z, s[n]);
-        s[n] = fmaf(qv.w, kv.w, s[n]);
+        for (int u = 0; u < 2; ++u) {
+          const float* qr = qs + (r0 + g) * kS + 8 * (kk + u) + t;
+          split_tf32(qr[0], ah[u][0], al[u][0]);
+          split_tf32(qr[8 * kS], ah[u][1], al[u][1]);
+          split_tf32(qr[4], ah[u][2], al[u][2]);
+          split_tf32(qr[8 * kS + 4], ah[u][3], al[u][3]);
+        }
+#pragma unroll
+        for (int nb = 0; nb < kKeysF / 8; ++nb) {
+          const float* kr = kt + (8 * nb + g) * kS + 8 * kk + t;
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(d, ah[0], al[0], kr[0], kr[4]);
+          mma_3xtf32(d, ah[1], al[1], kr[8], kr[12]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[nb][i] += d[i];
+        }
+      }
+
+      // mask, scale, online softmax; a row's 64 scores lie in its quad
+      const bool edge = k0 + kKeysF > p.Sk || (p.causal && k0 + kKeysF - 1 > q0 + r0);
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int nb = 0; nb < kKeysF / 8; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = s[nb][i] * p.scale_log2;
+          if (edge) {
+            const int kp = k0 + 8 * nb + 2 * t + (i & 1);
+            if (kp >= p.Sk || (p.causal && kp > ((i & 2) ? qpos1 : qpos0))) x = kNegInf;
+          }
+          s[nb][i] = x;
+          if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
+        }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKeysF / 8; ++kk) {
+        s[kk][0] = exp2f(s[kk][0] - mn0);
+        s[kk][1] = exp2f(s[kk][1] - mn0);
+        s[kk][2] = exp2f(s[kk][2] - mn1);
+        s[kk][3] = exp2f(s[kk][3] - mn1);
+        ps0 += s[kk][0] + s[kk][1];
+        ps1 += s[kk][2] + s[kk][3];
+      }
+      l0 = l0 * corr0 + ps0;            // per-lane partial; the quad's lanes added at the end
+      l1 = l1 * corr1 + ps1;
+
+      // O = O corr + P V, the tile's product summed apart in acc, every
+      // 8-column block of hd in flight at once.  P, unrounded, as A
+      // fragments of key steps of 8: the accumulator's (row, key 2t /
+      // 2t + 1) read as A's columns t / t + 4, so V's rows are taken in
+      // the order 2t, 2t + 1 (the sum over keys allows it)
+      float acc[HD / 8][4];
+#pragma unroll
+      for (int nb = 0; nb < HD / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKeysF / 8; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[kk][0], ph[0], pl[0]);
+        split_tf32(s[kk][2], ph[1], pl[1]);
+        split_tf32(s[kk][1], ph[2], pl[2]);
+        split_tf32(s[kk][3], ph[3], pl[3]);
+        const float* vr = vt + (8 * kk + 2 * t) * kS + g;
+#pragma unroll
+        for (int nb = 0; nb < HD / 8; ++nb)
+          mma_3xtf32(acc[nb], ph, pl, vr[8 * nb], vr[kS + 8 * nb]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < HD / 8; ++nb) {
+        o[nb][0] = fmaf(o[nb][0], corr0, acc[nb][0]);
+        o[nb][1] = fmaf(o[nb][1], corr0, acc[nb][1]);
+        o[nb][2] = fmaf(o[nb][2], corr1, acc[nb][2]);
+        o[nb][3] = fmaf(o[nb][3], corr1, acc[nb][3]);
       }
     }
-    float mx = kNegInf;
+    __syncthreads();                    // stage st is refilled in iteration it + 1
+  }
+
+  if constexpr (kG == 2) {
+    // group 1's running max, sums and output merged into group 0's, the
+    // exchange in the K tiles' shared memory
+    constexpr int kX = HD / 2 + 4;
+    cp_async_wait<0>();
+    float* xs = ks + ((warp & 3) * 32 + lane) * kX;
+    if (grp == 1) {
 #pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      const int kp = k0 + c + 4 * n;
-      float x = s[n] * p.scale;
-      if (kp >= p.Sk || (p.causal && kp > qpos)) x = kNegInf;
-      s[n] = x;
-      mx = fmaxf(mx, x);
+      for (int nb = 0; nb < HD / 8; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xs[4 * nb + i] = o[nb][i];
+      xs[HD / 2] = m0;
+      xs[HD / 2 + 1] = m1;
+      xs[HD / 2 + 2] = l0;
+      xs[HD / 2 + 3] = l1;
     }
-    // a row's 32 scores are spread over the 4 neighbouring lanes of its row
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-    const float mn = fmaxf(m, mx);
-    const float corr = expf(m - mn);
-    m = mn;
-    float psum = 0.f;
-    float* pr = ps + r * kP;
+    __syncthreads();
+    if (grp == 1) return;
+    const float mb0 = xs[HD / 2], mb1 = xs[HD / 2 + 1];
+    const float mn0 = fmaxf(m0, mb0), mn1 = fmaxf(m1, mb1);
+    const float ca0 = exp2f(m0 - mn0), cb0 = exp2f(mb0 - mn0);
+    const float ca1 = exp2f(m1 - mn1), cb1 = exp2f(mb1 - mn1);
+    l0 = l0 * ca0 + xs[HD / 2 + 2] * cb0;
+    l1 = l1 * ca1 + xs[HD / 2 + 3] * cb1;
 #pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      const float e = expf(s[n] - mn);
-      psum += e;
-      pr[c + 4 * n] = e;
-    }
-    l = l * corr + psum;                // per-lane partial; lanes added at the end
-#pragma unroll
-    for (int i = 0; i < kO; ++i) {
-      acc[i][0] *= corr;
-      acc[i][1] *= corr;
-      acc[i][2] *= corr;
-      acc[i][3] *= corr;
-    }
-    __syncwarp();                       // row r's probabilities: its 4 lanes
-#pragma unroll 4
-    for (int n = 0; n < kBN32; ++n) {
-      const float pn = pr[n];
-      const float* vr = vs + n * kS + 4 * c;
-#pragma unroll
-      for (int i = 0; i < kO; ++i) {
-        const float4 vv = *reinterpret_cast<const float4*>(vr + 16 * i);
-        acc[i][0] = fmaf(pn, vv.x, acc[i][0]);
-        acc[i][1] = fmaf(pn, vv.y, acc[i][1]);
-        acc[i][2] = fmaf(pn, vv.z, acc[i][2]);
-        acc[i][3] = fmaf(pn, vv.w, acc[i][3]);
-      }
+    for (int nb = 0; nb < HD / 8; ++nb) {
+      o[nb][0] = o[nb][0] * ca0 + xs[4 * nb] * cb0;
+      o[nb][1] = o[nb][1] * ca0 + xs[4 * nb + 1] * cb0;
+      o[nb][2] = o[nb][2] * ca1 + xs[4 * nb + 2] * cb1;
+      o[nb][3] = o[nb][3] * ca1 + xs[4 * nb + 3] * cb1;
     }
   }
 
-  l += __shfl_xor_sync(kFull, l, 1);
-  l += __shfl_xor_sync(kFull, l, 2);
-  if (qpos < p.Sq) {
-    const float den = fmaxf(l, 1e-30f);
-    float* o = p.o + b * p.o_sb + qpos * p.o_ss + h * p.o_sh + 4 * c;
+  l0 += __shfl_xor_sync(kFull, l0, 1);
+  l0 += __shfl_xor_sync(kFull, l0, 2);
+  l1 += __shfl_xor_sync(kFull, l1, 1);
+  l1 += __shfl_xor_sync(kFull, l1, 2);
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  float* o0 = p.o + b * p.o_sb + (long long)qpos0 * p.o_ss + h * p.o_sh + 2 * t;
+  float* o1 = o0 + 8 * p.o_ss;
 #pragma unroll
-    for (int i = 0; i < kO; ++i)
-      *reinterpret_cast<float4*>(o + 16 * i) =
-          make_float4(acc[i][0] / den, acc[i][1] / den, acc[i][2] / den, acc[i][3] / den);
+  for (int nb = 0; nb < HD / 8; ++nb) {
+    if (qpos0 < p.Sq)
+      *reinterpret_cast<float2*>(o0 + 8 * nb) = make_float2(o[nb][0] / den0, o[nb][1] / den0);
+    if (qpos1 < p.Sq)
+      *reinterpret_cast<float2*>(o1 + 8 * nb) = make_float2(o[nb][2] / den1, o[nb][3] / den1);
   }
 }
 
 template <int HD>
 int launch_f32(const ParamsF& p, cudaStream_t stream) {
-  const int smem = (3 * kBM32 * (HD + 4) + kBM32 * (kBN32 + 1)) * (int)sizeof(float);
+  const int smem = FlashF<HD>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(flash_attention_f32_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((p.Sq + kBM32 - 1) / kBM32, p.B * p.H);
-  flash_attention_f32_kernel<HD><<<grid, kThreads32, smem, stream>>>(p);
+  const dim3 grid(p.B * p.H, (p.Sq + kRowsF - 1) / kRowsF);
+  flash_attention_f32_kernel<HD><<<grid, FlashF<HD>::kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 }  // namespace
@@ -509,7 +645,7 @@ int rt_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                   static_cast<const float*>(v), static_cast<float*>(o),
                   B, Sq, Sk, H, KV, causal,
                   q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-                  scale};
+                  scale * kLog2e};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return launch_f32<16>(p, s);

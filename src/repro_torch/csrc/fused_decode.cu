@@ -25,27 +25,33 @@
 // What bounds them on an H100.  At bc <= 8 a GEMV does 2*bc flops per
 // weight element, far below the ~295 flop/byte balance point of the card:
 // all three are bound by device-memory bytes.  fused_qkv streams ~0.65 MB
-// of packed q4 weights per layer at LLaVA-OneVision-0.5B's widths,
-// fused_mlp ~8.2 MB there and 127.3 MB at Qwen2-VL-7B's (0.038 ms at
+// of packed q4 weights per layer at LLaVA-OneVision-0.5B's widths and
+// 10.3 MB at Qwen2-VL-7B's, fused_mlp ~8.2 MB and 127.3 MB (0.038 ms at
 // 3.35 TB/s); the scatter writes 2*L*bc*KV*hd*2 bytes (a few KB): launch
 // overhead dominates it.
 //
 // What the design does about it.
-// fused_mlp runs one split-K GEMV kernel (gemv_kernel) per stage, two
-// device kernels a call: up and gate with the GLU epilogue into mid, then
-// down with the round-and-store epilogue.  Each thread owns one 16-byte
-// vector column of W (one uint4 of codes: 32 q4 outputs, one g32 scale
-// group and one scale load; q8 half a group, q2 two groups; dense 8 bf16
-// or 4 fp32) and walks the CTA's K rows through an 8-stage cp.async ring
-// in shared memory, so 7 independent 16-byte loads (43 KB an SM at three
-// CTAs) stay in flight with no registers held for them; a warp reads 16
-// or 32 consecutive vectors of a row.  A CTA's 128 threads are 16 or 32
-// vector columns ("slots"; for the gated stage half up, half the matching
-// gate columns) by 8 or 4 K sub-rows, reduced in shared memory in sub-row
-// order.  The K axis is split over CTAs to fill the 132 SMs (the down
-// projection has only 3584 outputs): a thread-block cluster of up to 8
-// CTAs along K adds its CTAs' partial sums over distributed shared
-// memory in rank order, each CTA a slice of the tile, and runs the
+// Both GEMMs run one split-K GEMV kernel (gemv_kernel): fused_mlp one a
+// stage, two device kernels a call (up and gate with the GLU epilogue
+// into mid, then down with the round-and-store epilogue); fused_qkv one
+// a call per distinct bit width among wq, wk and wv (one for every served
+// profile), its weights side by side along the outputs (q | k | v), each
+// in whole column tiles (its last padded), so each CTA reads one weight
+// and finds it from its tile with two compares, the same for all its
+// threads; the round, bias-add and round epilogue writes each weight's
+// own output.  Each thread owns one
+// 16-byte vector column of W (one uint4 of codes: 32 q4 outputs, one g32
+// scale group and one scale load; q8 half a group, q2 two groups; dense 8
+// bf16 or 4 fp32) and walks the CTA's K rows through an 8-stage cp.async
+// ring in shared memory, so 7 independent 16-byte loads (43 KB an SM at
+// three CTAs) stay in flight with no registers held for them; a warp
+// reads 8, 16 or 32 consecutive vectors of a row.  A CTA's 128 threads
+// are 8, 16 or 32 vector columns ("slots"; for the gated stage half up,
+// half the matching gate columns) by 16, 8 or 4 K sub-rows, reduced in
+// shared memory in sub-row order.  The K axis is split over CTAs to fill the 132 SMs
+// (the down projection has only 3584 outputs): a thread-block cluster of
+// up to 8 CTAs along K adds its CTAs' partial sums over distributed
+// shared memory in rank order, each CTA a slice of the tile, and runs the
 // epilogue in the same launch; where the split goes past one cluster,
 // each cluster's sums go to an fp32 scratch, and for each slice the last
 // of the clusters' CTAs holding it to arrive (a counter per tile and
@@ -53,20 +59,16 @@
 // epilogue.  The reductions keep several clusters' (ranks') loads in
 // flight per thread: one load a round trip made them latency-bound.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py,
-// scripts/fused_mlp_ablation.py): 0.169 ms at Qwen2-VL-7B's widths and
-// cohort 4, 754 GB/s, of which the loads, ring and reductions alone take
-// 0.10 ms (1.0-1.5 TB/s) and the dequantize-and-multiply the rest; at
-// LLaVA-OneVision-0.5B's widths 0.053 ms, mostly fixed costs.  No float atomics: results are
-// bit-identical from run to run.  The plan (slots, K rows per CTA,
-// cluster size) is chosen by the wrapper (kernels/fused_decode/kernel.py
-// gemv_plan).  Cohorts past 4 rows (2 for q2) run in passes over the
-// CTA's weights, so the accumulators stay at 128 registers.
-// fused_qkv still runs the first design: a partial-GEMV kernel (a warp
-// covers 8 consecutive words of 4 K rows; the K axis split among the 8
-// warps of a block and among blocks, fp32 partial sums in a scratch) and
-// a second kernel that adds the K-splits in a fixed order and applies
-// the epilogue.  Moving it onto gemv_kernel needs three segments and a
-// bias in the store epilogue.
+// scripts/fused_mlp_ablation.py): the MLP 0.169 ms at Qwen2-VL-7B's
+// widths and cohort 4, 754 GB/s, of which the loads, ring and reductions
+// alone take 0.10 ms (1.0-1.5 TB/s) and the dequantize-and-multiply the
+// rest; at LLaVA-OneVision-0.5B's widths 0.053 ms, mostly fixed costs.
+// No float atomics: results are bit-identical from run to run.  The plans
+// (slots, K rows per CTA, cluster size) are chosen by the wrapper
+// (kernels/fused_decode/kernel.py gemv_plan, qkv_plan; the QKV's from
+// scripts/fused_qkv_plan_sweep.py).  Cohorts past 4 rows (2 for q2) run
+// in passes over the CTA's weights, so the accumulators stay at 128
+// registers.
 //
 // Interface: plain C entry points (loaded with ctypes); each launches on
 // the caller's stream, allocates nothing, and returns cudaGetLastError().
@@ -81,12 +83,7 @@
 namespace {
 
 constexpr int kMaxRows = 8;     // cohort rows per launch
-constexpr int kTile = 8;        // weight units (words / 16-byte vectors) per block
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kKRows = 4 * kWarps;  // K rows per block iteration
-constexpr int kMaxChunk = 128;  // K rows per block (grid.y split)
-constexpr int kMaxSegs = 3;
+constexpr int kMaxSegs = 3;     // weights side by side along a GEMV's outputs
 
 using bf16 = __nv_bfloat16;
 
@@ -109,175 +106,6 @@ template <> __device__ __forceinline__ void round2_t<bf16>(float& a, float& b) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
   a = __low2float(p);
   b = __high2float(p);
-}
-
-// outputs per weight unit: one int32 word of codes, or one 16-byte vector
-template <int BITS, typename T> struct Unit {
-  static constexpr int kOut = BITS ? 32 / BITS : 16 / (int)sizeof(T);
-};
-
-struct Seg {
-  const void* w;         // codes (K, n / kOut) int32, or dense (K, n) T
-  const float* scales;   // (K, n / group) fp32; null when dense
-  int n;                 // outputs of this segment
-  int group;             // scale group size along n (packed only)
-  int col;               // first column of this segment in `partial`
-  int tile0;             // first grid.x tile of this segment
-};
-
-struct Segs {
-  Seg s[kMaxSegs];
-  int count;
-};
-
-// dequantize one weight unit of row k into fp32 values already rounded to T
-template <int BITS, typename T>
-__device__ __forceinline__ void load_unit(const Seg& sg, size_t k, int unit,
-                                          float (&w)[Unit<BITS, T>::kOut]) {
-  constexpr int kOut = Unit<BITS, T>::kOut;
-  if constexpr (BITS == 0) {
-    const uint4* row = reinterpret_cast<const uint4*>(
-        static_cast<const T*>(sg.w) + k * (size_t)sg.n);
-    const uint4 v = __ldg(row + unit);
-    const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) w[j] = to_f(e[j]);
-  } else {
-    const int units = sg.n / kOut;
-    const int32_t word =
-        __ldg(static_cast<const int32_t*>(sg.w) + k * (size_t)units + unit);
-    const float sc =
-        __ldg(sg.scales + k * (size_t)(sg.n / sg.group) + (unit * kOut) / sg.group);
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      int f = (word >> (j * BITS)) & ((1 << BITS) - 1);
-      if (f >= (1 << (BITS - 1))) f -= (1 << BITS);
-      w[j] = round_t<T>(static_cast<float>(f) * sc);
-    }
-  }
-}
-
-// partial[ks, b, col + n] = sum over this block's K chunk of h[b, k] W[k, n]
-template <int BITS, typename T>
-__global__ void __launch_bounds__(kThreads)
-gemv_partial_kernel(Segs segs, const T* __restrict__ h, int bc, int K,
-                    int k_chunk, int n_total, float* __restrict__ partial) {
-  constexpr int kOut = Unit<BITS, T>::kOut;
-  __shared__ float hs[kMaxRows * kMaxChunk];
-  __shared__ float red[kWarps * kTile * kMaxRows * kOut];
-
-  const int tile = blockIdx.x;
-  int si = 0;
-#pragma unroll
-  for (int i = 1; i < kMaxSegs; ++i)
-    if (i < segs.count && tile >= segs.s[i].tile0) si = i;
-  const Seg sg = segs.s[si];
-  const int units = sg.n / kOut;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c = lane & (kTile - 1);
-  const int unit = (tile - sg.tile0) * kTile + c;
-  const int krow = (lane >> 3) + 4 * warp;
-  const int k0 = blockIdx.y * k_chunk;
-  const int kn = min(k_chunk, K - k0);
-
-  for (int i = threadIdx.x; i < bc * kn; i += kThreads) {
-    const int b = i / kn, kk = i - b * kn;
-    hs[b * kMaxChunk + kk] = to_f(h[(size_t)b * K + k0 + kk]);
-  }
-  __syncthreads();
-
-  float acc[kMaxRows][kOut];
-#pragma unroll
-  for (int b = 0; b < kMaxRows; ++b)
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) acc[b][j] = 0.f;
-
-  if (unit < units) {
-#pragma unroll 2
-    for (int kk = krow; kk < kn; kk += kKRows) {
-      float w[kOut];
-      load_unit<BITS, T>(sg, (size_t)(k0 + kk), unit, w);
-#pragma unroll
-      for (int b = 0; b < kMaxRows; ++b) {
-        if (b < bc) {
-          const float hv = hs[b * kMaxChunk + kk];
-#pragma unroll
-          for (int j = 0; j < kOut; ++j) acc[b][j] = fmaf(hv, w[j], acc[b][j]);
-        }
-      }
-    }
-  }
-
-  // the 4 K-rows of a warp: lanes c, c+8, c+16, c+24
-#pragma unroll
-  for (int b = 0; b < kMaxRows; ++b)
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      float v = acc[b][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[b][j] = v;
-    }
-  if (lane < kTile) {
-#pragma unroll
-    for (int b = 0; b < kMaxRows; ++b)
-      if (b < bc)
-#pragma unroll
-        for (int j = 0; j < kOut; ++j)
-          red[((warp * kTile + c) * kMaxRows + b) * kOut + j] = acc[b][j];
-  }
-  __syncthreads();
-
-  // the 8 warps, added in a fixed order
-  for (int i = threadIdx.x; i < kTile * bc * kOut; i += kThreads) {
-    const int cc = i / (bc * kOut);
-    const int r = i - cc * bc * kOut;
-    const int b = r / kOut, j = r - b * kOut;
-    const int u = (tile - sg.tile0) * kTile + cc;
-    if (u >= units) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int w8 = 0; w8 < kWarps; ++w8)
-      s += red[((w8 * kTile + cc) * kMaxRows + b) * kOut + j];
-    partial[((size_t)blockIdx.y * bc + b) * n_total + sg.col + u * kOut + j] = s;
-  }
-}
-
-struct OutSeg {
-  void* out;           // (bc, n) T
-  const void* bias;    // (n,) T or null
-  int n;
-  int col;             // first column in `partial`
-};
-
-struct OutSegs {
-  OutSeg s[kMaxSegs];
-  int count;
-};
-
-// out[b, n] = rt(rt(sum_ks partial[ks, b, col + n]) + bias[n]), rt = round to T
-template <typename T>
-__global__ void store_epilogue_kernel(OutSegs segs, const float* __restrict__ partial,
-                                      int ksplit, int bc, int n_total) {
-  const int total = bc * n_total;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    const int b = i / n_total, col = i - b * n_total;
-    int si = 0;
-#pragma unroll
-    for (int t = 1; t < kMaxSegs; ++t)
-      if (t < segs.count && col >= segs.s[t].col) si = t;
-    const OutSeg o = segs.s[si];
-    const int j = col - o.col;
-    float s = 0.f;
-    for (int ks = 0; ks < ksplit; ++ks)
-      s += partial[((size_t)ks * bc + b) * n_total + col];
-    float y = round_t<T>(s);
-    if (o.bias != nullptr)
-      y = round_t<T>(y + to_f(static_cast<const T*>(o.bias)[j]));
-    static_cast<T*>(o.out)[(size_t)b * o.n + j] = from_f<T>(y);
-  }
 }
 
 enum Act { kSilu = 0, kGelu = 1, kRelu = 2, kSquaredRelu = 3 };
@@ -312,85 +140,7 @@ __global__ void kv_row_scatter_kernel(const int32_t* __restrict__ blk,
   }
 }
 
-int ksplit_of(int K, int k_chunk) { return (K + k_chunk - 1) / k_chunk; }
-
-// One partial-GEMV launch per distinct BITS among the segments.
-template <typename T>
-int launch_partials(const T* h, int bc, int K, int nseg, const void* const* w,
-                    const float* const* scales, const int* n, const int* bits,
-                    const int* group, float* partial, int n_total, int k_chunk,
-                    cudaStream_t stream) {
-  if (bc < 1 || bc > kMaxRows || k_chunk < 1 || k_chunk > kMaxChunk ||
-      nseg < 1 || nseg > kMaxSegs)
-    return (int)cudaErrorInvalidValue;
-  const int ks = ksplit_of(K, k_chunk);
-  int col = 0;
-  int cols[kMaxSegs];
-  for (int i = 0; i < nseg; ++i) {
-    if (bits[i] != 0 && bits[i] != 2 && bits[i] != 4 && bits[i] != 8)
-      return (int)cudaErrorInvalidValue;
-    cols[i] = col;
-    col += n[i];
-  }
-  if (col != n_total) return (int)cudaErrorInvalidValue;
-  const int kBits[4] = {0, 2, 4, 8};
-  for (int bi = 0; bi < 4; ++bi) {
-    Segs segs{};
-    int tiles = 0;
-    for (int i = 0; i < nseg; ++i) {
-      if (bits[i] != kBits[bi]) continue;
-      const int out = bits[i] ? 32 / bits[i] : 16 / (int)sizeof(T);
-      if (n[i] % out != 0 || (bits[i] && (group[i] % out != 0 || n[i] % group[i] != 0)))
-        return (int)cudaErrorInvalidValue;
-      Seg& s = segs.s[segs.count++];
-      s.w = w[i];
-      s.scales = scales[i];
-      s.n = n[i];
-      s.group = bits[i] ? group[i] : 1;
-      s.col = cols[i];
-      s.tile0 = tiles;
-      tiles += (n[i] / out + kTile - 1) / kTile;
-    }
-    if (segs.count == 0) continue;
-    const dim3 grid(tiles, ks);
-    switch (kBits[bi]) {
-      case 0: gemv_partial_kernel<0, T><<<grid, kThreads, 0, stream>>>(segs, h, bc, K, k_chunk, n_total, partial); break;
-      case 2: gemv_partial_kernel<2, T><<<grid, kThreads, 0, stream>>>(segs, h, bc, K, k_chunk, n_total, partial); break;
-      case 4: gemv_partial_kernel<4, T><<<grid, kThreads, 0, stream>>>(segs, h, bc, K, k_chunk, n_total, partial); break;
-      default: gemv_partial_kernel<8, T><<<grid, kThreads, 0, stream>>>(segs, h, bc, K, k_chunk, n_total, partial); break;
-    }
-  }
-  return (int)cudaGetLastError();
-}
-
-int epilogue_blocks(int total) { return (total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024; }
-
-template <typename T>
-int fused_qkv_impl(const void* h, int bc, int K, int nseg, const void* const* w,
-                   const float* const* scales, const int* n, const int* bits,
-                   const int* group, const void* const* bias, void* const* out,
-                   float* partial, int k_chunk, cudaStream_t stream) {
-  int n_total = 0;
-  for (int i = 0; i < nseg; ++i) n_total += n[i];
-  int err = launch_partials<T>(static_cast<const T*>(h), bc, K, nseg, w, scales, n,
-                               bits, group, partial, n_total, k_chunk, stream);
-  if (err) return err;
-  OutSegs segs{};
-  int col = 0;
-  for (int i = 0; i < nseg; ++i) {
-    OutSeg& o = segs.s[segs.count++];
-    o.out = out[i];
-    o.bias = bias[i];
-    o.n = n[i];
-    o.col = col;
-    col += n[i];
-  }
-  store_epilogue_kernel<T><<<epilogue_blocks(bc * n_total), 256, 0, stream>>>(
-      segs, partial, ksplit_of(K, k_chunk), bc, n_total);
-  return (int)cudaGetLastError();
-}
-
-// ---- the MLP's split-K GEMV -------------------------------------------------
+// ---- the split-K GEMV ---------------------------------------------------------
 
 constexpr int kGemvThreads = 128;
 constexpr int kRing = 8;            // cp.async ring stages: loads in flight per thread
@@ -408,16 +158,24 @@ struct GemvSeg {
   const void* w;         // codes (K, n / (32 / BITS)) int32, or dense (K, n) T
   const float* scales;   // (K, n / group) fp32; null when dense
   int group;
+  int n;                 // outputs of this weight
+  int tile0;             // its first column tile (nseg 1: each tile lies in one weight)
+  void* out;             // (bc, n) T: the epilogue's output (seg[0]'s for the GLU stage)
+  const void* bias;      // (n,) T added by the store epilogue, or null
 };
 
 struct GemvArgs {
-  GemvSeg seg[2];        // up and gate (nseg 2: the GLU stage), or the one weight
+  // nseg 2 (the GLU stage): up and gate, each n outputs, a CTA's slots
+  // half up, half the matching gate columns; nseg 1: ncat weights side
+  // by side (q | k | v), each a whole number of vectors and of column
+  // tiles (its last tile padded), n the launch's tiles x ts x V outputs
+  // (one weight: its own n)
+  GemvSeg seg[kMaxSegs];
   const void* h;         // (bc, K) T
-  void* out;             // (bc, n) T
   float* partial;        // (nck, bc, nseg * n) fp32 when nck > 1
   unsigned* counters;    // (grid.x, ck) zero before and after the launch
-  int bc, K, n, nseg;
-  int ts;                // vector columns (slots) a CTA: 16 or 32
+  int bc, K, n, nseg, ncat;
+  int ts;                // vector columns (slots) a CTA: 8, 16 or 32
   int kc;                // K rows a CTA
   int ck, nck;           // CTAs a cluster along K, clusters along K
   int act;               // -1: round and store; else the activation
@@ -443,12 +201,43 @@ struct GemvSmem {
   }
 };
 
-// the two stages' epilogues: round and store; mid = rt(rt(act(rt(gate)))
-// * rt(up)) (nseg 2); mid = rt(act(rt(up)))
-template <typename T>
-__device__ __forceinline__ void gemv_epilogue(const GemvArgs& a, int row, int col, float up,
-                                              float gate) {
-  T* out = static_cast<T*>(a.out) + (size_t)row * a.n + col;
+// the weight of column tile `tile` among the ncat side by side (the same
+// for the whole CTA)
+__device__ __forceinline__ int seg_of(const GemvArgs& a, int tile) {
+  return (a.ncat > 1 && tile >= a.seg[1].tile0) + (a.ncat > 2 && tile >= a.seg[2].tile0);
+}
+
+// field F of weight si, by selects of the three parameters
+#define SEG_FIELD(a, si, F) \
+  ((si) == 0 ? (a).seg[0].F : ((si) == 1 ? (a).seg[1].F : (a).seg[2].F))
+
+// the CTA's weight (the whole CTA's: up's for the GLU stage), its column
+// tile within that weight, and the launch's first vector of that weight
+struct CtaSeg {
+  int si, tile, vec0;
+};
+
+__device__ __forceinline__ CtaSeg cta_seg(const GemvArgs& a, int bx, int sps) {
+  const int si = a.nseg == 2 ? 0 : seg_of(a, bx);
+  const int tile = bx - SEG_FIELD(a, si, tile0);
+  return CtaSeg{si, tile, (bx - tile) * sps};
+}
+
+// the epilogues: out = rt(rt(sum) + bias) into the weight's own output
+// (rt: round to T; the reference's einsum-then-add), mid = rt(rt(act(
+// rt(gate))) * rt(up)) (nseg 2), mid = rt(act(rt(up))); `col` counts
+// the outputs of weight `si` (the CTA's; up's for nseg 2); kCat: the
+// weights side by side (q | k | v, act < 0) with their biases
+template <int V, typename T, bool kCat>
+__device__ __forceinline__ void gemv_epilogue(const GemvArgs& a, int si, int row, int col,
+                                              float up, float gate) {
+  if constexpr (kCat) {
+    T* out = static_cast<T*>(SEG_FIELD(a, si, out)) + (size_t)row * SEG_FIELD(a, si, n) + col;
+    const T* bias = static_cast<const T*>(SEG_FIELD(a, si, bias));
+    *out = bias == nullptr ? from_f<T>(up) : from_f<T>(round_t<T>(up) + to_f(bias[col]));
+    return;
+  }
+  T* out = static_cast<T*>(a.seg[0].out) + (size_t)row * a.n + col;
   if (a.act < 0) {
     *out = from_f<T>(up);
   } else if (a.nseg == 2) {
@@ -459,11 +248,12 @@ __device__ __forceinline__ void gemv_epilogue(const GemvArgs& a, int row, int co
   }
 }
 
-// grid (tiles, ck * nck), cluster (1, ck, 1), kGemvThreads threads, dynamic
-// shared memory GemvSmem<BITS, T, R>(a).total.  Thread (slot, sub) owns
-// vector `slot` of the tile and K rows k0 + sub + s nsub.
-template <int BITS, typename T, int R>
-__global__ void __launch_bounds__(kGemvThreads, 3) gemv_kernel(const GemvArgs a) {
+// The GEMV's body: kCat, weights side by side (the fused QKV, or one
+// weight with a bias), each CTA in one of them; else one weight, or the
+// GLU stage's pair (the MLP), with none of that bookkeeping.  Thread
+// (slot, sub) owns vector `slot` of the tile and K rows k0 + sub + s nsub.
+template <int BITS, typename T, int R, bool kCat>
+__device__ __forceinline__ void gemv_body(const GemvArgs& a) {
   constexpr int V = Vec<BITS, T>::kOut, NS = Vec<BITS, T>::kScales;
   constexpr int PW = BITS ? 32 / BITS : 1;        // codes a word
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -480,36 +270,38 @@ __global__ void __launch_bounds__(kGemvThreads, 3) gemv_kernel(const GemvArgs a)
   const int tid = threadIdx.x, ts = a.ts, nsub = kGemvThreads / ts;
   const int slot = (tid & 31) % ts, sub = (tid & 31) / ts + (32 / ts) * (tid >> 5);
   const int sps = ts / a.nseg;                     // slots a segment
-  const int nvec = a.n / V;
-  const int vec = blockIdx.x * sps + slot % sps;
+  // the CTA's weight and its column tile within it (up's for the GLU
+  // stage), and the thread's weight (up or gate by slot)
+  const CtaSeg cw = kCat ? cta_seg(a, blockIdx.x, sps) : CtaSeg{0, (int)blockIdx.x, 0};
+  const int nvec = (kCat ? SEG_FIELD(a, cw.si, n) : a.n) / V;   // the weight's vectors
+  const int vec = cw.tile * sps + slot % sps;      // within the weight
   const bool valid = vec < nvec;
-  const GemvSeg sg = slot < sps ? a.seg[0] : a.seg[1];   // no local copy of a.seg
+  const int si = kCat ? cw.si : (slot < sps ? 0 : 1);
+  const int group =
+      kCat ? SEG_FIELD(a, si, group) : (si == 0 ? a.seg[0].group : a.seg[1].group);
   const int k0 = blockIdx.y * a.kc;
   const int kn = max(0, min(a.kc, a.K - k0));
   const int steps = (a.kc + nsub - 1) / nsub, kcp = steps * nsub;
   const int passes = (a.bc + R - 1) / R;
 
-  // the CTA's activations, zero past bc and past its K rows
-  const T* hg = static_cast<const T*>(a.h);
-  for (int i = tid; i < passes * R * kcp; i += kGemvThreads) {
-    const int b = i / kcp, kk = i - b * kcp;
-    hs[i] = (b < a.bc && kk < kn) ? to_f(hg[(size_t)b * a.K + k0 + kk]) : 0.f;
-  }
-  const uint4* wsrc = static_cast<const uint4*>(sg.w) + (size_t)k0 * nvec + vec;
-  const int ng = BITS ? a.n / sg.group : 0;
-  const float* ssrc = BITS ? sg.scales + (size_t)k0 * ng + (size_t)vec * V / sg.group : nullptr;
-  // stage s of the ring: row k0 + sub + s nsub (zeros past the CTA's rows)
+  const void* const wbase = kCat ? SEG_FIELD(a, si, w) : (si == 0 ? a.seg[0].w : a.seg[1].w);
+  const float* const sbase =
+      kCat ? SEG_FIELD(a, si, scales) : (si == 0 ? a.seg[0].scales : a.seg[1].scales);
+  const uint4* wsrc = static_cast<const uint4*>(wbase) + (size_t)k0 * nvec + vec;
+  const int ng = BITS ? nvec * V / group : 0;
+  const float* ssrc = BITS ? sbase + (size_t)k0 * ng + (size_t)vec * V / group : nullptr;
+  // stage s of the ring: row k0 + sub + s nsub (zeros past the CTA's rows;
+  // a zero-filled copy still names a valid address, the weight's own)
   auto issue = [&](int s) {
     const int kk = sub + s * nsub;
     if (s < steps) {
       const bool ok = valid && kk < kn;
       const int r = (s % kRing) * kGemvThreads + tid;
-      hopper::cp_async16_zfill(ring + r, ok ? wsrc + (size_t)kk * nvec : sg.w, ok);
+      hopper::cp_async16_zfill(ring + r, ok ? wsrc + (size_t)kk * nvec : wbase, ok);
 #pragma unroll
       for (int q = 0; q < NS; ++q)
         hopper::cp_async4_zfill(sring + r * NS + q,
-                                ok ? ssrc + (size_t)kk * ng + (q * (V / NS)) / sg.group
-                                   : sg.scales,
+                                ok ? ssrc + (size_t)kk * ng + (q * (V / NS)) / group : sbase,
                                 ok);
     }
     hopper::cp_async_commit();
@@ -520,6 +312,13 @@ __global__ void __launch_bounds__(kGemvThreads, 3) gemv_kernel(const GemvArgs a)
   const int items = sps * V, gate_off = a.nseg == 2 ? sps * V : 0;
   const int rank = (int)cluster.block_rank();
   const int e0 = rank * items / a.ck, ne = (rank + 1) * items / a.ck - e0;
+
+  // the CTA's activations, zero past bc and past its K rows
+  const T* hg = static_cast<const T*>(a.h);
+  for (int i = tid; i < passes * R * kcp; i += kGemvThreads) {
+    const int b = i / kcp, kk = i - b * kcp;
+    hs[i] = (b < a.bc && kk < kn) ? to_f(hg[(size_t)b * a.K + k0 + kk]) : 0.f;
+  }
 
   float acc[R][V];
   for (int pass = 0; pass < passes; ++pass) {
@@ -601,7 +400,7 @@ __global__ void __launch_bounds__(kGemvThreads, 3) gemv_kernel(const GemvArgs a)
       for (int u = 0; u < kBatch; ++u) {
         const int i = i0 + u * kGemvThreads;
         const int b = i / ne, e = e0 + i - b * ne;
-        off[u] = i < rows * ne && blockIdx.x * sps + e / V < nvec ? b * ts * V + e : -1;
+        off[u] = i < rows * ne && cw.tile * sps + e / V < nvec ? b * ts * V + e : -1;
         up[u] = gate[u] = 0.f;
       }
       // four ranks' loads in flight at a time, added in rank order
@@ -632,7 +431,7 @@ __global__ void __launch_bounds__(kGemvThreads, 3) gemv_kernel(const GemvArgs a)
         const int b = off[u] / (ts * V), e = off[u] - b * ts * V;
         const int row = pass * R + b, col = (blockIdx.x * sps + e / V) * V + e % V;
         if (a.nck == 1) {
-          gemv_epilogue<T>(a, row, col, up[u], gate[u]);
+          gemv_epilogue<V, T, kCat>(a, cw.si, row, col - cw.vec0 * V, up[u], gate[u]);
         } else {
           float* pp = a.partial + ((size_t)(blockIdx.y / a.ck) * a.bc + row) * a.nseg * a.n;
           pp[col] = up[u];
@@ -663,7 +462,9 @@ __global__ void __launch_bounds__(kGemvThreads, 3) gemv_kernel(const GemvArgs a)
       const int i = i0 + u * kGemvThreads;
       const int b = i / ne, e = e0 + i - b * ne;
       const int v = blockIdx.x * sps + e / V;
-      off[u] = i < a.bc * ne && v < nvec ? (long long)b * a.nseg * a.n + v * V + e % V : -1;
+      off[u] = i < a.bc * ne && cw.tile * sps + e / V < nvec
+                   ? (long long)b * a.nseg * a.n + v * V + e % V
+                   : -1;
       up[u] = gate[u] = 0.f;
     }
     // four clusters' loads in flight at a time, added in cluster order
@@ -692,10 +493,21 @@ __global__ void __launch_bounds__(kGemvThreads, 3) gemv_kernel(const GemvArgs a)
     for (int u = 0; u < kBatch; ++u) {
       if (off[u] < 0) continue;
       const int b = (int)(off[u] / (a.nseg * a.n));
-      gemv_epilogue<T>(a, b, (int)(off[u] - (long long)b * a.nseg * a.n), up[u], gate[u]);
+      gemv_epilogue<V, T, kCat>(
+          a, cw.si, b, (int)(off[u] - (long long)b * a.nseg * a.n) - cw.vec0 * V, up[u], gate[u]);
     }
   }
   if (tid == 0) *counter = 0u;
+}
+
+// grid (tiles, ck * nck), cluster (1, ck, 1), kGemvThreads threads, dynamic
+// shared memory GemvSmem<BITS, T, R>(a).total
+template <int BITS, typename T, int R>
+__global__ void __launch_bounds__(kGemvThreads, 3) gemv_kernel(const GemvArgs a) {
+  if (a.ncat > 1 || a.seg[0].bias != nullptr)
+    gemv_body<BITS, T, R, true>(a);
+  else
+    gemv_body<BITS, T, R, false>(a);
 }
 
 template <int BITS, typename T, int R>
@@ -738,17 +550,27 @@ int launch_gemv(GemvArgs a, int bits, const int* plan, cudaStream_t stream) {
   a.nck = plan[4];
   const int V = bits ? 128 / bits : 16 / (int)sizeof(T);
   const int NS = bits == 2 ? 2 : 1;
-  if (a.bc < 1 || a.bc > kMaxRows || (a.ts != 16 && a.ts != 32) || a.nseg < 1 || a.nseg > 2 ||
-      a.n < V || a.n % V != 0 || a.kc < 1 || a.kc > kMaxKChunk || a.ck < 1 ||
-      a.ck > kMaxCluster || a.nck < 1 || (long long)a.kc * a.ck * a.nck < a.K ||
+  if (a.bc < 1 || a.bc > kMaxRows || (a.ts != 8 && a.ts != 16 && a.ts != 32) || a.nseg < 1 ||
+      a.nseg > 2 || a.ncat < 1 || a.ncat > (a.nseg == 2 ? 1 : kMaxSegs) || a.n < V ||
+      a.n % V != 0 || a.kc < 1 || a.kc > kMaxKChunk || a.ck < 1 || a.ck > kMaxCluster || a.nck < 1 ||
+      (long long)a.kc * a.ck * a.nck < a.K ||
       (a.nck > 1 && (a.partial == nullptr || a.counters == nullptr)))
     return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < a.nseg; ++i)
-    if (bits != 0 && (a.seg[i].group < 1 || a.seg[i].group % (V / NS) != 0 ||
-                      a.n % a.seg[i].group != 0))
-      return (int)cudaErrorInvalidValue;
+  // each weight a whole number of vectors, its scale groups whole vectors'
+  // (two a vector for q2); the nseg-1 weights side by side in whole tiles
   const int sps = a.ts / a.nseg;
-  const int tiles = (a.n / V + sps - 1) / sps;
+  int tiles = 0;
+  for (int i = 0; i < a.nseg * a.ncat; ++i) {
+    const GemvSeg& s = a.seg[i];
+    if (s.n < V || s.n % V != 0 || s.tile0 != (a.nseg == 2 ? 0 : tiles) ||
+        (a.nseg == 2 && s.n != a.n) ||
+        (bits != 0 && (s.group < 1 || s.group % (V / NS) != 0 || s.n % s.group != 0)))
+      return (int)cudaErrorInvalidValue;
+    tiles += a.nseg == 2 ? 0 : (s.n / V + sps - 1) / sps;
+  }
+  if (a.nseg == 2) tiles = (a.n / V + sps - 1) / sps;
+  if (a.nseg == 1 && a.n != (a.ncat == 1 ? a.seg[0].n : tiles * sps * V))
+    return (int)cudaErrorInvalidValue;
   switch (bits) {
     case 0: return launch_gemv_r<0, T>(a, R, tiles, stream);
     case 2: return launch_gemv_r<2, T>(a, R, tiles, stream);
@@ -768,32 +590,74 @@ int fused_mlp_impl(const void* h, int bc, int D, int F, int gated, int act,
     return (int)cudaErrorInvalidValue;
   // stage 1: up (and gate) -> act -> mid
   GemvArgs a{};
-  a.seg[0] = GemvSeg{w[0], scales[0], group[0]};
-  a.seg[1] = GemvSeg{w[1], scales[1], group[1]};
+  a.seg[0] = GemvSeg{w[0], scales[0], group[0], F, 0, mid, nullptr};
+  a.seg[1] = GemvSeg{w[1], scales[1], group[1], F, 0, nullptr, nullptr};
   a.h = h;
-  a.out = mid;
   a.partial = partial1;
   a.counters = counters;
   a.bc = bc;
   a.K = D;
   a.n = F;
   a.nseg = gated ? 2 : 1;
+  a.ncat = 1;
   a.act = act;
   const int err = launch_gemv<T>(a, bits[0], plan1, stream);
   if (err) return err;
   // stage 2: mid @ W_down, rounded to T
   GemvArgs d{};
-  d.seg[0] = GemvSeg{w[2], scales[2], group[2]};
+  d.seg[0] = GemvSeg{w[2], scales[2], group[2], D, 0, out, nullptr};
   d.h = mid;
-  d.out = out;
   d.partial = partial2;
   d.counters = counters + tiles1;
   d.bc = bc;
   d.K = F;
   d.n = D;
   d.nseg = 1;
+  d.ncat = 1;
   d.act = -1;
   return launch_gemv<T>(d, bits[2], plan2, stream);
+}
+
+// One GEMV launch per distinct bit width among the nseg weights (plan i
+// for the i-th width in the order 0, 2, 4, 8), its weights side by side
+// along the outputs in the callers' order; the launches share the scratch
+// and the counters (one after another on the stream)
+template <typename T>
+int fused_qkv_impl(const void* h, int bc, int K, int nseg, const void* const* w,
+                   const float* const* scales, const int* n, const int* bits, const int* group,
+                   const void* const* bias, void* const* out, const int* plans, float* partial,
+                   unsigned* counters, cudaStream_t stream) {
+  if (nseg < 1 || nseg > kMaxSegs) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < nseg; ++i)
+    if (bits[i] != 0 && bits[i] != 2 && bits[i] != 4 && bits[i] != 8)
+      return (int)cudaErrorInvalidValue;
+  const int kBits[4] = {0, 2, 4, 8};
+  int launch = 0;
+  for (int bi = 0; bi < 4; ++bi) {
+    const int V = kBits[bi] ? 128 / kBits[bi] : 16 / (int)sizeof(T);
+    GemvArgs a{};
+    for (int i = 0; i < nseg; ++i)
+      if (bits[i] == kBits[bi])
+        a.seg[a.ncat++] = GemvSeg{w[i], scales[i], group[i], n[i], 0, out[i], bias[i]};
+    if (a.ncat == 0) continue;
+    const int ts = plans[5 * launch + 1];   // each weight's tiles after the last's
+    int tiles = 0;
+    for (int i = 0; i < a.ncat; ++i) {
+      a.seg[i].tile0 = tiles;
+      tiles += (a.seg[i].n / V + ts - 1) / ts;
+    }
+    a.h = h;
+    a.partial = partial;
+    a.counters = counters;
+    a.bc = bc;
+    a.K = K;
+    a.n = a.ncat == 1 ? a.seg[0].n : tiles * ts * V;
+    a.nseg = 1;
+    a.act = -1;
+    const int err = launch_gemv<T>(a, kBits[bi], plans + 5 * launch++, stream);
+    if (err) return err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -801,20 +665,25 @@ int fused_mlp_impl(const void* h, int bc, int D, int F, int gated, int act,
 extern "C" {
 
 // Activations, outputs, biases and dense weights of one dtype: bf16, or
-// fp32 when fp32 != 0.  Per segment i: w[i] (codes or dense), scales[i]
-// (null if dense), n[i] outputs, bits[i] (0 = dense), group[i], bias[i]
-// (null = none), out[i] (bc, n[i]).  partial: fp32 scratch of
-// ceil(K / k_chunk) * bc * sum(n) floats.
+// fp32 when fp32 != 0.  Per weight i (nseg <= 3): w[i] (codes or dense),
+// scales[i] (null if dense), n[i] outputs (a multiple of the 16-byte
+// vector's), bits[i] (0 = dense), group[i], bias[i] (null = none), out[i]
+// (bc, n[i]).  plans: {R, ts, kc, ck, nck} of each launch, one per
+// distinct bit width in the order 0, 2, 4, 8; partial: the largest
+// launch's nck * bc * (its outputs) floats (unused when every nck is 1);
+// counters: the largest launch's tiles x ck, zero before the call and
+// left zero.
 int rt_fused_qkv(const void* h, int bc, int K, int nseg, const void* const* w,
                  const float* const* scales, const int* n, const int* bits,
                  const int* group, const void* const* bias, void* const* out,
-                 float* partial, int k_chunk, int fp32, void* stream) {
+                 const int* plans, float* partial, unsigned* counters, int fp32,
+                 void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fp32)
-    return fused_qkv_impl<float>(h, bc, K, nseg, w, scales, n, bits, group, bias, out,
-                                 partial, k_chunk, s);
-  return fused_qkv_impl<bf16>(h, bc, K, nseg, w, scales, n, bits, group, bias, out,
-                              partial, k_chunk, s);
+    return fused_qkv_impl<float>(h, bc, K, nseg, w, scales, n, bits, group, bias, out, plans,
+                                 partial, counters, s);
+  return fused_qkv_impl<bf16>(h, bc, K, nseg, w, scales, n, bits, group, bias, out, plans,
+                              partial, counters, s);
 }
 
 // w/scales/bits/group: [up, gate, down] (gate ignored unless gated; a

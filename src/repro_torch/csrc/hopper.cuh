@@ -17,9 +17,10 @@
 //     (the transpose bit TB);
 //   - cp.async with zero fill (4 and 16 bytes), setmaxnreg, the
 //     async-proxy fence and named barriers;
-//   - warp-level mma.sync m16n8k16 bf16 -> fp32 and ldmatrix (four 8x8
-//     bf16 matrices, as stored or transposed), for tiles that need no
-//     warpgroup;
+//   - warp-level mma.sync m16n8k16 bf16 -> fp32 and m16n8k8 tf32 -> fp32
+//     (with the split of an fp32 value into two tf32 terms) and ldmatrix
+//     (four 8x8 bf16 matrices, as stored or transposed), for tiles that
+//     need no warpgroup;
 //   - the exact float of one code of a packed int32 weight word.
 //
 // Swizzled tiles.  A tile of rows of W bytes (W = 32, 64 or 128: the
@@ -372,6 +373,33 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], uint3
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x8, row) * b (8x8, col); tf32 in (fp32 registers whose low 13
+// bits the tensor cores ignore), fp32 accumulate.  Fragments (g = lane / 4,
+// t = lane % 4): a = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b =
+// (k t, n g), (k t + 4, n g); d = (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to nearest, ties away from zero, at its 13 low bits (tf32), the
+// low bits zero: cvt.rna.tf32.f32's value, in integer operations (a
+// conversion issues at a quarter of their rate)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + (at most 2^-22 |x|): hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 // four 8x8 bf16 matrices; lanes 8m..8m+7 give matrix m's row addresses

@@ -10,12 +10,14 @@ just after with :func:`launch_counts`.  The counts, one per wrapper:
 ``cache_row_update`` (``cache_update``), each registered when its
 ``ops`` module is imported.  A wrapper with more than one kernel behind
 it also counts each launch under ``<wrapper>/<route>``:
-``flash_attention/wgmma`` (bf16) and ``flash_attention/simt`` (fp32);
+``flash_attention/wgmma`` (bf16) and ``flash_attention/tf32x3`` (fp32,
+split TF32 on mma.sync);
 ``dequant_gemm/wgmma`` (the warp-specialised bf16 kernel) and
 ``dequant_gemm/tile`` (fp32, and bf16 calls outside the wgmma kernel's
 rule, ``dequant_gemm.kernel.route``); ``ssd/mma`` (bf16, tensor-core
 products) and ``ssd/simt`` (fp32, FFMA); ``fused_mlp/gemv`` (the split-K
-GEMV of both MLP stages).
+GEMV of both MLP stages, one a call) and ``fused_qkv/gemv`` (the same
+GEMV, one a device kernel: one a distinct bit width of wq, wk, wv).
 """
 from typing import Dict
 

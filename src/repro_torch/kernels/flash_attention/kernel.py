@@ -19,10 +19,11 @@ LIBRARY = "flash_attention"
 SOURCES = ("flash_attention.cu",)
 HEAD_DIMS = (16, 32, 64, 128, 160)   # the kernel's template instantiations
 # the instances: dtype -> C entry point, and the kernel behind it (its
-# launch-count route): bf16 the warp-specialised wgmma kernel, fp32 SIMT
+# launch-count route): bf16 the warp-specialised wgmma kernel, fp32 split
+# TF32 on mma.sync (three tf32 products an fp32 product)
 ENTRIES = {torch.bfloat16: "rt_flash_attention",
            torch.float32: "rt_flash_attention_f32"}
-ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,8 +47,8 @@ def library() -> ctypes.CDLL:
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernel can read it through its strides (head
     axis contiguous, every stride and the start 16-byte aligned: TMA's
-    condition for the bf16 kernel's tensor maps, the vector loads' for
-    the fp32 one), else a contiguous copy."""
+    condition for the bf16 kernel's tensor maps, the 16-byte cp.async
+    copies' for the fp32 one), else a contiguous copy."""
     per_vec = 16 // t.element_size()
     if (t.stride(3) == 1 and t.data_ptr() % 16 == 0
             and not any(s % per_vec for s in t.stride()[:3])):

@@ -5,8 +5,8 @@ tensors run the plain version (``ref.ref_attention``); CUDA tensors
 launch the Hopper kernel (``kernel.py``) or raise — there is no
 fallback.  Each launch adds one to the count ``flash_attention`` in the
 kernels' launch-count registry (``repro_torch.kernels``) and one to its
-kernel's, ``flash_attention/wgmma`` (bf16) or ``flash_attention/simt``
-(fp32).
+kernel's, ``flash_attention/wgmma`` (bf16) or ``flash_attention/tf32x3``
+(fp32: split TF32 on the tensor cores).
 """
 from __future__ import annotations
 

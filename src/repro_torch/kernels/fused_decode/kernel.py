@@ -10,6 +10,7 @@ plain version in ``ref.py``, chosen by the wrappers in ``ops.py``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
@@ -33,7 +34,7 @@ def library() -> ctypes.CDLL:
     lib = load_library(LIBRARY, SOURCES)
     if not getattr(lib, "_typed", False):
         lib.rt_fused_qkv.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                                     _P, _P, _I, _I, _P]
+                                     _P, _P, _P, _P, _I, _P]
         lib.rt_fused_mlp.argtypes = [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                      _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]
         lib.rt_kv_row_scatter.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -61,18 +62,8 @@ def _int_array(vals: Sequence[int]):
     return (ctypes.c_int * len(vals))(*vals)
 
 
-def k_chunk_for(K: int, tiles: int) -> int:
-    """K rows per block of the fused-QKV partial GEMV: the largest of
-    128/64/32 that still gives the grid ~2 blocks per SM (132 SMs), so
-    enough loads are in flight."""
-    for c in (128, 64):
-        if tiles * -(-K // c) >= 264:
-            return min(c, K)
-    return min(32, K)
-
-
 SMS = 132              # the H100's streaming multiprocessors
-GEMV_THREADS = 128     # the MLP GEMV's CTA (kGemvThreads)
+GEMV_THREADS = 128     # the GEMV's CTA (kGemvThreads)
 MAX_CLUSTER = 8        # portable thread-block cluster size
 MAX_K_CHUNK = 1024     # K rows a CTA (kMaxKChunk)
 MIN_ROWS_A_THREAD = 8  # K rows each thread walks at the least
@@ -81,9 +72,10 @@ CTAS_AN_SM = 3         # the GEMV's occupancy (__launch_bounds__(128, 3))
 
 @dataclass(frozen=True)
 class GemvPlan:
-    """How the MLP's split-K GEMV (``gemv_kernel``) covers one stage: a
-    (bc, K) x (K, nseg * n) product whose segments are packed ``bits``
-    (or dense) weights of ``n`` outputs each.
+    """How the split-K GEMV (``gemv_kernel``) covers one launch: a (bc, K)
+    x (K, nseg * n) product whose segments are packed ``bits`` (or dense)
+    weights of ``n`` outputs each (nseg 2: the MLP's up and gate), or
+    (nseg 1) of weights side by side along ``n`` outputs (q | k | v).
 
     ``vec`` outputs a 16-byte vector (one thread's column); ``rows``
     cohort rows a pass (``passes`` of them); ``slots`` vector columns a
@@ -112,34 +104,47 @@ class GemvPlan:
                 self.clusters)
 
 
-def gemv_plan(K: int, n: int, nseg: int, bits: int, elem_bytes: int,
-              bc: int) -> GemvPlan:
-    """The launch plan of one GEMV stage (pure Python; the kernel checks
-    it).  Vector columns a CTA: 32, or 16 where that leaves fewer idle;
-    CTAs along K: enough for one wave at CTAS_AN_SM CTAs an SM, each thread
-    walking at least MIN_ROWS_A_THREAD rows and a CTA at most MAX_K_CHUNK;
-    ``_cluster`` sizes the cluster."""
+def _plan(K: int, n: int, nseg: int, bits: int, elem_bytes: int, bc: int,
+          slots: int, k_split: int, cluster: int) -> GemvPlan:
+    """The plan of ``slots`` vector columns a CTA and ``k_split`` CTAs
+    along K in clusters of ``cluster``."""
     vec = 128 // bits if bits else 16 // elem_bytes
     rows = min(4, 128 // vec, 1 << (bc - 1).bit_length())
-    nvec = n // vec
+    tiles = -(-(n // vec) // (slots // nseg))
+    clusters = k_split // cluster
+    return GemvPlan(vec=vec, rows=rows, passes=-(-bc // rows), slots=slots,
+                    tiles=tiles, k_chunk=-(-K // k_split), k_split=k_split,
+                    cluster=cluster, clusters=clusters,
+                    partial=clusters * bc * nseg * n if clusters > 1 else 0,
+                    counters=tiles * cluster)
 
-    def tiles(ts):
-        return -(-nvec // (ts // nseg))
-    slots = min((32, 16), key=lambda ts: (tiles(ts) * ts - nvec * nseg, -ts))
+
+def _slots(nvec: int, nseg: int) -> int:
+    """Vector columns a CTA: 32, or 16 where that leaves fewer idle."""
+    return min((32, 16), key=lambda ts: (-(-nvec // (ts // nseg)) * ts
+                                         - nvec * nseg, -ts))
+
+
+def gemv_plan(K: int, n: int, nseg: int, bits: int, elem_bytes: int,
+              bc: int) -> GemvPlan:
+    """The launch plan of one MLP GEMV stage (pure Python; the kernel
+    checks it).  Vector columns a CTA: ``_slots``; CTAs along K: enough
+    for one wave at CTAS_AN_SM CTAs an SM, each thread walking at least
+    MIN_ROWS_A_THREAD rows and a CTA at most MAX_K_CHUNK; ``_cluster``
+    sizes the cluster."""
+    vec = 128 // bits if bits else 16 // elem_bytes
+    nvec = n // vec
+    slots = _slots(nvec, nseg)
+    tiles = -(-nvec // (slots // nseg))
     nsub = GEMV_THREADS // slots
-    fit = max(1, CTAS_AN_SM * SMS // tiles(slots))
+    fit = max(1, CTAS_AN_SM * SMS // tiles)
     least = -(-K // MAX_K_CHUNK)
     most = max(1, K // (nsub * MIN_ROWS_A_THREAD))
     ks = max(least, min(fit, most))
     if ks > MAX_CLUSTER and all(ks % c for c in range(2, MAX_CLUSTER + 1)):
         ks += 1 if ks - 1 < least else -1  # a prime split takes no cluster
-    ck = _cluster(ks, bc, slots // nseg * vec)
-    nck = ks // ck
-    return GemvPlan(vec=vec, rows=rows, passes=-(-bc // rows), slots=slots,
-                    tiles=tiles(slots), k_chunk=-(-K // ks), k_split=ks,
-                    cluster=ck, clusters=nck,
-                    partial=nck * bc * nseg * n if nck > 1 else 0,
-                    counters=tiles(slots) * ck)
+    return _plan(K, n, nseg, bits, elem_bytes, bc, slots, ks,
+                 _cluster(ks, bc, slots // nseg * vec))
 
 
 GEMV_BATCH = 8         # items a thread reduces at once (kBatch)
@@ -174,7 +179,49 @@ def mlp_plans(D: int, F: int, gated: bool, bits: Sequence[int],
             gemv_plan(F, D, 1, bits[1], elem_bytes, bc))
 
 
-# arrival counters of the MLP GEMV, one buffer a device, zero between
+# vector columns a CTA of the fused QKV (scripts/fused_qkv_plan_sweep.py)
+QKV_SLOTS = 8
+
+
+def qkv_plan(K: int, n: int, bits: int, elem_bytes: int,
+             bc: int) -> GemvPlan:
+    """The plan of one fused-QKV launch over ``n`` outputs of weights side
+    by side (``qkv_width``; pure Python, the kernel checks it): QKV_SLOTS
+    vector columns a CTA (16 K sub-rows) and one cluster of MAX_CLUSTER
+    CTAs along K (fewer where K has fewer rows than that many sub-rows),
+    more only past MAX_K_CHUNK rows a CTA: no scratch at either served
+    model's widths (the sweep's fastest at both)."""
+    ck = max(1, min(MAX_CLUSTER, K // (GEMV_THREADS // QKV_SLOTS)))
+    nck = -(-K // (ck * MAX_K_CHUNK))
+    return _plan(K, n, 1, bits, elem_bytes, bc, QKV_SLOTS, ck * nck, ck)
+
+
+def qkv_width(ns: Sequence[int], vec: int, slots: int) -> int:
+    """The outputs of one fused-QKV launch over weights of ``ns`` outputs
+    side by side: each weight in whole column tiles of ``slots`` vectors
+    (its last padded), or one weight's own."""
+    if len(ns) == 1:
+        return ns[0]
+    return sum(-(-(n // vec) // slots) for n in ns) * slots * vec
+
+
+@functools.lru_cache(maxsize=256)
+def qkv_plans(K: int, segs: Tuple[Tuple[int, int], ...], elem_bytes: int,
+              bc: int) -> Tuple[GemvPlan, ...]:
+    """The fused QKV's launches: one ``qkv_plan`` per distinct bit width
+    among ``segs`` ((outputs, bits) of wq, wk, wv), in the order 0, 2, 4,
+    8, each over its weights side by side in whole column tiles, so each
+    CTA reads one weight (``qkv_width``)."""
+    plans = []
+    for bits in sorted({b for _, b in segs}):
+        vec = 128 // bits if bits else 16 // elem_bytes
+        ns = [n for n, b in segs if b == bits]
+        plans.append(qkv_plan(K, qkv_width(ns, vec, QKV_SLOTS), bits,
+                              elem_bytes, bc))
+    return tuple(plans)
+
+
+# arrival counters of the GEMV, one buffer a device, zero between
 # calls (the last CTA of each tile and rank resets its counter); calls on
 # one stream run one after another
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
@@ -228,13 +275,6 @@ class _Weight:
             self.ptrs = (self.keep[0].data_ptr(), 0)
 
 
-def _tiles(w: _Weight, elem_bytes: int) -> int:
-    """Grid columns of one weight: 8 units (words or 16-byte vectors) per
-    block."""
-    per_unit = 32 // w.bits if w.bits else 16 // elem_bytes
-    return -(-(w.n // per_unit) // 8)
-
-
 def _activation_dtype(h: torch.Tensor, what: str) -> torch.dtype:
     """The GEMV kernels' instances: bf16 or fp32 activations (and dense
     weights of the same dtype)."""
@@ -256,13 +296,17 @@ def _rows(h: torch.Tensor) -> List[Tuple[int, int]]:
 
 
 def launch_fused_qkv(h, wq, wk, wv, bq=None, bk=None, bv=None):
-    """h (bc,1,D) -> q (bc,1,H,hd), k, v (bc,1,KV,hd) on the card.
-    Returns (outputs, launches)."""
+    """h (bc,1,D) -> q (bc,1,H,hd), k, v (bc,1,KV,hd) on the card: one
+    split-K GEMV launch per distinct bit width among the three weights
+    (``qkv_plans``), side by side along the outputs, per MAX_ROWS cohort
+    rows.  Returns (outputs, calls into the library, device kernels)."""
     dtype = _activation_dtype(h, "fused_qkv")
     _require_cuda(h)
     bc, _, D = h.shape
     ws = [_Weight(w, D, dtype, nm) for w, nm in
           ((wq, "wq"), (wk, "wk"), (wv, "wv"))]
+    for w, name in zip(ws, ("wq", "wk", "wv")):
+        _gemv_takes(w, dtype, name, "fused_qkv")
     biases = (bq, bk, bv)
     if any(b is None for b in biases) and not all(b is None for b in biases):
         raise ValueError("fused_qkv: give all three biases or none")
@@ -272,16 +316,15 @@ def launch_fused_qkv(h, wq, wk, wv, bq=None, bk=None, bv=None):
     outs = [torch.empty((bc, 1) + tail[i], dtype=dtype, device=h.device)
             for i in range(3)]
     x = h.reshape(bc, D).contiguous()
-    n_total = sum(w.n for w in ws)
-    tiles = sum(_tiles(w, h.element_size()) for w in ws)
-    kc = k_chunk_for(D, tiles)
-    ks = -(-D // kc)
     lib = library()
-    launches = 0
+    calls = kernels = 0
     for r0, r1 in _rows(h):
         rows = r1 - r0
-        partial = torch.empty((ks, rows, n_total), dtype=torch.float32,
-                              device=h.device)
+        plans = qkv_plans(D, tuple((w.n, w.bits) for w in ws),
+                          h.element_size(), rows)
+        partial = torch.empty(max(p.partial for p in plans),
+                              dtype=torch.float32, device=h.device)
+        counters = _counters(h.device, max(p.counters for p in plans))
         err = lib.rt_fused_qkv(
             x[r0:r1].data_ptr(), rows, D, 3,
             _ptr_array([w.ptrs[0] for w in ws]),
@@ -290,10 +333,13 @@ def launch_fused_qkv(h, wq, wk, wv, bq=None, bk=None, bv=None):
             _int_array([w.group for w in ws]),
             _ptr_array([0 if b is None else b.data_ptr() for b in bias_t]),
             _ptr_array([o[r0:r1].data_ptr() for o in outs]),
-            partial.data_ptr(), kc, DTYPES[dtype], _stream())
+            _int_array([a for p in plans for a in p.args()]),
+            partial.data_ptr(), counters.data_ptr(), DTYPES[dtype],
+            _stream())
         _check(err, "fused_qkv")
-        launches += 1
-    return tuple(outs), launches
+        calls += 1
+        kernels += len(plans)
+    return tuple(outs), calls, kernels
 
 
 def launch_fused_mlp(h, w_up, w_down, w_gate, act: str, gated: bool):
@@ -317,7 +363,7 @@ def launch_fused_mlp(h, w_up, w_down, w_gate, act: str, gated: bool):
         raise ValueError(f"fused_mlp: w_down gives {down.n} outputs, "
                          f"expected {D}")
     for w, name in ((up, "w_up"), (down, "w_down")):
-        _gemv_takes(w, dtype, name)
+        _gemv_takes(w, dtype, name, "fused_mlp")
     ws = [up, gate if gate is not None else up, down]
     x = h.reshape(bc, D).contiguous()
     out = torch.empty((bc, 1, D), dtype=dtype, device=h.device)
@@ -345,14 +391,14 @@ def launch_fused_mlp(h, w_up, w_down, w_gate, act: str, gated: bool):
     return out, launches
 
 
-def _gemv_takes(w: "_Weight", dtype: torch.dtype, name: str):
-    """Raise unless the MLP GEMV takes weight ``w``: outputs a multiple of
-    the 16-byte vector's, and one scale group a vector (two for q2: the
-    group a multiple of 32 outputs)."""
+def _gemv_takes(w: "_Weight", dtype: torch.dtype, name: str, what: str):
+    """Raise unless the GEMV takes weight ``w``: outputs a multiple of the
+    16-byte vector's, and one scale group a vector (two for q2: the group
+    a multiple of 32 outputs)."""
     vec = 128 // (w.bits or torch.finfo(dtype).bits)
     per_scale = vec // 2 if w.bits == 2 else vec
     if w.n % vec or (w.bits and w.group % per_scale):
-        raise ValueError(f"fused_mlp: {name} ({w.n} outputs, {w.bits} bits, "
+        raise ValueError(f"{what}: {name} ({w.n} outputs, {w.bits} bits, "
                          f"group {w.group}) needs outputs a multiple of "
                          f"{vec} and a group a multiple of {per_scale}")
 

@@ -6,11 +6,12 @@ run the plain version (``ref.py``); CUDA tensors launch the Hopper kernel
 calls into the compiled library under its own name in the kernels'
 launch-count registry (``repro_torch.kernels``), so a run can show that
 it went through the kernels; ``fused_mlp`` also counts each call under
-``fused_mlp/gemv``, its split-K GEMV kernel.  One such call runs several
-device kernels: ``fused_qkv`` two (partial GEMV, epilogue) when its
-three weights share a bit width, ``fused_mlp`` two (the GEMV of each
-stage, its epilogue inside), ``kv_scatter`` one.  The GEMV kernels take
-bf16 or fp32 activations.
+``fused_mlp/gemv`` and ``fused_qkv`` each of its device kernels under
+``fused_qkv/gemv``, both the split-K GEMV kernel.  One such call runs
+several device kernels: ``fused_qkv`` one a distinct bit width among its
+three weights (one for every served profile), ``fused_mlp`` two (the
+GEMV of each stage, its epilogue inside), ``kv_scatter`` one.  The GEMV
+kernels take bf16 or fp32 activations.
 
 ``cohort_step`` is the engine-facing entry: the batched decode step over
 the paged pool.  ``use_fused=False`` runs the composed step
@@ -57,8 +58,9 @@ def fused_qkv(h, wq, wk, wv, bq=None, bk=None, bv=None):
     """h (bc,1,D) -> (q, k, v); weights dense or packed QTensors."""
     if _on_cpu(h):
         return ref_fused_qkv(h, wq, wk, wv, bq, bk, bv)
-    outs, n = K.launch_fused_qkv(h, wq, wk, wv, bq, bk, bv)
-    count_launch("fused_qkv", n)
+    outs, calls, kernels = K.launch_fused_qkv(h, wq, wk, wv, bq, bk, bv)
+    count_launch("fused_qkv", calls)
+    count_launch("fused_qkv/gemv", kernels)
     return outs
 
 
@@ -86,7 +88,8 @@ def kv_scatter(blk, off, k_rows, v_rows, k_pool, v_pool):
     return out
 
 
-register_kernels("fused_qkv", "fused_mlp", "fused_mlp/gemv", "kv_scatter")
+register_kernels("fused_qkv", "fused_qkv/gemv", "fused_mlp", "fused_mlp/gemv",
+                 "kv_scatter")
 
 
 def fused_supported(cfg) -> bool:

@@ -6,9 +6,10 @@ written with torch ops only; ``ref_cohort_step`` is the composed decode
 step over the pool (paged attention K/V and slot-indexed state).  The
 wrappers in ``ops.py`` run these for CPU tensors; the tests hold them
 against the reference package, and the card's checks hold each kernel
-against them.  ``emulate_fused_mlp`` repeats the MLP kernel's summation
-order (``kernel.gemv_plan``'s split-K plan) in plain PyTorch, for the
-tests to hold that order against the reference.
+against them.  ``emulate_fused_mlp`` and ``emulate_fused_qkv`` repeat
+the split-K GEMV's summation order (``kernel.gemv_plan``'s and
+``kernel.qkv_plan``'s plans) in plain PyTorch, for the tests to hold that
+order against the reference.
 """
 from __future__ import annotations
 
@@ -79,6 +80,27 @@ def emulate_gemv(x, w, plan):
     for t in clusters[1:]:
         out = out + t
     return out
+
+
+def emulate_fused_qkv(h, wq, wk, wv, bq=None, bk=None, bv=None, plan=None):
+    """``ref_fused_qkv`` with the kernel's summation order (``plan``: the
+    ``GemvPlan`` of the one launch over the three weights, of one bit
+    width, side by side along the outputs) and its roundings to h's dtype
+    T: each output rt(rt(sum) + bias), or rt(sum) without biases."""
+    dt = h.dtype
+    bc, _, D = h.shape
+    ws = [_dq(w) for w in (wq, wk, wv)]
+    y = emulate_gemv(h.reshape(bc, D), torch.cat(
+        [w.reshape(D, -1) for w in ws], 1), plan).to(dt)
+    outs, c0 = [], 0
+    for w, b in zip(ws, (bq, bk, bv)):
+        n = w[0].numel()
+        o = y[:, c0:c0 + n]
+        if b is not None:
+            o = (o.float() + _dq(b).reshape(-1).to(dt).float()).to(dt)
+        outs.append(o.reshape((bc, 1) + tuple(w.shape[1:])))
+        c0 += n
+    return tuple(outs)
 
 
 def emulate_fused_mlp(h, w_up, w_down, w_gate=None, *, act: str,

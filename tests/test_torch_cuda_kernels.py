@@ -25,7 +25,8 @@ from repro_torch.kernels.fused_decode import (cohort_step, fused_mlp,
 from repro_torch.kernels.linear_attention import (
     linear_attention, ref_linear_attention_chunked)
 from repro_torch.kernels.fused_decode import kernel as FDK
-from repro_torch.kernels.fused_decode.ref import emulate_fused_mlp
+from repro_torch.kernels.fused_decode.ref import (emulate_fused_mlp,
+                                                  emulate_fused_qkv)
 from repro_torch.kernels.ssd import ref_ssd_chunked, ssd
 from repro_torch.kernels.ssd.ref import emulate_ssd_mma
 
@@ -75,7 +76,8 @@ def test_fused_qkv_kernel_matches_plain(cuda, label, bias, bc):
     reset_launch_counts()
     got = fused_qkv(h, *ws, *bs)
     torch.cuda.synchronize()
-    assert launch_counts()["fused_qkv"] == -(-bc // 8)
+    counts = launch_counts()
+    assert counts["fused_qkv"] == counts["fused_qkv/gemv"] == -(-bc // 8)
     want = ref_fused_qkv(h, *ws, *bs)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
@@ -356,15 +358,16 @@ def _rel_err(got, want):
                                                 (1, 128, 2, 1, 16)])
 def test_flash_attention_kernel_fp32_on_the_reference_grid(cuda, shape,
                                                            causal):
-    """The fp32 instance (SIMT FFMA, p kept in fp32) within the
-    reference's fp32 bound, 1e-4 of the largest plain magnitude."""
+    """The fp32 instance (split TF32 on the tensor cores, p kept in fp32)
+    within the reference's fp32 bound, 1e-4 of the largest plain
+    magnitude."""
     B, S, H, KV, hd = shape
     q, k, v = _qkv(cuda, B, S, S, H, KV, hd, dtype=torch.float32,
                    seed=S + hd + H)
     reset_launch_counts()
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert launch_counts()["flash_attention"] == 1
+    _one_flash(torch.float32)
     want = ref_attention(q, k, v, causal=causal)
     assert got.shape == want.shape and got.dtype == torch.float32
     assert got.isfinite().all()
@@ -1186,7 +1189,7 @@ def test_every_served_shape_runs_the_wgmma_kernel(cuda, arch):
 
 def _one_flash(dtype=torch.bfloat16):
     counts = launch_counts()
-    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     assert counts["flash_attention"] == counts[f"flash_attention/{route}"] == 1
 
 
@@ -1557,3 +1560,243 @@ def test_fused_mlp_gemv_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         fused_mlp(h.half(), up, down, gate, act="swiglu")
     assert launch_counts()["fused_mlp"] == 0
+
+
+# -- the fused QKV on the split-K GEMV ---------------------------------------
+
+QKV_WIDTHS = {"llava-onevision-0.5b": (896, 14, 2, 64),
+              "qwen2-vl-7b": (3584, 28, 4, 128)}
+
+
+def _qkv_weights(dev, D, H, KV, hd, dtype, specs, bias=True, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(n, spec):
+        t = (torch.randn((D, n, hd), generator=g, device=dev)
+             / D ** 0.5).to(dtype)
+        return t if spec is None else quantize(t, spec)
+    ws = [w(n, spec) for n, spec in zip((H, KV, KV), specs)]
+    bs = [(torch.randn((n, hd), generator=g, device=dev) * 0.1).to(dtype)
+          if bias else None for n in (H, KV, KV)]
+    return ws, bs
+
+
+def _qkv_close(got, want, dtype):
+    """Each cohort row of each output within the gate of its largest
+    plain value."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert g.isfinite().all()
+        g2, w2 = g.float().flatten(1), w.float().flatten(1)
+        ratio = (g2 - w2).abs().amax(-1) / w2.abs().amax(-1)
+        assert ratio.max().item() <= MLP_TOL[dtype], ratio.max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bc", range(1, 9))
+@pytest.mark.parametrize("arch", list(QKV_WIDTHS))
+def test_fused_qkv_gemv_at_served_widths(cuda, arch, bc, dtype):
+    """q4 g32 with biases (the served packing) at each served model's
+    widths: one device kernel a call counted under ``fused_qkv/gemv``,
+    each row within 2e-2 (bf16) or 1e-5 (fp32) of the plain version's
+    largest value, within the same of the plain emulation of the
+    kernel's summation order, and the arrival counters left at zero."""
+    D, H, KV, hd = QKV_WIDTHS[arch]
+    spec = QuantSpec(4, group_size=32)
+    ws, bs = _qkv_weights(cuda, D, H, KV, hd, dtype, (spec,) * 3, seed=bc)
+    h = torch.randn((bc, 1, D), generator=torch.Generator(
+        device=cuda).manual_seed(bc), device=cuda).to(dtype)
+    reset_launch_counts()
+    got = fused_qkv(h, *ws, *bs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["fused_qkv"] == counts["fused_qkv/gemv"] == 1
+    _qkv_close(got, ref_fused_qkv(h, *ws, *bs), dtype)
+    (plan,) = FDK.qkv_plans(D, tuple((n * hd, 4) for n in (H, KV, KV)),
+                            h.element_size(), bc)
+    _qkv_close(got, emulate_fused_qkv(h, *ws, *bs, plan=plan), dtype)
+    assert not FDK._COUNTERS[h.device].any()
+
+
+@pytest.mark.parametrize("split", [(16, 8), (12, 4)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_qkv_gemv_across_clusters(cuda, monkeypatch, split, dtype):
+    """A K split past one cluster (2 clusters of 8, 3 of 4; the served
+    plans take one): the last CTA of each slice adds the clusters' sums
+    and runs the bias epilogue, within the gates of the plain version and
+    of the emulation of that order, the counters left at zero."""
+    D, H, KV, hd = QKV_WIDTHS["qwen2-vl-7b"]
+    k_split, cluster = split
+
+    def plan(K, n, bits, elem_bytes, bc):
+        return FDK._plan(K, n, 1, bits, elem_bytes, bc, FDK.QKV_SLOTS,
+                         k_split, cluster)
+    monkeypatch.setattr(FDK, "qkv_plan", plan)
+    FDK.qkv_plans.cache_clear()
+    try:
+        ws, bs = _qkv_weights(cuda, D, H, KV, hd, dtype,
+                              (QuantSpec(4, group_size=32),) * 3, seed=11)
+        h = torch.randn((3, 1, D), generator=torch.Generator(
+            device=cuda).manual_seed(11), device=cuda).to(dtype)
+        got = fused_qkv(h, *ws, *bs)
+        torch.cuda.synchronize()
+        (p,) = FDK.qkv_plans(D, tuple((n * hd, 4) for n in (H, KV, KV)),
+                             h.element_size(), 3)
+        assert p.clusters == k_split // cluster > 1
+        _qkv_close(got, ref_fused_qkv(h, *ws, *bs), dtype)
+        _qkv_close(got, emulate_fused_qkv(h, *ws, *bs, plan=p), dtype)
+        assert not FDK._COUNTERS[h.device].any()
+    finally:
+        FDK.qkv_plans.cache_clear()
+
+
+@pytest.mark.parametrize("label", list(SPECS))
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_qkv_gemv_every_packing(cuda, label, bias, dtype):
+    """Dense, q2, q4 and q8 weights, with and without biases, at LLaVA's
+    widths and a cohort of 6 (two passes for q2, one launch)."""
+    D, H, KV, hd = QKV_WIDTHS["llava-onevision-0.5b"]
+    ws, bs = _qkv_weights(cuda, D, H, KV, hd, dtype, (SPECS[label],) * 3,
+                          bias=bias, seed=5)
+    h = torch.randn((6, 1, D), generator=torch.Generator(
+        device=cuda).manual_seed(6), device=cuda).to(dtype)
+    reset_launch_counts()
+    got = fused_qkv(h, *ws, *bs)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_qkv/gemv"] == 1
+    _qkv_close(got, ref_fused_qkv(h, *ws, *bs), dtype)
+
+
+@pytest.mark.parametrize("labels,kernels", [
+    (("q4", "q8", "q8"), 2), (("q8", "q4", "q8"), 2),
+    (("q4", "q8", "dense"), 3), (("q2", "q2", "q4"), 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_qkv_gemv_mixed_bits(cuda, labels, kernels, dtype):
+    """Weights of several bit widths: one launch a distinct width (each
+    over its weights side by side), one call counted under
+    ``fused_qkv``."""
+    D, H, KV, hd = QKV_WIDTHS["llava-onevision-0.5b"]
+    ws, bs = _qkv_weights(cuda, D, H, KV, hd, dtype,
+                          tuple(SPECS[x] for x in labels), seed=7)
+    h = torch.randn((4, 1, D), generator=torch.Generator(
+        device=cuda).manual_seed(7), device=cuda).to(dtype)
+    reset_launch_counts()
+    got = fused_qkv(h, *ws, *bs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["fused_qkv"] == 1 and counts["fused_qkv/gemv"] == kernels
+    _qkv_close(got, ref_fused_qkv(h, *ws, *bs), dtype)
+    assert not FDK._COUNTERS[h.device].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", list(QKV_WIDTHS))
+def test_fused_qkv_gemv_bit_equal_run_to_run(cuda, arch, dtype):
+    """The split-K reduction runs in a fixed order: three calls on the
+    same inputs give the same bits."""
+    D, H, KV, hd = QKV_WIDTHS[arch]
+    ws, bs = _qkv_weights(cuda, D, H, KV, hd, dtype,
+                          (QuantSpec(4, group_size=32),) * 3, seed=9)
+    h = torch.randn((4, 1, D), generator=torch.Generator(
+        device=cuda).manual_seed(9), device=cuda).to(dtype)
+    outs = [fused_qkv(h, *ws, *bs) for _ in range(3)]
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], o))
+
+
+def test_fused_qkv_gemv_refuses_what_it_does_not_take(cuda):
+    D, H, KV, hd = 256, 4, 2, 64
+    h = torch.randn((2, 1, D), device=cuda).to(torch.bfloat16)
+    ws, bs = _qkv_weights(cuda, D, H, KV, hd, torch.bfloat16,
+                          (QuantSpec(4, group_size=32),) * 3)
+    g16 = _qkv_weights(cuda, D, H, KV, hd, torch.bfloat16,
+                       (QuantSpec(4, group_size=16),) * 3)[0]
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="a group a multiple of 32"):
+        fused_qkv(h, ws[0], g16[1], ws[2])
+    with pytest.raises(ValueError, match="all three biases or none"):
+        fused_qkv(h, *ws, bs[0], None, None)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fused_qkv(h.half(), *ws)
+    counts = launch_counts()
+    assert counts["fused_qkv"] == counts["fused_qkv/gemv"] == 0
+
+
+# -- the fp32 flash route: split TF32 on mma.sync ----------------------------
+
+def _attention_f64(q, k, v, causal):
+    """Dense GQA attention evaluated in float64 throughout."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    qg = q.double().reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bikgh,bjkh->bkgij", qg, k.double()) * hd ** -0.5
+    if causal:
+        keep = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None])
+        s = s.masked_fill(~keep, -1e30)
+    o = torch.einsum("bkgij,bjkh->bikgh", torch.softmax(s, -1), v.double())
+    return o.reshape(B, Sq, H, hd)
+
+
+def _tf32x3_held(q, k, v, causal):
+    """One launch on the tf32x3 route, within 1e-4 of the plain version's
+    largest magnitude, and against float64 no worse than 10x the plain
+    version's error there (both in the reference's measure), or than 10
+    fp32 unit roundoffs (2^-24) where the plain version is exact (a
+    softmax over one key is v itself)."""
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _one_flash(torch.float32)
+    want = ref_attention(q, k, v, causal=causal)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert got.isfinite().all()
+    assert _rel_err(got, want) <= 1e-4
+    exact = _attention_f64(q, k, v, causal)
+    kernel_err, plain_err = _rel_err(got, exact), _rel_err(want, exact)
+    assert kernel_err <= 10 * max(plain_err, 2.0 ** -24), (kernel_err,
+                                                           plain_err)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 160])
+@pytest.mark.parametrize("Sq,Sk,causal", [(777, 777, True),
+                                          (300, 1000, False),
+                                          (1000, 300, True), (1, 1, True)])
+def test_flash_tf32x3_every_head_dim_sq_ne_sk(cuda, hd, Sq, Sk, causal):
+    """Every head dim, Sq and Sk off the 64-row and 64-key tiles (the
+    zero fill and the masks), Sq != Sk either way."""
+    _tf32x3_held(*_qkv(cuda, 1, Sq, Sk, 8, 2, hd, dtype=torch.float32,
+                       seed=hd + Sq), causal)
+
+
+@pytest.mark.parametrize("G", [1, 4, 7])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tf32x3_gqa_ratios(cuda, G, causal):
+    _tf32x3_held(*_qkv(cuda, 2, 333, 333, 2 * G, 2, 64, dtype=torch.float32,
+                       seed=G), causal)
+
+
+@pytest.mark.parametrize("hd", [16, 64, 160])
+def test_flash_tf32x3_reads_strided_views(cuda, hd):
+    """q/k/v as head-slices of one fused projection, read through their
+    strides: the same output as contiguous copies."""
+    B, S, H, KV = 2, 200, 14, 2
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    qkv = torch.randn((B, S, H + 2 * KV, hd), generator=g, device=cuda)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v)
+    assert torch.equal(got, flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous()))
+    _tf32x3_held(q, k, v, True)
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 14, 2, 64),
+                                   (1, 128, 14, 2, 64)])
+def test_flash_tf32x3_at_the_served_shape(cuda, shape):
+    """LLaVA-OneVision-0.5B's fp32 prefill shapes (S 1024 and a short
+    bucket), causal."""
+    B, S, H, KV, hd = shape
+    _tf32x3_held(*_qkv(cuda, B, S, S, H, KV, hd, dtype=torch.float32,
+                       seed=S), True)

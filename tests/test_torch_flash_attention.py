@@ -12,6 +12,13 @@ fp32 at head dim 128 (causal, GQA 7), bf16 at the cross shape.  Tolerances are t
 reference kernel tests': 1e-4 relative in fp32 (summation order only),
 2e-2 in bf16 (one bf16 rounding of the probabilities at different
 points).
+
+The kernel's fp32 route (split TF32 on the tensor cores) is held here
+through its plain emulation: ``split_tf32`` gives two tf32 terms that
+sum to x within 2^-22 relative, and ``emulate_flash_f32`` (the three
+split products a product, tiles of 64 keys) meets the reference's
+interpret-mode flash within 1e-4 on the reference kernel tests' grid and
+at head dim 160.
 """
 import jax
 import jax.numpy as jnp
@@ -23,6 +30,8 @@ from repro.kernels.flash_attention import flash_attention as r_flash
 from repro.kernels.flash_attention import ref_attention
 from repro_torch import bridge
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import (emulate_flash_f32,
+                                                     split_tf32)
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PALLAS_SHAPE = (1, 128, 14, 2, 128)     # fp32, causal
@@ -76,3 +85,52 @@ def test_flash_attention_cross_shape_matches_reference(dtype):
         pallas = r_flash(q, k, v, causal=False, bq=64, bk=64,
                          interpret=True)
         assert _rel_err(_f32(got), pallas) < TOL[dtype]
+
+
+def test_split_tf32_reconstructs_and_keeps_ten_mantissa_bits():
+    """hi + lo is x within 2^-22 |x| over twelve decades and at the
+    edges (zero, powers of two, ties at bit 12, the largest float); hi and
+    lo keep 10 explicit mantissa bits (their 13 low bits zero); hi is x
+    rounded to nearest, ties away from zero."""
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal(200_000)
+         * np.exp(rng.uniform(-14.0, 14.0, 200_000))).astype(np.float32)
+    ties = (np.float32(1.0) + np.float32(2.0 ** -11) * np.arange(1, 9,
+            dtype=np.float32)).astype(np.float32)
+    edges = np.array([0.0, 1.0, -1.0, 2.0 ** -126, 3.4e38, -3.4e38],
+                     np.float32)
+    x = np.concatenate([x, ties, -ties, edges])
+    t = torch.from_numpy(x)
+    hi, lo = split_tf32(t)
+    assert hi.dtype == lo.dtype == torch.float32
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    err = (hi.double() + lo.double() - t.double()).abs()
+    assert (err <= 2.0 ** -22 * t.double().abs()).all()
+    # rounding to nearest, ties away: |x - hi| <= half a tf32 step, ties up
+    step = torch.ldexp(torch.ones_like(t.double()),
+                       torch.frexp(t.double())[1] - 11)
+    assert ((t.double() - hi.double()).abs() <= step / 2).all()
+    tie_hi = split_tf32(torch.from_numpy(ties))[0].double()
+    assert (tie_hi.abs() >= torch.from_numpy(ties).double().abs()).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 128, 4, 2, 32), (1, 256, 8, 8, 64),
+                                   (2, 256, 6, 2, 32), (1, 128, 32, 4, 16),
+                                   (1, 192, 14, 2, 160)])
+def test_split_tf32_flash_emulation_matches_reference(shape, causal):
+    """The fp32 route's arithmetic (``emulate_flash_f32``) against the
+    reference's flash in interpret mode (bq = bk = 64, fp32) and its
+    ``ref_attention``, within the reference's fp32 bound 1e-4: the
+    reference kernel tests' grid, causal and not, and head dim 160 over
+    three 64-key tiles."""
+    B, S, H, KV, hd = shape
+    (q, k, v), (tq, tk, tv) = _inputs(B, S, S, H, KV, hd, "float32",
+                                      sum(shape) + causal)
+    got = emulate_flash_f32(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.float32 and tuple(got.shape) == q.shape
+    pallas = r_flash(q, k, v, causal=causal, bq=64, bk=64, interpret=True)
+    assert _rel_err(_f32(got), pallas) < TOL["float32"]
+    assert _rel_err(_f32(got), r_ref(q, k, v, causal=causal)) < \
+        TOL["float32"]

@@ -9,10 +9,11 @@ plain versions there).  Here:
   interpret-mode call of each Pallas kernel — within 1e-5 * (1 + max|ref|)
   in fp32 (summation order only) and 2e-2 * max|ref| in bf16 (one bf16
   rounding step, 2^-8, at different points of the two frameworks);
-* the MLP kernel's launch plan (``kernel.mlp_plans``) covers every
-  output and K row once at every served width, and its fixed-order
-  split-K reduction (``ref.emulate_fused_mlp``) matches the reference
-  within the same tolerances;
+* the split-K GEMV's launch plans (``kernel.mlp_plans`` for the MLP,
+  ``kernel.qkv_plans`` for the fused QKV) cover every output vector and
+  K row once at every served width, and its fixed-order split-K
+  reduction (``ref.emulate_fused_mlp``, ``ref.emulate_fused_qkv``)
+  matches the reference within the same tolerances;
 * ``kv_scatter`` is bit-exact and sentinel rows leave the pool's bits
   unchanged;
 * the composed and the fused ``cohort_step`` both match the reference's
@@ -34,7 +35,8 @@ from repro_torch import bridge
 from repro_torch.core import quantize as TQ
 from repro_torch.kernels import fused_decode as TF
 from repro_torch.kernels.fused_decode import kernel as FK
-from repro_torch.kernels.fused_decode.ref import emulate_fused_mlp
+from repro_torch.kernels.fused_decode.ref import (emulate_fused_mlp,
+                                                  emulate_fused_qkv)
 
 SPEC = {"dense": None, "q4": (4, 32), "q8": (8, 64)}
 ref_cohort_step = jax.jit(RF.ref_cohort_step, static_argnums=(1,),
@@ -216,6 +218,24 @@ def _check_cohort_step(arch, dtype, bc):
 # -- the MLP kernel's split-K plan and its summation order ----------------------
 
 SERVED_MLP = {"llava-onevision-0.5b": (896, 4864), "qwen2-vl-7b": (3584, 18944)}
+# the served QKV widths: D, then the outputs of wq, wk, wv (heads x hd)
+SERVED_QKV = {"llava-onevision-0.5b": (896, (896, 128, 128)),
+              "qwen2-vl-7b": (3584, (3584, 512, 512))}
+
+
+def _check_plan_rows(p, K):
+    """The CTAs' K ranges cover every row exactly once, in whole clusters
+    of at most 8 CTAs, each pass at most 4 rows and 128 accumulators a
+    thread; the counters one a tile and cluster rank."""
+    rows = np.zeros(K, int)
+    for kb in range(p.k_split):
+        rows[kb * p.k_chunk:min(K, (kb + 1) * p.k_chunk)] += 1
+    assert (rows == 1).all() and p.k_chunk <= FK.MAX_K_CHUNK
+    assert p.k_split == p.cluster * p.clusters
+    assert 1 <= p.cluster <= FK.MAX_CLUSTER
+    assert p.rows <= 4 and p.rows * p.vec <= 128
+    assert p.counters == p.tiles * p.cluster
+    assert p.args() == (p.rows, p.slots, p.k_chunk, p.cluster, p.clusters)
 
 
 @pytest.mark.parametrize("bc", range(1, 9))
@@ -229,7 +249,11 @@ def test_gemv_plan_covers_every_output_and_row_once(arch, elem_bytes, bits,
     exactly once, the CTAs' K ranges every row exactly once, the K split
     is whole clusters of at most 8 CTAs, each pass at most 4 rows and
     128 accumulators a thread, the scratch sizes match, and at
-    Qwen2-VL-7B's widths each stage runs at least 132 CTAs."""
+    Qwen2-VL-7B's widths each stage runs at least 132 CTAs.  The fused
+    QKV's one launch at the same width, dtype, packing and cohort: its
+    tiles cover every vector of each of q, k and v exactly once, each
+    tile in one weight, its K split as above, its scratch and counters
+    sized to match."""
     D, F = SERVED_MLP[arch]
     plans = FK.mlp_plans(D, F, True, (bits, bits), elem_bytes, bc)
     for p, (K, n, nseg) in zip(plans, ((D, F, 2), (F, D, 1))):
@@ -241,21 +265,34 @@ def test_gemv_plan_covers_every_output_and_row_once(arch, elem_bytes, bits,
             for slot in range(p.slots):
                 hits[slot // sps, tile * sps + slot % sps] += 1
         assert (hits[:, :nvec] == 1).all() and hits.shape[1] - nvec < sps
-        rows = np.zeros(K, int)
-        for kb in range(p.k_split):
-            rows[kb * p.k_chunk:min(K, (kb + 1) * p.k_chunk)] += 1
-        assert (rows == 1).all() and p.k_chunk <= FK.MAX_K_CHUNK
-        assert p.k_split == p.cluster * p.clusters
-        assert 1 <= p.cluster <= FK.MAX_CLUSTER
-        assert p.rows * p.passes >= bc and p.rows <= 4
-        assert p.rows * p.vec <= 128
+        _check_plan_rows(p, K)
+        assert p.rows * p.passes >= bc
         assert p.partial == (p.clusters * bc * nseg * n if p.clusters > 1
                              else 0)
-        assert p.counters == p.tiles * p.cluster
-        assert p.args() == (p.rows, p.slots, p.k_chunk, p.cluster,
-                            p.clusters)
         if arch == "qwen2-vl-7b":
             assert p.tiles * p.k_split >= FK.SMS
+
+    K, ns = SERVED_QKV[arch]
+    (p,) = FK.qkv_plans(K, tuple((n, bits) for n in ns), elem_bytes, bc)
+    assert p.vec == (128 // bits if bits else 16 // elem_bytes)
+    _check_plan_rows(p, K)
+    assert p.rows * p.passes >= bc
+    assert all(n % p.vec == 0 for n in ns)
+    # each weight in whole column tiles from its first: every vector of
+    # q, k and v once, each CTA in one weight
+    tile0 = np.cumsum((0,) + tuple(-(-(n // p.vec) // p.slots) for n in ns))
+    assert p.tiles == tile0[-1]
+    hits = [np.zeros(n // p.vec, int) for n in ns]
+    for tile in range(p.tiles):
+        seg = int(np.searchsorted(tile0, tile, side="right")) - 1
+        for slot in range(p.slots):
+            vec = (tile - tile0[seg]) * p.slots + slot
+            if vec < len(hits[seg]):
+                hits[seg][vec] += 1
+    assert all((hit == 1).all() for hit in hits)
+    width = FK.qkv_width(ns, p.vec, p.slots)
+    assert width == p.tiles * p.slots * p.vec
+    assert p.partial == (p.clusters * bc * width if p.clusters > 1 else 0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -291,3 +328,42 @@ def test_mlp_reduction_order_matches_reference(dtype, split):
            dtype)
     _check(RF.fused_mlp(h, up[0], down[0], gate[0], act="swiglu",
                         interpret=True), got, dtype)
+
+
+QKV_SPLITS = {"plan": None, "clusters": dict(k_chunk=4, k_split=16,
+                                             cluster=8, clusters=2),
+              "ragged": dict(k_chunk=5, k_split=15, cluster=5, clusters=3)}
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("split", list(QKV_SPLITS))
+def test_qkv_reduction_order_matches_reference(split, dtype, bias):
+    """The fused QKV's one launch over q | k | v side by side, in the
+    kernel's fixed-order split-K reduction with its rt(rt(sum) + bias)
+    epilogue (``emulate_fused_qkv``), against the reference's
+    ``fused_qkv_pallas`` in interpret mode and its ``ref_fused_qkv``: the
+    plan of these widths, a split over two clusters of 8 CTAs, and 3
+    clusters of 5 with empty CTAs past K."""
+    rng = np.random.default_rng(13)
+    D, H, KV, hd, bc = 64, 4, 2, 32, 3
+    h = jnp.asarray(rng.standard_normal((bc, 1, D)).astype(np.float32)
+                    ).astype(dtype)
+    th = bridge.array_to_tensor(np.asarray(h), device="cpu")
+    ws = [_weight(rng, (D, n, hd), "q4", dtype) for n in (H, KV, KV)]
+    bs = [jnp.asarray(rng.standard_normal((n, hd)).astype(np.float32)
+                      ).astype(dtype) if bias else None for n in (H, KV, KV)]
+    tb = [None if b is None else bridge.array_to_tensor(np.asarray(b),
+                                                        device="cpu")
+          for b in bs]
+    (plan,) = FK.qkv_plans(D, tuple((n * hd, 4) for n in (H, KV, KV)),
+                           th.element_size(), bc)
+    if QKV_SPLITS[split] is not None:
+        plan = dataclasses.replace(plan, **QKV_SPLITS[split])
+    got = emulate_fused_qkv(th, *[w[1] for w in ws], *tb, plan=plan)
+    refs = ref_fused_qkv(h, *[w[0] for w in ws], *bs)
+    pallas = RF.fused_qkv(h, *[w[0] for w in ws], *bs, interpret=True)
+    for g, r, pl, n in zip(got, refs, pallas, (H, KV, KV)):
+        assert g.dtype == th.dtype and tuple(g.shape) == (bc, 1, n, hd)
+        _check(r, g, dtype)
+        _check(pl, g, dtype)
