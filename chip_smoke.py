@@ -46,8 +46,9 @@ Phases (any failure raises and exits non-zero):
    for each served path the launch counts are reset just before and
    read just after the run, and read around every decode step (every
    bf16 GEMM and flash launch must take the warp-specialised wgmma
-   kernel, every fp32 one the GEMM's tile kernel and the split-TF32 flash
-   kernel, every fused-MLP launch and every fused-QKV device kernel the
+   kernel, every fp32 one the split-TF32 GEMM and flash kernels (the
+   GEMM's fp32 calls each also against a float64 evaluation, no worse than
+   2x the plain fp32 route over the call), every fused-MLP launch and every fused-QKV device kernel the
    split-K GEMV, one a QKV call: the counts per route show it); every
    fused-QKV and fused-MLP call of one captured decode step is held
    against ``ref_fused_qkv`` / ``ref_fused_mlp`` on its own inputs, each
@@ -72,7 +73,8 @@ Phases (any failure raises and exits non-zero):
    decode through the fp32 fused kernels; the largest prefill
    group rerun through the plain versions (dense attention, dequantize +
    einsum) and a captured cohort state through ``ref_cohort_step`` give
-   logits within 5e-2;
+   logits within 5e-2; that prefill call broken down by kernel (as the
+   fp32 linear-attention serve's below);
 5. serve LLaVA-OneVision-0.5B with the paper's streaming linear
    attention (``attn_impl="linear"``) at full width and depth: the same
    weights, engine settings and four requests as phase 3, prefill
@@ -83,8 +85,10 @@ Phases (any failure raises and exits non-zero):
    fp32, without and with ``valid_len`` (one row at 700 or 100): state and
    z within 1e-4 of their largest magnitude, every output row (b, i, h)
    within 2e-2 (bf16) or 1e-4 (fp32) of that row's largest plain
-   magnitude, padded rows exactly zero; then every kernel call of the
-   serve on its own inputs, with the same gates.  The engine is held
+   magnitude, padded rows exactly zero, and in fp32 each output row
+   against a float64 evaluation no worse than 2x the plain version's
+   (``F64_RATIO``); then every kernel call of the serve on its own inputs,
+   with the same gates.  The engine is held
    against the port's own model within 5e-2 of the largest logit, in bf16
    and on an fp32 instance of the full config: each request's first two
    decode steps against its unpadded prompt (the plain chunked form at a
@@ -133,13 +137,16 @@ Phases (any failure raises and exits non-zero):
    products at 495 TFLOP/s), the packed-weight GEMM at every distinct
    served projection shape (Qwen2-VL and Mamba-2 at 2048 rows, LLaVA at
    1024) beside dequantize + ``matmul`` and ``matmul`` on a dense weight,
-   the flash and GEMM times both from the profiler and from CUDA events
-   around the loop, the cache-row-update
+   and at LLaVA's five shapes in fp32 (the split-TF32 route, beside
+   dequantize + fp32 ``matmul``, with that route's own bound), the flash
+   and GEMM times both from the profiler and from CUDA events around the
+   loop, the cache-row-update
    kernel at the composed step's shape (a layer of a cohort-4 gathered
    context, beside ``index_put_``),
    the SSD kernel at its check shape in bf16 and fp32, with the device
    ms of its four phases (no single PyTorch call computes SSD), the
-   linear-attention kernel at its check shape (nor that);
+   linear-attention kernel at its check shape in bf16 and fp32 with the
+   device ms of its three device kernels (nor that);
    beside the bound the card's published rates set (3.35 TB/s, 989
    TFLOP/s bf16, 67 TFLOP/s fp32 for the SSD's and the linear
    attention's fp32 arithmetic, whose operations ``ssd_work`` and
@@ -263,9 +270,13 @@ DG_TIME_SHAPE = (2048, 3584, 18944)
 # Mamba-2's in_proj and out_proj
 GEMMS_PER_LAYER = {"attn": 7, "linear": 7, "mamba": 2}
 # the kernel (launch-count route) every served call of a dtype must take:
-# bf16 the warp-specialised wgmma kernels, fp32 the GEMM's tile kernel and
-# the split-TF32 flash kernel on the tensor cores
-GEMM_ROUTE = {"bfloat16": "wgmma", "float32": "tile"}
+# bf16 the warp-specialised wgmma kernels, fp32 the split-TF32 GEMM and
+# flash kernels on the tensor cores
+GEMM_ROUTE = {"bfloat16": "wgmma", "float32": "tf32x3"}
+# fp32 kernels against a float64 evaluation: no worse than this many times
+# the plain fp32 version's error on the same inputs (worst over a serve's
+# calls; both sit near fp32's rounding level)
+F64_RATIO = 2.0
 FLASH_ROUTE = {"bfloat16": "wgmma", "float32": "tf32x3"}
 # the SSD kernel's route by dtype: bf16 the tensor-core products (split
 # fp32 operands), fp32 FFMA; every fused-MLP call and every fused-QKV
@@ -724,6 +735,9 @@ class Smoke:
                                            valid_len=valid),
                     chunk, valid, f"linear_attention B={B} S={S} H={H} "
                     f"KV={KV} hd={hd} {name} valid_len={vl}")
+                if dtype == torch.float32:
+                    f64_ratio_check(rec, f"linear_attention B={B} S={S} "
+                                    f"valid_len={vl} fp32")
                 self.la_check.append(dict(
                     shape=[B, S, H, KV, hd, chunk], dtype=name,
                     valid_len=vl, **rec))
@@ -869,24 +883,41 @@ def served_gemm_check(cfg, calls, n_calls):
     (``n_calls`` of them) against the plain version (``dequantize`` +
     einsum) on its own inputs, with ``gemm_error``'s gate; the worst
     error over the largest plain magnitude and the (einsum, x shape,
-    weight shape, dtype) of the calls."""
+    weight shape, dtype) of the calls.  fp32 calls also against a float64
+    evaluation (max |err| over max |float64|): the kernel's worst no more
+    than F64_RATIO times the plain version's worst."""
     import torch
+    from repro_torch.core.quantize import dequantize
     from repro_torch.kernels.dequant_gemm import ref_quant_einsum
     if len(calls) != n_calls:
         fail(f"{cfg.name}: {len(calls)} packed-weight GEMM calls recorded "
              f"in one prefill call, expected {n_calls}")
     worst, err_max, shapes = 0.0, 0.0, set()
+    f64 = {"kernel": 0.0, "plain": 0.0}
     with torch.no_grad():
         for spec, x, w, out in calls:
+            plain = ref_quant_einsum(spec, x, w)
             _, rel, err = gemm_error(
-                f"{cfg.name}: served {spec} at {tuple(x.shape)}", out,
-                ref_quant_einsum(spec, x, w))
+                f"{cfg.name}: served {spec} at {tuple(x.shape)}", out, plain)
             worst, err_max = max(worst, rel), max(err_max, err)
             shapes.add((spec, tuple(x.shape), tuple(w.shape),
                         str(x.dtype).replace("torch.", "")))
-    return {"calls": len(calls), "worst_err_over_max": worst,
-            "max_abs_err": err_max, "tol": DG_TOL,
-            "shapes_spec_x_w_dtype": sorted(shapes)}
+            if x.dtype == torch.float32:
+                want = torch.einsum(spec, x.double(), dequantize(w).double())
+                m = want.abs().max()
+                for key, got in (("kernel", out), ("plain", plain)):
+                    f64[key] = max(f64[key], ((got.double() - want).abs()
+                                              .max() / m).item())
+                del want
+    out = {"calls": len(calls), "worst_err_over_max": worst,
+           "max_abs_err": err_max, "tol": DG_TOL,
+           "shapes_spec_x_w_dtype": sorted(shapes)}
+    if cfg.dtype == "float32":
+        if f64["kernel"] > F64_RATIO * f64["plain"]:
+            fail(f"{cfg.name}: fp32 GEMM vs float64 {f64['kernel']}, plain "
+                 f"{f64['plain']} (at most {F64_RATIO}x)")
+        out["vs_float64_err_over_max"] = dict(f64, max_ratio=F64_RATIO)
+    return out
 
 
 def time_dequant_gemm(sm):
@@ -917,19 +948,24 @@ def time_dequant_gemm(sm):
     return t_k, t_p, t_l, t_d, byt, 2 * M * N * K
 
 
-def time_gemm_shapes(sm, cfgs):
+def time_gemm_shapes(sm, cfgs, dtype=None):
     """The packed-weight GEMM at every distinct projection shape of
     ``cfgs`` (q, k/v, o, up/gate, down; Mamba-2's in_proj and out_proj),
-    q4 g32 bf16 at DG_SERVED_ROWS rows, through ``quant_einsum`` (the
-    kernel its route picks), beside ``dequantize`` + ``torch.matmul`` and
-    ``torch.matmul`` on the weight dequantized beforehand; each time from
-    the profiler (device ms) and from CUDA events around the loop (event
-    ms), and the bound from the codes, scales, x and y bytes and 2 M N K
-    operations."""
+    q4 g32 at DG_SERVED_ROWS rows in bf16 (or ``dtype``), through
+    ``quant_einsum`` (the kernel its route picks), beside ``dequantize`` +
+    ``torch.matmul`` (fp32: full fp32, TF32 off) and ``torch.matmul`` on
+    the weight dequantized beforehand; each time from the profiler
+    (device ms) and from CUDA events around the loop (event ms), and the
+    bound from the codes, scales, x and y bytes and 2 M N K operations
+    (fp32: at the FFMA peak, and beside it the split-TF32 route's own
+    three TF32 products at 495 TFLOP/s)."""
     import torch
     from repro_torch.core.quantize import QuantSpec, dequantize, quantize
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.dequant_gemm import quant_einsum
+    dtype = dtype or torch.bfloat16
+    fp32 = dtype == torch.float32
+    esize = 4 if fp32 else 2
     names = {"bsd,dhk->bshk": "q / k / v", "bshk,hkd->bsd": "o",
              "bsd,df->bsf": "up / gate", "bsf,fd->bsd": "down",
              "bsd,de->bse": "in_proj", "bse,ed->bsd": "out_proj"}
@@ -940,9 +976,9 @@ def time_gemm_shapes(sm, cfgs):
             if (cfg.name, wshape) in seen:
                 continue
             seen.add((cfg.name, wshape))
-            x = sm.randn(1, M, *xshape)
-            w = quantize(sm.randn(*wshape, scale=wshape[0] ** -0.5),
-                         QuantSpec(4, group_size=32))
+            x = sm.randn(1, M, *xshape, dtype=dtype)
+            w = quantize(sm.randn(*wshape, scale=wshape[0] ** -0.5,
+                                  dtype=dtype), QuantSpec(4, group_size=32))
             dense = dequantize(w)
             K = x.shape[-len(xshape):].numel()
             N = dense.numel() // K
@@ -953,21 +989,30 @@ def time_gemm_shapes(sm, cfgs):
                     K, N)), 1, iters=5)
                 t_d = timed(lambda i: torch.matmul(x2, d2), 1, iters=10)
             byt = (w.codes.numel() * 4 + w.scales.numel() * 4
-                   + 2 * M * K + 2 * M * N)
-            b_ms, b_by = bound(byt, 2 * M * N * K)
+                   + esize * (M * K + M * N))
+            fl = 2 * M * N * K
+            b_ms, b_by = bound(byt, fl, FP32_FLOPS_PER_S if fp32
+                               else BF16_FLOPS_PER_S)
             reset_launch_counts()       # the kernel this shape launches
             with torch.no_grad():
                 quant_einsum(spec, x, w)
-            route = [r for r in GEMM_ROUTE.values()
-                     if launch_counts()[f"dequant_gemm/{r}"]]
-            rows.append({
+            route = [k.split("/", 1)[1] for k, n in launch_counts().items()
+                     if k.startswith("dequant_gemm/") and n]
+            row = {
                 "model": cfg.name, "proj": names[spec], "M": M, "K": K,
-                "N": N, "route": route,
+                "N": N, "dtype": str(dtype).replace("torch.", ""),
+                "route": route,
                 "ms": dev_or_call(t_k), "event_ms": t_k[1],
                 "bound_ms": b_ms, "bound_by": b_by,
                 "dequantize_matmul_ms": dev_or_call(t_l),
+                "dequantize_matmul_event_ms": t_l[1],
                 "dense_matmul_ms": dev_or_call(t_d),
-                "dense_matmul_event_ms": t_d[1]})
+                "dense_matmul_event_ms": t_d[1]}
+            if fp32:
+                r_ms, r_by = bound(byt, 3 * fl, TF32_FLOPS_PER_S)
+                row.update(bound_ms_tf32x3_route=r_ms,
+                           bound_by_tf32x3_route=r_by)
+            rows.append(row)
             del x, w, dense, x2, d2
     free()
     return rows
@@ -1986,13 +2031,50 @@ def composed_decode_breakdown(sm, cfg, eng):
                                for k, us, _ in by_name[:8]]}
 
 
+def linear_attention_f64(q, k, v, valid_len=None):
+    """Causal linear attention evaluated in float64 throughout by its
+    quadratic form, k/v expanded to q's heads, phi in float64; rows at or
+    past ``valid_len`` drop out (the yardstick of the fp32 kernel's
+    accuracy)."""
+    import torch
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+
+    def phi(t):
+        t = t.double()
+        return torch.where(t > 0, t + 1.0, torch.exp(t))
+    qf = phi(q)
+    kf = phi(k).repeat_interleave(G, 2)
+    vf = v.double().repeat_interleave(G, 2)
+    if valid_len is not None:
+        keep = (torch.arange(S, device=q.device)[None]
+                < valid_len.to(q.device)[:, None])[..., None, None]
+        qf, kf, vf = qf * keep, kf * keep, vf * keep
+    s = torch.einsum("bihd,bjhd->bhij", qf, kf).tril()
+    den = s.sum(-1).clamp_min(1e-6).transpose(1, 2)[..., None]
+    return torch.einsum("bhij,bjhd->bihd", s, vf) / den
+
+
+def rows_err(got, want):
+    """The worst row (b, i, h): max |err| over that row's largest |want|
+    (rows of zeros must be matched exactly)."""
+    import torch
+    err = (got.double() - want.double()).abs().amax(-1)
+    m = want.double().abs().amax(-1)
+    ratio = torch.where(m > 0, err / m.clamp_min(1e-300),
+                        torch.where(err > 0, float("inf"), 0.0))
+    return ratio.max().item()
+
+
 def linear_errors(args, out, chunk, valid_len, what):
     """The linear-attention kernel's (out, state, z) ``out`` on ``args``
     (q, k, v) against the plain chunked form: fails unless all are
     finite and of the plain shapes, state and z within LA_STATE_TOL of
     their largest magnitude, every output row (b, i, h) within
     LA_ROW_TOL of that row's largest plain magnitude, and every row at
-    or past ``valid_len`` exactly zero.  Returns the errors."""
+    or past ``valid_len`` exactly zero.  fp32 inputs: the kernel's and the
+    plain form's rows also against ``linear_attention_f64`` (reported;
+    the callers gate the ratio).  Returns the errors."""
     import torch
     from repro_torch.kernels.linear_attention import (
         ref_linear_attention_chunked)
@@ -2006,10 +2088,7 @@ def linear_errors(args, out, chunk, valid_len, what):
     s_rel = ((st - rst).abs().max() / rst.abs().max()).item()
     z_rel = ((z - rz).abs().max() / rz.abs().max()).item()
     err = (o.float() - ro.float()).abs().amax(-1)            # (B, S, H)
-    m = ro.float().abs().amax(-1)
-    ratio = torch.where(m > 0, err / m.clamp_min(1e-30),
-                        torch.where(err > 0, float("inf"), 0.0))
-    row = ratio.max().item()
+    row = rows_err(o, ro)
     pad_rows, pad_nonzero = 0, 0
     if valid_len is not None:
         pad = (torch.arange(o.shape[1], device=o.device)[None, :]
@@ -2022,10 +2101,24 @@ def linear_errors(args, out, chunk, valid_len, what):
         fail(f"{what}: state rel err {s_rel}, z rel err {z_rel}, worst "
              f"row err/max {row} (tol {tol}), {pad_nonzero} nonzero "
              f"padded elements")
-    return {"state_rel_err": s_rel, "z_rel_err": z_rel,
-            "worst_row_err_over_max": row,
-            "out_max_abs_err": err.max().item(),
-            "padded_rows_exactly_zero": pad_rows}
+    rec = {"state_rel_err": s_rel, "z_rel_err": z_rel,
+           "worst_row_err_over_max": row,
+           "out_max_abs_err": err.max().item(),
+           "padded_rows_exactly_zero": pad_rows}
+    if o.dtype == torch.float32:
+        f64 = linear_attention_f64(*args, valid_len)
+        rec["vs_float64_row_err"] = rows_err(o, f64)
+        rec["plain_vs_float64_row_err"] = rows_err(ro, f64)
+        del f64
+    return rec
+
+
+def f64_ratio_check(rec, what):
+    """Fails unless the kernel's worst row against float64 is within
+    F64_RATIO times the plain version's (``linear_errors``' fp32 keys)."""
+    if rec["vs_float64_row_err"] > F64_RATIO * rec["plain_vs_float64_row_err"]:
+        fail(f"{what}: kernel vs float64 {rec['vs_float64_row_err']}, plain "
+             f"{rec['plain_vs_float64_row_err']} (at most {F64_RATIO}x)")
 
 
 def serve_linear(sm, cfg, reqs):
@@ -2054,9 +2147,12 @@ def serve_linear(sm, cfg, reqs):
             shapes.add((int(q.shape[0]), int(q.shape[1]), kw["chunk"],
                         dtype))
     sm.torch.cuda.synchronize()
+    if cfg.dtype == "float32":
+        f64_ratio_check(worst, f"{cfg.name}: served fp32 linear attention")
     serve["linear_served_check"] = dict(
         worst, calls=len(run[3]), shapes_B_S_chunk_dtype=sorted(shapes),
-        tol={"state_z": LA_STATE_TOL, "row": LA_ROW_TOL})
+        tol={"state_z": LA_STATE_TOL, "row": LA_ROW_TOL,
+             "vs_float64": f"{F64_RATIO}x plain"})
     return serve, eng, run
 
 
@@ -2164,21 +2260,52 @@ def linear_attention_tile_ops(B, S, H, KV, hd, chunk, tile=64):
             + B * S * (2 * H + KV) * hd)
 
 
-def time_linear(sm):
+def linear_attention_route_flops(B, S, H, KV, hd, chunk, v_terms, tile=64):
+    """The tensor-core operations of the kernel's split-TF32 route, on the
+    products of ``linear_attention_tile_ops``: three TF32 products for each
+    of phi(q).S_before and phi(q).phi(k)^T, ``v_terms`` for each product
+    against v (s.v and the tile states' phi(k)^T v: two when v is bf16,
+    exact in TF32, three in fp32).  The FFMA rest (phi, the scan, the
+    denominator, the division) is left out: under 3 % of the work."""
+    L = min(chunk, S)
+    rows = [min(tile, L - i) for i in range(0, L, tile)] * (S // L)
+    pairs = sum(r * (r + 1) // 2 for r in rows)
+    return (3 * (B * H * pairs * 2 * hd + B * H * (S - rows[0]) * 2 * hd * hd)
+            + v_terms * (B * H * pairs * 2 * hd + B * KV * S * 2 * hd * hd))
+
+
+LA_PHASES = ("la_state", "la_scan", "la_out")
+
+
+def time_linear(sm, dtype=None):
     """The linear-attention kernel and its plain version at LA_SHAPE
-    (bf16, the served dtype), and the work (``linear_attention_work``)
-    that sets its bound."""
+    (bf16, the served dtype, or ``dtype``), the work
+    (``linear_attention_work``) that sets its bound, and the device ms of
+    each of its three device kernels (profiler rows by kernel name, per
+    call)."""
     import torch
     from repro_torch.kernels.linear_attention import (
         linear_attention, ref_linear_attention_chunked)
+    dtype = dtype or torch.bfloat16
     B, S, H, KV, hd, chunk = LA_SHAPE
-    args = sm.la_inputs(B, S, H, KV, hd, torch.bfloat16)
+    args = sm.la_inputs(B, S, H, KV, hd, dtype)
+    iters = 50
     with torch.no_grad():
         t_k = timed(lambda i: linear_attention(*args, chunk=chunk), 1,
-                    iters=50)
+                    iters=iters)
         t_p = timed(lambda i: ref_linear_attention_chunked(
             *args, chunk=chunk), 1, iters=10)
-    return (t_k, t_p) + linear_attention_work(*LA_SHAPE)
+
+        def loop():
+            for _ in range(iters):
+                linear_attention(*args, chunk=chunk)
+            torch.cuda.synchronize()
+        _, rows, _ = device_time(loop)
+    phases = {ph: sum(us for k, us, _ in rows if ph in k) / iters / 1e3
+              for ph in LA_PHASES}
+    esize = 4 if dtype == torch.float32 else 2
+    return ((t_k, t_p) + linear_attention_work(*LA_SHAPE, esize=esize)
+            + (phases,))
 
 
 def ssd_terms(B, S, H, P, G, N, chunk):
@@ -2391,6 +2518,8 @@ def main() -> int:
         llava32, llava_reqs, seed=0))
     serve["prefill_plain_check"] = prefill_plain_check(eng, llava32,
                                                        captured)
+    serve["prefill_breakdown"] = prefill_breakdown(
+        eng, captured, ("flash_attention", "dequant_gemm"))
     print(json.dumps({"serve": serve}))
     serves[FP32_PATH] = serve
     timings[FP32_PATH] = time_fused(sm, llava32, eng)
@@ -2432,6 +2561,9 @@ def main() -> int:
         "prefill_calls", "prefill_ms", "decode_tok_s", "launches",
         "linear_served_check", "gemm_served_check")}
     serve["fp32"]["checks"] = linear_checks(sm, linear32, eng, run, STEP_TOL)
+    serve["fp32"]["prefill_breakdown"] = prefill_breakdown(
+        eng, max(run[1], key=lambda g: g[0].numel()),
+        ("la_", "dequant_gemm"))
     print(json.dumps({"serve": serve}))
     serves[LINEAR_PATH] = serve
     del eng, run
@@ -2475,9 +2607,11 @@ def main() -> int:
     ssd_t = time_ssd(sm)
     ssd32_t = time_ssd(sm, torch.float32)
     la_t = time_linear(sm)
+    la32_t = time_linear(sm, torch.float32)
     dg_t = time_dequant_gemm(sm)
     gemm_rows = time_gemm_shapes(sm, (qwen, llava, mamba))
-    print(json.dumps({"gemm_shapes": gemm_rows}))
+    gemm32_rows = time_gemm_shapes(sm, (llava,), torch.float32)
+    print(json.dumps({"gemm_shapes": gemm_rows + gemm32_rows}))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2626,20 +2760,68 @@ def main() -> int:
             entry["fp32_route"].pop("launches_per_prefill_call")
         elif name == "linear_attention":
             entry.update(fp32_numbers(
-                name, la_t, ("B", "S", "H", "KV", "hd", "chunk"), LA_SHAPE,
+                name, la_t[:4], ("B", "S", "H", "KV", "hd", "chunk"), LA_SHAPE,
                 LINEAR_PATH, serves[LINEAR_PATH]["linear_served_check"]))
-            entry["flops_of_kernel_form"] = linear_attention_tile_ops(
-                *LA_SHAPE)
+            tile_ops = linear_attention_tile_ops(*LA_SHAPE)
+            entry["flops_of_kernel_form"] = tile_ops
+            r_ms, r_by = bound(la_t[2], linear_attention_route_flops(
+                *LA_SHAPE, v_terms=2), TF32_FLOPS_PER_S)
+            entry.update(event_ms=la_t[0][1], phases_ms=la_t[4],
+                         route="cuda", launches_by_route={"tf32x3": entry[
+                             "launches"]},
+                         bound_ms_tf32x3_route=r_ms,
+                         bound_by_tf32x3_route=r_by)
             entry["bound_note"] = (
                 "bound_ms at the fp32 FFMA peak (67 TFLOP/s): the kernel's "
                 "contract is fp32 arithmetic; operations of the recurrent "
                 "form, as linear_attention_work counts them; "
-                "flops_of_kernel_form counts the kernel's 64-row tiles")
+                "flops_of_kernel_form counts the kernel's 64-row tiles; "
+                "bound_ms_tf32x3_route the route's own count of their "
+                "products at 495 TFLOP/s dense TF32: three TF32 products "
+                "each, two for those against v in bf16 (the fp32 entry: "
+                "three throughout), the FFMA rest left out")
+            r32_ms, r32_by = bound(la32_t[2], linear_attention_route_flops(
+                *LA_SHAPE, v_terms=3), TF32_FLOPS_PER_S)
+            entry["fp32"] = dict(
+                fp32_numbers(name, la32_t[:4], ("B", "S", "H", "KV", "hd",
+                                                "chunk"), LA_SHAPE,
+                             LINEAR_PATH, serves[LINEAR_PATH]["fp32"][
+                                 "linear_served_check"]),
+                event_ms=la32_t[0][1], phases_ms=la32_t[4],
+                bound_ms_tf32x3_route=r32_ms, bound_by_tf32x3_route=r32_by,
+                inputs="float32 q, k, v")
+            entry["fp32"]["launches_per_prefill_call"] = (
+                serves[LINEAR_PATH]["fp32"]["launches"]["linear_attention"]
+                / serves[LINEAR_PATH]["fp32"]["prefill_calls"])
         elif name == "dequant_gemm":
             entry.update(numbers(dg_t))
             entry["event_ms"] = dg_t[0][1]
-            entry["launches_by_route"] = by_route(name, GEMM_ROUTE)
+            entry["launches_by_route"] = by_route(
+                name, dict(GEMM_ROUTE, bf16_outside_wgmma_rule="tile"))
             entry["served_shapes"] = gemm_rows
+            # the fp32 instance at LLaVA's up / gate projection, the
+            # largest of the fp32 serves' shapes, and at all five
+            up32 = next(r for r in gemm32_rows if r["proj"] == "up / gate")
+            entry["fp32"] = {
+                "route": GEMM_ROUTE["float32"],
+                "shape": {k: up32[k] for k in ("M", "K", "N")},
+                "ms": up32["ms"], "event_ms": up32["event_ms"],
+                "bound_ms": up32["bound_ms"], "bound_by": up32["bound_by"],
+                "bound_ms_tf32x3_route": up32["bound_ms_tf32x3_route"],
+                "bound_by_tf32x3_route": up32["bound_by_tf32x3_route"],
+                "library_ms": up32["dequantize_matmul_ms"],
+                "plain_ms": up32["dequantize_matmul_ms"],
+                "library": "dequantize + torch.matmul, fp32 (TF32 off)",
+                "dense_matmul_ms": up32["dense_matmul_ms"],
+                "bound_note": ("bound_ms at the fp32 FFMA peak (67 "
+                               "TFLOP/s); bound_ms_tf32x3_route: the "
+                               "route's own count, three TF32 products at "
+                               "495 TFLOP/s dense"),
+                "served_shapes": gemm32_rows,
+                "prefill_breakdown": {
+                    FP32_PATH: serves[FP32_PATH]["prefill_breakdown"],
+                    f"{LINEAR_PATH}/fp32": serves[LINEAR_PATH]["fp32"][
+                        "prefill_breakdown"]}}
             entry["dense_matmul_ms"] = entry.pop("dense_bf16_matmul_ms")
             entry["shape"] = dict(zip(("M", "K", "N"), DG_TIME_SHAPE),
                                   bits=4, group=32, dtype="bfloat16")

@@ -27,13 +27,15 @@
 //
 // What bounds it on an H100.  At prefill widths (M = 1024-4096 rows, K
 // and N in the thousands) the function is bound by operations: 2 M N K
-// flop against 989 TFLOP/s dense bf16 (67 TFLOP/s fp32 FFMA for fp32
-// activations); it needs to move only the packed weight (half a byte a
-// q4 code), x and y once.  A kernel built on mma.sync has two costs the
-// function does not: the unpack (ALU work, once per weight element per
-// row tile) and the fragment traffic through shared memory.
+// flop against 989 TFLOP/s dense bf16 (fp32 activations: 67 TFLOP/s of
+// FFMA for the plain fp32 arithmetic, or three TF32 products at 495
+// TFLOP/s dense for the split-TF32 route below); it needs to move only the
+// packed weight (half a byte a q4 code), x and y once.  A kernel built on
+// mma.sync has two costs the function does not: the unpack (ALU work, once
+// per weight element per row tile) and the fragment traffic through
+// shared memory.
 //
-// What the design does about it.  Two kernels.
+// What the design does about it.  Two kernels, the second in two shapes.
 //
 // bf16, warp-specialised on wgmma (dequant_gemm_wgmma_kernel): one block
 // of three warpgroups owns a 256 x 128 output tile, so each unpacked W
@@ -67,30 +69,52 @@
 // 16-byte rows, and for "kn" the segments carry no padding (n2p == n2)
 // and N % 64 == 0.  Every served projection is such a call.
 //
-// The tile kernel (dequant_gemm_kernel: fp32 always, bf16 calls outside
-// the rule above): one block of 16 warps owns a 256 x 128 output tile, so
-// each unpacked weight tile serves 256 rows of x, and walks K in steps of
-// 64 (bf16) or 32 (fp32).  The x tile (16-byte cp.async when x's rows are
+// The tile kernel (dequant_gemm_kernel, templated on its tile shape): bf16
+// calls outside the rule above (TileBf16), and every fp32 call (TileTf32,
+// the "tf32x3" route).  One block owns a BM x BN output tile, so each
+// unpacked weight tile serves BM rows of x, and walks its K steps (all of
+// K, or one split of it).  The x tile (16-byte cp.async when x's rows are
 // 16-byte aligned), the packed words and the scales (4-byte cp.async:
 // scale rows such as Mamba-2's 266 fp32 are not 16-byte aligned) stream
 // through a ring of three stages, the next step's loads in flight under
-// this step's work.  Each step's words are unpacked into a W tile [n][k] of
-// x's dtype, double buffered, so one barrier a step separates the products
-// of step s (tensor pipe) from the unpack of step s + 1 (ALU), which the
-// warps then overlap.  The unpack has no integer conversion: a field u
-// (sign bit flipped) placed under the exponent of 2^23 is the float 2^23 +
-// u exactly, and one subtraction gives the code; a thread unpacks one word
-// of two adjacent k rows and stores bf16 pairs.  bf16 runs mma.sync
-// m16n8k16 (fp32 accumulate; each warp 64 x 32 outputs, fragments by
-// ldmatrix); fp32 runs SIMT FFMA in full fp32 (each thread 8 x 8 outputs;
-// TF32 would lose the digits fp32 configs are checked to).  Left without
-// its unpack or without its products it keeps most of its time: the
-// loads and the shared-memory traffic of the x tile, the W tile and their
-// fragments bound it (PERF.md).
+// this step's work.  Each step's words are unpacked into a W tile [n][k],
+// double buffered, so one barrier a step separates the products of step s
+// (tensor pipe) from the unpack of step s + 1 (ALU).  The unpack has no
+// integer conversion: a field u (sign bit flipped) placed under the
+// exponent of 2^23 is the float 2^23 + u exactly, and one subtraction
+// gives the code; a thread unpacks one word of two adjacent k rows and
+// stores pairs.
+//   bf16 (TileBf16): 16 warps own a 256 x 128 tile, K steps of 64, W tile
+//   in bf16; mma.sync m16n8k16 (fp32 accumulate; each warp 64 x 32
+//   outputs, fragments by ldmatrix).
+//   fp32 (TileTf32, "tf32x3"): 4 x 2 warps of 32 x 32 outputs own a
+//   128 x 64 tile, K steps of 32, on the tensor cores in
+//   split TF32: the unpack writes each weight w = code * scale (the cast
+//   chain of `dequantize`) as hi = tf32(w) and lo = tf32(w - hi), so the
+//   split costs once per weight element per row tile; x is split as its
+//   fragments are read.  Each product runs as three mma.sync m16n8k8
+//   (lo.hi, hi.lo, hi.hi: hi + lo is the operand within 2^-22 of it, so
+//   the products keep fp32's accuracy where plain TF32's 10-bit mantissa
+//   would not); a quad's fragment reads are 8-byte loads of k columns 2t,
+//   2t + 1, which the products pair as mma's k t and t + 4 on both
+//   operands.  Each K step's products are summed in a fresh accumulator
+//   and added to the running sums in fp32, so the tensor cores' own sums
+//   see 32 terms, never thousands.  A split of K (`kernel.tf32x3_plan`,
+//   from the call's M, N, K before launch) and the 128 x 64 tile give
+//   LLaVA's projections at 1024 rows 128-608 blocks on 132 SMs (the bf16
+//   tile's 256 x 128 gives 4-152); a split writes its partial sums to a
+//   scratch and dequant_gemm_reduce_kernel adds the splits in order, with
+//   the epilogue: no atomics, the same bits every run.  Two resident
+//   blocks an SM interleave their warps' unpack and products;
+//   the products and the rest still add up rather than overlap (scripts/
+//   dequant_gemm_ablation.py --fp32, PERF.md).
+// The bf16 tile kernel, left without its unpack or without its products,
+// keeps most of its time: the loads and the shared-memory traffic of the x
+// tile, the W tile and their fragments bound it (PERF.md).
 //
-// Interface: two plain C entry points (loaded with ctypes), one a kernel;
-// each launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError() (or the error of encoding a tensor map).
+// Interface: three plain C entry points (loaded with ctypes), one a
+// kernel; each launches on the caller's stream, allocates nothing, and
+// returns cudaGetLastError() (or the error of encoding a tensor map).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,25 +124,44 @@
 
 namespace {
 
-constexpr int kBM = 256;                // output rows per block: each unpacked tile serves 256
-constexpr int kBN = 128;                // output columns per block
-constexpr int kWarps = 16;
-constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 3;              // x / packed-word ring
 constexpr int kNK = 0, kKN = 1;         // layouts of the packed operand
 
 using bf16 = __nv_bfloat16;
 
-template <typename T> struct Tile;
-template <> struct Tile<bf16> {
-  static constexpr int kBK = 64;        // K per step
-  static constexpr int kXStride = 72;   // padded rows: fragment loads hit 32 banks
-  static constexpr int kWStride = 72;
+// two adjacent values of a row of the W tile (dst 4-byte aligned)
+__device__ __forceinline__ void store_pair(bf16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// The tile kernels' shapes.  kXStride / kWStride: padded row lengths of
+// the x tile [m][k] and the W tile [n][k]; kWTerms: W tiles a buffer.
+struct TileBf16 {
+  using T = bf16;
+  static constexpr int kBM = 256, kBN = 128, kBK = 64, kThreads = 512;
+  static constexpr int kXStride = 72, kWStride = 72;   // ldmatrix rows hit 32 banks
+  static constexpr int kWTerms = 1;
+  // two adjacent k of W row idx / kWStride
+  static __device__ __forceinline__ void put(T* ws, int idx, float a, float b) {
+    store_pair(ws + idx, a, b);
+  }
 };
-template <> struct Tile<float> {
-  static constexpr int kBK = 32;
-  static constexpr int kXStride = 36;   // 16-byte rows for cp.async
-  static constexpr int kWStride = 33;   // odd: column reads hit distinct banks
+
+// the split-TF32 shape of the tile kernel: 4 x 2 warps of 32 x 32 outputs
+struct TileTf32 {
+  using T = float;
+  static constexpr int kBM = 128, kBN = 64, kBK = 32, kThreads = 256;
+  // 40 floats: a quad's 8-byte fragment loads (rows g, columns 2t, 2t + 1)
+  // hit 32 distinct banks in each half warp
+  static constexpr int kXStride = 40, kWStride = 40;
+  static constexpr int kWTerms = 2;     // hi, then lo
+  static __device__ __forceinline__ void put(T* ws, int idx, float a, float b) {
+    uint32_t ah, al, bh, bl;
+    hopper::split_tf32(a, ah, al);
+    hopper::split_tf32(b, bh, bl);
+    *reinterpret_cast<uint2*>(ws + idx) = make_uint2(ah, bh);
+    *reinterpret_cast<uint2*>(ws + kBN * kWStride + idx) = make_uint2(al, bl);
+  }
 };
 
 struct Params {
@@ -127,6 +170,7 @@ struct Params {
   const float* scales;      // nk: (N, lds); kn: (K, lds)
   const float* bias;        // (N,) or null
   void* y;                  // (M, N) row-major, T
+  float* partial;           // (splits, M, N) fp32 scratch when splits > 1
   int M, N, K;
   int ldw, lds;             // words / scales per row of codes / scales
   int group;
@@ -134,6 +178,7 @@ struct Params {
   int ps_stride, ss_stride; // shared words per staged packed / scale row
   int act;                  // 0 none, 1 relu, 2 silu, 3 gelu (tanh), 4 squared relu
   int x_vec;                // x's rows are 16-byte aligned
+  int split_steps;          // K steps of a split (blockIdx.z)
 };
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
@@ -160,15 +205,6 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 using hopper::code;
-
-// two adjacent values of a row of the W tile (dst 4-byte aligned for bf16)
-__device__ __forceinline__ void store_pair(bf16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
-  dst[0] = a;
-  dst[1] = b;
-}
 
 __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
@@ -204,16 +240,16 @@ __device__ __forceinline__ int kn_scale(const Params& p, int n) {
 
 // x rows m0.. and columns k0.. of one step into a padded tile; what lies
 // outside (M, K) is zero
-template <typename T>
-__device__ __forceinline__ void load_x(T* xs, const Params& p, int m0, int k0) {
-  constexpr int kBK = Tile<T>::kBK, kXS = Tile<T>::kXStride;
+template <class C>
+__device__ __forceinline__ void load_x(typename C::T* xs, const Params& p, int m0, int k0) {
+  using T = typename C::T;
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = kBK / kVec;
+  constexpr int kChunks = C::kBK / kVec;
   const T* x = static_cast<const T*>(p.x);
-  for (int i = threadIdx.x; i < kBM * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < C::kBM * kChunks; i += C::kThreads) {
     const int r = i / kChunks, c = (i - r * kChunks) * kVec;
     const int m = m0 + r, k = k0 + c;
-    T* dst = xs + r * kXS + c;
+    T* dst = xs + r * C::kXStride + c;
     const T* src = x + (size_t)m * p.K + k;
     if (m >= p.M || k >= p.K) {
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
@@ -228,12 +264,11 @@ __device__ __forceinline__ void load_x(T* xs, const Params& p, int m0, int k0) {
 
 // the packed words and scales one step reads into shared memory (zeros
 // outside the operand)
-template <typename T, int PW, int LAYOUT>
+template <class C, int PW, int LAYOUT>
 __device__ __forceinline__ void load_packed(int32_t* ps, float* ss, const Params& p, int n0,
                                             int k0, int w_lo, int nw, int s_lo, int ns) {
-  constexpr int kBK = Tile<T>::kBK;
   if (LAYOUT == kKN) {                   // kLanes threads a staged row
-    constexpr int kLanes = kThreads / kBK;
+    constexpr int kLanes = C::kThreads / C::kBK;
     const int r = threadIdx.x / kLanes, sub = threadIdx.x % kLanes;
     int32_t* prow = ps + r * p.ps_stride;
     float* srow = ss + r * p.ss_stride;
@@ -247,16 +282,16 @@ __device__ __forceinline__ void load_packed(int32_t* ps, float* ss, const Params
       for (int c = sub; c < ns; c += kLanes) srow[c] = 0.f;
     }
   } else {
-    constexpr int kWpr = kBK / PW;       // words of a row in one step
+    constexpr int kWpr = C::kBK / PW;    // words of a row in one step
     const int kw0 = k0 / PW;
-    for (int i = threadIdx.x; i < kBN * kWpr; i += kThreads) {
+    for (int i = threadIdx.x; i < C::kBN * kWpr; i += C::kThreads) {
       const int r = i / kWpr, c = i - r * kWpr;
       int32_t* dst = ps + r * kWpr + c;
       if (n0 + r < p.N && kw0 + c < p.ldw) cp_async4(dst, p.codes + (size_t)(n0 + r) * p.ldw + kw0 + c);
       else *dst = 0;
     }
     const int sc0 = k0 / p.group;
-    for (int i = threadIdx.x; i < kBN * p.ss_stride; i += kThreads) {
+    for (int i = threadIdx.x; i < C::kBN * p.ss_stride; i += C::kThreads) {
       const int r = i / p.ss_stride, c = i - r * p.ss_stride;
       float* dst = ss + r * p.ss_stride + c;
       if (n0 + r < p.N && sc0 + c < p.lds) cp_async4(dst, p.scales + (size_t)(n0 + r) * p.lds + sc0 + c);
@@ -274,74 +309,203 @@ struct WordMap {
   int* valid;
 };
 
-// the staged words -> the W tile [n][k] in T, `dequantize`'s cast chain
-// (code -> fp32, x scale in fp32, round to T)
-template <typename T, int BITS, int LAYOUT>
-__device__ __forceinline__ void unpack(T* ws, const int32_t* ps, const float* ss,
+// the staged words -> the W tile [n][k] (C::put: bf16, or tf32 hi and lo),
+// `dequantize`'s cast chain (code -> fp32, x scale in fp32, round to T)
+template <class C, int BITS, int LAYOUT>
+__device__ __forceinline__ void unpack(typename C::T* ws, const int32_t* ps, const float* ss,
                                        const Params& p, const WordMap& map, int k0, int nw) {
-  constexpr int kBK = Tile<T>::kBK, kWS = Tile<T>::kWStride;
+  constexpr int kWS = C::kWStride;
   constexpr int PW = 32 / BITS;
   if (LAYOUT == kKN) {
-    constexpr int kPairs = kBK / 2;
-    for (int i = threadIdx.x; i < kPairs * nw; i += kThreads) {
+    constexpr int kPairs = C::kBK / 2;
+    for (int i = threadIdx.x; i < kPairs * nw; i += C::kThreads) {
       const int k = 2 * (i % kPairs), c = i / kPairs;   // lanes on consecutive k pairs
       const uint32_t w0 = static_cast<uint32_t>(ps[k * p.ps_stride + c]);
       const uint32_t w1 = static_cast<uint32_t>(ps[(k + 1) * p.ps_stride + c]);
       const float s0 = ss[k * p.ss_stride + map.scale[c]];
       const float s1 = ss[(k + 1) * p.ss_stride + map.scale[c]];
       const int col0 = map.col[c], valid = map.valid[c];
-      T* dst = ws + k;
-      if (col0 >= 0 && col0 + PW <= kBN && valid == PW) {
+      if (col0 >= 0 && col0 + PW <= C::kBN && valid == PW) {
 #pragma unroll
         for (int j = 0; j < PW; ++j)
-          store_pair(dst + (col0 + j) * kWS, code<BITS>(w0, j) * s0, code<BITS>(w1, j) * s1);
+          C::put(ws, (col0 + j) * kWS + k, code<BITS>(w0, j) * s0, code<BITS>(w1, j) * s1);
       } else {                          // a tile edge inside the word, or segment padding
 #pragma unroll
         for (int j = 0; j < PW; ++j)
-          if (j < valid && col0 + j >= 0 && col0 + j < kBN)
-            store_pair(dst + (col0 + j) * kWS, code<BITS>(w0, j) * s0,
-                       code<BITS>(w1, j) * s1);
+          if (j < valid && col0 + j >= 0 && col0 + j < C::kBN)
+            C::put(ws, (col0 + j) * kWS + k, code<BITS>(w0, j) * s0, code<BITS>(w1, j) * s1);
       }
     }
   } else {
-    constexpr int kWpr = kBK / PW;
+    constexpr int kWpr = C::kBK / PW;
     const int sc0 = k0 / p.group;
-    for (int i = threadIdx.x; i < kBN * kWpr; i += kThreads) {
+    for (int i = threadIdx.x; i < C::kBN * kWpr; i += C::kThreads) {
       const int r = i / kWpr, c = i - r * kWpr;
       const uint32_t word = static_cast<uint32_t>(ps[r * kWpr + c]);
       const float sc = ss[r * p.ss_stride + (k0 + c * PW) / p.group - sc0];
-      T* dst = ws + r * kWS + c * PW;
 #pragma unroll
       for (int j = 0; j < PW; j += 2)
-        store_pair(dst + j, code<BITS>(word, j) * sc, code<BITS>(word, j + 1) * sc);
+        C::put(ws, r * kWS + c * PW + j, code<BITS>(word, j) * sc, code<BITS>(word, j + 1) * sc);
     }
   }
 }
 
-template <typename T>
+template <class C>
 __host__ __device__ constexpr int packed_rows(int layout) {
-  return layout == kKN ? Tile<T>::kBK : kBN;
+  return layout == kKN ? C::kBK : C::kBN;
 }
 
-// x ring, two W tiles, the packed-word and scale ring, the word map
-template <typename T>
+// x ring, two W buffers, the packed-word and scale ring, the word map
+template <class C>
 size_t smem_bytes(int layout, int ps_stride, int ss_stride) {
-  return (kStages * kBM * Tile<T>::kXStride + 2 * kBN * Tile<T>::kWStride) * sizeof(T) +
-         (kStages * (size_t)packed_rows<T>(layout) * (ps_stride + ss_stride) + 3 * ps_stride) * 4;
+  return (kStages * C::kBM * C::kXStride + 2 * C::kWTerms * C::kBN * C::kWStride) *
+             sizeof(typename C::T) +
+         (kStages * (size_t)packed_rows<C>(layout) * (ps_stride + ss_stride) + 3 * ps_stride) * 4;
 }
 
-template <typename T, int BITS, int LAYOUT>
-__global__ void __launch_bounds__(kThreads) dequant_gemm_kernel(const Params p) {
-  constexpr int kBK = Tile<T>::kBK, kXS = Tile<T>::kXStride, kWS = Tile<T>::kWStride;
+// the products of one K step on the x tile xt and W tile wt: bf16 into
+// acc (mma.sync m16n8k16); fp32 three split-TF32 products into a fresh
+// sum, then added to acc in fp32
+template <class C>
+__device__ __forceinline__ void step_products(float (&acc)[64], const typename C::T* xt,
+                                              const typename C::T* wt, int warp, int lane) {
+  constexpr int kXS = C::kXStride, kWS = C::kWStride;
+  if constexpr (C::kWTerms == 1) {
+    const int wm = warp >> 2, wn = warp & 3;          // 4 x 4 warps of 64 x 32
+#pragma unroll
+    for (int kk = 0; kk < C::kBK / 16; ++kk) {
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        hopper::ldmatrix_x4(a[mi], xt + (wm * 64 + mi * 16 + (lane & 15)) * kXS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        uint32_t r[4];
+        hopper::ldmatrix_x4(r, wt + (wn * 32 + nj * 16 + (lane >> 4) * 8 + (lane & 7)) * kWS + kk * 16 +
+                           ((lane >> 3) & 1) * 8);
+        b[2 * nj][0] = r[0];
+        b[2 * nj][1] = r[1];
+        b[2 * nj + 1][0] = r[2];
+        b[2 * nj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) hopper::mma_bf16(&acc[(mi * 4 + ni) * 4], a[mi], b[ni][0], b[ni][1]);
+    }
+  } else {
+    constexpr int kWN = C::kBN / 32;
+    const int wm = warp / kWN, wn = warp % kWN;       // warps of 32 x 32
+    const int g = lane >> 2, t = lane & 3;
+    const float* wl = wt + C::kBN * kWS;
+    float d[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) d[i][j][0] = d[i][j][1] = d[i][j][2] = d[i][j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C::kBK / 8; ++kk) {
+      // A: rows g, g + 8 at k columns 2t, 2t + 1 (mma's k t, t + 4)
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* xr = xt + (wm * 32 + mi * 16 + g) * kXS + kk * 8 + 2 * t;
+        const float2 r0 = *reinterpret_cast<const float2*>(xr);
+        const float2 r1 = *reinterpret_cast<const float2*>(xr + 8 * kXS);
+        hopper::split_tf32(r0.x, ah[mi][0], al[mi][0]);
+        hopper::split_tf32(r1.x, ah[mi][1], al[mi][1]);
+        hopper::split_tf32(r0.y, ah[mi][2], al[mi][2]);
+        hopper::split_tf32(r1.y, ah[mi][3], al[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        // B: column g of the 8 at k rows 2t, 2t + 1, hi and lo
+        const int off = (wn * 32 + ni * 8 + g) * kWS + kk * 8 + 2 * t;
+        const uint2 bh = *reinterpret_cast<const uint2*>(wt + off);
+        const uint2 bl = *reinterpret_cast<const uint2*>(wl + off);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          hopper::mma_tf32(d[mi][ni], al[mi], bh.x, bh.y);
+          hopper::mma_tf32(d[mi][ni], ah[mi], bl.x, bl.y);
+          hopper::mma_tf32(d[mi][ni], ah[mi], bh.x, bh.y);
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[(mi * 4 + ni) * 4 + c] += d[mi][ni][c];
+  }
+}
+
+// y (or, for a split of K, its partial sums) from the accumulators: bf16
+// fragments (mi, ni) of 16 x 8 at warp (wm 64, wn 32); fp32 the same at
+// warp (wm 32, wn 32), mi < 2; each (row, 2t / 2t + 1) pair stored at once
+// where N is even (an even column is then 8- or 4-byte aligned)
+template <class C>
+__device__ __forceinline__ void store_tile(const Params& p, const float (&acc)[64], int m0, int n0,
+                                           int warp, int lane) {
+  using T = typename C::T;
+  constexpr bool kB16 = C::kWTerms == 1;
+  constexpr int kMI = kB16 ? 4 : 2, kWMr = kB16 ? 64 : 32;
+  constexpr int kWN = C::kBN / 32;
+  const int wm = warp / kWN, wn = warp % kWN;
+  const int g = lane >> 2, t = lane & 3;
+  const bool pairs = (p.N & 1) == 0;
+  const bool split = gridDim.z > 1;
+  T* y = static_cast<T*>(p.y);
+  float* part = p.partial + (size_t)blockIdx.z * p.M * p.N;
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * kWMr + mi * 16 + g + 8 * h;
+        const int n = n0 + wn * 32 + ni * 8 + 2 * t;
+        if (m >= p.M || n >= p.N) continue;
+        const float a0 = acc[(mi * 4 + ni) * 4 + 2 * h], a1 = acc[(mi * 4 + ni) * 4 + 2 * h + 1];
+        const size_t o = (size_t)m * p.N + n;
+        if (split) {                    // the raw sums; the reduce kernel adds the epilogue
+          if (n + 1 < p.N && pairs) {
+            *reinterpret_cast<float2*>(part + o) = make_float2(a0, a1);
+          } else {
+            part[o] = a0;
+            if (n + 1 < p.N) part[o + 1] = a1;
+          }
+          continue;
+        }
+        const float v0 = epilogue(p, a0, n);
+        if (n + 1 < p.N) {
+          const float v1 = epilogue(p, a1, n + 1);
+          if (pairs) {
+            if constexpr (kB16) *reinterpret_cast<__nv_bfloat162*>(y + o) = __floats2bfloat162_rn(v0, v1);
+            else *reinterpret_cast<float2*>(y + o) = make_float2(v0, v1);
+          } else {
+            y[o] = from_f<T>(v0);
+            y[o + 1] = from_f<T>(v1);
+          }
+        } else {
+          y[o] = from_f<T>(v0);
+        }
+      }
+}
+
+template <class C, int BITS, int LAYOUT>
+__global__ void __launch_bounds__(C::kThreads) dequant_gemm_kernel(const Params p) {
+  using T = typename C::T;
+  constexpr int kBK = C::kBK, kBM = C::kBM, kBN = C::kBN;
+  constexpr int kXS = C::kXStride, kWTile = C::kWTerms * kBN * C::kWStride;
   constexpr int PW = 32 / BITS;
-  constexpr bool kMma = sizeof(T) == 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);                          // kStages buffers
   T* ws = xs + kStages * kBM * kXS;                                 // two buffers
-  int32_t* ps = reinterpret_cast<int32_t*>(ws + 2 * kBN * kWS);    // kStages buffers
-  const int p_words = packed_rows<T>(LAYOUT) * p.ps_stride;
+  int32_t* ps = reinterpret_cast<int32_t*>(ws + 2 * kWTile);       // kStages buffers
+  const int p_words = packed_rows<C>(LAYOUT) * p.ps_stride;
   float* ss = reinterpret_cast<float*>(ps + kStages * p_words);    // kStages buffers
-  const int s_words = packed_rows<T>(LAYOUT) * p.ss_stride;
+  const int s_words = packed_rows<C>(LAYOUT) * p.ss_stride;
   int* map_base = reinterpret_cast<int*>(ss + kStages * s_words);
   const WordMap map{map_base, map_base + p.ps_stride, map_base + 2 * p.ps_stride};
 
@@ -354,7 +518,7 @@ __global__ void __launch_bounds__(kThreads) dequant_gemm_kernel(const Params p) 
     s_lo = kn_scale(p, n0);
     ns = kn_scale(p, n_last) - s_lo + 1;
     const int wps = p.n2p / PW, sps = p.n2p / p.group;
-    for (int c = threadIdx.x; c < nw; c += kThreads) {
+    for (int c = threadIdx.x; c < nw; c += C::kThreads) {
       const int w = w_lo + c, seg = w / wps;
       const int j0 = (w - seg * wps) * PW;         // first code of the word in its segment
       map.col[c] = seg * p.n2 + j0 - n0;
@@ -362,156 +526,108 @@ __global__ void __launch_bounds__(kThreads) dequant_gemm_kernel(const Params p) 
       map.valid[c] = min(PW, p.n2 - j0);
     }
   }
-  const int n_steps = (p.K + kBK - 1) / kBK;
+  // this block's K steps: all of them, or split blockIdx.z's share
+  const int s0 = blockIdx.z * p.split_steps;
+  const int n_steps = max(0, min((p.K + kBK - 1) / kBK - s0, p.split_steps));
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;           // mma: 4 x 4 warps of 64 x 32
-  const int tm = threadIdx.x >> 4, tn = threadIdx.x & 15;   // FFMA: rows tm + 32 i, cols tn + 16 j
-  // mma: acc[(mi * 4 + ni) * 4 + c], the fragment of 16 x 8 tile (mi, ni);
-  // FFMA: acc[i * 8 + j], output (tm + 32 i, tn + 16 j)
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
-  auto load_stage = [&](int step) {
-    const int b = step % kStages, k0 = step * kBK;
-    load_x<T>(xs + b * kBM * kXS, p, m0, k0);
-    load_packed<T, PW, LAYOUT>(ps + b * p_words, ss + b * s_words, p, n0, k0, w_lo, nw, s_lo, ns);
+  auto load_stage = [&](int i) {        // local step i into ring slot i % kStages
+    const int b = i % kStages, k0 = (s0 + i) * kBK;
+    load_x<C>(xs + b * kBM * kXS, p, m0, k0);
+    load_packed<C, PW, LAYOUT>(ps + b * p_words, ss + b * s_words, p, n0, k0, w_lo, nw, s_lo, ns);
   };
   // steps 0 and 1 in flight; step 0 unpacked before the loop
-  load_stage(0);
+  if (n_steps > 0) load_stage(0);
   cp_async_commit();
   if (n_steps > 1) load_stage(1);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
-  unpack<T, BITS, LAYOUT>(ws, ps, ss, p, map, 0, nw);
-  for (int step = 0; step < n_steps; ++step) {
-    // step + 1's words landed and step's W tile written, by every thread;
-    // every warp is done with step - 1's buffers, which step + 2 refills
+  if (n_steps > 0) unpack<C, BITS, LAYOUT>(ws, ps, ss, p, map, s0 * kBK, nw);
+  for (int i = 0; i < n_steps; ++i) {
+    // step i + 1's words landed and step i's W tile written, by every
+    // thread; every warp is done with step i - 1's buffers, which step
+    // i + 2 refills
     cp_async_wait<0>();
     __syncthreads();
-    if (step + 2 < n_steps) load_stage(step + 2);
+    if (i + 2 < n_steps) load_stage(i + 2);
     cp_async_commit();
-    const T* xt = xs + (step % kStages) * kBM * kXS;
-    const T* wt = ws + (step & 1) * kBN * kWS;
-    if constexpr (kMma) {
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        uint32_t a[4][4], b[4][2];
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-          hopper::ldmatrix_x4(a[mi], xt + (wm * 64 + mi * 16 + (lane & 15)) * kXS + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-          uint32_t r[4];
-          hopper::ldmatrix_x4(r, wt + (wn * 32 + nj * 16 + (lane >> 4) * 8 + (lane & 7)) * kWS + kk * 16 +
-                             ((lane >> 3) & 1) * 8);
-          b[2 * nj][0] = r[0];
-          b[2 * nj][1] = r[1];
-          b[2 * nj + 1][0] = r[2];
-          b[2 * nj + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) hopper::mma_bf16(&acc[(mi * 4 + ni) * 4], a[mi], b[ni][0], b[ni][1]);
-      }
-    } else {
-#pragma unroll 4
-      for (int k = 0; k < kBK; ++k) {
-        float a[8], b[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = xt[(tm + 32 * i) * kXS + k];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = wt[(tn + 16 * j) * kWS + k];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i * 8 + j] = fmaf(a[i], b[j], acc[i * 8 + j]);
-      }
-    }
-    if (step + 1 < n_steps)             // the ALU work beside the other warps' products
-      unpack<T, BITS, LAYOUT>(ws + ((step + 1) & 1) * kBN * kWS,
-                              ps + ((step + 1) % kStages) * p_words,
-                              ss + ((step + 1) % kStages) * s_words, p, map, (step + 1) * kBK, nw);
+    step_products<C>(acc, xs + (i % kStages) * kBM * kXS, ws + (i & 1) * kWTile, warp, lane);
+    if (i + 1 < n_steps)                // the ALU work beside the other warps' products
+      unpack<C, BITS, LAYOUT>(ws + ((i + 1) & 1) * kWTile, ps + ((i + 1) % kStages) * p_words,
+                              ss + ((i + 1) % kStages) * s_words, p, map, (s0 + i + 1) * kBK, nw);
   }
+  store_tile<C>(p, acc, m0, n0, warp, lane);
+}
 
-  T* y = static_cast<T*>(p.y);
-  if constexpr (kMma) {
-    const bool pairs = (p.N & 1) == 0;  // a pair at an even column is 4-byte aligned
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + wm * 64 + mi * 16 + g + 8 * h;
-          const int n = n0 + wn * 32 + ni * 8 + 2 * t;
-          if (m >= p.M || n >= p.N) continue;
-          bf16* dst = reinterpret_cast<bf16*>(y) + (size_t)m * p.N + n;
-          const float v0 = epilogue(p, acc[(mi * 4 + ni) * 4 + 2 * h], n);
-          if (n + 1 < p.N) {
-            const float v1 = epilogue(p, acc[(mi * 4 + ni) * 4 + 2 * h + 1], n + 1);
-            if (pairs) {
-              *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
-            } else {
-              dst[0] = __float2bfloat16_rn(v0);
-              dst[1] = __float2bfloat16_rn(v1);
-            }
-          } else {
-            dst[0] = __float2bfloat16_rn(v0);
-          }
-        }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + tm + 32 * i;
-      if (m >= p.M) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + tn + 16 * j;
-        if (n < p.N) y[(size_t)m * p.N + n] = from_f<T>(epilogue(p, acc[i * 8 + j], n));
-      }
-    }
+// y = epilogue(sum of the splits' partial sums, split 0 first)
+__global__ void __launch_bounds__(256) dequant_gemm_reduce_kernel(const Params p, int splits) {
+  const size_t mn = (size_t)p.M * p.N;
+  for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < mn; i += (size_t)gridDim.x * 256) {
+    float s = p.partial[i];
+    for (int z = 1; z < splits; ++z) s += p.partial[z * mn + i];
+    static_cast<float*>(p.y)[i] = epilogue(p, s, (int)(i % p.N));
   }
 }
 
-template <typename T, int BITS, int LAYOUT>
-int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(LAYOUT, p.ps_stride, p.ss_stride);
-  cudaError_t e = cudaFuncSetAttribute(dequant_gemm_kernel<T, BITS, LAYOUT>,
+template <class C, int BITS, int LAYOUT>
+int launch(const Params& p, int splits, cudaStream_t stream) {
+  const size_t smem = smem_bytes<C>(LAYOUT, p.ps_stride, p.ss_stride);
+  cudaError_t e = cudaFuncSetAttribute(dequant_gemm_kernel<C, BITS, LAYOUT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + kBM - 1) / kBM);
-  dequant_gemm_kernel<T, BITS, LAYOUT><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid((p.N + C::kBN - 1) / C::kBN, (p.M + C::kBM - 1) / C::kBM, splits);
+  dequant_gemm_kernel<C, BITS, LAYOUT><<<grid, C::kThreads, smem, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  const size_t mn = (size_t)p.M * p.N;
+  const size_t want = (mn + 255) / 256;    // at most 8 blocks an SM, each striding
+  const unsigned blocks = (unsigned)(want < 132 * 8 ? want : 132 * 8);
+  dequant_gemm_reduce_kernel<<<blocks, 256, 0, stream>>>(p, splits);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int LAYOUT>
-int by_bits(const Params& p, int bits, cudaStream_t stream) {
+template <class C, int LAYOUT>
+int by_bits(const Params& p, int bits, int splits, cudaStream_t stream) {
   switch (bits) {
-    case 2: return launch<T, 2, LAYOUT>(p, stream);
-    case 4: return launch<T, 4, LAYOUT>(p, stream);
-    case 8: return launch<T, 8, LAYOUT>(p, stream);
+    case 2: return launch<C, 2, LAYOUT>(p, splits, stream);
+    case 4: return launch<C, 4, LAYOUT>(p, splits, stream);
+    case 8: return launch<C, 8, LAYOUT>(p, splits, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-int by_layout(Params p, int bits, int layout, int span_w, int span_s, cudaStream_t stream) {
+template <class C>
+int by_layout(Params p, int bits, int layout, int span_w, int span_s, int splits,
+              cudaStream_t stream) {
   const int pw = 32 / bits;
   if (layout == kKN) {
     p.ps_stride = span_w | 1;           // odd: the unpack's column reads hit distinct banks
     p.ss_stride = span_s | 1;
   } else {
-    p.ps_stride = Tile<T>::kBK / pw;
-    p.ss_stride = Tile<T>::kBK / pw + 1;   // scale columns one step can touch (group >= pw)
+    p.ps_stride = C::kBK / pw;
+    p.ss_stride = C::kBK / pw + 1;      // scale columns one step can touch (group >= pw)
   }
-  if (smem_bytes<T>(layout, p.ps_stride, p.ss_stride) > 227 * 1024)
+  if (smem_bytes<C>(layout, p.ps_stride, p.ss_stride) > 227 * 1024 ||
+      (p.M + C::kBM - 1) / C::kBM > 65535)
     return (int)cudaErrorInvalidValue;
-  return layout == kKN ? by_bits<T, kKN>(p, bits, stream) : by_bits<T, kNK>(p, bits, stream);
+  const int steps = (p.K + C::kBK - 1) / C::kBK;
+  p.split_steps = (steps + splits - 1) / splits;
+  return layout == kKN ? by_bits<C, kKN>(p, bits, splits, stream)
+                       : by_bits<C, kNK>(p, bits, splits, stream);
+}
+
+// the common argument checks of the tile kernels' entry points
+bool tile_args_ok(int M, int N, int K, int bits, int group, int layout, int n2, int n2p,
+                  int span_w, int span_s, int act) {
+  return M >= 1 && N >= 1 && K >= 1 && (bits == 2 || bits == 4 || bits == 8) && group >= 1 &&
+         group % (32 / bits) == 0 && act >= 0 && act <= 4 && (layout == kNK || layout == kKN) &&
+         !(layout == kKN && (n2 < 1 || n2p < n2 || n2p % group || N % n2 || span_w < 1 ||
+                             span_s < 1));
 }
 
 // ---- bf16: wgmma, TMA, warp specialisation ---------------------------------
@@ -827,33 +943,43 @@ int wgmma_by_bits(const void* x, const WParams& p, int bits, cudaStream_t stream
 
 extern "C" {
 
-// x (M, K) and y (M, N) row-major in bf16 (dtype 0) or fp32 (dtype 1);
-// codes int32 and scales fp32, row-major with ldw / lds per row: (N, .)
-// for layout 0 ("nk"), (K, .) for layout 1 ("kn", with segments n2 padded
-// to n2p; span_w / span_s bound the words and scale columns one 128-column
-// tile reads).  bias (N,) fp32 or null; act 0-4 (none, relu, silu, gelu,
+// The bf16 tile kernel: x (M, K) and y (M, N) row-major bf16; codes int32
+// and scales fp32, row-major with ldw / lds per row: (N, .) for layout 0
+// ("nk"), (K, .) for layout 1 ("kn", with segments n2 padded to n2p;
+// span_w / span_s bound the words and scale columns one 128-column tile
+// reads).  bias (N,) fp32 or null; act 0-4 (none, relu, silu, gelu,
 // squared relu); x_vec: x 16-byte aligned with 16-byte rows.
 int rt_dequant_gemm(const void* x, const void* codes, const void* scales, const void* bias,
-                    void* y, int M, int N, int K, int bits, int group, int layout, int dtype,
-                    int ldw, int lds, int n2, int n2p, int span_w, int span_s, int act,
-                    int x_vec, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || (bits != 2 && bits != 4 && bits != 8) || group < 1 ||
-      group % (32 / bits) != 0 || act < 0 || act > 4 || (layout != kNK && layout != kKN) ||
-      (layout == kKN && (n2 < 1 || n2p < n2 || n2p % group || N % n2 || span_w < 1 ||
-                         span_s < 1)) ||
-      (M + kBM - 1) / kBM > 65535)
+                    void* y, int M, int N, int K, int bits, int group, int layout, int ldw,
+                    int lds, int n2, int n2p, int span_w, int span_s, int act, int x_vec,
+                    void* stream) {
+  if (!tile_args_ok(M, N, K, bits, group, layout, n2, n2p, span_w, span_s, act))
     return (int)cudaErrorInvalidValue;
-  Params p{x, static_cast<const int32_t*>(codes), static_cast<const float*>(scales),
-           static_cast<const float*>(bias), y, M, N, K, ldw, lds, group, n2, n2p, 0, 0, act,
-           x_vec};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return by_layout<bf16>(p, bits, layout, span_w, span_s, s);
-    case 1: return by_layout<float>(p, bits, layout, span_w, span_s, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Params p{x, static_cast<const int32_t*>(codes), static_cast<const float*>(scales),
+                 static_cast<const float*>(bias), y, nullptr, M, N, K, ldw, lds, group, n2,
+                 n2p, 0, 0, act, x_vec, 0};
+  return by_layout<TileBf16>(p, bits, layout, span_w, span_s, 1,
+                             static_cast<cudaStream_t>(stream));
 }
 
+// The fp32 tile kernel on split TF32: arguments as rt_dequant_gemm's in
+// fp32 (span_w / span_s over tiles of 64 columns), 128 x 64 output tiles;
+// `splits` splits of K, whose partial sums go to `partial` ((splits, M, N)
+// fp32, unused for one split).
+int rt_dequant_gemm_tf32(const void* x, const void* codes, const void* scales,
+                         const void* bias, void* y, void* partial, int M, int N, int K,
+                         int bits, int group, int layout, int ldw, int lds, int n2, int n2p,
+                         int span_w, int span_s, int act, int x_vec, int splits,
+                         void* stream) {
+  if (!tile_args_ok(M, N, K, bits, group, layout, n2, n2p, span_w, span_s, act) ||
+      splits < 1 || splits > 65535 || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Params p{x, static_cast<const int32_t*>(codes), static_cast<const float*>(scales),
+                 static_cast<const float*>(bias), y, static_cast<float*>(partial), M, N, K,
+                 ldw, lds, group, n2, n2p, 0, 0, act, x_vec, 0};
+  return by_layout<TileTf32>(p, bits, layout, span_w, span_s, splits,
+                             static_cast<cudaStream_t>(stream));
+}
 
 // The warp-specialised bf16 kernel: x (M, K) and y (M, N) row-major bf16;
 // codes int32 and scales fp32 as for rt_dequant_gemm, "kn" without segment

@@ -12,9 +12,10 @@ just after with :func:`launch_counts`.  The counts, one per wrapper:
 it also counts each launch under ``<wrapper>/<route>``:
 ``flash_attention/wgmma`` (bf16) and ``flash_attention/tf32x3`` (fp32,
 split TF32 on mma.sync);
-``dequant_gemm/wgmma`` (the warp-specialised bf16 kernel) and
-``dequant_gemm/tile`` (fp32, and bf16 calls outside the wgmma kernel's
-rule, ``dequant_gemm.kernel.route``); ``ssd/mma`` (bf16, tensor-core
+``dequant_gemm/wgmma`` (the warp-specialised bf16 kernel),
+``dequant_gemm/tile`` (bf16 calls outside the wgmma kernel's rule) and
+``dequant_gemm/tf32x3`` (fp32, split TF32 on mma.sync;
+``dequant_gemm.kernel.route``); ``ssd/mma`` (bf16, tensor-core
 products) and ``ssd/simt`` (fp32, FFMA); ``fused_mlp/gemv`` (the split-K
 GEMV of both MLP stages, one a call) and ``fused_qkv/gemv`` (the same
 GEMV, one a device kernel: one a distinct bit width of wq, wk, wv).

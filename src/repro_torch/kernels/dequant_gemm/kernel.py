@@ -3,9 +3,10 @@
 Checks device, dtypes, shapes, contiguity and alignment, allocates the
 output, picks the kernel by shape before the launch (:func:`route`: the
 warp-specialised wgmma kernel for every bf16 call its rule admits, the
-tile kernel for the rest and for fp32), launches on the current stream
-through that kernel's C entry point and raises if the entry returns a
-CUDA error.  It never copies an operand:
+bf16 tile kernel for the rest, the split-TF32 tile kernel for every fp32
+call, in the split of K that :func:`tf32x3_plan` picks),
+launches on the current stream through that kernel's C entry point and
+raises if the entry returns a CUDA error.  It never copies an operand:
 a strided one raises, and the caller makes it contiguous.  The library
 is built on first use (``kernels/build.py``).  Runs on the card only;
 the CPU path is the plain version in ``ref.py``, chosen by the wrapper
@@ -24,7 +25,10 @@ from repro_torch.kernels.build import load_library
 
 LIBRARY = "dequant_gemm"
 SOURCES = ("dequant_gemm.cu",)
-TILE_N = 128                   # output columns per block of the tile kernel
+TILE_N = 128                   # output columns per block of the bf16 tile kernel
+SMS = 132                      # streaming multiprocessors of an H100
+TF32_BM, TF32_BN = 128, 64     # output tile of the split-TF32 kernel
+TF32_BK = 32                   # K a step of the split-TF32 kernel
 NK, KN = 0, 1                  # layouts of the packed operand
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 ACT_IDS = {None: 0, "relu": 1, "silu": 2, "gelu": 3, "squared_relu": 4}
@@ -36,8 +40,10 @@ _I = ctypes.c_int
 def library() -> ctypes.CDLL:
     lib = load_library(LIBRARY, SOURCES)
     if not getattr(lib, "_typed", False):
-        lib.rt_dequant_gemm.argtypes = [_P] * 5 + [_I] * 15 + [_P]
+        lib.rt_dequant_gemm.argtypes = [_P] * 5 + [_I] * 14 + [_P]
         lib.rt_dequant_gemm.restype = _I
+        lib.rt_dequant_gemm_tf32.argtypes = [_P] * 6 + [_I] * 15 + [_P]
+        lib.rt_dequant_gemm_tf32.restype = _I
         lib.rt_dequant_gemm_wgmma.argtypes = [_P] * 5 + [_I] * 9 + [_P]
         lib.rt_dequant_gemm_wgmma.restype = _I
         lib._typed = True
@@ -47,13 +53,16 @@ def library() -> ctypes.CDLL:
 def route(dtype: torch.dtype, K: int, N: int, group: int, layout: int,
           n2: int, n2p: int, ldw: int, aligned: bool) -> str:
     """The kernel a call takes, decided from its shape before launch:
-    "wgmma" (the warp-specialised kernel) for bf16 with K % 8 == 0 (TMA's
-    row stride), a group of 16, 32, 64 or a multiple of 128, x and the
-    codes 16-byte aligned (``aligned``) with 16-byte code rows (``ldw`` %
-    4 == 0), and in the "kn" layout unpadded segments (n2p == n2) with N %
-    64 == 0; "tile" (the tile kernel) otherwise.  The same rule as
+    "tf32x3" (the split-TF32 tile kernel) for every fp32 call; for bf16,
+    "wgmma" (the warp-specialised kernel) with K % 8 == 0 (TMA's row
+    stride), a group of 16, 32, 64 or a multiple of 128, x and the codes
+    16-byte aligned (``aligned``) with 16-byte code rows (``ldw`` % 4 ==
+    0), and in the "kn" layout unpadded segments (n2p == n2) with N % 64 ==
+    0; "tile" (the bf16 tile kernel) otherwise.  The same rule as
     ``rt_dequant_gemm_wgmma`` in the source."""
-    if (dtype == torch.bfloat16 and aligned and K % 8 == 0
+    if dtype == torch.float32:
+        return "tf32x3"
+    if (aligned and K % 8 == 0
             and group >= 16 and (128 % group == 0 or group % 128 == 0)
             and ldw % 4 == 0
             and (layout == NK or (n2 == n2p and N % 64 == 0))):
@@ -61,11 +70,23 @@ def route(dtype: torch.dtype, K: int, N: int, group: int, layout: int,
     return "tile"
 
 
+def tf32x3_plan(M: int, N: int, K: int) -> int:
+    """The splits of K of an fp32 call, from its shape alone: as many as
+    eight parts while the 128 x 64 blocks stay within two an SM (each a
+    whole wave of the card, two resident on each SM), each part at least
+    two K steps.  ``scripts/tf32x3_plan_sweep.py`` times every split: on
+    an H100 this rule is within 7 % of the fastest at each served fp32
+    shape (PERF.md)."""
+    tiles = -(-M // TF32_BM) * -(-N // TF32_BN)
+    steps = -(-K // TF32_BK)
+    return max(1, min(8, 2 * SMS // tiles, steps // 2))
+
+
 @functools.lru_cache(maxsize=None)
-def kn_spans(N: int, n2: int, n2p: int, pw: int, group: int
-             ) -> Tuple[int, int]:
+def kn_spans(N: int, n2: int, n2p: int, pw: int, group: int,
+             tile_n: int = TILE_N) -> Tuple[int, int]:
     """The most packed words and scale columns of one row that any
-    TILE_N-column tile of the "kn" layout reads (output n reads word
+    ``tile_n``-column tile of the "kn" layout reads (output n reads word
     (n // n2) * (n2p // pw) + (n % n2) // pw, scale (n // n2) * (n2p //
     group) + (n % n2) // group): the kernel stages that many a row."""
     def word(n):
@@ -74,8 +95,8 @@ def kn_spans(N: int, n2: int, n2p: int, pw: int, group: int
     def scale(n):
         return (n // n2) * (n2p // group) + (n % n2) // group
     span_w = span_s = 1
-    for n0 in range(0, N, TILE_N):
-        last = min(n0 + TILE_N, N) - 1
+    for n0 in range(0, N, tile_n):
+        last = min(n0 + tile_n, N) - 1
         span_w = max(span_w, word(last) - word(n0) + 1)
         span_s = max(span_s, scale(last) - scale(n0) + 1)
     return span_w, span_s
@@ -109,8 +130,8 @@ def _check_operands(x: torch.Tensor, qt: QTensor,
                          "CUDA tensor")
 
 
-def _launch(x2, qt, bias, act, N, layout, ldw, lds, n2, n2p, span_w,
-            span_s) -> Tuple[torch.Tensor, str]:
+def _launch(x2, qt, bias, act, N, layout, ldw, lds, n2, n2p
+            ) -> Tuple[torch.Tensor, str]:
     M, K = x2.shape
     if M < 1 or N < 1 or K < 1:
         raise ValueError(f"dequant_gemm: empty product ({M}, {K}) x "
@@ -121,21 +142,37 @@ def _launch(x2, qt, bias, act, N, layout, ldw, lds, n2, n2p, span_w,
                    aligned)
     stream = torch.cuda.current_stream().cuda_stream
     bias_ptr = None if bias is None else bias.data_ptr()
+    bits, group = qt.spec.bits, qt.spec.group_size
     if kernel == "wgmma":
         err = library().rt_dequant_gemm_wgmma(
             x2.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
-            bias_ptr, y.data_ptr(), M, N, K, qt.spec.bits,
-            qt.spec.group_size, layout, ldw, lds, ACT_IDS[act], stream)
+            bias_ptr, y.data_ptr(), M, N, K, bits, group, layout, ldw, lds,
+            ACT_IDS[act], stream)
         if err != 0:
             raise RuntimeError(f"dequant_gemm: CUDA error {err}")
         return y, kernel
     x_vec = int(x2.data_ptr() % 16 == 0 and (K * x2.element_size()) % 16
                 == 0)
-    err = library().rt_dequant_gemm(
-        x2.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
-        bias_ptr, y.data_ptr(), M, N, K, qt.spec.bits, qt.spec.group_size,
-        layout, DTYPES[x2.dtype], ldw, lds, n2, n2p, span_w, span_s,
-        ACT_IDS[act], x_vec, stream)
+    if kernel == "tf32x3":
+        splits = tf32x3_plan(M, N, K)
+        span_w, span_s = (kn_spans(N, n2, n2p, qt.spec.per_word, group,
+                                   TF32_BN)
+                          if layout == KN else (1, 1))
+        partial = (torch.empty((splits, M, N), dtype=torch.float32,
+                               device=x2.device) if splits > 1 else None)
+        err = library().rt_dequant_gemm_tf32(
+            x2.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
+            bias_ptr, y.data_ptr(),
+            None if partial is None else partial.data_ptr(), M, N, K, bits,
+            group, layout, ldw, lds, n2, n2p, span_w, span_s, ACT_IDS[act],
+            x_vec, splits, stream)
+    else:
+        span_w, span_s = (kn_spans(N, n2, n2p, qt.spec.per_word, group)
+                          if layout == KN else (1, 1))
+        err = library().rt_dequant_gemm(
+            x2.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
+            bias_ptr, y.data_ptr(), M, N, K, bits, group, layout, ldw, lds,
+            n2, n2p, span_w, span_s, ACT_IDS[act], x_vec, stream)
     if err != 0:
         raise RuntimeError(f"dequant_gemm: CUDA error {err}")
     return y, kernel
@@ -159,7 +196,7 @@ def launch_dequant_gemm(x2: torch.Tensor, qt: QTensor,
         raise ValueError(f"dequant_gemm: bias {tuple(bias.shape)} for N "
                          f"{N}")
     return _launch(x2, qt, bias, act, N, NK, qt.codes.shape[1],
-                   qt.scales.shape[1], 1, 1, 1, 1)
+                   qt.scales.shape[1], 1, 1)
 
 
 def launch_packed_matmul(x2: torch.Tensor, qt: QTensor, n_k: int
@@ -184,7 +221,5 @@ def launch_packed_matmul(x2: torch.Tensor, qt: QTensor, n_k: int
             or qt.scales.numel() != K * N1 * n2p // g):
         raise ValueError(f"dequant_gemm: x {tuple(x2.shape)} against "
                          f"weight {shape}")
-    N = N1 * n2
-    span_w, span_s = kn_spans(N, n2, n2p, pw, g)
-    return _launch(x2, qt, None, None, N, KN, N1 * n2p // pw, N1 * n2p // g,
-                   n2, n2p, span_w, span_s)
+    return _launch(x2, qt, None, None, N1 * n2, KN, N1 * n2p // pw,
+                   N1 * n2p // g, n2, n2p)

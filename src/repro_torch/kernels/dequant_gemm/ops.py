@@ -5,8 +5,11 @@ the plain versions (``ref.py``); CUDA tensors launch the Hopper kernel
 (``kernel.py``) or raise — there is no fallback.  Each launch adds one
 to the count ``dequant_gemm`` in the kernels' launch-count registry
 (``repro_torch.kernels``) and one to its kernel's,
-``dequant_gemm/wgmma`` or ``dequant_gemm/tile`` (``kernel.route``
-decides from the call's shape before the launch).
+``dequant_gemm/wgmma`` (bf16, warp-specialised), ``dequant_gemm/tile``
+(bf16 calls outside the wgmma kernel's rule) or ``dequant_gemm/tf32x3``
+(every fp32 call: split TF32 on the tensor cores; a split of K adds a
+second device kernel that sums the splits in order); ``kernel.route``
+decides from the call's shape before the launch.
 
 - ``dequant_gemm(x, qt, bias, act)``: the reference's function, x (...,
   K) @ dequantize(qt (N, K))ᵀ with the bias + activation epilogue ("nk",
@@ -77,4 +80,5 @@ def quant_einsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
     return y.reshape(*lead, *w.shape[n_k:])
 
 
-register_kernels("dequant_gemm", "dequant_gemm/wgmma", "dequant_gemm/tile")
+register_kernels("dequant_gemm", "dequant_gemm/wgmma", "dequant_gemm/tile",
+                 "dequant_gemm/tf32x3")

@@ -16,7 +16,10 @@ tensor's last axis):
 
 The wrappers in ``ops.py`` run these for CPU tensors; the tests hold them
 against the reference package, and the card's checks hold the kernel
-against them.
+against them.  :func:`emulate_dequant_gemm_tf32x3` repeats the arithmetic
+of the kernel's fp32 route (split TF32 products, K steps of 32 summed
+apart, splits of K added in order), for the tests to hold it against the
+reference.
 """
 from __future__ import annotations
 
@@ -66,3 +69,43 @@ def ref_quant_einsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, QTensor):
         w = dequantize(w)
     return torch.einsum(spec, x, w)
+
+
+def emulate_dequant_gemm_tf32x3(x: torch.Tensor, qt: QTensor,
+                                bias: Optional[torch.Tensor] = None,
+                                act: Optional[str] = None, *,
+                                n_k: Optional[int] = None) -> torch.Tensor:
+    """The fp32 kernel's route (``dequant_gemm/tf32x3``) in plain PyTorch:
+    x and the weight (``dequantize``'s fp32 values) each split into tf32
+    terms hi + lo (``flash_attention.ref.split_tf32``); each K step of
+    ``kernel.TF32_BK`` as the three products lo.hi + hi.lo + hi.hi summed
+    in a fresh fp32 sum, the steps added to the split's running sum in
+    order; the splits of K that ``kernel.tf32x3_plan`` picks from the
+    call's M, N, K added in order, split 0 first; then ``epilogue``.
+    ``n_k`` None: the "nk" layout, x (..., K) against qt (N, K) -> (...,
+    N); else the model's "kn" layout, qt's first ``n_k`` axes contracted
+    against x's last ``n_k`` -> (..., *qt.shape[n_k:])."""
+    from repro_torch.kernels.dequant_gemm.kernel import (TF32_BK,
+                                                         tf32x3_plan)
+    from repro_torch.kernels.flash_attention.ref import split_tf32
+    w = dequantize(qt).to(torch.float32)
+    if n_k is None:
+        K, wk, lead, tail = qt.shape[1], w.t(), x.shape[:-1], (qt.shape[0],)
+    else:
+        K = w.shape[:n_k].numel()
+        wk, lead, tail = w.reshape(K, -1), x.shape[:-n_k], qt.shape[n_k:]
+    x2 = x.to(torch.float32).reshape(-1, K)
+    M, N = x2.shape[0], wk.shape[1]
+    splits = tf32x3_plan(M, N, K)
+    steps = -(-K // TF32_BK)
+    per = -(-steps // splits)
+    (xh, xl), (wh, wl) = split_tf32(x2), split_tf32(wk)
+    total = None
+    for z in range(splits):
+        acc = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+        for s in range(z * per, min(steps, (z + 1) * per)):
+            k = slice(s * TF32_BK, (s + 1) * TF32_BK)
+            acc = acc + (xl[:, k] @ wh[k] + xh[:, k] @ wl[k]
+                         + xh[:, k] @ wh[k])
+        total = acc if total is None else total + acc
+    return epilogue(total, bias, act, x.dtype).reshape(*lead, *tail)

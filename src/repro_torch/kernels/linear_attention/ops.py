@@ -5,8 +5,11 @@ tensors run the plain chunked form (``ref.ref_linear_attention_chunked``);
 CUDA tensors launch the Hopper kernel (``kernel.py``) or raise — there is
 no fallback.  Each launch adds one to the count ``linear_attention`` in
 the kernels' launch-count registry (``repro_torch.kernels``); one launch
-runs three device kernels (64-row-tile states per kv head, the scan
-over the tiles, the outputs).
+runs three device kernels: the 64-row-tile states per kv head, the scan
+over the tiles, and the outputs (one block per kv group, row tile and
+pair of 16-row slabs, serving every query head of the group), every
+product in split TF32 on the tensor cores (``ref.
+emulate_linear_attention_tf32x3`` repeats their arithmetic).
 """
 from __future__ import annotations
 

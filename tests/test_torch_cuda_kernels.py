@@ -1800,3 +1800,260 @@ def test_flash_tf32x3_at_the_served_shape(cuda, shape):
     B, S, H, KV, hd = shape
     _tf32x3_held(*_qkv(cuda, B, S, S, H, KV, hd, dtype=torch.float32,
                        seed=S), True)
+
+
+# -- the packed-weight GEMM's fp32 route: split TF32 on the tensor cores ---
+
+def _f64_gemm_err(got, x, w_kn):
+    """max |got - x W| over its largest magnitude, the product in
+    float64 (W (K, N), the dequantized weight)."""
+    want = x.double().reshape(-1, w_kn.shape[0]) @ w_kn.double()
+    return ((got.double().reshape(want.shape) - want).abs().max()
+            / want.abs().max()).item()
+
+
+# the split-TF32 products' own error: each operand is hi + lo within
+# 2^-22 of itself, so a product is within about 3 * 2^-22 of exact; on a
+# small call (few outputs, short K) no summation error hides it and the
+# plain version may read less.  Set just above the largest such reading on
+# an H100 (5.1e-7 at M 1, K 100, N 3, q8 "kn", plain 2.2e-7;
+# scripts/tf32x3_f64_readings.py)
+SPLIT_FLOOR = 9 * 2.0 ** -24
+
+
+def _tf32x3_gemm_held(got, want, x, w_kn, launches=1):
+    """``launches`` calls, every one on the tf32x3 route; within 1e-5 of
+    the plain version's largest magnitude; against float64 no worse than
+    2x the plain version's error, or than SPLIT_FLOOR where the plain
+    version is closer than half of it."""
+    counts = launch_counts()
+    assert counts["dequant_gemm"] == counts["dequant_gemm/tf32x3"] == launches
+    _dg_close(got, want, torch.float32)
+    k_err, p_err = _f64_gemm_err(got, x, w_kn), _f64_gemm_err(want, x, w_kn)
+    assert k_err <= max(2 * p_err, SPLIT_FLOOR), (k_err, p_err)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("proj", ["q", "k/v", "o", "up/gate", "down"])
+def test_tf32x3_gemm_at_every_llava_served_shape(cuda, bits, proj):
+    """LLaVA-OneVision-0.5B's five fp32 projection shapes at its 1024-row
+    prefill, in the model's layout, each in the splits the rule picks."""
+    spec, ws, xs = {"q": ("bsd,dhk->bshk", (896, 14, 64), (896,)),
+                    "k/v": ("bsd,dhk->bshk", (896, 2, 64), (896,)),
+                    "o": ("bshk,hkd->bsd", (14, 64, 896), (14, 64)),
+                    "up/gate": ("bsd,df->bsf", (896, 4864), (896,)),
+                    "down": ("bsf,fd->bsd", (4864, 896), (4864,))}[proj]
+    x = _dg_tensor(cuda, (1, 1024) + xs, torch.float32, bits)
+    w = quantize(_dg_tensor(cuda, ws, torch.float32, ws[-1], ws[0] ** -0.5),
+                 DG_SPECS[bits])
+    reset_launch_counts()
+    got = quant_einsum(spec, x, w)
+    torch.cuda.synchronize()
+    K = x.shape[-len(xs):].numel()
+    _tf32x3_gemm_held(got, ref_quant_einsum(spec, x, w), x,
+                      dequantize(w).reshape(K, -1))
+
+
+def _tf32x3_splits(K):
+    """Every split of K the split-TF32 kernel's rule can pick that leaves
+    each split a K step: one, two, three, five and eight."""
+    from repro_torch.kernels.dequant_gemm import kernel as DK
+    steps = -(-K // DK.TF32_BK)
+    return [s for s in (1, 2, 3, 5, 8) if s <= steps]
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("layout", ["nk", "kn"])
+@pytest.mark.parametrize("mkn", [(1, 100, 3), (130, 936, 200),
+                                 (1000, 200, 448), (77, 4864, 130)])
+def test_tf32x3_gemm_every_plan_matches_plain(cuda, bits, layout, mkn,
+                                              monkeypatch):
+    """Ragged M, N and K (a K below one step, N off the 64-column tiles,
+    "nk" rows padded past K) in every split of K the rule can pick (put in
+    place of ``kernel.tf32x3_plan``), each split reduced in order by the
+    second kernel."""
+    from repro_torch.kernels.dequant_gemm import kernel as DK
+    M, K, N = mkn
+    x = _dg_tensor(cuda, (M, K), torch.float32, bits + M)
+    if layout == "nk":
+        qt = quantize(_dg_tensor(cuda, (N, K), torch.float32, K, 0.05),
+                      DG_SPECS[bits])
+        want, w_kn = ref_dequant_gemm(x, qt), dequantize(qt).t()
+    else:
+        qt = quantize(_dg_tensor(cuda, (K, N), torch.float32, N, K ** -0.5),
+                      DG_SPECS[bits])
+        want = ref_quant_einsum("bsd,df->bsf", x[None], qt)[0]
+        w_kn = dequantize(qt)
+    for splits in _tf32x3_splits(K):
+        monkeypatch.setattr(DK, "tf32x3_plan", lambda M, N, K: splits)
+        if layout == "nk":
+            got, route = DK.launch_dequant_gemm(x, qt)
+        else:
+            got, route = DK.launch_packed_matmul(x, qt, 1)
+        torch.cuda.synchronize()
+        assert route == "tf32x3"
+        _dg_close(got, want, torch.float32)
+        assert _f64_gemm_err(got, x, w_kn) <= max(
+            2 * _f64_gemm_err(want, x, w_kn), SPLIT_FLOOR), splits
+
+
+@pytest.mark.parametrize("act", [None, "relu", "silu", "gelu",
+                                 "squared_relu"])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("splits", [1, 4])
+def test_tf32x3_gemm_epilogue_matches_plain(cuda, act, bias, splits,
+                                            monkeypatch):
+    """Bias and activation after the products (one split) or after the
+    splits' ordered sum (four)."""
+    from repro_torch.kernels.dequant_gemm import kernel as DK
+    x = _dg_tensor(cuda, (200, 512), torch.float32, 5)
+    qt = quantize(_dg_tensor(cuda, (264, 512), torch.float32, 6, 0.1),
+                  QuantSpec(4, group_size=64))
+    b = torch.linspace(-0.5, 0.5, 264, device=cuda) if bias else None
+    monkeypatch.setattr(DK, "tf32x3_plan", lambda M, N, K: splits)
+    got, route = DK.launch_dequant_gemm(x, qt, b, act)
+    torch.cuda.synchronize()
+    assert route == "tf32x3"
+    _dg_close(got, ref_dequant_gemm(x, qt, b, act), torch.float32)
+
+
+@pytest.mark.parametrize("group", [8, 32, 64, 128, 96])
+def test_tf32x3_gemm_group_sizes_and_padded_segments(cuda, group):
+    """Groups below, at and past a K step (96: a group across two steps),
+    in both layouts; q/k/v heads of 40 padded per head in the model's
+    layout."""
+    x = _dg_tensor(cuda, (64, 768), torch.float32, group)
+    qt = quantize(_dg_tensor(cuda, (96, 768), torch.float32, 3, 0.2),
+                  QuantSpec(4, group_size=group))
+    reset_launch_counts()
+    got = dequant_gemm(x, qt)
+    torch.cuda.synchronize()
+    _tf32x3_gemm_held(got, ref_dequant_gemm(x, qt), x, dequantize(qt).t())
+    w = quantize(_dg_tensor(cuda, (768, 6, 40), torch.float32, 4,
+                            768 ** -0.5), QuantSpec(4, group_size=group))
+    reset_launch_counts()
+    got = quant_einsum("bsd,dhk->bshk", x[None], w)
+    torch.cuda.synchronize()
+    _tf32x3_gemm_held(got, ref_quant_einsum("bsd,dhk->bshk", x[None], w),
+                      x, dequantize(w).reshape(768, -1))
+
+
+def test_tf32x3_gemm_matches_its_emulation_and_repeats_bit_for_bit(cuda):
+    """The kernel against ``ref.emulate_dequant_gemm_tf32x3`` on the same
+    inputs (the same splits, products and sums, other orders inside the
+    tensor cores) within 2e-6 of the largest magnitude, and two runs of a
+    split call equal bit for bit (the splits are added in a fixed order,
+    no atomics)."""
+    from repro_torch.kernels.dequant_gemm import kernel as DK
+    from repro_torch.kernels.dequant_gemm.ref import (
+        emulate_dequant_gemm_tf32x3)
+    x = _dg_tensor(cuda, (1024, 896), torch.float32, 1)
+    w = quantize(_dg_tensor(cuda, (896, 2, 64), torch.float32, 2,
+                            896 ** -0.5), DG_SPECS[4])
+    assert DK.tf32x3_plan(1024, 128, 896) > 1
+    a = quant_einsum("bsd,dhk->bshk", x[None], w)
+    b = quant_einsum("bsd,dhk->bshk", x[None], w)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    emu = emulate_dequant_gemm_tf32x3(x[None], w, n_k=1)
+    err = (a - emu).abs().max().item() / emu.abs().max().item()
+    assert err <= 2e-6, err
+
+
+# -- linear attention on split TF32 -------------------------------------------
+
+def _la_f64(q, k, v, valid_len=None):
+    """Causal linear attention in float64 by its quadratic form, k/v
+    expanded to q's heads; rows at or past ``valid_len`` drop out."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+
+    def phi(t):
+        t = t.double()
+        return torch.where(t > 0, t + 1.0, torch.exp(t))
+    qf, kf = phi(q), phi(k).repeat_interleave(G, 2)
+    vf = v.double().repeat_interleave(G, 2)
+    if valid_len is not None:
+        keep = (torch.arange(S, device=q.device)[None]
+                < valid_len[:, None])[..., None, None]
+        qf, kf, vf = qf * keep, kf * keep, vf * keep
+    s = torch.einsum("bihd,bjhd->bhij", qf, kf).tril()
+    den = s.sum(-1).clamp_min(1e-6).transpose(1, 2)[..., None]
+    return torch.einsum("bhij,bjhd->bihd", s, vf) / den
+
+
+def _la_rows_err(got, want):
+    err = (got.double() - want.double()).abs().amax(-1)
+    m = want.double().abs().amax(-1)
+    assert (err[m == 0] == 0).all()
+    return (err[m > 0] / m[m > 0]).max().item()
+
+
+def _la_held(args, chunk, valid=None):
+    """One launch, held against the plain chunked form (``_la_close``);
+    in fp32 also against float64, no worse than 2x the plain form."""
+    reset_launch_counts()
+    got = linear_attention(*args, chunk=chunk, valid_len=valid)
+    torch.cuda.synchronize()
+    assert launch_counts()["linear_attention"] == 1
+    want = ref_linear_attention_chunked(*args, chunk=chunk, valid_len=valid)
+    _la_close(got, want, args[0].dtype, valid)
+    if args[0].dtype == torch.float32:
+        f64 = _la_f64(*args, valid)
+        k_err, p_err = _la_rows_err(got[0], f64), _la_rows_err(want[0], f64)
+        assert k_err <= 2 * p_err, (k_err, p_err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S", [(2, 1024), (1, 1024), (1, 256)])
+def test_linear_attention_tf32x3_at_the_served_shapes(cuda, dtype, B, S):
+    """LLaVA-OneVision-0.5B's widths (H 14, KV 2, hd 64, chunk 256) at
+    LA_SHAPE's B 2 and the served B 1 prefill buckets."""
+    _la_held(_la_inputs(cuda, B, S, 14, 2, 64, dtype, seed=B + S), 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G", [1, 2, 7, 9])
+@pytest.mark.parametrize("hd", [16, 40, 64, 96, 128])
+def test_linear_attention_tf32x3_gqa_ratios_and_head_dims(cuda, dtype, G,
+                                                          hd):
+    """GQA ratios 1, 2, 7 and 9 (more heads than a block's eight warps)
+    at head dims 16 to 128, padded to 32, 64 or 128 inside; a 160-row
+    chunk cuts a 64-row tile."""
+    _la_held(_la_inputs(cuda, 1, 320, 2 * G, 2, hd, dtype, seed=G * hd),
+             160)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_linear_attention_tf32x3_valid_len_and_strided_views(cuda, dtype):
+    """valid_len cutting a tile, a whole tile and a chunk, on q/k/v read
+    as head slices of one fused projection."""
+    B, S, H, KV, hd = 3, 512, 14, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(7)
+    qkv = (torch.randn((B, S, H + 2 * KV, hd), generator=g, device=cuda)
+           * 0.5).to(dtype)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous()
+    valid = torch.tensor([300, 64, 511], dtype=torch.int32, device=cuda)
+    _la_held((q, k, v), 256, valid)
+    assert torch.equal(
+        linear_attention(q, k, v, chunk=256, valid_len=valid)[0],
+        linear_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                         chunk=256, valid_len=valid)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_linear_attention_tf32x3_matches_its_emulation(cuda, dtype):
+    """The kernel against ``ref.emulate_linear_attention_tf32x3`` on the
+    same inputs (the same tiles, splits and term counts): state and z
+    within 2e-6 of their largest magnitude, rows within one bf16 step or
+    2e-6 in fp32."""
+    from repro_torch.kernels.linear_attention.ref import (
+        emulate_linear_attention_tf32x3)
+    args = _la_inputs(cuda, 1, 512, 14, 2, 64, dtype, seed=3)
+    got = linear_attention(*args, chunk=256)
+    emu = emulate_linear_attention_tf32x3(*args, chunk=256)
+    for g_, e_ in zip(got[1:], emu[1:]):
+        assert ((g_ - e_).abs().max() / e_.abs().max()).item() <= 2e-6
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-6
+    assert _la_rows_err(got[0], emu[0]) <= tol

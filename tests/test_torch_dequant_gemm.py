@@ -21,6 +21,14 @@ is made by the reference's ``quantize`` and carried over by the bridge.
   (7 a layer with attention and a gated MLP, 2 a Mamba-2 layer), decode
   hands it dense, and the prefill logits equal those of the dequantized
   weights bit for bit.
+* The fp32 route's arithmetic (``ref.emulate_dequant_gemm_tf32x3``: split
+  TF32 products, K steps of 32 summed apart, splits of K added in order)
+  meets the reference's Pallas kernel in interpret mode and
+  ``ref_dequant_gemm`` in both layouts, across bits, epilogues and splits,
+  within 1e-5 of the largest magnitude; against a float64 evaluation it
+  stays within 2x the plain fp32 version's error (both sit at fp32's
+  rounding level, where either may be ahead).
+* The route and plan rules (``kernel.route``, ``kernel.tf32x3_plan``).
 """
 import jax
 import jax.numpy as jnp
@@ -218,7 +226,7 @@ def _served_projections(cfg):
 def test_every_served_projection_takes_the_wgmma_kernel(arch):
     """The shape rule (``kernel.route``) sends every bf16 projection of
     the served models to the warp-specialised kernel; fp32 calls to the
-    tile kernel."""
+    split-TF32 tile kernel."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.dequant_gemm import kernel as DK
@@ -230,7 +238,7 @@ def test_every_served_projection_takes_the_wgmma_kernel(arch):
         assert DK.route(torch.bfloat16, K, N, 32, DK.KN, n2, n2p, ldw,
                         True) == "wgmma", (K, N)
         assert DK.route(torch.float32, K, N, 32, DK.KN, n2, n2p, ldw,
-                        True) == "tile"
+                        True) == "tf32x3"
 
 
 @pytest.mark.parametrize("case,want", [
@@ -245,11 +253,119 @@ def test_every_served_projection_takes_the_wgmma_kernel(arch):
     (dict(K=896, N=1024, n2=1024, n2p=1024, group=256), "wgmma"),
     (dict(K=896, N=200, n2=1, n2p=1, layout=0, ldw=112), "wgmma"),  # "nk"
     (dict(K=200, N=300, n2=1, n2p=1, layout=0, ldw=14), "tile"),    # rows
+    # fp32: every call takes the split-TF32 kernel, in the splits of K
+    # the rule picks from (M, N, K): LLaVA's q/o, k/v, up/gate and down at
+    # 1024 rows, Mamba-2's in_proj at 2048, then shapes outside every rule
+    (dict(dtype="float32", M=1024, K=896, N=896, n2=64, n2p=64),
+     ("tf32x3", 2)),
+    (dict(dtype="float32", M=1024, K=896, N=128, n2=64, n2p=64),
+     ("tf32x3", 8)),
+    (dict(dtype="float32", M=1024, K=896, N=4864, n2=4864, n2p=4864),
+     ("tf32x3", 1)),
+    (dict(dtype="float32", M=1024, K=4864, N=896, n2=896, n2p=896),
+     ("tf32x3", 2)),
+    (dict(dtype="float32", M=2048, K=2048, N=8512, n2=8512, n2p=8512),
+     ("tf32x3", 1)),
+    (dict(dtype="float32", M=50, K=100, N=240, n2=40, n2p=64,
+          aligned=False), ("tf32x3", 2)),
+    (dict(dtype="float32", M=1, K=200, N=300, n2=1, n2p=1, layout=0,
+          ldw=14), ("tf32x3", 3)),
 ])
 def test_gemm_route_rule(case, want):
     import torch
     from repro_torch.kernels.dequant_gemm import kernel as DK
-    c = dict(dict(group=32, layout=DK.KN, aligned=True), **case)
+    c = dict(dict(group=32, layout=DK.KN, aligned=True, dtype="bfloat16"),
+             **case)
     ldw = c.get("ldw", c["N"] // 8)
-    assert DK.route(torch.bfloat16, c["K"], c["N"], c["group"], c["layout"],
-                    c["n2"], c["n2p"], ldw, c["aligned"]) == want
+    route = DK.route(getattr(torch, c["dtype"]), c["K"], c["N"], c["group"],
+                     c["layout"], c["n2"], c["n2p"], ldw, c["aligned"])
+    if isinstance(want, tuple):
+        want, splits = want
+        assert DK.tf32x3_plan(c["M"], c["N"], c["K"]) == splits
+    assert route == want
+
+
+# -- the fp32 route's arithmetic -----------------------------------------------
+
+def _f64_err(got, x, dense, transpose):
+    """max |got - x @ W| over its largest magnitude, W the dequantized
+    weight ((N, K) when ``transpose``, else (K, N)) and the product in
+    float64."""
+    w = np.asarray(dense, np.float64)
+    want = np.asarray(x, np.float64) @ (w.T if transpose else w)
+    return float(np.max(np.abs(f32(got).astype(np.float64) - want))
+                 / np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("mkn,splits", [
+    pytest.param((64, 512, 128), None, id="mkn0-None"),
+    pytest.param((8, 1024, 256), 4, id="mkn1-plan1"),
+    pytest.param((130, 512, 200), 3, id="mkn2-plan2"),
+    pytest.param((64, 2048, 96), None, id="mkn3-None")])
+def test_tf32x3_emulation_matches_reference(bits, mkn, splits, monkeypatch):
+    """The fp32 route's arithmetic on the reference kernel's layout ("nk")
+    against interpret-mode ``dequant_gemm_pallas`` and ``ref_dequant_gemm``
+    within 1e-5; against float64 within 2x the plain fp32 version.
+    ``splits`` (None: the rule's) replaces ``kernel.tf32x3_plan``."""
+    from repro_torch.kernels.dequant_gemm import kernel as DK
+    from repro_torch.kernels.dequant_gemm.ref import (
+        emulate_dequant_gemm_tf32x3)
+    if splits is not None:
+        monkeypatch.setattr(DK, "tf32x3_plan", lambda M, N, K: splits)
+    from repro_torch.kernels.dequant_gemm.ref import ref_dequant_gemm
+    M, K, N = mkn
+    rng = np.random.default_rng(bits * 1000 + M)
+    x, tx = _arr(rng, (M, K), "float32")
+    rw, tw = _packed(rng, (N, K), "float32", bits=bits)
+    got = emulate_dequant_gemm_tf32x3(tx, tw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (M, N)
+    assert _rel_err(f32(got), r_ref(x, rw)) < 1e-5
+    assert _rel_err(f32(got), r_dequant_gemm(
+        x, rw, use_kernel=True, interpret=True)) < 1e-5
+    dense = RQ.dequantize(rw)
+    assert _f64_err(got, x, dense, True) <= 2 * _f64_err(
+        ref_dequant_gemm(tx, tw), x, dense, True)
+
+
+@pytest.mark.parametrize("act", [None, "relu", "silu", "gelu",
+                                 "squared_relu"])
+def test_tf32x3_emulation_epilogue_matches_reference(act, monkeypatch):
+    """Bias and activation after the split products and the sum of four
+    splits of K."""
+    from repro_torch.kernels.dequant_gemm import kernel as DK
+    from repro_torch.kernels.dequant_gemm.ref import (
+        emulate_dequant_gemm_tf32x3)
+    monkeypatch.setattr(DK, "tf32x3_plan", lambda M, N, K: 4)
+    rng = np.random.default_rng(11)
+    x, tx = _arr(rng, (32, 1024), "float32")
+    rw, tw = _packed(rng, (128, 1024), "float32", scale=0.1)
+    bias, tbias = _arr(rng, (128,), "float32", 0.5)
+    got = emulate_dequant_gemm_tf32x3(tx, tw, tbias, act)
+    assert _rel_err(f32(got), r_ref(x, rw, bias, act)) < 1e-5
+    assert _rel_err(f32(got), r_dequant_gemm(
+        x, rw, bias, act, use_kernel=True, interpret=True)) < 1e-5
+
+
+@pytest.mark.parametrize("spec,xs,ws", EINSUMS)
+def test_tf32x3_emulation_in_the_model_layout(spec, xs, ws):
+    """The model's layout ("kn"; padded q/k/v heads included) against
+    ``jnp.einsum`` on the reference's ``dequantize`` within 1e-5, and
+    against float64 within 2x the plain fp32 version."""
+    from repro_torch.kernels.dequant_gemm.ref import (
+        MODEL_SPECS, emulate_dequant_gemm_tf32x3)
+    rng = np.random.default_rng(len(spec) + ws[-1] + 1)
+    x, tx = _arr(rng, xs, "float32")
+    rw, tw = _packed(rng, ws, "float32", group=32, scale=ws[0] ** -0.5)
+    n_k = MODEL_SPECS[spec]
+    got = emulate_dequant_gemm_tf32x3(tx, tw, n_k=n_k)
+    dense = RQ.dequantize(rw)
+    want = jnp.einsum(spec, x, dense)
+    assert tuple(got.shape) == want.shape
+    assert _rel_err(f32(got), want) < 1e-5
+    K = int(np.prod(ws[:n_k]))
+    x2 = np.asarray(x).reshape(-1, K)
+    d2 = np.asarray(dense).reshape(K, -1)
+    plain = quant_einsum(spec, tx, tw).reshape(-1, d2.shape[1])
+    assert _f64_err(got.reshape(-1, d2.shape[1]), x2, d2, False) <= (
+        2 * _f64_err(plain, x2, d2, False))

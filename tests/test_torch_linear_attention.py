@@ -10,7 +10,11 @@ reference tests' shapes, chunks and tolerances (out, state and z within
 1e-4 of the largest magnitude in fp32, 1e-2 in bf16).  Beside that: GQA
 by kv-head index against the reference's ``jnp.repeat``; ``valid_len``
 (padded rows drop out of the state and read zero); the prefill state
-continued by the one-token decode against one long recurrence.
+continued by the one-token decode against one long recurrence.  The
+kernel's own arithmetic (``ref.emulate_linear_attention_tf32x3``: 64-row
+tiles, split TF32 products of two or three terms) meets the same
+references with GQA and a ragged chunk, and against a float64 evaluation
+stays within 2x the plain chunked form's error in fp32.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -163,3 +167,81 @@ def test_linear_attention_refuses_what_it_does_not_take():
         linear_attention(q[:, :, :3], k, v, chunk=16)
     with pytest.raises(ValueError, match="unsupported device"):
         linear_attention(*(t.to("meta") for t in (q, k, v)), chunk=16)
+
+
+def _f64_linear(q, k, v, valid_len=None):
+    """Causal linear attention in float64 by its quadratic form, k/v
+    expanded to q's heads; rows at or past ``valid_len`` drop out."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+
+    def phi(x):
+        x = np.asarray(x, np.float64)
+        return np.where(x > 0, x + 1.0, np.exp(x))
+    qf = phi(q)
+    kf = np.repeat(phi(k), G, axis=2)
+    vf = np.repeat(np.asarray(v, np.float64), G, axis=2)
+    if valid_len is not None:
+        keep = (np.arange(S)[None] < np.asarray(valid_len)[:, None])
+        qf, kf, vf = (t * keep[..., None, None] for t in (qf, kf, vf))
+    s = np.tril(np.einsum("bihd,bjhd->bhij", qf, kf))
+    den = np.maximum(s.sum(-1), 1e-6)
+    return np.einsum("bhij,bjhd->bihd", s, vf) / np.moveaxis(
+        den, 1, 2)[..., None]
+
+
+def _rows_f64_err(got, want):
+    """Worst row (b, i, h): max |err| over the row's largest |want|."""
+    err = np.abs(f32(got).astype(np.float64) - want).max(-1)
+    m = np.abs(want).max(-1)
+    return float((err[m > 0] / m[m > 0]).max())
+
+
+# (B, S, H, KV, hd, chunk): GQA 2, 7 and 1, a ragged 127-row chunk (tiles
+# of 64 and 63 rows), chunks that cut tiles, hd below and at 64
+EMU_SHAPES = [(2, 128, 4, 2, 32, 64), (1, 256, 7, 1, 16, 256),
+              (2, 127, 4, 4, 16, 127), (1, 192, 6, 2, 64, 96)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", EMU_SHAPES)
+def test_tf32x3_emulation_matches_reference(shape, dtype):
+    """The kernel's arithmetic against ``ref_linear_attention`` and
+    interpret-mode ``linear_attention_pallas`` (k/v repeated to every
+    query head) at the reference tests' tolerances; in fp32 its output
+    against float64 within 2x the plain chunked form's error."""
+    from repro_torch.kernels.linear_attention.ref import (
+        emulate_linear_attention_tf32x3)
+    B, S, H, KV, hd, chunk = shape
+    q, k, v = _inputs((B, S, H, hd), dtype, kv=KV, seed=S + hd)
+    G = H // KV
+    tq, tk, tv = _torch(q, k, v)
+    got = emulate_linear_attention_tf32x3(tq, tk, tv, chunk=chunk)
+    assert got[0].dtype == tq.dtype
+    ke, ve = (jnp.repeat(jnp.asarray(a), G, axis=2) for a in (k, v))
+    jq = jnp.asarray(q)
+    for want in (ref_linear_attention(jq, ke, ve),
+                 ref_kernel(jq, ke, ve, chunk=chunk, interpret=True)):
+        for w, g in zip(want, got):
+            assert tuple(g.shape) == w.shape
+            assert _rel_err(w, g) < TOL[dtype]
+    if dtype == "float32":
+        f64 = _f64_linear(q, k, v)
+        plain = linear_attention(tq, tk, tv, chunk=chunk)[0]
+        assert _rows_f64_err(got[0], f64) <= 2 * _rows_f64_err(plain, f64)
+
+
+def test_tf32x3_emulation_drops_the_padding():
+    """valid_len: the emulation's state and z equal the plain chunked
+    form's within 1e-6 of their largest magnitude, rows before valid_len
+    within 1e-5 of their row's largest value, padded rows exactly zero."""
+    from repro_torch.kernels.linear_attention.ref import (
+        emulate_linear_attention_tf32x3)
+    q, k, v = _torch(*_inputs((2, 200, 4, 16), "float32", kv=2, seed=5))
+    vl = torch.tensor([130, 200])
+    got = emulate_linear_attention_tf32x3(q, k, v, chunk=100, valid_len=vl)
+    want = linear_attention(q, k, v, chunk=100, valid_len=vl)
+    for w, g in zip(want[1:], got[1:]):
+        assert float((w - g).abs().max()) <= 1e-6 * float(w.abs().max())
+    assert _rows_f64_err(got[0][0, :130], f32(want[0][0, :130])) < 1e-5
+    assert not got[0][0, 130:].any()
