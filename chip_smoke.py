@@ -43,14 +43,25 @@ Phases (any failure raises and exits non-zero):
    through the flash kernel in every layer, M-RoPE decode through the
    fused kernels; four requests (a 1024-token image, a repeat of its
    bytes, a 256-token image, a 4 x 256 request);
+   every decode step of every serve replays the CUDA graph the engine
+   captured for its cohort bucket: one capture a bucket the serve
+   decoded at, one replay a decode step (``cohort_graph`` on the serve
+   line); one captured cohort state runs again through the eager
+   ``ops.cohort_step`` the graph captured, whose logits and pool must
+   equal the replay's bit for bit, and which carries the held checks
+   below (a replay runs no Python); the decode step is timed as a replay
+   and eagerly, in turns (``decode_step_breakdown``: wall, device and
+   busy share, tokens/s, the row update's and KV scatter's time inside
+   the step);
    for each served path the launch counts are reset just before and
-   read just after the run, and read around every decode step (every
+   read just after the run, and read around every decode step, replays
+   included (every
    bf16 GEMM and flash launch must take the warp-specialised wgmma
    kernel, every fp32 one the split-TF32 GEMM and flash kernels (the
    GEMM's fp32 calls each also against a float64 evaluation, no worse than
    2x the plain fp32 route over the call), every fused-MLP launch and every fused-QKV device kernel the
    split-K GEMV, one a QKV call: the counts per route show it); every
-   fused-QKV and fused-MLP call of one captured decode step is held
+   fused-QKV and fused-MLP call of that eager step is held
    against ``ref_fused_qkv`` / ``ref_fused_mlp`` on its own inputs, each
    cohort row within 2e-2 (bf16) or 1e-5 (fp32) of its largest plain
    value; one
@@ -62,8 +73,9 @@ Phases (any failure raises and exits non-zero):
    requests through the composed decode step (``use_fused=False``): every
    layer's new K and V rows written into the donated gathered caches by
    the cache-row-update kernel (48 launches a step) and the pool by one
-   KV-row scatter; every row-update call of one step held bit for bit
-   against the plain version on its own inputs; that step's logits
+   KV-row scatter; every row-update call of the eager step held bit for
+   bit against the plain version on its own inputs; the served step's
+   logits
    against the fused step's and the plain step's on the same state
    (teacher-forced) within 5e-2, its pool equal to the plain step's;
    3b. serve LLaVA-OneVision-0.5B in fp32 with ``attn_q_chunk=0`` and the
@@ -1184,6 +1196,187 @@ class FlashCalls:
         self.mod.flash_attention = self.inner
 
 
+def clone_pool(pool):
+    return tuple(tuple(t.clone() for t in pos) for pos in pool)
+
+
+class DecodeSteps:
+    """Wraps an engine's ``_decode`` inside the ``with`` block: counts
+    each decode step's launches (a replay adds its graph's), keeps each
+    step's (slot ids, lengths, logits) with ``keep_steps``, and the first
+    cohort state with at least two live rows: the pool before the step,
+    the bucket graph's static inputs, the served step's logits and the
+    pool after it, all cloned (the logits are the graph's static buffer,
+    which the next replay of any bucket may overwrite)."""
+
+    def __init__(self, eng, keep_steps=False):
+        self.eng, self.inner, self.keep_steps = eng, eng._decode, keep_steps
+        self.state, self.launches, self.steps = None, [], []
+
+    def __call__(self, tokens, lengths, slot_ids, tables):
+        from repro_torch.kernels import launch_counts
+        take = self.state is None and len(self.eng.live) >= 2
+        if take:
+            self.state = {"pool": clone_pool(self.eng.slots.pool)}
+        before = launch_counts()
+        logits, pool = self.inner(tokens, lengths, slot_ids, tables)
+        after = launch_counts()
+        self.launches.append({k: after[k] - before[k] for k in after
+                              if after[k] != before[k]})
+        if take:
+            fn = self.eng._cohort_fn(int(tokens.shape[0]))
+            self.state.update(args=tuple(t.clone() for t in fn.inputs),
+                              logits=logits.clone(),
+                              pool_after=clone_pool(pool))
+        if self.keep_steps:
+            self.steps.append((slot_ids.tolist(), lengths.tolist(),
+                               logits.clone()))
+        return logits, pool
+
+    def __enter__(self):
+        self.eng._decode = self
+        return self
+
+    def __exit__(self, *exc):
+        self.eng._decode = self.inner
+
+
+def graph_check(cfg, eng, decode_steps):
+    """The serve's CUDA graphs: one capture per distinct cohort bucket the
+    serve decoded at, one replay per decode step."""
+    buckets = sorted({eng._cohort_bucket(e.rid) for e in eng.trace
+                      if e.event == "decode_cohort"})
+    st = dict(eng.graph_stats)
+    if st["captures"] != len(buckets) or st["replays"] != decode_steps:
+        fail(f"{cfg.name}: cohort graphs {st} for buckets {buckets} and "
+             f"{decode_steps} decode steps")
+    return {"cohort_graph/capture": st["captures"],
+            "cohort_graph/replay": st["replays"], "buckets": buckets,
+            "capture_s": round(st["capture_s"], 3)}
+
+
+def served_vs_eager(sm, cfg, eng, state, fused, held=()):
+    """A captured cohort state (``DecodeSteps.state``) again through the
+    eager ``ops.cohort_step`` that the engine's graph captured, on a copy
+    of the pool before the step, with the kernel wrappers' held checks
+    ``held`` armed: its logits and pool must equal the served (replayed)
+    step's bit for bit.  Returns (record, eager logits, eager pool)."""
+    from repro_torch.kernels.fused_decode import ops
+    torch = sm.torch
+    args = state["args"]
+    pool = clone_pool(state["pool"])
+    for h in held:
+        h.armed = True
+    try:
+        with torch.no_grad():
+            le, pe = ops.cohort_step(
+                eng.params, cfg, *args, pool, block_size=eng.slots.block_size,
+                paged=eng.slots.paged, use_fused=fused)
+    finally:
+        for h in held:
+            h.armed = False
+    torch.cuda.synchronize()
+    pairs = [(a, b) for pa, pb in zip(pe, state["pool_after"])
+             for a, b in zip(pa, pb)]
+    if not (torch.equal(le, state["logits"])
+            and all(torch.equal(a, b) for a, b in pairs)):
+        err = (le - state["logits"]).abs().max().item()
+        fail(f"{cfg.name}: the served (replayed) step differs from the "
+             f"eager step: logits max err {err}, pool leaves equal "
+             f"{[bool(torch.equal(a, b)) for a, b in pairs]}")
+    return ({"logits_bit_equal": True, "pool_bit_equal": True,
+             "bc": int(args[0].shape[0]),
+             "rows": int((args[2] < eng.slots.n_slots).sum())}, le, pe)
+
+
+# the kernels each decode breakdown times by name inside the step
+STEP_KERNELS = ("kv_row_scatter", "cache_row_update", "gemv_kernel")
+
+
+def step_kernels(per_step):
+    """The device kernels of STEP_KERNELS that one decode step with the
+    wrapper launches ``per_step`` runs: one KV-row scatter a
+    ``kv_scatter``, one row update a ``cache_row_update``, one GEMV a
+    ``fused_qkv/gemv`` and two a ``fused_mlp/gemv`` (one a stage)."""
+    return {"kv_row_scatter": per_step.get("kv_scatter", 0),
+            "cache_row_update": per_step.get("cache_row_update", 0),
+            "gemv_kernel": per_step.get("fused_qkv/gemv", 0)
+            + 2 * per_step.get("fused_mlp/gemv", 0)}
+
+
+def decode_breakdown(eng, host_args, rows, per_step):
+    """One cohort step on the engine's pool, after the serve and its checks
+    (the timed steps write into the pool), timed in turns two ways: as
+    served, ``_decode``: one pinned copy of the host inputs and a replay
+    of the bucket's CUDA graph (captured again: the serve's shutdown
+    dropped it), and eagerly, ``ops.cohort_step`` on four host-to-device
+    copies (the served step before the graphs).  Each: wall ms (host
+    clock to a synchronize, median of 5 turns), device ms (the profiler's
+    kernel time), busy share, tokens/s (``rows`` live rows over the wall
+    time), the device ms and launches of the kernels named in
+    STEP_KERNELS, and the largest kernels.  Fails unless the profiler
+    sees kernels in each way, and each way runs the kernels of
+    STEP_KERNELS as often as the serve's launches ``per_step`` say
+    (``step_kernels``): the replay's counts are observed, not taken from
+    the registry."""
+    import torch
+    dev = eng.device
+    want = step_kernels(per_step)
+
+    def graph():
+        eng._decode(*host_args)
+        torch.cuda.synchronize()
+
+    def eager():
+        with torch.no_grad():
+            eng._cohort_step(*(torch.from_numpy(a).to(dev)
+                               for a in host_args), eng.slots.pool)
+        torch.cuda.synchronize()
+    ways = (("eager", eager), ("graph", graph))
+    walls = {name: [] for name, _ in ways}
+    for _, f in ways:
+        f()
+    for _ in range(5):
+        for name, f in ways:
+            t0 = time.perf_counter()
+            f()
+            walls[name].append(time.perf_counter() - t0)
+    out = {"bc": int(host_args[0].shape[0]), "rows": rows,
+           "step_kernels_per_step": want}
+    for name, f in ways:
+        kernel_us, by_name, n = device_time(f)
+        wall_ms = sorted(walls[name])[2] * 1e3
+        counts = {k: [sum(us for nm, us, _ in by_name if k in nm) / 1e3,
+                      sum(c for nm, _, c in by_name if k in nm)]
+                  for k in STEP_KERNELS}
+        seen = {k: c for k, (_, c) in counts.items()}
+        if n == 0 or seen != want:
+            fail(f"{eng.cfg.name}: the profiler saw {n} kernels in the "
+                 f"{name} step, {seen} of {STEP_KERNELS} (want {want})")
+        out[name] = {"wall_ms": wall_ms, "device_ms": kernel_us / 1e3,
+                     "device_ms_source": "profiler kernel time",
+                     "device_kernels": n,
+                     "device_busy_share": kernel_us / 1e3 / wall_ms,
+                     "tok_s": rows / wall_ms * 1e3,
+                     "kernels_ms_launches": counts,
+                     "top_kernels_ms": [[k[:96], us / 1e3]
+                                        for k, us, _ in by_name[:8]]}
+    return out
+
+
+def decode_rates(eng, decs):
+    """The serve's decode rate from the engine's decode spans: tokens/s
+    over the whole spans, which take in each bucket's warm-up and
+    capture at its first step, and over the spans less the captures
+    (``graph_stats["capture_s"]``)."""
+    toks = sum(s.tokens for s in decs)
+    span = sum(s.dt for s in decs)
+    return {"decode_step_ms_mean": round(1e3 * span / max(1, len(decs)), 3),
+            "decode_tok_s": round(toks / max(1e-9, span), 3),
+            "decode_tok_s_excl_capture": round(
+                toks / max(1e-9, span - eng.graph_stats["capture_s"]), 3)}
+
+
 def serve_path(sm, cfg, reqs, use_fused=None):
     """Serve ``reqs`` on ``cfg`` at full width with the engine's decode
     step (``use_fused``: None, the engine's default, which must be the
@@ -1214,33 +1407,9 @@ def serve_path(sm, cfg, reqs, use_fused=None):
     fused = eng.use_fused
     if fused != (use_fused is None):
         fail(f"{cfg.name}: the engine selected use_fused={fused}")
-    captured, prefills, step_launches = {}, [], []
-    decode, prefill = eng._decode, eng._prefill
-
-    def capturing_decode(tokens, lengths, slot_ids, tables):
-        # keep one multi-row cohort state (inputs + pool before the step,
-        # the step's logits and pool after it); count every step's launches
-        take = ("args" not in captured and int((tables[:, 0] <
-                                                eng.slots.n_blocks).sum()) >= 2)
-        if take:
-            captured["args"] = tuple(t.clone() for t in
-                                     (tokens, lengths, slot_ids, tables))
-            captured["pool"] = tuple(tuple(t.clone() for t in pos)
-                                     for pos in eng.slots.pool)
-        before = launch_counts()
-        rows.armed = mlps.armed = qkvs.armed = take
-        try:
-            logits, pool = decode(tokens, lengths, slot_ids, tables)
-        finally:
-            rows.armed = mlps.armed = qkvs.armed = False
-        after = launch_counts()
-        step_launches.append({k: after[k] - before[k] for k in after
-                              if after[k] != before[k]})
-        if take:
-            captured["logits"] = logits.clone()
-            captured["pool_after"] = tuple(tuple(t.clone() for t in p)
-                                           for p in pool)
-        return logits, pool
+    captured, prefills = {}, []
+    prefill = eng._prefill
+    steps = DecodeSteps(eng)
 
     def counting_prefill_inner(tokens, vision_embeds, last_idx):
         logits, cache = prefill(tokens, vision_embeds, last_idx)
@@ -1261,19 +1430,17 @@ def serve_path(sm, cfg, reqs, use_fused=None):
             return counting_prefill_inner(tokens, vision_embeds, last_idx)
         finally:
             gemms.armed = False
-    eng._decode, eng._prefill = capturing_decode, counting_prefill
+    eng._prefill = counting_prefill
     for r in reqs:
         eng.submit(r)
     reset_launch_counts()
     t0 = time.perf_counter()
-    with GemmCalls() as gemms, RowUpdateCalls() as rows, \
-            FlashCalls() as flashes, MlpCalls() as mlps, \
-            QkvCalls() as qkvs, eng:
+    with GemmCalls() as gemms, FlashCalls() as flashes, steps, eng:
         done = eng.run()
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = launch_counts()
-    eng._decode, eng._prefill = decode, prefill
+    eng._prefill = prefill
     L = cfg.n_layers
     decode_steps = sum(1 for e in eng.trace if e.event == "decode_step")
     n_prefill = captured.get("prefill_calls", 0)
@@ -1303,20 +1470,11 @@ def serve_path(sm, cfg, reqs, use_fused=None):
     want["dequant_gemm"] = per_call * n_prefill
     want[f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}"] = per_call * n_prefill
     if not (launches == want and decode_steps > 0 and n_prefill > 0
-            and len(step_launches) == decode_steps
-            and all(d == per_step for d in step_launches)):
+            and len(steps.launches) == decode_steps
+            and all(d == per_step for d in steps.launches)):
         fail(f"{cfg.name}: launch counts {launches} for {decode_steps} "
              f"decode steps and {n_prefill} prefill calls (want {want}; "
-             f"per step {per_step}, got {step_launches[:3]})")
-    if not fused and rows.calls != 2 * L:
-        fail(f"{cfg.name}: {rows.calls} row-update calls held in the "
-             f"captured step, expected {2 * L}")
-    if fused and qkvs.calls != L:
-        fail(f"{cfg.name}: {qkvs.calls} fused-QKV calls held in the "
-             f"captured step, expected {L}")
-    if fused and mlps.calls != L:
-        fail(f"{cfg.name}: {mlps.calls} fused-MLP calls held in the "
-             f"captured step, expected {L}")
+             f"per step {per_step}, got {steps.launches[:3]})")
     spans = eng.probe.samples()
     pre = [s for s in spans if s.brick == "decoder" and s.phase == "prefill"]
     decs = [s for s in spans if s.brick == "decoder" and s.phase == "decode"]
@@ -1331,30 +1489,17 @@ def serve_path(sm, cfg, reqs, use_fused=None):
              "prefill_width": captured["prefill_width"],
              "prefill_ms": [round(s.dt * 1e3, 3) for s in pre],
              "prefill_tokens": [s.tokens for s in pre],
-             "decode_step_ms_mean": round(1e3 * sum(s.dt for s in decs)
-                                          / max(1, len(decs)), 3),
-             "decode_tok_s": round(sum(s.tokens for s in decs)
-                                   / max(1e-9, sum(s.dt for s in decs)), 3),
+             **decode_rates(eng, decs),
              "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9,
                                   3),
              "kv_pool_mb": round(eng.slots.nbytes / 1e6, 3),
              "tabm": tstats, "launches": launches,
-             "launches_per_decode_step": per_step}
+             "launches_per_decode_step": per_step,
+             "cohort_graph": graph_check(cfg, eng, decode_steps)}
     serve["gemm_served_check"] = dict(served_gemm_check(
         cfg, gemms.calls, per_call), prefill_batch=captured[
         "prefill_batch"][0], prefill_width=captured["prefill_width"][0])
     del gemms
-    if fused:
-        for key, held in (("qkv_served_check", qkvs),
-                          ("mlp_served_check", mlps)):
-            serve[key] = {
-                "calls": held.calls, "worst_row_err_over_row_max": held.worst,
-                "bc": held.bc, "dtype": cfg.dtype,
-                "tol": MLP_ROW_TOL[cfg.dtype]}
-    if not fused:
-        serve["row_update_served_check"] = {
-            "calls": rows.calls, "bit_exact": True,
-            "cache_shape_dtype_strides": sorted(rows.shapes)}
     if flashes.calls:
         worst, err_max, f64 = 0.0, 0.0, {}
         with torch.no_grad():
@@ -1371,26 +1516,53 @@ def serve_path(sm, cfg, reqs, use_fused=None):
             serve["flash_served_check"]["vs_float64_err_over_max"] = f64
     del flashes
 
-    # the captured cohort state again through the fused and the plain
+    # the captured cohort state again through the eager step the engine
+    # captured, with the decode kernels' held checks armed (a replay runs
+    # no Python, so they cannot sit in the served step): the served step
+    # bit for bit against it; then through the fused and the plain
     # composed step (teacher-forced: the same inputs and pool)
-    if "args" not in captured:
+    state = steps.state
+    if state is None:
         fail(f"{cfg.name}: no multi-row cohort state was captured")
-    args = captured["args"]
-    pool_f = tuple(tuple(t.clone() for t in pos) for pos in captured["pool"])
+    args = state["args"]
     kw = dict(block_size=eng.slots.block_size, paged=eng.slots.paged)
+    with RowUpdateCalls() as rows, MlpCalls() as mlps, QkvCalls() as qkvs:
+        serve["served_vs_eager"], le, _ = served_vs_eager(
+            sm, cfg, eng, state, fused, (rows, mlps, qkvs))
+    if not fused and rows.calls != 2 * L:
+        fail(f"{cfg.name}: {rows.calls} row-update calls held in the "
+             f"eager step, expected {2 * L}")
+    if fused and qkvs.calls != L:
+        fail(f"{cfg.name}: {qkvs.calls} fused-QKV calls held in the "
+             f"eager step, expected {L}")
+    if fused and mlps.calls != L:
+        fail(f"{cfg.name}: {mlps.calls} fused-MLP calls held in the "
+             f"eager step, expected {L}")
+    if fused:
+        for key, held in (("qkv_served_check", qkvs),
+                          ("mlp_served_check", mlps)):
+            serve[key] = {
+                "calls": held.calls, "worst_row_err_over_row_max": held.worst,
+                "bc": held.bc, "dtype": cfg.dtype,
+                "tol": MLP_ROW_TOL[cfg.dtype], "step": "eager"}
+    else:
+        serve["row_update_served_check"] = {
+            "calls": rows.calls, "bit_exact": True, "step": "eager",
+            "cache_shape_dtype_strides": sorted(rows.shapes)}
     with torch.no_grad():
-        lf, _ = ops.cohort_step(eng.params, cfg, *args, pool_f,
-                                use_fused=True, **kw)
-        lr, pr = ref.ref_cohort_step(eng.params, cfg, *args,
-                                     captured["pool"], **kw)
-    nrows = int((args[3][:, 0] < eng.slots.n_blocks).sum())
+        lf = le if fused else ops.cohort_step(
+            eng.params, cfg, *args, clone_pool(state["pool"]),
+            use_fused=True, **kw)[0]
+        lr, pr = ref.ref_cohort_step(eng.params, cfg, *args, state["pool"],
+                                     **kw)
+    nrows = int((args[2] < eng.slots.n_slots).sum())
     if fused:
         serve["cohort_check"] = logit_check(cfg, lf[:nrows], lr[:nrows],
                                             "fused vs composed step")
     else:
-        ls = captured["logits"]
+        ls = state["logits"]
         same_pool = all(torch.equal(a, b) for a, b in
-                        zip(captured["pool_after"][0], pr[0]))
+                        zip(state["pool_after"][0], pr[0]))
         if not same_pool:
             fail(f"{cfg.name}: the composed step's pool differs from the "
                  f"plain step's")
@@ -1402,28 +1574,16 @@ def serve_path(sm, cfg, reqs, use_fused=None):
             "logits_bit_equal_to_plain": bool(torch.equal(ls, lr)),
             "pool_equal_to_plain": same_pool}
     serve["cohort_check"]["rows"] = nrows
-    del pr, captured["pool_after"]
+    del pr, le, lf, lr
 
-    # where one decode step's time goes: wall time (host clock,
-    # synchronized, median of 5) against the card's kernel time
-    def step():
-        with torch.no_grad():
-            ops.cohort_step(eng.params, cfg, *args, pool_f, use_fused=fused,
-                            **kw)
-        torch.cuda.synchronize()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        step()
-        walls.append(time.perf_counter() - t0)
-    kernel_us, by_name, _ = device_time(step)
-    wall_ms = sorted(walls)[2] * 1e3
-    serve["decode_step_breakdown"] = {
-        "bc": int(args[0].shape[0]), "wall_ms": wall_ms,
-        "device_ms": kernel_us / 1e3,
-        "device_busy_share": kernel_us / 1e3 / wall_ms,
-        "top_kernels_ms": [[k[:96], v / 1e3] for k, v, _ in by_name[:8]]}
-    del captured["pool"], pool_f
+    # where one decode step's time goes, served (graph replay) against
+    # eager, on the captured state copied back into the engine's pool
+    for pos, saved in zip(eng.slots.pool, state["pool"]):
+        for leaf, t in zip(pos, saved):
+            leaf.copy_(t)
+    serve["decode_step_breakdown"] = decode_breakdown(
+        eng, [t.cpu().numpy() for t in args], nrows, per_step)
+    steps.state = state = None
     return serve, eng, prefills[0]
 
 
@@ -1691,8 +1851,9 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
     del params
     if eng.use_fused or eng.slots.paged != (False,):
         fail(f"{cfg.name}: expected the composed step over a slot pool")
-    groups, steps, calls = [], [], []
-    decode, prefill = eng._decode, eng._prefill
+    groups, calls = [], []
+    prefill = eng._prefill
+    steps = DecodeSteps(eng, keep_steps=True)
     kernel = getattr(op_module, op_name)
 
     def recording_prefill(tokens, vision_embeds, last_idx):
@@ -1706,30 +1867,25 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
                        logits.clone()))
         return logits, cache
 
-    def recording_decode(tokens, lengths, slot_ids, tables):
-        logits, pool = decode(tokens, lengths, slot_ids, tables)
-        steps.append((slot_ids.tolist(), lengths.tolist(), logits.clone()))
-        return logits, pool
-
     def recording_kernel(*args, **kwargs):
         out = kernel(*args, **kwargs)
         calls.append((args, kwargs, out))
         return out
-    eng._decode, eng._prefill = recording_decode, recording_prefill
+    eng._prefill = recording_prefill
     setattr(op_module, op_name, recording_kernel)
     for r in reqs:
         eng.submit(r)
     reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        with GemmCalls() as gemms, eng:
+        with GemmCalls() as gemms, steps, eng:
             done = eng.run()
         torch.cuda.synchronize()
     finally:
         setattr(op_module, op_name, kernel)
     serve_s = time.perf_counter() - t0
     launches = launch_counts()
-    eng._decode, eng._prefill = decode, prefill
+    eng._prefill = prefill
     decode_steps = sum(1 for e in eng.trace if e.event == "decode_step")
     errors = [r for r in done if r.error is not None]
     if len(done) != len(reqs) or errors:
@@ -1751,7 +1907,9 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
             == cfg.n_layers * len(groups) == len(calls)
             and launches["dequant_gemm"] == launches[gemm_route]
             == per_call * len(groups)
-            and groups and decode_steps > 0 and others == 0):
+            and groups and decode_steps > 0 and others == 0
+            and len(steps.launches) == decode_steps
+            and not any(steps.launches)):
         fail(f"{cfg.name}: launch counts {launches} for {decode_steps} "
              f"decode steps and {len(groups)} prefill calls")
     spans = eng.probe.samples()
@@ -1767,14 +1925,12 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
              "prefill_width": [int(g[0].shape[1]) for g in groups],
              "prefill_ms": [round(s.dt * 1e3, 3) for s in pre],
              "prefill_tokens": [s.tokens for s in pre],
-             "decode_step_ms_mean": round(1e3 * sum(s.dt for s in decs)
-                                          / max(1, len(decs)), 3),
-             "decode_tok_s": round(sum(s.tokens for s in decs)
-                                   / max(1e-9, sum(s.dt for s in decs)), 3),
+             **decode_rates(eng, decs),
              "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9,
                                   3),
              "state_pool_mb": round(eng.slots.nbytes / 1e6, 3),
              "launches": launches,
+             "cohort_graph": graph_check(cfg, eng, decode_steps),
              "gemm_served_check": dict(served_gemm_check(
                  cfg, gemms.calls, per_call),
                  prefill_batch=int(groups[0][0].shape[0]),
@@ -1782,7 +1938,12 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
     del gemms
     if eng.tabm is not None:
         serve["tabm"] = eng.tabm.stats
-    return serve, eng, (reqs, groups, steps, calls)
+    if steps.state is None:
+        fail(f"{cfg.name}: no multi-row cohort state was captured")
+    serve["served_vs_eager"] = served_vs_eager(sm, cfg, eng, steps.state,
+                                               False)[0]
+    steps.state = None
+    return serve, eng, (reqs, groups, steps.steps, calls)
 
 
 def serve_mamba(sm, cfg):
@@ -1998,37 +2159,18 @@ def mamba_checks(sm, cfg, eng, run, tol, witness_share=None):
     return checks
 
 
-def composed_decode_breakdown(sm, cfg, eng):
+def composed_decode_breakdown(eng):
     """Where one composed cohort-4 decode step's time goes, on the served
-    slot pool (each slot holds its request's final state): wall time
-    (host clock, synchronized, median of 5) against the card's kernel
-    time, by kernel."""
-    from repro_torch.kernels.fused_decode import cohort_step
-    torch = sm.torch
+    slot pool after the serve and its checks (each slot holds its
+    request's final state; the timed steps write into it):
+    ``decode_breakdown`` of every slot decoding token 5 at length 1100.
+    The slot-state step launches none of STEP_KERNELS."""
+    import numpy as np
     n = eng.slots.n_slots
-    args = (torch.full((n, 1), 5, dtype=torch.int32, device=sm.dev),
-            torch.full((n,), 1100, dtype=torch.int32, device=sm.dev),
-            torch.arange(n, dtype=torch.int32, device=sm.dev),
-            torch.zeros((n, eng.slots.blocks_per_slot), dtype=torch.int32,
-                        device=sm.dev))
-
-    def step():
-        with torch.no_grad():
-            cohort_step(eng.params, cfg, *args, eng.slots.pool,
-                        block_size=eng.slots.block_size,
-                        paged=eng.slots.paged)
-        torch.cuda.synchronize()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        step()
-        walls.append(time.perf_counter() - t0)
-    kernel_us, by_name, _ = device_time(step)
-    wall_ms = sorted(walls)[2] * 1e3
-    return {"bc": n, "wall_ms": wall_ms, "device_ms": kernel_us / 1e3,
-            "device_busy_share": kernel_us / 1e3 / wall_ms,
-            "top_kernels_ms": [[k[:96], us / 1e3]
-                               for k, us, _ in by_name[:8]]}
+    host = [np.full((n, 1), 5, np.int32), np.full(n, 1100, np.int32),
+            np.arange(n, dtype=np.int32),
+            np.zeros((n, eng.slots.blocks_per_slot), np.int32)]
+    return decode_breakdown(eng, host, n, {})
 
 
 def linear_attention_f64(q, k, v, valid_len=None):
@@ -2549,8 +2691,7 @@ def main() -> int:
     serve["prefill_breakdown"] = prefill_breakdown(
         eng, max(run[1], key=lambda g: g[0].numel()),
         ("la_", "dequant_gemm"))
-    serve["decode_step_breakdown"] = composed_decode_breakdown(sm, linear,
-                                                               eng)
+    serve["decode_step_breakdown"] = composed_decode_breakdown(eng)
     serve["softmax_kv_pool_mb"] = serves[llava.name]["kv_pool_mb"]
     del eng, run
     free()
@@ -2558,8 +2699,10 @@ def main() -> int:
     serve32, eng, run = serve_linear(sm, linear32, requests(
         linear32, llava_reqs, seed=0))
     serve["fp32"] = {k: serve32[k] for k in (
-        "prefill_calls", "prefill_ms", "decode_tok_s", "launches",
-        "linear_served_check", "gemm_served_check")}
+        "prefill_calls", "prefill_ms", "decode_tok_s",
+        "decode_tok_s_excl_capture", "launches",
+        "linear_served_check", "gemm_served_check", "cohort_graph",
+        "served_vs_eager", "peak_mem_gb")}
     serve["fp32"]["checks"] = linear_checks(sm, linear32, eng, run, STEP_TOL)
     serve["fp32"]["prefill_breakdown"] = prefill_breakdown(
         eng, max(run[1], key=lambda g: g[0].numel()),
@@ -2581,15 +2724,16 @@ def main() -> int:
     serve["prefill_breakdown"] = prefill_breakdown(
         eng, max(run[1], key=lambda g: g[0].numel()),
         ("ssd_", "dequant_gemm"))
-    serve["decode_step_breakdown"] = composed_decode_breakdown(sm, mamba,
-                                                               eng)
+    serve["decode_step_breakdown"] = composed_decode_breakdown(eng)
     del eng, run
     free()
     mamba32 = dataclasses.replace(mamba, dtype="float32")
     serve32, eng, run = serve_mamba(sm, mamba32)
     serve["fp32"] = {k: serve32[k] for k in (
-        "prefill_calls", "prefill_ms", "decode_tok_s", "launches",
-        "ssd_served_check", "gemm_served_check")}
+        "prefill_calls", "prefill_ms", "decode_tok_s",
+        "decode_tok_s_excl_capture", "launches",
+        "ssd_served_check", "gemm_served_check", "cohort_graph",
+        "served_vs_eager", "peak_mem_gb")}
     serve["fp32"]["checks"] = mamba_checks(sm, mamba32, eng, run, STEP_TOL)
     sm.errs["ssd"] = max(sm.errs["ssd"],
                          serve["ssd_served_check"]["y_max_abs_err"])
@@ -2657,6 +2801,21 @@ def main() -> int:
                "effective_GB_s": byt / dev_or_call(t_k) / 1e6}
         if t_d is not None:
             out["dense_bf16_matmul_ms"] = dev_or_call(t_d)
+        return out
+
+    def in_graph(key):
+        """Kernel ``key`` inside each serve's decode step: ms a launch and
+        launches a step in the graph replay, beside the eager step's."""
+        out = {}
+        for a, r in serves.items():
+            bd = r.get("decode_step_breakdown")
+            if not bd or not bd["graph"]["kernels_ms_launches"][key][1]:
+                continue
+            out[a] = {}
+            for way in ("graph", "eager"):
+                ms, n = bd[way]["kernels_ms_launches"][key]
+                out[a][way] = {"ms_a_launch": ms / max(1, n),
+                               "launches_a_step": n}
         return out
 
     kernels = []
@@ -2849,6 +3008,7 @@ def main() -> int:
             entry["served_check"] = serves[COMPOSED_PATH][
                 "row_update_served_check"]
             entry["kernel_checks"] = sm.cu_check
+            entry["in_cohort_graph"] = in_graph("cache_row_update")
         else:
             entry.update(numbers(timings[llava.name][name]))
             entry["bc"] = TIME_BC
@@ -2861,8 +3021,11 @@ def main() -> int:
                                          if check in r}
             if name == "fused_mlp":
                 entry["decode_step_device_ms"] = {
-                    a: serves[a]["decode_step_breakdown"]["device_ms"]
+                    a: serves[a]["decode_step_breakdown"]["graph"][
+                        "device_ms"]
                     for a in (llava.name, FP32_PATH, qwen.name)}
+            if name == "kv_row_scatter":
+                entry["in_cohort_graph"] = in_graph("kv_row_scatter")
             entry["shape_of"] = llava.name
             entry["at_" + qwen.name] = numbers(timings[qwen.name][name])
             entry["fp32_at_" + llava.name] = numbers(

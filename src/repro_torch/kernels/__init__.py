@@ -19,8 +19,14 @@ split TF32 on mma.sync);
 products) and ``ssd/simt`` (fp32, FFMA); ``fused_mlp/gemv`` (the split-K
 GEMV of both MLP stages, one a call) and ``fused_qkv/gemv`` (the same
 GEMV, one a device kernel: one a distinct bit width of wq, wk, wv).
+
+The counts are the launches the card ran, CUDA-graph replays included: a
+replay runs no Python, so the code that captures a graph takes the
+launches its capture counted with :func:`launches_of` (which leaves the
+registry as it was: a capture launches nothing) and adds them back with
+:func:`count_launches` at each replay (``serving/cohort_graph.py``).
 """
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
 _LAUNCHES: Dict[str, int] = {}
 
@@ -42,3 +48,24 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+def launches_of(fn: Callable, *args, **kwargs) -> Tuple[object, Dict[str,
+                                                                       int]]:
+    """(``fn(*args, **kwargs)``, the launches it counted); the registry is
+    left as it was before the call, whether ``fn`` returns or raises."""
+    before = dict(_LAUNCHES)
+    try:
+        out = fn(*args, **kwargs)
+        delta = {k: n - before.get(k, 0) for k, n in _LAUNCHES.items()
+                 if n != before.get(k, 0)}
+    finally:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = before.get(name, 0)
+    return out, delta
+
+
+def count_launches(delta: Dict[str, int]) -> None:
+    """Add a recorded delta (:func:`launches_of`) to the counts."""
+    for name, n in delta.items():
+        count_launch(name, n)

@@ -223,13 +223,18 @@ def qkv_plans(K: int, segs: Tuple[Tuple[int, int], ...], elem_bytes: int,
 
 # arrival counters of the GEMV, one buffer a device, zero between
 # calls (the last CTA of each tile and rank resets its counter); calls on
-# one stream run one after another
+# one stream run one after another.  A buffer outgrown by a larger plan
+# is kept, never freed: a captured CUDA graph (``serving/cohort_graph``)
+# holds its address and finds it at zero at every replay
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_OUTGROWN: List[torch.Tensor] = []
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _COUNTERS[device] = buf
     return buf

@@ -18,11 +18,14 @@ the paged pool.  ``use_fused=False`` runs the composed step
 (:func:`_composed_cohort_step`: ``ref_cohort_step``'s structure with the
 gathered caches donated to ``lm_decode_step``, so each layer's new row
 goes in through the cache-row-update kernel, and the pool written in
-place by :func:`kv_scatter`), the only step for Mamba-2 and linear
-attention (slot-state pool, as in the reference).  The fused step runs,
-per layer, :func:`fused_qkv`, the shared attention core and output
-projection, and :func:`fused_mlp`; the new K/V rows of every layer land
-in the pool in one :func:`kv_scatter` after the last layer.
+place by :func:`kv_scatter` and ``ref.scatter_slots``), the only step for
+Mamba-2 and linear attention (slot-state pool, as in the reference).
+The fused step runs, per layer, :func:`fused_qkv`, the shared attention
+core and output projection, and :func:`fused_mlp`; the new K/V rows of
+every layer land in the pool in one :func:`kv_scatter` after the last
+layer.  Both steps are fixed-shape with no host sync, so the engine
+captures each as a CUDA graph per cohort bucket
+(``serving/cohort_graph``).
 """
 from __future__ import annotations
 
@@ -112,7 +115,8 @@ def _composed_cohort_step(params, cfg, tokens, lengths, slot_ids, tables,
     gathered caches donated (they are this step's temporaries), so each
     layer's new K and V rows go in through ``cache_row_update`` with no
     copy, and each row's new K/V position written into the pool IN PLACE
-    by :func:`kv_scatter`.  Returns (logits, pool)."""
+    by :func:`kv_scatter`, each row's new slot state by ``scatter_slots``.
+    Returns (logits, pool), the pool the one given."""
     return composed_cohort_step(params, cfg, tokens, lengths, slot_ids,
                                 tables, pool, block_size=block_size,
                                 paged=paged, donate=True,
@@ -161,9 +165,8 @@ def cohort_step(params, cfg, tokens, lengths, slot_ids, tables, pool, *,
 
     tokens (bc,1); lengths/slot_ids (bc,); tables (bc, W) with sentinel
     ``n_blocks`` for padded rows; pool ``((k, v),)``.  Returns (logits
-    (bc, V), pool).  Both steps write the paged pool in place; slot-state
-    positions come back as new tensors.  ``use_fused=None`` resolves to
-    :func:`fused_supported`."""
+    (bc, V), pool).  Both steps write the pool in place and return it.
+    ``use_fused=None`` resolves to :func:`fused_supported`."""
     if use_fused is None:
         use_fused = fused_supported(cfg)
     if not use_fused:

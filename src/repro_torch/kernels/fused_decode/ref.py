@@ -169,8 +169,30 @@ def gather_slots(pool_leaf, slot_ids):
 
 
 def scatter_slots(pool_leaf, slot_ids, rows):
+    """Each row's new state (L, bc, ...) written IN PLACE at its slot of
+    the (L, n_slots, ...) pool by one fixed-shape ``index_copy_``, with no
+    host sync and no copy of the pool (a CUDA graph captures it).  A
+    sentinel row (slot id >= n_slots) is sent to a slot no real row
+    writes and writes that slot's own state back: it changes nothing.
+    Such a slot exists whenever a row is a sentinel, given at most n_slots
+    rows and real rows on distinct slots (the engine's cohorts).  Returns
+    ``pool_leaf``."""
+    n_slots = pool_leaf.shape[1]
+    ids = slot_ids.to(torch.long)
+    ok = ids < n_slots
+    hit = torch.zeros(n_slots + 1, dtype=torch.int32, device=ids.device)
+    hit.index_fill_(0, ids.clamp(max=n_slots), 1)
+    spare = hit[:n_slots].argmin()          # the first slot no row writes
+    mask = ok.reshape((1, -1) + (1,) * (rows.dim() - 2))
+    vals = torch.where(mask, rows.to(pool_leaf.dtype),
+                       pool_leaf[:, spare.reshape(1)])
+    return pool_leaf.index_copy_(1, torch.where(ok, ids, spare), vals)
+
+
+def scatter_slots_copy(pool_leaf, slot_ids, rows):
     """A copy of the (L, n_slots, ...) pool with each row's new state
-    (L, bc, ...) written at its slot; sentinel rows write nothing."""
+    (L, bc, ...) written at its slot; sentinel rows write nothing (the
+    plain step's form: the input pool is not modified)."""
     ok = slot_ids < pool_leaf.shape[1]
     out = pool_leaf.clone()
     out[:, slot_ids[ok].to(torch.long)] = rows[:, ok].to(out.dtype)
@@ -179,14 +201,15 @@ def scatter_slots(pool_leaf, slot_ids, rows):
 
 def composed_cohort_step(params, cfg, tokens, lengths, slot_ids, tables,
                          pool, *, block_size: int, paged, donate: bool,
-                         kv_write):
+                         kv_write, slot_write=scatter_slots):
     """The composed cohort step: gather every row's context through its
     block table (attention) or its slot (slot state), one
     ``lm_decode_step`` over the cohort (``donate``: the gathered caches
     are handed to it to be written in place), then write each row's new
     K/V position back through the table with ``kv_write`` (a
     ``kv_scatter``-like function returning the pools) and its new state
-    back by slot.  Returns (logits, pool)."""
+    back by slot with ``slot_write`` (``scatter_slots``: in place).
+    Returns (logits, pool)."""
     bc = tokens.shape[0]
     layers = tuple(
         tuple(gather_context(l, tables) if is_paged
@@ -199,7 +222,7 @@ def composed_cohort_step(params, cfg, tokens, lengths, slot_ids, tables,
     out = []
     for pos, is_paged in enumerate(paged):
         if not is_paged:
-            out.append(tuple(scatter_slots(l, slot_ids, nl)
+            out.append(tuple(slot_write(l, slot_ids, nl)
                              for l, nl in zip(pool[pos], new["layers"][pos])))
             continue
         blk, off = block_and_offset(tables, lengths, block_size)
@@ -212,12 +235,14 @@ def composed_cohort_step(params, cfg, tokens, lengths, slot_ids, tables,
 def ref_cohort_step(params, cfg, tokens, lengths, slot_ids, tables, pool, *,
                     block_size: int, paged):
     """The plain composed step (:func:`composed_cohort_step` with nothing
-    donated and the plain scatter on copies of the pools).  Returns
-    (logits, new pool); the input pool is not modified."""
+    donated and the plain scatters on copies of the pools).  Returns
+    (logits, new pool); the input pool is not modified (and needs no
+    spare slot)."""
     def write_copies(blk, off, k_rows, v_rows, k_pool, v_pool):
         return ref_kv_scatter(blk, off, k_rows, v_rows, k_pool.clone(),
                               v_pool.clone())
     return composed_cohort_step(params, cfg, tokens, lengths, slot_ids,
                                 tables, pool, block_size=block_size,
                                 paged=paged, donate=False,
-                                kv_write=write_copies)
+                                kv_write=write_copies,
+                                slot_write=scatter_slots_copy)

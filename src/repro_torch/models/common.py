@@ -88,8 +88,9 @@ def activation(name: str):
 
 def _rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
     ex = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), ex)
+    # theta filled on the device (no host copy: a CUDA graph captures it)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), ex)
 
 
 def _rotate(x, cos, sin):

@@ -15,15 +15,20 @@ admission (staged-ahead depth and KV-block budgets per slot class, both
 shed high-resolution-first by the battery knobs), bucketed batched
 prefill, power-of-2 cohort decode over the paged pool, shared staging of
 identical vision bytes, cross-class aging and backend demotion.  The
-reference's per-bucket ``jax.jit`` executables are plain eager calls
-here.
+reference's per-bucket ``jax.jit`` prefill executables are plain eager
+calls here; its per-bucket decode executables (``_cohort_fn``) are CUDA
+graphs on the card.
 
 Decode runs ``kernels/fused_decode.cohort_step``: on the card a
 fused-supported config decodes through the fused step (the Hopper
 fused-QKV, fused-MLP and KV-row-scatter kernels) unless the caller passes
 ``use_fused=False`` for the composed step (softmax caches written by the
-cache-row-update kernel, the pool by the KV-row scatter).  On the CPU the
-same wrappers run their plain versions.
+cache-row-update kernel, the pool by the KV-row scatter, slot state by an
+in-place scatter).  On the card every decode step replays the step
+captured as one CUDA graph for its cohort bucket
+(``serving/cohort_graph.CohortGraph``, captured at the bucket's first
+step, dropped at ``shutdown``); there is no eager fallback.  On the CPU
+the step runs eagerly, its wrappers taking their plain versions.
 
 The engine runs on ``device`` — the card unless the caller passes
 ``device="cpu"``.  Disaggregated prefill/decode (``prefill_step``,
@@ -56,6 +61,7 @@ from repro_torch.models import decoder as dec
 from repro_torch.models.linear_attention import \
     PREFILL_CHUNK as LINEAR_PREFILL_CHUNK
 from repro_torch.models import model as M
+from repro_torch.serving.cohort_graph import CohortGraph
 from repro_torch.serving.kv_cache import PagedKVCache, bucket_length
 from repro_torch.serving.sampling import greedy, sample
 from repro_torch.telemetry.ledger import Ledger
@@ -348,6 +354,11 @@ class ServingEngine:
         self.max_len = max_len
         self.max_cohort = max_cohort
         self._rotate = 0
+        # the cohort step per bucket (``_cohort_fn``); on the card the
+        # CUDA graphs share one memory pool and one capture stream
+        self._cohort_cache: Dict[int, object] = {}
+        self._graph_pool = self._capture_stream = None
+        self.graph_stats = {"captures": 0, "replays": 0, "capture_s": 0.0}
         self.executor = executor or BatteryAwareExecutor(PMU())
         self._stage_batch_override = stage_batch
         self.aging_steps = aging_steps
@@ -442,8 +453,11 @@ class ServingEngine:
         back to EMPTY, and resolve every outstanding request — live
         mid-decode ones keep their partial tokens — as failed with
         EngineClosed.  Idempotent; returns True when no worker thread is
-        left alive."""
+        left alive.  The cohort step's CUDA graphs and their memory are
+        dropped."""
         self._closed = True
+        self._cohort_cache.clear()
+        self._graph_pool = self._capture_stream = None
         joined = True
         if self._worker is not None:
             joined = self._worker.shutdown(timeout)
@@ -529,16 +543,57 @@ class ServingEngine:
             self._rotate += self.max_cohort
         return slots
 
+    def _cohort_step(self, tokens, lengths, slot_ids, tables, pool):
+        """The eager cohort step (``kernels/fused_decode.cohort_step``):
+        what the CPU runs and the card captures."""
+        return cohort_step(
+            self.params, self.cfg, tokens, lengths, slot_ids, tables, pool,
+            block_size=self.slots.block_size, paged=self.slots.paged,
+            use_fused=self.use_fused)
+
+    def _cohort_fn(self, bc: int):
+        """The cohort step of bucket ``bc``, one cached callable a bucket
+        as the reference's ``_cohort_fn``: on the card a
+        :class:`CohortGraph` captured now on the engine's pool (a failed
+        capture raises), on the CPU the eager step."""
+        fn = self._cohort_cache.get(bc)
+        if fn is not None:
+            return fn
+        if self.device.type != "cuda":
+            fn = self._cohort_step
+        else:
+            t0 = time.perf_counter()
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._capture_stream = torch.cuda.Stream(self.device)
+            with torch.no_grad():
+                fn = CohortGraph(self._cohort_step, self.slots.pool, bc,
+                                 self.slots.blocks_per_slot,
+                                 self.slots.n_slots, self.slots.n_blocks,
+                                 self.device, self._graph_pool,
+                                 self._capture_stream)
+            self.graph_stats["captures"] += 1
+            self.graph_stats["capture_s"] += time.perf_counter() - t0
+        self._cohort_cache[bc] = fn
+        return fn
+
     def _decode(self, tokens, lengths, slot_ids, tables):
-        """One batched cohort decode step over the paged pool: each row's
-        context gathered through its block table, the new K/V position
-        written back into its current block; padded rows carry sentinel
-        ids (zeros in, nothing written)."""
-        with torch.no_grad():
-            return cohort_step(
-                self.params, self.cfg, tokens, lengths, slot_ids, tables,
-                self.slots.pool, block_size=self.slots.block_size,
-                paged=self.slots.paged, use_fused=self.use_fused)
+        """One batched cohort decode step over the paged pool, from the
+        step's host arrays: each row's context gathered through its block
+        table, the new K/V position written back into its current block,
+        the pool written in place; padded rows carry sentinel ids (zeros
+        in, nothing written).  On the card a replay of the bucket's graph
+        (captured at the bucket's first step): the logits returned are its
+        static buffer, which the next replay of any bucket may overwrite.
+        Returns (logits, pool)."""
+        fn = self._cohort_fn(int(tokens.shape[0]))
+        if self.device.type != "cuda":
+            with torch.no_grad():
+                return fn(*(torch.from_numpy(a) for a in (
+                    tokens, lengths, slot_ids, tables)), self.slots.pool)
+        out = fn(tokens, lengths, slot_ids, tables, self.slots.pool)
+        self.graph_stats["replays"] += 1
+        return out
 
     def _stage(self, depth_scale: float = 1.0):
         """Synchronous fallback producer (``async_staging=False``): run the
@@ -1092,12 +1147,11 @@ class ServingEngine:
             tokens[b, 0] = req.out_tokens[-1]
             lengths[b] = self.slots.lengths[slot]
             slot_ids[b] = slot
+        # the span takes in a bucket's capture at its first step, as the
+        # reference's takes in its jit compile
         t0 = time.perf_counter()
-        dev = self.device
-        logits, self.slots.pool = self._decode(
-            torch.from_numpy(tokens).to(dev), torch.from_numpy(lengths).to(dev),
-            torch.from_numpy(slot_ids).to(dev),
-            torch.from_numpy(tables).to(dev))
+        # the step writes the pool in place: it is never reassigned
+        logits, _ = self._decode(tokens, lengths, slot_ids, tables)
         self.stats.steps += 1
         self._trace_event("decode_step", self.stats.steps)
         self._trace_event("decode_cohort", len(cohort))

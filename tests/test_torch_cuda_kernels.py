@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from repro_torch.core.quantize import QuantSpec, dequantize, quantize
-from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels import (launch_counts, launches_of,
+                                 reset_launch_counts)
 from repro_torch.kernels.cache_update import (cache_row_update,
                                               ref_cache_row_update)
 from repro_torch.kernels.dequant_gemm import (dequant_gemm, quant_einsum,
@@ -2057,3 +2058,156 @@ def test_linear_attention_tf32x3_matches_its_emulation(cuda, dtype):
         assert ((g_ - e_).abs().max() / e_.abs().max()).item() <= 2e-6
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-6
     assert _la_rows_err(got[0], emu[0]) <= tol
+
+
+# -- the cohort step as a CUDA graph per bucket (serving/cohort_graph) -----
+GRAPH_KINDS = ["fused", "composed", "mamba", "linear"]
+
+
+def _graph_engine(kind, dev):
+    """A ServingEngine on the card (reduced, bf16, nanomind-serve) of one
+    decode-step kind: llava's fused or composed step (paged pool), Mamba-2
+    or llava with linear attention (slot-state pool)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import PROFILES, quantize_tree
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    cfg = (get_config("mamba2-1.3b").reduced() if kind == "mamba"
+           else _linear_cfg("bfloat16") if kind == "linear"
+           else get_config("llava-onevision-0.5b").reduced())
+    params = quantize_tree(init_params(cfg, device=dev),
+                           PROFILES["nanomind-serve"])
+    eng = ServingEngine(cfg, params, n_slots=4, max_len=128, block_size=32,
+                        use_fused=(kind == "fused") if kind in (
+                            "fused", "composed") else None, device=dev)
+    assert eng.use_fused == (kind == "fused")
+    g = torch.Generator(device=dev).manual_seed(3)
+    for pos in eng.slots.pool:
+        for t in pos:
+            t.copy_(torch.randn(t.shape, generator=g, device=dev) * 0.5)
+    return eng
+
+
+def _cohort_host(eng, bc, seed):
+    """Host inputs of a bucket-``bc`` step: bc - 1 live rows on distinct
+    slots (all bc when bc is 1) and sentinel rows after them; slot s owns
+    blocks s*W .. s*W + W - 1."""
+    rng = np.random.default_rng(seed)
+    sl = eng.slots
+    live = bc - 1 if bc > 1 else 1
+    W = sl.blocks_per_slot
+    tokens = rng.integers(3, 500, (bc, 1)).astype(np.int32)
+    lengths = np.zeros(bc, np.int32)
+    slot_ids = np.full(bc, sl.n_slots, np.int32)
+    tables = np.full((bc, W), sl.n_blocks, np.int32)
+    for b, s in enumerate(rng.permutation(sl.n_slots)[:live]):
+        slot_ids[b] = s
+        lengths[b] = rng.integers(1, sl.max_len - 1)
+        tables[b] = np.arange(s * W, (s + 1) * W)
+    return tokens, lengths, slot_ids, tables
+
+
+def _written(eng, host):
+    """Per pool leaf, a mask of what the live rows of a step may write:
+    each row's next K/V cell, or its slot."""
+    tokens, lengths, slot_ids, tables = host
+    out = []
+    for pos, paged in zip(eng.slots.pool, eng.slots.paged):
+        for t in pos:
+            m = torch.zeros(t.shape[:3] if paged else t.shape[:2],
+                            dtype=torch.bool, device=t.device)
+            for b, s in enumerate(slot_ids):
+                if s >= eng.slots.n_slots:
+                    continue
+                if paged:
+                    bs = eng.slots.block_size
+                    m[:, tables[b, lengths[b] // bs], lengths[b] % bs] = True
+                else:
+                    m[:, s] = True
+            out.append(m)
+    return out
+
+
+def _leaves(pool):
+    return [t for pos in pool for t in pos]
+
+
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_cohort_graph_replay_is_the_eager_step(cuda, kind):
+    """Every bucket up to 4 captured in one engine (in the order 4, 1, 2,
+    sharing one memory pool) and replayed in another order: each replay's
+    logits and pool bit-equal to the eager step's on a copy of the same
+    pool; sentinel rows write nothing (every cell but the live rows' next
+    positions or slots keeps its value); the launch counts a replay adds
+    are the eager step's."""
+    eng = _graph_engine(kind, cuda)
+    with eng:
+        for bc in (4, 1, 2):
+            eng._cohort_fn(bc)
+        assert eng.graph_stats["captures"] == 3
+        for i, bc in enumerate((1, 4, 2, 4)):
+            host = _cohort_host(eng, bc, seed=i)
+            args = [torch.from_numpy(a).to(cuda) for a in host]
+            before = [t.clone() for t in _leaves(eng.slots.pool)]
+            pool_e = tuple(tuple(t.clone() for t in pos)
+                           for pos in eng.slots.pool)
+            with torch.no_grad():
+                (le, pe), eager = launches_of(eng._cohort_step, *args,
+                                              pool_e)
+            reset_launch_counts()
+            lg, pg = eng._decode(*host)
+            torch.cuda.synchronize()
+            replay = {k: n for k, n in launch_counts().items() if n}
+            assert replay == eager
+            assert pg is eng.slots.pool
+            assert torch.equal(lg, le)
+            for new, eag, old, m in zip(_leaves(pg), _leaves(pe), before,
+                                        _written(eng, host)):
+                assert torch.equal(new, eag)
+                assert torch.equal(new[~m], old[~m])
+        assert eng.graph_stats["replays"] == 4
+    assert not eng._cohort_cache
+
+
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_cohort_graph_replay_reads_rows_inserted_after_capture(cuda, kind):
+    """A bucket captured on the pool, then a prompt prefilled and landed
+    in slot 0 by ``insert_many``: the replay reads it (its logits differ
+    from the same replay before the insert and equal the eager step's on
+    a copy of the pool)."""
+    eng = _graph_engine(kind, cuda)
+    with eng:
+        eng._cohort_fn(1)
+        sl = eng.slots
+        n = 40
+        host = (np.array([[7]], np.int32), np.array([n], np.int32),
+                np.array([0], np.int32),
+                np.arange(sl.blocks_per_slot, dtype=np.int32)[None])
+        first = eng._decode(*host)[0].clone()
+        if any(sl.paged):
+            sl.grant_blocks(0, sl.blocks_per_slot)
+        tokens = torch.from_numpy(
+            (np.arange(64) % 50 + 3).astype(np.int32)[None]).to(cuda)
+        _, cache = eng._prefill(tokens, None, torch.tensor(
+            [n], dtype=torch.int32, device=cuda))
+        sl.insert_many([0], cache, [n])
+        pool_e = tuple(tuple(t.clone() for t in pos) for pos in sl.pool)
+        with torch.no_grad():
+            le, _ = eng._cohort_step(*(torch.from_numpy(a).to(cuda)
+                                       for a in host), pool_e)
+        lg = eng._decode(*host)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(lg, le) and not torch.equal(lg, first)
+
+
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_decode_raises_when_the_pool_moved(cuda, kind):
+    """The graph holds the pool's addresses: a pool reassigned after the
+    capture makes ``_decode`` raise instead of replaying."""
+    eng = _graph_engine(kind, cuda)
+    with eng:
+        eng._cohort_fn(2)
+        eng.slots.pool = tuple(tuple(t.clone() for t in pos)
+                               for pos in eng.slots.pool)
+        with pytest.raises(RuntimeError, match="captured on"):
+            eng._decode(*_cohort_host(eng, 2, seed=0))

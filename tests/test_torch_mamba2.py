@@ -118,8 +118,8 @@ def test_valid_len_matches_reference_on_the_truncated_input(dtype):
                                       ("float32", 4), ("bfloat16", 4)])
 def test_cohort_step_over_slot_state_matches_reference(dtype, bc):
     """The composed step gathers each row's state by slot, decodes, and
-    writes the new state back by slot; the sentinel slot (n_slots) reads
-    zeros and writes nothing.  Logits within 1e-4 (fp32) / 5e-2 (bf16)
+    writes the new state back by slot, in place; the sentinel slot
+    (n_slots) reads zeros and writes nothing.  Logits within 1e-4 (fp32) / 5e-2 (bf16)
     of the largest; unwritten slots bit-equal; written slots within 1e-4
     / 2e-2 of their largest (the attention cohort test's bounds: in bf16
     the second layer's state inherits the first layer's rounding).  The
@@ -158,7 +158,8 @@ def test_cohort_step_over_slot_state_matches_reference(dtype, bc):
         assert np.array_equal(bits(np.asarray(r))[:, kept],
                               bits(old)[:, kept])
         assert _rel_err(np.asarray(r)[:, written], tt[:, written]) <= wtol
-    assert not any(torch.equal(a, b) for a, b in zip(tpool[0], tpool2[0]))
+    # written in place: the step returns the pool it was given
+    assert all(a is b for a, b in zip(tpool[0], tpool2[0]))
     with pytest.raises(ValueError, match="uniform dense-attention"):
         cohort_step(tparams, tcfg, *args, tpool, block_size=8,
                     paged=(False,), use_fused=True)
