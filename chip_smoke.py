@@ -87,6 +87,20 @@ Phases (any failure raises and exits non-zero):
    einsum) and a captured cohort state through ``ref_cohort_step`` give
    logits within 5e-2; that prefill call broken down by kernel (as the
    fp32 linear-attention serve's below);
+   3c. serve phase 3's requests again through disaggregated fleets
+   (``serving.disagg.serve_disagg_inproc``): a prefill engine and a decode
+   engine on the one card with phase 3's weights and settings, the decode
+   fleet on a thread, each request handed over as a frame of the port's
+   wire (its written KV blocks and its slab); every request's hand-off
+   clocked (export to the host, encode, send, decode, import to the
+   card); every imported block bit for bit the sender's export, every
+   token phase 3's, the prefill fleet's launches the packed-weight GEMM
+   alone and the decode fleet's the fused kernels and KV scatter alone
+   (inside replays of its captured graphs), the paged wire bytes under
+   whole lanes; then ``python -m repro_torch.launch.serve_disagg --full
+   --transport pipe`` with six requests (its decode fleet a subprocess
+   that admits into a pool its graphs captured) must exit 0 with its OK
+   line;
 5. serve LLaVA-OneVision-0.5B with the paper's streaming linear
    attention (``attn_impl="linear"``) at full width and depth: the same
    weights, engine settings and four requests as phase 3, prefill
@@ -260,6 +274,11 @@ LA_CHECKS = ((2, 1024, 14, 2, 64, 256, None),
 # the key of the linear-attention serve in the kernels line's
 # launches_by_path (its config keeps LLaVA's name)
 LINEAR_PATH = "llava-onevision-0.5b/linear"
+# the disaggregated LLaVA serve: prefill fleet -> wire -> decode fleet
+DISAGG_PATH = "llava-onevision-0.5b/disagg"
+# the launcher's run over a pipe: more requests than the decode fleet's
+# N_SLOTS slots, so it admits into a pool its cohort graph has captured
+DISAGG_PIPE_REQUESTS = 6
 # kernel vs plain: state and z (fp32 in both) within 1e-4 of their
 # largest magnitude; each output row within KERNEL_TOL (bf16) or 1e-4
 # (fp32) of that row's largest plain magnitude
@@ -1587,6 +1606,245 @@ def serve_path(sm, cfg, reqs, use_fused=None):
     return serve, eng, prefills[0]
 
 
+def same_bits(a, b) -> bool:
+    """Two tensors of one dtype and shape hold the same bytes."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = a.contiguous().reshape(-1), b.contiguous().reshape(-1)
+    return bool(torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+
+
+def serve_disagg(sm, cfg, reqs, single):
+    """Serve ``reqs`` through ``serving.disagg.serve_disagg_inproc`` at
+    full width: a prefill and a decode engine on the one card, the decode
+    fleet on its own thread, the weights of phase 3 (``init_params`` seed
+    0, ``nanomind-serve``), phase 3's engine settings (``single``: its
+    serve record and tokens).  Clocks each request's hand-off (export to
+    the host, encode, the send's byte movement, decode from the frame's
+    first bytes to tensors, import to the card); holds every imported
+    block bit for bit against the sender's export, the tokens against
+    phase 3's, and the launch counts of each fleet (read when the
+    prefill fleet sends ``done``, before which the decode fleet, holding
+    all four requests in its four slots, takes no step).  Then runs the
+    launcher with ``--full --transport pipe`` as a subprocess (the
+    decode fleet a process of its own, more requests than its slots) and
+    checks its exit code and OK line.  Returns the serve record."""
+    import struct
+    from repro_torch.core import transport as TR
+    from repro_torch.core.quantize import PROFILES, quantize_tree
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.disagg import serve_disagg_inproc
+    from repro_torch.serving.engine import ServingEngine
+    torch = sm.torch
+    if single["cohort_graph"]["buckets"] != [N_SLOTS]:
+        fail(f"{DISAGG_PATH}: phase 3 decoded at buckets "
+             f"{single['cohort_graph']['buckets']}; its tokens are held "
+             f"against the decode fleet's, which decodes at {N_SLOTS}")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        params = quantize_tree(init_params(cfg, device=sm.dev, seed=0),
+                               PROFILES["nanomind-serve"])
+    hand = {r.rid: {"prompt_len": len(r.tokens)} for r in reqs}
+    sent_kv, bit_equal, counts, engines = {}, {}, {}, {}
+    export, admit = ServingEngine.export_remote, ServingEngine.admit_remote
+    submit = ServingEngine.submit
+    encode, send_frame = TR.encode_frame, TR.Transport.send_frame
+    decode = TR.decode_frame
+
+    def ms_since(t0):
+        return round((time.perf_counter() - t0) * 1e3, 4)
+
+    def stamped_submit(self, req):
+        req.submit_t = time.time()      # time to first token from submit
+        return submit(self, req)
+
+    # the clocks synchronise their own thread's stream, never the whole
+    # card: a device-wide sync in one thread would invalidate a capture
+    # open in the other
+    def timed_export(self, req):
+        engines["prefill"] = self
+        torch.cuda.current_stream().synchronize()
+        t0 = time.perf_counter()
+        rp = export(self, req)          # the copies to the host synchronise
+        hand[rp.rid].update(export_d2h_ms=ms_since(t0),
+                            kv_bytes=rp.kv_wire_bytes(),
+                            slab_bytes=int(rp.slab.nbytes))
+        sent_kv[rp.rid] = rp.kv
+        return rp
+
+    def timed_encode(kind, meta, arrays=(), rid=-1):
+        t0 = time.perf_counter()
+        frame = encode(kind, meta, arrays, rid)
+        if kind == "prefill":
+            hand[rid].update(encode_ms=ms_since(t0), frame_bytes=len(frame))
+        return frame
+
+    def timed_send(self, frame):
+        _, rid, hl = struct.unpack_from("<4sqI", frame)
+        kind = json.loads(frame[16:16 + hl])["kind"]
+        if kind == "done" and "prefill" not in counts:
+            counts["prefill"] = launch_counts()
+        t0 = time.perf_counter()
+        n = send_frame(self, frame)
+        if kind == "prefill":
+            hand[rid]["wire_ms"] = ms_since(t0)
+        return n
+
+    def timed_decode(read):
+        first = []
+
+        def clocked(n):
+            out = read(n)
+            if not first:               # the frame's first bytes in hand
+                first.append(time.perf_counter())
+            return out
+        kind, meta, arrays, rid = decode(clocked)
+        if kind == "prefill":
+            hand[rid]["decode_ms"] = ms_since(first[0])
+        return kind, meta, arrays, rid
+
+    def timed_admit(self, msg):
+        engines["decode"] = self
+        torch.cuda.current_stream().synchronize()
+        t0 = time.perf_counter()
+        ok = admit(self, msg)
+        torch.cuda.current_stream().synchronize()
+        if ok:
+            hand[msg.rid]["import_h2d_ms"] = ms_since(t0)
+            slot = next(s for s, r in self.live.items() if r.rid == msg.rid)
+            back = self.slots.export_blocks(slot, msg.kv[0][0].shape[1])
+            bit_equal[msg.rid] = all(
+                same_bits(got, want) and same_bits(got, wired)
+                for p_got, p_want, p_wired in zip(back, sent_kv[msg.rid],
+                                                  msg.kv)
+                for got, want, wired in zip(p_got, p_want, p_wired))
+        return ok
+
+    kw = dict(n_slots=N_SLOTS, max_len=MAX_LEN[cfg.name],
+              block_size=BLOCK_SIZE, async_staging=True, device=sm.dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with swapped(ServingEngine, "submit", stamped_submit), \
+            swapped(ServingEngine, "export_remote", timed_export), \
+            swapped(ServingEngine, "admit_remote", timed_admit), \
+            swapped(TR, "encode_frame", timed_encode), \
+            swapped(TR.Transport, "send_frame", timed_send), \
+            swapped(TR, "decode_frame", timed_decode):
+        results, stats = serve_disagg_inproc(
+            cfg, params, reqs, prefill_kwargs=kw, decode_kwargs=kw)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    total = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pre, dec = engines["prefill"], engines["decode"]
+    del params, engines
+
+    # the gates: every request served, its blocks landed bit for bit,
+    # its tokens phase 3's, each fleet's kernels its own
+    bad = [(rid, r.error) for rid, r in results.items() if r.error]
+    if bad or sorted(results) != sorted(hand):
+        fail(f"{DISAGG_PATH}: requests failed: {bad}")
+    if sorted(bit_equal) != sorted(hand) or not all(bit_equal.values()):
+        fail(f"{DISAGG_PATH}: imported blocks differ from the export: "
+             f"{bit_equal}")
+    want = single["tokens"]
+    diverged = {rid: (r.tokens, want[rid]) for rid, r in results.items()
+                if r.tokens != want[rid]}
+    if diverged:
+        fail(f"{DISAGG_PATH}: tokens differ from the single engine's: "
+             f"{diverged}")
+    if "prefill" not in counts:
+        fail(f"{DISAGG_PATH}: the prefill fleet sent no done frame")
+    pre_n = counts["prefill"]
+    dec_n = {k: total[k] - pre_n[k] for k in total}
+    L = cfg.n_layers
+    pre_spans = [s for s in pre.probe.samples()
+                 if s.brick == "decoder" and s.phase == "prefill"]
+    decs = [s for s in dec.probe.samples()
+            if s.brick == "decoder" and s.phase == "decode"]
+    steps = sum(1 for e in dec.trace if e.event == "decode_step")
+    g = dict(dec.graph_stats)
+    per_call = GEMMS_PER_LAYER["attn"] * L
+    want_pre = {k: 0 for k in total}
+    want_pre.update({"dequant_gemm": per_call * len(pre_spans),
+                     f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}":
+                     per_call * len(pre_spans)})
+    want_dec = {k: 0 for k in total}
+    want_dec.update({"fused_qkv": L * steps, f"fused_qkv/{MLP_ROUTE}":
+                     L * steps, "fused_mlp": L * steps,
+                     f"fused_mlp/{MLP_ROUTE}": L * steps,
+                     "kv_scatter": steps})
+    if not (pre_n == want_pre and dec_n == want_dec and pre_spans
+            and steps > 0 and g["captures"] >= 1
+            and g["replays"] == steps):
+        fail(f"{DISAGG_PATH}: launches of the prefill fleet {pre_n} (want "
+             f"{want_pre}), of the decode fleet {dec_n} (want {want_dec}); "
+             f"{len(pre_spans)} prefill calls, {steps} decode steps, "
+             f"graphs {g}")
+    lanes = stats.sent * stats.lane_bytes_baseline
+    if not 0 < stats.kv_wire_bytes < lanes:
+        fail(f"{DISAGG_PATH}: {stats.kv_wire_bytes} bytes of paged KV on "
+             f"the wire against {lanes} of whole lanes")
+    if any(len(h) != 9 for h in hand.values()):
+        fail(f"{DISAGG_PATH}: hand-off clocks missing: {hand}")
+    for r in reqs:
+        hand[r.rid]["slot_class"] = r.slot_class
+    rates = decode_rates(dec, decs)
+    serve = {
+        "path": DISAGG_PATH, "arch": cfg.name, "dtype": cfg.dtype,
+        "transport": stats.transport, "requests": len(results),
+        "serve_s": round(serve_s, 3),
+        "prefill_fleet": {
+            "prefill_calls": len(pre_spans),
+            "prefill_ms": [round(s.dt * 1e3, 3) for s in pre_spans],
+            "ttft_ms": {r.rid: round((r.first_token_t - r.submit_t) * 1e3,
+                                     3) for r in reqs},
+            "launches": {k: n for k, n in pre_n.items() if n}},
+        "handoff": hand,
+        "wire": {"frames_bytes": stats.wire_bytes,
+                 "kv_wire_bytes": stats.kv_wire_bytes,
+                 "lane_bytes_baseline": stats.lane_bytes_baseline,
+                 "lanes_bytes": lanes,
+                 "kv_over_lanes": round(stats.kv_wire_bytes / lanes, 4),
+                 "wire_seconds": round(stats.wire_seconds, 6)},
+        "decode_fleet": dict(
+            rates, decode_steps=steps, decoded_tokens=dec.stats
+            .decoded_tokens, cohort_graph={
+                "cohort_graph/capture": g["captures"],
+                "cohort_graph/replay": g["replays"],
+                "capture_s": round(g["capture_s"], 3)},
+            launches={k: n for k, n in dec_n.items() if n}),
+        "single_engine": {k: single[k] for k in (
+            "decode_tok_s", "decode_tok_s_excl_capture", "peak_mem_gb")},
+        "imported_blocks_bit_equal": len(bit_equal),
+        "tokens_equal_single_engine": len(results),
+        "peak_mem_gb": round(peak_gb, 3), "launches": total}
+    del pre, dec
+    free()
+
+    # the launcher, its decode fleet a subprocess over a pipe
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_disagg", "--full",
+           "--transport", "pipe", "--requests", str(DISAGG_PIPE_REQUESTS),
+           "--max-new", "16"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env=env, cwd=ROOT)
+    lines = proc.stdout.splitlines()
+    ok = [ln for ln in lines if ln.startswith(
+        "OK: disaggregated prefill/decode fleets over pipe")]
+    if proc.returncode != 0 or not ok:
+        fail(f"{DISAGG_PATH}: the pipe launcher exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    serve["pipe_launcher"] = {
+        "cmd": " ".join(cmd[1:]), "rc": proc.returncode,
+        "wall_s": round(time.perf_counter() - t0, 3),
+        "lines": [ln for ln in lines if ln.startswith("[")] + ok}
+    return serve
+
+
 def prefill_plain_check(eng, cfg, captured):
     """The captured prefill group again with each prefill kernel swapped
     for its plain version (dense attention for the flash kernel,
@@ -2640,6 +2898,8 @@ def main() -> int:
     print(json.dumps({"serve": serve}))
     serves[llava.name] = serve
     timings[llava.name] = time_fused(sm, llava, eng)
+    single = dict(serve, tokens={r.rid: list(r.out_tokens)
+                                 for r in eng.done})
     del eng, captured
     free()
 
@@ -2666,6 +2926,13 @@ def main() -> int:
     serves[FP32_PATH] = serve
     timings[FP32_PATH] = time_fused(sm, llava32, eng)
     del eng, captured
+    free()
+
+    # -- 3c. the same requests through disaggregated prefill and decode
+    # fleets on the one card, then through the pipe launcher -------------
+    disagg = serve_disagg(sm, llava, requests(llava, llava_reqs, seed=0),
+                          single)
+    print(json.dumps({"serve": disagg}))
     free()
 
     # -- 4. serve Qwen2-VL-7B, prefill through the flash kernel -------------
@@ -2785,6 +3052,7 @@ def main() -> int:
     records.update({f"{a}/fp32": s["fp32"] for a, s in serves.items()
                     if "fp32" in s})
     runs = {a: r["launches"] for a, r in records.items()}
+    runs[DISAGG_PATH] = disagg["launches"]
 
     def numbers(t, flops_per_s=BF16_FLOPS_PER_S):
         t_k, t_p, t_l, t_d, byt, fl = t

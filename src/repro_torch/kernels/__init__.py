@@ -25,44 +25,63 @@ replay runs no Python, so the code that captures a graph takes the
 launches its capture counted with :func:`launches_of` (which leaves the
 registry as it was: a capture launches nothing) and adds them back with
 :func:`count_launches` at each replay (``serving/cohort_graph.py``).
+
+The registry is safe across threads: two engines on one card (the
+disaggregated fleets of ``serving/disagg.py``) count into it from two
+threads.  A :func:`launches_of` in one thread collects that thread's
+launches apart from the registry, so another thread's launches meanwhile
+are counted, never taken into the delta nor lost.
 """
+import threading
 from typing import Callable, Dict, Tuple
 
 _LAUNCHES: Dict[str, int] = {}
+_LOCK = threading.Lock()
+_LOCAL = threading.local()          # .deltas: this thread's open launches_of
 
 
 def register_kernels(*names: str) -> None:
     """Give each wrapper ``name`` a count (0) in the registry."""
-    for name in names:
-        _LAUNCHES.setdefault(name, 0)
+    with _LOCK:
+        for name in names:
+            _LAUNCHES.setdefault(name, 0)
 
 
 def count_launch(name: str, n: int = 1) -> None:
-    _LAUNCHES[name] += n
+    """Count ``n`` launches of ``name``: into the innermost open
+    :func:`launches_of` of this thread, else into the registry."""
+    if name not in _LAUNCHES:
+        raise KeyError(name)
+    deltas = getattr(_LOCAL, "deltas", None)
+    if deltas:
+        deltas[-1][name] = deltas[-1].get(name, 0) + n
+        return
+    with _LOCK:
+        _LAUNCHES[name] += n
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(_LAUNCHES)
+    with _LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    with _LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
 
 
 def launches_of(fn: Callable, *args, **kwargs) -> Tuple[object, Dict[str,
                                                                        int]]:
-    """(``fn(*args, **kwargs)``, the launches it counted); the registry is
-    left as it was before the call, whether ``fn`` returns or raises."""
-    before = dict(_LAUNCHES)
+    """(``fn(*args, **kwargs)``, the launches it counted in this thread);
+    the registry does not see them, whether ``fn`` returns or raises."""
+    deltas = _LOCAL.__dict__.setdefault("deltas", [])
+    deltas.append({})
     try:
         out = fn(*args, **kwargs)
-        delta = {k: n - before.get(k, 0) for k, n in _LAUNCHES.items()
-                 if n != before.get(k, 0)}
     finally:
-        for name in _LAUNCHES:
-            _LAUNCHES[name] = before.get(name, 0)
-    return out, delta
+        delta = deltas.pop()
+    return out, {k: n for k, n in delta.items() if n}
 
 
 def count_launches(delta: Dict[str, int]) -> None:

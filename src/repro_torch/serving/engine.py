@@ -31,8 +31,12 @@ step, dropped at ``shutdown``); there is no eager fallback.  On the CPU
 the step runs eagerly, its wrappers taking their plain versions.
 
 The engine runs on ``device`` — the card unless the caller passes
-``device="cpu"``.  Disaggregated prefill/decode (``prefill_step``,
-``export_remote``, ``admit_remote``) is not ported yet.
+``device="cpu"``.  For disaggregated fleets (``serving/disagg.py``) a
+prefill engine runs admission rounds without decoding (``prefill_step``)
+and hands each prefilled request off as a ``core/transport.
+RemotePrefill`` (``export_remote``); a decode engine admits such a
+request straight into its pool (``admit_remote``) and decodes it with
+the unmodified ``step``.
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ from repro_torch.core.power import BatteryAwareExecutor, PMU, PowerState
 from repro_torch.core.quantize import QTensor, tree_bytes
 from repro_torch.core.scheduler import class_staging_budgets, kv_block_budgets
 from repro_torch.core.tabm import SlotClassPool, TABMError
+from repro_torch.core.transport import RemotePrefill
 from repro_torch.kernels.fused_decode import cohort_step, fused_supported
 from repro_torch.models import decoder as dec
 from repro_torch.models.linear_attention import \
@@ -107,6 +112,10 @@ class Request:
                                                # (cross-class KV reservation
                                                # once >= engine.aging_steps)
     error: Optional[BaseException] = None      # staging/engine failure
+    # committed TABM slab, trimmed to its token count, copied to the host
+    # at vision bind when the engine runs capture_slab=True (the prefill
+    # fleet: the slab rides the wire so the hand-off is self-contained)
+    slab: Optional[torch.Tensor] = field(default=None, repr=False)
     # staged-slab sharing: identical vision bytes stage once.  share_of
     # points at the request that owns the staging; the owner's sharers
     # list is granted refcounted views of its slot at bind time
@@ -334,6 +343,7 @@ class ServingEngine:
                  max_cohort: Optional[int] = None,
                  share_staged: bool = True,
                  use_fused: Optional[bool] = None,
+                 capture_slab: bool = False,
                  device="cuda"):
         if cfg.encdec:
             raise ValueError("the engine serves decoder-only archs")
@@ -412,6 +422,9 @@ class ServingEngine:
         self._closed = False
         self.share_staged = bool(share_staged and self.tabm is not None)
         self._stage_keys: Dict[tuple, Request] = {}
+        # prefill-fleet mode: keep each request's committed slab (a host
+        # copy) for the wire
+        self.capture_slab = bool(capture_slab)
 
     # -- public api ----------------------------------------------------------
     def submit(self, req: Request):
@@ -724,6 +737,8 @@ class ServingEngine:
                     f"shared slot {req.tabm_slot} ({req.slot_class}) "
                     f"recycled before request {req.rid} bound its view")
             view, n = got
+            if self.capture_slab:
+                req.slab = view[:n].to("cpu", copy=True)
             return view[None, :n]
         # normally immediate — admission only runs once `staged` is set,
         # which the worker sets strictly after commit — but this is the
@@ -745,6 +760,8 @@ class ServingEngine:
         slot, view, n = got
         req._tabm_gen = self._ring_of(req).slot_generation(slot)
         self._grant_shares(req, slot)
+        if self.capture_slab:
+            req.slab = view[:n].to("cpu", copy=True)
         return view[None, :n]
 
     def _grant_shares(self, owner: Request, slot: int):
@@ -1183,6 +1200,94 @@ class ServingEngine:
             self.slots.release(slot)
             self.stats.finished += 1
             self._trace_event("finish", req.rid)
+
+    # -- disaggregated fleets (serving/disagg.py) ----------------------------
+    def prefill_step(self) -> List[Request]:
+        """One admission round without decoding, the prefill fleet's step:
+        staging hand-off and grouped batched prefill exactly as
+        :meth:`step` runs them, but the newly admitted requests (cache
+        landed, first token picked from the prefill logits) are returned
+        for :meth:`export_remote` instead of decoded.  Requests whose
+        staging failed land in ``done`` as usual."""
+        before = set(self.live)
+        self._admit()
+        self.stats.steps += 1
+        return [self.live[s] for s in sorted(set(self.live) - before)]
+
+    def export_remote(self, req: Request) -> RemotePrefill:
+        """Hand a just-prefilled request off the engine: export its
+        written KV blocks, ``ceil(bucket / block_size)`` of them (the
+        block-aligned prompt bucket the prefill wrote; none for a pool
+        with no paged position), or its slot-state row, then drop it from
+        the live set and release its slot and blocks: the decode fleet
+        owns it now.  Runs before any decode step touches the slot."""
+        slot = req.slot
+        if slot is None or self.live.get(slot) is not req:
+            raise RuntimeError(
+                f"request {req.rid} is not live on this engine")
+        bs = self.slots.block_size
+        bucket = bucket_length(len(req.tokens), buckets=self._buckets())
+        nb_written = -(-bucket // bs) if any(self.slots.paged) else 0
+        rp = RemotePrefill(
+            rid=req.rid,
+            prompt=np.asarray(req.tokens, np.int32),
+            first_token=int(req.out_tokens[0]),
+            max_new_tokens=int(req.max_new_tokens),
+            blocks_granted=len(self.slots.block_tables[slot]),
+            paged=self.slots.paged,
+            kv=self.slots.export_blocks(slot, nb_written),
+            slot_class=req.slot_class,
+            slab=req.slab,
+            prompt_len=int(self.slots.lengths[slot]))
+        del self.live[slot]
+        self.slots.release(slot)
+        req.slot = None
+        self._trace_event("export_remote", req.rid)
+        return rp
+
+    def admit_remote(self, msg: RemotePrefill) -> bool:
+        """Admit a :class:`RemotePrefill` from a prefill fleet straight
+        into the pool: take a slot, grant the request's block count, land
+        the shipped blocks (``PagedKVCache.import_blocks``, in place), and
+        enter the request live with its first token; from here
+        :meth:`step` decodes it as a locally prefilled request.
+
+        Returns False, admitting and changing nothing, when no slot or
+        too few free blocks are available (the caller decodes a step to
+        retire capacity and retries).  A paged layout other than this
+        pool's raises (the fleets' configs differ)."""
+        if self._closed:
+            raise EngineClosed("engine already shut down")
+        if tuple(msg.paged) != tuple(self.slots.paged):
+            raise RuntimeError(
+                f"remote prefill paged layout {tuple(msg.paged)} does not "
+                f"match this pool's {tuple(self.slots.paged)} (fleet "
+                f"config mismatch)")
+        if int(msg.blocks_granted) > self.slots.free_block_count:
+            return False
+        slot = self.slots.take_slot()
+        if slot is None:
+            return False
+        self.slots.grant_blocks(slot, int(msg.blocks_granted),
+                                slot_class=msg.slot_class)
+        try:
+            self.slots.import_blocks(slot, msg.kv)
+        except BaseException:
+            self.slots.release(slot)
+            raise
+        self.slots.lengths[slot] = int(msg.prompt_len)
+        req = Request(rid=int(msg.rid),
+                      tokens=np.asarray(msg.prompt, np.int32),
+                      max_new_tokens=int(msg.max_new_tokens),
+                      slot_class=msg.slot_class)
+        req.slot = slot
+        req.out_tokens.append(int(msg.first_token))
+        req.first_token_t = time.time()
+        req._staged_ev.set()
+        self.live[slot] = req
+        self.stats.prefills += 1
+        self._trace_event("admit_remote", req.rid)
+        return True
 
     # -- reporting / telemetry ----------------------------------------------
     def memory_bytes(self) -> Dict[str, int]:

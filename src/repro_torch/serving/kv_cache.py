@@ -15,8 +15,11 @@ scatters drop them.
 
 Prefilled caches land with ONE in-place indexed write per leaf
 (``insert_many``): into the granted blocks (attention) or by slot
-(slot state).  The disaggregation export/import of blocks is not ported
-yet.
+(slot state).  The disaggregation seam pulls one request's written
+blocks (or its slot-state row) off the card for the wire
+(``export_blocks``) and lands such a payload in another pool
+(``import_blocks``) by the same in-place writes, so a pool that a cohort
+graph captured keeps its addresses.
 """
 from __future__ import annotations
 
@@ -188,6 +191,93 @@ class PagedKVCache:
             tbl = self.block_tables.get(slot, ())
             out[i, :len(tbl)] = tbl
         return out
+
+    # -- fleet wire (disaggregated prefill -> decode hand-off) ---------------
+    @property
+    def slot_lane_bytes(self) -> int:
+        """Paged bytes of one whole ``max_len`` lane (``blocks_per_slot``
+        blocks across every paged position): the baseline a hand-off's
+        ``RemotePrefill.kv_wire_bytes`` is held against, since it ships
+        only the written blocks."""
+        per_block = sum(
+            t.numel() * t.element_size() // self.n_blocks
+            for pos, paged in enumerate(self.paged) if paged
+            for t in self.pool[pos])
+        return per_block * self.blocks_per_slot
+
+    def export_blocks(self, slot: int, n_blocks: int
+                      ) -> List[List[torch.Tensor]]:
+        """One request's prefill-written state as CPU tensors for the
+        wire, per group position in the pool's leaf order: paged
+        positions the first ``n_blocks`` granted blocks, ``(L, n_blocks,
+        block_size, KV, hd)``; slot-state positions the request's ``(L,
+        1, ...)`` row.  The copies to the host are the serialization
+        boundary: the data leaves the process."""
+        tbl = self.block_tables.get(slot, [])
+        if n_blocks > len(tbl):
+            raise RuntimeError(
+                f"export of {n_blocks} blocks from slot {slot} which "
+                f"holds {len(tbl)}")
+        ids = torch.tensor(tbl[:n_blocks], dtype=torch.long,
+                           device=self.device)
+        out: List[List[torch.Tensor]] = []
+        for pos, paged in enumerate(self.paged):
+            if paged:
+                out.append([leaf.index_select(1, ids).to("cpu", copy=True)
+                            for leaf in self.pool[pos]])
+            else:
+                out.append([leaf[:, slot:slot + 1].to("cpu", copy=True)
+                            for leaf in self.pool[pos]])
+        return out
+
+    def import_blocks(self, slot: int, payload) -> None:
+        """Land an :meth:`export_blocks` payload (CPU tensors or numpy
+        arrays, bf16 as ``torch.bfloat16``) at ``slot``, which must hold
+        a block grant at least as long as the payload: paged leaves go
+        into the slot's first granted blocks by ``_insert_blocks``,
+        slot-state leaves into its row by ``_insert_slots``.  Both write
+        the pool in place (it is never reassigned, so a captured cohort
+        graph stays valid) on the current stream, so the next step on it
+        reads the imported state.  Bit for bit: export -> wire -> import
+        preserves every leaf."""
+        bs = self.block_size
+        tbl = self.block_tables.get(slot, [])
+        for pos, paged in enumerate(self.paged):
+            pool_leaves = self.pool[pos]
+            if len(payload[pos]) != len(pool_leaves):
+                raise RuntimeError(
+                    f"import into slot {slot}: position {pos} carries "
+                    f"{len(payload[pos])} leaves, the pool {len(pool_leaves)}")
+            leaves = [torch.as_tensor(l).to(self.device)
+                      for l in payload[pos]]
+            for pool_leaf, leaf in zip(pool_leaves, leaves):
+                want = (pool_leaf.shape[:1] + (leaf.shape[1],)
+                        + pool_leaf.shape[2:])
+                if leaf.shape != want or leaf.dtype != pool_leaf.dtype:
+                    raise RuntimeError(
+                        f"import into slot {slot}: a {leaf.dtype} leaf of "
+                        f"{tuple(leaf.shape)} does not fit the pool's "
+                        f"{pool_leaf.dtype} {tuple(pool_leaf.shape)}")
+            if paged:
+                nb = int(leaves[0].shape[1])
+                if len(tbl) < nb:
+                    raise RuntimeError(
+                        f"import of {nb} blocks into slot {slot} which "
+                        f"holds {len(tbl)}")
+                ids = torch.tensor([tbl[:nb]], dtype=torch.int32,
+                                   device=self.device)
+                for pool_leaf, leaf in zip(pool_leaves, leaves):
+                    _insert_blocks(pool_leaf, leaf.reshape(
+                        (leaf.shape[0], 1, nb * bs) + tuple(leaf.shape[3:])),
+                        ids, bs)
+            else:
+                if leaves[0].shape[1] != 1:
+                    raise RuntimeError(f"import into slot {slot}: a slot-"
+                                       f"state row of {leaves[0].shape[1]}")
+                idx = torch.tensor([slot], dtype=torch.int32,
+                                   device=self.device)
+                for pool_leaf, leaf in zip(pool_leaves, leaves):
+                    _insert_slots(pool_leaf, leaf, idx)
 
     # -- invariants / reporting ---------------------------------------------
     def check_block_invariants(self):

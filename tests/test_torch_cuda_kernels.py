@@ -2211,3 +2211,211 @@ def test_decode_raises_when_the_pool_moved(cuda, kind):
                                for pos in eng.slots.pool)
         with pytest.raises(RuntimeError, match="captured on"):
             eng._decode(*_cohort_host(eng, 2, seed=0))
+
+
+# ---------------------------------------------------------------------------
+# the disaggregation seam on the card
+# ---------------------------------------------------------------------------
+
+def _seam_cfg(kind):
+    import dataclasses
+    from repro_torch.configs import get_config
+    if kind == "mamba":
+        return get_config("mamba2-1.3b").reduced()
+    cfg = get_config("llava-onevision-0.5b").reduced()
+    return (dataclasses.replace(cfg, attn_impl="linear", subquadratic=True)
+            if kind == "linear" else cfg)
+
+
+@pytest.mark.parametrize("kind", ["llava", "mamba", "linear"])
+def test_kv_export_wire_import_on_card(cuda, kind):
+    """A card pool's blocks (or slot-state row) through the wire codec
+    into another card pool: bit for bit, every leaf at its address."""
+    from repro_torch.core.transport import (BytesReader, decode_frame,
+                                            encode_frame)
+    from repro_torch.serving.kv_cache import PagedKVCache
+    cfg = _seam_cfg(kind)
+    kw = dict(n_slots=3, max_len=256, block_size=32, device=cuda)
+    src, dst = PagedKVCache(cfg, **kw), PagedKVCache(cfg, **kw)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for pool in (src.pool, dst.pool):
+        for t in _leaves(pool):
+            t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+    paged = any(src.paged)
+    src.take_slot()
+    s = src.take_slot()
+    src.grant_blocks(s, 4 if paged else 0)
+    nb = 3 if paged else 0
+    payload = src.export_blocks(s, nb)
+    flat = [leaf for leaves in payload for leaf in leaves]
+    _, _, back, _ = decode_frame(BytesReader(encode_frame(
+        "kv", {}, flat)).read)
+    it = iter(back)
+    wired = [[next(it) for _ in leaves] for leaves in payload]
+    dst.grant_blocks(dst.take_slot(), 2 if paged else 0)
+    d = dst.take_slot()
+    dst.grant_blocks(d, 4 if paged else 0)
+    ptrs = [t.data_ptr() for t in _leaves(dst.pool)]
+    dst.import_blocks(d, wired)
+    assert [t.data_ptr() for t in _leaves(dst.pool)] == ptrs
+    out = dst.export_blocks(d, nb)
+    for a, b in zip([x for p in payload for x in p],
+                    [x for p in out for x in p]):
+        assert a.dtype == b.dtype and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def _seam_requests(cfg, n, max_new=4):
+    """``n`` requests of two slot classes (two-token thumbnails and full
+    images alternating), ``max_new + i % 2`` new tokens each."""
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(0)
+    out = []
+    for i in range(n):
+        v = cfg.vision_tokens if i % 2 else 2
+        out.append(Request(
+            rid=i, tokens=np.concatenate([np.zeros(v, np.int32), (
+                np.arange(6 + i % 3) % 50 + 3).astype(np.int32)]),
+            max_new_tokens=max_new + i % 2, vision_feats=(
+                rng.standard_normal((1, v, cfg.vision_feat_dim))
+                * 0.02).astype(np.float32)))
+    return out
+
+
+def _seam_params(cfg, dev):
+    from repro_torch.core.quantize import PROFILES, quantize_tree
+    from repro_torch.models.model import init_params
+    return quantize_tree(init_params(cfg, device=dev),
+                         PROFILES["nanomind-serve"])
+
+
+def _served_tokens(cfg, params, reqs, **kw):
+    from repro_torch.serving.engine import ServingEngine
+    with ServingEngine(cfg, params, async_staging=False, **kw) as eng:
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run()
+    assert all(r.error is None for r in done) and len(done) == len(reqs)
+    return {r.rid: list(r.out_tokens) for r in done}, eng
+
+
+def test_disagg_fleets_on_card_admit_into_captured_graphs(cuda, monkeypatch):
+    """Reduced llava (bf16, q4) served by ``serve_disagg_inproc`` on the
+    card, five requests into two decode slots: the decode fleet captures
+    its cohort graphs, admits requests into the pool they captured (no
+    recapture, the pool never moves: a replay would raise), while the
+    prefill fleet still prefills on the other thread; the tokens equal a
+    single engine's of the same geometry."""
+    from repro_torch.serving.disagg import serve_disagg_inproc
+    from repro_torch.serving.engine import ServingEngine
+    cfg = _seam_cfg("llava")
+    params = _seam_params(cfg, cuda)
+    kw = dict(n_slots=2, max_len=256, block_size=32, device=cuda)
+    want, _ = _served_tokens(cfg, params, _seam_requests(cfg, 5), **kw)
+    admit, decoders = ServingEngine.admit_remote, []
+
+    def admitting(self, msg):
+        decoders.append(self)
+        return admit(self, msg)
+    monkeypatch.setattr(ServingEngine, "admit_remote", admitting)
+    results, stats = serve_disagg_inproc(cfg, params,
+                                         _seam_requests(cfg, 5),
+                                         prefill_kwargs=kw,
+                                         decode_kwargs=kw)
+    assert {rid: r.tokens for rid, r in results.items()} == want
+    dec = decoders[0]
+    assert all(e is dec for e in decoders)
+    events = [e.event for e in dec.trace]
+    steps = events.count("decode_step")
+    buckets = {dec._cohort_bucket(e.rid) for e in dec.trace
+               if e.event == "decode_cohort"}
+    assert dec.graph_stats["captures"] == len(buckets)
+    assert dec.graph_stats["replays"] == steps
+    first_step = events.index("decode_step")
+    assert "admit_remote" in events[first_step:]
+    assert 0 < stats.kv_wire_bytes < stats.sent * stats.lane_bytes_baseline
+
+
+def test_captures_while_another_engine_prefills_on_card(cuda, monkeypatch):
+    """Two engines on one card, in two threads and with no lock between
+    them: one prefills and exports in a loop (as a prefill fleet does)
+    while the other serves four requests (cohorts of 4, 3, 2, 1: a
+    capture a bucket) three times over, on a fresh engine each time.  Some
+    prefill calls start while a capture is open; every serve's tokens
+    equal the same serve's with the card to itself; and the launch
+    registry counts each thread's launches once (a capture's go into its
+    own delta).  Neither thread synchronises the whole card: that would
+    invalidate the other's open capture."""
+    import dataclasses
+    import threading
+    import time
+    from repro_torch.serving import engine as E
+    cfg = _seam_cfg("llava")
+    params = _seam_params(cfg, cuda)
+    kw = dict(n_slots=4, max_len=256, block_size=32, device=cuda)
+
+    def reqs():
+        return [dataclasses.replace(r, max_new_tokens=2 + i)
+                for i, r in enumerate(_seam_requests(cfg, 4))]
+    calls, windows = [], []
+    prefill, Graph = E.ServingEngine._prefill, E.CohortGraph
+
+    def stamped_prefill(self, *args):
+        calls.append((self, time.perf_counter()))
+        return prefill(self, *args)
+
+    def timed_graph(*args, **kwargs):
+        t0 = time.perf_counter()
+        g = Graph(*args, **kwargs)
+        windows.append((t0, time.perf_counter()))
+        return g
+    monkeypatch.setattr(E.ServingEngine, "_prefill", stamped_prefill)
+    monkeypatch.setattr(E, "CohortGraph", timed_graph)
+
+    # the card to itself: the tokens, and the launches of one serve
+    reset_launch_counts()
+    want, solo = _served_tokens(cfg, params, reqs(), **kw)
+    alone = launch_counts()
+    gemms = alone["dequant_gemm"] // len(calls)
+    assert alone["dequant_gemm"] == gemms * len(calls) > 0
+    assert alone["kv_scatter"] == solo.graph_stats["replays"] > 0
+    n_solo, n_cap = len(calls), solo.graph_stats["captures"]
+    assert n_cap >= 2
+
+    pre = E.ServingEngine(cfg, params, async_staging=False, **kw)
+    stop, errs, rid = threading.Event(), [], iter(range(100, 10**6))
+
+    def prefill_loop():
+        try:
+            while not stop.is_set():
+                for r in _seam_requests(cfg, 2):
+                    pre.submit(dataclasses.replace(r, rid=next(rid)))
+                for r in pre.prefill_step():
+                    pre.export_remote(r)
+        except BaseException as e:
+            errs.append(e)
+    reset_launch_counts()
+    t = threading.Thread(target=prefill_loop, daemon=True)
+    t.start()
+    try:
+        while sum(1 for e, _ in calls if e is pre) < 2 and not errs:
+            time.sleep(0.001)
+        served = [_served_tokens(cfg, params, reqs(), **kw)
+                  for _ in range(3)]
+    finally:
+        stop.set()
+        t.join(timeout=120)
+        pre.shutdown()
+    assert not t.is_alive() and not errs, errs
+    for got, eng in served:
+        assert got == want
+        assert eng.graph_stats["captures"] == n_cap
+    assert len(windows) == 4 * n_cap
+    starts = [t0 for e, t0 in calls if e is pre]
+    assert any(a <= t0 <= b for t0 in starts for a, b in windows[n_cap:])
+    counts = launch_counts()
+    steps = sum(eng.graph_stats["replays"] for _, eng in served)
+    assert counts["kv_scatter"] == steps
+    assert counts["fused_qkv"] == counts["fused_mlp"] == \
+        cfg.n_layers * steps
+    assert counts["dequant_gemm"] == gemms * (len(calls) - n_solo)

@@ -6,6 +6,7 @@ a replay adds back, and the engine's one cached step per cohort bucket.
 The CUDA graph itself is captured only on the card
 (``tests/test_torch_cuda_kernels.py``)."""
 import dataclasses
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -195,6 +196,33 @@ def test_launches_of_restores_the_counts_when_the_step_raises():
     with pytest.raises(RuntimeError, match="capture failed"):
         launches_of(failing)
     assert launch_counts()["kv_scatter"] == 0
+
+
+def test_launches_of_in_one_thread_leaves_another_threads_counts():
+    """Two engines on one card count from two threads: a capture's
+    ``launches_of`` in one thread takes that thread's launches only, and
+    the other thread's launches meanwhile land in the registry."""
+    reset_launch_counts()
+    inside, resume = threading.Event(), threading.Event()
+
+    def capture():
+        count_launch("kv_scatter", 2)
+        inside.set()
+        assert resume.wait(10)
+        count_launch("cache_row_update")
+        return "graph"
+    got = []
+    t = threading.Thread(target=lambda: got.append(launches_of(capture)))
+    t.start()
+    assert inside.wait(10)
+    count_launch("kv_scatter", 5)              # the other engine's launches
+    count_launch("cache_row_update", 3)
+    resume.set()
+    t.join(10)
+    assert got == [("graph", {"kv_scatter": 2, "cache_row_update": 1})]
+    counts = launch_counts()
+    assert counts["kv_scatter"] == 5 and counts["cache_row_update"] == 3
+    reset_launch_counts()
 
 
 @pytest.mark.parametrize("bc,width", [(1, 0), (2, 3), (4, 32), (3, 5)])

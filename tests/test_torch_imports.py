@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or anything of the reference package, and
-every module imports on a machine without a GPU, nvcc or triton."""
+``chip_smoke.py``) imports JAX, anything of the reference package or
+``ml_dtypes`` (the card's machine has none of them), and every module
+imports on a machine without a GPU, nvcc or triton."""
 import ast
 import importlib
 import pathlib
@@ -14,7 +15,7 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
