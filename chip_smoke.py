@@ -100,7 +100,26 @@ Phases (any failure raises and exits non-zero):
    whole lanes; then ``python -m repro_torch.launch.serve_disagg --full
    --transport pipe`` with six requests (its decode fleet a subprocess
    that admits into a pool its graphs captured) must exit 0 with its OK
-   line;
+   line and print its ``[schedule_split @ pipe]`` pricing line;
+   3d. placement and the On-Demand Cascade on phase 3's weights: the
+   scheduler's placement on ``edge_accelerators()`` from the packed
+   tree's brick bytes at the first request's 745 tokens, both objectives,
+   printed with its joules and hours on a 2000 mAh pack (modeled, the
+   reference's edge profiles); the request (right-padded to its 1024
+   bucket) through the resident all-card plan, the placed plan (the NPU
+   bricks through the host backend on the CPU, the embeds across one
+   CPU -> card edge into a TABM ring on the card) and ``CascadeRunner``
+   on the card (each brick's params pinned host-side, loaded, executed,
+   released), a warm-up and five clocked runs each: the placed plan's
+   and the cascade's logits within 5e-2 of the largest against the
+   resident plan's, 168 ``dequant_gemm/wgmma`` launches a run and no
+   other, the cascade's card allocation after each release back to its
+   value before that brick's load plus at most the brick's output and
+   1 MB, the cascade's card peak under the resident plan's, each trace
+   event's ms and bytes (counted and allocated); then phase 3's four
+   requests through ``ServingEngine(placement=, accels=)`` at 4 new
+   tokens, every one finished and its first-step logits within 5e-2 of
+   the largest against phase 3's;
 5. serve LLaVA-OneVision-0.5B with the paper's streaming linear
    attention (``attn_impl="linear"``) at full width and depth: the same
    weights, engine settings and four requests as phase 3, prefill
@@ -189,6 +208,7 @@ import dataclasses
 import gc
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -276,6 +296,21 @@ LA_CHECKS = ((2, 1024, 14, 2, 64, 256, None),
 LINEAR_PATH = "llava-onevision-0.5b/linear"
 # the disaggregated LLaVA serve: prefill fleet -> wire -> decode fleet
 DISAGG_PATH = "llava-onevision-0.5b/disagg"
+# phase 3d: phase 3's first request through a placed plan (schedule on
+# edge_accelerators(): the vision side on the emulated NPU, the CPU), the
+# On-Demand Cascade on the card, and phase 3's requests through an engine
+# with that placement
+PLACED_PATH = "llava-onevision-0.5b/placed"
+CASCADE_PATH = "llava-onevision-0.5b/cascade"
+PLACED_ENGINE_PATH = "llava-onevision-0.5b/placed-engine"
+PLACED_ENGINE_NEW = 4
+BATTERY_MAH = 2000.0             # the paper's Fig. 8 pack, modeled hours
+# the plan runs the request right-padded to the engine's prefill bucket:
+# the attention chunks (512, 1024) must divide a forward's length, as in
+# the reference's model; causal, the pads reach none of the prompt's rows
+PLACED_WIDTH = 1024
+PLACED_RUNS = 5                  # clocked runs of each plan after a warm-up
+RELEASE_SLACK = 1 << 20          # bytes a release may leave besides output
 # the launcher's run over a pipe: more requests than the decode fleet's
 # N_SLOTS slots, so it admits into a pool its cohort graph has captured
 DISAGG_PIPE_REQUESTS = 6
@@ -1396,7 +1431,7 @@ def decode_rates(eng, decs):
                 toks / max(1e-9, span - eng.graph_stats["capture_s"]), 3)}
 
 
-def serve_path(sm, cfg, reqs, use_fused=None):
+def serve_path(sm, cfg, reqs, use_fused=None, first_logits=None):
     """Serve ``reqs`` on ``cfg`` at full width with the engine's decode
     step (``use_fused``: None, the engine's default, which must be the
     fused step; False, the composed step); check what the run must show,
@@ -1405,7 +1440,8 @@ def serve_path(sm, cfg, reqs, use_fused=None):
     every cache-row-update call of the captured step (``RowUpdateCalls``)
     and every flash call (``FlashCalls``, fp32 within FLASH_FP32_TOL,
     bf16 rows within KERNEL_TOL); return (serve record, engine, captured
-    prefill: the largest group)."""
+    prefill: the largest group).  ``first_logits``, when given, is filled
+    with each request's first-step (prefill) logits on the CPU."""
     from repro_torch.core.quantize import PROFILES, quantize_tree
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.fused_decode import ops, ref
@@ -1450,6 +1486,8 @@ def serve_path(sm, cfg, reqs, use_fused=None):
         finally:
             gemms.armed = False
     eng._prefill = counting_prefill
+    if first_logits is not None:
+        record_first_logits(eng, first_logits)
     for r in reqs:
         eng.submit(r)
     reset_launch_counts()
@@ -1838,11 +1876,362 @@ def serve_disagg(sm, cfg, reqs, single):
     if proc.returncode != 0 or not ok:
         fail(f"{DISAGG_PATH}: the pipe launcher exited {proc.returncode}: "
              f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    split = [ln for ln in lines if ln.startswith("[schedule_split @ pipe] ")]
+    if len(split) != 1:
+        fail(f"{DISAGG_PATH}: the pipe launcher printed no split pricing "
+             f"line: {lines[:20]}")
     serve["pipe_launcher"] = {
         "cmd": " ".join(cmd[1:]), "rc": proc.returncode,
         "wall_s": round(time.perf_counter() - t0, 3),
         "lines": [ln for ln in lines if ln.startswith("[")] + ok}
     return serve
+
+
+def record_first_logits(eng, into):
+    """Each request's first picked logits row (its prefill's, teacher
+    forced), as fp32 on the CPU, into ``into[rid]``."""
+    pick_rows = eng._pick_rows
+
+    def recording(logits, reqs):
+        for b, r in enumerate(reqs):
+            if r.rid not in into:
+                into[r.rid] = logits[b].float().cpu()
+        return pick_rows(logits, reqs)
+    eng._pick_rows = recording
+
+
+def card_trace():
+    """A :class:`PlanTrace` that also reads the host clock and the card's
+    allocated bytes at every event, into ``.card`` (the counted bytes
+    are the plan's)."""
+    import torch
+    from repro_torch.core.plan import PlanTrace
+
+    class CardTrace(PlanTrace):
+        def record(self, brick, phase, resident):
+            super().record(brick, phase, resident)
+            self.card.append((time.perf_counter(),
+                              torch.cuda.memory_allocated()))
+    trace = CardTrace()
+    trace.card = []
+    return trace
+
+
+def clocked_run(torch, run, *args):
+    """``run(*args)`` between two CUDA events and two host reads, the
+    current stream synchronised at both ends: (result, event ms, wall
+    ms)."""
+    torch.cuda.current_stream().synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    out = run(*args)
+    e1.record()
+    torch.cuda.current_stream().synchronize()
+    return out, e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3
+
+
+def placed_and_cascade(sm, cfg, reqs, first3):
+    """Phase 3d on phase 3's weights (``init_params`` seed 0, packed by
+    ``nanomind-serve``) and first request (a 729-token image and 16
+    text tokens, run right-padded to PLACED_WIDTH): the scheduler's
+    placement on ``edge_accelerators()`` from the packed tree's brick
+    bytes, both objectives (modeled, from the reference's edge
+    profiles); the request through the resident
+    all-card plan (the weights moved to the card once, the tied table
+    shared by the embedding and the head), through the placed plan (the NPU bricks on the CPU,
+    the embeds across one CPU -> card edge into a TABM ring on the card)
+    and through the On-Demand Cascade on the card (each brick loaded,
+    executed, released); then phase 3's requests through an engine with
+    the placement.  Gates: logits within STEP_TOL of the largest against
+    the resident plan's (the engine's first steps against phase 3's
+    ``first3``), every decoder projection through the packed-weight GEMM
+    (none from the CPU bricks), the cascade's card allocation back after
+    every release to its value before that brick's load plus at most
+    its output and RELEASE_SLACK, the cascade's card peak under the
+    resident plan's.  Returns (record, launches by run)."""
+    from repro_torch.analysis.energy import hours_on_battery
+    from repro_torch.core.bricks import decompose
+    from repro_torch.core.cascade import CascadeRunner
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.core.quantize import (PROFILES, QTensor, quantize_tree,
+                                           tree_bytes)
+    from repro_torch.core.scheduler import (edge_accelerators,
+                                            populate_brick_bytes, schedule)
+    from repro_torch.core.tabm import RingBuffer
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.tree import tree_map
+    torch = sm.torch
+    with torch.no_grad():
+        params = quantize_tree(init_params(cfg, device=sm.dev, seed=0),
+                               PROFILES["nanomind-serve"])
+    host = tree_map(lambda l: l.to("cpu") if isinstance(
+        l, (torch.Tensor, QTensor)) else l, params)
+    del params
+    free()
+    req = reqs[0]
+    n_tok = int(req.tokens.shape[0])
+    tokens = torch.zeros((1, PLACED_WIDTH), dtype=torch.int32)
+    tokens[0, :n_tok] = torch.from_numpy(req.tokens)
+    inputs = {"tokens": tokens,
+              "vision_feats": torch.from_numpy(req.vision_feats)}
+    L = cfg.n_layers
+    gemms = GEMMS_PER_LAYER["attn"] * L
+    route = f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}"
+
+    # -- the placement, priced on the packed tree's bytes -----------------
+    graph = decompose(cfg)
+    populate_brick_bytes(graph, host)
+    acc = edge_accelerators()
+    placements = {obj: schedule(graph, acc, n_tok, obj)
+                  for obj in ("latency", "energy")}
+    pl = placements["latency"]
+    if not (pl.backends["projector"] == "host"
+            and pl.backends["decoder"] == "device"):
+        fail(f"{PLACED_PATH}: the placement puts no brick across the "
+             f"units: {pl}")
+    rec = {"path": PLACED_PATH, "arch": cfg.name, "dtype": cfg.dtype,
+           "prompt_tokens": n_tok, "run_width": PLACED_WIDTH,
+           "brick_bytes": {b.name: b.param_bytes for b in graph.bricks},
+           "sum_bytes_once": tree_bytes(host),
+           "placement_modeled": {
+               obj: {"placement": str(p), "assignment": p.assignment,
+                     "backends": p.backends, "latency_s": p.latency_s,
+                     "energy_j": p.energy_j,
+                     "hours_on_battery": hours_on_battery(
+                         p.energy_j / p.latency_s, BATTERY_MAH),
+                     "battery_mah": BATTERY_MAH}
+               for obj, p in placements.items()},
+           "modeled_note": ("modeled, reference's edge profiles "
+                            "(analysis/energy.py): not the card's")}
+    for obj, p in placements.items():
+        print(f"[placement {obj}] {p} hours={rec['placement_modeled'][obj]['hours_on_battery']:.3f} "
+              f"on {BATTERY_MAH:.0f} mAh (modeled, reference's edge "
+              f"profiles)")
+
+    def card_run(make, what):
+        """Build a plan with ``make`` on a card holding nothing of the
+        model, run the request once to warm up and PLACED_RUNS times
+        clocked, and return (plan, logits of the last run on the CPU, its
+        trace, launches of each clocked run, event ms and wall ms of each,
+        peak allocated bytes, allocated bytes at the start)."""
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        plan = make()
+        evs, walls, counts = [], [], []
+        with torch.no_grad():
+            out, _ = plan.run(inputs)
+            for _ in range(PLACED_RUNS):
+                del out
+                trace = card_trace()
+                reset_launch_counts()
+                (out, _), ev_ms, wall_ms = clocked_run(
+                    torch, plan.run, inputs, trace)
+                counts.append(launch_counts())
+                evs.append(ev_ms)
+                walls.append(wall_ms)
+        peak = torch.cuda.max_memory_allocated()
+        if tuple(out.shape) != (1, PLACED_WIDTH, cfg.padded_vocab):
+            fail(f"{what}: logits of shape {tuple(out.shape)}")
+        logits = out[0, :n_tok].float().cpu()
+        del out
+        if any(c != want_gemm for c in counts):
+            fail(f"{what}: launches {counts} (want {want_gemm} a run: the "
+                 f"decoder's projections on the card, none from the CPU "
+                 f"bricks)")
+        return plan, logits, trace, counts, evs, walls, peak, start
+
+    def on_card(tree):
+        return tree_map(lambda l: l.to(sm.dev) if isinstance(
+            l, (torch.Tensor, QTensor)) else l, tree)
+
+    def summed(counts):
+        return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+    def times(evs, walls):
+        return {"event_ms": evs, "wall_ms": walls,
+                "event_ms_median": statistics.median(evs),
+                "wall_ms_median": statistics.median(walls)}
+
+    want_gemm = {k: 0 for k in launch_counts()}
+    want_gemm.update({"dequant_gemm": gemms, route: gemms})
+
+    # -- the resident plan: every brick on the card, the weights moved
+    # there once (the tied table shared by the embedding and the head) --
+    plan, want, _, res_n, res_ev, res_wall, res_peak, res_start = card_run(
+        lambda: compile_plan(graph, on_card(host)), f"{PLACED_PATH} resident")
+    del plan
+
+    # -- the placed plan: the NPU bricks on the CPU, one edge to the card -
+    ring = RingBuffer(n_slots=2, max_tokens=cfg.vision_tokens,
+                      dim=cfg.d_model, dtype=cfg.dtype, device=sm.dev)
+    plan, got, _, pl_n, pl_ev, pl_wall, pl_peak, _ = card_run(
+        lambda: compile_plan(graph, on_card(host), placement=pl, accels=acc,
+                             tabm=ring), PLACED_PATH)
+    on = {s.accel.name: s.backend.device.type for s in plan.steps}
+    crossing = [(k[0], k[1]) for k in plan.pipes
+                if k[0] != "-" and on[k[0]] == "cpu" and on[k[1]] == "cuda"]
+    if len(crossing) != 1 or plan._tabm_transfer is None:
+        fail(f"{PLACED_PATH}: CPU -> card edges {crossing} (want one, the "
+             f"TABM edge, producer-side)")
+    if not (ring.stats["writes"] == ring.stats["reads"] == PLACED_RUNS + 1
+            and all(st == 0 for st in ring.states)):
+        fail(f"{PLACED_PATH}: TABM ring {ring.stats} {ring.states}")
+    rec["placed"] = {
+        "describe": plan.describe(), "edges": [list(k[:2]) for k in
+                                               plan.pipes],
+        "cpu_to_card_edges": crossing, "tabm": dict(ring.stats),
+        "vs_resident": logit_check(cfg, got, want, "placed vs resident"),
+        "bit_equal_to_resident": bool(torch.equal(got, want)),
+        **times(pl_ev, pl_wall), "card_peak_mb": pl_peak / 1e6,
+        "launches_a_run": {k: n for k, n in pl_n[-1].items() if n}}
+    del plan, ring, got
+    free()
+
+    # -- the cascade on the card: load -> execute -> release per brick ----
+    outs, before = {}, []
+    runner_box = []
+
+    def make_cascade():
+        runner = CascadeRunner(graph, host)
+        be = runner.backend
+        load = be.load
+
+        def marked_load(brick, bound):
+            before.append((brick.name, torch.cuda.memory_allocated()))
+            return load(brick, bound)
+        be.load = marked_load
+        for st in runner.plan.steps:
+            def sized(p, ctx, _fn=st.fn, _name=st.brick.name):
+                out = _fn(p, ctx)
+                outs[_name] = out.numel() * out.element_size()
+                return out
+            st.fn = sized
+        runner_box.append(runner)
+        return runner.plan
+
+    plan, got, trace, cas_n, cas_ev, cas_wall, cas_peak, cas_start = \
+        card_run(make_cascade, CASCADE_PATH)
+    if cas_peak >= res_peak:
+        fail(f"{CASCADE_PATH}: the card's peak {cas_peak} is not under the "
+             f"resident plan's {res_peak}")
+    names = graph.names()
+    before = before[-len(names):]             # the clocked run's loads
+    ev = [(e.brick, e.phase, e.t, e.resident_bytes, t, a)
+          for e, (t, a) in zip(trace.events, trace.card)]
+    bricks, t_prev = [], None
+    for i, name in enumerate(names):
+        (b0, a0), rows = before[i], ev[3 * i:3 * i + 3]
+        if b0 != name or [r[:2] for r in rows] != [
+                (name, "load"), (name, "execute"), (name, "release")]:
+            fail(f"{CASCADE_PATH}: trace events {[r[:2] for r in rows]} "
+                 f"for brick {name}")
+        (_, _, _, c_load, t_load, a_load), (_, _, _, c_exec, t_exec,
+                                             a_exec), \
+            (_, _, _, c_rel, t_rel, a_rel) = rows
+        loaded = a_load - a0
+        left = a_rel - a0
+        pbytes = graph.brick(name).param_bytes
+        if loaded < pbytes or left > outs[name] + RELEASE_SLACK:
+            fail(f"{CASCADE_PATH}: brick {name} loaded {loaded} bytes onto "
+                 f"the card (params {pbytes}) and left {left} after its "
+                 f"release (output {outs[name]})")
+        bricks.append({
+            "brick": name, "param_bytes": pbytes,
+            "load_ms": None if t_prev is None else (t_load - t_prev) * 1e3,
+            "execute_ms": (t_exec - t_load) * 1e3,
+            "release_ms": (t_rel - t_exec) * 1e3,
+            "counted_bytes": [c_load, c_exec, c_rel],
+            "allocated_bytes": [a_load, a_exec, a_rel],
+            "allocated_before_load": a0, "left_after_release": left,
+            "output_bytes": outs[name]})
+        t_prev = t_rel
+    if trace.events[-1].resident_bytes != 0:
+        fail(f"{CASCADE_PATH}: {trace.events[-1].resident_bytes} counted "
+             f"bytes resident after the last release")
+    rec["cascade"] = {
+        "vs_resident": logit_check(cfg, got, want, "cascade vs resident"),
+        "bit_equal_to_resident": bool(torch.equal(got, want)),
+        **times(cas_ev, cas_wall), "trace_peak_bytes": trace.peak_bytes,
+        "trace_sum_bytes": trace.sum_bytes,
+        "peak_over_sum": trace.peak_bytes / trace.sum_bytes,
+        "card_peak_mb": cas_peak / 1e6, "card_start_mb": cas_start / 1e6,
+        "bricks": bricks,
+        "first_load_ms_note": ("the first brick's load is not clocked apart "
+                               "from the run's start"),
+        "launches_a_run": {k: n for k, n in cas_n[-1].items() if n}}
+    rec["resident"] = {**times(res_ev, res_wall),
+                       "card_peak_mb": res_peak / 1e6,
+                       "card_start_mb": res_start / 1e6,
+                       "launches_a_run": {k: n for k, n in res_n[-1].items()
+                                          if n}}
+    rec["clocked_runs"] = PLACED_RUNS
+    rec["card_peak_saved_mb"] = (res_peak - cas_peak) / 1e6
+    del plan, runner_box, got, want
+    free()
+
+    # -- the engine with the placement: phase 3's requests ----------------
+    firsts = {}
+    eng = ServingEngine(cfg, host, n_slots=N_SLOTS, max_len=MAX_LEN[cfg.name],
+                        block_size=BLOCK_SIZE, placement=pl, accels=acc,
+                        device=sm.dev)
+    record_first_logits(eng, firsts)
+    if not (eng.plan.backend_of("projector").device.type == "cpu"
+            and eng.plan._tabm_transfer is not None):
+        fail(f"{PLACED_ENGINE_PATH}: the engine's plan is not placed: "
+             f"{eng.plan.describe()}")
+    for r in reqs:
+        r.max_new_tokens = PLACED_ENGINE_NEW
+        eng.submit(r)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with eng:
+        done = eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    eng_n = launch_counts()
+    bad = [r for r in done if r.error is not None
+           or len(r.out_tokens) != PLACED_ENGINE_NEW]
+    if len(done) != len(reqs) or bad:
+        fail(f"{PLACED_ENGINE_PATH}: requests failed: "
+             f"{[(r.rid, repr(r.error), r.out_tokens) for r in bad]}")
+    spans = eng.probe.samples()
+    n_pre = sum(1 for s in spans if s.brick == "decoder"
+                and s.phase == "prefill")
+    steps = sum(1 for e in eng.trace if e.event == "decode_step")
+    want_eng = {k: 0 for k in eng_n}
+    want_eng.update({"dequant_gemm": gemms * n_pre, route: gemms * n_pre,
+                     "fused_qkv": L * steps, f"fused_qkv/{MLP_ROUTE}":
+                     L * steps, "fused_mlp": L * steps,
+                     f"fused_mlp/{MLP_ROUTE}": L * steps,
+                     "kv_scatter": steps})
+    if eng_n != want_eng or not n_pre or not steps:
+        fail(f"{PLACED_ENGINE_PATH}: launches {eng_n} (want {want_eng}) "
+             f"for {n_pre} prefill calls and {steps} decode steps")
+    tstats = eng.tabm.stats
+    if tstats["writes"] != tstats["reads"]:
+        fail(f"{PLACED_ENGINE_PATH}: TABM writes/reads {tstats}")
+    rids = sorted(first3)
+    if sorted(firsts) != rids:
+        fail(f"{PLACED_ENGINE_PATH}: first steps of {sorted(firsts)}, "
+             f"phase 3 of {rids}")
+    rec["engine"] = {
+        "path": PLACED_ENGINE_PATH, "requests": len(done),
+        "max_new_tokens": PLACED_ENGINE_NEW, "serve_s": serve_s,
+        "prefill_calls": n_pre, "decode_steps": steps,
+        "first_step_vs_phase3": logit_check(
+            cfg, torch.stack([firsts[i] for i in rids]),
+            torch.stack([first3[i] for i in rids]),
+            "placed engine's first steps vs phase 3's"),
+        "tabm": dict(tstats), "graph_stats": dict(eng.graph_stats),
+        "launches": {k: n for k, n in eng_n.items() if n}}
+    del eng
+    free()
+    return rec, {PLACED_PATH: summed(pl_n), CASCADE_PATH: summed(cas_n),
+                 PLACED_ENGINE_PATH: eng_n}
 
 
 def prefill_plain_check(eng, cfg, captured):
@@ -2891,8 +3280,9 @@ def main() -> int:
     serves, timings = {}, {}
     llava_reqs = [(729, 1, None), (196, 1, None), (729, 1, 0),
                   (196, 1, None)]
+    first3 = {}
     serve, eng, captured = serve_path(sm, llava, requests(
-        llava, llava_reqs, seed=0))
+        llava, llava_reqs, seed=0), first_logits=first3)
     serve["prefill_breakdown"] = prefill_breakdown(eng, captured,
                                                    ("dequant_gemm",))
     print(json.dumps({"serve": serve}))
@@ -2933,6 +3323,15 @@ def main() -> int:
     disagg = serve_disagg(sm, llava, requests(llava, llava_reqs, seed=0),
                           single)
     print(json.dumps({"serve": disagg}))
+    free()
+
+    # -- 3d. phase 3's first request through the placed plan and the
+    # On-Demand Cascade on the card, its requests through an engine with
+    # the placement -----------------------------------------------------
+    placed, placed_runs = placed_and_cascade(
+        sm, llava, requests(llava, llava_reqs, seed=0), first3)
+    print(json.dumps({"placement_cascade": placed}))
+    del first3
     free()
 
     # -- 4. serve Qwen2-VL-7B, prefill through the flash kernel -------------
@@ -3053,6 +3452,7 @@ def main() -> int:
                     if "fp32" in s})
     runs = {a: r["launches"] for a, r in records.items()}
     runs[DISAGG_PATH] = disagg["launches"]
+    runs.update(placed_runs)
 
     def numbers(t, flops_per_s=BF16_FLOPS_PER_S):
         t_k, t_p, t_l, t_d, byt, fl = t

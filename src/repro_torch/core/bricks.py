@@ -64,6 +64,9 @@ class BrickGraph:
                 return b
         raise KeyError(name)
 
+    def names(self) -> List[str]:
+        return [b.name for b in self.bricks]
+
 
 # ---------------------------------------------------------------------------
 # brick apply functions (thin wrappers over the model substrate)
@@ -147,3 +150,10 @@ def decompose(cfg: ModelConfig) -> BrickGraph:
     add("head", "head", head_keys, _apply_head,
         ins=(Port("hidden"),), out=Port("logits"), quant="q4f16")
     return BrickGraph(cfg, bricks)
+
+
+def brick_param_bytes(graph: BrickGraph, params) -> Dict[str, int]:
+    """Actual per-brick weight bytes (after any quantization); a table
+    two bricks share (tied embeddings) counts in both."""
+    from repro_torch.core.quantize import tree_bytes
+    return {b.name: tree_bytes(b.params_of(params)) for b in graph.bricks}

@@ -1,9 +1,13 @@
 """ExecutionPlan — the one brick runtime (paper §3.1–3.2 made executable).
 
-``compile_plan(graph, params, tabm=..., backend=...)`` binds every brick
-of a :class:`~repro_torch.core.bricks.BrickGraph` to a backend
-(``core/backends``) and its params, and routes the edge whose producer
-emits ``vision_embeds`` through the TABM ring (``core/tabm``):
+``compile_plan(graph, params, placement=..., accels=..., tabm=...,
+backend=...)`` binds every brick of a
+:class:`~repro_torch.core.bricks.BrickGraph` to a backend
+(``core/backends``) and its params, validates the wiring (every required
+input port produced upstream or an external input, ``plan.input_ports``),
+wires the transfers of edges that cross accelerators, and routes the edge
+whose producer emits ``vision_embeds`` through the TABM ring
+(``core/tabm``):
 
 * ``plan.run(inputs)`` — one full forward pass (logits), the ring
   crossed synchronously;
@@ -18,9 +22,14 @@ emits ``vision_embeds`` through the TABM ring (``core/tabm``):
   backend (load -> execute -> release), recording a :class:`PlanTrace`
   whose peak is max(brick) not sum(bricks).
 
-The port's own copy of the reference's plan, without accelerator
-placements (the placement DP is not ported): a ``backend=`` override —
-one spec or a per-brick dict — picks each brick's substrate.
+A ``Placement`` from ``core/scheduler.schedule`` binds each brick to an
+accelerator, and its carried backends pick each brick's substrate; a
+``backend=`` override (one spec or a per-brick dict) comes first.  A
+brick whose input was produced on another accelerator gets that edge's
+transfer (``Backend.make_edge``, or ``Transport.make_edge`` when a
+``transport`` is given: the value crosses the wire codec first); the
+TABM edge's transfer runs producer-side, so the ring stays on the
+consumer's device.
 """
 from __future__ import annotations
 
@@ -61,12 +70,16 @@ class PlanTrace:
 
 @dataclass
 class PlanStep:
-    """One brick bound to its backend, params and callable."""
+    """One brick bound to its backend, accelerator, params and callable."""
 
     brick: Brick
     fn: Callable                       # (params, ctx) -> out
     params: Any
     backend: Backend
+    accel: Optional[object] = None     # scheduler.Accelerator or None
+    # port name -> transfer applied when the value was produced on a
+    # different accelerator
+    inbound: Dict[str, Callable] = field(default_factory=dict)
 
 
 class ExecutionPlan:
@@ -74,14 +87,21 @@ class ExecutionPlan:
 
     def __init__(self, graph: BrickGraph, steps: List[PlanStep], *,
                  residency: str, params, tabm=None,
-                 tabm_producer: Optional[int] = None, probe=None):
+                 tabm_producer: Optional[int] = None,
+                 tabm_transfer: Optional[Callable] = None,
+                 input_ports: Tuple[Port, ...] = (), probe=None,
+                 device=None):
         self.graph = graph
         self.cfg = graph.cfg
         self.steps = steps
         self.residency = residency
         self.tabm = tabm
         self._tabm_producer = tabm_producer
+        self._tabm_transfer = tabm_transfer
+        self.input_ports = input_ports
         self.probe = probe
+        self.device = device           # the ``device`` row's torch device
+        self.pipes: Dict[Tuple[str, str, int], Any] = {}
         self._params = params          # full tree, kept for relower()
         merged: Dict[str, Any] = {}
         for s in steps:
@@ -96,12 +116,37 @@ class ExecutionPlan:
                 merged.update(s.params)
         return tree_bytes(merged)
 
+    # -- introspection ------------------------------------------------------
+    def brick_params(self, name: str) -> Any:
+        for s in self.steps:
+            if s.brick.name == name:
+                return s.params
+        raise KeyError(name)
+
+    def backend_of(self, name: str) -> Backend:
+        for s in self.steps:
+            if s.brick.name == name:
+                return s.backend
+        raise KeyError(name)
+
+    def describe(self) -> str:
+        rows = []
+        for s in self.steps:
+            ins = ",".join(p.name + ("?" if p.optional else "")
+                           for p in s.brick.in_ports)
+            acc = s.accel.name if s.accel is not None else "-"
+            rows.append(f"{s.brick.name}({ins})->{s.brick.out_port.name}"
+                        f"@{acc}/{s.backend.name}")
+        return " | ".join(rows)
+
     # -- re-lowering --------------------------------------------------------
     def relower(self, brick_name: str, backend) -> PlanStep:
         """Re-lower one brick to another backend at runtime: re-bind its
         params and swap its executable; the step is replaced atomically,
-        so a concurrent ``produce`` sees the old or the new step."""
-        be = resolve_backend(backend)
+        so a concurrent ``produce`` sees the old or the new step.  Its
+        accelerator and inbound transfers stay: re-lowering moves the
+        brick's weights and compute, not the graph's wiring."""
+        be = resolve_backend(backend, device=self.device)
         for i, s in enumerate(self.steps):
             if s.brick.name != brick_name:
                 continue
@@ -109,7 +154,7 @@ class ExecutionPlan:
                 return s
             new = PlanStep(brick=s.brick, fn=be.compile_fn(s.brick, self.cfg),
                            params=be.bind_params(s.brick, self._params),
-                           backend=be)
+                           backend=be, accel=s.accel, inbound=s.inbound)
             self.steps[i] = new        # atomic swap under the GIL
             self._resident_bytes = self._resident_baseline()
             return new
@@ -123,7 +168,7 @@ class ExecutionPlan:
             raise PlanError(f"port {port.name!r} expects {port.dtype_kind} "
                             f"values, got {value.dtype}")
 
-    def _gather(self, step: PlanStep, env):
+    def _gather(self, step: PlanStep, env, env_src):
         ctx = {}
         for port in step.brick.in_ports:
             if port.name not in env or env[port.name] is None:
@@ -133,8 +178,19 @@ class ExecutionPlan:
                                 f"input port {port.name!r}")
             v = env[port.name]
             self._check_port(port, v)
+            src = env_src.get(port.name)
+            if src is not step.accel and port.name in step.inbound:
+                v = step.inbound[port.name](v)
             ctx[port.name] = v
         return ctx
+
+    @staticmethod
+    def _settle(out):
+        """A transient brick's residency trace point: on a card, wait for
+        its stream, so the brick's events mark when its work is done."""
+        if isinstance(out, torch.Tensor) and out.device.type == "cuda":
+            torch.cuda.current_stream(out.device).synchronize()
+        return out
 
     def run(self, inputs: Dict[str, Any],
             trace: Optional[PlanTrace] = None) -> Tuple[Any, PlanTrace]:
@@ -144,6 +200,7 @@ class ExecutionPlan:
         trace.sum_bytes = max(trace.sum_bytes, self._sum_bytes)
         resident = self._resident_bytes
         env: Dict[str, Any] = dict(inputs)
+        env_src: Dict[str, Any] = {k: None for k in env}
         out = None
         ring_slot = None
         for i, step in enumerate(self.steps):
@@ -153,7 +210,9 @@ class ExecutionPlan:
                 resident += tree_bytes(dev_params)
             trace.record(step.brick.name, "load", resident)
             t0 = time.perf_counter()
-            out = step.fn(dev_params, self._gather(step, env))
+            out = step.fn(dev_params, self._gather(step, env, env_src))
+            if transient:
+                out = self._settle(out)
             trace.record(step.brick.name, "execute", resident)
             if self.probe is not None:
                 phase = ("stage" if self._tabm_producer is not None
@@ -165,9 +224,11 @@ class ExecutionPlan:
                 out, ring, slot = self._through_ring(out)
                 ring_slot = (ring, slot)
             env[step.brick.out_port.name] = out
+            env_src[step.brick.out_port.name] = step.accel
             if transient:
+                freed = tree_bytes(dev_params)
                 step.backend.unload(dev_params)
-                resident -= tree_bytes(dev_params)
+                resident -= freed
             trace.record(step.brick.name, "release", resident)
             del dev_params
         if ring_slot is not None:
@@ -188,7 +249,9 @@ class ExecutionPlan:
             raise PlanError("TABM ring full inside a synchronous run(); "
                             "a prior consumer never released its slot")
         try:
-            ring.commit_write(slot, out[0])
+            v = out if self._tabm_transfer is None \
+                else self._tabm_transfer(out)
+            ring.commit_write(slot, v[0])
         except Exception:
             ring.abort_write(slot)
             raise
@@ -272,13 +335,19 @@ class ExecutionPlan:
             for b, f in enumerate(feats):
                 stacked[b, :lengths[b]] = f[0]
             env: Dict[str, Any] = {"vision_feats": stacked}
+            env_src: Dict[str, Any] = {k: None for k in env}
             out = None
             for step in self.steps[: self._tabm_producer + 1]:
+                transient = not step.backend.resident
                 dev_params = step.backend.load(step.brick, step.params)
                 t0 = time.perf_counter()
-                out = step.fn(dev_params, self._gather(step, env))
-                step.backend.unload(dev_params)
+                out = step.fn(dev_params, self._gather(step, env, env_src))
+                if transient:
+                    out = self._settle(out)
+                    step.backend.unload(dev_params)
+                del dev_params
                 env[step.brick.out_port.name] = out
+                env_src[step.brick.out_port.name] = step.accel
                 if self.probe is not None:
                     self.probe.record(step.brick.name, "stage",
                                       time.perf_counter() - t0,
@@ -291,7 +360,9 @@ class ExecutionPlan:
                     f"upstream bricks changed the token count "
                     f"({slab} -> {out.shape[1]}); produce_many requires "
                     f"token-count-preserving staging bricks")
-            ring.commit_many(slots, out, lengths)
+            v = out if self._tabm_transfer is None \
+                else self._tabm_transfer(out)
+            ring.commit_many(slots, v, lengths)
         except Exception:
             ring.abort_many(slots)
             raise
@@ -320,15 +391,17 @@ class ExecutionPlan:
         self._tabm_ring(slot_class).release(slot)
 
 
-def _backend_for(brick_name: str, *, override, residency: str) -> Backend:
+def _backend_for(brick_name: str, accel, *, override, placement_backends,
+                 residency: str, device) -> Backend:
     """Priority: an explicit ``backend=`` override (global or per-brick)
-    > ``residency="one-brick"`` (the host backend) > the default device
-    backend."""
+    > ``residency="one-brick"`` (the transient host backend) > the
+    placement's carried backend name > the accelerator's profile / the
+    default device backend (``core/backends.resolve_backend``)."""
     if override is not None:
         spec = override.get(brick_name) if isinstance(override, dict) \
             else override
         if spec is not None:
-            be = resolve_backend(spec)
+            be = resolve_backend(spec, accel, device)
             if residency == "one-brick" and be.resident:
                 raise PlanError(
                     f"residency='one-brick' needs a transient backend, "
@@ -337,24 +410,95 @@ def _backend_for(brick_name: str, *, override, residency: str) -> Backend:
             return be
     if residency == "one-brick":
         return BACKENDS["host"]
-    return resolve_backend(None)
+    if placement_backends and brick_name in placement_backends:
+        return resolve_backend(placement_backends[brick_name], accel, device)
+    return resolve_backend(None, accel, device)
 
 
-def compile_plan(graph: BrickGraph, params, *, tabm=None,
-                 residency: str = "resident", backend=None,
-                 probe=None) -> ExecutionPlan:
-    """Compile a BrickGraph (+ optional TABM ring) into an
-    :class:`ExecutionPlan`.  ``backend``: a registry name, a Backend, or a
-    per-brick ``{brick_name: spec}`` dict; ``probe``: a
-    :class:`~repro_torch.telemetry.probes.WallProbe` for per-brick spans."""
+def compile_plan(graph: BrickGraph, params, *, placement=None, accels=None,
+                 tabm=None, residency: str = "resident", backend=None,
+                 probe=None, transport=None, device=None) -> ExecutionPlan:
+    """Compile a BrickGraph (+ optional Placement and TABM ring) into an
+    :class:`ExecutionPlan`.
+
+    placement: a :class:`~repro_torch.core.scheduler.Placement` or a raw
+        ``{brick_name: accel_name}`` dict; requires ``accels``.  A
+        Placement's ``backends`` (``schedule()``'s, from each
+        accelerator) pick each brick's lowering substrate.
+    accels: the accelerators the placement names.
+    tabm: a :class:`~repro_torch.core.tabm.RingBuffer` or
+        :class:`~repro_torch.core.tabm.SlotClassPool` for the
+        vision_embeds edge.
+    residency: "resident" (params bound once) | "one-brick" (every brick
+        through the transient host backend: load -> execute -> release).
+    backend: a registry name, a Backend, or a per-brick
+        ``{brick_name: spec}`` dict; comes before the placement's.
+    probe: a :class:`~repro_torch.telemetry.probes.WallProbe` for
+        per-brick spans.
+    transport: a :class:`~repro_torch.core.transport.Transport` the
+        plan's cross-accelerator edges are bound to: on a serializing
+        one every such edge round-trips its value through the wire codec
+        (``Transport.make_edge``); None = direct backend edges.
+    device: the torch device the generic ``device`` row lowers to (None:
+        the registry's, ``cuda``); the engine passes its own.
+    """
     if residency not in ("resident", "one-brick"):
         raise PlanError(f"unknown residency {residency!r}")
-    steps: List[PlanStep] = []
+    assignment = getattr(placement, "assignment", placement)
+    placement_backends = getattr(placement, "backends", None)
+    by_name = {a.name: a for a in (accels or [])}
+    if assignment:
+        missing = [b.name for b in graph.bricks if b.name not in assignment]
+        if missing:
+            raise PlanError(f"placement misses bricks: {missing}")
+        unknown = sorted(set(assignment.values()) - set(by_name))
+        if unknown:
+            raise PlanError(f"placement names unknown accelerators: "
+                            f"{unknown}")
+
+    # wiring validation + external input discovery
+    produced: Dict[str, Brick] = {}
+    externals: List[Port] = []
     for b in graph.bricks:
-        be = _backend_for(b.name, override=backend, residency=residency)
-        steps.append(PlanStep(brick=b, fn=be.compile_fn(b, graph.cfg),
-                              params=be.bind_params(b, params), backend=be))
-    tabm_producer = None
+        for p in b.in_ports:
+            if p.name not in produced and not p.optional \
+                    and all(e.name != p.name for e in externals):
+                externals.append(p)
+        produced[b.out_port.name] = b
+
+    steps: List[PlanStep] = []
+    src_accel: Dict[str, Any] = {}                 # port -> producing accel
+    edges: Dict[Tuple[str, str, int], Any] = {}    # (src, dst, backend) -> fn
+    for b in graph.bricks:
+        accel = by_name[assignment[b.name]] if assignment else None
+        be = _backend_for(b.name, accel, override=backend,
+                          placement_backends=placement_backends,
+                          residency=residency, device=device)
+        inbound: Dict[str, Callable] = {}
+        if accel is not None:
+            for p in b.in_ports:
+                src = src_accel.get(p.name)
+                if src is accel:
+                    continue
+                # keyed on the backend instance: two instances of one
+                # name (devices apart) must not share a transfer
+                key = (src.name if src is not None else "-",
+                       accel.name, id(be))
+                if key not in edges:
+                    edges[key] = (be.make_edge(src, accel)
+                                  if transport is None
+                                  else transport.make_edge(src, accel, be))
+                inbound[p.name] = edges[key]
+        steps.append(PlanStep(
+            brick=b, fn=be.compile_fn(b, graph.cfg),
+            params=be.bind_params(b, params),
+            backend=be, accel=accel, inbound=inbound))
+        src_accel[b.out_port.name] = accel
+
+    # the TABM edge: the brick producing vision_embeds hands off through
+    # the ring; a transfer to the consumer's unit runs producer-side, so
+    # the ring lives on the consumer's device
+    tabm_producer = tabm_transfer = None
     if tabm is not None:
         for i, s in enumerate(steps):
             if s.brick.out_port.name == "vision_embeds":
@@ -363,5 +507,15 @@ def compile_plan(graph: BrickGraph, params, *, tabm=None,
         if tabm_producer is None:
             raise PlanError("tabm ring given but no brick produces "
                             "'vision_embeds'")
-    return ExecutionPlan(graph, steps, residency=residency, params=params,
-                         tabm=tabm, tabm_producer=tabm_producer, probe=probe)
+        nxt = steps[tabm_producer + 1] if tabm_producer + 1 < len(steps) \
+            else None
+        if nxt is not None and "vision_embeds" in nxt.inbound:
+            tabm_transfer = nxt.inbound.pop("vision_embeds")
+
+    plan = ExecutionPlan(graph, steps, residency=residency, params=params,
+                         tabm=tabm, tabm_producer=tabm_producer,
+                         tabm_transfer=tabm_transfer,
+                         input_ports=tuple(externals), probe=probe,
+                         device=device)
+    plan.pipes = edges
+    return plan

@@ -90,8 +90,13 @@ class QTensor:
         return QTensor(self.codes[i], self.scales[i], self.spec,
                        tuple(self.shape[1:]), self.dtype)
 
-    def to(self, device) -> "QTensor":
-        return QTensor(self.codes.to(device), self.scales.to(device),
+    def to(self, device, non_blocking: bool = False) -> "QTensor":
+        return QTensor(self.codes.to(device, non_blocking=non_blocking),
+                       self.scales.to(device, non_blocking=non_blocking),
+                       self.spec, self.shape, self.dtype)
+
+    def pin_memory(self) -> "QTensor":
+        return QTensor(self.codes.pin_memory(), self.scales.pin_memory(),
                        self.spec, self.shape, self.dtype)
 
     def __repr__(self):

@@ -3,8 +3,9 @@ between a prefill fleet and a decode fleet (``serving/disagg.py``).
 
 * :class:`Transport` — the protocol: duplex message send/recv over a
   checksummed binary wire format, plus the ``link_bw`` row the
-  reference's scheduler prices splits with (the split pricing itself is
-  not ported yet).
+  scheduler prices splits with (``core/scheduler.schedule_split``), and
+  ``make_edge``, which routes a compiled plan's cross-accelerator edges
+  through the codec on a serializing transport (``serializes``).
 * :data:`TRANSPORTS` / :func:`resolve_transport` — the registry:
   ``"inproc"`` (byte queues between two threads), ``"pipe"`` (OS pipes
   across fork/exec), ``"socket"`` (TCP localhost or LAN).
@@ -36,9 +37,8 @@ tensors; ``decode_frame`` returns CPU tensors (bfloat16 read as its
 16-bit pattern and viewed as ``torch.bfloat16``: neither side needs
 ``ml_dtypes``).
 
-The reference's ``Transport.make_edge`` (routing a compiled plan's
-cross-accelerator edges through the codec) and its ``SubmeshPipe`` wait
-for the placement model.
+The reference's ``SubmeshPipe`` (a hand-off between submeshes of a mesh)
+has no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -299,6 +299,8 @@ class Transport:
     name: str = "base"
     #: modeled wire bandwidth (bytes/s)
     link_bw: float = 8e9
+    #: plan edges bound to this transport cross the wire codec
+    serializes: bool = False
 
     def __init__(self):
         self._send_lock = threading.Lock()
@@ -357,6 +359,30 @@ class Transport:
         with self._recv_lock:
             return decode_frame(self._recv_exact)
 
+    # -- plan-edge routing --------------------------------------------------
+    def make_edge(self, src_accel, dst_accel, backend) -> Callable:
+        """The inbound-transfer factory for a plan bound to this
+        transport: the backend's edge says where the value lands; on a
+        serializing transport the value first round-trips through the
+        wire codec, so the format is shown transparent to plan dataflow
+        (logits bit-identical across transports)."""
+        inner = backend.make_edge(src_accel, dst_accel)
+        if not self.serializes:
+            return inner
+        return _codec_edge(inner)
+
+
+def _codec_edge(inner: Callable) -> Callable:
+    """Wrap a backend edge with an encode->decode pass through the codec
+    messages use (a card tensor goes through the host, as it would on a
+    real pipe or socket); ``inner`` puts the decoded tensor where the
+    backend wants it."""
+    def edge(v):
+        _, _, (back,), _ = decode_frame(BytesReader(encode_frame(
+            "edge", {}, [v.detach().cpu()])).read)
+        return inner(back)
+    return edge
+
 
 # ---------------------------------------------------------------------------
 # concrete transports
@@ -412,6 +438,7 @@ class PipeTransport(Transport):
 
     name = "pipe"
     link_bw = 2e9
+    serializes = True
 
     def __init__(self, recv_fd: Optional[int], send_fd: Optional[int]):
         super().__init__()
@@ -472,6 +499,7 @@ class SocketTransport(Transport):
 
     name = "socket"
     link_bw = 1e9
+    serializes = True
 
     def __init__(self, sock: "_socket.socket"):
         super().__init__()

@@ -16,9 +16,10 @@ Submits synthetic prompts (with stub vision features for vlm archs; a
 vision request's prompt carries one placeholder token per vision token,
 then its text), runs the engine to completion and prints tokens/s,
 end-to-end latency and memory.  ``--quantize`` keeps the weights packed,
-so on the card decode reads them through the fused kernels.  The
+so on the card decode reads them through the fused kernels.  Only the
 reference's ``--calibration`` (a persisted cost table feeding the
-engine's energy governor) waits with the scheduler's cost model.
+engine's energy governor) is missing: it waits for the calibration
+table, which reprices the scheduler's ``brick_cost`` from measurements.
 """
 from __future__ import annotations
 

@@ -31,9 +31,12 @@ Every run asserts:
 * the paged KV bytes that crossed the wire are fewer than whole
   ``max_len`` lanes (``PagedKVCache.slot_lane_bytes``) would be.
 
-The reference launcher's scheduler split pricing (``schedule_split``
-over the fleet rows, and its recalibration from the measured wire) waits
-for the placement and cost model.
+Before serving, the launcher prints the scheduler's split pricing for
+the chosen wire (``[schedule_split @ <transport>] <Placement>``: the
+chain DP over the prefill and decode fleet rows, each cross-fleet edge
+priced at the transport's ``link_bw``; modeled, from the reference's
+profiles).  The reference's recalibrated print (the split repriced from
+the wire's measured bandwidth) waits for the cost calibration table.
 """
 from __future__ import annotations
 
@@ -48,7 +51,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.bricks import decompose
 from repro_torch.core.quantize import PROFILES, QTensor, quantize_tree
+from repro_torch.core.scheduler import populate_brick_bytes, schedule_split
 from repro_torch.core.transport import PipeTransport, SocketTransport
 from repro_torch.models.model import init_params
 from repro_torch.serving.disagg import (DecodeWorker, PrefillWorker,
@@ -196,6 +201,14 @@ def main(argv=None):
     params = load_params(cfg, args.device)
     digest = params_digest(params)
     print(f"[prefill-fleet] weights digest {digest}")
+
+    # the scheduler's split pricing for this wire: the chain DP over the
+    # two fleet rows priced at the transport's link_bw
+    graph = decompose(cfg)
+    populate_brick_bytes(graph, params)
+    split = schedule_split(graph, args.transport,
+                           n_tokens=cfg.vision_tokens)
+    print(f"[schedule_split @ {args.transport}] {split}")
 
     oracle = oracle_tokens(cfg, params, make_requests(
         cfg, args.requests, args.max_new), engine_kw, args.device)

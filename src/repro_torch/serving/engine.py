@@ -53,7 +53,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.backends import DeviceBackend
 from repro_torch.core.bricks import decompose
 from repro_torch.core.plan import compile_plan
 from repro_torch.core.power import BatteryAwareExecutor, PMU, PowerState
@@ -337,6 +336,7 @@ class ServingEngine:
                  max_len: int = 2048, executor: Optional[
                      BatteryAwareExecutor] = None,
                  rng_seed: int = 0, async_staging: bool = True,
+                 placement=None, accels=None,
                  backend=None, stage_batch: Optional[int] = None,
                  aging_steps: int = 32, block_size: int = 64,
                  kv_blocks: Optional[int] = None,
@@ -389,11 +389,14 @@ class ServingEngine:
         self.tabm = SlotClassPool.from_config(
             cfg, dim=cfg.d_model, slots_per_class=max(2, n_slots // 2),
             device=self.device) if cfg.vlm else None
+        # the one brick runtime: staging runs the plan's bricks up to the
+        # TABM edge.  A placement (``core/scheduler.schedule``) lowers each
+        # brick through its unit's backend; the ``device`` row, and every
+        # brick when there is no placement, lowers to the engine's device
         self.plan = compile_plan(
-            decompose(cfg), self.params, tabm=self.tabm,
-            backend=(backend if backend is not None
-                     else DeviceBackend(self.device)),
-            probe=self.probe)
+            decompose(cfg), self.params, tabm=self.tabm, backend=backend,
+            placement=placement, accels=accels, probe=self.probe,
+            device=self.device)
         self._lowered_backends = {s.brick.name: s.backend
                                   for s in self.plan.steps}
         self._demoted_to: Optional[str] = None

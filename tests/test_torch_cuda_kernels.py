@@ -2419,3 +2419,111 @@ def test_captures_while_another_engine_prefills_on_card(cuda, monkeypatch):
     assert counts["fused_qkv"] == counts["fused_mlp"] == \
         cfg.n_layers * steps
     assert counts["dequant_gemm"] == gemms * (len(calls) - n_solo)
+
+
+# ---------------------------------------------------------------------------
+# placement and the On-Demand Cascade on the card (core/cascade.py,
+# core/backends.py HostBackend(device="cuda"), placed plans)
+# ---------------------------------------------------------------------------
+
+def _cascade_setup():
+    from repro_torch.configs import get_config
+    from repro_torch.core.bricks import decompose
+    cfg = get_config("llava-onevision-0.5b").reduced()
+    params = _seam_params(cfg, "cpu")
+    rng = np.random.default_rng(0)
+    inputs = {"tokens": torch.from_numpy(
+        rng.integers(3, 200, (1, 24)).astype(np.int32)),
+        "vision_feats": torch.from_numpy((rng.standard_normal(
+            (1, cfg.vision_tokens, cfg.vision_feat_dim)) * 0.02
+        ).astype(np.float32))}
+    return cfg, params, decompose(cfg), inputs
+
+
+def test_transient_host_backend_on_card_releases(cuda):
+    """A HostBackend on the card binds params pinned host-side; load puts
+    them on the card, unload drops them: memory_allocated falls back."""
+    from repro_torch.core.backends import HostBackend
+    from repro_torch.core.quantize import tree_bytes
+    cfg, params, graph, _ = _cascade_setup()
+    be = HostBackend(device="cuda")
+    brick = graph.brick("decoder")
+    bound = be.bind_params(brick, params)
+    leaf = bound["layers"][0]["mixer"]["wq"]
+    assert leaf.codes.device.type == "cpu" and leaf.codes.is_pinned()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    loaded = be.load(brick, bound)
+    assert loaded["layers"][0]["mixer"]["wq"].codes.device.type == "cuda"
+    assert torch.cuda.memory_allocated() - base >= tree_bytes(bound)
+    be.unload(loaded)
+    del loaded
+    assert torch.cuda.memory_allocated() == base
+
+
+def test_cascade_on_card_matches_the_resident_plan(cuda):
+    """The cascade on the card (every brick loaded, executed, released)
+    gives the resident plan's logits, through the packed-weight GEMM, and
+    leaves only its output on the card."""
+    from repro_torch.core.cascade import CascadeRunner
+    from repro_torch.core.plan import compile_plan
+    cfg, params, graph, inputs = _cascade_setup()
+    resident = compile_plan(graph, params)
+    want, _ = resident.run(inputs)
+    del resident
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    runner = CascadeRunner(graph, params)
+    assert runner.backend.device.type == "cuda"
+    reset_launch_counts()
+    got, trace = runner.run_once(inputs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert got.device.type == "cuda"
+    _close(got, want)
+    assert counts["dequant_gemm"] == 7 * cfg.n_layers
+    assert trace.events[-1].resident_bytes == 0
+    assert 0 < trace.peak_bytes < trace.sum_bytes
+    left = torch.cuda.memory_allocated() - base
+    assert left <= got.numel() * got.element_size() + (1 << 20)
+
+
+def test_placed_plan_on_card_crosses_one_edge(cuda):
+    """The NPU bricks run on the CPU, the rest on the card; the embeds
+    cross into a ring on the card; the logits match the resident plan."""
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.core.scheduler import edge_accelerators
+    from repro_torch.core.tabm import RingBuffer
+    cfg, params, graph, inputs = _cascade_setup()
+    want, _ = compile_plan(graph, params).run(inputs)
+    acc = edge_accelerators()
+    split = {"vision_frontend": "npu", "projector": "npu",
+             "embedding": "gpu", "decoder": "gpu", "head": "gpu"}
+    ring = RingBuffer(n_slots=2, max_tokens=cfg.vision_tokens,
+                      dim=cfg.d_model, dtype=cfg.dtype, device="cuda")
+    plan = compile_plan(graph, params, placement=split, accels=acc,
+                        tabm=ring)
+    assert plan.backend_of("projector").device.type == "cpu"
+    assert plan.backend_of("decoder").device.type == "cuda"
+    reset_launch_counts()
+    got, _ = plan.run(inputs)
+    torch.cuda.synchronize()
+    assert launch_counts()["dequant_gemm"] == 7 * cfg.n_layers
+    assert got.device.type == "cuda"
+    _close(got, want)
+    crossing = [k for k in plan.pipes if k[0] == "npu" and k[1] == "gpu"]
+    assert len(crossing) == 1
+    assert ring.stats["writes"] == ring.stats["reads"] == 1
+
+
+def test_device_backend_ordinals_on_card(cuda):
+    from repro_torch.core.backends import (BackendError, device_backend,
+                                           resolve_backend)
+    be = resolve_backend("device:0")
+    assert be.name == "device:0" and be.device == torch.device("cuda:0")
+    assert device_backend(0) is be
+    with pytest.raises(BackendError):
+        device_backend(torch.cuda.device_count())
+    if torch.cuda.device_count() == 1:
+        with pytest.raises(BackendError):
+            resolve_backend("device:1")
