@@ -120,6 +120,34 @@ Phases (any failure raises and exits non-zero):
    requests through ``ServingEngine(placement=, accels=)`` at 4 new
    tokens, every one finished and its first-step logits within 5e-2 of
    the largest against phase 3's;
+   3e. the measured-energy loop.  On phase 3's engine after its serve:
+   the card's energy counter read through NVML by ``ctypes`` (the handle
+   picked by the device's UUID, never by index), its update step polled
+   for ~1 s, then three windows of at least 50 updates each: idle
+   (sleeps), decode (replays of the bucket-4 cohort graph on a copy of
+   phase 3's timed state) and prefill (repeats of phase 3's largest
+   prefill call), printed as joules per token gross and net of the idle
+   watts with the card's name and power limit (where the counter answers
+   NOT_SUPPORTED, ``nvmlDeviceGetPowerUsage`` integrated at 50 Hz, said
+   on the line); phase 3's measured ledger and calibration table beside
+   each brick's CUDA-event time over the same calls, and the placement
+   the table gives beside the modeled one.  After 3d: phase 3's requests
+   through an engine with phase 3d's placement and a table holding the
+   decode window's joules (its KV energy pressure equal to the table's
+   J/token over the modeled decoder step's, every admission round's
+   budgets equal to ``kv_block_budgets`` recomputed, the thumbnail class
+   keeping its share of the pool, the requests admitted and held under a
+   40-step cap, its launches those of the fused kernels and the GEMM);
+   ``repro_torch.launch.serve --calibration`` twice (the second run loads
+   the first's table, whose decoder count grows by the second run's
+   samples); ``repro_torch.launch.fleet_sim --smoke`` and ``--profile
+   ledger`` on a ledger of the windows (the H100's J/token as survival on
+   a 2000 mAh pack); then phase 3's requests under ``nanomind-sparse``
+   (half of every decoder row pruned on the card before q4) with phase
+   3's gates, every pruned row at least half zeros, and the card's prune
+   of a ``wq`` leaf bit-equal to the CPU's.  Phase 3c also prints the
+   split repriced from the wire's measured bandwidth, from the in-process
+   fleets' stats and from the pipe launcher's line;
 5. serve LLaVA-OneVision-0.5B with the paper's streaming linear
    attention (``attn_impl="linear"``) at full width and depth: the same
    weights, engine settings and four requests as phase 3, prefill
@@ -314,6 +342,21 @@ RELEASE_SLACK = 1 << 20          # bytes a release may leave besides output
 # the launcher's run over a pipe: more requests than the decode fleet's
 # N_SLOTS slots, so it admits into a pool its cohort graph has captured
 DISAGG_PIPE_REQUESTS = 6
+# phase 3e, the measured-energy loop: NVML energy windows (each at least
+# ENERGY_MIN_STEPS updates of the counter long), an engine under the
+# decode window's energy pressure (a step cap: the hi-res class may
+# never be admitted), the launcher's --calibration loop, the fleet
+# simulator, and phase 3's requests under nanomind-sparse
+ENERGY_PATH = "llava-onevision-0.5b/energy-pressure"
+SPARSE_PATH = "llava-onevision-0.5b/sparse"
+ENERGY_MIN_STEPS = 50
+ENERGY_WINDOW_S = {"idle": 2.0, "decode": 5.0, "prefill": 3.0}
+POWER_SAMPLE_S = 0.02            # 50 Hz, where the energy counter is absent
+PRESSURE_STEPS = 40
+CALIBRATION_SERVE_ARGS = ("--full", "--quantize", "nanomind-serve",
+                          "--requests", "2", "--max-new", "4",
+                          "--max-len", "2048")
+ENERGY_DIR = os.path.join(ROOT, "build", "energy_loop")
 # kernel vs plain: state and z (fp32 in both) within 1e-4 of their
 # largest magnitude; each output row within KERNEL_TOL (bf16) or 1e-4
 # (fp32) of that row's largest plain magnitude
@@ -1431,7 +1474,8 @@ def decode_rates(eng, decs):
                 toks / max(1e-9, span - eng.graph_stats["capture_s"]), 3)}
 
 
-def serve_path(sm, cfg, reqs, use_fused=None, first_logits=None):
+def serve_path(sm, cfg, reqs, use_fused=None, first_logits=None,
+               policy="nanomind-serve", events=None, decode_state=None):
     """Serve ``reqs`` on ``cfg`` at full width with the engine's decode
     step (``use_fused``: None, the engine's default, which must be the
     fused step; False, the composed step); check what the run must show,
@@ -1441,7 +1485,11 @@ def serve_path(sm, cfg, reqs, use_fused=None, first_logits=None):
     and every flash call (``FlashCalls``, fp32 within FLASH_FP32_TOL,
     bf16 rows within KERNEL_TOL); return (serve record, engine, captured
     prefill: the largest group).  ``first_logits``, when given, is filled
-    with each request's first-step (prefill) logits on the CPU."""
+    with each request's first-step (prefill) logits on the CPU; ``policy``
+    packs the weights; ``events`` (a ``BrickEvents``) times each brick's
+    calls of the run with CUDA events; ``decode_state``, when given,
+    receives the timed cohort state (``host_args``, ``rows``, a clone of
+    the ``pool`` before the step)."""
     from repro_torch.core.quantize import PROFILES, quantize_tree
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.fused_decode import ops, ref
@@ -1452,13 +1500,15 @@ def serve_path(sm, cfg, reqs, use_fused=None, first_logits=None):
     t0 = time.perf_counter()
     with torch.no_grad():
         params = quantize_tree(init_params(cfg, device=sm.dev, seed=0),
-                               PROFILES["nanomind-serve"])
+                               PROFILES[policy])
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     eng = ServingEngine(cfg, params, n_slots=N_SLOTS,
                         max_len=MAX_LEN[cfg.name], block_size=BLOCK_SIZE,
                         use_fused=use_fused, device=sm.dev)
     del params
+    if events is not None:
+        events.attach(eng)
     fused = eng.use_fused
     if fused != (use_fused is None):
         fail(f"{cfg.name}: the engine selected use_fused={fused}")
@@ -1498,6 +1548,8 @@ def serve_path(sm, cfg, reqs, use_fused=None, first_logits=None):
     serve_s = time.perf_counter() - t0
     launches = launch_counts()
     eng._prefill = prefill
+    if events is not None:
+        events.detach()
     L = cfg.n_layers
     decode_steps = sum(1 for e in eng.trace if e.event == "decode_step")
     n_prefill = captured.get("prefill_calls", 0)
@@ -1535,7 +1587,7 @@ def serve_path(sm, cfg, reqs, use_fused=None, first_logits=None):
     spans = eng.probe.samples()
     pre = [s for s in spans if s.brick == "decoder" and s.phase == "prefill"]
     decs = [s for s in spans if s.brick == "decoder" and s.phase == "decode"]
-    serve = {"arch": cfg.name, "dtype": cfg.dtype,
+    serve = {"arch": cfg.name, "dtype": cfg.dtype, "policy": policy,
              "attn_q_chunk": cfg.attn_q_chunk,
              "decode_step": "fused" if fused else "composed",
              "requests": len(done), "decode_steps": decode_steps,
@@ -1638,6 +1690,9 @@ def serve_path(sm, cfg, reqs, use_fused=None, first_logits=None):
     for pos, saved in zip(eng.slots.pool, state["pool"]):
         for leaf, t in zip(pos, saved):
             leaf.copy_(t)
+    if decode_state is not None:
+        decode_state.update(host_args=[t.cpu().numpy() for t in args],
+                            rows=nrows, pool=clone_pool(state["pool"]))
     serve["decode_step_breakdown"] = decode_breakdown(
         eng, [t.cpu().numpy() for t in args], nrows, per_step)
     steps.state = state = None
@@ -1670,6 +1725,10 @@ def serve_disagg(sm, cfg, reqs, single):
     checks its exit code and OK line.  Returns the serve record."""
     import struct
     from repro_torch.core import transport as TR
+    from repro_torch.core.bricks import decompose
+    from repro_torch.core.scheduler import populate_brick_bytes
+    from repro_torch.launch.serve_disagg import (recalibrated_line,
+                                                 recalibrated_split)
     from repro_torch.core.quantize import PROFILES, quantize_tree
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.model import init_params
@@ -1777,6 +1836,10 @@ def serve_disagg(sm, cfg, reqs, single):
     total = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     pre, dec = engines["prefill"], engines["decode"]
+    # the split repriced from what the in-process fleets' frames clocked
+    graph = decompose(cfg)
+    populate_brick_bytes(graph, params)
+    resplit = recalibrated_split(graph, "inproc", stats, cfg.vision_tokens)
     del params, engines
 
     # the gates: every request served, its blocks landed bit for bit,
@@ -1877,9 +1940,17 @@ def serve_disagg(sm, cfg, reqs, single):
         fail(f"{DISAGG_PATH}: the pipe launcher exited {proc.returncode}: "
              f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
     split = [ln for ln in lines if ln.startswith("[schedule_split @ pipe] ")]
-    if len(split) != 1:
-        fail(f"{DISAGG_PATH}: the pipe launcher printed no split pricing "
-             f"line: {lines[:20]}")
+    respl = [ln for ln in lines
+             if ln.startswith("[schedule_split recalibrated @ ")]
+    if len(split) != 1 or len(respl) != 1:
+        fail(f"{DISAGG_PATH}: the pipe launcher printed {len(split)} split "
+             f"pricing and {len(respl)} recalibrated lines: {lines[:20]}")
+    serve["recalibrated_split"] = {
+        "inproc_fleets": None if resplit is None
+        else recalibrated_line(*resplit),
+        "inproc_wire": {"bytes": stats.wire_bytes,
+                        "seconds": stats.wire_seconds, "sent": stats.sent},
+        "pipe_launcher": respl[0]}
     serve["pipe_launcher"] = {
         "cmd": " ".join(cmd[1:]), "rc": proc.returncode,
         "wall_s": round(time.perf_counter() - t0, 3),
@@ -2232,6 +2303,656 @@ def placed_and_cascade(sm, cfg, reqs, first3):
     free()
     return rec, {PLACED_PATH: summed(pl_n), CASCADE_PATH: summed(cas_n),
                  PLACED_ENGINE_PATH: eng_n}
+
+
+def card_label():
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip()
+
+
+class Nvml:
+    """The card's energy counter through NVML, by ``ctypes`` (the library
+    ``nvidia-smi`` loads, ``libnvidia-ml.so.1``).  The handle is picked by
+    the CUDA device's UUID (or, failing that, its PCI bus id), never by
+    index: NVML's indices ignore ``CUDA_VISIBLE_DEVICES``.  ``window``
+    reads ``nvmlDeviceGetTotalEnergyConsumption`` (mJ) around a workload;
+    where the card answers NOT_SUPPORTED for the counter, it integrates
+    ``nvmlDeviceGetPowerUsage`` sampled every POWER_SAMPLE_S instead.  Any
+    other failing call fails the phase."""
+
+    NOT_SUPPORTED = 3
+
+    def __init__(self, dev):
+        import ctypes
+        import torch
+        self.ct = ctypes
+        self.lib = ctypes.CDLL("libnvidia-ml.so.1")
+        dev_p, c_int = ctypes.c_void_p, ctypes.c_int
+        for fn, args in (
+                ("nvmlInit_v2", []), ("nvmlShutdown", []),
+                ("nvmlDeviceGetHandleByUUID",
+                 [ctypes.c_char_p, ctypes.POINTER(dev_p)]),
+                ("nvmlDeviceGetHandleByPciBusId_v2",
+                 [ctypes.c_char_p, ctypes.POINTER(dev_p)]),
+                ("nvmlDeviceGetName", [dev_p, ctypes.c_char_p,
+                                       ctypes.c_uint]),
+                ("nvmlDeviceGetEnforcedPowerLimit",
+                 [dev_p, ctypes.POINTER(ctypes.c_uint)]),
+                ("nvmlDeviceGetPowerUsage",
+                 [dev_p, ctypes.POINTER(ctypes.c_uint)]),
+                ("nvmlDeviceGetTotalEnergyConsumption",
+                 [dev_p, ctypes.POINTER(ctypes.c_ulonglong)])):
+            getattr(self.lib, fn).argtypes = args
+            getattr(self.lib, fn).restype = c_int
+        self.lib.nvmlErrorString.argtypes = [c_int]
+        self.lib.nvmlErrorString.restype = ctypes.c_char_p
+        self.call("nvmlInit_v2")
+        props = torch.cuda.get_device_properties(dev)
+        self.handle = ctypes.c_void_p()
+        uuid = str(props.uuid)
+        uuid = uuid if uuid.startswith("GPU-") else "GPU-" + uuid
+        rc = self.lib.nvmlDeviceGetHandleByUUID(uuid.encode(),
+                                                ctypes.byref(self.handle))
+        if rc == 0:
+            self.picked_by = f"uuid {uuid}"
+        else:
+            bus = (f"{props.pci_domain_id:08X}:{props.pci_bus_id:02X}:"
+                   f"{props.pci_device_id:02X}.0")
+            self.call("nvmlDeviceGetHandleByPciBusId_v2", bus.encode(),
+                      ctypes.byref(self.handle))
+            self.picked_by = f"pci bus id {bus} (by uuid: {self.error(rc)})"
+        name = ctypes.create_string_buffer(96)
+        self.call("nvmlDeviceGetName", self.handle, name, ctypes.c_uint(96))
+        self.name = name.value.decode()
+        limit = ctypes.c_uint()
+        self.call("nvmlDeviceGetEnforcedPowerLimit", self.handle,
+                  ctypes.byref(limit))
+        self.power_limit_w = limit.value / 1e3
+        e = ctypes.c_ulonglong()
+        rc = self.lib.nvmlDeviceGetTotalEnergyConsumption(self.handle,
+                                                          ctypes.byref(e))
+        if rc not in (0, self.NOT_SUPPORTED):
+            fail(f"NVML nvmlDeviceGetTotalEnergyConsumption: "
+                 f"{self.error(rc)}")
+        self.counter = rc == 0
+        self.period_s = POWER_SAMPLE_S
+
+    def error(self, rc):
+        return f"{rc} ({self.lib.nvmlErrorString(rc).decode()})"
+
+    def call(self, fn, *args):
+        rc = getattr(self.lib, fn)(*args)
+        if rc != 0:
+            fail(f"NVML {fn}: {self.error(rc)}")
+
+    def energy_mj(self) -> int:
+        e = self.ct.c_ulonglong()
+        self.call("nvmlDeviceGetTotalEnergyConsumption", self.handle,
+                  self.ct.byref(e))
+        return e.value
+
+    def power_w(self) -> float:
+        p = self.ct.c_uint()
+        self.call("nvmlDeviceGetPowerUsage", self.handle, self.ct.byref(p))
+        return p.value / 1e3
+
+    def counter_step(self, seconds=1.0):
+        """Poll the counter for ``seconds``: its distinct increments (mJ)
+        and the median time between updates, which sets every window's
+        least length (ENERGY_MIN_STEPS updates)."""
+        if not self.counter:
+            return {"source": "nvmlDeviceGetPowerUsage integrated "
+                              "(energy counter NOT_SUPPORTED)",
+                    "period_s": POWER_SAMPLE_S}
+        last, t_last = self.energy_mj(), None
+        incs, periods = [], []
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            v = self.energy_mj()
+            if v != last:
+                t = time.perf_counter()
+                incs.append(v - last)
+                if t_last is not None:
+                    periods.append(t - t_last)
+                last, t_last = v, t
+            time.sleep(0.0002)
+        if len(periods) < 2:
+            fail(f"NVML energy counter updated {len(incs)} times in "
+                 f"{seconds} s")
+        self.period_s = statistics.median(periods)
+        return {"source": "nvmlDeviceGetTotalEnergyConsumption",
+                "increments_mj": sorted(set(incs)), "updates": len(incs),
+                "period_s": self.period_s,
+                "period_s_min_max": [min(periods), max(periods)]}
+
+    def window(self, fn, min_s):
+        """Call ``fn()`` until at least ``min_s`` seconds and
+        ENERGY_MIN_STEPS counter updates have passed; returns (seconds,
+        joules, calls)."""
+        import threading
+        need = max(min_s, ENERGY_MIN_STEPS * self.period_s)
+        samples, stop = [], threading.Event()
+
+        def sample():
+            while not stop.is_set():
+                samples.append((time.perf_counter(), self.power_w()))
+                time.sleep(POWER_SAMPLE_S)
+        if self.counter:
+            e0 = self.energy_mj()
+        else:
+            th = threading.Thread(target=sample, daemon=True)
+            th.start()
+        t0, n = time.perf_counter(), 0
+        while time.perf_counter() - t0 < need:
+            fn()
+            n += 1
+        secs = time.perf_counter() - t0
+        if self.counter:
+            joules = (self.energy_mj() - e0) / 1e3
+        else:
+            stop.set()
+            th.join()
+            joules = sum((b[0] - a[0]) * (a[1] + b[1]) / 2
+                         for a, b in zip(samples, samples[1:]))
+        if joules <= 0:
+            fail(f"NVML: {joules} J over a {secs:.3f} s window")
+        return secs, joules, n
+
+    def shutdown(self):
+        self.lib.nvmlShutdown()
+
+
+class BrickEvents:
+    """CUDA events around each brick's calls during a serve (attached by
+    ``serve_path``): the plan's staging steps (on the staging threads'
+    default stream), the engine's prefill and decode calls.  Each call's
+    span runs from an event recorded before it to one recorded after it
+    on the same stream, so it is the card's time to the call's last
+    kernel, where the probe's staging spans end at the dispatch and its
+    decode spans take in a bucket's graph capture on the host."""
+
+    def __init__(self):
+        self.spans, self._undo = [], []
+
+    def _wrap(self, fn, brick, phase):
+        import torch
+
+        def timed(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.spans.append((brick, phase, start, end))
+            return out
+        return timed
+
+    def attach(self, eng):
+        for step in eng.plan.steps[:eng.plan._tabm_producer + 1]:
+            self._undo.append((step, "fn", step.fn))
+            step.fn = self._wrap(step.fn, step.brick.name, "stage")
+        for name, phase in (("_prefill", "prefill"), ("_decode", "decode")):
+            self._undo.append((eng, name, getattr(eng, name)))
+            setattr(eng, name, self._wrap(getattr(eng, name), "decoder",
+                                          phase))
+
+    def detach(self):
+        for obj, name, fn in reversed(self._undo):
+            setattr(obj, name, fn)
+        self._undo = []
+
+    def seconds(self):
+        """{(brick, phase): (event seconds summed, calls)}."""
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for brick, phase, a, b in self.spans:
+            s, n = out.get((brick, phase), (0.0, 0))
+            out[(brick, phase)] = (s + a.elapsed_time(b) / 1e3, n + 1)
+        return out
+
+
+def energy_windows(sm, nv, eng, group, dstate):
+    """Phase 3e's NVML windows on phase 3's engine, after its serve: the
+    counter's update step (polled ~1 s), then an idle window (sleeps), a
+    decode window (replays of the bucket-4 cohort graph on a copy of the
+    timed cohort state ``dstate``, a synchronize after each, as the serve
+    reads each step's tokens) and a prefill window (repeats of the largest
+    prefill call ``group``).  Joules per token gross and net of the idle
+    watts; tokens are the live rows of each replayed step and the prompt
+    tokens of each prefill call."""
+    torch = sm.torch
+    step = nv.counter_step()
+    torch.cuda.synchronize()
+    idle = nv.window(lambda: time.sleep(0.02), ENERGY_WINDOW_S["idle"])
+    idle_w = idle[1] / idle[0]
+    for pos, saved in zip(eng.slots.pool, dstate["pool"]):
+        for leaf, t in zip(pos, saved):
+            leaf.copy_(t)
+    args = dstate["host_args"]
+
+    def decode():
+        eng._decode(*args)
+        torch.cuda.synchronize()
+    tokens, vision, last_idx = group[:3]
+
+    def prefill():
+        with torch.no_grad():
+            eng._prefill(tokens, vision, last_idx)
+        torch.cuda.synchronize()
+    out = {"card": card_label(), "nvml_name": nv.name,
+           "nvml_power_limit_w": nv.power_limit_w,
+           "handle_picked_by": nv.picked_by, "counter": step,
+           "min_steps": ENERGY_MIN_STEPS,
+           "idle": {"seconds": idle[0], "joules": idle[1], "mean_w": idle_w}}
+    for name, fn, per_call in (
+            ("decode", decode, int(dstate["rows"])),
+            ("prefill", prefill, int(last_idx.sum()))):
+        fn()
+        secs, joules, calls = nv.window(fn, ENERGY_WINDOW_S[name])
+        tok = calls * per_call
+        out[name] = {
+            "seconds": secs, "joules": joules, "calls": calls,
+            "tokens": tok, "tokens_per_call": per_call,
+            "mean_w": joules / secs, "tokens_per_s": tok / secs,
+            "j_per_token": joules / tok,
+            "j_per_token_net_of_idle": (joules - idle_w * secs) / tok,
+            "counter_steps": secs / step["period_s"]}
+    for name in ("idle", "decode", "prefill"):
+        w = out[name]
+        if w["seconds"] < ENERGY_MIN_STEPS * step["period_s"]:
+            fail(f"energy window {name}: {w['seconds']} s is under "
+                 f"{ENERGY_MIN_STEPS} counter steps of {step['period_s']} s")
+    out["decode"]["bc"] = int(args[0].shape[0])
+    out["prefill"]["shape"] = list(tokens.shape)
+    return out
+
+
+def served_calibration(sm, cfg, eng, events, n_tok, capture_s):
+    """Phase 3's measured ledger and calibration table beside each brick's
+    CUDA-event time over the same calls (one event pair a probe sample),
+    and the placement the table gives (``schedule(..., calibration=)``)
+    beside the modeled one, at ``n_tok`` tokens on ``edge_accelerators()``
+    priced on the served tree's brick bytes.  The engine's default plan
+    has no accelerators, so every key is (brick, None): the table prices
+    every unit alike.  ``capture_s``: the serve's graph capture seconds,
+    inside its first decode span on the host (and, as the card's idle
+    time, inside that call's event pair too)."""
+    from repro_torch.core.bricks import decompose
+    from repro_torch.core.scheduler import (edge_accelerators,
+                                            populate_brick_bytes, schedule)
+    led = eng.measured_ledger()
+    table = eng.measured_calibration()
+    ev = events.seconds()
+    rows = []
+    for brick, phase, rec in led.items():
+        e_s, e_n = ev.get((brick, phase), (0.0, 0))
+        if e_n != rec.samples or e_s <= 0:
+            fail(f"calibration: {brick}/{phase} has {rec.samples} probe "
+                 f"samples and {e_n} event pairs ({e_s} s)")
+        rows.append({"brick": brick, "phase": phase,
+                     "probe_seconds": rec.seconds, "tokens": rec.tokens,
+                     "n": rec.samples, "event_seconds": e_s,
+                     "probe_over_event": rec.seconds / e_s})
+    graph = decompose(cfg)
+    populate_brick_bytes(graph, eng.params)
+    acc = edge_accelerators()
+    placements = {}
+    for name, cal in (("modeled", None), ("calibrated", table)):
+        for obj in ("latency", "energy"):
+            p = schedule(graph, acc, n_tok, obj, calibration=cal)
+            placements[f"{name}/{obj}"] = {
+                "placement": str(p), "assignment": p.assignment,
+                "per_brick_ms": {b: c.latency_s * 1e3
+                                 for b, c in p.per_brick.items()}}
+    dec = next(r for r in rows if (r["brick"], r["phase"])
+               == ("decoder", "decode"))
+    return {"ledger_rows": rows, "decode_capture_s": capture_s,
+            "decode_probe_less_capture_over_event_less_capture": (
+                (dec["probe_seconds"] - capture_s)
+                / (dec["event_seconds"] - capture_s)),
+            "table": [{"key": k, **v} for k, v in
+                      table.to_dict()["table"].items()],
+            "prior": table.prior, "n_tokens": n_tok,
+            "placements": placements}
+
+
+def pressure_engine(sm, cfg, reqs, windows):
+    """Phase 3's requests through an engine with phase 3d's placement (the
+    decoder on ``gpu``, the ``rk-gpu`` profile) and a table holding the
+    decode window's seconds, tokens and joules: its KV energy pressure
+    (the card's J/token over the modeled one), ``kv_block_budgets`` with
+    and without it, and the requests admitted and held under a step cap
+    (a hi-res budget below one request's blocks holds it: the reference's
+    semantics).  Gates: the pressure equals the table's J/token over the
+    modeled decoder step's, recomputed; every admission round's budgets
+    equal ``kv_block_budgets`` recomputed on its arguments; the thumbnail
+    class keeps its share of the pool.  Returns (record, launches)."""
+    from repro_torch.core.bricks import decompose
+    from repro_torch.core.quantize import PROFILES, QTensor, quantize_tree
+    from repro_torch.core.scheduler import (brick_cost, edge_accelerators,
+                                            kv_block_budgets,
+                                            populate_brick_bytes, schedule)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.telemetry.calibration import CostCalibration
+    from repro_torch.tree import tree_map
+    torch = sm.torch
+    dec = windows["decode"]
+    table = CostCalibration()
+    table.observe("decoder", None, seconds=dec["seconds"],
+                  tokens=dec["tokens"], joules=dec["joules"],
+                  n=dec["calls"])
+    with torch.no_grad():
+        params = quantize_tree(init_params(cfg, device=sm.dev, seed=0),
+                               PROFILES["nanomind-serve"])
+    host = tree_map(lambda l: l.to("cpu") if isinstance(
+        l, (torch.Tensor, QTensor)) else l, params)
+    del params
+    graph = decompose(cfg)
+    populate_brick_bytes(graph, host)
+    acc = edge_accelerators()
+    pl = schedule(graph, acc, int(reqs[0].tokens.shape[0]))
+    if pl.assignment["decoder"] != "gpu":
+        fail(f"{ENERGY_PATH}: the placement puts the decoder on "
+             f"{pl.assignment['decoder']}")
+    eng = engine_mod.ServingEngine(
+        cfg, host, n_slots=N_SLOTS, max_len=MAX_LEN[cfg.name],
+        block_size=BLOCK_SIZE, placement=pl, accels=acc, calibration=table,
+        device=sm.dev)
+    del host
+    step = next(s for s in eng.plan.steps if s.brick.kind == "decoder")
+    modeled = brick_cost(step.brick, step.accel, 1).energy_j
+    press = eng._kv_energy_pressure()
+    want = table.sample("decoder", step.accel.profile.name) \
+        .joules_per_token / modeled
+    if press != want:
+        fail(f"{ENERGY_PATH}: pressure {press}, recomputed {want}")
+    total = eng.slots.n_blocks
+    classes = list(eng.tabm.classes)
+    thumb = classes[0]
+    calm = kv_block_budgets(eng.tabm, total, {}, 1.0)
+    hot = kv_block_budgets(eng.tabm, total, {}, 1.0, energy_pressure=press)
+    rounds = []
+
+    def recording(pool, total_blocks, used, kv_scale=1.0,
+                  energy_pressure=1.0):
+        out = kv_block_budgets(pool, total_blocks, used, kv_scale,
+                               energy_pressure=energy_pressure)
+        rounds.append((dict(used), kv_scale, energy_pressure, dict(out),
+                       kv_block_budgets(pool, total_blocks, dict(used),
+                                        kv_scale,
+                                        energy_pressure=energy_pressure),
+                       kv_block_budgets(pool, total_blocks, dict(used),
+                                        kv_scale)))
+        return out
+    for r in reqs:
+        eng.submit(r)
+    need = {r.rid: -(-(len(r.tokens) + r.max_new_tokens) // BLOCK_SIZE)
+            for r in reqs}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with swapped(engine_mod, "kv_block_budgets", recording), eng:
+        eng.run(max_steps=PRESSURE_STEPS)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        finished = sorted(r.rid for r in eng.done)
+        live = sorted(r.rid for r in eng.live.values())
+        held = sorted(r.rid for r in eng.queue)
+    counts = launch_counts()
+    bad = [(i, u, p) for i, (u, _, p, got, again, _) in enumerate(rounds)
+           if p != press or got != again]
+    thumb_bad = [(i, got[thumb], base[thumb]) for i, (_, _, _, got, _, base)
+                 in enumerate(rounds) if got[thumb] != base[thumb]]
+    if not rounds or bad or thumb_bad or hot[thumb] != calm[thumb] \
+            or hot[thumb] != total:
+        fail(f"{ENERGY_PATH}: {len(rounds)} admission rounds; pressure or "
+             f"recomputed budgets differ at {bad[:3]}; thumbnail budgets "
+             f"{thumb_bad[:3]}; without/with pressure {calm} / {hot}")
+    spans = eng.probe.samples()
+    n_pre = sum(1 for s in spans if s.brick == "decoder"
+                and s.phase == "prefill")
+    steps = sum(1 for e in eng.trace if e.event == "decode_step")
+    L = cfg.n_layers
+    gemms = GEMMS_PER_LAYER["attn"] * L
+    want_n = {k: 0 for k in counts}
+    want_n.update({"dequant_gemm": gemms * n_pre,
+                   f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}": gemms * n_pre,
+                   "fused_qkv": L * steps, f"fused_qkv/{MLP_ROUTE}":
+                   L * steps, "fused_mlp": L * steps,
+                   f"fused_mlp/{MLP_ROUTE}": L * steps,
+                   "kv_scatter": steps})
+    if counts != want_n or not n_pre or not steps:
+        fail(f"{ENERGY_PATH}: launches {counts} (want {want_n}) for "
+             f"{n_pre} prefill calls and {steps} decode steps")
+    rec = {"path": ENERGY_PATH, "placement": str(pl),
+           "decoder_accel": step.accel.name,
+           "decoder_profile": step.accel.profile.name,
+           "table": table.to_dict()["table"],
+           "measured_j_per_token": table.sample("decoder").joules_per_token,
+           "modeled_j_per_token": modeled, "energy_pressure": press,
+           "classes": classes, "total_blocks": total,
+           "budgets_without_pressure": calm, "budgets_with_pressure": hot,
+           "blocks_needed": need,
+           "slot_class": {r.rid: r.slot_class for r in reqs},
+           "step_cap": PRESSURE_STEPS, "serve_s": serve_s,
+           "admission_rounds": len(rounds),
+           "last_round": {"used": {str(k): v for k, v in rounds[-1][0]
+                                   .items()}, "budgets": rounds[-1][3]},
+           "finished": finished, "live_at_cap": live, "held": held,
+           "prefill_calls": n_pre, "decode_steps": steps,
+           "launches": {k: n for k, n in counts.items() if n}}
+    del eng
+    free()
+    return rec, counts
+
+
+def calibration_launcher():
+    """``repro_torch.launch.serve --full --quantize nanomind-serve
+    --calibration PATH`` twice, two requests of four new tokens: the
+    second run loads the first's table, and the saved decoder row's count
+    grows by the second run's own samples."""
+    os.makedirs(ENERGY_DIR, exist_ok=True)
+    path = os.path.join(ENERGY_DIR, "calibration.json")
+    if os.path.exists(path):
+        os.remove(path)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+           *CALIBRATION_SERVE_ARGS, "--calibration", path]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600, env=env, cwd=ROOT)
+        lines = proc.stdout.splitlines()
+        mark = "  calibration: this run measured "
+        measured = [json.loads(ln[len(mark):]) for ln in lines
+                    if ln.startswith(mark)]
+        if proc.returncode != 0 or len(measured) != 1:
+            fail(f"serve --calibration exited {proc.returncode}: "
+                 f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+        with open(path) as f:
+            saved = json.load(f)["table"]
+        runs.append({"wall_s": time.perf_counter() - t0, "lines": lines,
+                     "measured_n": measured[0], "saved": saved})
+    loaded = [[ln for ln in r["lines"] if ln.startswith(
+        "[serve] loaded calibration from ")] for r in runs]
+    n1, n2 = (r["saved"]["decoder@"]["n"] for r in runs)
+    if loaded[0] or len(loaded[1]) != 1 or \
+            n2 != n1 + runs[1]["measured_n"]["decoder@"] or n2 <= n1:
+        fail(f"serve --calibration: loaded lines {loaded}; decoder n "
+             f"{n1} then {n2}, the second run measured "
+             f"{runs[1]['measured_n']}")
+    return {"cmd": " ".join(cmd[1:]), "runs": runs}
+
+
+def start_fleet(windows, ledger3):
+    """The fleet simulator twice, as subprocesses (host arithmetic only):
+    ``--smoke`` (the modeled edge profile on a 150 mAh pack, with its
+    acceptance checks), and ``--profile ledger`` on a ledger of phase 3's
+    probe stage rows and decoder prefill and decode rows holding the NVML
+    windows' seconds, tokens and joules: the H100's J/token as survival
+    on a 2000 mAh pack.  Returns the running processes."""
+    from repro_torch.telemetry.ledger import Ledger
+    os.makedirs(ENERGY_DIR, exist_ok=True)
+    led = Ledger(meta={"source": "phase 3 probe stage rows; decoder rows "
+                                 "from NVML windows on the H100",
+                       "card": windows["card"]})
+    for brick, phase, rec in ledger3.items():
+        if phase == "stage":
+            led.accumulate(brick, phase, rec)
+    for phase in ("prefill", "decode"):
+        w = windows[phase]
+        led.accumulate("decoder", phase, seconds=w["seconds"],
+                       tokens=float(w["tokens"]), joules=w["joules"],
+                       samples=w["calls"])
+    path = led.save(os.path.join(ENERGY_DIR, "h100_ledger.json"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.fleet_sim"]
+    return {name: subprocess.Popen(base + extra, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True,
+                                   env=env, cwd=ROOT)
+            for name, extra in (
+                ("modeled_smoke_150mAh", ["--smoke"]),
+                ("h100_ledger_2000mAh", ["--profile", "ledger",
+                                         "--ledger", path]))}
+
+
+def finish_fleet(procs):
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        lines = stdout.splitlines()
+        if proc.returncode != 0 or (name.startswith("modeled") and not (
+                lines and lines[-1].startswith("OK: fleet smoke passed"))):
+            fail(f"fleet_sim {name} exited {proc.returncode}: "
+                 f"{stdout[-2000:]} {stderr[-2000:]}")
+        out[name] = lines
+    return out
+
+
+def pruned_weights_check(sm, cfg, eng):
+    """The decode and prefill kernels on every layer's pruned, packed
+    weights against their plain versions on random activations: the
+    served inputs cannot test them, since pruning zeroes every stacked
+    norm scale (all ones: no element above its row's threshold), so
+    every layer's input in the sparse serve is zero.  Each packed-weight
+    GEMM at the served prefill width (1 x 1024) within DG_TOL of the
+    largest plain value; the fused QKV and MLP at cohort 4, every row
+    within KERNEL_TOL of its largest plain value."""
+    from repro_torch.core.quantize import dequantize
+    from repro_torch.kernels.dequant_gemm import ops as dg
+    from repro_torch.kernels.fused_decode import ops, ref
+    from repro_torch.models import decoder as dec
+    torch = sm.torch
+    D, F = cfg.d_model, cfg.d_ff
+    H, hd = cfg.n_heads, cfg.hd
+    x_d = sm.randn(1, DG_SERVED_ROWS[cfg.name], D)
+    x_f = sm.randn(1, DG_SERVED_ROWS[cfg.name], F)
+    x_o = sm.randn(1, DG_SERVED_ROWS[cfg.name], H, hd)
+    h4 = sm.randn(TIME_BC, 1, D)
+    gemm, qkv, mlp, zero_norms = 0.0, 0.0, 0.0, 0
+    calls = 0
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            lay = dec.layer_slice(eng.params["layers"], i)[0]
+            m, f = lay["mixer"], lay["ffn"]
+            for name in ("norm1", "norm2"):
+                sc = lay[name]["scale"]
+                sc = sc if torch.is_tensor(sc) else dequantize(sc)
+                zero_norms += int(bool((sc == 0).all()))
+            for spec, x, w in (
+                    ("bsd,dhk->bshk", x_d, m["wq"]),
+                    ("bsd,dhk->bshk", x_d, m["wk"]),
+                    ("bsd,dhk->bshk", x_d, m["wv"]),
+                    ("bshk,hkd->bsd", x_o, m["wo"]),
+                    ("bsd,df->bsf", x_d, f["w_up"]),
+                    ("bsd,df->bsf", x_d, f["w_gate"]),
+                    ("bsf,fd->bsd", x_f, f["w_down"])):
+                _, rel, _ = gemm_error(f"{SPARSE_PATH}: layer {i} {spec}",
+                                       dg.quant_einsum(spec, x, w),
+                                       dg.ref_quant_einsum(spec, x, w))
+                gemm, calls = max(gemm, rel), calls + 1
+            bias = [b if b is None or torch.is_tensor(b) else dequantize(b)
+                    for b in (m.get("bq"), m.get("bk"), m.get("bv"))]
+            got = ops.fused_qkv(h4, m["wq"], m["wk"], m["wv"], *bias)
+            want = ref.ref_fused_qkv(h4, m["wq"], m["wk"], m["wv"], *bias)
+            qkv = max(qkv, *(rows_err(g.reshape(TIME_BC, -1),
+                                      w.reshape(TIME_BC, -1))
+                             for g, w in zip(got, want)))
+            got = ops.fused_mlp(h4, f["w_up"], f["w_down"], f["w_gate"],
+                                act=cfg.act)
+            want = ref.ref_fused_mlp(h4, f["w_up"], f["w_down"], f["w_gate"],
+                                     act=cfg.act)
+            mlp = max(mlp, rows_err(got.reshape(TIME_BC, -1),
+                                    want.reshape(TIME_BC, -1)))
+    torch.cuda.synchronize()
+    if qkv > KERNEL_TOL or mlp > KERNEL_TOL:
+        fail(f"{SPARSE_PATH}: pruned weights, fused QKV worst row "
+             f"{qkv}, fused MLP {mlp} (tol {KERNEL_TOL})")
+    return {"layers": cfg.n_layers, "gemm_calls": calls,
+            "gemm_worst_err_over_max": gemm, "gemm_tol": DG_TOL,
+            "gemm_rows": DG_SERVED_ROWS[cfg.name],
+            "qkv_worst_row_err_over_row_max": qkv,
+            "mlp_worst_row_err_over_row_max": mlp, "row_tol": KERNEL_TOL,
+            "bc": TIME_BC, "norm_scales_all_zero": zero_norms,
+            "inputs": "random bf16 activations"}
+
+
+def sparse_serve(sm, cfg, reqs, base):
+    """Phase 3's requests under ``nanomind-sparse`` (50 % of every decoder
+    row pruned on the card, then q4 g32) through ``serve_path``, with
+    phase 3's gates; besides, every pruned row holds at least
+    floor(0.5 N) zeros before quantization, and the first 4-d leaf
+    (``wq``, past ``torch.quantile``'s 2**24 elements) pruned on the card
+    is bit-equal to the same leaf pruned on the CPU."""
+    from repro_torch.core import quantize as QM
+    torch = sm.torch
+    real = QM.prune_weights
+    seen = {"leaves": 0, "rows": 0, "min_zero_share": 1.0}
+
+    def checked(w, sparsity, act=None):
+        out = real(w, sparsity, act)
+        n = w.shape[-1]
+        zeros = (out == 0).reshape(-1, n).sum(-1)
+        zmin = int(zeros.min())
+        if zmin < int(sparsity * n):
+            fail(f"{SPARSE_PATH}: a pruned row of {tuple(w.shape)} holds "
+                 f"{zmin} zeros, under {int(sparsity * n)}")
+        seen["leaves"] += 1
+        seen["rows"] += int(zeros.numel())
+        seen["min_zero_share"] = min(seen["min_zero_share"], zmin / n)
+        if "leaf" not in seen and w.dim() == 4:
+            seen.update(leaf=w.cpu(), card=out.cpu())
+        return out
+    with swapped(QM, "prune_weights", checked):
+        serve, eng, _ = serve_path(sm, cfg, reqs, policy="nanomind-sparse")
+    serve["pruned_weights_check"] = pruned_weights_check(sm, cfg, eng)
+    del eng
+    free()
+    t0 = time.perf_counter()
+    on_cpu = real(seen["leaf"], 0.5)
+    same = bool(torch.equal(on_cpu.view(torch.int16),
+                            seen["card"].view(torch.int16)))
+    if not same or seen["leaves"] < 7:
+        fail(f"{SPARSE_PATH}: {seen['leaves']} leaves pruned; the card's "
+             f"prune of {tuple(seen['leaf'].shape)} bit-equal to the "
+             f"CPU's: {same}")
+    serve["path"] = SPARSE_PATH
+    serve["prune_check"] = {
+        "leaves": seen["leaves"], "rows": seen["rows"],
+        "min_zero_share": seen["min_zero_share"],
+        "cpu_equal_leaf_shape": list(seen["leaf"].shape),
+        "cpu_equal_leaf_elements": seen["leaf"].numel(),
+        "card_bit_equal_cpu": same,
+        "cpu_prune_s": time.perf_counter() - t0}
+    serve["nanomind_serve"] = {k: base[k] for k in (
+        "decode_tok_s", "decode_tok_s_excl_capture", "prefill_ms")}
+    return serve
 
 
 def prefill_plain_check(eng, cfg, captured):
@@ -3280,13 +4001,27 @@ def main() -> int:
     serves, timings = {}, {}
     llava_reqs = [(729, 1, None), (196, 1, None), (729, 1, 0),
                   (196, 1, None)]
-    first3 = {}
+    first3, events3, dstate3 = {}, BrickEvents(), {}
     serve, eng, captured = serve_path(sm, llava, requests(
-        llava, llava_reqs, seed=0), first_logits=first3)
+        llava, llava_reqs, seed=0), first_logits=first3, events=events3,
+        decode_state=dstate3)
     serve["prefill_breakdown"] = prefill_breakdown(eng, captured,
                                                    ("dequant_gemm",))
     print(json.dumps({"serve": serve}))
     serves[llava.name] = serve
+    # -- 3e (on phase 3's engine): NVML energy windows, the measured
+    # ledger and calibration table beside CUDA-event times ---------------
+    nv = Nvml(sm.dev)
+    try:
+        energy = {"windows": energy_windows(sm, nv, eng, captured, dstate3)}
+    finally:
+        nv.shutdown()
+    energy["calibration"] = served_calibration(
+        sm, llava, eng, events3, int(requests(llava, llava_reqs, seed=0)[0]
+                                     .tokens.shape[0]),
+        serve["cohort_graph"]["capture_s"])
+    ledger3 = eng.measured_ledger()
+    del events3, dstate3
     timings[llava.name] = time_fused(sm, llava, eng)
     single = dict(serve, tokens={r.rid: list(r.out_tokens)
                                  for r in eng.done})
@@ -3332,6 +4067,23 @@ def main() -> int:
         sm, llava, requests(llava, llava_reqs, seed=0), first3)
     print(json.dumps({"placement_cascade": placed}))
     del first3
+    free()
+
+    # -- 3e. the measured-energy loop: an engine under the decode window's
+    # energy pressure, the launcher's --calibration loop, the fleet
+    # simulator on the card's J/token, phase 3's requests under
+    # nanomind-sparse ----------------------------------------------------
+    fleet = start_fleet(energy["windows"], ledger3)
+    energy["pressure"], pressure_n = pressure_engine(
+        sm, llava, requests(llava, llava_reqs, seed=0), energy["windows"])
+    energy["calibration_launcher"] = calibration_launcher()
+    energy["fleet"] = finish_fleet(fleet)
+    print(json.dumps({"energy_loop": energy}))
+    serve = sparse_serve(sm, llava, requests(llava, llava_reqs, seed=0),
+                         serves[llava.name])
+    print(json.dumps({"serve": serve}))
+    serves[SPARSE_PATH] = serve
+    del ledger3, fleet
     free()
 
     # -- 4. serve Qwen2-VL-7B, prefill through the flash kernel -------------
@@ -3453,6 +4205,7 @@ def main() -> int:
     runs = {a: r["launches"] for a, r in records.items()}
     runs[DISAGG_PATH] = disagg["launches"]
     runs.update(placed_runs)
+    runs[ENERGY_PATH] = pressure_n
 
     def numbers(t, flops_per_s=BF16_FLOPS_PER_S):
         t_k, t_p, t_l, t_d, byt, fl = t

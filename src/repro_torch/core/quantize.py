@@ -25,7 +25,7 @@ from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 __all__ = [
     "QuantSpec", "QTensor", "quantize", "dequantize", "unpack_codes",
     "quantize_tree", "dequantize_tree", "QuantPolicy", "PROFILES",
-    "tree_bytes", "parse_label",
+    "tree_bytes", "parse_label", "prune_weights",
 ]
 
 
@@ -217,6 +217,66 @@ def dequantize(qt: QTensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# activation-aware magnitude pruning (EdgeMM-style semi-structured sparsity)
+# ---------------------------------------------------------------------------
+
+# elements sorted at once: bounds the sort's scratch (values and int64
+# indices, 12 bytes an element) on a stacked full-width leaf
+_PRUNE_SORT_CHUNK = 1 << 26
+
+
+def _row_quantile(score: torch.Tensor, q: float) -> torch.Tensor:
+    """Per-row quantile of ``score`` (fp32) along its last axis, keepdims,
+    in the reference's arithmetic: the linear method in fp32 (position
+    ``q * (n - 1)``, then ``low * (1 - frac) + high * frac``), so ties
+    thresholded against it flip exactly where the reference's do.  Rows
+    are sorted in chunks (``torch.quantile`` refuses more than 2**24
+    elements)."""
+    n = score.shape[-1]
+    pos = np.float32(q) * np.float32(n - 1)
+    lo, hi = np.floor(pos), np.ceil(pos)
+    hi_w = np.float32(pos - lo)
+    lo_w = np.float32(1.0) - hi_w
+    lo = int(min(max(lo, 0), n - 1))
+    hi = int(min(max(hi, 0), n - 1))
+    rows = score.reshape(-1, n)
+    out = torch.empty(rows.shape[0], 2, dtype=torch.float32,
+                      device=score.device)
+    step = max(1, _PRUNE_SORT_CHUNK // n)
+    for r in range(0, rows.shape[0], step):
+        srt = torch.sort(rows[r:r + step], dim=-1).values
+        out[r:r + step] = srt[:, [lo, hi]]
+        del srt
+    thresh = (out[:, 0] * torch.tensor(lo_w, device=score.device)
+              + out[:, 1] * torch.tensor(hi_w, device=score.device))
+    return thresh.reshape(*score.shape[:-1], 1)
+
+
+def prune_weights(w: torch.Tensor, sparsity: float,
+                  act_scale=None) -> torch.Tensor:
+    """Zero the lowest-scoring ``sparsity`` fraction of each last-axis row.
+
+    The score is Wanda-style ``|W| * |act_scale|`` in fp32 (plain
+    magnitude without ``act_scale``, which broadcasts against ``w`` as the
+    reference's does: sized to the last axis); each row's threshold is its
+    fp32 linear quantile, and ``score > thresh`` survives, cast back to
+    ``w.dtype``.  The repo's weights are ``[d_in, d_out]``, so a "row" is
+    thresholded over outputs, as in the reference.  Prune first, then
+    group-quantize the survivors."""
+    if sparsity <= 0.0:
+        return w
+    if not 0.0 < sparsity < 1.0:
+        raise ValueError(f"sparsity {sparsity} not in (0, 1)")
+    wf = w.to(torch.float32)
+    score = wf.abs()
+    if act_scale is not None:
+        score = score * torch.as_tensor(act_scale, dtype=torch.float32,
+                                        device=w.device).abs()
+    thresh = _row_quantile(score, sparsity)
+    return torch.where(score > thresh, wf, wf.new_zeros(())).to(w.dtype)
+
+
+# ---------------------------------------------------------------------------
 # per-brick policies (the paper's Module-Quantization label format)
 # ---------------------------------------------------------------------------
 
@@ -282,14 +342,22 @@ PROFILES: Dict[str, QuantPolicy] = {
         (r"vis|projector|embed", "fp16"),
         (r"layers|dec|lm_head", "q8f16"),
     )),
+    # EdgeMM-style activation-aware 50% sparsity stacked under W4A16
+    "nanomind-sparse": QuantPolicy("nanomind-sparse", (
+        (r"vis|projector|embed", "fp16"),
+        (r"layers|dec|lm_head", "q4f16-g32-sp50"),
+    )),
 }
 
 
-def quantize_tree(params, policy: QuantPolicy):
-    """Quantize eligible leaves per the policy: floating tensors of rank
-    >= 2 and at least ``policy.min_size`` elements whose path's label
-    names a spec.  Labels with an ``-sp<pct>`` pruning suffix are not
-    ported yet and raise."""
+def quantize_tree(params, policy: QuantPolicy, act_scales=None):
+    """Quantize (and optionally prune) eligible leaves per the policy:
+    floating tensors of rank >= 2 and at least ``policy.min_size``
+    elements whose path's label names a spec.  A label with an
+    ``-sp<pct>`` suffix prunes the leaf first (:func:`prune_weights`);
+    ``act_scales`` maps path substrings (of the ``/``-joined key path, the
+    reference's form) to per-input activation magnitudes, the first whose
+    substring the path contains applying (magnitude-only when none)."""
     def visit(path, leaf):
         if not isinstance(leaf, torch.Tensor) or leaf.dim() < 2:
             return leaf
@@ -297,8 +365,12 @@ def quantize_tree(params, policy: QuantPolicy):
             return leaf
         spec, sparsity = parse_label(policy.label_for(path))
         if sparsity > 0.0:
-            raise NotImplementedError(
-                f"sparsity labels (path {path!r}) are not ported")
+            act = None
+            for pat, scale in (act_scales or {}).items():
+                if pat in path:
+                    act = scale
+                    break
+            leaf = prune_weights(leaf, sparsity, act)
         return leaf if spec is None else quantize(leaf, spec)
 
     return tree_map_with_path(visit, params)

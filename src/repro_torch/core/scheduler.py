@@ -13,6 +13,8 @@ reference's scheduler:
   backend its substrate-table row names (``core/backends.SUBSTRATES``);
 * :func:`brick_cost` / :func:`transfer_cost` — roofline latency and
   modeled energy of one brick on one unit, and of one cross-unit edge;
+  with a measured table (``telemetry/calibration.CostCalibration``) the
+  brick's observed seconds and joules per token blend over the model;
 * :func:`schedule` — exact chain dynamic programming over the
   BrickGraph: ``dp[i][a]`` is the best cost of bricks ``0..i`` with brick
   ``i`` on unit ``a``, edge transfers included; the objective (latency |
@@ -22,7 +24,8 @@ reference's scheduler:
   priced at the transport's ``link_bw``.
 
 Latency and energy here are the model's, from the reference's edge
-profiles; none is a reading of the card.  The reference's pod profile
+profiles, unless a calibration table blends measurements in; no modeled
+number is a reading of the card.  The reference's pod profile
 (``make_virtual_accelerators``, submeshes of a mesh) has no counterpart
 on one card.  The admission budgets (staged-ahead depth, per-class
 staging and paged-KV block budgets) close the module.
@@ -39,6 +42,7 @@ from repro_torch.analysis.energy import (EDGE_CPU, EDGE_GPU, EDGE_NPU,
 from repro_torch.core.backends import bit_efficiency, substrate_backend
 from repro_torch.core.bricks import Brick, BrickGraph, brick_param_bytes
 from repro_torch.core.slot_classes import shed_scales
+from repro_torch.telemetry.calibration import CostCalibration
 
 
 @dataclass(frozen=True)
@@ -94,11 +98,18 @@ class BrickCost:
 
 
 def brick_cost(brick: Brick, acc: Accelerator, n_tokens: int,
-               mem_clock_scale: float = 1.0, batch: int = 1) -> BrickCost:
+               mem_clock_scale: float = 1.0, batch: int = 1,
+               calibration: Optional[CostCalibration] = None) -> BrickCost:
     """Roofline latency + modeled energy of ONE call over a microbatch of
     ``batch`` requests (``n_tokens`` each) on one unit: compute scales
     with the microbatch, the brick's weight traffic is charged once per
-    call.  A dynamic-shape brick on a static-only unit is infeasible."""
+    call.  A dynamic-shape brick on a static-only unit is infeasible.
+
+    ``calibration``: when the table holds a sample for ``(brick,
+    profile)``, or the brick's profile-agnostic key, its measured seconds
+    per token (and joules per token, when observed) blend over the model
+    with weight ``n / (n + prior)``.  Infeasible stays infeasible: no
+    observation puts a dynamic brick on a static-only unit."""
     if not brick.static_shape and acc.static_only:
         return BrickCost(float("inf"), float("inf"), feasible=False)
     flops = brick.flops_per_token * n_tokens * max(1, batch)
@@ -110,6 +121,14 @@ def brick_cost(brick: Brick, acc: Accelerator, n_tokens: int,
         hbm_bw=p.hbm_bw * mem_clock_scale)
     t = step_time(eff, flops, wbytes)
     e = step_energy(eff, flops, wbytes, 0.0, wall_s=t)
+    if calibration is not None:
+        s = calibration.sample(brick.name, p.name)
+        if s is not None and s.tokens > 0:
+            w = calibration.weight(s.n)
+            units = n_tokens * max(1, batch)
+            t = (1.0 - w) * t + w * s.seconds_per_token * units
+            if s.joules > 0:
+                e = (1.0 - w) * e + w * s.joules_per_token * units
     return BrickCost(t, e)
 
 
@@ -152,13 +171,18 @@ def edge_bytes(graph: BrickGraph, n_tokens: int) -> int:
 
 def schedule(graph: BrickGraph, accels: List[Accelerator], n_tokens: int,
              objective: str = "latency", mem_clock_scale: float = 1.0,
-             batch: int = 1) -> Placement:
+             batch: int = 1,
+             calibration: Optional[CostCalibration] = None) -> Placement:
     """Exact DP over the brick chain: ``dp[i][a]`` = best objective of
     bricks ``0..i`` with brick ``i`` on unit ``a``.  ``batch`` prices
-    every brick and edge for a microbatch of that many requests."""
+    every brick and edge for a microbatch of that many requests;
+    ``calibration`` threads measured per-brick costs into every cell
+    (:func:`brick_cost`), so a brick the table shows slower than modeled
+    on one unit migrates off it."""
     bricks = graph.bricks
     nA = len(accels)
-    costs = [[brick_cost(b, a, n_tokens, mem_clock_scale, batch=batch)
+    costs = [[brick_cost(b, a, n_tokens, mem_clock_scale, batch=batch,
+                         calibration=calibration)
               for a in accels] for b in bricks]
     xfer = edge_bytes(graph, n_tokens) * max(1, batch)
 
@@ -223,17 +247,24 @@ def populate_brick_bytes(graph: BrickGraph, params) -> None:
 # disaggregated fleets (prefill fleet + decode fleet over a Transport)
 # ---------------------------------------------------------------------------
 
-def fleet_accelerators(transport, n_devices: int = 2) -> List[Accelerator]:
+def fleet_accelerators(transport, n_devices: int = 2,
+                       calibration: Optional[CostCalibration] = None
+                       ) -> List[Accelerator]:
     """The two-fleet disaggregated topology as scheduler rows: a
     compute-rich, static-only prefill fleet (it takes the static vision
     and projector bricks; the dynamic decode bricks cannot land there)
     and a decode fleet at a quarter of the FLOPs but the full memory
     bandwidth, both on the TPU v5e-class profile with ``link_bw`` capped
     at ``transport.link_bw``, so every cross-fleet edge the DP prices is
-    a wire crossing.  The fleets lower through ``"device:0"`` and
+    a wire crossing.  When ``calibration`` holds a link observation for
+    this transport (``CostCalibration.observe_link``, fed from
+    ``Transport.measured_link_bw``), the measured bytes/s blends over the
+    static class row.  The fleets lower through ``"device:0"`` and
     ``"device:1"`` (``"device:0"`` both when ``n_devices`` is 1): on one
     card :func:`schedule_split` only prices the second."""
     bw = float(getattr(transport, "link_bw", 8e9))
+    if calibration is not None:
+        bw = calibration.link_bw(getattr(transport, "name", None), bw)
     wire = lambda p: dataclasses.replace(p, link_bw=min(p.link_bw, bw))
     prefill_p = TPU_V5E
     decode_p = dataclasses.replace(TPU_V5E,
@@ -247,17 +278,24 @@ def fleet_accelerators(transport, n_devices: int = 2) -> List[Accelerator]:
 
 
 def schedule_split(graph: BrickGraph, transport, n_tokens: int,
-                   objective: str = "latency", batch: int = 1) -> Placement:
+                   objective: str = "latency", batch: int = 1,
+                   calibration: Optional[CostCalibration] = None
+                   ) -> Placement:
     """Price the prefill/decode split over a serialized transport: the
     chain DP of :func:`schedule` over :func:`fleet_accelerators`, so a
     slow wire pushes compute toward fewer crossings and a fast one frees
     the DP to cut where the roofline prefers.  ``transport``: a Transport
-    class, instance or registry name (``core/transport``)."""
+    class, instance or registry name (``core/transport``).
+    ``calibration`` feeds both blending edges: measured per-brick costs
+    into :func:`brick_cost` and measured wire bandwidth into the fleet
+    rows' ``link_bw``."""
     if isinstance(transport, str):
         from repro_torch.core.transport import resolve_transport
         transport = resolve_transport(transport)
-    return schedule(graph, fleet_accelerators(transport), n_tokens,
-                    objective, batch=batch)
+    return schedule(graph,
+                    fleet_accelerators(transport, calibration=calibration),
+                    n_tokens, objective, batch=batch,
+                    calibration=calibration)
 
 
 # ---------------------------------------------------------------------------

@@ -16,14 +16,22 @@ Submits synthetic prompts (with stub vision features for vlm archs; a
 vision request's prompt carries one placeholder token per vision token,
 then its text), runs the engine to completion and prints tokens/s,
 end-to-end latency and memory.  ``--quantize`` keeps the weights packed,
-so on the card decode reads them through the fused kernels.  Only the
-reference's ``--calibration`` (a persisted cost table feeding the
-engine's energy governor) is missing: it waits for the calibration
-table, which reprices the scheduler's ``brick_cost`` from measurements.
+so on the card decode reads them through the fused kernels
+(``nanomind-sparse`` prunes half of each decoder row first).
+
+``--calibration PATH`` persists the measured cost table across restarts:
+the file, when it exists, is loaded and handed to the engine (its
+decoder row's joules, if any, price the KV energy pressure); after the
+run the run's measured table is folded into it and saved again:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --requests 3 --max-new 4 --calibration /tmp/cal.json
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 
 import numpy as np
@@ -34,6 +42,7 @@ from repro_torch.core.power import BatteryAwareExecutor, PMU
 from repro_torch.core.quantize import PROFILES, quantize_tree
 from repro_torch.models.model import init_params
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.telemetry.calibration import CostCalibration
 
 
 def main(argv=None):
@@ -47,11 +56,16 @@ def main(argv=None):
     ap.add_argument("--battery", type=float, default=1.0)
     ap.add_argument("--quantize", default=None,
                     choices=[None, "nanomind-default", "nanomind-serve",
-                             "all-q4", "dec-q2"])
+                             "nanomind-sparse", "all-q4", "dec-q2"])
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--calibration", default=None, metavar="PATH",
+                    help="persist the measured cost table across "
+                         "restarts: load PATH if it exists, feed it to "
+                         "the engine's energy governor, and save the "
+                         "folded table again after the run")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -64,9 +78,14 @@ def main(argv=None):
 
     executor = BatteryAwareExecutor(PMU())
     executor.pmu.level = args.battery
+    calibration = None
+    if args.calibration and os.path.exists(args.calibration):
+        calibration = CostCalibration.load(args.calibration)
+        print(f"[serve] loaded calibration from {args.calibration} "
+              f"({len(calibration)} entries)")
     eng = ServingEngine(cfg, params, n_slots=args.slots,
                         max_len=args.max_len, executor=executor,
-                        device=args.device)
+                        calibration=calibration, device=args.device)
 
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
@@ -102,6 +121,22 @@ def main(argv=None):
           f"kv={mem['kv_pool'] / 1e6:.1f}MB tabm={mem['tabm'] / 1e6:.2f}MB")
     if eng.tabm is not None:
         print(f"  tabm ring: {eng.tabm.stats}")
+    if args.calibration:
+        # fold this run's measured table into the loaded one, so the file
+        # converges across restarts (save is atomic: tmp + os.replace)
+        table = eng.measured_calibration()
+        measured = table.to_dict()["table"]
+        print(f"  calibration: this run measured "
+              f"{json.dumps({k: s['n'] for k, s in measured.items()})}")
+        if calibration is not None:
+            for key, s in measured.items():
+                brick, _, prof = key.rpartition("@")
+                calibration.observe(brick, prof or None, s["seconds"],
+                                    s["tokens"], s["joules"], n=s["n"])
+            table = calibration
+        table.save(args.calibration)
+        print(f"  calibration: saved {len(table)} entries to "
+              f"{args.calibration}")
     return 1 if errors else 0
 
 

@@ -35,8 +35,11 @@ Before serving, the launcher prints the scheduler's split pricing for
 the chosen wire (``[schedule_split @ <transport>] <Placement>``: the
 chain DP over the prefill and decode fleet rows, each cross-fleet edge
 priced at the transport's ``link_bw``; modeled, from the reference's
-profiles).  The reference's recalibrated print (the split repriced from
-the wire's measured bandwidth) waits for the cost calibration table.
+profiles).  After serving it prints the split repriced from what the
+frames clocked (``[schedule_split recalibrated @ <MB/s> MB/s measured]
+<Placement>``: the wire's bytes over its send seconds folded into a
+fresh ``CostCalibration`` by ``observe_link``, blended over the class
+row's ``link_bw``).
 """
 from __future__ import annotations
 
@@ -59,6 +62,7 @@ from repro_torch.models.model import init_params
 from repro_torch.serving.disagg import (DecodeWorker, PrefillWorker,
                                         serve_disagg_inproc)
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.telemetry.calibration import CostCalibration
 
 ARCH = "llava-onevision-0.5b"
 SEED = 0
@@ -169,6 +173,26 @@ def _child_digest(out: str) -> str:
         if line.startswith("[decode-fleet] weights digest "):
             return line.split()[-1]
     raise RuntimeError("the decode fleet printed no weights digest")
+
+
+def recalibrated_split(graph, transport, stats, n_tokens: int):
+    """The split repriced from the wire's measured bandwidth: ``stats``
+    (a ``PrefillStats``) folded into a fresh table by ``observe_link``.
+    Returns ``(measured bytes/s, Placement)``, or None when nothing was
+    clocked."""
+    if not (stats.wire_seconds > 0 and stats.wire_bytes > 0):
+        return None
+    cal = CostCalibration()
+    cal.observe_link(stats.transport, stats.wire_bytes, stats.wire_seconds,
+                     n=max(1, stats.sent))
+    return (stats.wire_bytes / stats.wire_seconds,
+            schedule_split(graph, transport, n_tokens=n_tokens,
+                           calibration=cal))
+
+
+def recalibrated_line(bw: float, placement) -> str:
+    return (f"[schedule_split recalibrated @ {bw / 1e6:.0f} MB/s "
+            f"measured] {placement}")
 
 
 def main(argv=None):
@@ -288,6 +312,11 @@ def main(argv=None):
           f"{stats.wire_bytes}B on the wire in {stats.wire_seconds:.4f}s "
           f"({stats.kv_wire_bytes}B paged KV vs {lane_total}B whole-lane "
           f"baseline), {len(classes)} slot classes, {wall:.1f}s")
+    # feedback edge: reprice the split from what the frames clocked
+    split2 = recalibrated_split(graph, args.transport, stats,
+                                cfg.vision_tokens)
+    if split2 is not None:
+        print(recalibrated_line(*split2))
     print(f"OK: disaggregated prefill/decode fleets over {args.transport}: "
           f"{len(reqs)} requests bit-identical to the single-process "
           f"oracle, weights digest {digest}")

@@ -57,7 +57,8 @@ from repro_torch.core.bricks import decompose
 from repro_torch.core.plan import compile_plan
 from repro_torch.core.power import BatteryAwareExecutor, PMU, PowerState
 from repro_torch.core.quantize import QTensor, tree_bytes
-from repro_torch.core.scheduler import class_staging_budgets, kv_block_budgets
+from repro_torch.core.scheduler import (brick_cost, class_staging_budgets,
+                                        kv_block_budgets)
 from repro_torch.core.tabm import SlotClassPool, TABMError
 from repro_torch.core.transport import RemotePrefill
 from repro_torch.kernels.fused_decode import cohort_step, fused_supported
@@ -68,6 +69,7 @@ from repro_torch.models import model as M
 from repro_torch.serving.cohort_graph import CohortGraph
 from repro_torch.serving.kv_cache import PagedKVCache, bucket_length
 from repro_torch.serving.sampling import greedy, sample
+from repro_torch.telemetry.calibration import CostCalibration
 from repro_torch.telemetry.ledger import Ledger
 from repro_torch.telemetry.probes import WallProbe
 from repro_torch.tree import tree_map
@@ -344,6 +346,7 @@ class ServingEngine:
                  share_staged: bool = True,
                  use_fused: Optional[bool] = None,
                  capture_slab: bool = False,
+                 calibration: Optional[CostCalibration] = None,
                  device="cuda"):
         if cfg.encdec:
             raise ValueError("the engine serves decoder-only archs")
@@ -383,6 +386,11 @@ class ServingEngine:
         # engine's prefill/decode spans, each ending at a host sync the
         # loop already pays (first-token / sampled-token reads)
         self.probe = WallProbe()
+        # ``calibration`` (optional, e.g. a previous run's measured table)
+        # lets admission price KV budgets from observation
+        # (_kv_energy_pressure)
+        self.calibration = calibration
+        self._kv_pressure: Optional[float] = None
         # class-partitioned TABM pool between the vision side and the
         # decoder (vlm archs): one class-sized ring per image-count x
         # resolution bucket
@@ -1003,7 +1011,8 @@ class ServingEngine:
         if self.tabm is not None:
             kv_budgets = kv_block_budgets(
                 self.tabm, self.slots.n_blocks, self.slots.used_blocks,
-                knobs.class_kv_scale)
+                knobs.class_kv_scale,
+                energy_pressure=self._kv_energy_pressure())
         # cross-class aging: classes of requests that have waited out
         # aging_steps admission rounds while skipped (class stalled or
         # slow); each holds one KV-slot reservation that newer requests
@@ -1298,7 +1307,34 @@ class ServingEngine:
                 "kv_pool": self.slots.nbytes,
                 "tabm": self.tabm.nbytes if self.tabm else 0}
 
+    def _kv_energy_pressure(self) -> float:
+        """Measured-over-modeled decode J/token for ``kv_block_budgets``
+        (cached: one lookup, not one per admission round).  1.0, no
+        tightening, without a calibration table, without an energy
+        observation, or when the plan's decoder step carries no
+        accelerator to price the model against."""
+        if self.calibration is None:
+            return 1.0
+        if self._kv_pressure is None:
+            press = 1.0
+            for s in self.plan.steps:
+                if s.brick.kind == "decoder" and s.accel is not None:
+                    modeled = brick_cost(s.brick, s.accel, 1)
+                    press = self.calibration.energy_pressure(
+                        s.brick.name, s.accel.profile.name,
+                        modeled.energy_j)
+                    break
+            self._kv_pressure = press
+        return self._kv_pressure
+
     def measured_ledger(self) -> Ledger:
         """The probe-fed ledger of this engine run: per-brick staging
         spans plus the engine's prefill/decode spans."""
         return self.probe.to_ledger(meta={"collector": "serving-engine"})
+
+    def measured_calibration(self, prior: int = 4) -> CostCalibration:
+        """A scheduler-consumable table from this run's measured ledger:
+        ``schedule(graph, accels, n, calibration=eng.measured_calibration())``
+        prices the next placement from what this engine observed."""
+        return CostCalibration.from_ledger(self.measured_ledger(),
+                                           prior=prior)

@@ -6,12 +6,18 @@ holding flops / HBM bytes / link bytes / tokens / joules / seconds, with
 closed arithmetic (``+`` merges, ``*`` scales) so ledgers from separate
 bench runs compose into one trajectory file.
 
-The port's own copy of the reference's ledger.  It is populated
-dynamically (:meth:`repro_torch.telemetry.probes.WallProbe.to_ledger`):
-wall-time samples recorded by the plan/engine probes, ``samples > 0``
-marking a row as measured.  The static (modeled) population of the
-reference, and the calibration table it feeds, wait for the scheduler's
-cost model.
+The port's own copy of the reference's ledger.  Two population paths
+share one schema:
+
+* **static** (:meth:`Ledger.modeled`) — the scheduler's roofline and
+  energy model (``core/scheduler.brick_cost`` over ``analysis/energy``
+  constants); ``samples == 0`` marks these rows as modeled, never
+  measured;
+* **dynamic** (:meth:`repro_torch.telemetry.probes.WallProbe.to_ledger`)
+  — wall-time samples recorded by the plan/engine probes; ``samples >
+  0`` marks a row as measured, which is what
+  :meth:`repro_torch.telemetry.calibration.CostCalibration.from_ledger`
+  feeds back into the scheduler.
 
 Phase token semantics: bricks form a chain, so every brick of a phase
 sees the SAME token stream — a phase's token count is the **max** over
@@ -178,3 +184,37 @@ class Ledger:
     def load(cls, path: str) -> "Ledger":
         with open(path) as f:
             return cls.from_dict(json.load(f))
+
+    # -- static population (roofline + energy model) ------------------------
+    @classmethod
+    def modeled(cls, graph, accel_for, phase_tokens: Mapping[str, int],
+                batch: int = 1) -> "Ledger":
+        """Ledger predicted by the cost model, no execution needed.
+
+        ``accel_for``: one :class:`~repro_torch.core.scheduler.Accelerator`
+        for every brick, or a ``{brick_name: Accelerator}`` map (e.g.
+        built from a ``Placement``).  ``phase_tokens``: tokens per call
+        per phase, e.g. ``{"stage": 729, "prefill": 64, "decode": 1}``;
+        bricks participate per :data:`PHASE_KINDS`.  Rows carry
+        ``samples == 0``: modeled, not measured."""
+        # local import: the scheduler imports telemetry.calibration, so
+        # the static-population edge must not close an import cycle
+        from repro_torch.core.scheduler import brick_cost
+        led = cls(meta={"source": "modeled"})
+        for phase, n_tokens in phase_tokens.items():
+            for b in graph.bricks:
+                if b.kind not in PHASE_KINDS.get(phase, ()):
+                    continue
+                acc = (accel_for[b.name] if isinstance(accel_for, Mapping)
+                       else accel_for)
+                c = brick_cost(b, acc, n_tokens, batch=batch)
+                if not c.feasible:
+                    continue
+                units = n_tokens * max(1, batch)
+                led.accumulate(
+                    b.name, phase,
+                    flops=b.flops_per_token * units,
+                    bytes=float(max(b.param_bytes, 1)),
+                    tokens=float(units), joules=c.energy_j,
+                    seconds=c.latency_s, samples=0)
+        return led

@@ -73,7 +73,10 @@ class WallProbe:
     def to_ledger(self, meta: Optional[dict] = None) -> Ledger:
         """Fold the samples into a measured :class:`Ledger` (one record
         per brick/phase, ``samples`` = observation count).  Joules stay
-        zero — no hardware power meter is read."""
+        zero: the probe reads no power meter.  Joules enter through a
+        table or ledger the caller feeds (``CostCalibration.observe(...,
+        joules=)``, ``Ledger.accumulate(..., joules=)``), e.g. from the
+        card's energy counter over a measured window."""
         led = Ledger(meta={"source": "probe", **(meta or {})})
         for s in self.samples():
             led.accumulate(s.brick, s.phase, seconds=s.dt,

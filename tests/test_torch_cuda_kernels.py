@@ -2527,3 +2527,18 @@ def test_device_backend_ordinals_on_card(cuda):
     if torch.cuda.device_count() == 1:
         with pytest.raises(BackendError):
             resolve_backend("device:1")
+
+
+def test_prune_full_width_on_card_equals_cpu(cuda):
+    """``prune_weights`` on a leaf of LLaVA-OneVision-0.5B's stacked w_up
+    shape ([24, 896, 4864] bf16, 104.6 M elements, past
+    ``torch.quantile``'s 2**24) on the card is bit-equal to the same leaf
+    pruned on the CPU, and half of every row is zero."""
+    from repro_torch.core.quantize import prune_weights
+    g = torch.Generator().manual_seed(0)
+    w = (torch.randn(24, 896, 4864, generator=g) * 0.02).to(torch.bfloat16)
+    want = prune_weights(w, 0.5)
+    got = prune_weights(w.to(cuda), 0.5).cpu()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    zeros = (got == 0).reshape(-1, w.shape[-1]).sum(-1)
+    assert int(zeros.min()) >= w.shape[-1] // 2
