@@ -34,6 +34,14 @@ Phases (any failure raises and exits non-zero):
      256, 4, 64) with a per-row index, a scalar index and an
      out-of-range row, and layer slices of a stacked cache at LLaVA's
      widths (24 x 4 x 2048 x 2 x 64), bf16 and fp32 caches and rows;
+   - the packed-weight GEMM's expert axis (the MoE's gecd,edf->gecf and
+     gecf,efd->gecd, one launch over every expert, counted under
+     ``dequant_gemm/experts``) against dequantize + einsum: DeepSeek-
+     MoE-16B's shapes (64 experts, 4 groups of capacity 30, 2048 <->
+     1408) and DBRX's (16 experts, 2 x 80 rows, 6144 <-> 10752) on the
+     ``wgmma`` route within 5e-3, an F of 96 on the ``tile`` route, and
+     DeepSeek's in fp32 on ``tf32x3`` within 1e-5 and against float64 no
+     worse than 2x the plain version;
 3. serve LLaVA-OneVision-0.5B at full width through ``ServingEngine``:
    random weights from ``init_params`` (seed 0) on the card, packed by
    ``quantize_tree(nanomind-serve)``; four requests (full-resolution and
@@ -211,7 +219,10 @@ Phases (any failure raises and exits non-zero):
    served projection shape (Qwen2-VL and Mamba-2 at 2048 rows, LLaVA at
    1024) beside dequantize + ``matmul`` and ``matmul`` on a dense weight,
    and at LLaVA's five shapes in fp32 (the split-TF32 route, beside
-   dequantize + fp32 ``matmul``, with that route's own bound), the flash
+   dequantize + fp32 ``matmul``, with that route's own bound), the
+   expert axis at DeepSeek-MoE-16B's up and down (64 experts x 120 rows)
+   and DBRX's up (16 x 160) beside dequantize + a batched ``matmul``,
+   the flash
    and GEMM times both from the profiler and from CUDA events around the
    loop, the cache-row-update
    kernel at the composed step's shape (a layer of a cohort-4 gathered
@@ -225,7 +236,38 @@ Phases (any failure raises and exits non-zero):
    attention's fp32 arithmetic, whose operations ``ssd_work`` and
    ``linear_attention_work`` count; beside it the SSD's bf16 route's
    own count, ``ssd_mma_bound``), the fused-decode kernels' effective
-   GB/s.
+   GB/s;
+8. serve DeepSeek-MoE-16B at full width and depth (28 layers, 64 routed
+   experts top-6 and two shared, ``attn_q_chunk=0``): ``init_params``
+   seed 0 with ``nanomind-serve`` packing each stacked expert leaf as it
+   is made (weights and the init's peak memory printed),
+   ``ServingEngine(n_slots=4, block_size=64)``, ``max_len`` 2048, text
+   prompts of 1024, 1000, 300 and 100 tokens, 16 new tokens each,
+   greedy; prefill masks the right pads out of the routing, decode runs
+   the composed step (the fused one refuses MoE) with the cohort's
+   sentinel rows masked, one CUDA graph a bucket.  Every packed GEMM
+   call of the serve (experts included) and every flash call is held
+   against its plain version on its own inputs as it is made; the
+   launch counts show every bf16 GEMM on ``wgmma`` and three
+   ``dequant_gemm/experts`` a layer; one captured cohort state again
+   through the eager step, bit-equal to the replay, with every row
+   update and the KV scatter held bit for bit.  The engine against the
+   port's own model, every comparison within 5e-2 of the largest logit
+   (the flipped and dropped (token, choice) pairs of every call
+   printed): the 1024- and 100-token requests' prefill logits against
+   ``lm_prefill`` on the unpadded prompt (``valid_len``), which must
+   route alike, and their first two decode steps against
+   ``lm_decode_step`` made to take the experts the engine's step took;
+   the 1000- and 300-token prompts padded to their bucket and the one
+   above, which must route alike; the largest prefill group through the
+   plain versions, made to take the kernel run's experts, row by row.
+   Decode
+   tokens/s, prefill ms, the busy share and the step's breakdown.  Then
+   stablelm-12b (``attn_q_chunk=0``: flash at hd 160), nemotron-4-15b
+   (ungated squared ReLU), deepseek-67b and dbrx-132b (16 experts top-4)
+   at full width and 2 layers, a 512- and a 300-token request and 4 new
+   tokens each, every kernel call held as above (the fused QKV and MLP
+   of the dense configs' captured step too).
 
 Output: build, check and serve lines, the ``nvidia-smi`` name/power-limit
 line, one JSON line ``{"kernels": [...]}``, and as the last line
@@ -375,9 +417,6 @@ DG_KN_ROWS = 1000
 # the GEMM's timing shape: Qwen2-VL-7B's MLP up projection in a 1 x 2048
 # prefill, (M, K, N), q4 g32, bf16
 DG_TIME_SHAPE = (2048, 3584, 18944)
-# projections a layer runs on packed weights: q, k, v, o, up, gate, down;
-# Mamba-2's in_proj and out_proj
-GEMMS_PER_LAYER = {"attn": 7, "linear": 7, "mamba": 2}
 # the kernel (launch-count route) every served call of a dtype must take:
 # bf16 the warp-specialised wgmma kernels, fp32 the split-TF32 GEMM and
 # flash kernels on the tensor cores
@@ -406,6 +445,43 @@ DG_SERVED_ROWS = {"qwen2-vl-7b": 2048, "llava-onevision-0.5b": 1024,
 FLASH_HD_TIMES = ((2, 2048, 2048, 28, 4, 64, True),
                   (2, 2048, 2048, 28, 4, 128, True),
                   (2, 1024, 1024, 28, 4, 160, True))
+# the expert contractions' checks: name -> (G groups, E experts, C
+# capacity, D, F, dtype, (route of gecd,edf->gecf, of gecf,efd->gecd)).
+# DeepSeek-MoE-16B at a 1 x 1024 prefill (4 groups of 256, capacity 30),
+# DBRX at a 512 bucket (2 groups, capacity 80), an F off the wgmma rule's
+# N % 64 (the tile kernel for up), and DeepSeek's in fp32 (tf32x3)
+EXPERT_CHECKS = {
+    "deepseek-moe-16b": (4, 64, 30, 2048, 1408, "bfloat16",
+                         ("wgmma", "wgmma")),
+    "dbrx-132b": (2, 16, 80, 6144, 10752, "bfloat16", ("wgmma", "wgmma")),
+    "tile": (2, 7, 17, 256, 96, "bfloat16", ("tile", "wgmma")),
+    "deepseek-moe-16b/fp32": (4, 64, 30, 2048, 1408, "float32",
+                              ("tf32x3", "tf32x3"))}
+# the expert contractions' timings (G, E, C, K, N): DeepSeek-MoE-16B's up
+# and down at a 1 x 1024 prefill, DBRX's up at a 512 bucket
+EXPERT_TIMES = {"deepseek-moe-16b up": (4, 64, 30, 2048, 1408),
+                "deepseek-moe-16b down": (4, 64, 30, 1408, 2048),
+                "dbrx-132b up": (2, 16, 80, 6144, 10752)}
+# phase 8: DeepSeek-MoE-16B at full width and depth (attn_q_chunk=0),
+# text prompts of these lengths, 16 new tokens, greedy; the first two
+# decode steps of the 1024- and 100-token requests against the unpadded
+# model, the 1000- and 300-token prompts padded to two widths
+MOE_PATH = "deepseek-moe-16b"
+MOE_PROMPTS = (1024, 1000, 300, 100)
+MOE_NEW = 16
+MOE_MAX_LEN = 2048
+MOE_UNPADDED = (1024, 100)
+MOE_PADDED = ((1000, (1024, 2048)), (300, (512, 1024)))
+# then the dense configs and DBRX at full width and DENSE_LAYERS layers
+# (DBRX's 40 layers of experts alone would take ~79 GB packed): a 512-
+# and a 300-token request, 4 new tokens, max_len 1024 (buckets to 512)
+DENSE_SERVES = (("stablelm-12b", {"attn_q_chunk": 0}),
+                ("nemotron-4-15b", {}), ("deepseek-67b", {}),
+                ("dbrx-132b", {}))
+DENSE_LAYERS = 2
+DENSE_PROMPTS = (512, 300)
+DENSE_NEW = 4
+DENSE_MAX_LEN = 1024
 
 
 def fail(msg):
@@ -634,16 +710,20 @@ class Smoke:
                                      "worst_err_over_max": worst,
                                      "tol": FUSED_FP32_TOL}
 
-    def flash_held(self, q, k, v, causal, what, f64=None):
+    def flash_held(self, q, k, v, causal, what, f64=None, got=None):
         """The flash kernel against its plain version on q, k, v: bf16
         every output row within KERNEL_TOL of that row's largest plain
         magnitude, fp32 within FLASH_FP32_TOL of the largest (the
         reference's measure); fp32 kernel and plain each also against a
         float64 evaluation in that measure, the worst of each kept in
-        ``f64`` where given.  Returns (err/max measure, max abs err)."""
+        ``f64`` where given.  ``got``: the kernel's output of a call made
+        already (a served one), else the kernel runs here.  Returns
+        (err/max measure, max abs err)."""
         from repro_torch.kernels.flash_attention import (flash_attention,
                                                          ref_attention)
-        got = flash_attention(q, k, v, causal=causal).float()
+        if got is None:
+            got = flash_attention(q, k, v, causal=causal)
+        got = got.float()
         want = ref_attention(q, k, v, causal=causal).float()
         if got.shape != want.shape or not got.isfinite().all():
             fail(f"flash_attention {what}: shape {tuple(got.shape)} or "
@@ -922,6 +1002,61 @@ class Smoke:
                          "nk_grid_MKN": [list(c) for c in DG_NK_GRID],
                          "kn_shapes": [[sp, list(w), dt.replace("torch.", "")]
                                        for sp, w, _, dt in shapes]}
+
+    def check_expert_gemm(self):
+        """The MoE's expert contractions (``quant_einsum`` gecd,edf->gecf
+        and gecf,efd->gecd, one launch over every expert) against their
+        plain version (``dequantize`` + einsum) at EXPERT_CHECKS, q4 g32:
+        each call one launch on its expected route and one under
+        ``dequant_gemm/experts``; bf16 within DG_TOL, fp32 (tf32x3) within
+        DG_TOL and against float64 no worse than F64_RATIO x the plain
+        version.  Kept in ``dg_check["experts"]``."""
+        from repro_torch.core.quantize import QuantSpec, dequantize, quantize
+        from repro_torch.kernels import launch_counts, reset_launch_counts
+        from repro_torch.kernels.dequant_gemm import (quant_einsum,
+                                                      ref_quant_einsum)
+        torch = self.torch
+        spec32 = QuantSpec(4, group_size=32)
+        rows = []
+        for name, (G, E, C, D, F, dt, routes) in EXPERT_CHECKS.items():
+            dtype = getattr(torch, dt)
+            for spec, K, N, route in (("gecd,edf->gecf", D, F, routes[0]),
+                                      ("gecf,efd->gecd", F, D, routes[1])):
+                x = self.randn(G, E, C, K, dtype=dtype)
+                w = quantize(self.randn(E, K, N, scale=K ** -0.5,
+                                        dtype=dtype), spec32)
+                reset_launch_counts()
+                got = quant_einsum(spec, x, w)
+                counts = {k: n for k, n in launch_counts().items() if n}
+                want_n = {"dequant_gemm": 1, f"dequant_gemm/{route}": 1,
+                          "dequant_gemm/experts": 1}
+                if counts != want_n:
+                    fail(f"experts {name} {spec}: launches {counts}, "
+                         f"want {want_n}")
+                want = ref_quant_einsum(spec, x, w)
+                _, rel, err = gemm_error(f"experts {name} {spec}", got,
+                                         want)
+                self.errs["dequant_gemm"] = max(self.errs["dequant_gemm"],
+                                                err)
+                row = {"case": name, "spec": spec, "G": G, "E": E, "C": C,
+                       "K": K, "N": N, "dtype": dt, "route": route,
+                       "err_over_max": rel, "max_abs_err": err}
+                if dtype == torch.float32:
+                    exact = torch.einsum(spec, x.double(),
+                                         dequantize(w).double())
+                    m = exact.abs().max()
+                    k_err, p_err = (((t.double() - exact).abs().max() / m)
+                                    .item() for t in (got, want))
+                    if k_err > F64_RATIO * p_err:
+                        fail(f"experts {name} {spec}: fp32 vs float64 "
+                             f"{k_err}, plain {p_err}")
+                    row["vs_float64_err_over_max"] = {"kernel": k_err,
+                                                      "plain": p_err}
+                    del exact
+                rows.append(row)
+                del x, w, got, want
+        torch.cuda.synchronize()
+        self.dg_check["experts"] = rows
 
 
 def gemm_error(what, got, want):
@@ -1570,7 +1705,7 @@ def serve_path(sm, cfg, reqs, use_fused=None, first_logits=None,
     per_step = ({"fused_qkv": L, f"fused_qkv/{MLP_ROUTE}": L, "fused_mlp": L,
                  f"fused_mlp/{MLP_ROUTE}": L, "kv_scatter": 1} if fused
                 else {"cache_row_update": 2 * L, "kv_scatter": 1})
-    per_call = GEMMS_PER_LAYER["attn"] * L
+    per_call = gemms_per_layer(cfg) * L
     want = {k: 0 for k in launches}
     want.update({k: n * decode_steps for k, n in per_step.items()})
     n_flash = L * n_prefill if cfg.attn_q_chunk == 0 else 0
@@ -1867,7 +2002,7 @@ def serve_disagg(sm, cfg, reqs, single):
             if s.brick == "decoder" and s.phase == "decode"]
     steps = sum(1 for e in dec.trace if e.event == "decode_step")
     g = dict(dec.graph_stats)
-    per_call = GEMMS_PER_LAYER["attn"] * L
+    per_call = gemms_per_layer(cfg) * L
     want_pre = {k: 0 for k in total}
     want_pre.update({"dequant_gemm": per_call * len(pre_spans),
                      f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}":
@@ -2049,7 +2184,7 @@ def placed_and_cascade(sm, cfg, reqs, first3):
     inputs = {"tokens": tokens,
               "vision_feats": torch.from_numpy(req.vision_feats)}
     L = cfg.n_layers
-    gemms = GEMMS_PER_LAYER["attn"] * L
+    gemms = gemms_per_layer(cfg) * L
     route = f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}"
 
     # -- the placement, priced on the packed tree's bytes -----------------
@@ -2718,7 +2853,7 @@ def pressure_engine(sm, cfg, reqs, windows):
                 and s.phase == "prefill")
     steps = sum(1 for e in eng.trace if e.event == "decode_step")
     L = cfg.n_layers
-    gemms = GEMMS_PER_LAYER["attn"] * L
+    gemms = gemms_per_layer(cfg) * L
     want_n = {k: 0 for k in counts}
     want_n.update({"dequant_gemm": gemms * n_pre,
                    f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}": gemms * n_pre,
@@ -3202,7 +3337,6 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
     kernel calls [(args, kwargs, out)])."""
     from repro_torch.core.quantize import PROFILES, quantize_tree
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models.decoder import mixer_of
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import ServingEngine
     torch = sm.torch
@@ -3270,7 +3404,7 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
                 else op_name)
     others = sum(v for k, v in launches.items()
                  if k not in (op_name, op_route, "dequant_gemm", gemm_route))
-    per_call = GEMMS_PER_LAYER[mixer_of(cfg)] * cfg.n_layers
+    per_call = gemms_per_layer(cfg) * cfg.n_layers
     if not (launches[op_name] == launches[op_route]
             == cfg.n_layers * len(groups) == len(calls)
             and launches["dequant_gemm"] == launches[gemm_route]
@@ -3320,13 +3454,8 @@ def serve_mamba(sm, cfg):
     prefill group, at the served shapes and dtype) against the plain
     ``ssd_chunked`` on the same inputs.  Returns ``serve_composed``'s
     (serve record, engine, run)."""
-    import numpy as np
     from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.serving.engine import Request
-    rng = np.random.default_rng(2)
-    reqs = [Request(rid=i, tokens=rng.integers(
-        3, cfg.vocab_size - 1, n).astype(np.int32), max_new_tokens=16)
-        for i, n in enumerate(MAMBA_PROMPTS)]
+    reqs = text_requests(cfg, MAMBA_PROMPTS, 16, seed=2)
     serve, eng, run = serve_composed(sm, cfg, reqs, ssd_ops, "ssd")
     serve["ssd_served_check"] = served_ssd_check(
         cfg, [(args, out, kw["chunk"]) for args, kw, out in run[3]])
@@ -3905,6 +4034,621 @@ def time_ssd(sm, dtype=None):
     return (t_k, t_p) + ssd_work(*SSD_SHAPE) + (phases,)
 
 
+# -- phase 8: mixture of experts, the dense configs ---------------------------
+
+def gemms_per_layer(cfg):
+    """Packed GEMM launches of one prefill layer: Mamba-2's in_proj and
+    out_proj; or q, k, v, o and the FFN's up, gate (gated only) and down,
+    or the MoE's experts' three (each one launch over every expert) and
+    its shared FFN's three."""
+    from repro_torch.models.decoder import mixer_of
+    if mixer_of(cfg) == "mamba":
+        return 2
+    if cfg.moe is not None:
+        return 4 + 3 + (3 if cfg.moe.n_shared else 0)
+    return 4 + (3 if cfg.act in ("swiglu", "geglu") else 2)
+
+
+class HeldGemms:
+    """Every packed-weight GEMM call made inside the ``with`` block held,
+    as it is made, against its plain version on its own inputs
+    (``gemm_error``'s gate; the plain version counts no launch): calls by
+    contraction, the worst error, the (einsum, x, weight) shapes."""
+
+    def __init__(self, sm):
+        from repro_torch.core.quantize import QTensor
+        from repro_torch.kernels.dequant_gemm import ops
+        self.sm, self.ops, self.inner, self.packed = (sm, ops,
+                                                      ops.quant_einsum,
+                                                      QTensor)
+        self.by_spec, self.worst, self.err, self.shapes = {}, 0.0, 0.0, set()
+
+    def __call__(self, spec, x, w):
+        out = self.inner(spec, x, w)
+        if isinstance(w, self.packed):
+            from repro_torch.kernels.dequant_gemm import ref_quant_einsum
+            want = ref_quant_einsum(spec, x, w)
+            _, rel, err = gemm_error(f"served {spec} at {tuple(x.shape)}",
+                                     out, want)
+            del want
+            self.worst, self.err = max(self.worst, rel), max(self.err, err)
+            self.by_spec[spec] = self.by_spec.get(spec, 0) + 1
+            self.shapes.add((spec, tuple(x.shape), tuple(w.shape)))
+            self.sm.errs["dequant_gemm"] = max(
+                self.sm.errs["dequant_gemm"], err)
+        return out
+
+    def record(self):
+        return {"calls": sum(self.by_spec.values()),
+                "calls_by_spec": self.by_spec,
+                "worst_err_over_max": self.worst, "max_abs_err": self.err,
+                "tol": DG_TOL, "shapes_spec_x_w": sorted(self.shapes)}
+
+    def __enter__(self):
+        self.ops.quant_einsum = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.quant_einsum = self.inner
+
+
+class KvScatterCalls:
+    """Holds every ``fused_decode.ops.kv_scatter`` call made while
+    ``armed`` against the plain version on copies of the pools taken just
+    before the call: bit for bit, in place."""
+
+    def __init__(self):
+        from repro_torch.kernels.fused_decode import ops, ref
+        self.ops, self.inner, self.ref = ops, ops.kv_scatter, \
+            ref.ref_kv_scatter
+        self.armed, self.calls = False, 0
+
+    def __call__(self, blk, off, k_rows, v_rows, k_pool, v_pool):
+        import torch
+        if not self.armed:
+            return self.inner(blk, off, k_rows, v_rows, k_pool, v_pool)
+        kb, vb = k_pool.clone(), v_pool.clone()
+        out = self.inner(blk, off, k_rows, v_rows, k_pool, v_pool)
+        want = self.ref(blk, off, k_rows, v_rows, kb, vb)
+        if not (out[0] is k_pool and out[1] is v_pool
+                and torch.equal(out[0], want[0])
+                and torch.equal(out[1], want[1])):
+            fail(f"served kv_scatter at {tuple(k_pool.shape)} differs from "
+                 f"the plain version")
+        self.calls += 1
+        return out
+
+    def __enter__(self):
+        self.ops.kv_scatter = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.kv_scatter = self.inner
+
+
+class RouteLog:
+    """The MoE's routing decisions while ``run`` is active: for every
+    ``models.moe.choices`` call (one a layer), the experts the router
+    chose (``chosen``), the experts the call used (``idx``) and the
+    choices it kept (``keep``), each (tokens, k) in the flattened,
+    group-padded order (``moe_token_rows``).  ``run(force=)`` makes each
+    call use the experts given for it (one (tokens, k) tensor a call),
+    with gates from its own probabilities, so that two runs whose
+    rounding differs take the same experts and their logits can be held
+    against each other; what the router chose is still logged."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.mod, self.inner, self.inner_top = moe, moe.choices, \
+            moe.top_choices
+        self.armed, self.force, self.calls, self.chosen = False, None, [], \
+            None
+
+    def top_choices(self, logits, top_k):
+        import torch
+        probs, gates, idx = self.inner_top(logits, top_k)
+        self.chosen = idx
+        if self.force is not None:
+            idx = self.force[len(self.calls)].to(idx.device).reshape(
+                idx.shape)
+            g = probs.gather(-1, idx)
+            gates = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
+        return probs, gates, idx
+
+    def __call__(self, logits, top_k, cap, mask=None):
+        out = self.inner(logits, top_k, cap, mask)
+        if self.armed:
+            self.calls.append({
+                "chosen": self.chosen.reshape(-1, top_k).clone(),
+                "idx": out[2].reshape(-1, top_k).clone(),
+                "keep": out[3].reshape(-1, top_k).clone()})
+        return out
+
+    @contextlib.contextmanager
+    def run(self, force=None):
+        """Arm for the block (with ``force``, a list of one (tokens, k)
+        expert tensor a call); yields the list the block's calls land
+        in."""
+        self.calls, self.armed, self.force = [], True, force
+        calls = self.calls
+        try:
+            yield calls
+        finally:
+            self.armed, self.force = False, None
+
+    def __enter__(self):
+        self.mod.choices, self.mod.top_choices = self, self.top_choices
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.choices, self.mod.top_choices = self.inner, self.inner_top
+
+
+def moe_token_rows(b, width, n):
+    """Where row ``b``'s first ``n`` tokens lie in a masked MoE call of
+    ``width`` tokens a row (``RouteLog``'s order: each row padded on its
+    own to whole groups)."""
+    import torch
+    from repro_torch.models.moe import GROUP_SIZE
+    padded = -(-width // GROUP_SIZE) * GROUP_SIZE
+    return torch.arange(b * padded, b * padded + n)
+
+
+def routing_diff(a, rows_a, b, rows_b):
+    """Two runs' routing (``RouteLog`` calls, one a layer) at token rows
+    ``rows_a`` / ``rows_b``: the flipped (token, choice) pairs (a choice
+    the router of ``b`` made whose expert is not among the token's
+    experts in ``a``: two experts trading ranks is no flip), the dropped
+    choices of each run, and whether they agree: each token used the same
+    experts and kept the same ones, so its output takes the same experts
+    (its gates aside)."""
+    import torch
+    if len(a) != len(b) or not a:
+        fail(f"routing logs of {len(a)} and {len(b)} layers")
+    flips, drops, same = 0, [0, 0], True
+    for ca, cb in zip(a, b):
+        ra, rb = rows_a.to(ca["idx"].device), rows_b.to(cb["idx"].device)
+        ia, ka = ca["idx"][ra], ca["keep"][ra]
+        ib, kb, chosen = cb["idx"][rb], cb["keep"][rb], cb["chosen"][rb]
+        flips += int((~(chosen[:, :, None] == ia[:, None, :]).any(-1)).sum())
+        drops[0] += int((~ka).sum())
+        drops[1] += int((~kb).sum())
+        kept_a = torch.where(ka, ia, -1).sort(-1).values
+        kept_b = torch.where(kb, ib, -1).sort(-1).values
+        same = same and bool(torch.equal(kept_a, kept_b))
+    return {"flipped": flips, "dropped": drops, "agree": same}
+
+
+def prefill_drops(group):
+    """A served prefill group's routing: its valid tokens' choices and
+    how many of them were dropped past capacity, over all layers."""
+    import torch
+    tokens, last, _, routing = group
+    B, S = tokens.shape
+    rows = torch.cat([moe_token_rows(b, S, int(last[b])) for b in range(B)])
+    n = int(rows.numel())
+    dropped = sum(int((~c["keep"][rows.to(c["keep"].device)]).sum())
+                  for c in routing)
+    return {"batch": int(B), "width": int(S), "valid_tokens": n,
+            "choices": n * routing[0]["keep"].shape[1] * len(routing),
+            "dropped": dropped}
+
+
+def routed_alike(cfg, what, diff, call):
+    """``routing_diff``'s record for ``call``; fails unless the runs
+    agree."""
+    if not diff["agree"]:
+        fail(f"{cfg.name} {what}, {call}: the runs routed apart ({diff})")
+    return dict(diff, call=call)
+
+
+class MoeDecodeSteps(DecodeSteps):
+    """``DecodeSteps`` that also saves, before each step in which one of
+    ``tracked``'s requests decodes its first or second token, the pool and
+    the step's host inputs, to run the step again eagerly with its
+    routing recorded."""
+
+    def __init__(self, eng, tracked):
+        super().__init__(eng, keep_steps=True)
+        self.tracked, self.saved = tracked, []
+
+    def __call__(self, tokens, lengths, slot_ids, tables):
+        want = any(r.slot in slot_ids.tolist() and lengths[
+            slot_ids.tolist().index(r.slot)] - len(r.tokens) in (0, 1)
+            for r in self.tracked if getattr(r, "slot", None) is not None)
+        pool = clone_pool(self.eng.slots.pool) if want else None
+        logits, out = super().__call__(tokens, lengths, slot_ids, tables)
+        if want:
+            self.saved.append(((tokens.copy(), lengths.copy(),
+                                slot_ids.copy(), tables.copy()), pool,
+                               logits.clone()))
+        return logits, out
+
+
+def text_requests(cfg, lengths, max_new, seed):
+    """Text requests of ``lengths`` tokens drawn from ``seed``, ``max_new``
+    new tokens each."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, tokens=rng.integers(3, cfg.vocab_size - 1, n)
+                    .astype(np.int32), max_new_tokens=max_new)
+            for i, n in enumerate(lengths)]
+
+
+def serve_text(sm, cfg, reqs, max_len, tracked=(), route_log=None):
+    """Serve text ``reqs`` on ``cfg`` at full width (``init_params`` seed
+    0, ``nanomind-serve``, the experts packed as they are made) with the
+    engine's decode step (the fused one for a dense config, the composed
+    one for an MoE), holding every packed GEMM call of the serve as it is
+    made (``HeldGemms``) and every flash call on its served output after
+    it (``FlashCalls``), counting every launch; then the captured cohort state again through the eager
+    step with the row-update, KV-scatter, fused-QKV and fused-MLP calls
+    held, bit-equal to the replay; for a fused config that state through
+    the plain composed step too.  With ``route_log`` armed in every
+    prefill call, the groups' routing is kept.  Returns (serve record,
+    engine, run): run = (prefill groups [(tokens, last_idx, logits,
+    routing)], decode steps, the saved tracked steps)."""
+    from repro_torch.core.quantize import PROFILES, tree_bytes
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.fused_decode import ref
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    torch = sm.torch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, device=sm.dev, seed=0,
+                         policy=PROFILES["nanomind-serve"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    weights_gb = tree_bytes(params) / 1e9
+    eng = ServingEngine(cfg, params, n_slots=N_SLOTS, max_len=max_len,
+                        block_size=BLOCK_SIZE, device=sm.dev)
+    del params
+    fused = eng.use_fused
+    if fused != (cfg.moe is None):
+        fail(f"{cfg.name}: the engine selected use_fused={fused}")
+    groups, prefill = [], eng._prefill
+    steps = MoeDecodeSteps(eng, tracked)
+
+    def recording_prefill(tokens, vision_embeds, last_idx):
+        if route_log is None:
+            logits, cache = prefill(tokens, vision_embeds, last_idx)
+            routing = None
+        else:
+            with route_log.run() as routing:
+                logits, cache = prefill(tokens, vision_embeds, last_idx)
+        groups.append((tokens.clone(), last_idx.clone(), logits.clone(),
+                       routing))
+        return logits, cache
+    eng._prefill = recording_prefill
+    for r in reqs:
+        eng.submit(r)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with HeldGemms(sm) as gemms, FlashCalls() as flashes, steps, eng:
+        done = eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    eng._prefill = prefill
+    L = cfg.n_layers
+    decode_steps = sum(1 for e in eng.trace if e.event == "decode_step")
+    errors = [r for r in done if r.error is not None]
+    if len(done) != len(reqs) or errors:
+        fail(f"{cfg.name}: requests failed: "
+             f"{[repr(r.error) for r in errors]}")
+    eng.slots.check_block_invariants()
+    for r in done:
+        if not (len(r.out_tokens) == r.max_new_tokens and all(
+                0 <= t < cfg.vocab_size for t in r.out_tokens)):
+            fail(f"{cfg.name}: request {r.rid} tokens {r.out_tokens}")
+    n_pre = len(groups)
+    per_step = ({"fused_qkv": L, f"fused_qkv/{MLP_ROUTE}": L, "fused_mlp": L,
+                 f"fused_mlp/{MLP_ROUTE}": L, "kv_scatter": 1} if fused
+                else {"cache_row_update": 2 * L, "kv_scatter": 1})
+    per_call = gemms_per_layer(cfg) * L
+    want = {k: 0 for k in launches}
+    want.update({k: n * decode_steps for k, n in per_step.items()})
+    n_flash = L * n_pre if cfg.attn_q_chunk == 0 else 0
+    want["flash_attention"] = n_flash
+    want[f"flash_attention/{FLASH_ROUTE[cfg.dtype]}"] = n_flash
+    want["dequant_gemm"] = per_call * n_pre
+    want[f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}"] = per_call * n_pre
+    if cfg.moe is not None:
+        want["dequant_gemm/experts"] = 3 * L * n_pre
+    if not (launches == want and decode_steps > 0 and n_pre > 0
+            and len(steps.launches) == decode_steps
+            and all(d == per_step for d in steps.launches)
+            and gemms.record()["calls"] == per_call * n_pre
+            and len(flashes.calls) == n_flash):
+        fail(f"{cfg.name}: launch counts {launches} for {decode_steps} "
+             f"decode steps and {n_pre} prefill calls (want {want}; per "
+             f"step {per_step}, got {steps.launches[:3]}; held GEMM calls "
+             f"{gemms.record()['calls']}, flash {len(flashes.calls)})")
+    spans = eng.probe.samples()
+    pre = [s for s in spans if s.brick == "decoder" and s.phase == "prefill"]
+    decs = [s for s in spans if s.brick == "decoder" and s.phase == "decode"]
+    serve = {"arch": cfg.name, "n_layers": L, "dtype": cfg.dtype,
+             "attn_q_chunk": cfg.attn_q_chunk,
+             "decode_step": "fused" if fused else "composed",
+             "requests": len(done), "prompt_tokens": [len(r.tokens)
+                                                      for r in reqs],
+             "decode_steps": decode_steps,
+             "decoded_tokens": eng.stats.decoded_tokens,
+             "setup_s": round(setup_s, 3), "serve_s": round(serve_s, 3),
+             "weights_gb": round(weights_gb, 3),
+             "init_peak_mem_gb": round(init_peak, 3),
+             "prefill_calls": n_pre,
+             "prefill_batch": [int(g[0].shape[0]) for g in groups],
+             "prefill_width": [int(g[0].shape[1]) for g in groups],
+             # every GEMM call of a prefill is held against its plain
+             # version inside the span: prefill_breakdown times a call
+             # without the checks
+             "prefill_ms_with_held_checks": [round(s.dt * 1e3, 3)
+                                             for s in pre],
+             "prefill_tokens": [s.tokens for s in pre],
+             **decode_rates(eng, decs),
+             "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9,
+                                  3),
+             "kv_pool_mb": round(eng.slots.nbytes / 1e6, 3),
+             "launches": launches, "launches_per_decode_step": per_step,
+             "cohort_graph": graph_check(cfg, eng, decode_steps),
+             "gemm_served_check": gemms.record()}
+    if flashes.calls:
+        worst, err_max = 0.0, 0.0
+        with torch.no_grad():
+            for q, k, v, causal, out in flashes.calls:
+                w, err = sm.flash_held(q, k, v, causal, f"{cfg.name}: "
+                                       f"served at {tuple(q.shape)}",
+                                       got=out)
+                worst, err_max = max(worst, w), max(err_max, err)
+        sm.errs["flash_attention"] = max(sm.errs["flash_attention"],
+                                         err_max)
+        serve["flash_served_check"] = {
+            "calls": len(flashes.calls), "worst_err_over_max": worst,
+            "max_abs_err": err_max, "tol": KERNEL_TOL}
+    del gemms, flashes
+
+    state = steps.state
+    if state is None:
+        fail(f"{cfg.name}: no multi-row cohort state was captured")
+    args = state["args"]
+    kw = dict(block_size=eng.slots.block_size, paged=eng.slots.paged)
+    with RowUpdateCalls() as rows, MlpCalls() as mlps, QkvCalls() as qkvs, \
+            KvScatterCalls() as kvs:
+        serve["served_vs_eager"], le, _ = served_vs_eager(
+            sm, cfg, eng, state, fused, (rows, mlps, qkvs, kvs))
+    if kvs.calls != 1 or (rows.calls, qkvs.calls, mlps.calls) != (
+            (0, L, L) if fused else (2 * L, 0, 0)):
+        fail(f"{cfg.name}: held in the eager step: {rows.calls} row "
+             f"updates, {qkvs.calls} QKV, {mlps.calls} MLP, {kvs.calls} KV "
+             f"scatters")
+    nrows = int((args[2] < eng.slots.n_slots).sum())
+    if fused:
+        serve["qkv_served_check"] = {
+            "calls": qkvs.calls, "worst_row_err_over_row_max": qkvs.worst,
+            "bc": qkvs.bc, "tol": MLP_ROW_TOL[cfg.dtype], "step": "eager"}
+        serve["mlp_served_check"] = {
+            "calls": mlps.calls, "worst_row_err_over_row_max": mlps.worst,
+            "bc": mlps.bc, "tol": MLP_ROW_TOL[cfg.dtype], "step": "eager"}
+        with torch.no_grad():
+            lr, _ = ref.ref_cohort_step(eng.params, cfg, *args,
+                                        state["pool"], **kw)
+        serve["cohort_check"] = logit_check(cfg, le[:nrows], lr[:nrows],
+                                            "fused vs composed step")
+        del lr
+    else:
+        serve["row_update_served_check"] = {
+            "calls": rows.calls, "bit_exact": True, "step": "eager",
+            "cache_shape_dtype_strides": sorted(rows.shapes)}
+    serve["kv_scatter_served_check"] = {"calls": kvs.calls,
+                                        "bit_exact": True, "step": "eager"}
+    for pos, saved in zip(eng.slots.pool, state["pool"]):
+        for leaf, t in zip(pos, saved):
+            leaf.copy_(t)
+    serve["decode_step_breakdown"] = decode_breakdown(
+        eng, [t.cpu().numpy() for t in args], nrows, per_step)
+    steps.state = state = None
+    del le
+    return serve, eng, (groups, steps.steps, steps.saved)
+
+
+def moe_checks(sm, cfg, eng, reqs, run, log):
+    """Phase 8's model checks on the served DeepSeek-MoE-16B engine, every
+    comparison held within STEP_TOL of the largest logit, with the
+    flipped and dropped choices (``routing_diff``) recorded for every
+    call: (a) the MOE_UNPADDED requests' prefill logits against
+    ``lm_prefill`` on the unpadded prompt (``valid_len``: the engine's
+    masked routing), which must route as the engine's prefill did; their
+    first two decode steps against teacher-forced ``lm_decode_step`` made
+    to take the experts the engine's step took (read from the saved steps
+    run again eagerly, bit-equal to the replays: the paged and the
+    contiguous attention round apart, so the router's own choices may
+    flip, and the flips are counted); (b) MOE_PADDED: each prompt
+    prefilled at two widths, routed alike in the prefill and the step,
+    the same next-step logits; (c) the largest prefill group again
+    through the plain versions (dequantize + einsum, dense attention),
+    made to take the kernel run's experts, row by row."""
+    from repro_torch.kernels.dequant_gemm import ops as dg_ops
+    from repro_torch.kernels.flash_attention import ref_attention
+    from repro_torch.models import attention
+    from repro_torch.models import model as M
+    torch = sm.torch
+    groups, _, saved = run
+    dev = sm.dev
+    checks, held = {}, 0
+
+    def ar(n):
+        return torch.arange(n)
+
+    with torch.no_grad():
+        # the saved decode steps again, eagerly, with their routing
+        eager = []
+        for host, pool, logits in saved:
+            targs = [torch.from_numpy(a).to(dev) for a in host]
+            with log.run() as routing:
+                le, _ = eng._cohort_step(*targs, pool)
+            if not torch.equal(le, logits):
+                fail(f"{cfg.name}: a saved decode step run eagerly differs "
+                     f"from its replay")
+            eager.append((host, routing, logits))
+        del saved[:]
+        for n in MOE_UNPADDED:
+            what = f"engine vs unpadded model ({n} tokens)"
+            r = next(q for q in reqs if len(q.tokens) == n)
+            tok = torch.from_numpy(r.tokens)
+            g = next(g for g in groups if any(
+                int(g[1][b]) == n and torch.equal(g[0][b, :n].cpu(), tok)
+                for b in range(g[0].shape[0])))
+            b = next(b for b in range(g[0].shape[0]) if int(g[1][b]) == n
+                     and torch.equal(g[0][b, :n].cpu(), tok))
+            S = int(g[0].shape[1])
+            with log.run() as pre_route:
+                l0, cache = M.lm_prefill(
+                    eng.params, cfg, tok[None].to(dev), MOE_MAX_LEN,
+                    valid_len=torch.tensor([n], device=dev))
+            routes = [routed_alike(cfg, what, routing_diff(
+                g[3], moe_token_rows(b, S, n), pre_route,
+                moe_token_rows(0, n, n)), "prefill")]
+            rows = [logit_check(cfg, g[2][b:b + 1], l0, f"{what}, prefill")]
+            for j in range(2):
+                host, e_route, e_logits = next(
+                    e for e in eager if r.slot in e[0][2].tolist()
+                    and e[0][1][e[0][2].tolist().index(r.slot)] == n + j)
+                ci = host[2].tolist().index(r.slot)
+                row = moe_token_rows(ci, 1, 1)
+                force = [c["idx"][row.to(c["idx"].device)]
+                         for c in e_route]
+                with log.run(force) as d_route:
+                    lw, cache = M.lm_decode_step(
+                        eng.params, cfg, torch.tensor(
+                            [[int(r.out_tokens[j])]], dtype=torch.int32,
+                            device=dev), cache)
+                routes.append(routed_alike(cfg, what, routing_diff(
+                    e_route, row, d_route, ar(1)), f"decode {j + 1}"))
+                rows.append(logit_check(cfg, e_logits[ci:ci + 1], lw,
+                                        f"{what}, decode {j + 1}"))
+            held += len(rows)
+            checks[f"unpadded_{n}"] = {
+                "rows": [dict(x, call=c["call"]) for x, c in zip(rows,
+                                                                   routes)],
+                "routing": routes, "decode_experts": "the engine's"}
+
+        for n, widths in MOE_PADDED:
+            what = f"pad invariance ({n} tokens)"
+            r = next(q for q in reqs if len(q.tokens) == n)
+            outs = []
+            for w in widths:
+                with log.run() as route:
+                    lw = padded_next_step(eng, cfg, r.tokens, None, n, w)
+                outs.append((w, lw, list(route)))
+            (wa, la, ra), (wb, lb, rb) = outs
+            L = cfg.n_layers
+            routes = [routed_alike(cfg, what, routing_diff(
+                          ra[:L], ar(n), rb[:L], ar(n)), "prefill"),
+                      routed_alike(cfg, what, routing_diff(
+                          ra[L:], ar(1), rb[L:], ar(1)), "decode 1")]
+            held += 1
+            checks[f"pad_{n}_{wa}_vs_{wb}"] = dict(
+                logit_check(cfg, la, lb, what), routing=routes)
+
+        tokens, last, logits, routing = max(groups,
+                                            key=lambda g: g[0].numel())
+        what = "kernel vs plain prefill"
+        with swapped(attention, "flash_attention", ref_attention), \
+                swapped(dg_ops, "quant_einsum", dg_ops.ref_quant_einsum), \
+                log.run([c["idx"] for c in routing]) as plain_route:
+            plain, _ = eng._prefill(tokens, None, last)
+        S = int(tokens.shape[1])
+        rows = {}
+        for b in range(tokens.shape[0]):
+            n = int(last[b])
+            tr = moe_token_rows(b, S, n)
+            rows[f"row_{b}_{n}_tokens"] = dict(
+                logit_check(cfg, logits[b:b + 1], plain[b:b + 1], what),
+                routing=routed_alike(cfg, what, routing_diff(
+                    routing, tr, plain_route, tr), "prefill"))
+            held += 1
+        checks["kernel_vs_plain_prefill"] = dict(
+            rows, batch=int(tokens.shape[0]), width=S, experts="the kernel "
+            "run's")
+    torch.cuda.synchronize()
+    want = 3 * len(MOE_UNPADDED) + len(MOE_PADDED) + int(tokens.shape[0])
+    if held != want:
+        fail(f"{cfg.name}: {held} logit comparisons held, want {want}")
+    checks["held"] = held
+    return checks
+
+
+def time_expert_gemm(sm, shape):
+    """The expert contraction gecd,edf->gecf at ``shape`` (G, E, C, K, N),
+    q4 g32, bf16, through ``quant_einsum`` (one launch over E), its plain
+    version (``dequantize`` + einsum), ``dequantize`` + ``torch.matmul``
+    on the expert-major rows (E, G C, K) and ``torch.matmul`` on the
+    weight dequantized beforehand; the bytes (codes, scales, x, y once)
+    and operations (2 E G C K N) that set its bound."""
+    import torch
+    from repro_torch.core.quantize import QuantSpec, dequantize, quantize
+    from repro_torch.kernels.dequant_gemm import (quant_einsum,
+                                                  ref_quant_einsum)
+    G, E, C, K, N = shape
+    spec = "gecd,edf->gecf"
+    x = sm.randn(G, E, C, K)
+    w = quantize(sm.randn(E, K, N, scale=K ** -0.5),
+                 QuantSpec(4, group_size=32))
+    dense = dequantize(w)
+    xe = x.transpose(0, 1).reshape(E, G * C, K).contiguous()
+    with torch.no_grad():
+        t_k = timed(lambda i: quant_einsum(spec, x, w), 1, iters=20)
+        t_p = timed(lambda i: ref_quant_einsum(spec, x, w), 1, iters=5)
+        t_l = timed(lambda i: torch.matmul(xe, dequantize(w)), 1, iters=5)
+        t_d = timed(lambda i: torch.matmul(xe, dense), 1, iters=20)
+    byt = (w.codes.numel() * 4 + w.scales.numel() * 4
+           + 2 * E * G * C * (K + N))
+    out = (t_k, t_p, t_l, t_d, byt, 2 * E * G * C * K * N)
+    del x, w, dense, xe
+    free()
+    return out
+
+
+def serve_moe_and_dense(sm):
+    """Phase 8: DeepSeek-MoE-16B at full width and depth, its model checks
+    and breakdowns; then the DENSE_SERVES configs at full width and
+    DENSE_LAYERS layers.  Returns {path: serve record}."""
+    from repro_torch.configs import get_config
+    out = {}
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              attn_q_chunk=0)
+    reqs = text_requests(cfg, MOE_PROMPTS, MOE_NEW, seed=3)
+    tracked = [r for r in reqs if len(r.tokens) in MOE_UNPADDED]
+    with RouteLog() as log:
+        serve, eng, run = serve_text(sm, cfg, reqs, MOE_MAX_LEN, tracked,
+                                     route_log=log)
+        serve["routing_by_prefill_call"] = [
+            prefill_drops(g) for g in run[0]]
+        serve["checks"] = moe_checks(sm, cfg, eng, reqs, run, log)
+        g = max(run[0], key=lambda g: g[0].numel())
+        serve["prefill_breakdown"] = prefill_breakdown(
+            eng, (g[0], None, g[1]), ("dequant_gemm", "flash"))
+        del g
+    del eng, run
+    free()
+    out[MOE_PATH] = serve
+    print(json.dumps({"serve": serve}))
+    for name, over in DENSE_SERVES:
+        cfg = dataclasses.replace(get_config(name), n_layers=DENSE_LAYERS,
+                                  **over)
+        serve, eng, _ = serve_text(sm, cfg, text_requests(
+            cfg, DENSE_PROMPTS, DENSE_NEW, seed=4), DENSE_MAX_LEN)
+        del eng
+        free()
+        out[f"{name}/{DENSE_LAYERS}-layer"] = serve
+        print(json.dumps({"serve": serve}))
+    return out
+
+
 def requests(cfg, specs, seed):
     """Requests of ``specs`` ((vision tokens, images, repeat-of index or
     None)): one placeholder token per vision token, then 16 text tokens;
@@ -3981,6 +4725,8 @@ def main() -> int:
     sm.check_dequant_gemm(((llava, (torch.bfloat16, torch.float32)),
                            (qwen, (torch.bfloat16,)),
                            (mamba, (torch.bfloat16, torch.float32))))
+    free()
+    sm.check_expert_gemm()
     free()
     print(json.dumps({"kernel_checks": {
         "fused_bc": {llava.name: [1, 2, 4, 8], qwen.name: [1, 2, 4]},
@@ -4174,6 +4920,13 @@ def main() -> int:
     gemm_rows = time_gemm_shapes(sm, (qwen, llava, mamba))
     gemm32_rows = time_gemm_shapes(sm, (llava,), torch.float32)
     print(json.dumps({"gemm_shapes": gemm_rows + gemm32_rows}))
+    expert_ts = {name: time_expert_gemm(sm, shape)
+                 for name, shape in EXPERT_TIMES.items()}
+
+    # -- 8. DeepSeek-MoE-16B at full width and depth, the experts through
+    # the packed-weight GEMM's expert axis; the dense configs and DBRX at
+    # full width and DENSE_LAYERS layers -----------------------------------
+    moe_serves = serve_moe_and_dense(sm)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4206,6 +4959,8 @@ def main() -> int:
     runs[DISAGG_PATH] = disagg["launches"]
     runs.update(placed_runs)
     runs[ENERGY_PATH] = pressure_n
+    records.update(moe_serves)
+    runs.update({a: r["launches"] for a, r in moe_serves.items()})
 
     def numbers(t, flops_per_s=BF16_FLOPS_PER_S):
         t_k, t_p, t_l, t_d, byt, fl = t
@@ -4412,6 +5167,29 @@ def main() -> int:
             entry["served_check"] = {a: r["gemm_served_check"]
                                      for a, r in records.items()}
             entry["kernel_checks"] = sm.dg_check
+            # the expert axis: the MoE's contractions, one launch over
+            # every expert (row 4's expert instance)
+            entry["experts"] = {
+                "launches": sum(n["dequant_gemm/experts"]
+                                for n in runs.values()),
+                "launches_by_path": {
+                    a: n["dequant_gemm/experts"] for a, n in runs.items()
+                    if n["dequant_gemm/experts"]},
+                "launches_per_prefill_call": {
+                    a: r["launches"]["dequant_gemm/experts"]
+                    / r["prefill_calls"] for a, r in moe_serves.items()
+                    if r["launches"]["dequant_gemm/experts"]},
+                "library": "dequantize + torch.matmul (batched over E)",
+                "tma": "one 3-D tensor map each for x and the codes, the "
+                       "expert their outermost dimension",
+                "checks": sm.dg_check["experts"],
+                "times": {name: dict(
+                    numbers(t), event_ms=t[0][1],
+                    dense_matmul_ms=dev_or_call(t[3]),
+                    shape=dict(zip(("G", "E", "C", "K", "N"),
+                                   EXPERT_TIMES[name]), bits=4, group=32,
+                               dtype="bfloat16"))
+                    for name, t in expert_ts.items()}}
         elif name == "cache_row_update":
             entry.update(numbers(timings[name]))
             entry["shape"] = dict(zip(("B", "S", "KV", "hd"), (

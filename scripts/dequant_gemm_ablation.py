@@ -128,15 +128,15 @@ def build(srcs):
             raise SystemExit(f"ablation: nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(so)
         lib.rt_dequant_gemm.argtypes = ([ctypes.c_void_p] * 5
-                                        + [ctypes.c_int] * 14
+                                        + [ctypes.c_int] * 15
                                         + [ctypes.c_void_p])
         lib.rt_dequant_gemm.restype = ctypes.c_int
         lib.rt_dequant_gemm_tf32.argtypes = ([ctypes.c_void_p] * 6
-                                             + [ctypes.c_int] * 15
+                                             + [ctypes.c_int] * 16
                                              + [ctypes.c_void_p])
         lib.rt_dequant_gemm_tf32.restype = ctypes.c_int
         lib.rt_dequant_gemm_wgmma.argtypes = ([ctypes.c_void_p] * 5
-                                              + [ctypes.c_int] * 9
+                                              + [ctypes.c_int] * 10
                                               + [ctypes.c_void_p])
         lib.rt_dequant_gemm_wgmma.restype = ctypes.c_int
         lib._typed = True

@@ -11,6 +11,11 @@ _ARCH_MODULES = {
     "llava-onevision-0.5b": "llava_onevision_0p5b",
     "qwen2-vl-7b": "qwen2_vl_7b",
     "mamba2-1.3b": "mamba2_1p3b",
+    "stablelm-12b": "stablelm_12b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "deepseek-67b": "deepseek_67b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "dbrx-132b": "dbrx_132b",
 }
 
 

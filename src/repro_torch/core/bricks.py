@@ -107,9 +107,10 @@ def _apply_head(p, cfg, ctx):
 
 
 def _brick_flops(cfg: ModelConfig, kind: str) -> float:
-    """Per-token matmul FLOPs (2 * params touched)."""
+    """Per-token matmul FLOPs (2 * params touched: an MoE's routed
+    experts at ``top_k``), the reference's scheduler cost input."""
     from repro_torch.models.model import count_params_analytic
-    n = count_params_analytic(cfg)
+    n = count_params_analytic(cfg, active_only=True)
     emb = cfg.padded_vocab * cfg.d_model
     body = n - emb * (1 if cfg.tie_embeddings else 2)
     return {"embed": 0.0,
@@ -117,6 +118,8 @@ def _brick_flops(cfg: ModelConfig, kind: str) -> float:
             "decoder": 2.0 * body,
             "projector": 2.0 * (cfg.vision_feat_dim * cfg.d_model
                                 + cfg.d_model * cfg.d_model),
+            "encoder": 2.0 * body * (cfg.n_enc_layers
+                                     / max(1, cfg.n_layers)),
             "frontend": 0.0}.get(kind, 0.0)
 
 

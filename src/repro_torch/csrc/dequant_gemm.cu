@@ -23,7 +23,16 @@
 //        (n2p / group) + (n % n2) / group of row k.  With N1 = 1 that is
 //        one padded row (w_up, in_proj, wo); q/k/v have N1 = heads, n2 = hd.
 // Any M, N and K; group a multiple of pw; the logical N (or K) is read
-// and nothing past it is written.
+// and nothing past it is written.  An expert axis: one launch computes E
+// such products, y[e] = act(x[e] W[e] + b), x (E, M, K), the packed
+// operand (E, rows, ldw) / (E, rows, lds), y (E, M, N), each expert's
+// block contiguous (the MoE's contractions gecd,edf->gecf and
+// gecf,efd->gecd, with the G groups' C rows of an expert as its M).  The
+// expert comes from the grid's z (the tile kernels: z = expert * splits +
+// split); the tile kernels offset every pointer by it, the wgmma kernel
+// reads x and the words through 3-D tensor maps whose outermost dimension
+// is the expert (its TMA coordinate), so rows past an expert's M read as
+// zeros, never the next expert's, and are never stored.
 //
 // What bounds it on an H100.  At prefill widths (M = 1024-4096 rows, K
 // and N in the thousands) the function is bound by operations: 2 M N K
@@ -178,8 +187,25 @@ struct Params {
   int ps_stride, ss_stride; // shared words per staged packed / scale row
   int act;                  // 0 none, 1 relu, 2 silu, 3 gelu (tanh), 4 squared relu
   int x_vec;                // x's rows are 16-byte aligned
-  int split_steps;          // K steps of a split (blockIdx.z)
+  int split_steps;          // K steps of a split
+  int splits;               // splits of K; blockIdx.z = expert * splits + split
+  int experts;              // E: the operands are E blocks along a leading axis
 };
+
+// the operands of expert e of a call over an expert axis: x (E, M, K),
+// the packed rows (E, rows, ldw) and (E, rows, lds), y (E, M, N) and the
+// partial sums (E, splits, M, N), each expert's block contiguous
+template <typename T>
+__device__ __forceinline__ Params expert_params(const Params& p, int e, int layout) {
+  Params q = p;
+  const size_t rows = layout == kKN ? (size_t)p.K : (size_t)p.N;
+  q.x = static_cast<const T*>(p.x) + (size_t)e * p.M * p.K;
+  q.codes = p.codes + (size_t)e * rows * p.ldw;
+  q.scales = p.scales + (size_t)e * rows * p.lds;
+  q.y = static_cast<T*>(p.y) + (size_t)e * p.M * p.N;
+  if (p.partial) q.partial = p.partial + (size_t)e * p.splits * p.M * p.N;
+  return q;
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
@@ -446,7 +472,7 @@ __device__ __forceinline__ void step_products(float (&acc)[64], const typename C
 // where N is even (an even column is then 8- or 4-byte aligned)
 template <class C>
 __device__ __forceinline__ void store_tile(const Params& p, const float (&acc)[64], int m0, int n0,
-                                           int warp, int lane) {
+                                           int z, int warp, int lane) {
   using T = typename C::T;
   constexpr bool kB16 = C::kWTerms == 1;
   constexpr int kMI = kB16 ? 4 : 2, kWMr = kB16 ? 64 : 32;
@@ -454,9 +480,9 @@ __device__ __forceinline__ void store_tile(const Params& p, const float (&acc)[6
   const int wm = warp / kWN, wn = warp % kWN;
   const int g = lane >> 2, t = lane & 3;
   const bool pairs = (p.N & 1) == 0;
-  const bool split = gridDim.z > 1;
+  const bool split = p.splits > 1;
   T* y = static_cast<T*>(p.y);
-  float* part = p.partial + (size_t)blockIdx.z * p.M * p.N;
+  float* part = p.partial + (size_t)z * p.M * p.N;
 #pragma unroll
   for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
@@ -494,8 +520,11 @@ __device__ __forceinline__ void store_tile(const Params& p, const float (&acc)[6
 }
 
 template <class C, int BITS, int LAYOUT>
-__global__ void __launch_bounds__(C::kThreads) dequant_gemm_kernel(const Params p) {
+__global__ void __launch_bounds__(C::kThreads) dequant_gemm_kernel(const Params params) {
   using T = typename C::T;
+  // blockIdx.z: expert e's split z
+  const int e = blockIdx.z / params.splits, z = blockIdx.z - e * params.splits;
+  const Params p = expert_params<T>(params, e, LAYOUT);
   constexpr int kBK = C::kBK, kBM = C::kBM, kBN = C::kBN;
   constexpr int kXS = C::kXStride, kWTile = C::kWTerms * kBN * C::kWStride;
   constexpr int PW = 32 / BITS;
@@ -526,8 +555,8 @@ __global__ void __launch_bounds__(C::kThreads) dequant_gemm_kernel(const Params 
       map.valid[c] = min(PW, p.n2 - j0);
     }
   }
-  // this block's K steps: all of them, or split blockIdx.z's share
-  const int s0 = blockIdx.z * p.split_steps;
+  // this block's K steps: all of them, or split z's share
+  const int s0 = z * p.split_steps;
   const int n_steps = max(0, min((p.K + kBK - 1) / kBK - s0, p.split_steps));
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -561,16 +590,20 @@ __global__ void __launch_bounds__(C::kThreads) dequant_gemm_kernel(const Params 
       unpack<C, BITS, LAYOUT>(ws + ((i + 1) & 1) * kWTile, ps + ((i + 1) % kStages) * p_words,
                               ss + ((i + 1) % kStages) * s_words, p, map, (s0 + i + 1) * kBK, nw);
   }
-  store_tile<C>(p, acc, m0, n0, warp, lane);
+  store_tile<C>(p, acc, m0, n0, z, warp, lane);
 }
 
-// y = epilogue(sum of the splits' partial sums, split 0 first)
+// y = epilogue(sum of the splits' partial sums, split 0 first), each
+// expert's from its own block of partial sums
 __global__ void __launch_bounds__(256) dequant_gemm_reduce_kernel(const Params p, int splits) {
   const size_t mn = (size_t)p.M * p.N;
-  for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < mn; i += (size_t)gridDim.x * 256) {
-    float s = p.partial[i];
-    for (int z = 1; z < splits; ++z) s += p.partial[z * mn + i];
-    static_cast<float*>(p.y)[i] = epilogue(p, s, (int)(i % p.N));
+  for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < mn * p.experts;
+       i += (size_t)gridDim.x * 256) {
+    const size_t e = i / mn, r = i - e * mn;
+    const float* part = p.partial + e * splits * mn + r;
+    float s = part[0];
+    for (int z = 1; z < splits; ++z) s += part[z * mn];
+    static_cast<float*>(p.y)[i] = epilogue(p, s, (int)(r % p.N));
   }
 }
 
@@ -580,11 +613,12 @@ int launch(const Params& p, int splits, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(dequant_gemm_kernel<C, BITS, LAYOUT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((p.N + C::kBN - 1) / C::kBN, (p.M + C::kBM - 1) / C::kBM, splits);
+  const dim3 grid((p.N + C::kBN - 1) / C::kBN, (p.M + C::kBM - 1) / C::kBM,
+                  p.experts * splits);
   dequant_gemm_kernel<C, BITS, LAYOUT><<<grid, C::kThreads, smem, stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
-  const size_t mn = (size_t)p.M * p.N;
+  const size_t mn = (size_t)p.M * p.N * p.experts;
   const size_t want = (mn + 255) / 256;    // at most 8 blocks an SM, each striding
   const unsigned blocks = (unsigned)(want < 132 * 8 ? want : 132 * 8);
   dequant_gemm_reduce_kernel<<<blocks, 256, 0, stream>>>(p, splits);
@@ -613,10 +647,11 @@ int by_layout(Params p, int bits, int layout, int span_w, int span_s, int splits
     p.ss_stride = C::kBK / pw + 1;      // scale columns one step can touch (group >= pw)
   }
   if (smem_bytes<C>(layout, p.ps_stride, p.ss_stride) > 227 * 1024 ||
-      (p.M + C::kBM - 1) / C::kBM > 65535)
+      (p.M + C::kBM - 1) / C::kBM > 65535 || p.experts < 1 || p.experts * splits > 65535)
     return (int)cudaErrorInvalidValue;
   const int steps = (p.K + C::kBK - 1) / C::kBK;
   p.split_steps = (steps + splits - 1) / splits;
+  p.splits = splits;
   return layout == kKN ? by_bits<C, kKN>(p, bits, splits, stream)
                        : by_bits<C, kNK>(p, bits, splits, stream);
 }
@@ -670,11 +705,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 struct WParams {
-  const int32_t* codes;     // nk: (N, ldw); kn: (K, ldw)
-  const float* scales;      // nk: (N, lds); kn: (K, lds)
+  const int32_t* codes;     // nk: (E, N, ldw); kn: (E, K, ldw)
+  const float* scales;      // nk: (E, N, lds); kn: (E, K, lds)
   const float* bias;        // (N,) or null
-  bf16* y;                  // (M, N) row-major
+  bf16* y;                  // (E, M, N) row-major
   int M, N, K, ldw, lds, group, act;
+  int experts;              // E (blockIdx.z)
 };
 
 // The scales a tile row reads: log2 of their count (the row's codes over
@@ -697,8 +733,9 @@ __device__ __forceinline__ int scale_slot(int group, int pt, int r) {
 // rows such as Mamba-2's 266 fp32 are not 16-byte aligned for TMA),
 // neighbouring threads on neighbouring addresses; zeros outside the weight
 template <int BITS, int LAYOUT>
-__device__ __forceinline__ void stage_scales(unsigned char* slot, const WParams& p, int n0,
-                                             int k0, int pt, int sshift) {
+__device__ __forceinline__ void stage_scales(unsigned char* slot, const WParams& p,
+                                             const float* scales, int n0, int k0, int pt,
+                                             int sshift) {
   using S = Staged<BITS, LAYOUT>;
   const int r0 = LAYOUT == kKN ? k0 : n0;
   const int rows = LAYOUT == kKN ? p.K : p.N;
@@ -708,7 +745,7 @@ __device__ __forceinline__ void stage_scales(unsigned char* slot, const WParams&
     const int row = i >> sshift, c = i & ((1 << sshift) - 1);
     const bool ok = r0 + row < rows && first + c < p.lds;
     hopper::cp_async4_zfill(sdst + row * S::kSPitch + c,
-                              p.scales + (ok ? (size_t)(r0 + row) * p.lds + first + c : 0), ok);
+                              scales + (ok ? (size_t)(r0 + row) * p.lds + first + c : 0), ok);
   }
 }
 
@@ -757,8 +794,8 @@ __device__ __forceinline__ void unpack_run(unsigned char* wt, const unsigned cha
 // one m64n128 accumulator (this thread's rows m, m + 8 and columns n +
 // 8 c, + 1) through the epilogue into y: bias and activation in fp32, one
 // rounding; rows and columns past (M, N) are skipped
-__device__ __forceinline__ void store_rows(const WParams& p, const float (&acc)[64], int m,
-                                           int n) {
+__device__ __forceinline__ void store_rows(const WParams& p, bf16* y, const float (&acc)[64],
+                                           int m, int n) {
   const bool pairs = (p.N & 1) == 0;    // a pair at an even column is 4-byte aligned
 #pragma unroll
   for (int c = 0; c < kWN / 8; ++c)
@@ -766,7 +803,7 @@ __device__ __forceinline__ void store_rows(const WParams& p, const float (&acc)[
     for (int hh = 0; hh < 2; ++hh) {
       const int mr = m + 8 * hh, nc = n + 8 * c;
       if (mr >= p.M || nc >= p.N) continue;
-      bf16* dst = p.y + (size_t)mr * p.N + nc;
+      bf16* dst = y + (size_t)mr * p.N + nc;
       float v0 = acc[4 * c + 2 * hh];
       if (p.bias) v0 += p.bias[nc];
       v0 = activate(v0, p.act);
@@ -801,7 +838,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
   uint64_t* empty = w_full + kWStages;                     // the stage's products retired
   uint64_t* words = empty + kWStages;                      // [kPre] a slot's words landed
 
-  const int n0 = blockIdx.x * kWN, m0 = blockIdx.y * kWM;
+  const int n0 = blockIdx.x * kWN, m0 = blockIdx.y * kWM, e = blockIdx.z;
   const int n_steps = (p.K + kWK - 1) / kWK;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWStages; ++s) {
@@ -826,19 +863,21 @@ __global__ void __launch_bounds__(kWThreads, 1)
     int sslot[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r) sslot[r] = scale_slot<LAYOUT>(p.group, pt, r);
+    // expert e's scale rows (its words and x rows come by its TMA coordinate)
+    const float* scales = p.scales + (size_t)e * (LAYOUT == kKN ? p.K : p.N) * p.lds;
     auto load_x = [&](int s) {          // from thread 0, the stage being free
       const int st = s % kWStages;
       hopper::mbar_arrive_expect_tx(&x_full[st], kXTileBytes);
-      hopper::tma_load_2d(xs + st * kXTileBytes, &tx, &x_full[st], s * kWK, m0);
+      hopper::tma_load_3d(xs + st * kXTileBytes, &tx, &x_full[st], s * kWK, m0, e);
     };
     auto stage = [&](int s) {           // step s into its slot (free: see below)
       const int slot = s % kPre, k0 = s * kWK;
       if (pt == 0) {
         hopper::mbar_arrive_expect_tx(&words[slot], S::kWordBytes);
-        hopper::tma_load_2d(staged + slot * S::kBytes, &tw, &words[slot],
-                            (LAYOUT == kKN ? n0 : k0) / (32 / BITS), LAYOUT == kKN ? k0 : n0);
+        hopper::tma_load_3d(staged + slot * S::kBytes, &tw, &words[slot],
+                            (LAYOUT == kKN ? n0 : k0) / (32 / BITS), LAYOUT == kKN ? k0 : n0, e);
       }
-      stage_scales<BITS, LAYOUT>(staged + slot * S::kBytes, p, n0, k0, pt, sshift);
+      stage_scales<BITS, LAYOUT>(staged + slot * S::kBytes, p, scales, n0, k0, pt, sshift);
     };
 #pragma unroll 1
     for (int s = 0; s < kPre - 1; ++s) {
@@ -899,32 +938,38 @@ __global__ void __launch_bounds__(kWThreads, 1)
     hopper::fence_regs(acc0);
     hopper::fence_regs(acc1);
 
-    store_rows(p, acc0, m0 + 128 * wg + 16 * warp + g, n0 + 2 * q4);
-    store_rows(p, acc1, m0 + 128 * wg + 64 + 16 * warp + g, n0 + 2 * q4);
+    bf16* y = p.y + (size_t)e * p.M * p.N;
+    store_rows(p, y, acc0, m0 + 128 * wg + 16 * warp + g, n0 + 2 * q4);
+    store_rows(p, y, acc1, m0 + 128 * wg + 64 + 16 * warp + g, n0 + 2 * q4);
   }
 }
 
+// One tensor map for x (E, M, K) and one for the packed words (E, rows,
+// ldw), each with the expert as its outermost dimension and a box one
+// expert deep: a block reads its expert's rows by the TMA coordinate, and
+// the rows past an expert's M read as zeros, never the next expert's.
 template <int BITS, int LAYOUT>
 int launch_wgmma(const void* x, const WParams& p, cudaStream_t stream) {
   CUtensorMap tx;
-  const uint64_t dims[2] = {(uint64_t)p.K, (uint64_t)p.M};
-  const uint64_t strides[1] = {(uint64_t)p.K * 2};
-  const uint32_t box[2] = {kWK, kWM};
-  int e = hopper_host::encode_bf16(&tx, x, 2, dims, strides, box, 128);
+  const uint64_t dims[3] = {(uint64_t)p.K, (uint64_t)p.M, (uint64_t)p.experts};
+  const uint64_t strides[2] = {(uint64_t)p.K * 2, (uint64_t)p.K * p.M * 2};
+  const uint32_t box[3] = {kWK, kWM, 1};
+  int e = hopper_host::encode_bf16(&tx, x, 3, dims, strides, box, 128);
   if (e != 0) return e;
-  CUtensorMap tw;                       // the packed words: (rows, ldw) int32
+  CUtensorMap tw;                       // the packed words: (E, rows, ldw) int32
   using S = Staged<BITS, LAYOUT>;
-  const uint64_t wdims[2] = {(uint64_t)p.ldw, (uint64_t)(LAYOUT == kKN ? p.K : p.N)};
-  const uint64_t wstrides[1] = {(uint64_t)p.ldw * 4};
-  const uint32_t wbox[2] = {(uint32_t)S::kRowWords, (uint32_t)S::kRows};
-  e = hopper_host::encode(&tw, CU_TENSOR_MAP_DATA_TYPE_INT32, p.codes, 2, wdims, wstrides, wbox,
+  const uint64_t rows = (uint64_t)(LAYOUT == kKN ? p.K : p.N);
+  const uint64_t wdims[3] = {(uint64_t)p.ldw, rows, (uint64_t)p.experts};
+  const uint64_t wstrides[2] = {(uint64_t)p.ldw * 4, (uint64_t)p.ldw * 4 * rows};
+  const uint32_t wbox[3] = {(uint32_t)S::kRowWords, (uint32_t)S::kRows, 1};
+  e = hopper_host::encode(&tw, CU_TENSOR_MAP_DATA_TYPE_INT32, p.codes, 3, wdims, wstrides, wbox,
                           0);
   if (e != 0) return e;
   constexpr int smem = wgmma_smem<BITS, LAYOUT>();
   cudaError_t ce = cudaFuncSetAttribute(dequant_gemm_wgmma_kernel<BITS, LAYOUT>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (ce != cudaSuccess) return (int)ce;
-  const dim3 grid((p.N + kWN - 1) / kWN, (p.M + kWM - 1) / kWM);
+  const dim3 grid((p.N + kWN - 1) / kWN, (p.M + kWM - 1) / kWM, p.experts);
   dequant_gemm_wgmma_kernel<BITS, LAYOUT><<<grid, kWThreads, smem, stream>>>(tx, tw, p);
   return (int)cudaGetLastError();
 }
@@ -948,58 +993,61 @@ extern "C" {
 // ("nk"), (K, .) for layout 1 ("kn", with segments n2 padded to n2p;
 // span_w / span_s bound the words and scale columns one 128-column tile
 // reads).  bias (N,) fp32 or null; act 0-4 (none, relu, silu, gelu,
-// squared relu); x_vec: x 16-byte aligned with 16-byte rows.
+// squared relu); x_vec: x 16-byte aligned with 16-byte rows.  `experts`
+// E >= 1 such products in one launch: x (E, M, K), codes and scales (E,
+// rows, .), y (E, M, N), each contiguous (the bias shared).
 int rt_dequant_gemm(const void* x, const void* codes, const void* scales, const void* bias,
                     void* y, int M, int N, int K, int bits, int group, int layout, int ldw,
                     int lds, int n2, int n2p, int span_w, int span_s, int act, int x_vec,
-                    void* stream) {
+                    int experts, void* stream) {
   if (!tile_args_ok(M, N, K, bits, group, layout, n2, n2p, span_w, span_s, act))
     return (int)cudaErrorInvalidValue;
   const Params p{x, static_cast<const int32_t*>(codes), static_cast<const float*>(scales),
                  static_cast<const float*>(bias), y, nullptr, M, N, K, ldw, lds, group, n2,
-                 n2p, 0, 0, act, x_vec, 0};
+                 n2p, 0, 0, act, x_vec, 0, 1, experts};
   return by_layout<TileBf16>(p, bits, layout, span_w, span_s, 1,
                              static_cast<cudaStream_t>(stream));
 }
 
 // The fp32 tile kernel on split TF32: arguments as rt_dequant_gemm's in
 // fp32 (span_w / span_s over tiles of 64 columns), 128 x 64 output tiles;
-// `splits` splits of K, whose partial sums go to `partial` ((splits, M, N)
-// fp32, unused for one split).
+// `splits` splits of K, whose partial sums go to `partial` ((E, splits,
+// M, N) fp32, unused for one split).
 int rt_dequant_gemm_tf32(const void* x, const void* codes, const void* scales,
                          const void* bias, void* y, void* partial, int M, int N, int K,
                          int bits, int group, int layout, int ldw, int lds, int n2, int n2p,
                          int span_w, int span_s, int act, int x_vec, int splits,
-                         void* stream) {
+                         int experts, void* stream) {
   if (!tile_args_ok(M, N, K, bits, group, layout, n2, n2p, span_w, span_s, act) ||
       splits < 1 || splits > 65535 || (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   const Params p{x, static_cast<const int32_t*>(codes), static_cast<const float*>(scales),
                  static_cast<const float*>(bias), y, static_cast<float*>(partial), M, N, K,
-                 ldw, lds, group, n2, n2p, 0, 0, act, x_vec, 0};
+                 ldw, lds, group, n2, n2p, 0, 0, act, x_vec, 0, 1, experts};
   return by_layout<TileTf32>(p, bits, layout, span_w, span_s, splits,
                              static_cast<cudaStream_t>(stream));
 }
 
 // The warp-specialised bf16 kernel: x (M, K) and y (M, N) row-major bf16;
 // codes int32 and scales fp32 as for rt_dequant_gemm, "kn" without segment
-// padding (codes (K, N / pw), scales (K, N / group)).  Takes x 16-byte
+// padding (codes (K, N / pw), scales (K, N / group)); `experts` E such
+// products in one launch, as rt_dequant_gemm's.  Takes x 16-byte
 // aligned with K % 8 == 0, codes 16-byte aligned with ldw % 4 == 0 (16-byte
 // rows), a group of 16, 32, 64 or a multiple of 128, and for "kn"
 // N % 64 == 0; anything else returns cudaErrorInvalidValue.
 int rt_dequant_gemm_wgmma(const void* x, const void* codes, const void* scales, const void* bias,
                           void* y, int M, int N, int K, int bits, int group, int layout, int ldw,
-                          int lds, int act, void* stream) {
+                          int lds, int act, int experts, void* stream) {
   if (M < 1 || N < 1 || K < 1 || K % 8 != 0 || (bits != 2 && bits != 4 && bits != 8) ||
       group < 16 || (128 % group != 0 && group % 128 != 0) ||
       group % (32 / bits) != 0 || act < 0 || act > 4 ||
       (layout != kNK && layout != kKN) || (layout == kKN && N % 64 != 0) || ldw % 4 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(codes) % 16 != 0 ||
-      (M + kWM - 1) / kWM > 65535)
+      (M + kWM - 1) / kWM > 65535 || experts < 1 || experts > 65535)
     return (int)cudaErrorInvalidValue;
   const WParams p{static_cast<const int32_t*>(codes), static_cast<const float*>(scales),
                   static_cast<const float*>(bias), static_cast<bf16*>(y), M, N, K, ldw, lds,
-                  group, act};
+                  group, act, experts};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return layout == kKN ? wgmma_by_bits<kKN>(x, p, bits, s) : wgmma_by_bits<kNK>(x, p, bits, s);
 }

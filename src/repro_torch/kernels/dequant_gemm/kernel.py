@@ -6,7 +6,9 @@ warp-specialised wgmma kernel for every bf16 call its rule admits, the
 bf16 tile kernel for the rest, the split-TF32 tile kernel for every fp32
 call, in the split of K that :func:`tf32x3_plan` picks),
 launches on the current stream through that kernel's C entry point and
-raises if the entry returns a CUDA error.  It never copies an operand:
+raises if the entry returns a CUDA error.  :func:`launch_expert_matmul`
+runs the MoE's expert contractions: E products of the "kn" layout in one
+launch of the same kernels, the expert from the grid.  It never copies an operand:
 a strided one raises, and the caller makes it contiguous.  The library
 is built on first use (``kernels/build.py``).  Runs on the card only;
 the CPU path is the plain version in ``ref.py``, chosen by the wrapper
@@ -40,11 +42,11 @@ _I = ctypes.c_int
 def library() -> ctypes.CDLL:
     lib = load_library(LIBRARY, SOURCES)
     if not getattr(lib, "_typed", False):
-        lib.rt_dequant_gemm.argtypes = [_P] * 5 + [_I] * 14 + [_P]
+        lib.rt_dequant_gemm.argtypes = [_P] * 5 + [_I] * 15 + [_P]
         lib.rt_dequant_gemm.restype = _I
-        lib.rt_dequant_gemm_tf32.argtypes = [_P] * 6 + [_I] * 15 + [_P]
+        lib.rt_dequant_gemm_tf32.argtypes = [_P] * 6 + [_I] * 16 + [_P]
         lib.rt_dequant_gemm_tf32.restype = _I
-        lib.rt_dequant_gemm_wgmma.argtypes = [_P] * 5 + [_I] * 9 + [_P]
+        lib.rt_dequant_gemm_wgmma.argtypes = [_P] * 5 + [_I] * 10 + [_P]
         lib.rt_dequant_gemm_wgmma.restype = _I
         lib._typed = True
     return lib
@@ -70,14 +72,15 @@ def route(dtype: torch.dtype, K: int, N: int, group: int, layout: int,
     return "tile"
 
 
-def tf32x3_plan(M: int, N: int, K: int) -> int:
+def tf32x3_plan(M: int, N: int, K: int, experts: int = 1) -> int:
     """The splits of K of an fp32 call, from its shape alone: as many as
-    eight parts while the 128 x 64 blocks stay within two an SM (each a
-    whole wave of the card, two resident on each SM), each part at least
-    two K steps.  ``scripts/tf32x3_plan_sweep.py`` times every split: on
-    an H100 this rule is within 7 % of the fastest at each served fp32
-    shape (PERF.md)."""
-    tiles = -(-M // TF32_BM) * -(-N // TF32_BN)
+    eight parts while the 128 x 64 blocks (of all ``experts`` products)
+    stay within two an SM (each a whole wave of the card, two resident on
+    each SM), each part at least two K steps.
+    ``scripts/tf32x3_plan_sweep.py`` times every split: on an H100 this
+    rule is within 7 % of the fastest at each served fp32 shape
+    (PERF.md)."""
+    tiles = -(-M // TF32_BM) * -(-N // TF32_BN) * experts
     steps = -(-K // TF32_BK)
     return max(1, min(8, 2 * SMS // tiles, steps // 2))
 
@@ -132,11 +135,14 @@ def _check_operands(x: torch.Tensor, qt: QTensor,
 
 def _launch(x2, qt, bias, act, N, layout, ldw, lds, n2, n2p
             ) -> Tuple[torch.Tensor, str]:
-    M, K = x2.shape
-    if M < 1 or N < 1 or K < 1:
+    """x2 (M, K), or (E, M, K) with a packed operand of E blocks -> y
+    (M, N) or (E, M, N)."""
+    E = x2.shape[0] if x2.dim() == 3 else 1
+    M, K = x2.shape[-2:]
+    if M < 1 or N < 1 or K < 1 or E < 1:
         raise ValueError(f"dequant_gemm: empty product ({M}, {K}) x "
-                         f"({K}, {N})")
-    y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+                         f"({K}, {N}) over {E} experts")
+    y = torch.empty(x2.shape[:-1] + (N,), dtype=x2.dtype, device=x2.device)
     aligned = x2.data_ptr() % 16 == 0 and qt.codes.data_ptr() % 16 == 0
     kernel = route(x2.dtype, K, N, qt.spec.group_size, layout, n2, n2p, ldw,
                    aligned)
@@ -147,32 +153,32 @@ def _launch(x2, qt, bias, act, N, layout, ldw, lds, n2, n2p
         err = library().rt_dequant_gemm_wgmma(
             x2.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
             bias_ptr, y.data_ptr(), M, N, K, bits, group, layout, ldw, lds,
-            ACT_IDS[act], stream)
+            ACT_IDS[act], E, stream)
         if err != 0:
             raise RuntimeError(f"dequant_gemm: CUDA error {err}")
         return y, kernel
     x_vec = int(x2.data_ptr() % 16 == 0 and (K * x2.element_size()) % 16
                 == 0)
     if kernel == "tf32x3":
-        splits = tf32x3_plan(M, N, K)
+        splits = tf32x3_plan(M, N, K, E)
         span_w, span_s = (kn_spans(N, n2, n2p, qt.spec.per_word, group,
                                    TF32_BN)
                           if layout == KN else (1, 1))
-        partial = (torch.empty((splits, M, N), dtype=torch.float32,
+        partial = (torch.empty((E, splits, M, N), dtype=torch.float32,
                                device=x2.device) if splits > 1 else None)
         err = library().rt_dequant_gemm_tf32(
             x2.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
             bias_ptr, y.data_ptr(),
             None if partial is None else partial.data_ptr(), M, N, K, bits,
             group, layout, ldw, lds, n2, n2p, span_w, span_s, ACT_IDS[act],
-            x_vec, splits, stream)
+            x_vec, splits, E, stream)
     else:
         span_w, span_s = (kn_spans(N, n2, n2p, qt.spec.per_word, group)
                           if layout == KN else (1, 1))
         err = library().rt_dequant_gemm(
             x2.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
             bias_ptr, y.data_ptr(), M, N, K, bits, group, layout, ldw, lds,
-            n2, n2p, span_w, span_s, ACT_IDS[act], x_vec, stream)
+            n2, n2p, span_w, span_s, ACT_IDS[act], x_vec, E, stream)
     if err != 0:
         raise RuntimeError(f"dequant_gemm: CUDA error {err}")
     return y, kernel
@@ -223,3 +229,26 @@ def launch_packed_matmul(x2: torch.Tensor, qt: QTensor, n_k: int
                          f"weight {shape}")
     return _launch(x2, qt, None, None, N1 * n2, KN, N1 * n2p // pw,
                    N1 * n2p // g, n2, n2p)
+
+
+def launch_expert_matmul(x3: torch.Tensor, qt: QTensor
+                         ) -> Tuple[torch.Tensor, str]:
+    """The MoE's expert contractions: x3 (E, M, K) against a stacked
+    packed weight qt (E, K, N), each expert's (K, N) packed along N (the
+    "kn" layout) -> ((E, M, N) in x3's dtype, the kernel's route), all E
+    products in one launch."""
+    _check_operands(x3, qt, None, None)
+    shape = tuple(qt.shape)
+    if x3.dim() != 3 or len(shape) != 3 or qt.codes.dim() != 3:
+        raise ValueError(f"dequant_gemm: expected x (E, M, K) against an "
+                         f"expert weight (E, K, N), got {tuple(x3.shape)} "
+                         f"and {shape}")
+    E, K, N = shape
+    pw, g = qt.spec.per_word, qt.spec.group_size
+    n2p = qt.codes.shape[-1] * pw
+    if (x3.shape[0] != E or x3.shape[2] != K
+            or tuple(qt.codes.shape[:2]) != (E, K)
+            or qt.scales.numel() != E * K * n2p // g):
+        raise ValueError(f"dequant_gemm: x {tuple(x3.shape)} against "
+                         f"expert weight {shape}")
+    return _launch(x3, qt, None, None, N, KN, n2p // pw, n2p // g, N, n2p)

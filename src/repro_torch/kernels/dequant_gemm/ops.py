@@ -19,7 +19,11 @@ decides from the call's shape before the launch.
   contractions (``ref.MODEL_SPECS``), goes to the kernel in the model's
   layout ("kn", packed along the output axis), and the plain version is
   ``dequantize`` + ``torch.einsum``, the model's arithmetic before the
-  kernel, bit for bit.
+  kernel, bit for bit.  The MoE's expert contractions
+  (``ref.EXPERT_SPECS``: x (G, E, C, K) against a stacked expert weight
+  (E, K, N)) go to the kernel as one launch over all E experts, x laid
+  out expert-major (E, G * C, K); each such launch also counts under
+  ``dequant_gemm/experts``.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ import torch
 from repro_torch.core.quantize import QTensor
 from repro_torch.kernels import count_launch, register_kernels
 from repro_torch.kernels.dequant_gemm import kernel as K
-from repro_torch.kernels.dequant_gemm.ref import (MODEL_SPECS,
+from repro_torch.kernels.dequant_gemm.ref import (EXPERT_SPECS,
+                                                  MODEL_SPECS,
                                                   ref_dequant_gemm,
                                                   ref_quant_einsum)
 
@@ -65,11 +70,21 @@ def quant_einsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
     the kernel on the card or ``dequantize`` + einsum on the CPU."""
     if not isinstance(w, QTensor):
         return torch.einsum(spec, x, w)
-    if spec not in MODEL_SPECS:
+    if spec not in MODEL_SPECS and spec not in EXPERT_SPECS:
         raise ValueError(f"quant_einsum: no packed-weight path for {spec!r} "
-                         f"(model contractions: {tuple(MODEL_SPECS)})")
+                         f"(model contractions: {tuple(MODEL_SPECS)}, "
+                         f"expert contractions: {EXPERT_SPECS})")
     if not _on_card(x, "quant_einsum"):
         return ref_quant_einsum(spec, x, w)
+    if spec in EXPERT_SPECS:
+        G, E, C, Kd = x.shape
+        # expert-major rows: each expert's G groups of C rows contiguous
+        xe = x.transpose(0, 1).reshape(E, G * C, Kd).contiguous()
+        y, kernel = K.launch_expert_matmul(xe, w)
+        count_launch("dequant_gemm")
+        count_launch(f"dequant_gemm/{kernel}")
+        count_launch("dequant_gemm/experts")
+        return y.reshape(E, G, C, y.shape[-1]).transpose(0, 1)
     n_k = MODEL_SPECS[spec]
     lead = x.shape[:-n_k]
     # one row per output position; reshapes of a strided operand copy here
@@ -81,4 +96,4 @@ def quant_einsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
 
 
 register_kernels("dequant_gemm", "dequant_gemm/wgmma", "dequant_gemm/tile",
-                 "dequant_gemm/tf32x3")
+                 "dequant_gemm/tf32x3", "dequant_gemm/experts")

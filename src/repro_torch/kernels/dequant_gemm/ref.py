@@ -36,6 +36,9 @@ ACTS = (None, "relu", "silu", "gelu", "squared_relu")
 # trailing axes of x (and leading axes of the weight) are contracted
 MODEL_SPECS = {"bsd,dhk->bshk": 1, "bshk,hkd->bsd": 2, "bsd,df->bsf": 1,
                "bsf,fd->bsd": 1, "bsd,de->bse": 1, "bse,ed->bsd": 1}
+# the MoE's expert contractions: x (G, E, C, K) against a stacked expert
+# weight (E, K, N) -> (G, E, C, N), the expert axis batched
+EXPERT_SPECS = ("gecd,edf->gecf", "gecf,efd->gecd")
 
 
 def epilogue(acc: torch.Tensor, bias: Optional[torch.Tensor],
@@ -74,7 +77,8 @@ def ref_quant_einsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
 def emulate_dequant_gemm_tf32x3(x: torch.Tensor, qt: QTensor,
                                 bias: Optional[torch.Tensor] = None,
                                 act: Optional[str] = None, *,
-                                n_k: Optional[int] = None) -> torch.Tensor:
+                                n_k: Optional[int] = None,
+                                experts: bool = False) -> torch.Tensor:
     """The fp32 kernel's route (``dequant_gemm/tf32x3``) in plain PyTorch:
     x and the weight (``dequantize``'s fp32 values) each split into tf32
     terms hi + lo (``flash_attention.ref.split_tf32``); each K step of
@@ -84,28 +88,49 @@ def emulate_dequant_gemm_tf32x3(x: torch.Tensor, qt: QTensor,
     call's M, N, K added in order, split 0 first; then ``epilogue``.
     ``n_k`` None: the "nk" layout, x (..., K) against qt (N, K) -> (...,
     N); else the model's "kn" layout, qt's first ``n_k`` axes contracted
-    against x's last ``n_k`` -> (..., *qt.shape[n_k:])."""
-    from repro_torch.kernels.dequant_gemm.kernel import (TF32_BK,
-                                                         tf32x3_plan)
-    from repro_torch.kernels.flash_attention.ref import split_tf32
+    against x's last ``n_k`` -> (..., *qt.shape[n_k:]).  ``experts``:
+    an expert contraction, x (G, E, C, K) against qt (E, K, N) -> (G, E,
+    C, N), each expert's G * C rows one product of the launch over all E
+    (the split of K planned from all E products' tiles)."""
+    from repro_torch.kernels.dequant_gemm.kernel import tf32x3_plan
     w = dequantize(qt).to(torch.float32)
+    if experts:
+        G, E, C, K = x.shape
+        N = qt.shape[-1]
+        xe = x.to(torch.float32).transpose(0, 1).reshape(E, G * C, K)
+        splits = tf32x3_plan(G * C, N, K, E)
+        ys = [_tf32x3_sums(xe[e], w[e], splits) for e in range(E)]
+        y = epilogue(torch.stack(ys), bias, act, x.dtype)
+        return y.reshape(E, G, C, N).transpose(0, 1)
     if n_k is None:
         K, wk, lead, tail = qt.shape[1], w.t(), x.shape[:-1], (qt.shape[0],)
     else:
         K = w.shape[:n_k].numel()
         wk, lead, tail = w.reshape(K, -1), x.shape[:-n_k], qt.shape[n_k:]
     x2 = x.to(torch.float32).reshape(-1, K)
-    M, N = x2.shape[0], wk.shape[1]
-    splits = tf32x3_plan(M, N, K)
+    total = _tf32x3_sums(x2, wk, tf32x3_plan(x2.shape[0], wk.shape[1], K))
+    return epilogue(total, bias, act, x.dtype).reshape(*lead, *tail)
+
+
+def _tf32x3_sums(x2: torch.Tensor, wk: torch.Tensor,
+                 splits: int) -> torch.Tensor:
+    """x2 (M, K) fp32 @ wk (K, N) fp32 as the split-TF32 route sums it,
+    before the epilogue: each K step of ``kernel.TF32_BK`` as three tf32
+    products in a fresh fp32 sum, the steps added in order within each of
+    ``splits`` parts, the parts added in order."""
+    from repro_torch.kernels.dequant_gemm.kernel import TF32_BK
+    from repro_torch.kernels.flash_attention.ref import split_tf32
+    M, K = x2.shape
+    N = wk.shape[1]
     steps = -(-K // TF32_BK)
     per = -(-steps // splits)
     (xh, xl), (wh, wl) = split_tf32(x2), split_tf32(wk)
     total = None
     for z in range(splits):
-        acc = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+        acc = torch.zeros((M, N), dtype=torch.float32, device=x2.device)
         for s in range(z * per, min(steps, (z + 1) * per)):
             k = slice(s * TF32_BK, (s + 1) * TF32_BK)
             acc = acc + (xl[:, k] @ wh[k] + xh[:, k] @ wl[k]
                          + xh[:, k] @ wh[k])
         total = acc if total is None else total + acc
-    return epilogue(total, bias, act, x.dtype).reshape(*lead, *tail)
+    return total

@@ -208,15 +208,20 @@ def composed_cohort_step(params, cfg, tokens, lengths, slot_ids, tables,
     are handed to it to be written in place), then write each row's new
     K/V position back through the table with ``kv_write`` (a
     ``kv_scatter``-like function returning the pools) and its new state
-    back by slot with ``slot_write`` (``scatter_slots``: in place).
-    Returns (logits, pool)."""
+    back by slot with ``slot_write`` (``scatter_slots``: in place).  An
+    MoE routes only the real rows: sentinel rows (block id ``n_blocks``)
+    take no capacity.  Returns (logits, pool)."""
     bc = tokens.shape[0]
     layers = tuple(
         tuple(gather_context(l, tables) if is_paged
               else gather_slots(l, slot_ids) for l in pool[pos])
         for pos, is_paged in enumerate(paged))
     cache = {"layers": layers, "index": lengths}
-    logits, new = M.lm_decode_step(params, cfg, tokens, cache, donate=donate)
+    valid = None
+    if cfg.moe is not None:
+        valid = tables[:, 0] < pool[paged.index(True)][0].shape[1]
+    logits, new = M.lm_decode_step(params, cfg, tokens, cache, donate=donate,
+                                   valid=valid)
     rows = torch.arange(bc, device=tokens.device)
     idx = lengths.to(torch.long)
     out = []

@@ -12,6 +12,14 @@ Qwen2-VL-7B's prompts carry its 1024 vision tokens, so they need the
         --arch qwen2-vl-7b --requests 4 --quantize nanomind-serve \\
         --full --max-len 4096
 
+DeepSeek-MoE-16B serves at full width and depth on one card (its
+experts packed one stacked leaf at a time as ``init_params`` makes them,
+10.8 GB under ``nanomind-serve``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-moe-16b --requests 4 --quantize nanomind-serve \
+        --full --max-len 2048
+
 Submits synthetic prompts (with stub vision features for vlm archs; a
 vision request's prompt carries one placeholder token per vision token,
 then its text), runs the engine to completion and prints tokens/s,
@@ -35,11 +43,10 @@ import os
 import time
 
 import numpy as np
-import torch
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core.power import BatteryAwareExecutor, PMU
-from repro_torch.core.quantize import PROFILES, quantize_tree
+from repro_torch.core.quantize import PROFILES
 from repro_torch.models.model import init_params
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.telemetry.calibration import CostCalibration
@@ -71,10 +78,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    params = init_params(cfg, device=args.device, seed=args.seed)
-    if args.quantize:
-        with torch.no_grad():
-            params = quantize_tree(params, PROFILES[args.quantize])
+    # a policy packs each stacked expert leaf as it is made
+    params = init_params(cfg, device=args.device, seed=args.seed,
+                         policy=PROFILES[args.quantize] if args.quantize
+                         else None)
 
     executor = BatteryAwareExecutor(PMU())
     executor.pmu.level = args.battery

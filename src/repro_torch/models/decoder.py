@@ -13,8 +13,13 @@ decode (``stack_decode``) dequantizes every packed leaf of the layer at
 use.  Caches are one tuple per group position: ``(k, v)`` for softmax
 attention, ``(state, z)`` for linear attention (per query head, as the
 reference lays out its state over repeated k/v), ``(conv_tail,
-ssd_state)`` for Mamba-2.  MoE, hybrid groups and the encoder-decoder
-are not ported yet.
+ssd_state)`` for Mamba-2.  The FFN is a dense MLP or the
+mixture of experts (``models/moe.py``), whose stacked expert weights
+``w_up`` / ``w_gate`` / ``w_down`` (L, E, ...) prefill passes packed to
+the packed-weight GEMM's expert contractions; prefill masks right pads
+out of the routing (``valid_len``), decode masks the rows the caller
+marks invalid.  Hybrid groups and the encoder-decoder are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import linear_attention as lin
 from repro_torch.models import mamba2
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import apply_norm, init_norm
 from repro_torch.tree import tree_map, tree_map_with_path
 
@@ -55,10 +61,10 @@ def sublayer_spec(cfg, pos: int) -> Tuple[str, str]:
 
 def check_supported(cfg):
     """The port's decoder covers uniform stacks (group size 1) of softmax
-    attention, linear attention or Mamba-2 mixers with a dense FFN or
-    none."""
-    if (group_size(cfg) != 1 or cfg.moe is not None
-            or cfg.attn_impl not in ("softmax", "linear") or cfg.encdec):
+    attention, linear attention or Mamba-2 mixers with a dense FFN, a
+    mixture of experts or none."""
+    if (group_size(cfg) != 1 or cfg.attn_impl not in ("softmax", "linear")
+            or cfg.encdec):
         raise NotImplementedError(
             f"{cfg.name}: only uniform softmax- or linear-attention or "
             f"Mamba-2 decoders with group size 1 are ported")
@@ -77,8 +83,11 @@ def _expand_kv(cfg, t):
     return torch.repeat_interleave(t, cfg.n_heads // cfg.n_kv_heads, dim=2)
 
 
-def init_stack(generator, cfg, device, qkv_bias: bool = False):
-    """Stacked layer params, leading dim ``n_layers``."""
+def init_stack(generator, cfg, device, qkv_bias: bool = False,
+               pack=None):
+    """Stacked layer params, leading dim ``n_layers``.  ``pack(name,
+    leaf)``, when given, packs each stacked expert leaf as it is made
+    (``moe.init_moe``)."""
     check_supported(cfg)
     L, D = cfg.n_layers, cfg.d_model
     mixer_kind, ffn_kind = sublayer_spec(cfg, 0)
@@ -90,8 +99,11 @@ def init_stack(generator, cfg, device, qkv_bias: bool = False):
         sub["mixer"] = mamba2.init_mamba(generator, cfg, device, lead=(L,))
     if ffn_kind != "none":
         sub["norm2"] = init_norm(cfg, D, device, lead=(L,))
-        sub["ffn"] = mlp_mod.init_mlp(generator, cfg, D, cfg.d_ff, device,
-                                      lead=(L,))
+        sub["ffn"] = (moe_mod.init_moe(generator, cfg, D, device,
+                                       lead=(L,), pack=pack)
+                      if ffn_kind == "moe" else
+                      mlp_mod.init_mlp(generator, cfg, D, cfg.d_ff, device,
+                                       lead=(L,)))
     return (sub,)
 
 
@@ -111,10 +123,14 @@ def dequantize_small(sub):
     return tree_map_with_path(visit, sub)
 
 
-def _ffn(sub, cfg, x):
+def _ffn(sub, cfg, x, valid=None):
+    """x + the FFN of norm2(x); ``valid`` (B, S) bool masks tokens out of
+    the MoE's routing."""
     if "ffn" not in sub:
         return x
     h2 = apply_norm(sub["norm2"], x)
+    if cfg.moe is not None:
+        return x + moe_mod.apply_moe(sub["ffn"], cfg, h2, valid)[0]
     return x + mlp_mod.apply_mlp(sub["ffn"], cfg.act, h2)
 
 
@@ -129,9 +145,15 @@ def stack_forward(params_layers, cfg, x, rope_fn, *, causal=True,
     ``valid_len`` (B,) marks right-padded rows: Mamba-2 and
     linear-attention state is taken at each row's true end (softmax
     caches keep the pad positions, which decode's length mask never
-    reads)."""
+    reads), and the pads take no part in the MoE's routing.  ``aux`` is
+    0.0: the MoE's load-balance loss is a training term, and training is
+    not ported."""
     check_supported(cfg)
     mixer = mixer_of(cfg)
+    valid = None
+    if valid_len is not None and cfg.moe is not None:
+        valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+                 < valid_len.to(x.device)[:, None])
     c0, c1 = [], []
     for i in range(cfg.n_layers):
         sub = dequantize_small(layer_slice(params_layers, i))[0]
@@ -151,7 +173,7 @@ def stack_forward(params_layers, cfg, x, rope_fn, *, causal=True,
                 pad = decode_len - a.shape[1]
                 a = F.pad(a, (0, 0, 0, 0, 0, pad))
                 b = F.pad(b, (0, 0, 0, 0, 0, pad))
-        x = _ffn(sub, cfg, x + y)
+        x = _ffn(sub, cfg, x + y, valid)
         if want_cache:
             c0.append(a)
             c1.append(b)
@@ -160,15 +182,21 @@ def stack_forward(params_layers, cfg, x, rope_fn, *, causal=True,
 
 
 def stack_decode(params_layers, cfg, x, caches, index, rope_fn, *,
-                 donate: bool = False) -> Tuple[torch.Tensor, tuple]:
+                 donate: bool = False,
+                 valid: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, tuple]:
     """One decode step through every layer; returns (x, new caches).
     Linear attention takes the plain one-token step (the reference has
     no decode kernel for it).  With ``donate`` the caller hands over the
     stacked softmax caches: each layer's row is written into them in place
     (``attention.update_cache(donate=True)``) and they come back as they
-    are, with no copy; other mixers' state is new either way."""
+    are, with no copy; other mixers' state is new either way.  ``valid``
+    (B,) bool marks the rows that take part in the MoE's routing (a
+    cohort's sentinel rows do not); None: every row."""
     check_supported(cfg)
     mixer = mixer_of(cfg)
+    if valid is not None:
+        valid = valid[:, None]
     c0, c1 = caches[0]
     new0, new1 = [], []
     for i in range(cfg.n_layers):
@@ -191,7 +219,7 @@ def stack_decode(params_layers, cfg, x, caches, index, rope_fn, *,
                                      donate=donate)
         new0.append(a)
         new1.append(b)
-        x = _ffn(sub, cfg, x + y)
+        x = _ffn(sub, cfg, x + y, valid)
     if donate and mixer == "attn":
         return x, ((c0, c1),)
     return x, ((torch.stack(new0), torch.stack(new1)),)

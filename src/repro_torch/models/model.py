@@ -1,5 +1,5 @@
 """Top-level language-model API: init / prefill / decode (decoder-only
-dense, VLM and SSM families; softmax or linear attention).  The cache's
+dense, MoE, VLM and SSM families; softmax or linear attention).  The cache's
 ``layers`` are the decoder's: ``((k, v),)`` for softmax attention,
 ``((state, z),)`` for linear attention, ``((conv_tail, ssd_state),)``
 for Mamba-2."""
@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.quantize import QTensor, dequantize
+from repro_torch.core.quantize import QTensor, dequantize, quantize_tree
 from repro_torch.models import decoder as dec
 from repro_torch.models.common import (apply_mrope, apply_norm,
                                        apply_rope, default_mrope_positions,
@@ -19,15 +19,17 @@ from repro_torch.models.common import (apply_mrope, apply_norm,
                                        embed_init, init_norm)
 
 
-def init_lm(cfg: ModelConfig, generator: torch.Generator, device):
+def init_lm(cfg: ModelConfig, generator: torch.Generator, device,
+            pack=None):
     """Parameters with the reference's tree, shapes and scales (torch's
-    own random numbers)."""
+    own random numbers); ``pack(name, leaf)`` packs each stacked expert
+    leaf as it is made."""
     dt = cfg.torch_dtype
     qkv_bias = cfg.family == "vlm"          # Qwen2 uses qkv biases
     params: Dict[str, Any] = {
         "embed": embed_init(generator, (cfg.padded_vocab, cfg.d_model), dt,
                             device),
-        "layers": dec.init_stack(generator, cfg, device, qkv_bias),
+        "layers": dec.init_stack(generator, cfg, device, qkv_bias, pack),
         "final_norm": init_norm(cfg, cfg.d_model, device),
     }
     if not cfg.tie_embeddings:
@@ -45,16 +47,28 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device):
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device="cuda", seed: int = 0):
+                device="cuda", seed: int = 0, policy=None):
     """The port's counterpart of the reference's ``init_params``: random
     weights made on ``device`` (the card by default) from ``generator``
-    (or a fresh one seeded with ``seed``)."""
+    (or a fresh one seeded with ``seed``).  With a ``policy`` (a
+    ``QuantPolicy``) the result is ``quantize_tree(init_params(...),
+    policy)``, bit for bit, but each stacked expert leaf is packed as
+    soon as it is made: a full-width MoE model never holds its dense
+    experts whole (DeepSeek-MoE-16B's are 31 GB in bf16)."""
     device = torch.device(device)
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
+    pack = None
+    if policy is not None:
+        def pack(name, leaf):
+            # the leaf in its place in the tree, so that the policy reads
+            # the path it has there
+            tree = {"layers": ({"ffn": {name: leaf}},)}
+            return quantize_tree(tree, policy)["layers"][0]["ffn"][name]
     with torch.no_grad():
-        return init_lm(cfg, generator, device)
+        params = init_lm(cfg, generator, device, pack)
+        return params if policy is None else quantize_tree(params, policy)
 
 
 def make_rope_fn(cfg, positions, mrope_positions=None):
@@ -110,10 +124,12 @@ def _head(params, cfg, x):
 
 
 def lm_prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
-               vision_feats=None, mrope_positions=None):
+               vision_feats=None, mrope_positions=None, valid_len=None):
     """Run the prompt; caches padded to ``max_len``.  Returns
     (last-token logits (B, V), cache).  M-RoPE configs default to three
-    equal text position streams."""
+    equal text position streams.  ``valid_len`` (B,), as the engine
+    passes it: an MoE routes in masked groups (``moe.apply_moe(valid=)``),
+    as the engine's prefill does; None: the reference's routing."""
     B, S = tokens.shape
     rope_fn = (prompt_rope_fn(cfg, B, S, tokens.device)
                if mrope_positions is None else
@@ -122,7 +138,8 @@ def lm_prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
     x = _embed(params, cfg, tokens, vision_feats)
     x, caches, _ = dec.stack_forward(params["layers"], cfg, x, rope_fn,
                                      causal=True, want_cache=True,
-                                     decode_len=max_len)
+                                     decode_len=max_len,
+                                     valid_len=valid_len)
     logits = _head(params, cfg, x[:, -1:])
     return logits[:, 0], {"layers": caches,
                           "index": torch.tensor(S, dtype=torch.int32,
@@ -144,18 +161,20 @@ def decode_rope_fn(cfg, positions):
 
 
 def lm_decode_step(params, cfg: ModelConfig, tokens, cache, *,
-                   donate: bool = False):
+                   donate: bool = False, valid=None):
     """One decode step: tokens (B,1) -> (logits (B,V), new cache).
     ``cache["index"]`` is a scalar or a (B,) vector of per-row lengths.
     ``donate`` hands the softmax caches over to be written in place
-    (``decoder.stack_decode``); the default leaves them unmodified."""
+    (``decoder.stack_decode``); the default leaves them unmodified.
+    ``valid`` (B,) bool: the rows that take part in the MoE's routing
+    (None: all)."""
     B = tokens.shape[0]
     index = torch.as_tensor(cache["index"], device=tokens.device)
     rope_fn = decode_rope_fn(cfg, decode_positions(index, B, tokens.device))
     x = _embed(params, cfg, tokens)
     x, new_caches = dec.stack_decode(params["layers"], cfg, x,
                                      cache["layers"], index, rope_fn,
-                                     donate=donate)
+                                     donate=donate, valid=valid)
     logits = _head(params, cfg, x)
     return logits[:, 0], {"layers": new_caches, "index": index + 1}
 
@@ -171,28 +190,42 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                                   device=torch.device(device))}
 
 
-def count_params_analytic(cfg: ModelConfig) -> int:
-    """Analytic parameter count of the stacks the port covers (softmax or
-    linear attention, which share their weights, or Mamba-2 mixers; dense
-    FFN or none), the reference's formula."""
-    dec.check_supported(cfg)
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Analytic parameter count, the reference's formula for every
+    layout (dense, MoE, SSM, hybrid groups, encoder-decoder), the MoE's
+    routed experts counted at ``top_k`` with ``active_only`` (the
+    parameters a token touches)."""
     D, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    mixer, ffn = dec.sublayer_spec(cfg, 0)
-    if mixer == "attn":
-        per_layer = D * hd * (H + 2 * KV) + H * hd * D
-    else:
-        s = cfg.ssm
-        d_inner = s.expand * D
-        ch = d_inner + 2 * s.n_groups * s.d_state
-        Hm = d_inner // s.head_dim
-        per_layer = (D * (2 * d_inner + 2 * s.n_groups * s.d_state + Hm)
-                     + s.d_conv * ch + ch + 3 * Hm + d_inner + d_inner * D)
-    if ffn == "mlp":
-        n_mats = 3 if cfg.act in ("swiglu", "geglu") else 2
-        per_layer += n_mats * D * cfg.d_ff
-    per_layer += 2 * D                      # norms
-    total = per_layer * cfg.n_layers
+    total = 0
+    for pos in range(dec.group_size(cfg)):
+        mixer, ffn = dec.sublayer_spec(cfg, pos)
+        if mixer == "attn":
+            total += D * hd * (H + 2 * KV) + H * hd * D
+        else:
+            s = cfg.ssm
+            d_inner = s.expand * D
+            ch = d_inner + 2 * s.n_groups * s.d_state
+            Hm = d_inner // s.head_dim
+            total += (D * (2 * d_inner + 2 * s.n_groups * s.d_state + Hm)
+                      + s.d_conv * ch + ch + 3 * Hm + d_inner + d_inner * D)
+        if ffn == "mlp":
+            n_mats = 3 if cfg.act in ("swiglu", "geglu") else 2
+            total += n_mats * D * cfg.d_ff
+        elif ffn == "moe":
+            m = cfg.moe
+            E = m.top_k if active_only else m.n_experts
+            total += D * m.n_experts                  # router (always dense)
+            total += E * 3 * D * m.d_ff_expert
+            if m.n_shared:
+                total += 3 * D * (m.d_ff_shared or m.d_ff_expert * m.n_shared)
+        total += 2 * D                                # norms
+    total *= cfg.n_layers // dec.group_size(cfg)
     total += cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2)
     if cfg.vlm:
         total += cfg.vision_feat_dim * D + D * D
+    if cfg.encdec:
+        enc_layer = (D * hd * (H + 2 * KV) + H * hd * D
+                     + 2 * D * cfg.d_ff + 2 * D)
+        cross = D * hd * (H + 2 * KV) + H * hd * D + D
+        total += cfg.n_enc_layers * enc_layer + cfg.n_layers * cross
     return int(total)

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.quantize import QuantSpec, dequantize, quantize
+from repro_torch.core.quantize import (QTensor, QuantSpec, dequantize,
+                                       quantize)
 from repro_torch.kernels import (launch_counts, launches_of,
                                  reset_launch_counts)
 from repro_torch.kernels.cache_update import (cache_row_update,
@@ -1886,7 +1887,7 @@ def test_tf32x3_gemm_every_plan_matches_plain(cuda, bits, layout, mkn,
         want = ref_quant_einsum("bsd,df->bsf", x[None], qt)[0]
         w_kn = dequantize(qt)
     for splits in _tf32x3_splits(K):
-        monkeypatch.setattr(DK, "tf32x3_plan", lambda M, N, K: splits)
+        monkeypatch.setattr(DK, "tf32x3_plan", lambda M, N, K, E=1: splits)
         if layout == "nk":
             got, route = DK.launch_dequant_gemm(x, qt)
         else:
@@ -1911,7 +1912,7 @@ def test_tf32x3_gemm_epilogue_matches_plain(cuda, act, bias, splits,
     qt = quantize(_dg_tensor(cuda, (264, 512), torch.float32, 6, 0.1),
                   QuantSpec(4, group_size=64))
     b = torch.linspace(-0.5, 0.5, 264, device=cuda) if bias else None
-    monkeypatch.setattr(DK, "tf32x3_plan", lambda M, N, K: splits)
+    monkeypatch.setattr(DK, "tf32x3_plan", lambda M, N, K, E=1: splits)
     got, route = DK.launch_dequant_gemm(x, qt, b, act)
     torch.cuda.synchronize()
     assert route == "tf32x3"
@@ -1959,6 +1960,166 @@ def test_tf32x3_gemm_matches_its_emulation_and_repeats_bit_for_bit(cuda):
     emu = emulate_dequant_gemm_tf32x3(x[None], w, n_k=1)
     err = (a - emu).abs().max().item() / emu.abs().max().item()
     assert err <= 2e-6, err
+
+
+# -- the expert axis: the MoE's contractions in one launch over E ----------
+
+# (E, rows an expert, K, N, bits, route): DeepSeek-MoE-16B's up/gate and
+# down at a 1 x 1024 prefill (4 groups of 256, capacity 30), DBRX's at a
+# 512 bucket (2 groups, capacity 80), ragged rows, N off the 64-column
+# rule (the tile kernel), and one expert
+EXPERT_CASES = [(64, 120, 2048, 1408, 4, "wgmma"),
+                (64, 120, 1408, 2048, 4, "wgmma"),
+                (16, 160, 6144, 10752, 4, "wgmma"),
+                (16, 160, 10752, 6144, 4, "wgmma"),
+                (5, 77, 512, 192, 8, "wgmma"), (7, 33, 256, 96, 4, "tile"),
+                (3, 300, 1000, 200, 2, "tile"), (1, 1, 128, 64, 4, "wgmma")]
+
+
+def _expert_operands(dev, E, M, K, N, bits, dtype, seed):
+    """x (G, E, C, K) with G * C = M rows an expert, and a stacked expert
+    weight (E, K, N) packed with ``bits``."""
+    g = 2 if M % 2 == 0 else 1
+    x = _dg_tensor(dev, (g, E, M // g, K), dtype, seed)
+    w = quantize(_dg_tensor(dev, (E, K, N), dtype, seed + 1, K ** -0.5),
+                 DG_SPECS[bits])
+    return x, w
+
+
+@pytest.mark.parametrize("case", EXPERT_CASES)
+@pytest.mark.parametrize("spec", ["gecd,edf->gecf", "gecf,efd->gecd"])
+def test_expert_gemm_matches_plain_in_one_launch(cuda, case, spec):
+    """bf16 expert contractions: one launch over all E experts, on the
+    route the shape rule picks, within 5e-3 of the plain version's
+    largest magnitude (``dequantize`` + einsum)."""
+    E, M, K, N, bits, route = case
+    x, w = _expert_operands(cuda, E, M, K, N, bits, torch.bfloat16, E + K)
+    reset_launch_counts()
+    got = quant_einsum(spec, x, w)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["dequant_gemm"] == counts[f"dequant_gemm/{route}"] == 1
+    assert counts["dequant_gemm/experts"] == 1
+    _dg_close(got, ref_quant_einsum(spec, x, w), torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", [(4, 120, 512, 256, 4), (3, 77, 936, 200, 8),
+                                  (16, 33, 256, 96, 2)])
+def test_expert_gemm_each_expert_is_its_own_launch_bit_for_bit(cuda, case):
+    """Each expert's rows of the launch over E equal the same product
+    launched alone, bit for bit (the expert comes from the grid, its rows
+    past M are zeros, not the next expert's): bf16 and fp32."""
+    from repro_torch.kernels.dequant_gemm import kernel as DK
+    E, M, K, N, bits = case
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _dg_tensor(cuda, (E, M, K), dtype, M)
+        w = quantize(_dg_tensor(cuda, (E, K, N), dtype, K, K ** -0.5),
+                     DG_SPECS[bits])
+        y, _ = DK.launch_expert_matmul(x, w)
+        for e in range(E):
+            alone, _ = DK.launch_expert_matmul(
+                x[e:e + 1].contiguous(),
+                QTensor(w.codes[e:e + 1].contiguous(),
+                        w.scales[e:e + 1].contiguous(), w.spec,
+                        (1,) + tuple(w.shape[1:]), w.dtype))
+            if dtype == torch.float32 and DK.tf32x3_plan(M, N, K, E) != \
+                    DK.tf32x3_plan(M, N, K, 1):
+                _dg_close(y[e], alone[0], dtype)
+            else:
+                assert torch.equal(y[e], alone[0]), (dtype, e)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", [(64, 120, 2048, 1408, 4),
+                                  (16, 160, 1024, 768, 4),
+                                  (5, 77, 512, 200, 8), (2, 1, 100, 3, 2)])
+@pytest.mark.parametrize("splits", [None, 1, 3])
+def test_expert_gemm_tf32x3_matches_plain_and_float64(cuda, case, splits,
+                                                      monkeypatch):
+    """fp32 expert contractions on the split-TF32 route, the splits of K
+    planned over all experts' tiles (or put in place of the rule), each
+    expert's splits summed in order: within 1e-5 of the plain version and
+    against float64 within 2x its error (or SPLIT_FLOOR)."""
+    from repro_torch.kernels.dequant_gemm import kernel as DK
+    if splits is not None:
+        monkeypatch.setattr(DK, "tf32x3_plan", lambda M, N, K, E=1: splits)
+    E, M, K, N, bits = case
+    spec = "gecd,edf->gecf"
+    x, w = _expert_operands(cuda, E, M, K, N, bits, torch.float32, K)
+    reset_launch_counts()
+    got = quant_einsum(spec, x, w)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["dequant_gemm"] == counts["dequant_gemm/tf32x3"] == 1
+    want = ref_quant_einsum(spec, x, w)
+    _dg_close(got, want, torch.float32)
+    dense = dequantize(w).double()
+    f64 = torch.einsum(spec, x.double(), dense)
+
+    def err(t):
+        return ((t.double() - f64).abs().max() / f64.abs().max()).item()
+    assert err(got) <= max(2 * err(want), SPLIT_FLOOR), (err(got), err(want))
+
+
+def test_expert_gemm_matches_its_tf32x3_emulation(cuda):
+    from repro_torch.kernels.dequant_gemm.ref import (
+        emulate_dequant_gemm_tf32x3)
+    x, w = _expert_operands(cuda, 8, 64, 896, 192, 4, torch.float32, 9)
+    got = quant_einsum("gecd,edf->gecf", x, w)
+    emu = emulate_dequant_gemm_tf32x3(x, w, experts=True)
+    torch.cuda.synchronize()
+    assert ((got - emu).abs().max() / emu.abs().max()).item() <= 2e-6
+
+
+def test_moe_router_logits_do_not_depend_on_the_row_count(cuda):
+    """The router's logits of two groups of 256 tokens at DeepSeek-MoE-
+    16B's widths, alone and as the first two of eight groups: bit-equal
+    (an fp32 GEMM's differ with the row count on the card,
+    ``scripts/moe_routing_determinism.py``)."""
+    from repro_torch.models.moe import router_logits
+    x = _dg_tensor(cuda, (8, 256, 2048), torch.bfloat16, 3)
+    r = _dg_tensor(cuda, (2048, 64), torch.float32, 4, 2048 ** -0.5)
+    two, eight = router_logits(x[:2], r), router_logits(x, r)
+    torch.cuda.synchronize()
+    assert torch.equal(two, eight[:2])
+
+
+def test_moe_layer_full_width_prefill_holds_every_gemm(cuda):
+    """One full-width DeepSeek-MoE-16B layer, ``nanomind-serve``: a
+    1 x 1024 ``lm_prefill`` runs 10 packed GEMM launches (q, k, v, o, the
+    shared FFN's three, the experts' three, each over all 64 experts),
+    every one within 5e-3 of its plain version on its own inputs."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import PROFILES
+    from repro_torch.kernels.dequant_gemm import ops as dg_ops
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=1)
+    params = M.init_params(cfg, device=cuda, seed=0,
+                           policy=PROFILES["nanomind-serve"])
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        3, cfg.vocab_size, (1, 1024)).astype(np.int32)).to(cuda)
+    calls, inner = [], dg_ops.quant_einsum
+
+    def held(spec, x, w):
+        out = inner(spec, x, w)
+        if isinstance(w, QTensor):
+            calls.append(spec)
+            _dg_close(out, ref_quant_einsum(spec, x, w), torch.bfloat16)
+        return out
+    reset_launch_counts()
+    with torch.no_grad():
+        dg_ops.quant_einsum = held
+        try:
+            logits, _ = M.lm_prefill(params, cfg, toks, 1024)
+        finally:
+            dg_ops.quant_einsum = inner
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert len(calls) == 10 and calls.count("gecd,edf->gecf") == 2
+    assert counts["dequant_gemm"] == counts["dequant_gemm/wgmma"] == 10
+    assert counts["dequant_gemm/experts"] == 3
+    assert logits.isfinite().all()
 
 
 # -- linear attention on split TF32 -------------------------------------------
@@ -2061,19 +2222,22 @@ def test_linear_attention_tf32x3_matches_its_emulation(cuda, dtype):
 
 
 # -- the cohort step as a CUDA graph per bucket (serving/cohort_graph) -----
-GRAPH_KINDS = ["fused", "composed", "mamba", "linear"]
+GRAPH_KINDS = ["fused", "composed", "mamba", "linear", "moe"]
 
 
 def _graph_engine(kind, dev):
     """A ServingEngine on the card (reduced, bf16, nanomind-serve) of one
     decode-step kind: llava's fused or composed step (paged pool), Mamba-2
-    or llava with linear attention (slot-state pool)."""
+    or llava with linear attention (slot-state pool), DeepSeek-MoE's
+    composed step with the MoE FFN (sentinel rows masked out of the
+    routing)."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantize import PROFILES, quantize_tree
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import ServingEngine
     cfg = (get_config("mamba2-1.3b").reduced() if kind == "mamba"
            else _linear_cfg("bfloat16") if kind == "linear"
+           else get_config("deepseek-moe-16b").reduced() if kind == "moe"
            else get_config("llava-onevision-0.5b").reduced())
     params = quantize_tree(init_params(cfg, device=dev),
                            PROFILES["nanomind-serve"])
