@@ -267,7 +267,28 @@ Phases (any failure raises and exits non-zero):
    (ungated squared ReLU), deepseek-67b and dbrx-132b (16 experts top-4)
    at full width and 2 layers, a 512- and a 300-token request and 4 new
    tokens each, every kernel call held as above (the fused QKV and MLP
-   of the dense configs' captured step too).
+   of the dense configs' captured step too).  The MoE steps' decode goes
+   through the routed experts' GEMV (``fused_mlp/experts``, held against
+   ``ref_fused_mlp_experts`` in the eager step); DeepSeek's and DBRX's
+   replayed step print beside their device ms before it
+   (``DECODE_MS_BEFORE``);
+9. serve Jamba-1.5-Large at full width and one group of 8 sublayers
+   (attention at position 4, Mamba-2 elsewhere, 16 experts top-2 on odd
+   positions, ``attn_q_chunk=0``), packed as made, with phase 8's
+   requests, checks and breakdowns; every SSD call of the serve is held
+   too, and the packed GEMM's plain version dequantizes an expert leaf
+   one expert at a time.  A bf16 GEMM call one rounding step from its
+   plain version at the largest magnitude, beyond the 5e-3 gate, is
+   held against a float64 evaluation instead (no worse than 2x the
+   plain version): cuBLAS splits K = 24576 at 128 rows and sums in
+   another order than the kernel (``scripts/long_k_gemm_plain.py``).
+
+Phase 2 also holds the routed experts' GEMV at DeepSeek-MoE-16B's,
+DBRX's and Jamba's widths (cohorts 1-8, a row choosing one expert twice,
+a sentinel row; bf16 within 2e-2 a row, fp32 within 1e-5 of the largest)
+and the SSD kernel at P 128; phase 7 times the GEMV beside the routed
+experts gathered, dequantized and run through batched ``bmm``, and SSD
+at P 128 and flash at 64/8 heads.
 
 Output: build, check and serve lines, the ``nvidia-smi`` name/power-limit
 line, one JSON line ``{"kernels": [...]}``, and as the last line
@@ -482,6 +503,32 @@ DENSE_LAYERS = 2
 DENSE_PROMPTS = (512, 300)
 DENSE_NEW = 4
 DENSE_MAX_LEN = 1024
+# the replayed decode step's device ms before the routed experts' GEMV
+# (the route that dequantized every expert a step, NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md section 5), printed beside this run's
+DECODE_MS_BEFORE = {MOE_PATH: 432.13, "dbrx-132b/2-layer": 168.5}
+# the routed experts' GEMV of a decode step (fused_mlp/experts) at each
+# MoE config's widths, (E, top_k, D, F); checked at every cohort of
+# EXPERT_GEMV_BCS, timed at TIME_BC; each row within EXPERT_GEMV_TOL of
+# its largest plain value (bf16) or of the largest plain value (fp32)
+EXPERT_GEMV = {"deepseek-moe-16b": (64, 6, 2048, 1408),
+               "dbrx-132b": (16, 4, 6144, 10752),
+               "jamba-1.5-large-398b": (16, 2, 8192, 24576)}
+EXPERT_GEMV_BCS = (1, 2, 4, 8)
+EXPERT_GEMV_TOL = {"bfloat16": KERNEL_TOL, "float32": 1e-5}
+# the SSD kernel at Jamba's Mamba-2 widths: 128 heads of P 128, one B/C
+# group, state 128, chunk 256, at a 2 x 1024 prefill
+SSD_P128_SHAPE = (2, 1024, 128, 128, 1, 128, 256)
+# the flash kernel at Jamba's attention sublayer: GQA 64 / 8, hd 128, at a
+# 2 x 1024 prefill, no RoPE
+FLASH_JAMBA_SHAPE = (2, 1024, 1024, 64, 8, 128, True)
+# phase 9: Jamba-1.5-Large at full width and one group of 8 sublayers
+# (attn_q_chunk=0), packed as made; Mamba-2-1.3B's requests
+HYBRID_PATH = "jamba-1.5-large-398b/1-group"
+HYBRID_GROUPS = 1
+HYBRID_PROMPTS = (1024, 1000, 300, 100)
+HYBRID_NEW = 16
+HYBRID_MAX_LEN = 2048
 
 
 def fail(msg):
@@ -580,9 +627,11 @@ class Smoke:
         self.dev = torch.device(device)
         self.gen = torch.Generator(device=self.dev).manual_seed(1)
         self.errs = {"fused_qkv": 0.0, "fused_mlp": 0.0,
+                     "fused_mlp/experts": 0.0,
                      "kv_row_scatter": 0.0, "flash_attention": 0.0,
                      "ssd": 0.0, "linear_attention": 0.0,
                      "dequant_gemm": 0.0, "cache_row_update": 0.0}
+        self.eg_check = []               # the routed experts' GEMV
         self.worst_row_ratio = 0.0       # flash: max over rows err/max
         self.fp32_check = {}             # fp32 instances: worst err/max
         self.cu_check = {}
@@ -896,6 +945,18 @@ class Smoke:
                           "y_max_abs_err": y_abs, "h_max_abs_err": h_abs,
                           "pad_check_h_rel_err": pad_rel, "fp32": fp32,
                           "tol": {"h": SSD_H_TOL, "y_head": KERNEL_TOL}}
+        del args, x, dt, A, Bm, Cm
+        # Jamba's widths: P 128 (two 64-wide P tiles a head)
+        B, S, H, P, G, N, chunk = SSD_P128_SHAPE
+        args = self.ssd_inputs(B, S, H, P, G, N)
+        h_rel, head, y_abs, h_abs, _ = ssd_errors(
+            args, ssd(*args, chunk=chunk), chunk, "ssd at P 128")
+        self.errs["ssd"] = max(self.errs["ssd"], y_abs)
+        self.ssd_check["p128"] = {
+            "shape": list(SSD_P128_SHAPE), "h_rel_err": h_rel,
+            "worst_head_y_err_over_max": head, "y_max_abs_err": y_abs,
+            "h_max_abs_err": h_abs}
+        del args
         self.torch.cuda.synchronize()
 
     def la_inputs(self, B, S, H, KV, hd, dtype):
@@ -1033,7 +1094,8 @@ class Smoke:
                 if counts != want_n:
                     fail(f"experts {name} {spec}: launches {counts}, "
                          f"want {want_n}")
-                want = ref_quant_einsum(spec, x, w)
+                with plain_sums():
+                    want = ref_quant_einsum(spec, x, w)
                 _, rel, err = gemm_error(f"experts {name} {spec}", got,
                                          want)
                 self.errs["dequant_gemm"] = max(self.errs["dequant_gemm"],
@@ -1057,6 +1119,115 @@ class Smoke:
                 del x, w, got, want
         torch.cuda.synchronize()
         self.dg_check["experts"] = rows
+
+
+    def check_expert_gemv(self):
+        """The routed experts' GEMV (``fused_decode.ops.fused_mlp_experts``)
+        against its plain version (``ref_fused_mlp_experts``: each (row,
+        choice) through its own expert's dequantized matrices) at each
+        EXPERT_GEMV width, q4 g32, bf16, at every cohort of
+        EXPERT_GEMV_BCS: one launch counted under ``fused_mlp/experts``,
+        each valid row within EXPERT_GEMV_TOL of its largest plain value,
+        sentinel rows (the cohort of 8's last) 0, a row that chooses one
+        expert twice (cohort 2); then DeepSeek's widths in fp32, within
+        1e-5 of the largest plain value.  Kept in ``eg_check``."""
+        from repro_torch.kernels import launch_counts, reset_launch_counts
+        from repro_torch.kernels.fused_decode import ops, ref
+        torch = self.torch
+        cases = [(arch, "bfloat16", bc) for arch in EXPERT_GEMV
+                 for bc in EXPERT_GEMV_BCS]
+        cases += [("deepseek-moe-16b", "float32", bc) for bc in (1, 4, 8)]
+        weights = None
+        for arch, dt, bc in cases:
+            dtype = getattr(torch, dt)
+            E, k, D, F = EXPERT_GEMV[arch]
+            if weights is None or weights[0] != (arch, dt):
+                weights = None
+                free()
+                weights = ((arch, dt), expert_weights(self, E, D, F, dtype))
+            up, gate, down = weights[1]
+            idx, gates, valid = expert_routes(self, bc, k, E,
+                                              twice=(bc == 2),
+                                              sentinel=(bc == 8))
+            h = self.randn(bc, D, dtype=dtype)
+            with torch.no_grad():
+                reset_launch_counts()
+                got = ops.fused_mlp_experts(h, up, down, gate, idx, gates,
+                                            valid, act="swiglu")
+                torch.cuda.synchronize()
+                counts = {n: c for n, c in launch_counts().items() if c}
+                if counts != {"fused_mlp/experts": 1}:
+                    fail(f"fused_mlp/experts {arch} bc {bc}: launches "
+                         f"{counts}")
+                with plain_sums():
+                    want = ref.ref_fused_mlp_experts(
+                        h, up, down, gate, idx, gates, valid, act="swiglu")
+            rel, err = expert_rows_error(f"fused_mlp/experts {arch} {dt} "
+                                         f"bc {bc}", got, want, valid)
+            self.errs["fused_mlp/experts"] = max(
+                self.errs["fused_mlp/experts"], err)
+            self.eg_check.append({
+                "arch": arch, "dtype": dt, "bc": bc, "E": E, "top_k": k,
+                "D": D, "F": F, "routed_experts": int(torch.unique(
+                    idx[valid]).numel()),
+                "sentinel_rows": int((~valid).sum()),
+                "row_chooses_an_expert_twice": bc == 2,
+                "err_over_max": rel, "max_abs_err": err,
+                "tol": EXPERT_GEMV_TOL[dt]})
+            del got, want, h
+        del weights
+        free()
+
+
+def expert_weights(sm, E, D, F, dtype):
+    """Stacked q4 g32 expert weights (E, D, F) x 2 (up, gate) and (E, F,
+    D), drawn and packed one expert at a time
+    (``core.quantize.quantize_stacked``)."""
+    from repro_torch.core.quantize import QuantPolicy, quantize_stacked
+    policy = QuantPolicy("q4-g32", ((".", "q4f16-g32"),))
+
+    def draw(shape):
+        for _ in range(E):
+            yield sm.randn(*shape, scale=shape[0] ** -0.5, dtype=dtype)
+    return [quantize_stacked("experts", (E,) + shape, dtype, draw(shape),
+                             policy) for shape in ((D, F), (D, F), (F, D))]
+
+
+def expert_routes(sm, bc, k, E, twice=False, sentinel=False):
+    """A decode cohort's routing on the card: idx (bc, k) distinct experts
+    a row (``twice``: row 0's second choice its first), renormalised
+    gates (bc, k) fp32, valid (bc,) (``sentinel``: the last row not)."""
+    torch = sm.torch
+    idx = torch.stack([torch.randperm(E, generator=sm.gen, device=sm.dev)[:k]
+                       for _ in range(bc)])
+    if twice and k > 1:
+        idx[0, 1] = idx[0, 0]
+    g = torch.rand((bc, k), generator=sm.gen, device=sm.dev) + 0.1
+    valid = torch.ones(bc, dtype=torch.bool, device=sm.dev)
+    if sentinel:
+        valid[-1] = False
+    return idx, g / g.sum(-1, keepdim=True), valid
+
+
+def expert_rows_error(what, got, want, valid):
+    """The routed experts' GEMV's output against its plain version's:
+    fails unless finite, of the plain shape and dtype, invalid rows 0, and
+    each valid row within EXPERT_GEMV_TOL of its largest plain value
+    (bf16) or of the largest plain value (fp32).  Returns (that ratio,
+    max abs err)."""
+    dt = str(want.dtype).replace("torch.", "")
+    if not (got.shape == want.shape and got.dtype == want.dtype
+            and got.isfinite().all() and not got[~valid].any()):
+        fail(f"{what}: shape, dtype, non-finite output or a sentinel row "
+             f"written")
+    g, w = got[valid].float(), want[valid].float()
+    err = (g - w).abs()
+    rel = ((err.amax(-1) / w.abs().amax(-1)).max().item() if dt == "bfloat16"
+           else (err.max() / w.abs().max()).item())
+    if rel > EXPERT_GEMV_TOL[dt]:
+        fail(f"{what}: err {rel} of the largest plain value "
+             f"(tol {EXPERT_GEMV_TOL[dt]})")
+    return rel, err.max().item()
 
 
 def gemm_error(what, got, want):
@@ -1404,6 +1575,81 @@ class QkvCalls(MlpCalls):
         self.ops.fused_qkv = self.inner
 
 
+class ExpertCalls(MlpCalls):
+    """``MlpCalls`` for ``fused_decode.ops.fused_mlp_experts`` (the MoE's
+    decode): each call made while ``armed`` against
+    ``ref_fused_mlp_experts`` on its own inputs, ``expert_rows_error``'s
+    gate (each valid row within EXPERT_GEMV_TOL, sentinel rows 0)."""
+
+    def __init__(self):
+        from repro_torch.kernels.fused_decode import ops, ref
+        self.ops, self.inner = ops, ops.fused_mlp_experts
+        self.ref = ref.ref_fused_mlp_experts
+        self.armed, self.calls, self.worst, self.bc = False, 0, 0.0, 0
+        self.err = 0.0
+
+    def __call__(self, h, w_up, w_down, w_gate, idx, gates, valid, *, act):
+        out = self.inner(h, w_up, w_down, w_gate, idx, gates, valid, act=act)
+        if not self.armed:
+            return out
+        with plain_sums():
+            want = self.ref(h, w_up, w_down, w_gate, idx, gates, valid,
+                            act=act)
+        rel, err = expert_rows_error(
+            f"served fused_mlp_experts at {tuple(h.shape)}", out, want, valid)
+        self.calls += 1
+        self.worst, self.err = max(self.worst, rel), max(self.err, err)
+        self.bc = int(h.shape[0])
+        return out
+
+    def __enter__(self):
+        self.ops.fused_mlp_experts = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.fused_mlp_experts = self.inner
+
+
+class HeldSsd:
+    """Every SSD kernel call made inside the ``with`` block held, as it is
+    made, against the plain ``ssd_chunked`` on its own inputs
+    (``ssd_errors``' gates; the plain version counts no launch): calls,
+    the worst errors, the share of y elements that differ, the (B, S,
+    H, P, chunk) of the calls."""
+
+    def __init__(self):
+        from repro_torch.kernels.ssd import ops
+        self.ops, self.inner = ops, ops.ssd
+        self.keys = ("h_rel_err", "worst_head_y_err_over_max",
+                     "y_max_abs_err", "h_max_abs_err")
+        self.worst = dict.fromkeys(self.keys, 0.0)
+        self.calls, self.differ, self.total, self.shapes = 0, 0, 0, set()
+
+    def __call__(self, x, dt, A, Bm, Cm, *, chunk=256):
+        out = self.inner(x, dt, A, Bm, Cm, chunk=chunk)
+        *errs, n = ssd_errors((x, dt, A, Bm, Cm), out, chunk,
+                              f"served ssd at {tuple(x.shape)}")
+        for k, v in zip(self.keys, errs):
+            self.worst[k] = max(self.worst[k], v)
+        self.calls += 1
+        self.differ, self.total = self.differ + n, self.total + out[0].numel()
+        self.shapes.add(tuple(int(d) for d in x.shape) + (chunk,))
+        return out
+
+    def record(self):
+        return dict(self.worst, calls=self.calls,
+                    y_differing_share=self.differ / max(1, self.total),
+                    shapes_B_S_H_P_chunk=sorted(self.shapes),
+                    tol={"h": SSD_H_TOL, "y_head": KERNEL_TOL})
+
+    def __enter__(self):
+        self.ops.ssd = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.ssd = self.inner
+
+
 class FlashCalls:
     """Keeps every flash-attention call of a serve (q, k, v, causal, out;
     by reference: the model writes none of them after the call):
@@ -1522,18 +1768,21 @@ def served_vs_eager(sm, cfg, eng, state, fused, held=()):
 
 
 # the kernels each decode breakdown times by name inside the step
-STEP_KERNELS = ("kv_row_scatter", "cache_row_update", "gemv_kernel")
+STEP_KERNELS = ("kv_row_scatter", "cache_row_update", "gemv_kernel",
+                "expert_mv_kernel")
 
 
 def step_kernels(per_step):
     """The device kernels of STEP_KERNELS that one decode step with the
     wrapper launches ``per_step`` runs: one KV-row scatter a
     ``kv_scatter``, one row update a ``cache_row_update``, one GEMV a
-    ``fused_qkv/gemv`` and two a ``fused_mlp/gemv`` (one a stage)."""
+    ``fused_qkv/gemv`` and two a ``fused_mlp/gemv`` (one a stage), two
+    routed experts' GEMVs a ``fused_mlp/experts`` (one a stage)."""
     return {"kv_row_scatter": per_step.get("kv_scatter", 0),
             "cache_row_update": per_step.get("cache_row_update", 0),
             "gemv_kernel": per_step.get("fused_qkv/gemv", 0)
-            + 2 * per_step.get("fused_mlp/gemv", 0)}
+            + 2 * per_step.get("fused_mlp/gemv", 0),
+            "expert_mv_kernel": 2 * per_step.get("fused_mlp/experts", 0)}
 
 
 def decode_breakdown(eng, host_args, rows, per_step):
@@ -1705,7 +1954,7 @@ def serve_path(sm, cfg, reqs, use_fused=None, first_logits=None,
     per_step = ({"fused_qkv": L, f"fused_qkv/{MLP_ROUTE}": L, "fused_mlp": L,
                  f"fused_mlp/{MLP_ROUTE}": L, "kv_scatter": 1} if fused
                 else {"cache_row_update": 2 * L, "kv_scatter": 1})
-    per_call = gemms_per_layer(cfg) * L
+    per_call = stack_gemms(cfg)
     want = {k: 0 for k in launches}
     want.update({k: n * decode_steps for k, n in per_step.items()})
     n_flash = L * n_prefill if cfg.attn_q_chunk == 0 else 0
@@ -2002,7 +2251,7 @@ def serve_disagg(sm, cfg, reqs, single):
             if s.brick == "decoder" and s.phase == "decode"]
     steps = sum(1 for e in dec.trace if e.event == "decode_step")
     g = dict(dec.graph_stats)
-    per_call = gemms_per_layer(cfg) * L
+    per_call = stack_gemms(cfg)
     want_pre = {k: 0 for k in total}
     want_pre.update({"dequant_gemm": per_call * len(pre_spans),
                      f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}":
@@ -2184,7 +2433,7 @@ def placed_and_cascade(sm, cfg, reqs, first3):
     inputs = {"tokens": tokens,
               "vision_feats": torch.from_numpy(req.vision_feats)}
     L = cfg.n_layers
-    gemms = gemms_per_layer(cfg) * L
+    gemms = stack_gemms(cfg)
     route = f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}"
 
     # -- the placement, priced on the packed tree's bytes -----------------
@@ -2853,7 +3102,7 @@ def pressure_engine(sm, cfg, reqs, windows):
                 and s.phase == "prefill")
     steps = sum(1 for e in eng.trace if e.event == "decode_step")
     L = cfg.n_layers
-    gemms = gemms_per_layer(cfg) * L
+    gemms = stack_gemms(cfg)
     want_n = {k: 0 for k in counts}
     want_n.update({"dequant_gemm": gemms * n_pre,
                    f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}": gemms * n_pre,
@@ -3147,9 +3396,10 @@ def prefill_breakdown(eng, group, names):
     group): wall time (host clock, synchronized, median of 3) against the
     card's kernel time, the device time of the kernels whose names hold
     each of ``names`` and the largest kernels; and the same for the same
-    call through the plain projection route (``dequantize`` + einsum per
-    projection, the route before the packed-weight GEMM kernel), run in
-    turn with it in this call of the script."""
+    call through the plain projection route (``ref_quant_einsum``:
+    ``dequantize`` + einsum per projection, the route before the
+    packed-weight GEMM kernel), run in turn with it in this call of the
+    script."""
     import torch
     from repro_torch.kernels.dequant_gemm import ops as dg_ops
     tokens, vision, last_idx = group[:3]
@@ -3404,7 +3654,7 @@ def serve_composed(sm, cfg, reqs, op_module, op_name):
                 else op_name)
     others = sum(v for k, v in launches.items()
                  if k not in (op_name, op_route, "dequant_gemm", gemm_route))
-    per_call = gemms_per_layer(cfg) * cfg.n_layers
+    per_call = stack_gemms(cfg)
     if not (launches[op_name] == launches[op_route]
             == cfg.n_layers * len(groups) == len(calls)
             and launches["dequant_gemm"] == launches[gemm_route]
@@ -3545,6 +3795,25 @@ def request_steps(r, steps, n_steps=2):
         if len(rows) == n_steps:
             return rows
     fail(f"request {r.rid}: {len(rows)} of {n_steps} decode steps found")
+
+
+@contextlib.contextmanager
+def plain_sums():
+    """cuBLAS's bf16 GEMMs inside the block add their split-K partial sums
+    in fp32, as the kernels do: by default cuBLAS may add them in bf16
+    (at K = 24576 and few rows, Jamba's down projections), a rounding step
+    the plain version of a kernel must not add.  The plain versions that
+    a kernel is held against run inside it; the port's own paths, and the
+    library calls timed beside the kernels, run outside it, with
+    PyTorch's default."""
+    import torch
+    mm = torch.backends.cuda.matmul
+    was = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = was
 
 
 @contextlib.contextmanager
@@ -4006,14 +4275,15 @@ def ssd_mma_bound(B, S, H, P, G, N, chunk):
 SSD_PHASES = ("ssd_cb_", "ssd_state_", "ssd_scan_", "ssd_out_")
 
 
-def time_ssd(sm, dtype=None):
-    """The SSD kernel and its plain version at SSD_SHAPE (bf16 inputs,
-    the served route, or ``dtype``), the work (``ssd_work``) that sets
-    its bound, and the device ms of each of its four phases (profiler
-    rows by kernel name, per call)."""
+def time_ssd(sm, dtype=None, shape=None):
+    """The SSD kernel and its plain version at ``shape`` (SSD_SHAPE by
+    default; bf16 inputs, the served route, or ``dtype``), the work
+    (``ssd_work``) that sets its bound, and the device ms of each of its
+    four phases (profiler rows by kernel name, per call)."""
     import torch
     from repro_torch.kernels.ssd import ref_ssd_chunked, ssd
-    B, S, H, P, G, N, chunk = SSD_SHAPE
+    shape = shape or SSD_SHAPE
+    B, S, H, P, G, N, chunk = shape
     args = sm.ssd_inputs(B, S, H, P, G, N)
     if dtype is not None:
         args = tuple(t.to(dtype) if t.dtype == torch.bfloat16 else t
@@ -4031,22 +4301,66 @@ def time_ssd(sm, dtype=None):
         _, rows, _ = device_time(loop)
     phases = {ph.rstrip("_"): sum(us for k, us, _ in rows if ph in k)
               / iters / 1e3 for ph in SSD_PHASES}
-    return (t_k, t_p) + ssd_work(*SSD_SHAPE) + (phases,)
+    return (t_k, t_p) + ssd_work(*shape) + (phases,)
 
 
 # -- phase 8: mixture of experts, the dense configs ---------------------------
 
-def gemms_per_layer(cfg):
-    """Packed GEMM launches of one prefill layer: Mamba-2's in_proj and
-    out_proj; or q, k, v, o and the FFN's up, gate (gated only) and down,
-    or the MoE's experts' three (each one launch over every expert) and
-    its shared FFN's three."""
-    from repro_torch.models.decoder import mixer_of
-    if mixer_of(cfg) == "mamba":
-        return 2
-    if cfg.moe is not None:
-        return 4 + 3 + (3 if cfg.moe.n_shared else 0)
-    return 4 + (3 if cfg.act in ("swiglu", "geglu") else 2)
+def bf16_step(m):
+    """One bf16 rounding step (a unit in the last place) at magnitude
+    ``m``."""
+    import math
+    return 2.0 ** (math.floor(math.log2(m)) - 7)
+
+
+def gemm_f64_errors(spec, x, w, got, want):
+    """The packed-weight GEMM's output ``got`` and its plain version's
+    ``want`` against a float64 evaluation of the same product: (kernel,
+    plain) max |err| over max |float64|, an expert at a time for an
+    expert contraction (Jamba's leaf would be 26 GB in float64)."""
+    import torch
+    from repro_torch.core.quantize import dequantize
+    from repro_torch.kernels.dequant_gemm.ref import EXPERT_SPECS
+    if spec in EXPERT_SPECS:
+        parts = [(x[:, e:e + 1], w.layer(e), got[:, e:e + 1],
+                  want[:, e:e + 1]) for e in range(w.shape[0])]
+    else:
+        parts = [(x, w, got, want)]
+    k_err = p_err = m = 0.0
+    for xe, we, ge, pe in parts:
+        dense = dequantize(we).double()
+        if spec in EXPERT_SPECS:
+            dense = dense[None]
+        exact = torch.einsum(spec, xe.double(), dense)
+        m = max(m, exact.abs().max().item())
+        k_err = max(k_err, (ge.double() - exact).abs().max().item())
+        p_err = max(p_err, (pe.double() - exact).abs().max().item())
+        del dense, exact
+    return k_err / m, p_err / m
+
+
+def sublayers(cfg):
+    """(mixer, ffn) of every sublayer of ``cfg``'s stack, group by group:
+    mixer "attn", "linear" or "mamba", ffn "mlp", "moe" or "none"."""
+    from repro_torch.models import decoder as dec
+    return [(dec.mixer_of(cfg, pos), dec.sublayer_spec(cfg, pos)[1])
+            for _ in range(dec.n_groups(cfg))
+            for pos in range(dec.group_size(cfg))]
+
+
+def stack_gemms(cfg):
+    """Packed GEMM launches of one prefill call over the whole stack:
+    Mamba-2's in_proj and out_proj, attention's q, k, v, o, a dense FFN's
+    up, gate (gated only) and down, an MoE's experts' three (each one
+    launch over every expert) and its shared FFN's three."""
+    n = 0
+    for mixer, ffn in sublayers(cfg):
+        n += 2 if mixer == "mamba" else 4
+        if ffn == "moe":
+            n += 3 + (3 if cfg.moe.n_shared else 0)
+        elif ffn == "mlp":
+            n += 3 if cfg.act in ("swiglu", "geglu") else 2
+    return n
 
 
 class HeldGemms:
@@ -4062,14 +4376,17 @@ class HeldGemms:
                                                       ops.quant_einsum,
                                                       QTensor)
         self.by_spec, self.worst, self.err, self.shapes = {}, 0.0, 0.0, set()
+        self.apart_calls = []
 
     def __call__(self, spec, x, w):
         out = self.inner(spec, x, w)
         if isinstance(w, self.packed):
-            from repro_torch.kernels.dequant_gemm import ref_quant_einsum
-            want = ref_quant_einsum(spec, x, w)
-            _, rel, err = gemm_error(f"served {spec} at {tuple(x.shape)}",
-                                     out, want)
+            with plain_sums():
+                want = self.ops.ref_quant_einsum(spec, x, w)
+            what = f"served {spec} at {tuple(x.shape)}"
+            rel, err = self.apart(what, spec, x, w, out, want)
+            if rel is None:
+                _, rel, err = gemm_error(what, out, want)
             del want
             self.worst, self.err = max(self.worst, rel), max(self.err, err)
             self.by_spec[spec] = self.by_spec.get(spec, 0) + 1
@@ -4078,11 +4395,41 @@ class HeldGemms:
                 self.sm.errs["dequant_gemm"], err)
         return out
 
+    def apart(self, what, spec, x, w, out, want):
+        """A bf16 call whose output is one rounding step from the plain
+        version's at its largest magnitude, beyond DG_TOL: the two sum
+        their fp32 products in other orders (cuBLAS splits K = 24576 at
+        128 rows, the kernel does not; ``scripts/long_k_gemm_plain.py``).
+        Held instead against a float64 evaluation, as the fp32 calls
+        are: the kernel's error no more than F64_RATIO times the plain
+        version's.  Returns (err over max, max abs err), or (None, None)
+        where DG_TOL decides."""
+        if out.dtype != self.sm.torch.bfloat16 or out.shape != want.shape:
+            return None, None
+        err = (out.float() - want.float()).abs().max().item()
+        m = want.float().abs().max().item()
+        if err <= DG_TOL["bfloat16"] * m or not (0 < err <= bf16_step(m)):
+            return None, None
+        k_err, p_err = gemm_f64_errors(spec, x, w, out, want)
+        if not (out.isfinite().all() and k_err <= F64_RATIO * p_err):
+            fail(f"dequant_gemm {what}: one rounding step ({err} of max "
+                 f"{m}) from the plain version, and against float64 "
+                 f"{k_err}, plain {p_err}")
+        self.apart_calls.append({"call": what, "err_over_max": err / m,
+                                 "vs_float64_err_over_max": {
+                                     "kernel": k_err, "plain": p_err}})
+        return err / m, err
+
     def record(self):
         return {"calls": sum(self.by_spec.values()),
                 "calls_by_spec": self.by_spec,
                 "worst_err_over_max": self.worst, "max_abs_err": self.err,
-                "tol": DG_TOL, "shapes_spec_x_w": sorted(self.shapes)}
+                "tol": DG_TOL, "shapes_spec_x_w": sorted(self.shapes),
+                "held_against_float64": self.apart_calls,
+                "float64_rule": ("a bf16 call one rounding step from the "
+                                 "plain version at its largest magnitude, "
+                                 f"beyond DG_TOL: kernel vs float64 at most "
+                                 f"{F64_RATIO} x plain vs float64")}
 
     def __enter__(self):
         self.ops.quant_einsum = self
@@ -4292,6 +4639,7 @@ def serve_text(sm, cfg, reqs, max_len, tracked=(), route_log=None):
     from repro_torch.core.quantize import PROFILES, tree_bytes
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.fused_decode import ref
+    from repro_torch.models.decoder import group_size
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import ServingEngine
     torch = sm.torch
@@ -4309,6 +4657,10 @@ def serve_text(sm, cfg, reqs, max_len, tracked=(), route_log=None):
     fused = eng.use_fused
     if fused != (cfg.moe is None):
         fail(f"{cfg.name}: the engine selected use_fused={fused}")
+    kinds = sublayers(cfg)
+    n_attn = sum(m == "attn" for m, _ in kinds)
+    n_moe = sum(f == "moe" for _, f in kinds)
+    n_mamba = sum(m == "mamba" for m, _ in kinds)
     groups, prefill = [], eng._prefill
     steps = MoeDecodeSteps(eng, tracked)
 
@@ -4327,7 +4679,8 @@ def serve_text(sm, cfg, reqs, max_len, tracked=(), route_log=None):
         eng.submit(r)
     reset_launch_counts()
     t0 = time.perf_counter()
-    with HeldGemms(sm) as gemms, FlashCalls() as flashes, steps, eng:
+    with HeldGemms(sm) as gemms, FlashCalls() as flashes, HeldSsd() as ssds, \
+            steps, eng:
         done = eng.run()
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
@@ -4347,26 +4700,30 @@ def serve_text(sm, cfg, reqs, max_len, tracked=(), route_log=None):
     n_pre = len(groups)
     per_step = ({"fused_qkv": L, f"fused_qkv/{MLP_ROUTE}": L, "fused_mlp": L,
                  f"fused_mlp/{MLP_ROUTE}": L, "kv_scatter": 1} if fused
-                else {"cache_row_update": 2 * L, "kv_scatter": 1})
-    per_call = gemms_per_layer(cfg) * L
+                else {"cache_row_update": 2 * n_attn, "kv_scatter": 1})
+    if n_moe:
+        per_step["fused_mlp/experts"] = n_moe
+    per_call = stack_gemms(cfg)
     want = {k: 0 for k in launches}
     want.update({k: n * decode_steps for k, n in per_step.items()})
-    n_flash = L * n_pre if cfg.attn_q_chunk == 0 else 0
+    n_flash = n_attn * n_pre if cfg.attn_q_chunk == 0 else 0
     want["flash_attention"] = n_flash
     want[f"flash_attention/{FLASH_ROUTE[cfg.dtype]}"] = n_flash
     want["dequant_gemm"] = per_call * n_pre
     want[f"dequant_gemm/{GEMM_ROUTE[cfg.dtype]}"] = per_call * n_pre
-    if cfg.moe is not None:
-        want["dequant_gemm/experts"] = 3 * L * n_pre
+    want["dequant_gemm/experts"] = 3 * n_moe * n_pre
+    want["ssd"] = want[f"ssd/{SSD_ROUTE[cfg.dtype]}"] = n_mamba * n_pre
     if not (launches == want and decode_steps > 0 and n_pre > 0
             and len(steps.launches) == decode_steps
             and all(d == per_step for d in steps.launches)
             and gemms.record()["calls"] == per_call * n_pre
-            and len(flashes.calls) == n_flash):
+            and len(flashes.calls) == n_flash
+            and ssds.calls == n_mamba * n_pre):
         fail(f"{cfg.name}: launch counts {launches} for {decode_steps} "
              f"decode steps and {n_pre} prefill calls (want {want}; per "
              f"step {per_step}, got {steps.launches[:3]}; held GEMM calls "
-             f"{gemms.record()['calls']}, flash {len(flashes.calls)})")
+             f"{gemms.record()['calls']}, flash {len(flashes.calls)}, SSD "
+             f"{ssds.calls})")
     spans = eng.probe.samples()
     pre = [s for s in spans if s.brick == "decoder" and s.phase == "prefill"]
     decs = [s for s in spans if s.brick == "decoder" and s.phase == "decode"]
@@ -4396,6 +4753,13 @@ def serve_text(sm, cfg, reqs, max_len, tracked=(), route_log=None):
              "launches": launches, "launches_per_decode_step": per_step,
              "cohort_graph": graph_check(cfg, eng, decode_steps),
              "gemm_served_check": gemms.record()}
+    if ssds.calls:
+        serve["ssd_served_check"] = ssds.record()
+        sm.errs["ssd"] = max(sm.errs["ssd"], ssds.worst["y_max_abs_err"])
+    if n_mamba and n_attn:
+        serve["sublayers"] = {"groups": len(kinds) // group_size(cfg),
+                              "attn": n_attn,
+                              "mamba": n_mamba, "moe": n_moe}
     if flashes.calls:
         worst, err_max = 0.0, 0.0
         with torch.no_grad():
@@ -4417,14 +4781,22 @@ def serve_text(sm, cfg, reqs, max_len, tracked=(), route_log=None):
     args = state["args"]
     kw = dict(block_size=eng.slots.block_size, paged=eng.slots.paged)
     with RowUpdateCalls() as rows, MlpCalls() as mlps, QkvCalls() as qkvs, \
-            KvScatterCalls() as kvs:
+            KvScatterCalls() as kvs, ExpertCalls() as experts:
         serve["served_vs_eager"], le, _ = served_vs_eager(
-            sm, cfg, eng, state, fused, (rows, mlps, qkvs, kvs))
-    if kvs.calls != 1 or (rows.calls, qkvs.calls, mlps.calls) != (
-            (0, L, L) if fused else (2 * L, 0, 0)):
+            sm, cfg, eng, state, fused, (rows, mlps, qkvs, kvs, experts))
+    if kvs.calls != 1 or experts.calls != n_moe or (
+            rows.calls, qkvs.calls, mlps.calls) != (
+            (0, L, L) if fused else (2 * n_attn, 0, 0)):
         fail(f"{cfg.name}: held in the eager step: {rows.calls} row "
              f"updates, {qkvs.calls} QKV, {mlps.calls} MLP, {kvs.calls} KV "
-             f"scatters")
+             f"scatters, {experts.calls} routed experts' GEMVs")
+    if n_moe:
+        serve["expert_served_check"] = {
+            "calls": experts.calls, "worst_row_err_over_row_max":
+            experts.worst, "max_abs_err": experts.err, "bc": experts.bc,
+            "tol": EXPERT_GEMV_TOL[cfg.dtype], "step": "eager"}
+        sm.errs["fused_mlp/experts"] = max(sm.errs["fused_mlp/experts"],
+                                           experts.err)
     nrows = int((args[2] < eng.slots.n_slots).sum())
     if fused:
         serve["qkv_served_check"] = {
@@ -4455,11 +4827,11 @@ def serve_text(sm, cfg, reqs, max_len, tracked=(), route_log=None):
     return serve, eng, (groups, steps.steps, steps.saved)
 
 
-def moe_checks(sm, cfg, eng, reqs, run, log):
-    """Phase 8's model checks on the served DeepSeek-MoE-16B engine, every
+def moe_checks(sm, cfg, eng, reqs, run, log, max_len=MOE_MAX_LEN):
+    """Phase 8's (and 9's) model checks on a served MoE engine, every
     comparison held within STEP_TOL of the largest logit, with the
     flipped and dropped choices (``routing_diff``) recorded for every
-    call: (a) the MOE_UNPADDED requests' prefill logits against
+    call: (a) MOE_UNPADDED's requests' prefill logits against
     ``lm_prefill`` on the unpadded prompt (``valid_len``: the engine's
     masked routing), which must route as the engine's prefill did; their
     first two decode steps against teacher-forced ``lm_decode_step`` made
@@ -4469,10 +4841,14 @@ def moe_checks(sm, cfg, eng, reqs, run, log):
     flip, and the flips are counted); (b) MOE_PADDED: each prompt
     prefilled at two widths, routed alike in the prefill and the step,
     the same next-step logits; (c) the largest prefill group again
-    through the plain versions (dequantize + einsum, dense attention),
-    made to take the kernel run's experts, row by row."""
+    through the plain versions (dequantize + einsum, an expert at a
+    time; dense attention; the plain SSD), made to take the kernel run's
+    experts, row by row.  A decode step routes each row alone (one token
+    a row in ``RouteLog``'s order)."""
     from repro_torch.kernels.dequant_gemm import ops as dg_ops
     from repro_torch.kernels.flash_attention import ref_attention
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref_ssd_chunked
     from repro_torch.models import attention
     from repro_torch.models import model as M
     torch = sm.torch
@@ -4507,7 +4883,7 @@ def moe_checks(sm, cfg, eng, reqs, run, log):
             S = int(g[0].shape[1])
             with log.run() as pre_route:
                 l0, cache = M.lm_prefill(
-                    eng.params, cfg, tok[None].to(dev), MOE_MAX_LEN,
+                    eng.params, cfg, tok[None].to(dev), max_len,
                     valid_len=torch.tensor([n], device=dev))
             routes = [routed_alike(cfg, what, routing_diff(
                 g[3], moe_token_rows(b, S, n), pre_route,
@@ -4518,7 +4894,7 @@ def moe_checks(sm, cfg, eng, reqs, run, log):
                     e for e in eager if r.slot in e[0][2].tolist()
                     and e[0][1][e[0][2].tolist().index(r.slot)] == n + j)
                 ci = host[2].tolist().index(r.slot)
-                row = moe_token_rows(ci, 1, 1)
+                row = ar(1) + ci
                 force = [c["idx"][row.to(c["idx"].device)]
                          for c in e_route]
                 with log.run(force) as d_route:
@@ -4545,7 +4921,7 @@ def moe_checks(sm, cfg, eng, reqs, run, log):
                     lw = padded_next_step(eng, cfg, r.tokens, None, n, w)
                 outs.append((w, lw, list(route)))
             (wa, la, ra), (wb, lb, rb) = outs
-            L = cfg.n_layers
+            L = sum(f == "moe" for _, f in sublayers(cfg))
             routes = [routed_alike(cfg, what, routing_diff(
                           ra[:L], ar(n), rb[:L], ar(n)), "prefill"),
                       routed_alike(cfg, what, routing_diff(
@@ -4559,6 +4935,8 @@ def moe_checks(sm, cfg, eng, reqs, run, log):
         what = "kernel vs plain prefill"
         with swapped(attention, "flash_attention", ref_attention), \
                 swapped(dg_ops, "quant_einsum", dg_ops.ref_quant_einsum), \
+                plain_sums(), \
+                swapped(ssd_ops, "ssd", ref_ssd_chunked), \
                 log.run([c["idx"] for c in routing]) as plain_route:
             plain, _ = eng._prefill(tokens, None, last)
         S = int(tokens.shape[1])
@@ -4613,6 +4991,52 @@ def time_expert_gemm(sm, shape):
     return out
 
 
+def time_expert_gemv(sm, arch):
+    """The routed experts' GEMV at ``arch``'s widths (EXPERT_GEMV), q4
+    g32, bf16, at cohort TIME_BC with distinct experts a row, through
+    ``fused_mlp_experts``, its plain version and the library form: the
+    routed (row, choice) pairs' experts gathered, dequantized and run
+    through batched ``torch.bmm``, a matrix at a time.  The bound's bytes
+    are the routed experts' codes and scales read once, h and the output;
+    its operations 2 x 3 D F a (row, choice)."""
+    import torch
+    from repro_torch.core.quantize import QTensor, dequantize
+    from repro_torch.kernels.fused_decode import ops, ref
+    E, k, D, F = EXPERT_GEMV[arch]
+    dtype = torch.bfloat16
+    up, gate, down = expert_weights(sm, E, D, F, dtype)
+    idx, gates, valid = expert_routes(sm, TIME_BC, k, E)
+    h = sm.randn(TIME_BC, D, dtype=dtype)
+    pairs = idx.reshape(-1)
+    hp = h.repeat_interleave(k, 0)[:, None]                  # (P, 1, D)
+    gp = gates.reshape(-1, 1, 1).to(dtype)
+
+    def gathered(w):
+        return dequantize(QTensor(w.codes[pairs], w.scales[pairs], w.spec,
+                                  (pairs.numel(),) + tuple(w.shape[1:]),
+                                  w.dtype))
+
+    def library():
+        u = torch.bmm(hp, gathered(up))
+        g = torch.bmm(hp, gathered(gate))
+        y = torch.bmm(torch.nn.functional.silu(g) * u, gathered(down))
+        return (gp * y).reshape(TIME_BC, k, D).sum(1)
+    with torch.no_grad():
+        t_k = timed(lambda i: ops.fused_mlp_experts(
+            h, up, down, gate, idx, gates, valid, act="swiglu"), 1, iters=20)
+        t_p = timed(lambda i: ref.ref_fused_mlp_experts(
+            h, up, down, gate, idx, gates, valid, act="swiglu"), 1, iters=3)
+        t_l = timed(lambda i: library(), 1, iters=3)
+    routed = torch.unique(pairs)
+    byt = sum(int(routed.numel()) * (w.codes[0].numel() * 4
+                                     + w.scales[0].numel() * 4)
+              for w in (up, gate, down)) + 2 * 2 * TIME_BC * D
+    out = (t_k, t_p, t_l, None, byt, 2 * 3 * D * F * int(pairs.numel()))
+    del up, gate, down
+    free()
+    return out, int(routed.numel())
+
+
 def serve_moe_and_dense(sm):
     """Phase 8: DeepSeek-MoE-16B at full width and depth, its model checks
     and breakdowns; then the DENSE_SERVES configs at full width and
@@ -4635,7 +5059,7 @@ def serve_moe_and_dense(sm):
         del g
     del eng, run
     free()
-    out[MOE_PATH] = serve
+    out[MOE_PATH] = with_decode_before(MOE_PATH, serve)
     print(json.dumps({"serve": serve}))
     for name, over in DENSE_SERVES:
         cfg = dataclasses.replace(get_config(name), n_layers=DENSE_LAYERS,
@@ -4644,9 +5068,59 @@ def serve_moe_and_dense(sm):
             cfg, DENSE_PROMPTS, DENSE_NEW, seed=4), DENSE_MAX_LEN)
         del eng
         free()
-        out[f"{name}/{DENSE_LAYERS}-layer"] = serve
+        path = f"{name}/{DENSE_LAYERS}-layer"
+        out[path] = with_decode_before(path, serve)
         print(json.dumps({"serve": serve}))
     return out
+
+
+def with_decode_before(path, serve):
+    """``serve`` with its replayed decode step's device ms beside the one
+    before the routed experts' GEMV (DECODE_MS_BEFORE), where there is
+    one."""
+    if path in DECODE_MS_BEFORE:
+        graph = serve["decode_step_breakdown"]["graph"]
+        serve["decode_step_device_ms_vs_before"] = {
+            "now": graph["device_ms"], "before": DECODE_MS_BEFORE[path],
+            "before_source": "NVIDIA H100 80GB HBM3, "
+                             "700.00 W (every expert dequantized a step)",
+            "tok_s_now": graph["tok_s"]}
+    return serve
+
+
+def serve_hybrid(sm):
+    """Phase 9: Jamba-1.5-Large at full width and HYBRID_GROUPS group of
+    8 sublayers (attention at position 4, Mamba-2 elsewhere, 16 experts
+    top-2 on odd positions), ``attn_q_chunk=0``, packed as made: the
+    MOE_PROMPTS-like text requests through ``serve_text`` (every GEMM,
+    SSD and flash call of the serve held, the eager step's row updates,
+    KV scatter and routed experts' GEMVs held, launch counts, replay
+    bit-equal), the dropped choices of each prefill call, the model
+    checks of ``moe_checks`` (the engine against the unpadded model,
+    padded widths, the plain rerun on the kernel run's experts) and the
+    prefill breakdown.  Returns its serve record."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.decoder import group_size
+    base = get_config("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(base, n_layers=HYBRID_GROUPS * group_size(
+        base), attn_q_chunk=0)
+    reqs = text_requests(cfg, HYBRID_PROMPTS, HYBRID_NEW, seed=5)
+    tracked = [r for r in reqs if len(r.tokens) in MOE_UNPADDED]
+    with RouteLog() as log:
+        serve, eng, run = serve_text(sm, cfg, reqs, HYBRID_MAX_LEN, tracked,
+                                     route_log=log)
+        serve["routing_by_prefill_call"] = [
+            prefill_drops(g) for g in run[0]]
+        serve["checks"] = moe_checks(sm, cfg, eng, reqs, run, log,
+                                     max_len=HYBRID_MAX_LEN)
+        g = max(run[0], key=lambda g: g[0].numel())
+        serve["prefill_breakdown"] = prefill_breakdown(
+            eng, (g[0], None, g[1]), ("dequant_gemm", "flash", "ssd_"))
+        del g
+    del eng, run
+    free()
+    print(json.dumps({"serve": serve}))
+    return serve
 
 
 def requests(cfg, specs, seed):
@@ -4728,6 +5202,8 @@ def main() -> int:
     free()
     sm.check_expert_gemm()
     free()
+    sm.check_expert_gemv()
+    free()
     print(json.dumps({"kernel_checks": {
         "fused_bc": {llava.name: [1, 2, 4, 8], qwen.name: [1, 2, 4]},
         "fp32": sm.fp32_check,
@@ -4735,6 +5211,8 @@ def main() -> int:
         "flash_shapes": [list(s) for s in FLASH_SHAPES],
         "ssd": sm.ssd_check,
         "dequant_gemm": sm.dg_check,
+        "fused_mlp/experts": {"cases": sm.eg_check,
+                              "tol": EXPERT_GEMV_TOL},
         "linear_attention": {"cases": sm.la_check,
                              "tol": {"state_z": LA_STATE_TOL,
                                      "row": LA_ROW_TOL}},
@@ -4922,11 +5400,21 @@ def main() -> int:
     print(json.dumps({"gemm_shapes": gemm_rows + gemm32_rows}))
     expert_ts = {name: time_expert_gemm(sm, shape)
                  for name, shape in EXPERT_TIMES.items()}
+    expert_gemv_ts = {arch: time_expert_gemv(sm, arch)
+                      for arch in EXPERT_GEMV}
+    ssd128_t = time_ssd(sm, shape=SSD_P128_SHAPE)
+    flash_jamba_t = time_flash(sm, FLASH_JAMBA_SHAPE)
+    free()
 
     # -- 8. DeepSeek-MoE-16B at full width and depth, the experts through
     # the packed-weight GEMM's expert axis; the dense configs and DBRX at
     # full width and DENSE_LAYERS layers -----------------------------------
     moe_serves = serve_moe_and_dense(sm)
+
+    # -- 9. Jamba-1.5-Large at full width and one group of 8 sublayers:
+    # Mamba-2 and attention sublayers in one pool, the experts' decode
+    # through the routed experts' GEMV ------------------------------------
+    moe_serves[HYBRID_PATH] = serve_hybrid(sm)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5233,7 +5721,66 @@ def main() -> int:
                 entry["fp32_checks"] = {
                     a: c["worst_err_over_max"].get(name)
                     for a, c in sm.fp32_check.items() if "bc" in c}
+        if name == "ssd":
+            entry["at_" + HYBRID_PATH] = dict(
+                fp32_numbers(name, ssd128_t[:4], ("B", "S", "H", "P", "G",
+                                                  "N", "chunk"),
+                             SSD_P128_SHAPE, mamba.name,
+                             moe_serves[HYBRID_PATH]["ssd_served_check"]),
+                event_ms=ssd128_t[0][1], phases_ms=ssd128_t[4],
+                bound_ms_mma_route=ssd_mma_bound(*SSD_P128_SHAPE)[0],
+                launches=sum(n["ssd"] for a, n in runs.items()
+                             if a == HYBRID_PATH))
+            entry["at_" + HYBRID_PATH].pop("launches_per_prefill_call")
+        if name == "flash_attention":
+            entry["at_" + HYBRID_PATH] = dict(
+                numbers(flash_jamba_t), event_ms=flash_jamba_t[0][1],
+                shape=dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal"),
+                               FLASH_JAMBA_SHAPE)),
+                launches=runs[HYBRID_PATH]["flash_attention"],
+                served_check=moe_serves[HYBRID_PATH].get(
+                    "flash_served_check"))
         kernels.append(entry)
+    # the routed experts' GEMV of a decode step: fused_mlp_pallas with an
+    # expert axis, its main numbers at DeepSeek-MoE-16B's widths
+    by_path = {a: n["fused_mlp/experts"] for a, n in runs.items()
+               if n["fused_mlp/experts"]}
+    eg = expert_gemv_ts["deepseek-moe-16b"][0]
+    entry = {"name": "fused_mlp/experts", "route": "cuda",
+             "source": "src/repro_torch/csrc/fused_decode.cu",
+             "replaces": "src/repro/kernels/fused_decode/kernel.py:138",
+             "launches": sum(by_path.values()), "launches_by_path": by_path,
+             "max_abs_err": sm.errs["fused_mlp/experts"]}
+    entry.update(numbers(eg))
+    entry.update(
+        event_ms=eg[0][1], bc=TIME_BC, shape_of="deepseek-moe-16b",
+        library="the routed (row, choice) pairs' experts gathered, "
+                "dequantized and run through batched torch.bmm",
+        bound_note="bytes: the routed experts' codes and scales read once, "
+                   "h and the output, at 3.35 TB/s",
+        launches_per_decode_step={
+            a: r["launches"]["fused_mlp/experts"] / r["decode_steps"]
+            for a, r in records.items()
+            if r["launches"].get("fused_mlp/experts")},
+        served_check={a: r["expert_served_check"]
+                      for a, r in records.items()
+                      if "expert_served_check" in r},
+        kernel_checks=sm.eg_check,
+        times={arch: dict(numbers(t), event_ms=t[0][1],
+                          routed_experts=n_routed,
+                          shape=dict(zip(("E", "top_k", "D", "F"),
+                                         EXPERT_GEMV[arch]),
+                                     bc=TIME_BC, bits=4, group=32,
+                                     dtype="bfloat16"))
+               for arch, (t, n_routed) in expert_gemv_ts.items()},
+        decode_step_device_ms={
+            a: {k: r["decode_step_breakdown"]["graph"][v]
+                for k, v in (("now", "device_ms"), ("tok_s_now", "tok_s"))}
+            for a, r in records.items()
+            if "decode_step_device_ms_vs_before" in r})
+    if entry["launches"] <= 0:
+        fail("fused_mlp/experts: no launch on the served paths")
+    kernels.append(entry)
     print(smi.stdout.strip())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

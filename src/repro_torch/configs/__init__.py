@@ -16,6 +16,7 @@ _ARCH_MODULES = {
     "deepseek-67b": "deepseek_67b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "dbrx-132b": "dbrx_132b",
+    "jamba-1.5-large-398b": "jamba_1p5_large_398b",
 }
 
 

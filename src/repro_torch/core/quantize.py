@@ -25,7 +25,7 @@ from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 __all__ = [
     "QuantSpec", "QTensor", "quantize", "dequantize", "unpack_codes",
     "quantize_tree", "dequantize_tree", "QuantPolicy", "PROFILES",
-    "tree_bytes", "parse_label", "prune_weights",
+    "tree_bytes", "parse_label", "prune_weights", "quantize_stacked",
 ]
 
 
@@ -350,30 +350,88 @@ PROFILES: Dict[str, QuantPolicy] = {
 }
 
 
-def quantize_tree(params, policy: QuantPolicy, act_scales=None):
+def _leaf_label(path: str, shape, dtype, policy: QuantPolicy):
+    """(spec, sparsity) of a leaf of ``shape`` and ``dtype`` at ``path``
+    under ``policy``, or None where the policy leaves it as it is: rank
+    below 2, fewer than ``policy.min_size`` elements, not floating."""
+    if len(shape) < 2 or not dtype.is_floating_point:
+        return None
+    if int(np.prod(shape)) < policy.min_size:
+        return None
+    return parse_label(policy.label_for(path))
+
+
+def _quantize_leaf(path: str, leaf, policy: QuantPolicy, act_scales=None):
+    """One leaf at key path ``path`` (``tree.key_path``'s form) under
+    ``policy``, as :func:`quantize_tree` treats it."""
+    if not isinstance(leaf, torch.Tensor):
+        return leaf
+    label = _leaf_label(path, tuple(leaf.shape), leaf.dtype, policy)
+    if label is None:
+        return leaf
+    spec, sparsity = label
+    if sparsity > 0.0:
+        act = None
+        for pat, scale in (act_scales or {}).items():
+            if pat in path:
+                act = scale
+                break
+        leaf = prune_weights(leaf, sparsity, act)
+    return leaf if spec is None else quantize(leaf, spec)
+
+
+def quantize_stacked(path: str, shape, dtype, slices, policy=None):
+    """The leaf of ``shape`` at ``path`` made from ``slices``, its slices
+    of ``shape[-2:]`` in row-major order of the leading axes, and treated
+    as :func:`quantize_tree` treats the whole leaf, bit for bit (codes,
+    scales and the pruning threshold are per row of the last axis), with
+    no more than one slice dense at a time: a full-width stacked expert
+    leaf is packed as it is drawn.  ``policy`` None: the slices stacked."""
+    shape = tuple(shape)
+    label = None if policy is None else _leaf_label(path, shape, dtype,
+                                                    policy)
+    spec, sparsity = label if label is not None else (None, 0.0)
+    lead = shape[:-2]
+    n = int(np.prod(lead))
+    out = codes = scales = None
+    for i, s in enumerate(slices):
+        if sparsity > 0.0:
+            s = prune_weights(s, sparsity)
+        if spec is None:
+            if out is None:
+                out = torch.empty((n,) + shape[-2:], dtype=dtype,
+                                  device=s.device)
+            out[i] = s
+            continue
+        q = quantize(s, spec)
+        if codes is None:
+            codes = torch.empty((n,) + tuple(q.codes.shape),
+                                dtype=q.codes.dtype, device=s.device)
+            scales = torch.empty((n,) + tuple(q.scales.shape),
+                                 dtype=q.scales.dtype, device=s.device)
+        codes[i], scales[i] = q.codes, q.scales
+        del q
+    if spec is None:
+        return out.reshape(shape)
+    return QTensor(codes.reshape(lead + tuple(codes.shape[1:])),
+                   scales.reshape(lead + tuple(scales.shape[1:])), spec,
+                   shape, dtype)
+
+
+def quantize_tree(params, policy: QuantPolicy, act_scales=None,
+                  path: str = ""):
     """Quantize (and optionally prune) eligible leaves per the policy:
     floating tensors of rank >= 2 and at least ``policy.min_size``
     elements whose path's label names a spec.  A label with an
     ``-sp<pct>`` suffix prunes the leaf first (:func:`prune_weights`);
     ``act_scales`` maps path substrings (of the ``/``-joined key path, the
     reference's form) to per-input activation magnitudes, the first whose
-    substring the path contains applying (magnitude-only when none)."""
-    def visit(path, leaf):
-        if not isinstance(leaf, torch.Tensor) or leaf.dim() < 2:
-            return leaf
-        if leaf.numel() < policy.min_size or not leaf.is_floating_point():
-            return leaf
-        spec, sparsity = parse_label(policy.label_for(path))
-        if sparsity > 0.0:
-            act = None
-            for pat, scale in (act_scales or {}).items():
-                if pat in path:
-                    act = scale
-                    break
-            leaf = prune_weights(leaf, sparsity, act)
-        return leaf if spec is None else quantize(leaf, spec)
-
-    return tree_map_with_path(visit, params)
+    substring the path contains applying (magnitude-only when none).
+    ``path``: where ``params`` sits in the whole tree (a subtree's leaves
+    are labelled by their whole path)."""
+    return tree_map_with_path(
+        lambda p, leaf: _quantize_leaf(p, leaf, policy, act_scales), params,
+        path)
 
 
 def dequantize_tree(params):

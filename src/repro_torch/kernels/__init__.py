@@ -18,7 +18,9 @@ split TF32 on mma.sync);
 ``dequant_gemm.kernel.route``); ``ssd/mma`` (bf16, tensor-core
 products) and ``ssd/simt`` (fp32, FFMA); ``fused_mlp/gemv`` (the split-K
 GEMV of both MLP stages, one a call) and ``fused_qkv/gemv`` (the same
-GEMV, one a device kernel: one a distinct bit width of wq, wk, wv).
+GEMV, one a device kernel: one a distinct bit width of wq, wk, wv);
+``fused_mlp/experts`` counts the routed experts' GEMV of an MoE's decode
+(``fused_decode.ops.fused_mlp_experts``, its only count).
 
 The counts are the launches the card ran, CUDA-graph replays included: a
 replay runs no Python, so the code that captures a graph takes the

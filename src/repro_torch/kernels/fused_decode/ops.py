@@ -7,7 +7,10 @@ calls into the compiled library under its own name in the kernels'
 launch-count registry (``repro_torch.kernels``), so a run can show that
 it went through the kernels; ``fused_mlp`` also counts each call under
 ``fused_mlp/gemv`` and ``fused_qkv`` each of its device kernels under
-``fused_qkv/gemv``, both the split-K GEMV kernel.  One such call runs
+``fused_qkv/gemv``, both the split-K GEMV kernel.
+``fused_mlp_experts``, the MoE's decode (``models/moe.py``), counts each
+call under ``fused_mlp/experts``: four device kernels a call, the routed
+experts' GEMV of each stage and their reductions.  One such call runs
 several device kernels: ``fused_qkv`` one a distinct bit width among its
 three weights (one for every served profile), ``fused_mlp`` two (the
 GEMV of each stage, its epilogue inside), ``kv_scatter`` one.  The GEMV
@@ -40,6 +43,7 @@ from repro_torch.kernels.fused_decode.ref import (block_and_offset,
                                                   composed_cohort_step,
                                                   gather_context,
                                                   ref_fused_mlp,
+                                                  ref_fused_mlp_experts,
                                                   ref_fused_qkv,
                                                   ref_kv_scatter)
 from repro_torch.models import attention as attn
@@ -80,6 +84,24 @@ def fused_mlp(h, w_up, w_down, w_gate=None, *, act: str):
     return out
 
 
+def fused_mlp_experts(h, w_up, w_down, w_gate, idx, gates, valid, *,
+                      act: str):
+    """A decode step's routed experts: h (bc, D), the router's top-k
+    ``idx`` (bc, k), renormalised ``gates`` (bc, k), the row mask
+    ``valid`` (bc,) -> (bc, D): each valid row's gated sum of its experts'
+    MLPs, reading only the routed experts' packed codes; an invalid row
+    gets 0.  The stacked expert weights (E, K, N) stay packed."""
+    if _on_cpu(h):
+        return ref_fused_mlp_experts(h, w_up, w_down, w_gate, idx, gates,
+                                     valid, act=act)
+    gated = w_gate is not None
+    out, n = K.launch_fused_mlp_experts(h, w_up, w_down, w_gate, idx, gates,
+                                        valid,
+                                        GATED[act] if gated else act)
+    count_launch("fused_mlp/experts", n)
+    return out
+
+
 def kv_scatter(blk, off, k_rows, v_rows, k_pool, v_pool):
     """Write each cohort row's new K/V position (all layers at once) into
     the paged pools, IN PLACE; sentinel rows write nothing.  Returns the
@@ -92,7 +114,7 @@ def kv_scatter(blk, off, k_rows, v_rows, k_pool, v_pool):
 
 
 register_kernels("fused_qkv", "fused_qkv/gemv", "fused_mlp", "fused_mlp/gemv",
-                 "kv_scatter")
+                 "fused_mlp/experts", "kv_scatter")
 
 
 def fused_supported(cfg) -> bool:

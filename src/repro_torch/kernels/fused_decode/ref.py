@@ -46,6 +46,39 @@ def ref_fused_mlp(h, w_up, w_down, w_gate=None, *, act: str):
     return mlp_mod.apply_mlp(p, act, h)
 
 
+def _expert(w, e: int):
+    """Expert ``e`` of a stacked expert weight (E, K, N), packed or dense:
+    a view, nothing dequantized."""
+    return w.layer(e) if isinstance(w, QTensor) else w[e]
+
+
+def ref_fused_mlp_experts(h, w_up, w_down, w_gate, idx, gates, valid, *,
+                          act: str):
+    """The routed experts' MLP of a decode step: h (bc, D), the router's
+    top-k ``idx`` (bc, k) and renormalised ``gates`` (bc, k) fp32, the row
+    mask ``valid`` (bc,) -> (bc, D) in h's dtype T: each valid row's
+    rt(sum over its choices j, in order, of rt(g_j) * ``ref_fused_mlp``
+    of h_r through expert idx[r, j]), in fp32; an invalid row gets 0.
+    Each (row, choice) dequantizes its own expert's three matrices and
+    nothing else (one full-width Jamba expert is 604 M elements; its leaf
+    of 16 never exists dense)."""
+    bc, D = h.shape
+    dt = h.dtype
+    out = torch.zeros((bc, D), dtype=torch.float32, device=h.device)
+    g = gates.to(dt).float()
+    experts, ok = idx.tolist(), valid.tolist()
+    for r in range(bc):
+        if not ok[r]:
+            continue
+        for j, e in enumerate(experts[r]):
+            y = ref_fused_mlp(h[r:r + 1, None], _expert(w_up, e),
+                              _expert(w_down, e),
+                              None if w_gate is None else _expert(w_gate, e),
+                              act=act)
+            out[r] += g[r, j] * y[0, 0].float()
+    return out.to(dt)
+
+
 def emulate_gemv(x, w, plan):
     """fp32 sums x (bc, K) @ w (K, n) in the order of the MLP kernel's
     split-K plan ``plan`` (``kernel.GemvPlan``): each thread adds its K
@@ -219,7 +252,11 @@ def composed_cohort_step(params, cfg, tokens, lengths, slot_ids, tables,
     cache = {"layers": layers, "index": lengths}
     valid = None
     if cfg.moe is not None:
-        valid = tables[:, 0] < pool[paged.index(True)][0].shape[1]
+        # sentinel rows carry block n_blocks (a paged position's blocks:
+        # Jamba's attention sits at group position 4) or, in a pool with
+        # no paged position, slot n_slots
+        valid = (tables[:, 0] < pool[paged.index(True)][0].shape[1]
+                 if any(paged) else slot_ids < pool[0][0].shape[1])
     logits, new = M.lm_decode_step(params, cfg, tokens, cache, donate=donate,
                                    valid=valid)
     rows = torch.arange(bc, device=tokens.device)

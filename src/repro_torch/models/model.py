@@ -20,16 +20,17 @@ from repro_torch.models.common import (apply_mrope, apply_norm,
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device,
-            pack=None):
+            policy=None):
     """Parameters with the reference's tree, shapes and scales (torch's
-    own random numbers); ``pack(name, leaf)`` packs each stacked expert
-    leaf as it is made."""
+    own random numbers); with a ``policy`` the layers are packed as they
+    are made (``decoder.init_stack``)."""
     dt = cfg.torch_dtype
     qkv_bias = cfg.family == "vlm"          # Qwen2 uses qkv biases
     params: Dict[str, Any] = {
         "embed": embed_init(generator, (cfg.padded_vocab, cfg.d_model), dt,
                             device),
-        "layers": dec.init_stack(generator, cfg, device, qkv_bias, pack),
+        "layers": dec.init_stack(generator, cfg, device, qkv_bias, policy,
+                                 path="layers"),
         "final_norm": init_norm(cfg, cfg.d_model, device),
     }
     if not cfg.tie_embeddings:
@@ -52,22 +53,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     weights made on ``device`` (the card by default) from ``generator``
     (or a fresh one seeded with ``seed``).  With a ``policy`` (a
     ``QuantPolicy``) the result is ``quantize_tree(init_params(...),
-    policy)``, bit for bit, but each stacked expert leaf is packed as
-    soon as it is made: a full-width MoE model never holds its dense
-    experts whole (DeepSeek-MoE-16B's are 31 GB in bf16)."""
+    policy)``, bit for bit, but each group position is packed as soon as
+    it is made and each stacked expert leaf one expert at a time: a
+    full-width model never holds more than one sublayer dense (one
+    group of Jamba is 45 G parameters; its MoE sublayer's experts alone
+    19 GB in bf16)."""
     device = torch.device(device)
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
-    pack = None
-    if policy is not None:
-        def pack(name, leaf):
-            # the leaf in its place in the tree, so that the policy reads
-            # the path it has there
-            tree = {"layers": ({"ffn": {name: leaf}},)}
-            return quantize_tree(tree, policy)["layers"][0]["ffn"][name]
     with torch.no_grad():
-        params = init_lm(cfg, generator, device, pack)
+        params = init_lm(cfg, generator, device, policy)
         return params if policy is None else quantize_tree(params, policy)
 
 

@@ -35,18 +35,28 @@ for every choice (the reference's cohort of 8 has C = 4 and drops).
 Every one-hot is a comparison against an ``arange``, with no call that
 reads a value back to the host, so the decode step that runs it can be
 captured as a CUDA graph.
+
+A decode step (S = 1 with ``valid``) keeps every choice of a valid row
+(each row alone in its group), so the dispatch and combine reduce to
+each row's gated sum over its top-k experts: :func:`_decode_moe` hands
+the router's choices to ``fused_decode.ops.fused_mlp_experts``, which
+reads only the routed experts' packed codes (on the card, one
+hand-written kernel call); the stacked expert leaves are never
+dequantized in decode.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quantize import quantize_stacked
 from repro_torch.kernels.dequant_gemm import ops as dg
 from repro_torch.models.common import dense_init
 from repro_torch.models.mlp import apply_mlp, init_mlp
+from repro_torch.tree import key_path
 
 GROUP_SIZE = 256
 
@@ -57,25 +67,25 @@ def capacity(cfg_moe, group_size: int = GROUP_SIZE) -> int:
     return max(4, c)
 
 
-def _expert_init(generator, shape, dtype, device, fan_in: int):
-    """``dense_init`` of a stacked expert leaf, one slice of its leading
-    axis at a time: the fp32 temporaries stay one slice's (a full-width
-    layer of DeepSeek-MoE-16B's experts is 185 M elements a leaf)."""
-    out = torch.empty(shape, dtype=dtype, device=device)
-    for i in range(shape[0]):
-        out[i] = dense_init(generator, shape[1:], dtype, device,
-                            fan_in=fan_in)
-    return out
+def _expert_slices(generator, shape, dtype, device, fan_in: int):
+    """``dense_init`` draws of a stacked expert leaf ``shape`` (lead...,
+    E, a, b), one expert's (a, b) at a time, in row-major order of the
+    leading axes: the fp32 temporaries stay one expert's (a full-width
+    Jamba expert is 201 M elements a matrix)."""
+    for _ in range(int(math.prod(shape[:-2]))):
+        yield dense_init(generator, shape[-2:], dtype, device, fan_in=fan_in)
 
 
-def init_moe(generator, cfg, d_model: int, device, lead=(),
-             pack: Optional[Callable] = None):
+def init_moe(generator, cfg, d_model: int, device, lead=(), policy=None,
+             path: str = ""):
     """The reference's tree, shapes and scales: ``router`` fp32 (D, E),
     ``w_up`` / ``w_gate`` (E, D, F), ``w_down`` (E, F, D), ``shared`` an
     MLP of width ``d_ff_shared`` (or ``d_ff_expert * n_shared``), each
-    with the stacked ``lead`` axes first.  ``pack(name, leaf)``, when
-    given, packs each expert leaf as soon as it is made, so that no more
-    than one dense expert leaf exists at a time."""
+    with the stacked ``lead`` axes first.  With a ``policy`` each expert
+    leaf is packed as it is drawn, one expert at a time, as
+    ``quantize_tree`` packs it at its key path under ``path``
+    (``core.quantize.quantize_stacked``): no dense expert leaf exists
+    whole."""
     m = cfg.moe
     dt = cfg.torch_dtype
     lead = tuple(lead)
@@ -85,9 +95,10 @@ def init_moe(generator, cfg, d_model: int, device, lead=(),
     for name, shape, fan_in in (("w_up", (E, d_model, Fe), d_model),
                                 ("w_gate", (E, d_model, Fe), d_model),
                                 ("w_down", (E, Fe, d_model), Fe)):
-        leaf = _expert_init(generator, lead + shape, dt, device, fan_in)
-        p[name] = leaf if pack is None else pack(name, leaf)
-        del leaf
+        p[name] = quantize_stacked(
+            key_path(path, name), lead + shape, dt,
+            _expert_slices(generator, lead + shape, dt, device, fan_in),
+            policy)
     if m.n_shared:
         # all assigned MoE archs use gated (SwiGLU) FFNs
         p["shared"] = init_mlp(generator, cfg, d_model,
@@ -171,15 +182,42 @@ def route(logits: torch.Tensor, top_k: int, cap: int,
     return combine, dispatch, aux
 
 
+def _decode_moe(p, cfg, x: torch.Tensor, valid: torch.Tensor):
+    """A decode step's MoE, x (B, 1, D): each row alone in its group (a
+    group of GROUP_SIZE padded tokens, as ``apply_moe(valid=)`` pads it,
+    so capacity is at least 4 >= top_k and every choice of a valid row is
+    kept), so the one-hot dispatch and combine reduce to each valid row's
+    gated sum over its top-k experts, which
+    ``fused_decode.ops.fused_mlp_experts`` computes from the packed codes
+    of the routed experts alone; an invalid row gets the shared experts'
+    output alone.  The routing goes through :func:`choices`, as every
+    call's does."""
+    from repro_torch.kernels.fused_decode import ops as fd
+    m = cfg.moe
+    B, _, D = x.shape
+    logits = router_logits(x, p["router"])                      # (B,1,E)
+    _, gates, idx, _, _, _ = choices(logits, m.top_k, capacity(m), valid)
+    y = fd.fused_mlp_experts(x.reshape(B, D), p["w_up"], p["w_down"],
+                             p.get("w_gate"), idx[:, 0], gates[:, 0],
+                             valid[:, 0], act=cfg.act)
+    y = y.reshape(B, 1, D).to(x.dtype)
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], cfg.act, x)
+    return y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def apply_moe(p, cfg, x: torch.Tensor,
               valid: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), aux loss).  ``valid`` (B, S) bool
-    (each row in groups of its own, invalid tokens routed nowhere) or
-    None (every token valid, groups of ``min(GROUP_SIZE, B * S)`` over
-    the flattened batch)."""
+    (each row in groups of its own, invalid tokens routed nowhere; a
+    decode step, S = 1, through the routed experts' GEMV,
+    :func:`_decode_moe`, whose aux loss is 0) or None (every token valid,
+    groups of ``min(GROUP_SIZE, B * S)`` over the flattened batch)."""
     m = cfg.moe
     B, S, D = x.shape
+    if S == 1 and valid is not None:
+        return _decode_moe(p, cfg, x, valid.to(torch.bool).reshape(B, 1))
     if valid is None:
         rows, n, gs = 1, B * S, min(GROUP_SIZE, B * S)
         mask = None

@@ -1147,11 +1147,13 @@ class ServingEngine:
 
     def _prefill_chunk(self) -> Optional[int]:
         """The chunk of a chunked slot-state mixer's prefill (Mamba-2's
-        SSD, linear attention), None for softmax attention."""
-        mixer = dec.mixer_of(self.cfg)
-        if mixer == "mamba":
+        SSD, linear attention) at any group position (a hybrid group's
+        Mamba-2 sublayers), None for softmax attention alone."""
+        mixers = {dec.mixer_of(self.cfg, pos)
+                  for pos in range(dec.group_size(self.cfg))}
+        if "mamba" in mixers:
             return self.cfg.ssm.chunk_size
-        return LINEAR_PREFILL_CHUNK if mixer == "linear" else None
+        return LINEAR_PREFILL_CHUNK if "linear" in mixers else None
 
     def step(self):
         self._admit()

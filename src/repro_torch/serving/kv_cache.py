@@ -1,7 +1,8 @@
 """Block-paged KV cache for continuous batching.
 
 Attention K/V live as fixed-size blocks ``(L, n_blocks, block_size, KV,
-hd)``; every admitted request owns a block table (host-side list of
+hd)`` (``L``: the stack's groups, ``decoder.n_groups``, one entry a group
+position); every admitted request owns a block table (host-side list of
 granted block ids) and decode gathers its context through it.  Mamba-2
 state (conv tail + SSD state) and linear-attention state (the running
 summary and normalizer) have no length axis: they are fixed-size per
@@ -92,7 +93,7 @@ class PagedKVCache:
         pool = []
         for pos, paged in enumerate(self.paged):
             if paged:
-                shape = (cfg.n_layers, self.n_blocks, block_size,
+                shape = (dec.n_groups(cfg), self.n_blocks, block_size,
                          cfg.n_kv_heads, cfg.hd)
                 pool.append(tuple(
                     torch.zeros(shape, dtype=cfg.torch_dtype,

@@ -10,11 +10,18 @@ from __future__ import annotations
 from typing import Any, Callable, List
 
 
+def key_path(*keys) -> str:
+    """The path of a leaf reached through ``keys`` (dict keys and tuple
+    indices, outermost first): ``key_path("layers", 3, "ffn", "w_up")``
+    is ``"layers/3/ffn/w_up"``, the form quantization policies match."""
+    return "/".join(str(k) for k in keys if k != "")
+
+
 def tree_map_with_path(fn: Callable[[str, Any], Any], tree, path: str = ""):
     """``fn(path, leaf)`` over every leaf; containers are rebuilt with the
-    same type.  Paths join keys and tuple indices with ``/``."""
+    same type.  Paths are :func:`key_path`'s, under ``path``."""
     def join(k):
-        return f"{path}/{k}" if path else str(k)
+        return key_path(path, k)
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, join(k)) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

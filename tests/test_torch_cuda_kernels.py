@@ -6,6 +6,8 @@ skipping the repository's conftest (which imports JAX):
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda_kernels.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -465,7 +467,9 @@ def test_reduced_prefill_through_the_flash_kernel(cuda, dtype):
 SSD_SHAPES = [(2, 64, 16, 16, 1, 16, 32), (2, 128, 4, 32, 1, 32, 64),
               (1, 256, 8, 64, 2, 64, 32), (2, 64, 4, 16, 4, 16, 32),
               (1, 128, 64, 64, 1, 128, 256), (2, 512, 8, 64, 2, 128, 256),
-              (2, 2048, 64, 64, 1, 128, 256), (1, 96, 3, 24, 1, 40, 48)]
+              (2, 2048, 64, 64, 1, 128, 256), (1, 96, 3, 24, 1, 40, 48),
+              # Jamba's Mamba-2 sublayers: 128 heads of P 128
+              (2, 1024, 128, 128, 1, 128, 256)]
 
 
 def _ssd_inputs(dev, B, S, H, P, G, N, dtype=torch.bfloat16, seed=0):
@@ -2122,6 +2126,173 @@ def test_moe_layer_full_width_prefill_holds_every_gemm(cuda):
     assert logits.isfinite().all()
 
 
+# -- the routed experts' GEMV of a decode step (fused_mlp/experts) -------------
+
+# (E, top_k, D, F): DeepSeek-MoE-16B, DBRX, Jamba
+EXPERT_WIDTHS = {"deepseek-moe-16b": (64, 6, 2048, 1408),
+                 "dbrx-132b": (16, 4, 6144, 10752),
+                 "jamba-1.5-large-398b": (16, 2, 8192, 24576)}
+EXPERT_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+
+
+def _experts(dev, E, D, F, dtype, seed):
+    """Packed q4 g32 expert weights (E, D, F) x 2 and (E, F, D), drawn
+    one expert at a time."""
+    from repro_torch.core.quantize import QuantPolicy, quantize_stacked
+    g = torch.Generator(device=dev).manual_seed(seed)
+    policy = QuantPolicy("q4g32", ((".", "q4f16-g32"),))
+
+    def draw(shape):
+        for _ in range(E):
+            yield (torch.randn(shape, generator=g, device=dev)
+                   * shape[0] ** -0.5).to(dtype)
+    return [quantize_stacked("w", (E,) + shape, dtype, draw(shape), policy)
+            for shape in ((D, F), (D, F), (F, D))]
+
+
+@functools.lru_cache(maxsize=None)
+def _arch_experts(arch):
+    """One set of bf16 q4 g32 experts at ``arch``'s widths, shared by its
+    cases (Jamba's are 6 GB packed)."""
+    E, _, D, F = EXPERT_WIDTHS[arch]
+    return _experts(torch.device("cuda"), E, D, F, torch.bfloat16, seed=0)
+
+
+def _expert_routes(rng, bc, k, E, case):
+    """idx (bc, k), gates (bc, k) and valid (bc,) of a routing case:
+    ``top`` distinct experts a row, ``twice`` row 0 choosing one expert
+    at two of its choices, ``one`` every row's first choice the same
+    expert, ``sentinel`` every other row invalid."""
+    idx = np.stack([rng.permutation(E)[:k] for _ in range(bc)])
+    if case == "twice" and k > 1:
+        idx[0, 1] = idx[0, 0]
+    if case == "one":
+        idx[:, 0] = 3
+        idx[:, 1:] = np.where(idx[:, 1:] == 3, 4, idx[:, 1:])
+    g = rng.random((bc, k)) + 0.1
+    g = g / g.sum(1, keepdims=True)
+    valid = np.ones(bc, bool)
+    if case == "sentinel":
+        valid[1::2] = False
+    return idx, g.astype(np.float32), valid
+
+
+def _expert_rows_close(got, want, valid, dtype):
+    """Each valid row within EXPERT_ROW_TOL of its largest plain
+    magnitude (fp32: of the largest plain magnitude); invalid rows 0."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.isfinite().all()
+    assert torch.count_nonzero(got[~valid]) == 0
+    g, w = got[valid].float(), want[valid].float()
+    err = (g - w).abs()
+    if dtype == torch.bfloat16:
+        ratio = (err.amax(1) / w.abs().amax(1)).max().item()
+    else:
+        ratio = (err.max() / w.abs().max()).item()
+    assert ratio <= EXPERT_ROW_TOL[dtype], ratio
+
+
+@pytest.mark.parametrize("case", ["top", "twice", "one", "sentinel"])
+@pytest.mark.parametrize("bc", [1, 2, 4, 8])
+@pytest.mark.parametrize("arch", list(EXPERT_WIDTHS))
+def test_fused_mlp_experts_matches_plain(cuda, arch, bc, case):
+    """The routed experts' GEMV at each MoE config's widths, bf16, q4
+    g32: one call, counted once under ``fused_mlp/experts``, each valid
+    row within 2e-2 of the plain version's row (one bf16 rounding of
+    the GEMVs' different orders), sentinel rows 0."""
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    from repro_torch.kernels.fused_decode.ref import ref_fused_mlp_experts
+    E, k, D, F = EXPERT_WIDTHS[arch]
+    dtype = torch.bfloat16
+    up, gate, down = _arch_experts(arch)
+    rng = np.random.default_rng(bc)
+    idx, g, valid = _expert_routes(rng, bc, k, E, case)
+    h = torch.from_numpy(rng.standard_normal((bc, D)).astype(
+        np.float32)).to(cuda).to(dtype)
+    args = (torch.from_numpy(idx).to(cuda), torch.from_numpy(g).to(cuda),
+            torch.from_numpy(valid).to(cuda))
+    reset_launch_counts()
+    with torch.no_grad():
+        got = fd_ops.fused_mlp_experts(h, up, down, gate, *args,
+                                       act="swiglu")
+        torch.cuda.synchronize()
+        assert launch_counts()["fused_mlp/experts"] == 1
+        want = ref_fused_mlp_experts(h, up, down, gate, *args, act="swiglu")
+    _expert_rows_close(got, want, torch.from_numpy(valid).to(cuda), dtype)
+
+
+@pytest.mark.parametrize("case", ["top", "twice", "sentinel"])
+@pytest.mark.parametrize("bc", [1, 4, 8])
+def test_fused_mlp_experts_fp32_and_dense(cuda, bc, case):
+    """fp32 activations on q4 g32 experts within 1e-5 of the largest
+    plain magnitude, and dense bf16 experts within 2e-2 a row, at
+    DeepSeek-MoE-16B's widths; bit-equal from run to run."""
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    from repro_torch.kernels.fused_decode.ref import ref_fused_mlp_experts
+    E, k, D, F = EXPERT_WIDTHS["deepseek-moe-16b"]
+    rng = np.random.default_rng(10 + bc)
+    idx, g, valid = _expert_routes(rng, bc, k, E, case)
+    args = (torch.from_numpy(idx).to(cuda), torch.from_numpy(g).to(cuda),
+            torch.from_numpy(valid).to(cuda))
+    ok = torch.from_numpy(valid).to(cuda)
+    for dtype, packed in ((torch.float32, True), (torch.bfloat16, False)):
+        ws = _experts(cuda, E, D, F, dtype, seed=bc)
+        if not packed:
+            ws = [dequantize(w) for w in ws]
+        h = torch.from_numpy(rng.standard_normal((bc, D)).astype(
+            np.float32)).to(cuda).to(dtype)
+        with torch.no_grad():
+            got = fd_ops.fused_mlp_experts(h, ws[0], ws[2], ws[1], *args,
+                                           act="swiglu")
+            again = fd_ops.fused_mlp_experts(h, ws[0], ws[2], ws[1], *args,
+                                             act="swiglu")
+            want = ref_fused_mlp_experts(h, ws[0], ws[2], ws[1], *args,
+                                         act="swiglu")
+        assert torch.equal(got, again)
+        _expert_rows_close(got, want, ok, dtype)
+
+
+def test_fused_mlp_experts_skips_unrouted_experts(cuda):
+    """Codes of experts no valid row chose are never read: NaN codes'
+    scales in every other expert change nothing."""
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    E, k, D, F = EXPERT_WIDTHS["dbrx-132b"]
+    up, gate, down = (QTensor(w.codes, w.scales.clone(), w.spec, w.shape,
+                              w.dtype) for w in _arch_experts("dbrx-132b"))
+    idx = torch.tensor([[0, 1, 2, 3], [0, 2, 4, 6]], device=cuda)
+    gates = torch.full((2, 4), 0.25, device=cuda)
+    valid = torch.tensor([True, True], device=cuda)
+    h = torch.randn(2, D, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        want = fd_ops.fused_mlp_experts(h, up, down, gate, idx, gates, valid,
+                                        act="swiglu")
+        for w in (up, gate, down):
+            w.scales[7:] = float("nan")
+        got = fd_ops.fused_mlp_experts(h, up, down, gate, idx, gates, valid,
+                                       act="swiglu")
+    assert torch.equal(got, want)
+
+
+def test_fused_mlp_experts_refuses_what_it_does_not_take(cuda):
+    """q2 codes and a strided expert leaf raise; nothing falls back."""
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    E, D, F = 4, 256, 512
+    ws = _experts(cuda, E, D, F, torch.bfloat16, seed=0)
+    idx = torch.zeros((1, 2), dtype=torch.long, device=cuda)
+    gates = torch.full((1, 2), 0.5, device=cuda)
+    valid = torch.ones(1, dtype=torch.bool, device=cuda)
+    h = torch.randn(1, D, device=cuda).to(torch.bfloat16)
+    q2 = quantize(dequantize(ws[0]), QuantSpec(2, group_size=32))
+    with pytest.raises(ValueError):
+        fd_ops.fused_mlp_experts(h, q2, ws[2], ws[1], idx, gates, valid,
+                                 act="swiglu")
+    dense = dequantize(ws[0]).transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        fd_ops.fused_mlp_experts(h, dense, dequantize(ws[2]),
+                                 dequantize(ws[1]), idx, gates, valid,
+                                 act="swiglu")
+
+
 # -- linear attention on split TF32 -------------------------------------------
 
 def _la_f64(q, k, v, valid_len=None):
@@ -2222,7 +2393,7 @@ def test_linear_attention_tf32x3_matches_its_emulation(cuda, dtype):
 
 
 # -- the cohort step as a CUDA graph per bucket (serving/cohort_graph) -----
-GRAPH_KINDS = ["fused", "composed", "mamba", "linear", "moe"]
+GRAPH_KINDS = ["fused", "composed", "mamba", "linear", "moe", "hybrid"]
 
 
 def _graph_engine(kind, dev):
@@ -2230,7 +2401,8 @@ def _graph_engine(kind, dev):
     decode-step kind: llava's fused or composed step (paged pool), Mamba-2
     or llava with linear attention (slot-state pool), DeepSeek-MoE's
     composed step with the MoE FFN (sentinel rows masked out of the
-    routing)."""
+    routing), Jamba's (a pool of paged and slot-indexed positions, the
+    routed experts' GEMV)."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantize import PROFILES, quantize_tree
     from repro_torch.models.model import init_params
@@ -2238,6 +2410,8 @@ def _graph_engine(kind, dev):
     cfg = (get_config("mamba2-1.3b").reduced() if kind == "mamba"
            else _linear_cfg("bfloat16") if kind == "linear"
            else get_config("deepseek-moe-16b").reduced() if kind == "moe"
+           else get_config("jamba-1.5-large-398b").reduced()
+           if kind == "hybrid"
            else get_config("llava-onevision-0.5b").reduced())
     params = quantize_tree(init_params(cfg, device=dev),
                            PROFILES["nanomind-serve"])

@@ -1,7 +1,8 @@
 """The port's continuous-batching engine across every decoder-only cache
 family of both registries (the reference's ``test_engine_all_archs.py``
 on the port, on the CPU): dense KV, GQA, MoE routing, SSD state, VLM +
-TABM.  Jamba (hybrid groups) and Seamless (encoder-decoder) are not
+TABM, hybrid groups (Jamba: Mamba-2 and attention sublayers in one
+pool, slot-indexed and paged).  Seamless (encoder-decoder) is not
 ported; every other arch of either registry serves here, reduced, with
 the port's own weights (``init_params`` seed 0)."""
 import numpy as np
@@ -12,7 +13,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.models.model import init_params
 from repro_torch.serving.engine import Request, ServingEngine
 
-NOT_PORTED = ("jamba-1.5-large-398b", "seamless-m4t-large-v2")
+NOT_PORTED = ("seamless-m4t-large-v2",)
 ARCHS = sorted((set(ref_archs()) | set(list_archs())) - set(NOT_PORTED))
 
 
