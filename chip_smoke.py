@@ -281,7 +281,29 @@ Phases (any failure raises and exits non-zero):
    plain version at the largest magnitude, beyond the 5e-3 gate, is
    held against a float64 evaluation instead (no worse than 2x the
    plain version): cuBLAS splits K = 24576 at 128 rows and sums in
-   another order than the kernel (``scripts/long_k_gemm_plain.py``).
+   another order than the kernel (``scripts/long_k_gemm_plain.py``);
+10. run seamless-m4t-large-v2, the encoder-decoder, at full width and
+   depth (24 encoder and 24 decoder layers, ``attn_q_chunk=0``),
+   ``init_params`` seed 0 packed as made under ``nanomind-serve``,
+   through ``launch.steps.build_prefill_step`` / ``build_serve_step``
+   at ``max_len`` 64: (a) 2 rows of 1024 stub audio frames and (b) 1
+   row of 8192 frames (the config's ``enc_seq_len``), each with a
+   16-token target prefix and 16 new greedy tokens.  Every packed GEMM
+   (the encoder's and the cross K/V projections at B x T rows, the
+   decoder's at B x 16), flash (non-causal encoder, causal target,
+   cross at 16 queries), fused QKV / ungated-GELU MLP GEMV and
+   cache-row-update call is held against its plain version as it is
+   made; the launches counted around each input's run; the prefill's
+   and every decode step's logits against the plain route (every
+   kernel swapped for its plain version, teacher-forced on the served
+   tokens) within 5e-2 of the largest; the encoder, the prefill and
+   the eager decode step broken down by kernel; then input (a)'s first
+   row through the resident plan of ``decompose(cfg)`` and through
+   ``CascadeRunner`` on the card (logits against the prefill step's
+   and each other's, the cascade's card peak under the resident
+   plan's, each brick's load / execute / release ms), and the kernels
+   at the phase's new shapes beside their plain versions and library
+   calls.
 
 Phase 2 also holds the routed experts' GEMV at DeepSeek-MoE-16B's,
 DBRX's and Jamba's widths (cohorts 1-8, a row choosing one expert twice,
@@ -459,7 +481,7 @@ MLP_ROW_TOL = {"bfloat16": KERNEL_TOL, "float32": 1e-5}   # and the QKV's
 # rows of each served model's largest prefill call: the GEMM's per-shape
 # timings run every distinct projection shape at these rows
 DG_SERVED_ROWS = {"qwen2-vl-7b": 2048, "llava-onevision-0.5b": 1024,
-                  "mamba2-1.3b": 2048}
+                  "mamba2-1.3b": 2048, "seamless-m4t-large-v2": 2048}
 # the bf16 flash timings beside SDPA, (B, Sq, Sk, H, KV, hd, causal) at
 # Qwen2-VL's head counts: hd 64 and 128 at its 2 x 2048 prefill, hd 160 at
 # 2 x 1024 (FLASH_HD160's first shape)
@@ -529,6 +551,19 @@ HYBRID_GROUPS = 1
 HYBRID_PROMPTS = (1024, 1000, 300, 100)
 HYBRID_NEW = 16
 HYBRID_MAX_LEN = 2048
+# phase 10: seamless-m4t-large-v2, the encoder-decoder, at full width and
+# depth; inputs (name, rows, audio frames), each with a 16-token target
+# prefix and 16 new greedy tokens
+ENCDEC_PATH = "seamless-m4t-large-v2"
+ENCDEC_INPUTS = (("a", 2, 1024), ("b", 1, 8192))
+ENCDEC_PREFIX = 16
+ENCDEC_NEW = 16
+ENCDEC_MAX_LEN = 64
+ENCDEC_RUNS = 3                  # clocked runs of each plan after a warm-up
+# the flash kernel at the encoder's length and the cross-attention shapes
+FLASH_ENCDEC_TIMES = ((1, 8192, 8192, 16, 16, 64, False),
+                      (2, 16, 1024, 16, 16, 64, False),
+                      (1, 16, 8192, 16, 16, 64, False))
 
 
 def fail(msg):
@@ -1508,6 +1543,7 @@ class MlpCalls:
         from repro_torch.kernels.fused_decode import ops, ref
         self.ops, self.inner, self.ref = ops, ops.fused_mlp, ref.ref_fused_mlp
         self.armed, self.calls, self.worst, self.bc = False, 0, 0.0, 0
+        self.err = 0.0                   # max abs err over the calls
 
     def __call__(self, h, w_up, w_down, w_gate=None, *, act):
         out = self.inner(h, w_up, w_down, w_gate, act=act)
@@ -1524,6 +1560,7 @@ class MlpCalls:
         if worst > MLP_ROW_TOL[dtype]:
             fail(f"served fused_mlp at {tuple(h.shape)} {dtype}: row err/max "
                  f"{worst}")
+        self.err = max(self.err, err.max().item())
         self.calls += 1
         self.worst, self.bc = max(self.worst, worst), int(h.shape[0])
         return out
@@ -1546,6 +1583,7 @@ class QkvCalls(MlpCalls):
         from repro_torch.kernels.fused_decode import ops, ref
         self.ops, self.inner, self.ref = ops, ops.fused_qkv, ref.ref_fused_qkv
         self.armed, self.calls, self.worst, self.bc = False, 0, 0.0, 0
+        self.err = 0.0
 
     def __call__(self, h, *args):
         outs = self.inner(h, *args)
@@ -1559,6 +1597,7 @@ class QkvCalls(MlpCalls):
                      f"or non-finite output")
             o, w = out.float().flatten(1), want.float().flatten(1)
             worst = ((o - w).abs().amax(-1) / w.abs().amax(-1)).max().item()
+            self.err = max(self.err, (o - w).abs().max().item())
             if worst > MLP_ROW_TOL[dtype]:
                 fail(f"served fused_qkv at {tuple(h.shape)} {dtype}: row "
                      f"err/max {worst}")
@@ -1665,6 +1704,26 @@ class FlashCalls:
         out = self.inner(q, k, v, causal=causal)
         self.calls.append((q, k, v, causal, out))
         return out
+
+    def held(self, sm, what):
+        """Every kept call's served output against the plain version on
+        its own inputs (``Smoke.flash_held``'s gates): calls, the worst
+        error over the largest plain magnitude, the max abs error (into
+        ``sm.errs``), the calls by (B, Sq, Sk, H, KV, hd, causal)."""
+        worst, err_max, shapes = 0.0, 0.0, {}
+        with sm.torch.no_grad():
+            for q, k, v, causal, out in self.calls:
+                w, err = sm.flash_held(q, k, v, causal, f"{what}: served "
+                                       f"at {tuple(q.shape)}", got=out)
+                worst, err_max = max(worst, w), max(err_max, err)
+                key = str(tuple(q.shape[:2]) + (k.shape[1],)
+                          + tuple(q.shape[2:3]) + tuple(k.shape[2:])
+                          + (causal,))
+                shapes[key] = shapes.get(key, 0) + 1
+        sm.errs["flash_attention"] = max(sm.errs["flash_attention"], err_max)
+        return {"calls": len(self.calls), "worst_err_over_max": worst,
+                "max_abs_err": err_max, "tol": KERNEL_TOL,
+                "calls_by_B_Sq_Sk_H_KV_hd_causal": shapes}
 
     def __enter__(self):
         self.mod.flash_attention = self
@@ -2386,6 +2445,43 @@ def clocked_run(torch, run, *args):
     return out, e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3
 
 
+def clocked_plan_runs(make, inputs, n_runs, want, what):
+    """Build a plan with ``make`` on a card holding nothing of the
+    model, run ``inputs`` once to warm up and ``n_runs`` times clocked
+    (``card_trace``, ``clocked_run``), each clocked run's launches equal
+    to ``want``.  Returns (plan, output of the last run, its trace,
+    launches of each clocked run, event ms and wall ms of each, peak
+    allocated bytes, allocated bytes at the start)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    plan = make()
+    evs, walls, counts = [], [], []
+    with torch.no_grad():
+        out, _ = plan.run(inputs)
+        for _ in range(n_runs):
+            del out
+            trace = card_trace()
+            reset_launch_counts()
+            (out, _), ev_ms, wall_ms = clocked_run(torch, plan.run, inputs,
+                                                   trace)
+            counts.append(launch_counts())
+            evs.append(ev_ms)
+            walls.append(wall_ms)
+    peak = torch.cuda.max_memory_allocated()
+    if any(c != want for c in counts):
+        fail(f"{what}: launches {counts} (want {want} a run)")
+    return plan, out, trace, counts, evs, walls, peak, start
+
+
+def run_times(evs, walls):
+    return {"event_ms": evs, "wall_ms": walls,
+            "event_ms_median": statistics.median(evs),
+            "wall_ms_median": statistics.median(walls)}
+
+
 def placed_and_cascade(sm, cfg, reqs, first3):
     """Phase 3d on phase 3's weights (``init_params`` seed 0, packed by
     ``nanomind-serve``) and first request (a 729-token image and 16
@@ -2467,37 +2563,15 @@ def placed_and_cascade(sm, cfg, reqs, first3):
               f"profiles)")
 
     def card_run(make, what):
-        """Build a plan with ``make`` on a card holding nothing of the
-        model, run the request once to warm up and PLACED_RUNS times
-        clocked, and return (plan, logits of the last run on the CPU, its
-        trace, launches of each clocked run, event ms and wall ms of each,
-        peak allocated bytes, allocated bytes at the start)."""
-        free()
-        torch.cuda.reset_peak_memory_stats()
-        start = torch.cuda.memory_allocated()
-        plan = make()
-        evs, walls, counts = [], [], []
-        with torch.no_grad():
-            out, _ = plan.run(inputs)
-            for _ in range(PLACED_RUNS):
-                del out
-                trace = card_trace()
-                reset_launch_counts()
-                (out, _), ev_ms, wall_ms = clocked_run(
-                    torch, plan.run, inputs, trace)
-                counts.append(launch_counts())
-                evs.append(ev_ms)
-                walls.append(wall_ms)
-        peak = torch.cuda.max_memory_allocated()
+        """``clocked_plan_runs`` of the request, PLACED_RUNS clocked;
+        the logits of the last run on the CPU."""
+        plan, out, *rest = clocked_plan_runs(
+            make, inputs, PLACED_RUNS, want_gemm,
+            f"{what} (want the decoder's projections on the card, none "
+            f"from the CPU bricks)")
         if tuple(out.shape) != (1, PLACED_WIDTH, cfg.padded_vocab):
             fail(f"{what}: logits of shape {tuple(out.shape)}")
-        logits = out[0, :n_tok].float().cpu()
-        del out
-        if any(c != want_gemm for c in counts):
-            fail(f"{what}: launches {counts} (want {want_gemm} a run: the "
-                 f"decoder's projections on the card, none from the CPU "
-                 f"bricks)")
-        return plan, logits, trace, counts, evs, walls, peak, start
+        return (plan, out[0, :n_tok].float().cpu(), *rest)
 
     def on_card(tree):
         return tree_map(lambda l: l.to(sm.dev) if isinstance(
@@ -2505,11 +2579,6 @@ def placed_and_cascade(sm, cfg, reqs, first3):
 
     def summed(counts):
         return {k: sum(c[k] for c in counts) for k in counts[0]}
-
-    def times(evs, walls):
-        return {"event_ms": evs, "wall_ms": walls,
-                "event_ms_median": statistics.median(evs),
-                "wall_ms_median": statistics.median(walls)}
 
     want_gemm = {k: 0 for k in launch_counts()}
     want_gemm.update({"dequant_gemm": gemms, route: gemms})
@@ -2541,7 +2610,7 @@ def placed_and_cascade(sm, cfg, reqs, first3):
         "cpu_to_card_edges": crossing, "tabm": dict(ring.stats),
         "vs_resident": logit_check(cfg, got, want, "placed vs resident"),
         "bit_equal_to_resident": bool(torch.equal(got, want)),
-        **times(pl_ev, pl_wall), "card_peak_mb": pl_peak / 1e6,
+        **run_times(pl_ev, pl_wall), "card_peak_mb": pl_peak / 1e6,
         "launches_a_run": {k: n for k, n in pl_n[-1].items() if n}}
     del plan, ring, got
     free()
@@ -2610,7 +2679,7 @@ def placed_and_cascade(sm, cfg, reqs, first3):
     rec["cascade"] = {
         "vs_resident": logit_check(cfg, got, want, "cascade vs resident"),
         "bit_equal_to_resident": bool(torch.equal(got, want)),
-        **times(cas_ev, cas_wall), "trace_peak_bytes": trace.peak_bytes,
+        **run_times(cas_ev, cas_wall), "trace_peak_bytes": trace.peak_bytes,
         "trace_sum_bytes": trace.sum_bytes,
         "peak_over_sum": trace.peak_bytes / trace.sum_bytes,
         "card_peak_mb": cas_peak / 1e6, "card_start_mb": cas_start / 1e6,
@@ -2618,7 +2687,7 @@ def placed_and_cascade(sm, cfg, reqs, first3):
         "first_load_ms_note": ("the first brick's load is not clocked apart "
                                "from the run's start"),
         "launches_a_run": {k: n for k, n in cas_n[-1].items() if n}}
-    rec["resident"] = {**times(res_ev, res_wall),
+    rec["resident"] = {**run_times(res_ev, res_wall),
                        "card_peak_mb": res_peak / 1e6,
                        "card_start_mb": res_start / 1e6,
                        "launches_a_run": {k: n for k, n in res_n[-1].items()
@@ -3409,27 +3478,33 @@ def prefill_breakdown(eng, group, names):
             eng._prefill(tokens, vision, last_idx)
         torch.cuda.synchronize()
 
-    def measure():
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            call()
-            walls.append(time.perf_counter() - t0)
-        kernel_us, by_name, n = device_time(call)
-        wall_ms = sorted(walls)[1] * 1e3
-        return {"wall_ms": wall_ms, "device_ms": kernel_us / 1e3,
-                "device_busy_share": kernel_us / 1e3 / wall_ms,
-                "device_kernels": n,
-                "kernels_ms_by_name": {
-                    nm: sum(us for k, us, _ in by_name if nm in k) / 1e3
-                    for nm in names},
-                "top_kernels_ms": [[k[:96], us / 1e3]
-                                   for k, us, _ in by_name[:10]]}
     out = {"batch": int(tokens.shape[0]), "width": int(tokens.shape[1])}
-    out.update(measure())
+    out.update(call_breakdown(call, names))
     with swapped(dg_ops, "quant_einsum", dg_ops.ref_quant_einsum):
-        out["plain_projection_route"] = measure()
+        out["plain_projection_route"] = call_breakdown(call, names)
     return out
+
+
+def call_breakdown(call, names, n_wall=3):
+    """Where one synchronised ``call``'s time goes: its wall time (host
+    clock, median of ``n_wall``) against the card's kernel time (the
+    profiler), the busy share, the device time of the kernels whose names
+    hold each of ``names`` and the largest kernels."""
+    walls = []
+    for _ in range(n_wall):
+        t0 = time.perf_counter()
+        call()
+        walls.append(time.perf_counter() - t0)
+    kernel_us, by_name, n = device_time(call)
+    wall_ms = statistics.median(walls) * 1e3
+    return {"wall_ms": wall_ms, "device_ms": kernel_us / 1e3,
+            "device_busy_share": kernel_us / 1e3 / wall_ms,
+            "device_kernels": n,
+            "kernels_ms_by_name": {
+                nm: sum(us for k, us, _ in by_name if nm in k) / 1e3
+                for nm in names},
+            "top_kernels_ms": [[k[:96], us / 1e3]
+                               for k, us, _ in by_name[:10]]}
 
 
 def time_fused(sm, cfg, eng):
@@ -4761,18 +4836,7 @@ def serve_text(sm, cfg, reqs, max_len, tracked=(), route_log=None):
                               "attn": n_attn,
                               "mamba": n_mamba, "moe": n_moe}
     if flashes.calls:
-        worst, err_max = 0.0, 0.0
-        with torch.no_grad():
-            for q, k, v, causal, out in flashes.calls:
-                w, err = sm.flash_held(q, k, v, causal, f"{cfg.name}: "
-                                       f"served at {tuple(q.shape)}",
-                                       got=out)
-                worst, err_max = max(worst, w), max(err_max, err)
-        sm.errs["flash_attention"] = max(sm.errs["flash_attention"],
-                                         err_max)
-        serve["flash_served_check"] = {
-            "calls": len(flashes.calls), "worst_err_over_max": worst,
-            "max_abs_err": err_max, "tol": KERNEL_TOL}
+        serve["flash_served_check"] = flashes.held(sm, cfg.name)
     del gemms, flashes
 
     state = steps.state
@@ -5123,6 +5187,427 @@ def serve_hybrid(sm):
     return serve
 
 
+def encdec_batch(sm, cfg, rows, frames, seed):
+    """``rows`` requests of ``frames`` stub audio frames (normal draws x
+    0.02, fp32) and an ENCDEC_PREFIX-token target prefix, made on the card
+    from ``seed``."""
+    torch = sm.torch
+    g = torch.Generator(device=sm.dev).manual_seed(seed)
+    return {"src_embeds": torch.randn((rows, frames, cfg.d_model),
+                                      generator=g, device=sm.dev) * 0.02,
+            "tgt_tokens": torch.randint(3, cfg.vocab_size - 1,
+                                        (rows, ENCDEC_PREFIX), generator=g,
+                                        device=sm.dev, dtype=torch.int32)}
+
+
+def encdec_generate(params, batch, prefill, serve, forced=None):
+    """ENCDEC_NEW new tokens: the prefill step's, then ENCDEC_NEW - 1
+    serve steps, greedy (or the ``forced`` tokens, teacher-forced).
+    Returns (tokens (B, ENCDEC_NEW) int32, each call's logits)."""
+    import torch
+    logits, cache = prefill(params, batch)
+    outs, toks = [logits], []
+    for j in range(ENCDEC_NEW):
+        tok = (logits.argmax(-1, keepdim=True).to(torch.int32)
+               if forced is None else forced[:, j:j + 1])
+        toks.append(tok)
+        if j + 1 < ENCDEC_NEW:
+            logits, cache = serve(params, tok, cache)
+            outs.append(logits)
+    return torch.cat(toks, 1), outs
+
+
+def worst_logit_check(cfg, gots, wants, what):
+    """``logit_check`` of each pair; the worst (by error over the largest
+    logit) with the number of pairs and of rows whose top-1 agrees."""
+    checks = [logit_check(cfg, g, w, f"{what} {i}")
+              for i, (g, w) in enumerate(zip(gots, wants))]
+    worst = max(checks, key=lambda c: c["max_abs_err"] / c["max_abs_logit"])
+    return dict(worst, compared=len(checks),
+                same_top1_all=sum(c["same_top1"] for c in checks),
+                rows_all=sum(c["rows_compared"] for c in checks))
+
+
+def time_encdec_gemv(sm, cfg, params, bc):
+    """The fused QKV and the ungated GELU MLP GEMV at cohort ``bc`` over
+    the served decoder layers' packed weights (rotated over the layers),
+    beside their plain versions and the library form (``dequantize`` +
+    ``torch.matmul``); the cache-row-update kernel at a layer of the
+    self-cache (bc x ENCDEC_MAX_LEN), beside ``index_put_``."""
+    from repro_torch.core.quantize import dequantize
+    from repro_torch.kernels.cache_update import (cache_row_update,
+                                                  ref_cache_row_update)
+    from repro_torch.kernels.fused_decode import ops, ref
+    from repro_torch.models import decoder as dec
+    torch = sm.torch
+    D, F, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    layers = [dec.layer_slice(params["dec_layers"], i) for i in range(L)]
+    h = sm.randn(bc, 1, D)
+    x2 = h.reshape(bc, D)
+    qkv = [tuple(lay["self_attn"][w] for w in ("wq", "wk", "wv"))
+           for lay in layers]
+    ffn = [(lay["ffn"]["w_up"], lay["ffn"]["w_down"]) for lay in layers]
+
+    def nbytes(ws):
+        return sum(w.codes.numel() * 4 + w.scales.numel() * 4 for w in ws)
+    n_qkv = (cfg.n_heads + 2 * KV) * hd
+    rec = {}
+    with torch.no_grad():
+        rec["fused_qkv"] = (
+            timed(lambda i: ops.fused_qkv(h, *qkv[i]), L),
+            timed(lambda i: ref.ref_fused_qkv(h, *qkv[i]), L),
+            timed(lambda i: torch.matmul(x2, torch.cat([dequantize(
+                w).reshape(D, -1) for w in qkv[i]], 1)), L), None,
+            nbytes(qkv[0]) + 2 * (bc * D + bc * n_qkv), 2 * bc * D * n_qkv)
+        rec["fused_mlp"] = (
+            timed(lambda i: ops.fused_mlp(h, *ffn[i], None, act=cfg.act), L),
+            timed(lambda i: ref.ref_fused_mlp(h, *ffn[i], None, act=cfg.act),
+                  L),
+            timed(lambda i: torch.matmul(torch.nn.functional.gelu(
+                x2 @ dequantize(ffn[i][0]), approximate="tanh"),
+                dequantize(ffn[i][1])), L), None,
+            nbytes(ffn[0]) + 2 * 2 * bc * D, 2 * bc * 2 * D * F)
+        stack = sm.randn(L, bc, ENCDEC_MAX_LEN, KV, hd)
+        row = sm.randn(bc, KV, hd)
+        idx = torch.tensor(ENCDEC_PREFIX, dtype=torch.int32, device=sm.dev)
+        b_idx = torch.arange(bc, device=sm.dev)
+        s_idx = torch.full((bc,), ENCDEC_PREFIX, device=sm.dev)
+        rec["cache_row_update"] = (
+            timed(lambda i: cache_row_update(stack[i], row, idx), L),
+            timed(lambda i: ref_cache_row_update(stack[i], row, idx), L),
+            timed(lambda i: stack[i].index_put_((b_idx, s_idx), row), L),
+            None, 2 * 2 * bc * KV * hd + 4, 0)
+    return rec
+
+
+def encdec_plans(sm, cfg, host, batch, want_logits):
+    """Phase 10's brick chain on input (a)'s first row, the weights
+    ``host`` on the CPU and nothing of the model on the card: the
+    resident plan (every brick on the card, the weights moved there
+    once) and the On-Demand Cascade on the card (each brick's params
+    pinned host-side, loaded, executed, released), a warm-up and
+    ENCDEC_RUNS clocked runs each.  Gates: 6 E + 10 L packed GEMM and
+    E + 2 L flash launches a run, all on wgmma; the last position's
+    logits within STEP_TOL of the prefill step's for that row and the
+    cascade's of the resident plan's; the cascade's card peak under the
+    resident plan's.  Returns (record, launches by run)."""
+    from repro_torch.core.bricks import decompose
+    from repro_torch.core.cascade import CascadeRunner
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.core.quantize import QTensor, tree_bytes
+    from repro_torch.core.scheduler import populate_brick_bytes
+    from repro_torch.kernels import launch_counts
+    from repro_torch.tree import tree_map
+    torch = sm.torch
+    L, E = cfg.n_layers, cfg.n_enc_layers
+    graph = decompose(cfg)
+    populate_brick_bytes(graph, host)
+    inputs = {k: v[:1].cpu() for k, v in batch.items()}
+    want_n = {k: 0 for k in launch_counts()}
+    for k, n in (("dequant_gemm", 6 * E + 10 * L), ("flash_attention",
+                                                      E + 2 * L)):
+        want_n[k] = want_n[f"{k}/wgmma"] = n
+
+    def card_runs(make, what):
+        plan, out, trace, counts, evs, walls, peak, start = \
+            clocked_plan_runs(make, inputs, ENCDEC_RUNS, want_n, what)
+        if tuple(out.shape) != (1, ENCDEC_PREFIX, cfg.padded_vocab):
+            fail(f"{what}: logits of shape {tuple(out.shape)}")
+        t0 = trace.card[0][0]
+        events = [[e.brick, e.phase, (t - t0) * 1e3, e.resident_bytes, a]
+                  for e, (t, a) in zip(trace.events, trace.card)]
+        rec = dict(run_times(evs, walls), card_peak_mb=peak / 1e6,
+                   card_start_mb=start / 1e6,
+                   trace_peak_bytes=trace.peak_bytes,
+                   trace_sum_bytes=trace.sum_bytes,
+                   events_brick_phase_ms_counted_allocated=events,
+                   launches_a_run={k: n for k, n in counts[-1].items() if n})
+        logits = out[:, -1].float()
+        del plan, out
+        return logits, rec, {k: sum(c[k] for c in counts) for k in counts[0]}
+
+    res_logits, res, res_n = card_runs(
+        lambda: compile_plan(graph, tree_map(lambda l: l.to(sm.dev)
+                                             if isinstance(l, (torch.Tensor,
+                                                               QTensor))
+                                             else l, host)),
+        f"{ENCDEC_PATH}/resident")
+    res["vs_prefill_step"] = logit_check(cfg, res_logits, want_logits,
+                                         "resident plan vs prefill step")
+    cas_logits, cas, cas_n = card_runs(lambda: CascadeRunner(graph,
+                                                             host).plan,
+                                       f"{ENCDEC_PATH}/cascade")
+    cas["vs_resident"] = logit_check(cfg, cas_logits, res_logits,
+                                     "cascade vs resident plan")
+    cas["bit_equal_to_resident"] = bool(torch.equal(cas_logits, res_logits))
+    if cas["card_peak_mb"] >= res["card_peak_mb"]:
+        fail(f"{ENCDEC_PATH}/cascade: the card's peak {cas['card_peak_mb']} "
+             f"MB is not under the resident plan's {res['card_peak_mb']}")
+    if not cas["trace_peak_bytes"] < cas["trace_sum_bytes"]:
+        fail(f"{ENCDEC_PATH}/cascade: trace peak {cas['trace_peak_bytes']} "
+             f"not under the sum {cas['trace_sum_bytes']}")
+    ev = cas["events_brick_phase_ms_counted_allocated"]
+    names = graph.names()
+    if [e[:2] for e in ev] != [[b, p] for b in names
+                               for p in ("load", "execute", "release")]:
+        fail(f"{ENCDEC_PATH}/cascade: trace {[e[:2] for e in ev]}")
+    prev, bricks = None, []
+    for i, name in enumerate(names):
+        (_, _, t_l, _, _), (_, _, t_x, _, _), (_, _, t_r, _, _) = \
+            ev[3 * i:3 * i + 3]
+        bricks.append({"brick": name,
+                       "param_bytes": graph.brick(name).param_bytes,
+                       "load_ms": None if prev is None else t_l - prev,
+                       "execute_ms": t_x - t_l, "release_ms": t_r - t_x})
+        prev = t_r
+    cas["bricks"] = bricks
+    cas["first_load_ms_note"] = ("the first brick's load is not clocked "
+                                 "apart from the run's start")
+    rec = {"chain": names, "rows": 1, "frames": int(inputs[
+        "src_embeds"].shape[1]), "target_tokens": ENCDEC_PREFIX,
+           "clocked_runs": ENCDEC_RUNS, "sum_bytes_once": tree_bytes(host),
+           "brick_bytes": {b.name: b.param_bytes for b in graph.bricks},
+           "resident": res, "cascade": cas,
+           "card_peak_saved_mb": res["card_peak_mb"] - cas["card_peak_mb"]}
+    free()
+    return rec, {f"{ENCDEC_PATH}/resident": res_n,
+                 f"{ENCDEC_PATH}/cascade": cas_n}
+
+
+def serve_encdec(sm):
+    """Phase 10: seamless-m4t-large-v2 at full width and depth (24 encoder
+    and 24 decoder layers), ``attn_q_chunk=0``, ``init_params`` seed 0
+    packed as made under ``nanomind-serve``: ENCDEC_INPUTS through
+    ``launch.steps.build_prefill_step`` / ``build_serve_step`` at
+    ``max_len`` ENCDEC_MAX_LEN, ENCDEC_NEW greedy tokens each, every
+    packed GEMM, flash, fused QKV / MLP and cache-row-update call held
+    against its plain version as it is made; the launches counted
+    around each input's run; the prefill and every decode step's logits
+    against the plain route (every kernel swapped for its plain version,
+    teacher-forced on the served tokens) within STEP_TOL; the encoder,
+    prefill and eager decode step broken down; then the brick chain
+    (``encdec_plans``) and the kernels at the new shapes.  Returns
+    (record, launches by run, timings)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import PROFILES, QTensor, tree_bytes
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.cache_update import ops as cu_ops
+    from repro_torch.kernels.dequant_gemm import ops as dg_ops
+    from repro_torch.kernels.flash_attention import ref_attention
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    from repro_torch.kernels.fused_decode import ref as fd_ref
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step, init_params)
+    from repro_torch.models import attention
+    from repro_torch.models import encdec as ED
+    from repro_torch.tree import tree_map
+    torch = sm.torch
+    cfg = dataclasses.replace(get_config(ENCDEC_PATH), attn_q_chunk=0)
+    L, E = cfg.n_layers, cfg.n_enc_layers
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, device=sm.dev, seed=0,
+                         policy=PROFILES["nanomind-serve"])
+    torch.cuda.synchronize()
+    rec = {"arch": cfg.name, "n_enc_layers": E, "n_layers": L,
+           "dtype": cfg.dtype, "attn_q_chunk": cfg.attn_q_chunk,
+           "setup_s": time.perf_counter() - t0,
+           "weights_gb": tree_bytes(params) / 1e9,
+           "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "max_len": ENCDEC_MAX_LEN, "new_tokens": ENCDEC_NEW}
+    prefill = build_prefill_step(cfg, ENCDEC_MAX_LEN)
+    serve = build_serve_step(cfg)
+    per_call = {"dequant_gemm": 6 * E + 10 * L, "flash_attention": E + 2 * L}
+    per_step = {"fused_qkv": L, "fused_mlp": L, "cache_row_update": 2 * L}
+    steps = ENCDEC_NEW - 1
+    total = {k: 0 for k in launch_counts()}
+    gemm_checks, inputs, first_row = [], {}, None
+    worst = {"qkv": [0, 0.0, 0.0], "mlp": [0, 0.0, 0.0], "rows": 0}
+    torch.cuda.reset_peak_memory_stats()
+    for name, rows, frames in ENCDEC_INPUTS:
+        batch = encdec_batch(sm, cfg, rows, frames, seed=10 + rows)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with HeldGemms(sm) as gemms, FlashCalls() as flashes, \
+                RowUpdateCalls() as upd, MlpCalls() as mlps, \
+                QkvCalls() as qkvs, torch.no_grad():
+            upd.armed = mlps.armed = qkvs.armed = True
+            toks, logits = encdec_generate(params, batch, prefill, serve)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        n = launch_counts()
+        want = {k: 0 for k in n}
+        for k, c in per_call.items():
+            route = {"dequant_gemm": GEMM_ROUTE,
+                     "flash_attention": FLASH_ROUTE}[k][cfg.dtype]
+            want[k] = want[f"{k}/{route}"] = c
+        for k, c in per_step.items():
+            want[k] = c * steps
+        want["fused_qkv/gemv"] = want["fused_mlp/gemv"] = L * steps
+        held = (gemms.record()["calls"], len(flashes.calls), qkvs.calls,
+                mlps.calls, upd.calls)
+        if n != want or held != (per_call["dequant_gemm"],
+                                 per_call["flash_attention"], L * steps,
+                                 L * steps, 2 * L * steps):
+            fail(f"{ENCDEC_PATH} ({name}): launches {n} (want {want}); held "
+                 f"GEMM, flash, QKV, MLP, row-update calls {held}")
+        for k in total:
+            total[k] += n[k]
+        if not (toks.shape == (rows, ENCDEC_NEW)
+                and int(toks.min()) >= 0
+                and int(toks.max()) < cfg.vocab_size):
+            fail(f"{ENCDEC_PATH} ({name}): tokens {toks.tolist()}")
+        gemm_checks.append(gemms.record())
+        sm.errs["fused_qkv"] = max(sm.errs["fused_qkv"], qkvs.err)
+        sm.errs["fused_mlp"] = max(sm.errs["fused_mlp"], mlps.err)
+        for key, c in (("qkv", qkvs), ("mlp", mlps)):
+            worst[key] = [worst[key][0] + c.calls,
+                          max(worst[key][1], c.worst),
+                          max(worst[key][2], c.err)]
+        worst["rows"] += upd.calls
+        # the route the shape rule (``dequant_gemm/kernel.py route``)
+        # picks for the decoder's prefill projections (rows x 16 rows),
+        # read from the counts of one such call
+        x = torch.zeros((rows, ENCDEC_PREFIX, cfg.d_model),
+                        dtype=cfg.torch_dtype, device=sm.dev)
+        reset_launch_counts()
+        with torch.no_grad():
+            dg_ops.quant_einsum("bsd,dhk->bshk", x, params["dec_layers"][
+                "self_attn"]["wq"].layer(0))
+        dec_route = [k.split("/", 1)[1] for k, c in launch_counts().items()
+                     if k.startswith("dequant_gemm/") and c]
+        # the plain route, teacher-forced on the served tokens
+        with swapped(attention, "flash_attention", ref_attention), \
+                swapped(dg_ops, "quant_einsum", dg_ops.ref_quant_einsum), \
+                swapped(fd_ops, "fused_qkv", fd_ref.ref_fused_qkv), \
+                swapped(fd_ops, "fused_mlp", fd_ref.ref_fused_mlp), \
+                swapped(cu_ops, "cache_row_update",
+                        cu_ops.ref_cache_row_update), \
+                plain_sums(), torch.no_grad():
+            _, plain = encdec_generate(params, batch, prefill, serve,
+                                       forced=toks)
+        torch.cuda.synchronize()
+        inputs[name] = {
+            "rows": rows, "frames": frames, "target_prefix": ENCDEC_PREFIX,
+            "run_s_with_held_checks": run_s,
+            "prefill_calls": 1, "decode_steps": steps,
+            "decoder_prefill_rows": rows * ENCDEC_PREFIX,
+            "decoder_prefill_route": dec_route,
+            "tokens": toks.tolist(), "launches": {k: c for k, c in n.items()
+                                                  if c},
+            "flash_served_check": flashes.held(sm, f"{cfg.name} ({name})"),
+            "prefill_vs_plain": logit_check(cfg, logits[0], plain[0],
+                                            "prefill vs plain route"),
+            "decode_vs_plain": worst_logit_check(
+                cfg, logits[1:], plain[1:], "decode step vs plain route")}
+        if first_row is None:
+            first_row = ({k: v.clone() for k, v in batch.items()},
+                         logits[0][:1].clone())
+        del plain, logits, gemms, flashes
+
+        # -- the breakdowns, no check held ---------------------------------
+        def sync(fn):
+            def call():
+                with torch.no_grad():
+                    fn()
+                torch.cuda.synchronize()
+            return call
+        src = batch["src_embeds"]
+        inputs[name]["encoder"] = call_breakdown(
+            sync(lambda: ED.encode(params, cfg, src)),
+            ("dequant_gemm", "flash"))
+        inputs[name]["prefill"] = call_breakdown(
+            sync(lambda: prefill(params, batch)), ("dequant_gemm", "flash"))
+        with torch.no_grad():
+            _, cache = prefill(params, batch)
+        tok = toks[:, :1].contiguous()
+        step = call_breakdown(sync(lambda: serve(params, tok, cache)),
+                              ("gemv", "cache_row_update", "dequant"),
+                              n_wall=5)
+        step["tok_s"] = rows / step["wall_ms"] * 1e3
+        step["tok_s_device"] = rows / step["device_ms"] * 1e3
+        inputs[name]["decode_step_eager"] = step
+        del cache, batch, src
+        free()
+    rec["inputs"] = inputs
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["prefill_calls"] = len(ENCDEC_INPUTS)
+    rec["decode_steps"] = steps * len(ENCDEC_INPUTS)
+    rec["launches"] = total
+    rec["launches_per_prefill_call"] = per_call
+    rec["launches_per_decode_step"] = per_step
+    rec["gemm_served_check"] = {
+        "calls": sum(c["calls"] for c in gemm_checks),
+        "worst_err_over_max": max(c["worst_err_over_max"]
+                                  for c in gemm_checks),
+        "max_abs_err": max(c["max_abs_err"] for c in gemm_checks),
+        "tol": DG_TOL, "held_against_float64": [
+            a for c in gemm_checks for a in c["held_against_float64"]],
+        "shapes_spec_x_w": sorted({tuple(s) for c in gemm_checks
+                                   for s in c["shapes_spec_x_w"]})}
+    rec["qkv_served_check"] = {
+        "calls": worst["qkv"][0], "worst_row_err_over_row_max":
+        worst["qkv"][1], "max_abs_err": worst["qkv"][2],
+        "tol": MLP_ROW_TOL[cfg.dtype], "step": "every served step"}
+    rec["mlp_served_check"] = {
+        "calls": worst["mlp"][0], "worst_row_err_over_row_max":
+        worst["mlp"][1], "max_abs_err": worst["mlp"][2], "act": cfg.act,
+        "gated": False, "tol": MLP_ROW_TOL[cfg.dtype],
+        "step": "every served step"}
+    rec["row_update_served_check"] = {"calls": worst["rows"],
+                                      "bit_exact": True,
+                                      "step": "every served step"}
+    times = time_encdec_gemv(sm, cfg, params, ENCDEC_INPUTS[0][1])
+    host = tree_map(lambda l: l.to("cpu") if isinstance(
+        l, (torch.Tensor, QTensor)) else l, params)
+    del params
+    free()
+    plans, plan_runs = encdec_plans(sm, cfg, host, *first_row)
+    rec["brick_chain"] = plans
+    del host, first_row
+    free()
+    times["flash_attention"] = {shape: time_flash(sm, shape)
+                                for shape in FLASH_ENCDEC_TIMES}
+    times["dequant_gemm"] = time_gemm_shapes(sm, (cfg,))
+    free()
+    return rec, dict(plan_runs, **{ENCDEC_PATH: total}), times
+
+
+def at_encdec(name, rec, runs, t, numbers):
+    """Kernel ``name``'s numbers at phase 10's shapes (``rec``, ``runs``:
+    ``serve_encdec``'s record and launches by run; ``t`` its timings of
+    the kernel; ``numbers`` the kernels line's entry of a timing): its
+    times there, its launches on phase 10's runs, its served check."""
+    out = {"launches": {a: n[name] for a, n in runs.items()}}
+    if name == "flash_attention":
+        out["times"] = {str(list(shape)): dict(
+            numbers(ts), event_ms=ts[0][1],
+            library="F.scaled_dot_product_attention(enable_gqa)",
+            shape=dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal"),
+                           shape))) for shape, ts in t.items()}
+        out["served_check"] = {n: i["flash_served_check"]
+                               for n, i in rec["inputs"].items()}
+    elif name == "dequant_gemm":
+        out["served_shapes"] = t
+        out["decoder_prefill_route"] = {
+            i["decoder_prefill_rows"]: i["decoder_prefill_route"]
+            for i in rec["inputs"].values()}
+        out["served_check"] = rec["gemm_served_check"]
+    else:
+        out.update(numbers(t), event_ms=t[0][1], bc=ENCDEC_INPUTS[0][1],
+                   launches_per_decode_step=rec[
+                       "launches_per_decode_step"][name])
+        out["library"] = {
+            "fused_mlp": "gelu(x @ dequantize(w_up)) @ dequantize(w_down)",
+            "fused_qkv": "x @ cat(dequantize(wq, wk, wv))",
+            "cache_row_update": "cache[b, index] = row (index_put_)"}[name]
+        if name == "fused_mlp":
+            out["act"], out["gated"] = "gelu", False
+    return out
+
+
 def requests(cfg, specs, seed):
     """Requests of ``specs`` ((vision tokens, images, repeat-of index or
     None)): one placeholder token per vision token, then 16 text tokens;
@@ -5416,6 +5901,12 @@ def main() -> int:
     # through the routed experts' GEMV ------------------------------------
     moe_serves[HYBRID_PATH] = serve_hybrid(sm)
 
+    # -- 10. seamless-m4t-large-v2 at full width and depth: audio frames ->
+    # encoder -> cross-attending prefill -> greedy decode through the step
+    # builders; the brick chain resident and as the On-Demand Cascade ----
+    encdec, encdec_runs, encdec_t = serve_encdec(sm)
+    print(json.dumps({"serve": encdec}))
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -5449,6 +5940,8 @@ def main() -> int:
     runs[ENERGY_PATH] = pressure_n
     records.update(moe_serves)
     runs.update({a: r["launches"] for a, r in moe_serves.items()})
+    records[ENCDEC_PATH] = encdec
+    runs.update(encdec_runs)
 
     def numbers(t, flops_per_s=BF16_FLOPS_PER_S):
         t_k, t_p, t_l, t_d, byt, fl = t
@@ -5740,6 +6233,9 @@ def main() -> int:
                 launches=runs[HYBRID_PATH]["flash_attention"],
                 served_check=moe_serves[HYBRID_PATH].get(
                     "flash_served_check"))
+        if name in encdec_t:
+            entry["at_" + ENCDEC_PATH] = at_encdec(
+                name, encdec, encdec_runs, encdec_t[name], numbers)
         kernels.append(entry)
     # the routed experts' GEMV of a decode step: fused_mlp_pallas with an
     # expert axis, its main numbers at DeepSeek-MoE-16B's widths

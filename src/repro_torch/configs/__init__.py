@@ -17,6 +17,7 @@ _ARCH_MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "dbrx-132b": "dbrx_132b",
     "jamba-1.5-large-398b": "jamba_1p5_large_398b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 

@@ -3,13 +3,14 @@
 A :class:`Brick` is one independently executable module of the model: it
 owns a subset of the parameter tree, exposes ``apply(params_slice, cfg,
 ctx)`` over named ports, and carries the metadata the scheduler reads.
-``decompose(cfg)`` builds the chain for the decoder-only and VLM archs
-the port covers::
+``decompose(cfg)`` builds the chain for every arch::
 
-    vlm:  vision_frontend* -> projector -> embedding -> decoder -> head
-    lm:   embedding -> decoder -> head          (*the frontend is a stub)
+    vlm:    vision_frontend* -> projector -> embedding -> decoder -> head
+    audio:  audio_frontend* -> audio_encoder -> embedding -> decoder -> head
+    lm:     embedding -> decoder -> head        (*frontends are stubs)
 
-The audio and encoder-decoder bricks are not ported yet.
+The audio chain's decoder takes the target's hidden states and the
+encoder's ``enc_out``, which the plan keeps bound across the embedding.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ class Brick:
     """One independently executable module."""
 
     name: str
-    kind: str                       # frontend | projector | embed | decoder | head
+    kind: str                       # frontend | encoder | projector | embed
+                                    # | decoder | head
     param_keys: Tuple[str, ...]
     apply: Callable                 # (params_slice, cfg, ctx) -> tensor
     in_ports: Tuple[Port, ...] = ()
@@ -83,7 +85,7 @@ def _apply_projector(p, cfg, ctx):
 
 
 def _apply_embed(p, cfg, ctx):
-    x = p["embed"][ctx["tokens"]]
+    x = p["embed"][ctx["tgt_tokens"] if cfg.encdec else ctx["tokens"]]
     vision_embeds = ctx.get("vision_embeds")
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(x.dtype),
@@ -101,9 +103,28 @@ def _apply_decoder(p, cfg, ctx):
     return x
 
 
+def _apply_encdec_decoder(p, cfg, ctx):
+    """The encoder-decoder's decoder layers over the target's hidden
+    states against ``enc_out``; packed projections go to the packed-weight
+    GEMM as they are."""
+    from repro_torch.models.encdec import decode_layers
+    return decode_layers(p["dec_layers"], cfg, ctx["hidden"],
+                         ctx["enc_out"])[0]
+
+
 def _apply_head(p, cfg, ctx):
     from repro_torch.models.model import _head
     return _head(p, cfg, ctx["hidden"])
+
+
+def _apply_audio_frontend(p, cfg, ctx):
+    # stub: requests carry precomputed frame embeddings
+    return ctx["src_embeds"]
+
+
+def _apply_audio_encoder(p, cfg, ctx):
+    from repro_torch.models.encdec import encode
+    return encode(p, cfg, ctx["audio_frames"])
 
 
 def _brick_flops(cfg: ModelConfig, kind: str) -> float:
@@ -124,9 +145,7 @@ def _brick_flops(cfg: ModelConfig, kind: str) -> float:
 
 
 def decompose(cfg: ModelConfig) -> BrickGraph:
-    """The paper's model decomposition for the decoder-only archs."""
-    if cfg.encdec:
-        raise NotImplementedError("encoder-decoder bricks are not ported")
+    """The paper's model decomposition for any arch."""
     bricks: List[Brick] = []
 
     def add(name, kind, keys, fn, ins, out, static=False, quant="bf16"):
@@ -142,13 +161,26 @@ def decompose(cfg: ModelConfig) -> BrickGraph:
         add("projector", "projector", ("vis_proj",), _apply_projector,
             ins=(Port("patches"),), out=Port("vision_embeds"),
             static=True, quant="fp16")
-    embed_ins = [Port("tokens", "int")]
+    if cfg.encdec:
+        add("audio_frontend", "frontend", (), _apply_audio_frontend,
+            ins=(Port("src_embeds"),), out=Port("audio_frames"),
+            static=True, quant="fp16")
+        add("audio_encoder", "encoder",
+            ("enc_layers", "enc_final_norm"), _apply_audio_encoder,
+            ins=(Port("audio_frames"),), out=Port("enc_out"),
+            static=True, quant="fp16")
+    embed_ins = [Port("tgt_tokens" if cfg.encdec else "tokens", "int")]
     if cfg.vlm:
         embed_ins.append(Port("vision_embeds", optional=True))
     add("embedding", "embed", ("embed",), _apply_embed,
         ins=embed_ins, out=Port("hidden"), quant="fp16")
-    add("decoder", "decoder", ("layers",), _apply_decoder,
-        ins=(Port("hidden"),), out=Port("hidden"), quant="q4f16")
+    if cfg.encdec:
+        add("decoder", "decoder", ("dec_layers",), _apply_encdec_decoder,
+            ins=(Port("hidden"), Port("enc_out")), out=Port("hidden"),
+            quant="q4f16")
+    else:
+        add("decoder", "decoder", ("layers",), _apply_decoder,
+            ins=(Port("hidden"),), out=Port("hidden"), quant="q4f16")
     head_keys = ["final_norm", "embed" if cfg.tie_embeddings else "lm_head"]
     add("head", "head", head_keys, _apply_head,
         ins=(Port("hidden"),), out=Port("logits"), quant="q4f16")

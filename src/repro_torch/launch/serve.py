@@ -76,6 +76,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.encdec:
+        raise SystemExit("serve: decoder-only archs (the encoder-decoder "
+                         "runs through launch/steps.py and the bricks)")
     if not args.full:
         cfg = cfg.reduced()
     # a policy packs each stacked expert leaf as it is made

@@ -106,10 +106,19 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
     return out.to(q.dtype)
 
 
-def attn_train(p, cfg, x, rope_fn, *, causal=True):
-    """Full-sequence attention; returns (out, (k, v)) for the cache."""
-    q, k, v = qkv_proj(p, x)
-    q, k = rope_fn(q), rope_fn(k)
+def attn_train(p, cfg, x, rope_fn, *, causal=True, kv_override=None):
+    """Full-sequence attention; returns (out, (k, v)) for the cache.
+    ``kv_override`` (k, v): cross-attention (the encoder-decoder) takes
+    them as given, and only q is projected from x and roped."""
+    if kv_override is not None:
+        q = dg.quant_einsum("bsd,dhk->bshk", x, p["wq"])
+        if "bq" in p:
+            q = q + p["bq"]
+        k, v = kv_override
+        q = rope_fn(q)
+    else:
+        q, k, v = qkv_proj(p, x)
+        q, k = rope_fn(q), rope_fn(k)
     if cfg.attn_q_chunk == 0:
         # one attention region: the flash kernel on the card, its plain
         # (dense) version on the CPU

@@ -24,8 +24,8 @@ expert weights ``w_up`` / ``w_gate`` / ``w_down`` (n_groups, E, ...)
 prefill passes packed to the packed-weight GEMM's expert contractions
 and decode to the routed experts' GEMV; prefill masks right pads out of
 the routing and out of every Mamba-2 state (``valid_len``), decode
-masks the rows the caller marks invalid.  The encoder-decoder is not
-ported.
+masks the rows the caller marks invalid.  The encoder-decoder has its
+own module (``models/encdec.py``).
 """
 from __future__ import annotations
 
@@ -82,7 +82,7 @@ def check_supported(cfg):
     """The port's decoder covers stacks of groups of softmax- or
     linear-attention and Mamba-2 sublayers (a uniform stack is groups of
     one; Jamba's hybrid groups of 8) with a dense FFN, a mixture of
-    experts or none; not the encoder-decoder."""
+    experts or none; not the encoder-decoder (``models/encdec.py``)."""
     if cfg.attn_impl not in ("softmax", "linear") or cfg.encdec:
         raise NotImplementedError(
             f"{cfg.name}: only softmax- or linear-attention, Mamba-2 and "

@@ -51,7 +51,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device="cuda", seed: int = 0, policy=None):
     """The port's counterpart of the reference's ``init_params``: random
     weights made on ``device`` (the card by default) from ``generator``
-    (or a fresh one seeded with ``seed``).  With a ``policy`` (a
+    (or a fresh one seeded with ``seed``); the encoder-decoder's tree
+    (``encdec.init_encdec``) for ``cfg.encdec``.  With a ``policy`` (a
     ``QuantPolicy``) the result is ``quantize_tree(init_params(...),
     policy)``, bit for bit, but each group position is packed as soon as
     it is made and each stacked expert leaf one expert at a time: a
@@ -63,7 +64,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
     with torch.no_grad():
-        params = init_lm(cfg, generator, device, policy)
+        if cfg.encdec:
+            from repro_torch.models.encdec import init_encdec
+            params = init_encdec(cfg, generator, device, policy)
+        else:
+            params = init_lm(cfg, generator, device, policy)
         return params if policy is None else quantize_tree(params, policy)
 
 

@@ -104,7 +104,8 @@ def shared_params(arch: str, dtype: str = "bfloat16", policy=None):
     tcfg = get_config(arch).reduced(dtype=dtype)
     with torch.no_grad():
         tparams = init_params(tcfg, device="cpu", seed=0)
-        mix = tparams["layers"][0]["mixer"]
+        # the encoder-decoder's tree has no ``layers`` and no biases
+        mix = tparams["layers"][0]["mixer"] if "layers" in tparams else {}
         gen = torch.Generator().manual_seed(1)
         for name in ("bq", "bk", "bv"):       # exercise the bias adds
             if name in mix:

@@ -31,11 +31,20 @@ CASES = [("stablelm-1.6b", "float32", None),
          ("llava-onevision-0.5b", "bfloat16", None),
          ("llava-onevision-0.5b", "bfloat16", "nanomind-serve"),
          ("mamba2-1.3b", "float32", None),
-         ("mamba2-1.3b", "bfloat16", None)]
+         ("mamba2-1.3b", "bfloat16", None),
+         ("seamless-m4t-large-v2", "float32", None),
+         ("seamless-m4t-large-v2", "bfloat16", None)]
 
 
 def _inputs(cfg, seed=0, n=32):
+    """One request's inputs: tokens (and stub patch features for a VLM);
+    for the encoder-decoder, stub audio frames of ``enc_seq_len`` and the
+    target tokens."""
     rng = np.random.default_rng(seed)
+    if cfg.encdec:
+        return {"src_embeds": (rng.standard_normal(
+            (1, cfg.enc_seq_len, cfg.d_model)) * 0.02).astype(np.float32),
+            "tgt_tokens": rng.integers(3, 200, (1, n)).astype(np.int32)}
     out = {"tokens": rng.integers(3, 200, (1, n)).astype(np.int32)}
     if cfg.vlm:
         out["vision_feats"] = (rng.standard_normal(
@@ -74,7 +83,8 @@ def test_cascade_matches_reference(arch, dtype, policy):
         (rtrace.peak_bytes, rtrace.sum_bytes)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "llava-onevision-0.5b"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "llava-onevision-0.5b",
+                                  "seamless-m4t-large-v2"])
 def test_cascade_equals_the_resident_plan(arch):
     """On one device the cascade and the resident plan run the same brick
     callables on the same values: bit-equal logits."""
@@ -85,6 +95,34 @@ def test_cascade_equals_the_resident_plan(arch):
     cascade, _ = CascadeRunner(decompose(tcfg), tparams,
                                device="cpu").run_once(inputs)
     assert torch.equal(cascade, resident)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_packed_cascade_matches_reference_on_dequantized(dtype):
+    """Reduced seamless under ``nanomind-serve``: the reference's cascade
+    cannot run the packed weights (its encoder-decoder decoder brick never
+    dequantizes them, ROADMAP §3); the port's decoder brick hands them to
+    the packed-weight GEMM and matches the reference's cascade on
+    ``dequantize_tree`` of the same weights, within 2e-2, with the audio
+    chain's five bricks loaded and released in order."""
+    from repro.core.quantize import dequantize_tree
+    rcfg, rparams, tcfg, tparams = shared_params(
+        "seamless-m4t-large-v2", dtype, "nanomind-serve")
+    inputs = _inputs(tcfg, seed=5)
+    rgraph = RB.decompose(rcfg)
+    with pytest.raises(ValueError):
+        RCascadeRunner(rgraph, rparams).run_once(_ref(inputs))
+    want, _ = RCascadeRunner(rgraph, dequantize_tree(rparams)).run_once(
+        _ref(inputs))
+    runner = CascadeRunner(decompose(tcfg), tparams, device="cpu")
+    got, trace = runner.run_once(_port(inputs))
+    np.testing.assert_allclose(f32(got), f32(want), rtol=2e-2, atol=2e-2)
+    assert runner.graph.names() == ["audio_frontend", "audio_encoder",
+                                    "embedding", "decoder", "head"]
+    assert [(e.brick, e.phase) for e in trace.events] == [
+        (b, p) for b in runner.graph.names()
+        for p in ("load", "execute", "release")]
+    assert 0 < trace.peak_bytes < trace.sum_bytes
 
 
 def test_cascade_peak_is_max_not_sum():

@@ -2880,3 +2880,111 @@ def test_prune_full_width_on_card_equals_cpu(cuda):
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
     zeros = (got == 0).reshape(-1, w.shape[-1]).sum(-1)
     assert int(zeros.min()) >= w.shape[-1] // 2
+
+
+# -- the encoder-decoder's shapes (seamless-m4t-large-v2) --------------------
+
+SEAMLESS_MLP = (1024, 8192)
+
+
+def test_flash_attention_kernel_encoder_at_8192_frames(cuda):
+    """The encoder's bidirectional attention at the config's 8192 frames,
+    MHA 16 x 64, against the plain version, every row."""
+    q, k, v = _qkv(cuda, 1, 8192, 8192, 16, 16, 64, seed=81)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention/wgmma"] == 1
+    _close_rows(got, ref_attention(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("B,Sk", [(2, 1024), (1, 8192)])
+def test_flash_attention_kernel_cross_16_queries(cuda, B, Sk):
+    """Cross-attention in prefill: a 16-token target against the frames
+    (Sq 16 against Sk 1024 and 8192), non-causal."""
+    q, k, v = _qkv(cuda, B, 16, Sk, 16, 16, 64, seed=Sk)
+    _close_rows(flash_attention(q, k, v, causal=False),
+                ref_attention(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("bc", [1, 2, 4])
+def test_fused_mlp_gemv_ungated_gelu_at_seamless_widths(cuda, bc):
+    """The decoder's ungated GELU FFN, 1024 -> 8192 -> 1024, q4 g32: two
+    device kernels a call, each row within 2e-2 of the plain version and
+    of the emulation of the kernel's summation order."""
+    D, F = SEAMLESS_MLP
+    up, down, _ = _mlp_weights(cuda, D, F, torch.bfloat16,
+                               QuantSpec(4, group_size=32), gated=False,
+                               seed=bc)
+    h = torch.randn((bc, 1, D), generator=torch.Generator(
+        device=cuda).manual_seed(bc), device=cuda).to(torch.bfloat16)
+    reset_launch_counts()
+    got = fused_mlp(h, up, down, None, act="gelu")
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_mlp/gemv"] == 1
+    _mlp_close(got, ref_fused_mlp(h, up, down, None, act="gelu"),
+               torch.bfloat16)
+    plans = FDK.mlp_plans(D, F, False, (4, 4), h.element_size(), bc)
+    _mlp_close(got, emulate_fused_mlp(h, up, down, None, act="gelu",
+                                      plans=plans), torch.bfloat16)
+
+
+@pytest.mark.parametrize("M", [32, 2048])
+def test_wgmma_gemm_at_seamless_projections(cuda, M):
+    """The up projection, K 1024 -> N 8192, q4 g32, at the encoder's
+    2048 rows (2 x 1024 frames) and the decoder's 32 (2 x 16 target
+    tokens), through the wgmma kernel, against the plain version."""
+    x = _dg_tensor(cuda, (1, M, 1024), torch.bfloat16, M)
+    qt = quantize(_dg_tensor(cuda, (1024, 8192), torch.bfloat16, 7,
+                             1024 ** -0.5), QuantSpec(4, group_size=32))
+    reset_launch_counts()
+    got = quant_einsum("bsd,df->bsf", x, qt)
+    torch.cuda.synchronize()
+    _one_route("wgmma")
+    _dg_close(got, ref_quant_einsum("bsd,df->bsf", x, qt), torch.bfloat16)
+
+
+def test_encdec_steps_on_card_match_cpu(cuda):
+    """Reduced seamless under ``nanomind-serve`` with the flash kernel:
+    the prefill and three decode steps on the card (every kernel of the
+    path launched) against the same steps on the CPU (their plain
+    versions), logits within 5e-2 of the largest."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import PROFILES
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step, init_params)
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2").reduced(),
+                              attn_q_chunk=0)
+    params = init_params(cfg, device="cpu", seed=0,
+                         policy=PROFILES["nanomind-serve"])
+    rng = np.random.default_rng(0)
+    batch = {"src_embeds": torch.from_numpy((rng.standard_normal(
+        (2, 64, cfg.d_model)) * 0.02).astype(np.float32)),
+        "tgt_tokens": torch.from_numpy(rng.integers(
+            3, 500, (2, 16)).astype(np.int32))}
+    new = torch.from_numpy(rng.integers(3, 500, (3, 2, 1)).astype(np.int32))
+    prefill, serve = build_prefill_step(cfg, 24), build_serve_step(cfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda l: l.to(dev) if isinstance(
+            l, (torch.Tensor, QTensor)) else l, params)
+        reset_launch_counts()
+        with torch.no_grad():
+            logits, cache = prefill(p, {k: v.to(dev)
+                                        for k, v in batch.items()})
+            steps = [logits]
+            for j in range(3):
+                logits, cache = serve(p, new[j].to(dev), cache)
+                steps.append(logits)
+        out[dev] = [s.cpu() for s in steps]
+        counts = launch_counts()
+    L, E = cfg.n_layers, cfg.n_enc_layers
+    assert counts["dequant_gemm/wgmma"] == 6 * E + 10 * L
+    assert counts["flash_attention/wgmma"] == E + 2 * L
+    assert counts["fused_qkv"] == counts["fused_mlp"] == 3 * L
+    assert counts["cache_row_update"] == 3 * 2 * L
+    for got, want in zip(out["cuda"], out["cpu"]):
+        m = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 5e-2 * m

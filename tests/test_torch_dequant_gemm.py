@@ -222,7 +222,7 @@ def _served_projections(cfg):
 
 
 @pytest.mark.parametrize("arch", ["llava-onevision-0.5b", "qwen2-vl-7b",
-                                  "mamba2-1.3b"])
+                                  "mamba2-1.3b", "seamless-m4t-large-v2"])
 def test_every_served_projection_takes_the_wgmma_kernel(arch):
     """The shape rule (``kernel.route``) sends every bf16 projection of
     the served models to the warp-specialised kernel; fp32 calls to the

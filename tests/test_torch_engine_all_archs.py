@@ -2,9 +2,12 @@
 family of both registries (the reference's ``test_engine_all_archs.py``
 on the port, on the CPU): dense KV, GQA, MoE routing, SSD state, VLM +
 TABM, hybrid groups (Jamba: Mamba-2 and attention sublayers in one
-pool, slot-indexed and paged).  Seamless (encoder-decoder) is not
-ported; every other arch of either registry serves here, reduced, with
-the port's own weights (``init_params`` seed 0)."""
+pool, slot-indexed and paged).  Both registries hold the same archs;
+every decoder-only one serves here, reduced, with the port's own
+weights (``init_params`` seed 0).  Neither engine serves the
+encoder-decoder (Seamless): it runs through ``launch/steps.py`` and the
+bricks (``tests/test_torch_encdec.py``, ``tests/test_torch_cascade.py``),
+and both engines refuse it."""
 import numpy as np
 import pytest
 
@@ -13,13 +16,29 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.models.model import init_params
 from repro_torch.serving.engine import Request, ServingEngine
 
-NOT_PORTED = ("seamless-m4t-large-v2",)
-ARCHS = sorted((set(ref_archs()) | set(list_archs())) - set(NOT_PORTED))
+NOT_PORTED = ()
+# the engine's archs: the encoder-decoder configs, which neither engine
+# serves, left out
+ARCHS = sorted(a for a in (set(ref_archs()) | set(list_archs()))
+               - set(NOT_PORTED) if not get_config(a).encdec)
 
 
 def test_every_other_arch_is_in_the_ports_registry():
     assert set(ARCHS) <= set(list_archs())
     assert set(ref_archs()) - set(list_archs()) == set(NOT_PORTED)
+    assert set(ref_archs()) == set(list_archs())
+
+
+def test_engine_refuses_the_encoder_decoder_as_the_reference():
+    """The reference's engine asserts decoder-only archs; the port's
+    raises before it touches the weights."""
+    from repro.configs import get_config as ref_config
+    from repro.serving.engine import ServingEngine as RServingEngine
+    with pytest.raises(AssertionError):
+        RServingEngine(ref_config("seamless-m4t-large-v2").reduced(), {})
+    with pytest.raises(ValueError, match="decoder-only"):
+        ServingEngine(get_config("seamless-m4t-large-v2").reduced(), {},
+                      device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -217,10 +217,14 @@ def _check_cohort_step(arch, dtype, bc):
 
 # -- the MLP kernel's split-K plan and its summation order ----------------------
 
-SERVED_MLP = {"llava-onevision-0.5b": (896, 4864), "qwen2-vl-7b": (3584, 18944)}
+# the served MLP widths (D, d_ff) and whether the MLP is gated
+SERVED_MLP = {"llava-onevision-0.5b": (896, 4864, True),
+              "qwen2-vl-7b": (3584, 18944, True),
+              "seamless-m4t-large-v2": (1024, 8192, False)}
 # the served QKV widths: D, then the outputs of wq, wk, wv (heads x hd)
 SERVED_QKV = {"llava-onevision-0.5b": (896, (896, 128, 128)),
-              "qwen2-vl-7b": (3584, (3584, 512, 512))}
+              "qwen2-vl-7b": (3584, (3584, 512, 512)),
+              "seamless-m4t-large-v2": (1024, (1024, 1024, 1024))}
 
 
 def _check_plan_rows(p, K):
@@ -244,8 +248,8 @@ def _check_plan_rows(p, K):
 @pytest.mark.parametrize("arch", list(SERVED_MLP))
 def test_gemv_plan_covers_every_output_and_row_once(arch, elem_bytes, bits,
                                                     bc):
-    """Both stages' plans at every served width, dtype, packing and
-    cohort: the column tiles cover every 16-byte vector of each segment
+    """Both stages' plans at every served width (seamless-m4t's MLP
+    ungated), dtype, packing and cohort: the column tiles cover every 16-byte vector of each segment
     exactly once, the CTAs' K ranges every row exactly once, the K split
     is whole clusters of at most 8 CTAs, each pass at most 4 rows and
     128 accumulators a thread, the scratch sizes match, and at
@@ -254,9 +258,9 @@ def test_gemv_plan_covers_every_output_and_row_once(arch, elem_bytes, bits,
     tiles cover every vector of each of q, k and v exactly once, each
     tile in one weight, its K split as above, its scratch and counters
     sized to match."""
-    D, F = SERVED_MLP[arch]
-    plans = FK.mlp_plans(D, F, True, (bits, bits), elem_bytes, bc)
-    for p, (K, n, nseg) in zip(plans, ((D, F, 2), (F, D, 1))):
+    D, F, gated = SERVED_MLP[arch]
+    plans = FK.mlp_plans(D, F, gated, (bits, bits), elem_bytes, bc)
+    for p, (K, n, nseg) in zip(plans, ((D, F, 1 + gated), (F, D, 1))):
         assert p.vec == (128 // bits if bits else 16 // elem_bytes)
         nvec = n // p.vec
         sps = p.slots // nseg

@@ -208,7 +208,8 @@ def _same_placement(got, want):
 
 @pytest.mark.parametrize("objective", ["latency", "energy"])
 @pytest.mark.parametrize("n_tokens", [24, 256, 1024])
-@pytest.mark.parametrize("arch", ["llava-onevision-0.5b", "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", ["llava-onevision-0.5b", "qwen2-vl-7b",
+                                  "seamless-m4t-large-v2"])
 def test_schedule_equals_reference(arch, n_tokens, objective):
     tg, rg = _graphs(arch)
     got = TS.schedule(tg, TS.edge_accelerators(), n_tokens, objective)
