@@ -303,10 +303,35 @@ Phases (any failure raises and exits non-zero):
    and each other's, the cascade's card peak under the resident
    plan's, each brick's load / execute / release ms), and the kernels
    at the phase's new shapes beside their plain versions and library
-   calls.
+   calls;
+11. train LLaVA-OneVision-0.5B at full width and depth on the card
+   (``attn_q_chunk=0``, remat, bf16): ``init_params`` seed 0, the port's
+   ``multimodal_batch_iter`` (seed 0, 4 x 2048 tokens, 729 of them
+   vision), ``OptConfig(lr=3e-4, warmup_steps=2, total_steps=8)`` with
+   fp32 moments, ``fit`` for 8 steps.  Step 1's gradient of every leaf
+   against the same step through ``attn_q_chunk=512`` (the chunked
+   plain attention) within 5e-2 of the leaf's largest magnitude; the
+   loss falls; each step launches 48 flash forwards (24, and 24 again
+   under remat) and 24 backwards; every backward call of step 1 and one
+   of each later step held against the plain backward on its own
+   inputs (rows within 2e-2; the first call also against float64); one
+   more step under the profiler (device ms, busy share, the flash
+   kernels' ms a call and share); tokens/s and FLOP/s against 989
+   TFLOP/s; peak GB.  Then a 2-layer fp32 step at full width (the
+   tf32x3 forward, the fp32 backward) held the same way (gradients
+   within 2e-5, backward rows within 1e-4), and the backward kernel at
+   the training shape beside its plain version and SDPA's backward.
 
-Phase 2 also holds the routed experts' GEMV at DeepSeek-MoE-16B's,
-DBRX's and Jamba's widths (cohorts 1-8, a row choosing one expert twice,
+Phase 2 also holds the flash backward kernel (``flash_attention/bwd``,
+routes ``bwd_bf16`` / ``bwd_f32``) against ``ref_attention_backward``
+at the training shape (B 4, S 2048, H 14, KV 2, hd 64), Qwen2-VL's head
+counts (hd 128), a ragged S = 777, non-causal with Sq != Sk and the
+reference grid, in bf16 and fp32: every dq / dk / dv row within 2e-2
+(bf16) or 1e-4 (fp32) of that row's largest plain magnitude (a causal
+dq's row 0, exactly 0, against the gradient's largest), against
+float64 no worse than 2x the plain version, two launches bit-equal, and
+the forward bit-equal with and without its lse.  It also holds the
+routed experts' GEMV at DeepSeek-MoE-16B's, DBRX's and Jamba's widths (cohorts 1-8, a row choosing one expert twice,
 a sentinel row; bf16 within 2e-2 a row, fp32 within 1e-5 of the largest)
 and the SSD kernel at P 128; phase 7 times the GEMV beside the routed
 experts gathered, dequantized and run through batched ``bmm``, and SSD
@@ -320,6 +345,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -367,6 +393,33 @@ FLASH_REF_GRID = ((2, 128, 4, 2, 32), (1, 256, 8, 8, 64),
 # causal)
 FLASH_HD160 = ((2, 1024, 1024, 28, 4, 160, True),
                (1, 300, 777, 28, 4, 160, False))
+# the flash backward held against its plain version (phase 2): the
+# training shape (LLaVA, B 4, S 2048), Qwen2-VL's head counts (hd 128), a
+# ragged S = 777, non-causal with Sq != Sk, then FLASH_REF_GRID causal and
+# not; bf16 and fp32.  (B, Sq, Sk, H, KV, hd, causal)
+FLASH_BWD_SHAPES = ((4, 2048, 2048, 14, 2, 64, True),
+                    (1, 2048, 2048, 28, 4, 128, True),
+                    (1, 777, 777, 14, 2, 64, True),
+                    (1, 300, 1000, 28, 4, 128, False))
+# of each row's max.  A causal dq's row 0 is 0 in exact arithmetic (its
+# one key's dS = P (dP - D) with dP = D): it is held against the
+# gradient's largest magnitude
+FLASH_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# phase 11: train LLaVA-OneVision-0.5B at full width and depth,
+# attn_q_chunk=0, remat, bf16: the data pipeline's batches of 4 x 2048
+# tokens (729 of them vision), OptConfig(lr=3e-4, warmup 2, total 8) with
+# fp32 moments, fit for TRAIN_STEPS steps
+TRAIN_PATH = "llava-onevision-0.5b/train"
+TRAIN_FP32_PATH = "llava-onevision-0.5b/train-fp32-2-layer"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+TRAIN_FP32_LAYERS = 2
+# step 1's gradients, each leaf against the same step through
+# attn_q_chunk=512 (the chunked plain attention), max |err| over the
+# leaf's largest magnitude: bf16 through 24 layers rounds both paths'
+# activations and cotangents at different points (worst leaf 0.0149 on
+# an H100); fp32 differs by the summation order and the tf32x3 forward's
+# split products (worst leaf 2.7e-6 over 2 layers)
+TRAIN_GRAD_TOL = {"bfloat16": 5e-2, "float32": 2e-5}
 # fp32 kernels vs plain, max |err| over the largest plain magnitude: the
 # reference's flash bound; the port's fp32 GEMM gate for the GEMVs (both
 # keep fp32 throughout, in other summation orders)
@@ -664,6 +717,7 @@ class Smoke:
         self.errs = {"fused_qkv": 0.0, "fused_mlp": 0.0,
                      "fused_mlp/experts": 0.0,
                      "kv_row_scatter": 0.0, "flash_attention": 0.0,
+                     "flash_attention/bwd": 0.0,
                      "ssd": 0.0, "linear_attention": 0.0,
                      "dequant_gemm": 0.0, "cache_row_update": 0.0}
         self.eg_check = []               # the routed experts' GEMV
@@ -673,6 +727,7 @@ class Smoke:
         self.ssd_check = {}
         self.la_check = []
         self.dg_check = {}
+        self.bwd_check = {}
 
     def randn(self, *shape, scale=1.0, dtype=None):
         torch = self.torch
@@ -873,6 +928,119 @@ class Smoke:
                       "float32_err_over_max": worst["float32"]},
             "float32_vs_float64_err_over_max": f64,
             "tol": {"bfloat16_row": KERNEL_TOL, "float32": FLASH_FP32_TOL}}
+
+    def flash_bwd_held(self, q, k, v, o, lse, do, causal, what, got=None,
+                       f64=None):
+        """The backward kernel's (dq, dk, dv) against the plain backward
+        on the same q, k, v, o, lse, do: every row of each (b, position,
+        head) within FLASH_BWD_TOL of that row's largest plain magnitude
+        (a causal dq's row 0, exactly 0, of the gradient's largest);
+        with ``f64`` (a dict), kernel and plain each against the float64
+        backward (max |err| over the largest |exact|), the kernel no worse
+        than F64_RATIO x the plain version, the worst kept.  ``got``: the
+        kernel's gradients of a call made already (a trained step's),
+        else the kernel runs here.  Returns (worst row ratio, max abs
+        err)."""
+        from repro_torch.kernels.flash_attention import kernel as FK
+        from repro_torch.kernels.flash_attention.ref import \
+            ref_attention_backward
+        torch = self.torch
+        name = str(q.dtype).replace("torch.", "")
+        if got is None:
+            got = FK.launch_flash_attention_backward(q, k, v, o, lse, do,
+                                                     causal=causal)
+        with plain_sums():
+            want = ref_attention_backward(q, k, v, o, lse, do, causal=causal)
+        worst, err_max = 0.0, 0.0
+        for part, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.shape != w.shape or g.dtype != w.dtype \
+                    or not g.isfinite().all():
+                fail(f"flash_attention/bwd {what}: {part} shape, dtype or "
+                     f"non-finite values")
+            err = (g.float() - w.float()).abs().amax(-1)
+            row = w.float().abs().amax(-1)
+            den = row.clone()
+            if part == "dq" and causal:
+                den[:, 0] = row.max()
+            ratio = err / den
+            ratio = ratio.nan_to_num(nan=0.0, posinf=1e9)
+            r = ratio.max().item()
+            if not r <= FLASH_BWD_TOL[name]:
+                at = divmod(int(ratio.argmax()), ratio.shape[-1])
+                b, i = divmod(at[0], ratio.shape[1])
+                fail(f"flash_attention/bwd {what}: {part} row (b {b}, "
+                     f"position {i}, head {at[1]}) err/max {r}, the row's "
+                     f"largest {row[b, i, at[1]].item()} of the "
+                     f"gradient's {row.max().item()}")
+            worst, err_max = max(worst, r), max(err_max, err.max().item())
+        if f64 is not None:
+            exact = ref_attention_backward(*(t.double() for t in (
+                q, k, v, o, lse, do)), causal=causal)
+            for part, g, w, x in zip(("dq", "dk", "dv"), got, want, exact):
+                den = x.abs().max()
+                k_err = ((g.double() - x).abs().max() / den).item()
+                p_err = ((w.double() - x).abs().max() / den).item()
+                if k_err > F64_RATIO * p_err:
+                    fail(f"flash_attention/bwd {what}: {part} vs float64 "
+                         f"{k_err}, plain {p_err}")
+                rec = f64.setdefault(name, {"kernel": 0.0, "plain": 0.0,
+                                            "worst_ratio": 0.0})
+                rec["kernel"] = max(rec["kernel"], k_err)
+                rec["plain"] = max(rec["plain"], p_err)
+                rec["worst_ratio"] = max(rec["worst_ratio"], k_err / p_err)
+            del exact
+        del want
+        self.errs["flash_attention/bwd"] = max(
+            self.errs["flash_attention/bwd"], err_max)
+        return worst, err_max
+
+    def check_flash_backward(self):
+        """The backward kernel at FLASH_BWD_SHAPES and the reference
+        grid, causal and not, in bf16 and fp32: the forward with its lse
+        bit-equal to the forward without; the gradients held by
+        ``flash_bwd_held`` (rows, and against float64); two launches bit-
+        equal.  Kept in ``bwd_check``."""
+        from repro_torch.kernels.flash_attention import kernel as FK
+        torch = self.torch
+        cases = list(FLASH_BWD_SHAPES) + [
+            (B, S, S, H, KV, hd, c) for B, S, H, KV, hd in FLASH_REF_GRID
+            for c in (True, False)]
+        worst, f64, rows = {}, {}, []
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            for B, Sq, Sk, H, KV, hd, causal in cases:
+                what = (f"{name} B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} "
+                        f"hd={hd} causal={causal}")
+                q = self.randn(B, Sq, H, hd, dtype=dtype)
+                k = self.randn(B, Sk, KV, hd, dtype=dtype)
+                v = self.randn(B, Sk, KV, hd, dtype=dtype)
+                do = self.randn(B, Sq, H, hd, dtype=dtype)
+                o, lse = FK.launch_flash_attention(q, k, v, causal=causal,
+                                                   want_lse=True)
+                if not torch.equal(o, FK.launch_flash_attention(
+                        q, k, v, causal=causal)):
+                    fail(f"flash_attention {what}: the output differs when "
+                         f"the lse is written")
+                got = FK.launch_flash_attention_backward(q, k, v, o, lse, do,
+                                                         causal=causal)
+                again = FK.launch_flash_attention_backward(
+                    q, k, v, o, lse, do, causal=causal)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"flash_attention/bwd {what}: two launches differ")
+                w, err = self.flash_bwd_held(q, k, v, o, lse, do, causal,
+                                             what, got=got, f64=f64)
+                worst[name] = max(worst.get(name, 0.0), w)
+                rows.append({"case": [B, Sq, Sk, H, KV, hd, causal],
+                             "dtype": name, "row_err_over_row_max": w,
+                             "max_abs_err": err})
+                del q, k, v, do, o, lse, got, again
+        torch.cuda.synchronize()
+        self.bwd_check = {"cases": rows, "worst_row_err_over_row_max": worst,
+                          "vs_float64_err_over_max": f64,
+                          "tol": {"row": FLASH_BWD_TOL,
+                                  "float64_ratio": F64_RATIO},
+                          "forward_bit_equal_with_lse": True,
+                          "two_launches_bit_equal": True}
 
     def check_cache_update(self, cfg):
         """The cache-row-update kernel bit for bit against its plain
@@ -3643,7 +3811,7 @@ def time_flash(sm, shape=None, dtype=None):
         t_l = timed(lambda i: Fn.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), 1, iters=20)
     byt = q.element_size() * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
-    pairs = Sq * (Sq + 1) // 2 if causal and Sq == Sk else Sq * Sk
+    pairs = causal_pairs(Sq, Sk) if causal else Sq * Sk
     fl = 4 * B * H * hd * pairs            # q.k and p.v, keys each row sees
     return t_k, t_p, t_l, None, byt, fl
 
@@ -5608,6 +5776,319 @@ def at_encdec(name, rec, runs, t, numbers):
     return out
 
 
+# -- phase 11: training ----------------------------------------------------
+
+class FlashBwdCalls:
+    """Keeps flash backward launches of a training run (q, k, v, o, lse,
+    do, causal and the kernel's gradients, by reference): every launch of
+    step ``all_of``, the first of every other step.  ``step`` is set by
+    ``StepFeed``; ``kernel.launch_flash_attention_backward`` is wrapped
+    inside the ``with`` block."""
+
+    def __init__(self, all_of=1):
+        from repro_torch.kernels.flash_attention import kernel as FK
+        self.mod, self.inner = FK, FK.launch_flash_attention_backward
+        self.all_of, self.step = all_of, 0
+        self.calls, self.per_step = [], {}
+
+    def __call__(self, q, k, v, o, lse, do, *, causal):
+        out = self.inner(q, k, v, o, lse, do, causal=causal)
+        n = self.per_step.get(self.step, 0)
+        self.per_step[self.step] = n + 1
+        if self.step == self.all_of or n == 0:
+            self.calls.append((self.step, q, k, v, o, lse, do, causal, out))
+        return out
+
+    def held(self, sm, what, f64_first=False):
+        """Every kept call against the plain backward on its own inputs
+        (``Smoke.flash_bwd_held``): calls by step, worst row ratio, max
+        abs error; with ``f64_first`` the first call also against
+        float64."""
+        worst, err_max, by_step, f64 = 0.0, 0.0, {}, {}
+        for i, (step, q, k, v, o, lse, do, causal, out) in enumerate(
+                self.calls):
+            w, err = sm.flash_bwd_held(
+                q, k, v, o, lse, do, causal,
+                f"{what} step {step} call at {tuple(q.shape)}", got=out,
+                f64=f64 if (f64_first and i == 0) else None)
+            worst, err_max = max(worst, w), max(err_max, err)
+            by_step[step] = by_step.get(step, 0) + 1
+        return {"held_calls_by_step": by_step,
+                "worst_row_err_over_row_max": worst, "max_abs_err": err_max,
+                "vs_float64_first_call": f64 or None,
+                "tol": FLASH_BWD_TOL}
+
+    def __enter__(self):
+        self.mod.launch_flash_attention_backward = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.launch_flash_attention_backward = self.inner
+        self.calls = []
+
+
+class StepFeed:
+    """The data iterator ``fit`` reads, one batch a step: each ``next``
+    marks a step boundary (the launch counts so far, the step number of
+    ``calls``)."""
+
+    def __init__(self, it, calls):
+        from repro_torch.kernels import launch_counts
+        self.it, self.calls, self.counts = it, calls, launch_counts
+        self.marks = []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.marks.append(self.counts())
+        self.calls.step += 1
+        return next(self.it)
+
+    def per_step(self):
+        """Each step's launches (nonzero), from the marks and now."""
+        marks = self.marks + [self.counts()]
+        return [{k: b[k] - a[k] for k in b if b[k] - a[k]}
+                for a, b in zip(marks, marks[1:])]
+
+
+def train_step_flops(cfg, B, S):
+    """Model FLOPs of one training step with remat: the projections and
+    the head (2 a parameter a token forward, 4 backward, 2 again for the
+    recomputed forward of every group and every head chunk), attention's
+    two products (causal pairs) forward, recomputed, and the backward's
+    five, and the vision projector's."""
+    D, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                       cfg.d_ff)
+    layer = D * hd * (H + 2 * KV) + H * hd * D + 3 * D * F
+    head = D * cfg.padded_vocab
+    T = B * S
+    mm = 2 * T * (cfg.n_layers * layer + head) * (1 + 2 + 1)
+    attn = 2 * B * H * hd * causal_pairs(S, S) * cfg.n_layers * (2 + 2 + 5)
+    vis = (2 * B * cfg.vision_tokens
+           * (cfg.vision_feat_dim * D + D * D) * 3) if cfg.vlm else 0
+    return mm + attn + vis
+
+
+def causal_pairs(Sq, Sk):
+    """(query, key) pairs a causal row set sees: key j <= query i."""
+    return sum(min(i + 1, Sk) for i in range(Sq))
+
+
+def grads_check(g_got, g_want, tol, what):
+    """Each leaf's gradient within ``tol`` of the leaf's largest plain
+    magnitude; returns {path: err/max} and the worst."""
+    from repro_torch.tree import tree_leaves_with_path
+    want = dict(tree_leaves_with_path(g_want))
+    out = {}
+    for path, g in tree_leaves_with_path(g_got):
+        w = want[path].float()
+        if g.shape != w.shape or not g.isfinite().all():
+            fail(f"{what}: gradient of {path} has shape {tuple(g.shape)} "
+                 f"or non-finite values")
+        r = ((g.float() - w).abs().max() / w.abs().max()).item()
+        if not r <= tol:
+            fail(f"{what}: gradient of {path} err/max {r} > {tol}")
+        out[path] = r
+    return out, max(out.values())
+
+
+def time_flash_backward(sm, shape, dtype):
+    """The backward kernel, its plain version and SDPA's backward (GQA
+    through ``enable_gqa``) at ``shape`` on the same inputs, and the
+    work: (t_k, t_p, t_l, bytes, flops)."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import \
+        ref_attention_backward
+    B, Sq, Sk, H, KV, hd, causal = shape
+    q = sm.randn(B, Sq, H, hd, dtype=dtype)
+    k = sm.randn(B, Sk, KV, hd, dtype=dtype)
+    v = sm.randn(B, Sk, KV, hd, dtype=dtype)
+    do = sm.randn(B, Sq, H, hd, dtype=dtype)
+    o, lse = FK.launch_flash_attention(q, k, v, causal=causal, want_lse=True)
+    t_k = timed(lambda i: FK.launch_flash_attention_backward(
+        q, k, v, o, lse, do, causal=causal), 1, iters=10)
+    t_p = timed(lambda i: ref_attention_backward(q, k, v, o, lse, do,
+                                                 causal=causal), 1, iters=3)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    ol = Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    t_l = timed(lambda i: torch.autograd.grad(ol, (qt, kt, vt), dot,
+                                              retain_graph=True), 1,
+                iters=10)
+    byt = (q.element_size() * (4 * B * Sq * H * hd + 4 * B * Sk * KV * hd)
+           + 4 * B * H * Sq)
+    pairs = causal_pairs(Sq, Sk) if causal else Sq * Sk
+    fl = 5 * 2 * B * H * hd * pairs          # S, dV, dP, dQ, dK
+    return t_k, t_p, t_l, byt, fl
+
+
+def train_llava(sm):
+    """Phase 11: LLaVA-OneVision-0.5B trained at full width and depth on
+    the card (``attn_q_chunk=0``, remat, bf16), then a 2-layer fp32 step
+    at full width; see the module docstring.  Returns (record, runs,
+    timings)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import multimodal_batch_iter
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps as TS
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import TrainConfig, batch_to, fit
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llava-onevision-0.5b"),
+                              attn_q_chunk=0)
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        fail(f"{TRAIN_PATH}: the config is not bf16 with remat")
+    chunked = dataclasses.replace(cfg, attn_q_chunk=512)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    params = TS.init_params(cfg, device=sm.dev, seed=0)
+    batch1 = batch_to(next(multimodal_batch_iter(cfg, B, S, seed=0)), sm.dev)
+    if batch1["vision_feats"].shape[1] != 729:
+        fail(f"{TRAIN_PATH}: vision tokens {batch1['vision_feats'].shape}")
+    rec = {"shape": {"B": B, "S": S, "vision_tokens": cfg.vision_tokens,
+                     "layers": cfg.n_layers, "d_model": cfg.d_model,
+                     "heads": [cfg.n_heads, cfg.n_kv_heads], "hd": cfg.hd,
+                     "d_ff": cfg.d_ff, "vocab": cfg.padded_vocab},
+           "opt": "OptConfig(lr=3e-4, warmup_steps=2, total_steps=8), "
+                  "fp32 moments"}
+
+    # step 1's gradients through the kernels against attn_q_chunk=512
+    loss_k, _, g_k = TS.loss_and_grads(params, cfg, batch1)
+    with plain_sums():
+        loss_p, _, g_p = TS.loss_and_grads(params, chunked, batch1)
+    rec["step1_grads_vs_chunked"] = dict(zip(("per_leaf", "worst"),
+                                             grads_check(
+        g_k, g_p, TRAIN_GRAD_TOL["bfloat16"], f"{TRAIN_PATH} step 1")),
+        tol=TRAIN_GRAD_TOL["bfloat16"], loss_kernel=float(loss_k),
+        loss_chunked=float(loss_p))
+    del g_k, g_p
+    free()
+
+    # fit for TRAIN_STEPS steps, every launch counted, backward calls kept
+    opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    with FlashBwdCalls() as calls:
+        feed = StepFeed(multimodal_batch_iter(cfg, B, S, seed=0), calls)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fit(cfg, opt, TrainConfig(steps=TRAIN_STEPS, log_every=10 ** 9),
+                  feed, params=params, log=lambda m: None, device=sm.dev)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = launch_counts()
+        per_step = feed.per_step()
+        fit_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        held = calls.held(sm, TRAIN_PATH, f64_first=True)
+    losses = [m["loss"] for m in res.metrics_history]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"{TRAIN_PATH}: losses {losses} do not fall")
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention/wgmma": 2 * cfg.n_layers,
+            "flash_attention/bwd": cfg.n_layers,
+            "flash_attention/bwd_bf16": cfg.n_layers}
+    for i, n in enumerate(per_step):
+        if n != want:
+            fail(f"{TRAIN_PATH}: step {i + 1} launched {n}, want {want}")
+    walls = [m["dt"] for m in res.metrics_history]
+    wall_ms = statistics.median(walls[1:]) * 1e3
+
+    # one more step under the profiler: device time, the flash kernels';
+    # the peak of its first run, with no backward call kept
+    step_fn = TS.build_train_step(cfg, opt)
+    from repro_torch.training.optimizer import init_opt
+    st = init_opt(params, opt)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn(params, st, batch1)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dev_us, rows, n_kernels = device_time(
+        lambda: (step_fn(params, st, batch1), torch.cuda.synchronize()))
+    fwd_us = sum(us for k, us, _ in rows if "flash_attention_kernel" in k)
+    bwd_us = sum(us for k, us, _ in rows if "flash_bwd_" in k)
+    del st
+    free()
+    flops = train_step_flops(cfg, B, S)
+    dev_ms = dev_us / 1e3
+    rec.update({
+        "losses": losses, "grad_norms": [m["grad_norm"]
+                                        for m in res.metrics_history],
+        "lrs": [m["lr"] for m in res.metrics_history],
+        "fit_s": fit_s, "step_wall_ms": [w * 1e3 for w in walls],
+        "step_wall_ms_median_2_on": wall_ms,
+        "step_device_ms": dev_ms if dev_us > 0 else None,
+        "busy": dev_ms / wall_ms if dev_us > 0 else None,
+        "device_kernels_a_step": n_kernels,
+        "tokens_per_s": B * S / (wall_ms / 1e3),
+        "model_flops_a_step": flops,
+        "flops_per_s": flops / (wall_ms / 1e3),
+        "flops_share_of_989T": flops / (wall_ms / 1e3) / BF16_FLOPS_PER_S,
+        "ms_at_peak": flops / BF16_FLOPS_PER_S * 1e3,
+        "peak_gb": peak_gb, "allocated_before_fit_gb": base_gb,
+        "fit_peak_gb_with_held_calls": fit_peak_gb,
+        "flash_fwd_ms_a_call": fwd_us / 1e3 / (2 * cfg.n_layers),
+        "flash_bwd_ms_a_call": bwd_us / 1e3 / cfg.n_layers,
+        "flash_fwd_share": fwd_us / dev_us if dev_us > 0 else None,
+        "flash_bwd_share": bwd_us / dev_us if dev_us > 0 else None,
+        "top_kernels_ms": [(k, us / 1e3, n) for k, us, n in rows[:12]],
+        "launches_a_step": per_step, "launches_a_step_want": want,
+        "flash_bwd_held": held})
+    runs = {TRAIN_PATH: counts}
+    del params, batch1, res, feed
+    free()
+
+    # a 2-layer fp32 step at full width: the tf32x3 forward, the fp32
+    # backward, held the same way
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=TRAIN_FP32_LAYERS)
+    params = TS.init_params(cfg32, device=sm.dev, seed=0)
+    batch1 = batch_to(next(multimodal_batch_iter(cfg32, B, S, seed=0)),
+                      sm.dev)
+    with FlashBwdCalls() as calls:
+        calls.step = 1
+        reset_launch_counts()
+        loss_k, _, g_k = TS.loss_and_grads(params, cfg32, batch1)
+        torch.cuda.synchronize()
+        counts32 = launch_counts()
+        held32 = calls.held(sm, TRAIN_FP32_PATH, f64_first=True)
+    want32 = {"flash_attention": 2 * TRAIN_FP32_LAYERS,
+              "flash_attention/tf32x3": 2 * TRAIN_FP32_LAYERS,
+              "flash_attention/bwd": TRAIN_FP32_LAYERS,
+              "flash_attention/bwd_f32": TRAIN_FP32_LAYERS}
+    got32 = {k: n for k, n in counts32.items() if n}
+    if got32 != want32:
+        fail(f"{TRAIN_FP32_PATH}: launched {got32}, want {want32}")
+    loss_p, _, g_p = TS.loss_and_grads(params, dataclasses.replace(
+        cfg32, attn_q_chunk=512), batch1)
+    per_leaf, worst = grads_check(g_k, g_p, TRAIN_GRAD_TOL["float32"],
+                                  TRAIN_FP32_PATH)
+    rec["fp32_2_layer"] = {"grads_vs_chunked": {
+        "per_leaf": per_leaf, "worst": worst,
+        "tol": TRAIN_GRAD_TOL["float32"]},
+        "loss_kernel": float(loss_k), "loss_chunked": float(loss_p),
+        "launches": got32, "flash_bwd_held": held32}
+    runs[TRAIN_FP32_PATH] = counts32
+    del params, batch1, g_k, g_p
+    free()
+
+    # the backward kernel at the training shape beside its plain version
+    # and SDPA's backward, bf16 and fp32; the forward at the same shape
+    shape = (B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True)
+    timings = {"bwd": time_flash_backward(sm, shape, torch.bfloat16),
+               "bwd_f32": time_flash_backward(sm, shape, torch.float32),
+               "fwd": time_flash(sm, shape), "shape": shape}
+    free()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec, runs, timings
+
+
 def requests(cfg, specs, seed):
     """Requests of ``specs`` ((vision tokens, images, repeat-of index or
     None)): one placeholder token per vision token, then 16 text tokens;
@@ -5676,6 +6157,8 @@ def main() -> int:
     free()
     sm.check_flash()
     sm.check_flash_grid()
+    sm.check_flash_backward()
+    free()
     sm.check_cache_update(llava)
     sm.check_ssd()
     sm.check_linear_attention()
@@ -5694,6 +6177,7 @@ def main() -> int:
         "fp32": sm.fp32_check,
         "cache_row_update": sm.cu_check,
         "flash_shapes": [list(s) for s in FLASH_SHAPES],
+        "flash_backward": sm.bwd_check,
         "ssd": sm.ssd_check,
         "dequant_gemm": sm.dg_check,
         "fused_mlp/experts": {"cases": sm.eg_check,
@@ -5906,6 +6390,13 @@ def main() -> int:
     # builders; the brick chain resident and as the On-Demand Cascade ----
     encdec, encdec_runs, encdec_t = serve_encdec(sm)
     print(json.dumps({"serve": encdec}))
+    free()
+
+    # -- 11. train LLaVA-OneVision-0.5B at full width and depth: attention
+    # forward and backward through the flash kernels, AdamW, the data
+    # pipeline; then a 2-layer fp32 step --------------------------------
+    train, train_runs, train_t = train_llava(sm)
+    print(json.dumps({"train": train}))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5942,6 +6433,7 @@ def main() -> int:
     runs.update({a: r["launches"] for a, r in moe_serves.items()})
     records[ENCDEC_PATH] = encdec
     runs.update(encdec_runs)
+    runs.update(train_runs)
 
     def numbers(t, flops_per_s=BF16_FLOPS_PER_S):
         t_k, t_p, t_l, t_d, byt, fl = t
@@ -6276,6 +6768,44 @@ def main() -> int:
             if "decode_step_device_ms_vs_before" in r})
     if entry["launches"] <= 0:
         fail("fused_mlp/experts: no launch on the served paths")
+    kernels.append(entry)
+    # the flash backward (the gradient of flash_attention_pallas, which
+    # has none in the reference: its training differentiates the dense
+    # attention off the TPU), timed at phase 11's training shape
+    by_path = {a: n["flash_attention/bwd"] for a, n in runs.items()
+               if n["flash_attention/bwd"]}
+    bt, bt32 = train_t["bwd"], train_t["bwd_f32"]
+    shape = dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal"),
+                     train_t["shape"]))
+    entry = {"name": "flash_attention/bwd", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:55",
+             "launches": sum(by_path.values()), "launches_by_path": by_path,
+             "launches_by_route": {r: sum(n[f"flash_attention/{r}"]
+                                          for n in runs.values())
+                                   for r in ("bwd_bf16", "bwd_f32")},
+             "max_abs_err": sm.errs["flash_attention/bwd"]}
+    entry.update(numbers(bt[:3] + (None,) + bt[3:]))
+    entry.update(
+        event_ms=bt[0][1], shape=shape,
+        library="torch.autograd.grad of F.scaled_dot_product_attention"
+                "(enable_gqa), the backward alone",
+        bound_note="five products (S, dV, dP, dQ, dK) over the causal "
+                   "pairs at 989 TFLOP/s bf16; the kernel runs seven in "
+                   "fp32 FFMA (S and dP again for dQ)",
+        launches_per_train_step=train["launches_a_step"][0].get(
+            "flash_attention/bwd"),
+        kernel_checks=sm.bwd_check,
+        served_check={TRAIN_PATH: train["flash_bwd_held"],
+                      TRAIN_FP32_PATH: train["fp32_2_layer"][
+                          "flash_bwd_held"]},
+        forward_at_training_shape=dict(numbers(train_t["fwd"]),
+                                       event_ms=train_t["fwd"][0][1]),
+        fp32=dict(numbers(bt32[:3] + (None,) + bt32[3:], FP32_FLOPS_PER_S),
+                  event_ms=bt32[0][1],
+                  library="the same, fp32 (TF32 off)"))
+    if entry["launches"] <= 0:
+        fail("flash_attention/bwd: no launch on the training paths")
     kernels.append(entry)
     print(smi.stdout.strip())
     print(json.dumps({"kernels": kernels}))

@@ -116,10 +116,22 @@ struct Flash {
 
 struct Params {
   bf16* o;
+  float* lse;                           // (B, H, Sq) natural-log lse, or null
   int B, Sq, Sk, H, KV, causal;
   long long o_sb, o_ss, o_sh;           // strides in elements
   float scale_log2;                     // hd^-1/2 * log2(e)
 };
+
+// the log-sum-exp of two query rows from their base-2 running max m and
+// sum l (scores scaled by hd^-1/2 log2(e)): ln(sum_j exp(s_ij hd^-1/2))
+// = ln(2) (m + log2 l), written to (B, H, Sq) for the backward
+__device__ __forceinline__ void write_lse(float* lse, int b, int h, int H, int Sq, int qpos0,
+                                          int qpos1, float m0, float m1, float l0, float l1) {
+  constexpr float kLn2 = 0.6931471805599453f;
+  float* row = lse + ((long long)b * H + h) * Sq;
+  if (qpos0 < Sq) row[qpos0] = (m0 + log2f(l0)) * kLn2;
+  if (qpos1 < Sq) row[qpos1] = (m1 + log2f(l1)) * kLn2;
+}
 
 // two fp32 values -> a bf16 pair, `lo` in the low half (the lower column)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -288,6 +300,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     l0 += __shfl_xor_sync(kFull, l0, 2);
     l1 += __shfl_xor_sync(kFull, l1, 1);
     l1 += __shfl_xor_sync(kFull, l1, 2);
+    if (p.lse != nullptr && tq4 == 0) write_lse(p.lse, b, h, p.H, p.Sq, qpos0, qpos1, m0, m1, l0, l1);
     const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
     bf16* o0 = p.o + b * p.o_sb + (long long)qpos0 * p.o_ss + h * p.o_sh + 2 * tq4;
     bf16* o1 = o0 + 8 * p.o_ss;
@@ -341,6 +354,7 @@ struct ParamsF {
   const float* k;
   const float* v;
   float* o;
+  float* lse;                           // (B, H, Sq) natural-log lse, or null
   int B, Sq, Sk, H, KV, causal;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -568,6 +582,8 @@ __global__ void __launch_bounds__(FlashF<HD>::kThreads)
     const float ca1 = exp2f(m1 - mn1), cb1 = exp2f(mb1 - mn1);
     l0 = l0 * ca0 + xs[HD / 2 + 2] * cb0;
     l1 = l1 * ca1 + xs[HD / 2 + 3] * cb1;
+    m0 = mn0;                           // the merged sums' max (for the lse)
+    m1 = mn1;
 #pragma unroll
     for (int nb = 0; nb < HD / 8; ++nb) {
       o[nb][0] = o[nb][0] * ca0 + xs[4 * nb] * cb0;
@@ -581,6 +597,7 @@ __global__ void __launch_bounds__(FlashF<HD>::kThreads)
   l0 += __shfl_xor_sync(kFull, l0, 2);
   l1 += __shfl_xor_sync(kFull, l1, 1);
   l1 += __shfl_xor_sync(kFull, l1, 2);
+  if (p.lse != nullptr && t == 0) write_lse(p.lse, b, h, p.H, p.Sq, qpos0, qpos1, m0, m1, l0, l1);
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
   float* o0 = p.o + b * p.o_sb + (long long)qpos0 * p.o_ss + h * p.o_sh + 2 * t;
   float* o1 = o0 + 8 * p.o_ss;
@@ -603,6 +620,352 @@ int launch_f32(const ParamsF& p, cudaStream_t stream) {
   flash_attention_f32_kernel<HD><<<grid, FlashF<HD>::kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
+// ---- backward: dq, dk, dv from q, k, v, o, lse and do (FFMA) ---------------
+//
+// The gradient of the forward above, from the rows' log-sum-exp it saved:
+// P = exp(s - lse) recomputed from q.k (scaled, masked to 0 where the
+// forward masked), dV = Pᵀ dO with P rounded to v's dtype (the forward's
+// rounding before P.V), dP = dO Vᵀ, D = rowsum(dO * O), dS = P (dP - D),
+// dQ = dS K hd^-1/2 and dK = dSᵀ Q hd^-1/2; a kv head's dK and dV sum over
+// its G query heads.  Every product in fp32 FFMA on operands widened into
+// shared memory (both instances; the tensor cores are later work).
+//
+// Three device kernels, none with atomics, so two launches are bit-equal:
+// `bwd_dot` (D, one warp a row); `bwd_dkdv`, one block a (batch, kv head,
+// block of 64 keys) holding its dK and dV in registers while it walks the
+// G query heads and their blocks of 64 rows in order (causal: from the
+// block holding its first key); `bwd_dq`, one block a (batch, head, block
+// of 64 rows) walking the key blocks in order (causal: to its diagonal),
+// recomputing P and dS.  A block is 16 x 16 threads; thread (ty, tx) owns
+// rows ty + 16 r and columns tx + 16 c of each 64 x 64 product and of its
+// 64 x hd accumulators.  Tiles sit in shared memory as fp32 rows of hd + 1
+// (conflict-free column reads), rows past the sequence zero.
+
+constexpr int kBwdRows = 64;           // rows (queries or keys) of a tile
+constexpr int kBwdThreads = 256;
+constexpr int kPS = kBwdRows + 1;      // row stride of the P / dS tiles
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void narrow(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void narrow(bf16* dst, float x) { *dst = __float2bfloat16_rn(x); }
+// x rounded to T and back (the forward's rounding of P before P.V)
+__device__ __forceinline__ float round_as(float x, const float*) { return x; }
+__device__ __forceinline__ float round_as(float x, const bf16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int HD>
+struct Bwd {
+  static constexpr int kS = HD + 1;    // fp32 row stride of a q/k/v/do tile
+  static constexpr int kTile = kBwdRows * kS;
+  static constexpr int kSmem =
+      (4 * kTile + 2 * kBwdRows * kPS + 2 * kBwdRows) * (int)sizeof(float);
+};
+
+// rows [r0, r0 + 64) of a (.., rows, .., HD) tensor, `stride` elements
+// apart, widened into a shared tile; rows at or past `n` are zero
+template <typename T, int HD>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, long long stride, int n) {
+  for (int i = threadIdx.x; i < kBwdRows * HD; i += kBwdThreads) {
+    const int r = i / HD, c = i - r * HD;
+    dst[r * Bwd<HD>::kS + c] = r < n ? widen(src[r * stride + c]) : 0.f;
+  }
+}
+
+struct BwdParams {
+  int B, Sq, Sk, H, KV, causal;
+  float scale, scale_log2;
+};
+
+// D[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d], one warp a row
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dO,
+                         float* __restrict__ dsum, int B, int Sq, int H, int hd) {
+  const long long row = (long long)blockIdx.x * (kBwdThreads / 32) + threadIdx.x / 32;
+  if (row >= (long long)B * Sq * H) return;
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  for (int c = lane; c < hd; c += 32) acc += widen(o[row * hd + c]) * widen(dO[row * hd + c]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
+  if (lane == 0) {
+    const int h = (int)(row % H);
+    const long long bi = row / H;
+    const int i = (int)(bi % Sq), b = (int)(bi / Sq);
+    dsum[((long long)b * H + h) * Sq + i] = acc;
+  }
+}
+
+// the 64 x 64 tiles S = X Yᵀ and dP = U Wᵀ of a thread (rows ty + 16 r of
+// X and U, rows tx + 16 c of Y and W), summed over hd in order
+template <int HD>
+__device__ __forceinline__ void two_products(const float* xs, const float* ys, const float* us,
+                                             const float* ws, int ty, int tx,
+                                             float (&s)[4][4], float (&dp)[4][4]) {
+  constexpr int kS = Bwd<HD>::kS;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    float x[4], y[4], u[4], w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[i] = xs[(ty + 16 * i) * kS + d];
+      u[i] = us[(ty + 16 * i) * kS + d];
+      y[i] = ys[(tx + 16 * i) * kS + d];
+      w[i] = ws[(tx + 16 * i) * kS + d];
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[r][c] = fmaf(x[r], y[c], s[r][c]);
+        dp[r][c] = fmaf(u[r], w[c], dp[r][c]);
+      }
+  }
+}
+
+// dK and dV of one block of 64 keys of one (batch, kv head)
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dO,
+                          const float* __restrict__ lse, const float* __restrict__ dsum,
+                          T* __restrict__ dk, T* __restrict__ dv, const BwdParams p) {
+  using C = Bwd<HD>;
+  constexpr int kS = C::kS, kC = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);
+  float* vs = ks + C::kTile;
+  float* qs = vs + C::kTile;
+  float* os = qs + C::kTile;           // dO
+  float* ps = os + C::kTile;           // [key][query]: P rounded as v
+  float* dss = ps + kBwdRows * kPS;    // [key][query]: dS
+  float* lse_s = dss + kBwdRows * kPS; // base 2
+  float* d_s = lse_s + kBwdRows;
+
+  const int k0 = blockIdx.x * kBwdRows;
+  const int b = blockIdx.y / p.KV, kvh = blockIdx.y - b * p.KV;
+  const int G = p.H / p.KV;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long long kv_stride = (long long)p.KV * HD, q_stride = (long long)p.H * HD;
+  const long long kv_off = ((long long)b * p.Sk + k0) * kv_stride + (long long)kvh * HD;
+  load_rows<T, HD>(ks, k + kv_off, kv_stride, p.Sk - k0);
+  load_rows<T, HD>(vs, v + kv_off, kv_stride, p.Sk - k0);
+
+  float acc_k[4][kC], acc_v[4][kC];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
+
+  // causal: rows before k0 see none of these keys
+  const int q_first = p.causal ? (k0 / kBwdRows) * kBwdRows : 0;
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const float* lse_h = lse + ((long long)b * p.H + h) * p.Sq;
+    const float* d_h = dsum + ((long long)b * p.H + h) * p.Sq;
+    for (int q0 = q_first; q0 < p.Sq; q0 += kBwdRows) {
+      __syncthreads();                 // the last iteration's tiles are read
+      const long long q_off = ((long long)b * p.Sq + q0) * q_stride + (long long)h * HD;
+      load_rows<T, HD>(qs, q + q_off, q_stride, p.Sq - q0);
+      load_rows<T, HD>(os, dO + q_off, q_stride, p.Sq - q0);
+      if (threadIdx.x < kBwdRows) {
+        const bool ok = q0 + (int)threadIdx.x < p.Sq;
+        lse_s[threadIdx.x] = ok ? lse_h[q0 + threadIdx.x] * kLog2e : 0.f;
+        d_s[threadIdx.x] = ok ? d_h[q0 + threadIdx.x] : 0.f;
+      }
+      __syncthreads();
+
+      // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: keys ty + 16 r, queries tx + 16 c
+      float s[4][4], dp[4][4];
+      two_products<HD>(ks, qs, vs, os, ty, tx, s, dp);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = k0 + ty + 16 * r, qi = q0 + tx + 16 * c;
+          const bool ok = key < p.Sk && qi < p.Sq && !(p.causal && key > qi);
+          const float pr = ok ? exp2f(s[r][c] * p.scale_log2 - lse_s[tx + 16 * c]) : 0.f;
+          ps[(ty + 16 * r) * kPS + tx + 16 * c] = round_as(pr, v);
+          dss[(ty + 16 * r) * kPS + tx + 16 * c] = pr * (dp[r][c] - d_s[tx + 16 * c]);
+        }
+      __syncthreads();
+
+      // dV += Pᵀ dO, dK += dSᵀ Q over the block's 64 queries in order
+#pragma unroll 2
+      for (int j = 0; j < kBwdRows; ++j) {
+        float pr[4], dr[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pr[r] = ps[(ty + 16 * r) * kPS + j];
+          dr[r] = dss[(ty + 16 * r) * kPS + j];
+        }
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          const float ov = os[j * kS + tx + 16 * c], qv = qs[j * kS + tx + 16 * c];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            acc_v[r][c] = fmaf(pr[r], ov, acc_v[r][c]);
+            acc_k[r][c] = fmaf(dr[r], qv, acc_k[r][c]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int key = k0 + ty + 16 * r;
+    if (key >= p.Sk) continue;
+    const long long off = ((long long)b * p.Sk + key) * kv_stride + (long long)kvh * HD;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      narrow(dk + off + tx + 16 * c, acc_k[r][c] * p.scale);
+      narrow(dv + off + tx + 16 * c, acc_v[r][c]);
+    }
+  }
+}
+
+// dQ of one block of 64 rows of one (batch, head)
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dO,
+                        const float* __restrict__ lse, const float* __restrict__ dsum,
+                        T* __restrict__ dq, const BwdParams p) {
+  using C = Bwd<HD>;
+  constexpr int kS = C::kS, kC = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* os = qs + C::kTile;           // dO
+  float* ks = os + C::kTile;
+  float* vs = ks + C::kTile;
+  float* dss = vs + C::kTile;          // [query][key]: dS
+  float* lse_s = dss + kBwdRows * kPS; // base 2
+  float* d_s = lse_s + kBwdRows;
+
+  const int q0 = blockIdx.x * kBwdRows;
+  const int b = blockIdx.y / p.H, h = blockIdx.y - b * p.H;
+  const int kvh = h / (p.H / p.KV);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long long kv_stride = (long long)p.KV * HD, q_stride = (long long)p.H * HD;
+  const long long q_off = ((long long)b * p.Sq + q0) * q_stride + (long long)h * HD;
+  load_rows<T, HD>(qs, q + q_off, q_stride, p.Sq - q0);
+  load_rows<T, HD>(os, dO + q_off, q_stride, p.Sq - q0);
+  if (threadIdx.x < kBwdRows) {
+    const bool ok = q0 + (int)threadIdx.x < p.Sq;
+    const long long at = ((long long)b * p.H + h) * p.Sq + q0 + threadIdx.x;
+    lse_s[threadIdx.x] = ok ? lse[at] * kLog2e : 0.f;
+    d_s[threadIdx.x] = ok ? dsum[at] : 0.f;
+  }
+
+  float acc[4][kC];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc[r][c] = 0.f;
+
+  int n_tiles = (p.Sk + kBwdRows - 1) / kBwdRows;
+  if (p.causal) n_tiles = min(n_tiles, (min(q0 + kBwdRows, p.Sq) - 1) / kBwdRows + 1);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kBwdRows;
+    __syncthreads();                   // the last tile's K and dS are read
+    const long long kv_off = ((long long)b * p.Sk + k0) * kv_stride + (long long)kvh * HD;
+    load_rows<T, HD>(ks, k + kv_off, kv_stride, p.Sk - k0);
+    load_rows<T, HD>(vs, v + kv_off, kv_stride, p.Sk - k0);
+    __syncthreads();
+
+    // S = Q Kᵀ and dP = dO Vᵀ: rows ty + 16 r, keys tx + 16 c
+    float s[4][4], dp[4][4];
+    two_products<HD>(qs, ks, os, vs, ty, tx, s, dp);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qi = q0 + ty + 16 * r, key = k0 + tx + 16 * c;
+        const bool ok = key < p.Sk && qi < p.Sq && !(p.causal && key > qi);
+        const float pr = ok ? exp2f(s[r][c] * p.scale_log2 - lse_s[ty + 16 * r]) : 0.f;
+        dss[(ty + 16 * r) * kPS + tx + 16 * c] = pr * (dp[r][c] - d_s[ty + 16 * r]);
+      }
+    __syncthreads();
+
+    // dQ += dS K over the tile's 64 keys in order
+#pragma unroll 2
+    for (int kk = 0; kk < kBwdRows; ++kk) {
+      float dr[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dr[r] = dss[(ty + 16 * r) * kPS + kk];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const float kv = ks[kk * kS + tx + 16 * c];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][c] = fmaf(dr[r], kv, acc[r][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qi = q0 + ty + 16 * r;
+    if (qi >= p.Sq) continue;
+    const long long off = ((long long)b * p.Sq + qi) * q_stride + (long long)h * HD;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) narrow(dq + off + tx + 16 * c, acc[r][c] * p.scale);
+  }
+}
+
+template <typename T, int HD>
+int launch_bwd(const T* q, const T* k, const T* v, const T* o, const T* dO, const float* lse,
+               T* dq, T* dk, T* dv, float* dsum, const BwdParams& p, cudaStream_t stream) {
+  const long long rows = (long long)p.B * p.Sq * p.H;
+  const int per_block = kBwdThreads / 32;
+  flash_bwd_dot_kernel<T><<<(unsigned)((rows + per_block - 1) / per_block), kBwdThreads, 0,
+                            stream>>>(o, dO, dsum, p.B, p.Sq, p.H, HD);
+  const int smem = Bwd<HD>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid_q((p.Sq + kBwdRows - 1) / kBwdRows, p.B * p.H);
+  flash_bwd_dq_kernel<T, HD><<<grid_q, kBwdThreads, smem, stream>>>(q, k, v, dO, lse, dsum, dq,
+                                                                      p);
+  const dim3 grid_k((p.Sk + kBwdRows - 1) / kBwdRows, p.B * p.KV);
+  flash_bwd_dkdv_kernel<T, HD><<<grid_k, kBwdThreads, smem, stream>>>(q, k, v, dO, lse, dsum,
+                                                                        dk, dv, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd_entry(const void* q, const void* k, const void* v, const void* o, const void* dO,
+              const void* lse, void* dq, void* dk, void* dv, void* dsum, int B, int Sq, int Sk,
+              int H, int KV, int hd, int causal, float scale, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H < KV || H % KV != 0 || B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const BwdParams p{B, Sq, Sk, H, KV, causal, scale, scale * kLog2e};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
+          *tv = static_cast<const T*>(v), *to = static_cast<const T*>(o),
+          *tdo = static_cast<const T*>(dO);
+  const float* tl = static_cast<const float*>(lse);
+  T *gq = static_cast<T*>(dq), *gk = static_cast<T*>(dk), *gv = static_cast<T*>(dv);
+  float* ds = static_cast<float*>(dsum);
+  switch (hd) {
+    case 16: return launch_bwd<T, 16>(tq, tk, tv, to, tdo, tl, gq, gk, gv, ds, p, s);
+    case 32: return launch_bwd<T, 32>(tq, tk, tv, to, tdo, tl, gq, gk, gv, ds, p, s);
+    case 64: return launch_bwd<T, 64>(tq, tk, tv, to, tdo, tl, gq, gk, gv, ds, p, s);
+    case 128: return launch_bwd<T, 128>(tq, tk, tv, to, tdo, tl, gq, gk, gv, ds, p, s);
+    case 160: return launch_bwd<T, 160>(tq, tk, tv, to, tdo, tl, gq, gk, gv, ds, p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -610,17 +973,19 @@ extern "C" {
 // q (B, Sq, H, hd), k/v (B, Sk, KV, hd), o (B, Sq, H, hd), all bf16, with
 // (batch, seq, head) strides in elements (head axis contiguous, strides
 // multiples of 8, q/k/v 16-byte aligned: TMA's conditions).  hd is 16, 32,
-// 64, 128 or 160; H % KV == 0.
+// 64, 128 or 160; H % KV == 0.  `lse`: null, or an fp32 (B, H, Sq) buffer
+// that receives each row's log-sum-exp of the scaled scores (the
+// backward's input); o is the same bits either way.
 int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                        int Sk, int H, int KV, int hd, int causal, long long q_sb,
                        long long q_ss, long long q_sh, long long k_sb, long long k_ss,
                        long long k_sh, long long v_sb, long long v_ss, long long v_sh,
                        long long o_sb, long long o_ss, long long o_sh, float scale,
-                       void* stream) {
+                       void* lse, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H < KV || H % KV != 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  const Params p{static_cast<bf16*>(o), B, Sq, Sk, H, KV, causal, o_sb, o_ss, o_sh,
-                 scale * kLog2e};
+  const Params p{static_cast<bf16*>(o), static_cast<float*>(lse), B, Sq, Sk, H, KV, causal,
+                 o_sb, o_ss, o_sh, scale * kLog2e};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return launch<16>(q, k, v, p, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, s);
@@ -638,12 +1003,12 @@ int rt_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                            long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                            long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                            long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-                           float scale, void* stream) {
+                           float scale, void* lse, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H < KV || H % KV != 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const ParamsF p{static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<float*>(o),
-                  B, Sq, Sk, H, KV, causal,
+                  static_cast<float*>(lse), B, Sq, Sk, H, KV, causal,
                   q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                   scale * kLog2e};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -655,6 +1020,27 @@ int rt_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
     case 160: return launch_f32<160>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The backward of either instance: q, o, dO, dq (B, Sq, H, hd), k, v, dk,
+// dv (B, Sk, KV, hd), all contiguous, bf16 (rt_flash_attention_bwd) or
+// fp32 (rt_flash_attention_bwd_f32); lse (B, H, Sq) fp32 as the forward
+// wrote it; dsum an fp32 (B, H, Sq) scratch (D).  Three device kernels on
+// the caller's stream; allocates nothing.
+int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                           const void* dO, const void* lse, void* dq, void* dk, void* dv,
+                           void* dsum, int B, int Sq, int Sk, int H, int KV, int hd, int causal,
+                           float scale, void* stream) {
+  return bwd_entry<bf16>(q, k, v, o, dO, lse, dq, dk, dv, dsum, B, Sq, Sk, H, KV, hd, causal,
+                         scale, stream);
+}
+
+int rt_flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                               const void* dO, const void* lse, void* dq, void* dk, void* dv,
+                               void* dsum, int B, int Sq, int Sk, int H, int KV, int hd,
+                               int causal, float scale, void* stream) {
+  return bwd_entry<float>(q, k, v, o, dO, lse, dq, dk, dv, dsum, B, Sq, Sk, H, KV, hd, causal,
+                          scale, stream);
 }
 
 }  // extern "C"

@@ -11,7 +11,9 @@ just after with :func:`launch_counts`.  The counts, one per wrapper:
 ``ops`` module is imported.  A wrapper with more than one kernel behind
 it also counts each launch under ``<wrapper>/<route>``:
 ``flash_attention/wgmma`` (bf16) and ``flash_attention/tf32x3`` (fp32,
-split TF32 on mma.sync);
+split TF32 on mma.sync), and the backward kernel's launches under
+``flash_attention/bwd`` and ``flash_attention/bwd_bf16`` or
+``flash_attention/bwd_f32``;
 ``dequant_gemm/wgmma`` (the warp-specialised bf16 kernel),
 ``dequant_gemm/tile`` (bf16 calls outside the wgmma kernel's rule) and
 ``dequant_gemm/tf32x3`` (fp32, split TF32 on mma.sync;
@@ -33,9 +35,16 @@ disaggregated fleets of ``serving/disagg.py``) count into it from two
 threads.  A :func:`launches_of` in one thread collects that thread's
 launches apart from the registry, so another thread's launches meanwhile
 are counted, never taken into the delta nor lost.
+
+Only flash attention has a backward kernel.  Every other wrapper calls
+:func:`refuse_grad` before it launches on the card, so a CUDA input that
+requires grad under grad mode raises instead of leaving the kernel's
+output silently detached from the graph.
 """
 import threading
 from typing import Callable, Dict, Tuple
+
+import torch
 
 _LAUNCHES: Dict[str, int] = {}
 _LOCK = threading.Lock()
@@ -90,3 +99,20 @@ def count_launches(delta: Dict[str, int]) -> None:
     """Add a recorded delta (:func:`launches_of`) to the counts."""
     for name, n in delta.items():
         count_launch(name, n)
+
+
+def refuse_grad(name: str, *inputs) -> None:
+    """Raise if grad mode is on and any of ``inputs`` (tensors, or packed
+    weights holding tensors) requires grad: the kernel ``name`` has no
+    backward, and its output would carry no gradient."""
+    if not torch.is_grad_enabled():
+        return
+    for t in inputs:
+        parts = (t,) if isinstance(t, torch.Tensor) else (
+            getattr(t, "codes", None), getattr(t, "scales", None))
+        if any(isinstance(x, torch.Tensor) and x.requires_grad
+               for x in parts):
+            raise RuntimeError(
+                f"{name}: the kernel has no backward, and an input requires "
+                f"grad; run it under torch.no_grad(), or train through a "
+                f"path with a backward (ROADMAP 11.4)")

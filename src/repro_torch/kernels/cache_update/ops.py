@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import count_launch, register_kernels
+from repro_torch.kernels import count_launch, refuse_grad, register_kernels
 from repro_torch.kernels.cache_update import kernel as K
 from repro_torch.kernels.cache_update.ref import ref_cache_row_update
 
@@ -27,6 +27,7 @@ def cache_row_update(cache: torch.Tensor, row: torch.Tensor,
     if cache.device.type != "cuda":
         raise ValueError(f"cache_row_update: unsupported device "
                          f"{cache.device}")
+    refuse_grad("cache_row_update", cache, row)
     out = K.launch_cache_row_update(cache, row, index)
     count_launch("cache_row_update")
     return out

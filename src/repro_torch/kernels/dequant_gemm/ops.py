@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quantize import QTensor
-from repro_torch.kernels import count_launch, register_kernels
+from repro_torch.kernels import count_launch, refuse_grad, register_kernels
 from repro_torch.kernels.dequant_gemm import kernel as K
 from repro_torch.kernels.dequant_gemm.ref import (EXPERT_SPECS,
                                                   MODEL_SPECS,
@@ -56,6 +56,7 @@ def dequant_gemm(x: torch.Tensor, qt: QTensor,
     squared_relu) in fp32."""
     if not _on_card(x, "dequant_gemm"):
         return ref_dequant_gemm(x, qt, bias, act)
+    refuse_grad("dequant_gemm", x, qt, bias)
     lead = x.shape[:-1]
     b = None if bias is None else bias.to(torch.float32)   # exact widening
     y, kernel = K.launch_dequant_gemm(x.reshape(-1, x.shape[-1]), qt, b, act)
@@ -76,6 +77,7 @@ def quant_einsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
                          f"expert contractions: {EXPERT_SPECS})")
     if not _on_card(x, "quant_einsum"):
         return ref_quant_einsum(spec, x, w)
+    refuse_grad("dequant_gemm", x, w)
     if spec in EXPERT_SPECS:
         G, E, C, Kd = x.shape
         # expert-major rows: each expert's G groups of C rows contiguous

@@ -4,7 +4,10 @@ same function as its off-TPU ``dense_attention``).
 
 The wrapper in ``ops.py`` runs it for CPU tensors; the tests hold it
 against the reference package, and the card's checks hold the kernel
-against it.  ``split_tf32`` and ``emulate_flash_f32`` repeat the
+against it.  ``ref_attention_lse`` adds the rows' log-sum-exp the
+kernel's forward saves, and ``ref_attention_backward`` is the plain
+version of the backward kernel: the gradient as its explicit formula,
+from those saved rows.  ``split_tf32`` and ``emulate_flash_f32`` repeat the
 arithmetic of the kernel's fp32 route (split TF32 products, tiles of 64
 keys, an online softmax), for the tests to hold it against the
 reference.
@@ -16,6 +19,32 @@ import torch
 NEG_INF = -1e30
 
 
+def _keep(Sq: int, Sk: int, device) -> torch.Tensor:
+    """(Sq, Sk) bool: causal keeps key j <= query i, both from 0."""
+    return (torch.arange(Sq, device=device)[:, None]
+            >= torch.arange(Sk, device=device)[None, :])
+
+
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The arithmetic's dtype: fp32, or float64 for float64 inputs (the
+    yardstick the card's checks hold both versions against)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, causal: bool) -> torch.Tensor:
+    """(B,KV,G,Sq,Sk) fp32 scores q.k * hd^-1/2, masked to NEG_INF."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    qg = q.reshape(B, Sq, KV, H // KV, hd).to(_acc(q))
+    s = torch.einsum("bikgh,bjkh->bkgij", qg,
+                     k.to(_acc(q))) * (hd ** -0.5)
+    if causal:
+        s = torch.where(_keep(Sq, Sk, q.device)[None, None, None], s,
+                        torch.full((), NEG_INF, dtype=s.dtype,
+                                   device=s.device))
+    return s
+
+
 def ref_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """q (B,Sq,H,hd); k, v (B,Sk,KV,hd), H = KV*G -> (B,Sq,H,hd).
 
@@ -24,21 +53,48 @@ def ref_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     softmax in fp32; probabilities rounded to v's dtype before P.V, which
     accumulates in fp32; the output rounds to q's dtype."""
     B, Sq, H, hd = q.shape
-    _, Sk, KV, _ = k.shape
-    G = H // KV
-    qg = q.reshape(B, Sq, KV, G, hd).to(torch.float32)
-    s = torch.einsum("bikgh,bjkh->bkgij", qg,
-                     k.to(torch.float32)) * (hd ** -0.5)
-    if causal:
-        mask = (torch.arange(Sq, device=q.device)[:, None]
-                >= torch.arange(Sk, device=q.device)[None, :])
-        s = torch.where(mask[None, None, None], s,
-                        torch.full((), NEG_INF, dtype=s.dtype,
-                                   device=s.device))
+    s = _scores(q, k, causal)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgij,bjkh->bikgh", p.to(v.dtype).to(torch.float32),
                      v.to(torch.float32))
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def ref_attention_lse(q, k, v, *, causal: bool = True):
+    """(``ref_attention``, lse (B,H,Sq) fp32): each row's log-sum-exp of
+    its scaled, masked scores, as the kernel's forward saves it."""
+    B, Sq, H, _ = q.shape
+    lse = torch.logsumexp(_scores(q, k, causal), dim=-1)
+    return ref_attention(q, k, v, causal=causal), lse.reshape(B, H, Sq)
+
+
+def ref_attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
+    """The plain backward kernel: (dq, dk, dv) in the inputs' dtypes from
+    q (B,Sq,H,hd), k, v (B,Sk,KV,hd), the forward's o and lse (B,H,Sq),
+    and do (B,Sq,H,hd), all in fp32 arithmetic.  P = exp(s - lse) from
+    ``ref_attention``'s scores (masked entries -1e30, so P is 0 there);
+    dV = Pᵀ dO with P rounded to v's dtype (the forward's rounding before
+    P.V); dP = dO Vᵀ; D = rowsum(dO * O); dS = P (dP - D); dQ = dS K
+    hd^-1/2 and dK = dSᵀ Q hd^-1/2; dK and dV summed over each kv head's
+    G query heads.  float64 inputs run in float64 throughout."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    f32 = _acc(q)
+    s = _scores(q, k, causal)                                # (B,KV,G,i,j)
+    p = torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None])
+    dog = do.reshape(B, Sq, KV, G, hd).to(f32)
+    og = o.reshape(B, Sq, KV, G, hd).to(f32)
+    dv = torch.einsum("bkgij,bikgh->bjkh", p.to(v.dtype).to(f32), dog)
+    dp = torch.einsum("bikgh,bjkh->bkgij", dog, v.to(f32))
+    dsum = (dog * og).sum(-1).permute(0, 2, 3, 1)            # (B,KV,G,i)
+    ds = p * (dp - dsum[..., None])
+    scale = hd ** -0.5
+    dq = torch.einsum("bkgij,bjkh->bikgh", ds, k.to(f32)) * scale
+    dk = torch.einsum("bkgij,bikgh->bjkh", ds,
+                      q.reshape(B, Sq, KV, G, hd).to(f32)) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 KEYS_A_TILE = 64      # the fp32 route's K/V tile (kKeysF)

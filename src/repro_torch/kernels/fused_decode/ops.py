@@ -37,7 +37,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quantize import QTensor, dequantize, dequantize_tree
-from repro_torch.kernels import count_launch, register_kernels
+from repro_torch.kernels import count_launch, refuse_grad, register_kernels
 from repro_torch.kernels.fused_decode import kernel as K
 from repro_torch.kernels.fused_decode.ref import (block_and_offset,
                                                   composed_cohort_step,
@@ -65,6 +65,7 @@ def fused_qkv(h, wq, wk, wv, bq=None, bk=None, bv=None):
     """h (bc,1,D) -> (q, k, v); weights dense or packed QTensors."""
     if _on_cpu(h):
         return ref_fused_qkv(h, wq, wk, wv, bq, bk, bv)
+    refuse_grad("fused_qkv", h, wq, wk, wv, bq, bk, bv)
     outs, calls, kernels = K.launch_fused_qkv(h, wq, wk, wv, bq, bk, bv)
     count_launch("fused_qkv", calls)
     count_launch("fused_qkv/gemv", kernels)
@@ -76,6 +77,7 @@ def fused_mlp(h, w_up, w_down, w_gate=None, *, act: str):
     ``act`` is the config's name (swiglu, geglu, gelu, squared_relu)."""
     if _on_cpu(h):
         return ref_fused_mlp(h, w_up, w_down, w_gate, act=act)
+    refuse_grad("fused_mlp", h, w_up, w_down, w_gate)
     gated = w_gate is not None
     out, n = K.launch_fused_mlp(h, w_up, w_down, w_gate,
                                 GATED[act] if gated else act, gated)
@@ -94,6 +96,7 @@ def fused_mlp_experts(h, w_up, w_down, w_gate, idx, gates, valid, *,
     if _on_cpu(h):
         return ref_fused_mlp_experts(h, w_up, w_down, w_gate, idx, gates,
                                      valid, act=act)
+    refuse_grad("fused_mlp/experts", h, w_up, w_down, w_gate, gates)
     gated = w_gate is not None
     out, n = K.launch_fused_mlp_experts(h, w_up, w_down, w_gate, idx, gates,
                                         valid,
@@ -108,6 +111,7 @@ def kv_scatter(blk, off, k_rows, v_rows, k_pool, v_pool):
     pools."""
     if _on_cpu(k_pool):
         return ref_kv_scatter(blk, off, k_rows, v_rows, k_pool, v_pool)
+    refuse_grad("kv_scatter", k_rows, v_rows, k_pool, v_pool)
     out = K.launch_kv_row_scatter(blk, off, k_rows, v_rows, k_pool, v_pool)
     count_launch("kv_scatter")
     return out

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import count_launch, register_kernels
+from repro_torch.kernels import count_launch, refuse_grad, register_kernels
 from repro_torch.kernels.linear_attention import kernel as K
 from repro_torch.kernels.linear_attention.ref import \
     ref_linear_attention_chunked
@@ -36,6 +36,7 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                             valid_len=valid_len)
     if q.device.type != "cuda":
         raise ValueError(f"linear_attention: unsupported device {q.device}")
+    refuse_grad("linear_attention", q, k, v)
     out = K.launch_linear_attention(q, k, v, chunk=chunk,
                                     valid_len=valid_len)
     count_launch("linear_attention")

@@ -15,7 +15,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import count_launch, register_kernels
+from repro_torch.kernels import count_launch, refuse_grad, register_kernels
 from repro_torch.kernels.ssd import kernel as K
 from repro_torch.kernels.ssd.ref import ref_ssd_chunked
 
@@ -30,6 +30,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ref_ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: unsupported device {x.device}")
+    refuse_grad("ssd", x, dt, A, Bm, Cm)
     out = K.launch_ssd(x, dt, A, Bm, Cm, chunk=chunk)
     count_launch("ssd")
     count_launch(f"ssd/{K.route(x.dtype)}")

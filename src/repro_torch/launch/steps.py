@@ -1,6 +1,8 @@
-"""Step builders: the prefill and serve steps of every family, and the
-concrete initializers behind them.
+"""The step functions: the train step of the trainable families, the
+prefill and serve steps of every family, and the concrete initializers
+behind them.
 
+* ``build_train_step(cfg, opt_cfg)``  -> f(params, opt, batch) -> (params, opt, metrics)
 * ``build_prefill_step(cfg, max_len)`` -> f(params, batch) -> (logits, cache)
 * ``build_serve_step(cfg)``            -> f(params, tokens, cache) -> (logits, cache)
 * ``init_params(cfg, ...)``, ``init_cache(cfg, batch, max_len, device=)``
@@ -15,13 +17,50 @@ the params and inputs given.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import model as M
 from repro_torch.models.model import init_params
+from repro_torch.training.optimizer import OptConfig, adamw_update
+from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
 
-__all__ = ["build_prefill_step", "build_serve_step", "init_params",
-           "init_cache"]
+__all__ = ["build_train_step", "build_prefill_step", "build_serve_step",
+           "init_params", "init_cache", "loss_and_grads"]
+
+
+def loss_and_grads(params, cfg: ModelConfig, batch):
+    """(loss, parts, grads): ``lm_loss`` and the gradient of the loss with
+    respect to every leaf of ``params`` (a tree of the same structure, each
+    leaf in its param's dtype).  The params are not modified; the leaves
+    are differentiated through detached aliases of them."""
+    M.check_trainable(cfg)
+    leaves = {path: p.detach().requires_grad_(True)
+              for path, p in tree_leaves_with_path(params)}
+    live = tree_map_with_path(lambda path, _: leaves[path], params)
+    with torch.enable_grad():
+        loss, parts = M.lm_loss(live, cfg, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    by_path = dict(zip(leaves, grads))
+    return (loss.detach(), {k: v.detach() for k, v in parts.items()},
+            tree_map_with_path(lambda path, _: by_path[path], params))
+
+
+def build_train_step(cfg: ModelConfig, opt_cfg: OptConfig):
+    """One AdamW step on ``lm_loss``: f(params, opt_state, batch) ->
+    (new params, new opt state, metrics {"loss", "nll", "z_loss",
+    "aux_loss", "grad_norm", "lr"}, fp32 scalar tensors).  Raises at build
+    for the families the port does not train (``model.check_trainable``)."""
+    M.check_trainable(cfg)
+
+    def train_step(params, opt_state, batch):
+        loss, parts, grads = loss_and_grads(params, cfg, batch)
+        params, opt_state, om = adamw_update(params, grads, opt_state,
+                                             opt_cfg)
+        return params, opt_state, {"loss": loss, **parts, **om}
+
+    return train_step
 
 
 def build_prefill_step(cfg: ModelConfig, max_len: int):

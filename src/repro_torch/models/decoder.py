@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quantize import QTensor, dequantize, quantize_tree
 from repro_torch.models import attention as attn
@@ -217,8 +218,14 @@ def stack_forward(params_layers, cfg, x, rope_fn, *, causal=True,
     sublayer of every group (softmax caches keep the pad positions, which
     decode's length mask never reads), and the pads take no part in any
     MoE sublayer's routing.  ``aux`` is 0.0: the MoE's load-balance loss
-    is a training term, and training is not ported."""
+    is a training term, and the port trains only the dense softmax-
+    attention families (``model.check_trainable``).  With ``cfg.remat``
+    and grad enabled, and no caches asked for, each group runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward, the reference's ``jax.checkpoint`` of the
+    scan body."""
     check_supported(cfg)
+    remat = cfg.remat and torch.is_grad_enabled() and not want_cache
     mixers = [mixer_of(cfg, pos) for pos in range(group_size(cfg))]
     valid = None
     if valid_len is not None and cfg.moe is not None:
@@ -226,7 +233,8 @@ def stack_forward(params_layers, cfg, x, rope_fn, *, causal=True,
                  < valid_len.to(x.device)[:, None])
     c0 = [[] for _ in mixers]
     c1 = [[] for _ in mixers]
-    for g in range(n_groups(cfg)):
+
+    def run_group(x, g):
         group = layer_slice(params_layers, g)
         for pos, mixer in enumerate(mixers):
             sub = dequantize_small(group[pos])
@@ -237,6 +245,13 @@ def stack_forward(params_layers, cfg, x, rope_fn, *, causal=True,
                 c0[pos].append(a)
                 c1[pos].append(b)
             del sub, a, b
+        return x
+
+    for g in range(n_groups(cfg)):
+        if remat:
+            x = checkpoint(run_group, x, g, use_reentrant=False)
+        else:
+            x = run_group(x, g)
     caches = (tuple((torch.stack(a), torch.stack(b)) for a, b in zip(c0, c1))
               if want_cache else None)
     return x, caches, 0.0

@@ -1,5 +1,7 @@
-"""Top-level language-model API: init / prefill / decode (decoder-only
-dense, MoE, VLM and SSM families; softmax or linear attention).  The cache's
+"""Top-level language-model API: init / forward / loss / prefill / decode
+(decoder-only dense, MoE, VLM and SSM families; softmax or linear
+attention; the loss trains the dense and VLM softmax-attention families,
+``check_trainable``).  The cache's
 ``layers`` are the decoder's: ``((k, v),)`` for softmax attention,
 ``((state, z),)`` for linear attention, ``((conv_tail, ssd_state),)``
 for Mamba-2."""
@@ -9,6 +11,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantize import QTensor, dequantize, quantize_tree
@@ -124,6 +127,122 @@ def _head(params, cfg, x):
     return logits + _vocab_bias(cfg, x.device)[None, None, :]
 
 
+# ---------------------------------------------------------------------------
+# forward / loss
+# ---------------------------------------------------------------------------
+
+Z_LOSS = 1e-4
+AUX_LOSS = 1e-2
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """The port trains the dense and VLM softmax-attention decoders only.
+    The other families raise: their losses would miss a term (the MoE's
+    load-balance aux) or run a kernel with no backward (SSD, linear
+    attention); ROADMAP 11.4 queues each."""
+    why = None
+    if cfg.encdec:
+        why = "the encoder-decoder's loss (encdec_loss, ROADMAP 11.4e)"
+    elif cfg.hybrid_group:
+        why = "hybrid groups (ROADMAP 11.4d)"
+    elif cfg.moe is not None:
+        why = ("the mixture of experts' aux loss and routing gradients "
+               "(ROADMAP 11.4a)")
+    elif cfg.family == "ssm":
+        why = "Mamba-2 with an SSD backward kernel (ROADMAP 11.4b)"
+    elif cfg.attn_impl != "softmax":
+        why = "linear attention's backward (ROADMAP 11.4c)"
+    if why is not None:
+        raise NotImplementedError(f"{cfg.name}: training is not ported for "
+                                  f"{why}")
+
+
+def _rope_for(cfg, batch: int, seq: int, device, mrope_positions=None):
+    """A full sequence's rotary map: ``mrope_positions`` (3, B, S) where
+    given, else ``prompt_rope_fn``'s."""
+    if mrope_positions is None:
+        return prompt_rope_fn(cfg, batch, seq, device)
+    return make_rope_fn(cfg, default_positions(batch, seq, device),
+                        mrope_positions)
+
+
+def lm_forward(params, cfg: ModelConfig, tokens, *, vision_feats=None,
+               mrope_positions=None):
+    """Full-sequence logits (B, S, V) fp32 (the serving head) and aux."""
+    B, S = tokens.shape
+    rope_fn = _rope_for(cfg, B, S, tokens.device, mrope_positions)
+    x = _embed(params, cfg, tokens, vision_feats)
+    x, _, aux = dec.stack_forward(params["layers"], cfg, x, rope_fn,
+                                  causal=True)
+    return _head(params, cfg, x), aux
+
+
+def head_loss_chunked(params, cfg: ModelConfig, x, labels, mask,
+                      chunk: int = 1024):
+    """Cross-entropy over the vocab without materializing (B, S, V)
+    logits: the final norm, head product, log-sum-exp and true logit a
+    chunk of ``chunk`` positions at a time, each chunk under
+    ``torch.utils.checkpoint`` (its logits are recomputed in the
+    backward).  As the reference: the logits are computed in the param
+    dtype and cast to fp32, then the padded-vocab bias.  x (B,S,D);
+    labels (B,S) int; mask (B,S) {0,1}.  Returns (nll_sum, z_sum, n),
+    each summed over the chunks in order."""
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"head_loss_chunked: chunk {chunk} does not "
+                         f"divide {S}")
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    bias = _vocab_bias(cfg, x.device)
+    maskf = mask.to(torch.float32)
+
+    def body(xi, li, mi):
+        xi = apply_norm(params["final_norm"], xi)
+        logits = torch.matmul(xi, w).to(torch.float32) + bias
+        lse = torch.logsumexp(logits, dim=-1)
+        true = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        return (torch.sum((lse - true) * mi),
+                torch.sum(torch.square(lse) * mi))
+
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, chunk):
+        args = (x[:, i:i + chunk], labels[:, i:i + chunk],
+                maskf[:, i:i + chunk])
+        nll, z = (checkpoint(body, *args, use_reentrant=False)
+                  if torch.is_grad_enabled() else body(*args))
+        nll_sum = nll_sum + nll
+        z_sum = z_sum + z
+    return nll_sum, z_sum, torch.sum(maskf)
+
+
+def lm_loss(params, cfg: ModelConfig, batch):
+    """Next-token cross-entropy + Z_LOSS z-loss + AUX_LOSS aux.  ``batch``:
+    ``tokens`` (B,S) and optionally ``loss_mask`` (B,S), ``vision_feats``
+    and ``mrope_positions``.  The label of position i is token i + 1; the
+    last position takes no loss.  Returns (loss, {"nll", "z_loss",
+    "aux_loss"})."""
+    check_trainable(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    dev = tokens.device
+    rope_fn = _rope_for(cfg, B, S, dev, batch.get("mrope_positions"))
+    x = _embed(params, cfg, tokens, batch.get("vision_feats"))
+    x, _, aux = dec.stack_forward(params["layers"], cfg, x, rope_fn,
+                                  causal=True)
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = ((torch.arange(S, device=dev) < S - 1)[None, :].to(torch.int32)
+            * torch.ones((B, 1), dtype=torch.int32, device=dev))
+    if "loss_mask" in batch:
+        mask = mask * batch["loss_mask"].to(torch.int32)
+    nll_sum, z_sum, n = head_loss_chunked(params, cfg, x, labels, mask)
+    nll = nll_sum / torch.clamp(n, min=1.0)
+    z = z_sum / torch.clamp(n, min=1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=dev)
+    loss = nll + Z_LOSS * z + AUX_LOSS * aux
+    return loss, {"nll": nll, "z_loss": z, "aux_loss": aux}
+
+
 def lm_prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
                vision_feats=None, mrope_positions=None, valid_len=None):
     """Run the prompt; caches padded to ``max_len``.  Returns
@@ -132,10 +251,7 @@ def lm_prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
     passes it: an MoE routes in masked groups (``moe.apply_moe(valid=)``),
     as the engine's prefill does; None: the reference's routing."""
     B, S = tokens.shape
-    rope_fn = (prompt_rope_fn(cfg, B, S, tokens.device)
-               if mrope_positions is None else
-               make_rope_fn(cfg, default_positions(B, S, tokens.device),
-                            mrope_positions))
+    rope_fn = _rope_for(cfg, B, S, tokens.device, mrope_positions)
     x = _embed(params, cfg, tokens, vision_feats)
     x, caches, _ = dec.stack_forward(params["layers"], cfg, x, rope_fn,
                                      causal=True, want_cache=True,

@@ -7,7 +7,7 @@ plain values — the same shapes as the reference's JAX pytrees, so paths
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 
 def key_path(*keys) -> str:
@@ -47,3 +47,17 @@ def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, (tuple, list)):
         return [l for v in tree for l in tree_leaves(v)]
     return [tree]
+
+
+def tree_leaves_with_path(tree, path: str = "") -> List[Tuple[str, Any]]:
+    """[(path, leaf)] in the tree's own order (dicts by insertion; the
+    reference's pytrees sort dict keys, so match leaves on their paths,
+    never on positions).  Paths are :func:`key_path`'s, the strings the
+    reference's ``tree_flatten_with_path`` keys give."""
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items()
+                for pl in tree_leaves_with_path(v, key_path(path, k))]
+    if isinstance(tree, (tuple, list)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_leaves_with_path(v, key_path(path, i))]
+    return [(path, tree)]

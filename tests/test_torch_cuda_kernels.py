@@ -2988,3 +2988,213 @@ def test_encdec_steps_on_card_match_cpu(cuda):
     for got, want in zip(out["cuda"], out["cpu"]):
         m = want.abs().max().item()
         assert (got - want).abs().max().item() <= 5e-2 * m
+
+
+# -- the flash backward (training) --------------------------------------------
+
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _bwd_close(got, want, dtype, causal_dq=False):
+    """Each dq / dk / dv row within BWD_TOL of that row's largest plain
+    magnitude.  With ``causal_dq`` the first gradient is a causal dq,
+    whose row 0 is 0 in exact arithmetic (its one key's dS = P (dP - D)
+    with dP = D): that row is held against the gradient's largest."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert g.isfinite().all()
+        err = (g.float() - w.float()).abs().amax(-1)
+        row = w.float().abs().amax(-1)
+        den = row.clone()
+        if causal_dq and i == 0:
+            den[:, 0] = row.max()
+        ratio = err / den
+        assert ratio.nan_to_num(nan=0.0).max().item() <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal", [
+    (4, 2048, 2048, 14, 2, 64, True), (1, 1024, 1024, 28, 4, 128, True),
+    (1, 777, 777, 14, 2, 64, True), (1, 300, 1000, 28, 4, 128, False),
+    (2, 128, 128, 4, 2, 32, False), (1, 128, 128, 32, 4, 16, True),
+    (1, 200, 77, 8, 2, 160, True), (1, 2, 2, 4, 1, 64, True)])
+def test_flash_backward_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KV,
+                                             hd, causal):
+    """The backward kernel against ``ref_attention_backward`` on the
+    forward kernel's own o and lse: rows within 2e-2 (bf16) or 1e-4
+    (fp32) of their largest (``_bwd_close``; the shortest causal case is
+    S = 2: at S = 1 dq and dk are 0 by cancellation, with no magnitude to
+    hold them against); two launches bit-equal; the forward's output
+    the same bits with and without the lse, and its lse within 1e-5 of
+    the plain version's (relative, fp32)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        ref_attention_backward, ref_attention_lse)
+    q, k, v = _qkv(cuda, B, Sq, Sk, H, KV, hd, dtype=dtype, seed=Sq + hd)
+    do = torch.randn(q.shape, device=cuda).to(dtype)
+    o, lse = FK.launch_flash_attention(q, k, v, causal=causal, want_lse=True)
+    assert torch.equal(o, FK.launch_flash_attention(q, k, v, causal=causal))
+    _, want_lse = ref_attention_lse(q, k, v, causal=causal)
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    assert ((lse - want_lse).abs() <= 1e-5 * want_lse.abs().clamp_min(1.0)
+            ).all()
+    got = FK.launch_flash_attention_backward(q, k, v, o, lse, do,
+                                             causal=causal)
+    again = FK.launch_flash_attention_backward(q, k, v, o, lse, do,
+                                               causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _bwd_close(got, ref_attention_backward(q, k, v, o, lse, do,
+                                           causal=causal), dtype,
+               causal_dq=causal)
+
+
+def _attention_f64(q, k, v, causal):
+    """Dense GQA attention in float64 throughout (differentiable)."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    qg = q.double().reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bikgh,bjkh->bkgij", qg, k.double()) * hd ** -0.5
+    if causal:
+        keep = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None])
+        s = s.masked_fill(~keep, -1e30)
+    o = torch.einsum("bkgij,bjkh->bikgh", torch.softmax(s, -1), v.double())
+    return o.reshape(B, Sq, H, hd)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_function_gradients_match_the_plain_route(cuda, dtype,
+                                                        causal):
+    """``flash_attention`` on CUDA tensors that require grad is the
+    autograd Function: one forward and one backward launch (counted
+    under their routes).  Its gradients against autograd of the plain
+    ``ref_attention`` (strided q/k/v views, slices of one projection):
+    fp32 rows of dq, dk and dv within 1e-4 (``_bwd_close``; a causal
+    dq's row 0, 0 in exact arithmetic, against its largest); in bf16
+    both against the
+    float64 gradient, the Function's error (max |err| over the largest
+    exact magnitude, each of dq, dk, dv) no worse than twice the plain
+    route's.  In bf16 the rows are not held against the plain route: the
+    kernel's D = rowsum(dO * O) takes the bf16 output, autograd's the
+    fp32 probabilities, and a row of few keys dominated by one (dq's is
+    then small by cancellation) shows the difference at several percent
+    of itself."""
+    B, S, H, KV, hd = 2, 300, 8, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn((B, S, H + 2 * KV, hd), generator=g,
+                      device=cuda).to(dtype).requires_grad_(True)
+
+    def split(t):
+        return t[:, :, :H], t[:, :, H:H + KV], t[:, :, H + KV:]
+    do = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dtype)
+    reset_launch_counts()
+    got = torch.autograd.grad(flash_attention(*split(qkv), causal=causal),
+                              qkv, do)[0]
+    torch.cuda.synchronize()
+    bwd = "bwd_bf16" if dtype == torch.bfloat16 else "bwd_f32"
+    fwd = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    counts = {n: c for n, c in launch_counts().items() if c}
+    assert counts == {"flash_attention": 1, f"flash_attention/{fwd}": 1,
+                      "flash_attention/bwd": 1, f"flash_attention/{bwd}": 1}
+    want = torch.autograd.grad(ref_attention(*split(qkv), causal=causal),
+                               qkv, do)[0]
+    if dtype == torch.float32:
+        _bwd_close(split(got), split(want), dtype, causal_dq=causal)
+        return
+    q64 = qkv.detach().double().requires_grad_(True)
+    exact = torch.autograd.grad(_attention_f64(*split(q64), causal), q64,
+                                do.double())[0]
+    for a, b, x in zip(split(got), split(want), split(exact)):
+        den = x.abs().max()
+        k_err = ((a.double() - x).abs().max() / den).item()
+        p_err = ((b.double() - x).abs().max() / den).item()
+        assert k_err <= 2 * p_err, (k_err, p_err)
+
+
+def test_flash_records_a_graph_only_under_grad(cuda, monkeypatch):
+    """Only a call that autograd records asks the forward kernel for its
+    lse; the output is the same bits either way."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    asked, inner = [], FK.launch_flash_attention
+
+    def spy(*a, want_lse=False, **kw):
+        asked.append(want_lse)
+        return inner(*a, want_lse=want_lse, **kw)
+    monkeypatch.setattr(FK, "launch_flash_attention", spy)
+    q, k, v = _qkv(cuda, 1, 64, 64, 4, 2, 64)
+    reset_launch_counts()
+    o = flash_attention(q, k, v)
+    assert o.grad_fn is None and launch_counts()["flash_attention"] == 1
+    q.requires_grad_(True)
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+    o_grad = flash_attention(q, k, v)
+    assert o_grad.grad_fn is not None and torch.equal(o_grad, o)
+    assert asked == [False, False, True]
+    assert launch_counts()["flash_attention"] == 3
+
+
+def test_kernels_without_backward_refuse_grad_on_card(cuda):
+    """The packed-weight GEMM, SSD, linear attention and the cache-row
+    update raise for a CUDA input that requires grad, and launch nothing;
+    under no_grad they run."""
+    x = torch.randn((1, 16, 128), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    w = quantize(torch.randn((128, 64), device=cuda, dtype=torch.bfloat16),
+                 QuantSpec(4, group_size=32))
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        quant_einsum("bsd,df->bsf", x, w)
+    qs = torch.randn((1, 64, 4, 32), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        linear_attention(qs, qs.detach()[:, :, :2], qs.detach()[:, :, :2],
+                         chunk=64)
+    xs = torch.randn((1, 64, 2, 16), device=cuda, dtype=torch.bfloat16,
+                     requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd(xs, torch.rand((1, 64, 2), device=cuda),
+            -torch.rand(2, device=cuda), torch.randn((1, 64, 1, 16),
+                                                     device=cuda).to(xs.dtype),
+            torch.randn((1, 64, 1, 16), device=cuda).to(xs.dtype), chunk=32)
+    cache = torch.zeros((2, 16, 2, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cache_row_update(cache, torch.ones((2, 2, 16), device=cuda,
+                                           requires_grad=True), 3)
+    assert not any(launch_counts().values())
+    with torch.no_grad():
+        quant_einsum("bsd,df->bsf", x, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_train_step_through_the_flash_kernels(cuda, dtype):
+    """Reduced llava (hd 16 -> 64 heads of the reduced width, remat on,
+    ``attn_q_chunk=0``): ``loss_and_grads`` on the card runs two flash
+    forwards and one backward a layer; every leaf's gradient against the
+    same weights through ``attn_q_chunk=512`` on the card (chunked plain
+    attention) within 2e-5 (fp32) or 5e-2 (bf16) of the leaf's largest,
+    as ``chip_smoke.py`` holds the full-size step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import multimodal_batch_iter
+    from repro_torch.launch import steps as TS
+    from repro_torch.training.train_loop import batch_to
+    from repro_torch.tree import tree_leaves_with_path
+    cfg = get_config("llava-onevision-0.5b").reduced(
+        dtype=dtype, attn_q_chunk=0, head_dim=64, remat=True)
+    params = TS.init_params(cfg, device=cuda, seed=0)
+    batch = batch_to(next(multimodal_batch_iter(cfg, 2, 256, seed=0)), cuda)
+    reset_launch_counts()
+    loss, _, g = TS.loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.n_layers
+    assert counts["flash_attention/bwd"] == cfg.n_layers
+    loss_p, _, gp = TS.loss_and_grads(
+        params, dataclasses.replace(cfg, attn_q_chunk=512), batch)
+    tol = 2e-5 if dtype == "float32" else 5e-2
+    assert float(loss) == pytest.approx(float(loss_p), rel=tol)
+    want = dict(tree_leaves_with_path(gp))
+    for path, t in tree_leaves_with_path(g):
+        w = want[path].float()
+        assert ((t.float() - w).abs().max() <= tol * w.abs().max()), path

@@ -134,3 +134,49 @@ def test_split_tf32_flash_emulation_matches_reference(shape, causal):
     assert _rel_err(_f32(got), pallas) < TOL["float32"]
     assert _rel_err(_f32(got), r_ref(q, k, v, causal=causal)) < \
         TOL["float32"]
+
+
+# -- the backward's plain version ---------------------------------------------
+# ``ref_attention_backward`` (the formula the backward kernel computes, from
+# the forward's o and lse) against ``jax.grad`` of the reference's
+# ``dense_attention`` (what the reference's training step differentiates
+# off the TPU), on the same numpy inputs and cotangent: fp32 within 1e-5 of
+# each gradient's largest magnitude (summation order, and D = rowsum(dO * O)
+# where autograd sums dP * P); bf16 within 3e-2 (the reference rounds the
+# cotangents of P, q and k to bf16 mid-way, the plain version keeps fp32 to
+# the end).  The lse against the reference's scores' logsumexp within 1e-6.
+
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 128, 128, 4, 2, 32), True), ((1, 96, 96, 8, 8, 64), False),
+    ((1, 64, 192, 6, 2, 16), False), ((1, 192, 64, 6, 3, 32), True),
+    ((1, 100, 100, 14, 2, 160), True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_backward_plain_matches_reference_grad(shape, causal,
+                                                         dtype):
+    from repro.models.attention import dense_attention
+    from repro_torch.kernels.flash_attention import (ref_attention_backward,
+                                                     ref_attention_lse)
+    B, Sq, Sk, H, KV, hd = shape
+    (q, k, v), (tq, tk, tv) = _inputs(B, Sq, Sk, H, KV, hd, dtype,
+                                      sum(shape) + causal)
+    rng = np.random.default_rng(sum(shape))
+    do = jnp.asarray(rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+                     .astype(jnp.dtype(dtype)))
+    tdo = bridge.array_to_tensor(np.asarray(do), device="cpu")
+    _, vjp = jax.vjp(lambda a, b, c: dense_attention(a, b, c, causal=causal),
+                     q, k, v)
+    want = vjp(do)
+    o, lse = ref_attention_lse(tq, tk, tv, causal=causal)
+    got = ref_attention_backward(tq, tk, tv, o, lse, tdo, causal=causal)
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.dtype == t.dtype and tuple(g.shape) == tuple(t.shape)
+        assert _rel_err(_f32(g), w) < tol
+    qg = np.asarray(q, np.float32).reshape(B, Sq, KV, H // KV, hd)
+    s = np.einsum("bikgh,bjkh->bkgij", qg, np.asarray(k, np.float32)
+                  ) * hd ** -0.5
+    if causal:
+        s = np.where(np.arange(Sq)[:, None] >= np.arange(Sk)[None], s, -1e30)
+    want_lse = np.asarray(jax.nn.logsumexp(jnp.asarray(s), axis=-1)
+                          ).reshape(B, H, Sq)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-6, atol=1e-6)
