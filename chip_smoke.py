@@ -330,7 +330,16 @@ reference grid, in bf16 and fp32: every dq / dk / dv row within 2e-2
 (bf16) or 1e-4 (fp32) of that row's largest plain magnitude (a causal
 dq's row 0, exactly 0, against the gradient's largest), against
 float64 no worse than 2x the plain version, two launches bit-equal, and
-the forward bit-equal with and without its lse.  It also holds the
+the forward bit-equal with and without its lse; then it prints the
+dK/dV and dQ grids' geometry at the training shape in both dtypes
+(``flash_backward_geometry`` line: blocks, resident blocks an SM from
+the occupancy API, registers, the longest block's tile pairs and the
+mean, and whether the longest walks at most half a resident slot's
+average).  Phase 11 prints the backward's times there
+(``flash_backward_times``: ms a call and per device kernel beside the
+function's bound, the route's own (bf16 wgmma at 989 TFLOP/s, fp32 at
+mma.sync's sustained TF32 rate), the plain version and SDPA's
+backward).  It also holds the
 routed experts' GEMV at DeepSeek-MoE-16B's, DBRX's and Jamba's widths (cohorts 1-8, a row choosing one expert twice,
 a sentinel row; bf16 within 2e-2 a row, fp32 within 1e-5 of the largest)
 and the SSD kernel at P 128; phase 7 times the GEMV beside the routed
@@ -347,6 +356,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -359,6 +369,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16, published
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 (SIMT FFMA), published
 TF32_FLOPS_PER_S = 495e12        # H100 SXM dense TF32, published
+# what mma.sync m16n8k8 TF32 sustains on an H100 (scripts/mma_sync_rate.py,
+# PERF.md §6): the fp32 flash backward's own route bound
+MMA_SYNC_TF32_FLOPS_PER_S = 320.4e12
 TIME_BC = 4
 # kernel vs plain version, bf16 outputs: both accumulate in fp32 in
 # different orders, so an output may differ by one bf16 rounding step
@@ -5896,7 +5909,8 @@ def grads_check(g_got, g_want, tol, what):
 def time_flash_backward(sm, shape, dtype):
     """The backward kernel, its plain version and SDPA's backward (GQA
     through ``enable_gqa``) at ``shape`` on the same inputs, and the
-    work: (t_k, t_p, t_l, bytes, flops)."""
+    work: (t_k, t_p, t_l, bytes, flops); t_k also carries each of the
+    backward's device kernels' ms a launch (profiler)."""
     import torch
     import torch.nn.functional as Fn
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -5910,6 +5924,16 @@ def time_flash_backward(sm, shape, dtype):
     o, lse = FK.launch_flash_attention(q, k, v, causal=causal, want_lse=True)
     t_k = timed(lambda i: FK.launch_flash_attention_backward(
         q, k, v, o, lse, do, causal=causal), 1, iters=10)
+
+    def ten():
+        for _ in range(10):
+            FK.launch_flash_attention_backward(q, k, v, o, lse, do,
+                                               causal=causal)
+        torch.cuda.synchronize()
+    # each device kernel's mean ms a launch (D, dK/dV, dQ, the sum)
+    t_k += ({re.search(r"flash_bwd_\w+", n).group(0): us / c / 1e3
+             for n, us, c in device_time(ten)[1]
+             if c and re.search(r"flash_bwd_\w+", n)},)
     t_p = timed(lambda i: ref_attention_backward(q, k, v, o, lse, do,
                                                  causal=causal), 1, iters=3)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -5925,6 +5949,57 @@ def time_flash_backward(sm, shape, dtype):
     pairs = causal_pairs(Sq, Sk) if causal else Sq * Sk
     fl = 5 * 2 * B * H * hd * pairs          # S, dV, dP, dQ, dK
     return t_k, t_p, t_l, byt, fl
+
+
+def flash_bwd_geometry():
+    """The backward kernels' grids at the training shape
+    (FLASH_BWD_SHAPES[0]) in bf16 and fp32: the occupancy API's resident
+    blocks an SM, registers and spills (``kernel.bwd_occupancy``), and
+    ``kernel.bwd_geometry`` (blocks, tile pairs, the longest block and
+    the mean, a resident slot's average and whether the longest walks at
+    most half of it).  Needs no timing: phase 2 prints it."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    B, Sq, Sk, H, KV, hd, causal = FLASH_BWD_SHAPES[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"card": card_label(), "shape": list(FLASH_BWD_SHAPES[0]),
+           "sms": sms}
+    for dtype in (torch.bfloat16, torch.float32):
+        occ = FK.bwd_occupancy(dtype, hd)
+        out[str(dtype).replace("torch.", "")] = {
+            "occupancy": occ,
+            "geometry": FK.bwd_geometry(B, Sq, Sk, H, causal,
+                                        {"dkdv": occ["dkdv_blocks_an_sm"],
+                                         "dq": occ["dq_blocks_an_sm"]},
+                                        sms=sms)}
+    return out
+
+
+def flash_bwd_times(timings):
+    """The backward kernel at the training shape (phase 11's
+    ``time_flash_backward`` tuples, ``timings["bwd"]`` and
+    ``["bwd_f32"]``): ms a call and each device kernel's ms a launch
+    beside the function's bound (five products at 989 TFLOP/s bf16, 67
+    fp32 FFMA), the route's own (bf16: nine wgmma products at 989, dS in
+    two terms; fp32: 33 TF32 products, S and dP (each twice) in six and
+    dV, dK and dQ in three, at mma.sync's sustained 320.4), the plain
+    version and SDPA's backward, with the grids (``flash_bwd_geometry``)."""
+    out = flash_bwd_geometry()
+    for key, name, rate, terms, route_rate in (
+            ("bwd", "bfloat16", BF16_FLOPS_PER_S, 9, BF16_FLOPS_PER_S),
+            ("bwd_f32", "float32", FP32_FLOPS_PER_S, 33,
+             MMA_SYNC_TF32_FLOPS_PER_S)):
+        t_k, t_p, t_l, byt, fl = timings[key]
+        b_ms, b_by = bound(byt, fl, rate)
+        r_ms, _ = bound(byt, fl / 5 * terms, route_rate)
+        ms, sdpa = dev_or_call(t_k), dev_or_call(t_l)
+        out[name].update(
+            ms=ms, event_ms=t_k[1], device_kernels_per_call=t_k[2],
+            kernel_ms_a_launch=t_k[3], bound_ms=b_ms, bound_by=b_by,
+            route_bound_ms=r_ms, route_products=terms,
+            plain_ms=dev_or_call(t_p), sdpa_backward_ms=sdpa,
+            over_sdpa=ms / sdpa, over_bound=ms / b_ms)
+    return out
 
 
 def train_llava(sm):
@@ -6159,6 +6234,7 @@ def main() -> int:
     sm.check_flash_grid()
     sm.check_flash_backward()
     free()
+    print(json.dumps({"flash_backward_geometry": flash_bwd_geometry()}))
     sm.check_cache_update(llava)
     sm.check_ssd()
     sm.check_linear_attention()
@@ -6397,6 +6473,7 @@ def main() -> int:
     # pipeline; then a 2-layer fp32 step --------------------------------
     train, train_runs, train_t = train_llava(sm)
     print(json.dumps({"train": train}))
+    print(json.dumps({"flash_backward_times": flash_bwd_times(train_t)}))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6787,12 +6864,14 @@ def main() -> int:
              "max_abs_err": sm.errs["flash_attention/bwd"]}
     entry.update(numbers(bt[:3] + (None,) + bt[3:]))
     entry.update(
-        event_ms=bt[0][1], shape=shape,
+        event_ms=bt[0][1], kernel_ms_a_launch=bt[0][3], shape=shape,
         library="torch.autograd.grad of F.scaled_dot_product_attention"
                 "(enable_gqa), the backward alone",
         bound_note="five products (S, dV, dP, dQ, dK) over the causal "
-                   "pairs at 989 TFLOP/s bf16; the kernel runs seven in "
-                   "fp32 FFMA (S and dP again for dQ)",
+                   "pairs at 989 TFLOP/s bf16; the kernel runs nine on "
+                   "wgmma (S and dP again for dQ, dS in two bf16 terms "
+                   "for dQ and dK), fp32 seven in 33 split-TF32 products "
+                   "on mma.sync",
         launches_per_train_step=train["launches_a_step"][0].get(
             "flash_attention/bwd"),
         kernel_checks=sm.bwd_check,
@@ -6802,7 +6881,7 @@ def main() -> int:
         forward_at_training_shape=dict(numbers(train_t["fwd"]),
                                        event_ms=train_t["fwd"][0][1]),
         fp32=dict(numbers(bt32[:3] + (None,) + bt32[3:], FP32_FLOPS_PER_S),
-                  event_ms=bt32[0][1],
+                  event_ms=bt32[0][1], kernel_ms_a_launch=bt32[0][3],
                   library="the same, fp32 (TF32 off)"))
     if entry["launches"] <= 0:
         fail("flash_attention/bwd: no launch on the training paths")

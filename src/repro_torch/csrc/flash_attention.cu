@@ -75,9 +75,13 @@
 // (the Pallas p.astype(v.dtype) is the identity in fp32).  Causal blocks
 // stop at the diagonal tile (a warp above it skips the tile).
 //
-// Interface: two plain C entry points, bf16 and fp32 (loaded with ctypes);
-// each launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError() (or the error of encoding a tensor map).
+// The backward (the gradient of either instance, from the rows'
+// log-sum-exp the forward saves) follows the forward; its note is there.
+//
+// Interface: plain C entry points, bf16 and fp32, forward and backward
+// (loaded with ctypes); each launches on the caller's stream, allocates
+// nothing, and returns cudaGetLastError() (or the error of encoding a
+// tensor map).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -403,6 +407,32 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
   mma_tf32(d, ah, bh0, bh1);
 }
 
+// x = x1 + x2 + x3 exactly: three tf32 terms, each rounded to nearest
+// from what the earlier ones leave (33 bits hold fp32's 24)
+__device__ __forceinline__ void split3_tf32(float x, uint32_t& x1, uint32_t& x2, uint32_t& x3) {
+  x1 = tf32_rna(x);
+  const float r = x - __uint_as_float(x1);
+  x2 = tf32_rna(r);
+  x3 = tf32_rna(r - __uint_as_float(x2));
+}
+
+// d += a b as the six tf32 products of three-term splits down to 2^-22
+// of the leading one, the small first: x3 y1, x2 y2, x1 y3, x2 y1, x1 y2,
+// x1 y1; b's fragment (b0, b1) split here
+__device__ __forceinline__ void mma_6xtf32(float (&d)[4], const uint32_t (&a1)[4],
+                                           const uint32_t (&a2)[4], const uint32_t (&a3)[4],
+                                           float b0, float b1) {
+  uint32_t b10, b20, b30, b11, b21, b31;
+  split3_tf32(b0, b10, b20, b30);
+  split3_tf32(b1, b11, b21, b31);
+  mma_tf32(d, a3, b10, b11);
+  mma_tf32(d, a2, b20, b21);
+  mma_tf32(d, a1, b30, b31);
+  mma_tf32(d, a2, b10, b11);
+  mma_tf32(d, a1, b20, b21);
+  mma_tf32(d, a1, b10, b11);
+}
+
 template <int HD>
 __global__ void __launch_bounds__(FlashF<HD>::kThreads)
     flash_attention_f32_kernel(const ParamsF p) {
@@ -620,348 +650,961 @@ int launch_f32(const ParamsF& p, cudaStream_t stream) {
   flash_attention_f32_kernel<HD><<<grid, FlashF<HD>::kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
-// ---- backward: dq, dk, dv from q, k, v, o, lse and do (FFMA) ---------------
+// ---- backward: dq, dk, dv on the tensor cores --------------------------------
 //
 // The gradient of the forward above, from the rows' log-sum-exp it saved:
-// P = exp(s - lse) recomputed from q.k (scaled, masked to 0 where the
-// forward masked), dV = Pᵀ dO with P rounded to v's dtype (the forward's
-// rounding before P.V), dP = dO Vᵀ, D = rowsum(dO * O), dS = P (dP - D),
-// dQ = dS K hd^-1/2 and dK = dSᵀ Q hd^-1/2; a kv head's dK and dV sum over
-// its G query heads.  Every product in fp32 FFMA on operands widened into
-// shared memory (both instances; the tensor cores are later work).
+// P = exp(s - lse) recomputed from q.k (scaled, and 0 where the forward
+// masked: -1e30, causal counted from position 0), dV = Pᵀ dO with P rounded
+// to v's dtype (the forward's rounding before P.V), dP = dO Vᵀ, D =
+// rowsum(dO * O), dS = P (dP - D), dQ = dS K hd^-1/2 and dK = dSᵀ Q
+// hd^-1/2; a kv head's dK and dV sum over its G query heads.
 //
-// Three device kernels, none with atomics, so two launches are bit-equal:
-// `bwd_dot` (D, one warp a row); `bwd_dkdv`, one block a (batch, kv head,
-// block of 64 keys) holding its dK and dV in registers while it walks the
-// G query heads and their blocks of 64 rows in order (causal: from the
-// block holding its first key); `bwd_dq`, one block a (batch, head, block
-// of 64 rows) walking the key blocks in order (causal: to its diagonal),
-// recomputing P and dS.  A block is 16 x 16 threads; thread (ty, tx) owns
-// rows ty + 16 r and columns tx + 16 c of each 64 x 64 product and of its
-// 64 x hd accumulators.  Tiles sit in shared memory as fp32 rows of hd + 1
-// (conflict-free column reads), rows past the sequence zero.
+// What bounds it on an H100.  The function's work is five products of
+// 2 B H hd (causal pairs) flop (S, dP, dV, dQ, dK: 0.076 ms at 989 TFLOP/s
+// at the training shape B 4, S 2048, H 14, KV 2, hd 64); it moves q, k, v,
+// o, dO and the three gradients once.  Without atomics S and dP are formed
+// twice, once for dK/dV and once for dQ.  The FFMA kernel this replaces ran
+// its products at FFMA's 67 TFLOP/s on fp32 copies of the tiles, and its
+// dK/dV grid of (batch, kv head, key block) blocks lasted as long as its
+// longest block (causal key block 0 walked G heads' row blocks, twice the
+// mean).
+//
+// What the design does about it.
+//  - Every product on the tensor cores.  bf16: wgmma (bf16 in, fp32
+//    accumulate), one warpgroup a block.  Tiles of 64 rows arrive by TMA
+//    from the model's (B, S, heads, hd) layout into swizzled shared memory
+//    cut along hd into atoms, as the forward's (rows past the sequence
+//    arrive as zeros).  S-like products read both operands K-major from
+//    shared memory; the products over rows (dV, dK, dQ) take their A
+//    operand from registers and read B MN-major (the transpose bit), so
+//    nothing is transposed in memory.  fp32: split TF32 on mma.sync
+//    m16n8k8, as the fp32 forward: each operand x split into hi = tf32(x)
+//    and lo = tf32(x - hi), lo.hi + hi.lo + hi.hi, each k-step's products
+//    summed in a fresh accumulator and then added to the running fp32
+//    sums; fragments are read from tiles of rows of hd + 4 floats
+//    (conflict-free), filled by cp.async.  S and dP take three terms
+//    (x1 + x2 + x3 = x exactly, six products) and D is summed in double:
+//    dS = P (dP - D) cancels to a few parts in 10^3 of dP in a causal row
+//    that one key dominates, and with two terms, which keep 22 of fp32's
+//    24 bits, the kernel missed the card checks' float64 gate (2x the
+//    plain version's error) on their fixed inputs.
+//    scripts/flash_bwd_accuracy_sweep.py shows what is left on random
+//    draws, against the plain version's own error there.
+//  - Keys as rows in dK/dV.  The block's 64 keys are the M of Sᵀ = K Qᵀ
+//    and dPᵀ = V dOᵀ, so Pᵀ and dSᵀ come out in the accumulator layout,
+//    which rounded to bf16 pairs is the A fragment layout of dV += Pᵀ dO
+//    and dK += dSᵀ Q (the forward does the same with P): no trip through
+//    shared memory (fp32: the accumulator's columns 2t, 2t + 1 read as A's
+//    columns t, t + 4 and B's rows taken in the matching order, as the
+//    forward's P.V).  The dQ block's 64 rows feed dS to dQ += dS K the
+//    same way.
+//  - dS in two bf16 terms.  dS is the one value that the bf16 route would
+//    round where the plain version keeps fp32.  Its rows sum to zero;
+//    rounded once to bf16 it takes dq and dk past the card checks' 2x of
+//    the plain version's error against float64 (2.37x and 2.02x in the
+//    CPU emulation, scripts/flash_bwd_ds_rounding.py).  So dS = hi + lo,
+//    both bf16, and dQ and dK run two products each (nine in all): about
+//    16 bits of dS.
+//  - A balanced, deterministic grid.  dK/dV: one block a (batch, query
+//    head, 64-key block) walking that head's row blocks from the one
+//    holding its first key (causal).  It writes the head's dK and dV as
+//    fp32 partials to a scratch (B, Sk, H, hd); with G > 1 `bwd_sum` adds
+//    each kv head's G partials in a fixed order (g = 0, 1, ...) into dk and
+//    dv, with G = 1 the block writes dk and dv itself.  dQ: one block a
+//    (batch, head, 64-row block) walking the key blocks up to its diagonal
+//    (causal).  Both grids are issued longest first (blockIdx.x the
+//    (batch, head), the fastest; blockIdx.y the key block ascending for
+//    dK/dV, the row block descending for dQ), so the short blocks fill in
+//    behind the long ones.  At the training shape each grid is 1792
+//    blocks, the longest walking 32 tile pairs of 64 x 64 against a mean of
+//    16.5 (kernel.bwd_geometry mirrors the mapping).  No atomics: two
+//    launches are bit-equal.
+//  - Loads overlap the products: the walked tiles (Q, dO, lse and D in
+//    dK/dV; K and V in dQ) fill a ring of three stages (bf16 at hd <= 64),
+//    two, or one (fp32 at hd 160, whose tiles would not fit twice), one
+//    tile ahead of the products or more.  A causal block skips a chunk that
+//    the mask hides from all its rows.
+//  - Registers: a thread keeps its share of the block's dK and dV (dQ) in
+//    fp32 and of the scores and dP of a chunk of N queries (keys) of the
+//    tile, N = 64 at hd <= 64 and 32 above (bf16 hd 160: 160 + 32
+//    accumulators a thread, 224 registers, no spill).
+//
+// Four device kernels: `bwd_dot` (D from the output as stored, eight
+// lanes a row), `bwd_dkdv`, `bwd_dq`, and `bwd_sum` when G > 1.
 
-constexpr int kBwdRows = 64;           // rows (queries or keys) of a tile
-constexpr int kBwdThreads = 256;
-constexpr int kPS = kBwdRows + 1;      // row stride of the P / dS tiles
+constexpr int kBT = 64;                // rows (queries or keys) of a backward tile
+constexpr int kBwdThreads = 128;       // a warpgroup; four warps of 16 rows (fp32)
+constexpr int kDotThreads = 256;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void narrow(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void narrow(bf16* dst, float x) { *dst = __float2bfloat16_rn(x); }
-// x rounded to T and back (the forward's rounding of P before P.V)
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const bf16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
 }
 
-template <int HD>
-struct Bwd {
-  static constexpr int kS = HD + 1;    // fp32 row stride of a q/k/v/do tile
-  static constexpr int kTile = kBwdRows * kS;
-  static constexpr int kSmem =
-      (4 * kTile + 2 * kBwdRows * kPS + 2 * kBwdRows) * (int)sizeof(float);
-};
-
-// rows [r0, r0 + 64) of a (.., rows, .., HD) tensor, `stride` elements
-// apart, widened into a shared tile; rows at or past `n` are zero
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, long long stride, int n) {
-  for (int i = threadIdx.x; i < kBwdRows * HD; i += kBwdThreads) {
-    const int r = i / HD, c = i - r * HD;
-    dst[r * Bwd<HD>::kS + c] = r < n ? widen(src[r * stride + c]) : 0.f;
-  }
+// 64 lse and D values of a tile's rows (threads 0-63 and 64-127) by
+// cp.async; past `valid` zeros
+__device__ __forceinline__ void stage_lse_d(float* lse_dst, float* d_dst, const float* lse_src,
+                                            const float* d_src, int valid) {
+  const int i = threadIdx.x & (kBT - 1);
+  const bool ok = i < valid;
+  if (threadIdx.x < kBT)
+    cp_async4_zfill(lse_dst + i, ok ? lse_src + i : lse_src, ok);
+  else
+    cp_async4_zfill(d_dst + i, ok ? d_src + i : d_src, ok);
 }
 
-struct BwdParams {
-  int B, Sq, Sk, H, KV, causal;
-  float scale, scale_log2;
-};
-
-// D[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d], one warp a row
+// the backward's operands and shape; the bf16 route reads q, k, v and dO
+// through tensor maps instead
 template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
+struct BwdArgs {
+  const T *q, *k, *v, *dO;
+  const float* lse;                     // (B, H, Sq), natural log
+  float* dsum;                          // (B, H, Sq): D (written by bwd_dot)
+  T *dq, *dk, *dv;
+  float* part;                          // (2, B, Sk, H, hd), or null when H == KV
+  int B, Sq, Sk, H, KV, causal;
+  float scale, scale_log2;              // hd^-1/2, and times log2(e)
+};
+
+// the dot product of 16 bytes of o and dO in double (each fp32 or bf16
+// product exact), in a fixed order
+__device__ __forceinline__ double dot16(const float* a, const float* b) {
+  const float4 x = *reinterpret_cast<const float4*>(a), y = *reinterpret_cast<const float4*>(b);
+  double s = (double)x.x * y.x;
+  s = fma((double)x.y, (double)y.y, s);
+  s = fma((double)x.z, (double)y.z, s);
+  return fma((double)x.w, (double)y.w, s);
+}
+__device__ __forceinline__ double dot16(const bf16* a, const bf16* b) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a), y = *reinterpret_cast<const uint4*>(b);
+  const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+  double s = 0.0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(xp[i]), w = __bfloat1622float2(yp[i]);
+    s = fma((double)u.x, (double)w.x, s);
+    s = fma((double)u.y, (double)w.y, s);
+  }
+  return s;
+}
+
+// D[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d]: eight lanes a row, 16
+// bytes a lane a step (a warp's loads are four whole rows), the lanes'
+// sums added in a fixed tree, in double and rounded once to fp32 (D is
+// subtracted from dP, which nearly cancels it in a row that one key
+// dominates)
+template <typename T>
+__global__ void __launch_bounds__(kDotThreads)
     flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dO,
                          float* __restrict__ dsum, int B, int Sq, int H, int hd) {
-  const long long row = (long long)blockIdx.x * (kBwdThreads / 32) + threadIdx.x / 32;
-  if (row >= (long long)B * Sq * H) return;
-  const int lane = threadIdx.x & 31;
-  float acc = 0.f;
-  for (int c = lane; c < hd; c += 32) acc += widen(o[row * hd + c]) * widen(dO[row * hd + c]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
-  if (lane == 0) {
+  constexpr int kE = 16 / (int)sizeof(T);           // elements a 16-byte load
+  const long long row = ((long long)blockIdx.x * kDotThreads + threadIdx.x) / 8;
+  const int part = threadIdx.x & 7;
+  const bool ok = row < (long long)B * Sq * H;
+  double acc = 0.0;
+  if (ok)
+    for (int c = part * kE; c < hd; c += 8 * kE) acc += dot16(o + row * hd + c, dO + row * hd + c);
+  acc += __shfl_xor_sync(kFull, acc, 4);
+  acc += __shfl_xor_sync(kFull, acc, 2);
+  acc += __shfl_xor_sync(kFull, acc, 1);
+  if (ok && part == 0) {
     const int h = (int)(row % H);
     const long long bi = row / H;
     const int i = (int)(bi % Sq), b = (int)(bi / Sq);
-    dsum[((long long)b * H + h) * Sq + i] = acc;
+    dsum[((long long)b * H + h) * Sq + i] = (float)acc;
   }
 }
 
-// the 64 x 64 tiles S = X Yᵀ and dP = U Wᵀ of a thread (rows ty + 16 r of
-// X and U, rows tx + 16 c of Y and W), summed over hd in order
-template <int HD>
-__device__ __forceinline__ void two_products(const float* xs, const float* ys, const float* us,
-                                             const float* ws, int ty, int tx,
-                                             float (&s)[4][4], float (&dp)[4][4]) {
-  constexpr int kS = Bwd<HD>::kS;
+// dk, dv (B, Sk, KV, hd) from the partials (2, B, Sk, H, hd): each kv head's
+// G query heads added in order, four columns a thread
+template <typename T>
+__global__ void __launch_bounds__(256)
+    flash_bwd_sum_kernel(const float* __restrict__ part, T* __restrict__ dk, T* __restrict__ dv,
+                         long long n4, long long part_n, int KV, int G, int hd4) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= 2 * n4) return;
+  const int which = i >= n4;                      // 0: dk, 1: dv
+  const long long e = which ? i - n4 : i;         // float4 index of (B, Sk, KV, hd)
+  const long long row = e / ((long long)KV * hd4);   // b * Sk + key
+  const int rem = (int)(e - row * KV * hd4), kvh = rem / hd4, c4 = rem - kvh * hd4;
+  const float4* src = reinterpret_cast<const float4*>(part + which * part_n) +
+                      (row * KV + kvh) * G * (long long)hd4 + c4;
+  float4 s = src[0];
+  for (int gi = 1; gi < G; ++gi) {
+    const float4 x = src[(long long)gi * hd4];
+    s.x += x.x;
+    s.y += x.y;
+    s.z += x.z;
+    s.w += x.w;
+  }
+  T* dst = (which ? dv : dk) + e * 4;
+  store_pair(dst, s.x, s.y);
+  store_pair(dst + 2, s.z, s.w);
+}
+
+// a kernel's dK, dV rows `key0` and `key0 + 8` of an m16 accumulator tile
+// (pairs of columns 8 nb + 2 t4): G = 1 into dk, dv (B, Sk, KV, hd) as T,
+// else this query head's fp32 partials into part (2, B, Sk, H, hd)
+template <typename T, int HD>
+__device__ __forceinline__ void store_dkdv(const float (&acc_k)[HD / 2], const float (&acc_v)[HD / 2],
+                                           const BwdArgs<T>& p, int b, int h, int kvh, int key0,
+                                           int t4) {
+  const bool direct = p.H == p.KV;
+  const long long stride = (long long)(direct ? p.KV : p.H) * HD;
+  const long long base = (long long)b * p.Sk * stride + (long long)(direct ? kvh : h) * HD + 2 * t4;
+  const long long part_n = (long long)p.B * p.Sk * p.H * HD;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int nb = 0; nb < HD / 8; ++nb)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float x[4], y[4], u[4], w[4];
+    for (int hf = 0; hf < 2; ++hf) {
+      const int key = key0 + 8 * hf;
+      if (key >= p.Sk) continue;
+      const long long at = base + key * stride + 8 * nb;
+      const float k0 = acc_k[4 * nb + 2 * hf] * p.scale, k1 = acc_k[4 * nb + 2 * hf + 1] * p.scale;
+      const float v0 = acc_v[4 * nb + 2 * hf], v1 = acc_v[4 * nb + 2 * hf + 1];
+      if (direct) {
+        store_pair(p.dk + at, k0, k1);
+        store_pair(p.dv + at, v0, v1);
+      } else {
+        store_pair(p.part + at, k0, k1);
+        store_pair(p.part + part_n + at, v0, v1);
+      }
+    }
+}
+
+// P from a scaled score's s and its row's natural-log lse, 0 where the
+// caller masks.  bf16: in base 2 (exp2 of s hd^-1/2 log2(e) - lse
+// log2(e)), its error far below bf16's; fp32: expf(s hd^-1/2 - lse) with
+// one rounding of the exponent, which is small where P is large (base 2
+// would round lse log2(e), the same for a whole row, and scale the row's
+// P by it)
+__device__ __forceinline__ float prob(float s, float lse, const BwdArgs<bf16>& p) {
+  return exp2f(s * p.scale_log2 - lse * kLog2e);
+}
+__device__ __forceinline__ float prob(float s, float lse, const BwdArgs<float>& p) {
+  return expf(fmaf(s, p.scale, -lse));
+}
+
+// dK/dV's elementwise step over a chunk of N queries at tile row c0 (the
+// accumulator layout: element 4 nb + i at key key0 + 8 (i >> 1), query row
+// c0 + 8 nb + 2 t4 + (i & 1) of the tile starting at q0): sp (Sᵀ) becomes
+// Pᵀ (``prob``) and ds (dPᵀ) dSᵀ = Pᵀ (dPᵀ - D), 0 where masked.  lt, dt:
+// the tile's lse (natural log) and D by row
+template <typename T, int N>
+__device__ __forceinline__ void dkdv_probs(float (&sp)[N / 2], float (&ds)[N / 2], const float* lt,
+                                           const float* dt, int c0, int q0, int key0, int t4,
+                                           bool edge, const BwdArgs<T>& p) {
+#pragma unroll
+  for (int nb = 0; nb < N / 8; ++nb)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      x[i] = xs[(ty + 16 * i) * kS + d];
-      u[i] = us[(ty + 16 * i) * kS + d];
-      y[i] = ys[(tx + 16 * i) * kS + d];
-      w[i] = ws[(tx + 16 * i) * kS + d];
+      const int c = c0 + 8 * nb + 2 * t4 + (i & 1);
+      float pr = prob(sp[4 * nb + i], lt[c], p);
+      if (edge) {
+        const int key = key0 + 4 * (i & 2), qi = q0 + c;
+        if (key >= p.Sk || qi >= p.Sq || (p.causal && key > qi)) pr = 0.f;
+      }
+      sp[4 * nb + i] = pr;
+      ds[4 * nb + i] = pr * (ds[4 * nb + i] - dt[c]);
     }
+}
+
+// dQ's: s (S, element 4 nb + i at row qpos0 + 8 (i >> 1), key kc + 8 nb +
+// 2 t4 + (i & 1)) becomes dS = P (dP - D) with dp (dP); l0 / l1 the two
+// rows' lse (natural log), d0 / d1 their D
+template <typename T, int N>
+__device__ __forceinline__ void dq_probs(float (&s)[N / 2], const float (&dp)[N / 2], float l0,
+                                         float l1, float d0, float d1, int kc, int qpos0, int t4,
+                                         bool edge, const BwdArgs<T>& p) {
+#pragma unroll
+  for (int nb = 0; nb < N / 8; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float pr = prob(s[4 * nb + i], (i & 2) ? l1 : l0, p);
+      if (edge) {
+        const int key = kc + 8 * nb + 2 * t4 + (i & 1), qi = qpos0 + 4 * (i & 2);
+        if (key >= p.Sk || qi >= p.Sq || (p.causal && key > qi)) pr = 0.f;
+      }
+      s[4 * nb + i] = pr * (dp[4 * nb + i] - ((i & 2) ? d1 : d0));
+    }
+}
+
+// ---- bf16: wgmma, TMA ------------------------------------------------------------
+
+template <int HD>
+struct BwdWg {
+  static constexpr int kAtom = Flash<HD>::kAtom, kSw = Flash<HD>::kSw, kAtoms = Flash<HD>::kAtoms;
+  static constexpr int kN = HD <= 64 ? 64 : 32;     // queries (keys) of a chunk of S and dP
+  static constexpr int kStages = HD <= 64 ? 3 : 2;
+  static constexpr int kTile = kBT * HD;            // elements of a tile
+  static constexpr int kTileBytes = kTile * 2;
+  // two fixed tiles, two a stage, a stage's 64 lse and 64 D (dK/dV), then
+  // the barriers
+  static constexpr int kBarOff = (2 + 2 * kStages) * kTileBytes + kStages * 2 * kBT * 4;
+  static constexpr int kSmem = 1024 + kBarOff + 8 * (1 + kStages);
+};
+
+// descriptor of a tile's k16 step kk along hd, rows row0.. (K-major)
+template <int HD>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0, int kk) {
+  using C = BwdWg<HD>;
+  const int a = kk * 16 / C::kAtom, off = (kk * 16 % C::kAtom) * 2;
+  return make_desc(tile + a * kBT * C::kSw + row0 * C::kSw + off, 16, 8 * C::kSw, C::kSw);
+}
+
+// descriptor of a tile's rows row0 .. row0 + 15 as the k16 step of a
+// product over rows, all HD columns (MN-major)
+template <int HD>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int row0) {
+  using C = BwdWg<HD>;
+  return make_desc(tile + row0 * C::kSw, kBT * C::kSw, 8 * C::kSw, C::kSw);
+}
+
+// a 64-row tile of q, dO, k or v (rows row0.., head `head`) into `dst`, one
+// box an atom; rows past the sequence arrive as zeros
+template <int HD>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int head, int row0, int b) {
+  using C = BwdWg<HD>;
+#pragma unroll 1
+  for (int a = 0; a < C::kAtoms; ++a)
+    tma_load_4d(dst + a * kBT * C::kAtom, map, bar, a * C::kAtom, head, row0, b);
+}
+
+// a pair of fp32 values as bf16 terms: hi rounded to nearest even, lo the
+// rest rounded (x0 the lower column)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  const float2 hf = __bfloat1622float2(h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// x (fp32, an m64nN accumulator) as wgmma A fragments, rounded to bf16:
+// fragment kk holds the 8-column blocks 2kk and 2kk + 1
+template <int N>
+__device__ __forceinline__ void round_frags(const float (&x)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// the same in two terms, x = hi + lo
+template <int N>
+__device__ __forceinline__ void split_frags(const float (&x)[N / 2], uint32_t (&hi)[N / 16][4],
+                                            uint32_t (&lo)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
+      split_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], hi[kk][r], lo[kk][r]);
+}
+
+// dK and dV of one block of 64 keys of one (batch, query head): one
+// warpgroup, the keys the rows of every product
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, const BwdArgs<bf16> p) {
+  using C = BwdWg<HD>;
+  constexpr int kN = C::kN, kSt = C::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  unsigned char* smem = align1024(smem_tiles);
+  bf16* ks = reinterpret_cast<bf16*>(smem);       // [atom][64][kAtom], swizzled
+  bf16* vs = ks + C::kTile;
+  bf16* qs = vs + C::kTile;                       // [stage]
+  bf16* os = qs + kSt * C::kTile;                 // [stage] dO
+  float* lse_s = reinterpret_cast<float*>(os + kSt * C::kTile);   // [stage][64]
+  float* d_s = lse_s + kSt * kBT;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* full = kv_full + 1;                   // [stage]
+
+  const int k0 = blockIdx.y * kBT;                // key block 0, the longest when causal, first
+  const int b = blockIdx.x / p.H, h = blockIdx.x - b * p.H;
+  const int kvh = h / (p.H / p.KV);
+  const long long bh = (long long)b * p.H + h;
+  const float* lse_h = p.lse + bh * p.Sq;
+  const float* d_h = p.dsum + bh * p.Sq;
+  const int q_first = p.causal ? k0 : 0;          // causal: rows before k0 see none of these keys
+  const int n_tiles = q_first < p.Sq ? (p.Sq - q_first + kBT - 1) / kBT : 0;
+  const int t = threadIdx.x;
+
+  if (t == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kSt; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  // tile j: Q and dO by TMA (one thread), lse and D by cp.async (all)
+  auto load_qo = [&](int j) {
+    const int st = j % kSt, q0 = q_first + j * kBT;
+    mbar_arrive_expect_tx(&full[st], 2 * C::kTileBytes);
+    tma_tile<HD>(qs + st * C::kTile, &tq, &full[st], h, q0, b);
+    tma_tile<HD>(os + st * C::kTile, &tdo, &full[st], h, q0, b);
+  };
+  auto load_ld = [&](int j) {
+    const int st = j % kSt, q0 = q_first + j * kBT;
+    stage_lse_d(lse_s + st * kBT, d_s + st * kBT, lse_h + q0, d_h + q0, p.Sq - q0);
+  };
+  if (t == 0) {
+    mbar_arrive_expect_tx(kv_full, 2 * C::kTileBytes);
+    tma_tile<HD>(ks, &tk, kv_full, kvh, k0, b);
+    tma_tile<HD>(vs, &tv, kv_full, kvh, k0, b);
+    for (int j = 0; j < kSt - 1 && j < n_tiles; ++j) load_qo(j);
+  }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = fmaf(x[r], y[c], s[r][c]);
-        dp[r][c] = fmaf(u[r], w[c], dp[r][c]);
+  for (int j = 0; j < kSt - 1; ++j) {
+    if (j < n_tiles) load_ld(j);
+    cp_async_commit();
+  }
+
+  const int lane = t & 31, t4 = lane & 3;
+  const int key0 = k0 + 16 * (t >> 5) + (lane >> 2);
+  const uint32_t k_base = smem_u32(ks), v_base = smem_u32(vs);
+  float acc_k[HD / 2], acc_v[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    // the stage refilled here was read in iteration j - 1
+    if (j + kSt - 1 < n_tiles) {
+      if (t == 0) load_qo(j + kSt - 1);
+      load_ld(j + kSt - 1);
+    }
+    cp_async_commit();
+    cp_async_wait<kSt - 1>();
+    __syncthreads();
+    const int st = j % kSt, q0 = q_first + j * kBT;
+    mbar_wait(&full[st], (j / kSt) & 1);
+    const uint32_t q_base = smem_u32(qs + st * C::kTile), o_base = smem_u32(os + st * C::kTile);
+#pragma unroll 1
+    for (int c0 = 0; c0 < kBT; c0 += kN) {
+      const int qc = q0 + c0;                     // the chunk's first query
+      // past the sequence, or (causal) every key after the chunk's last
+      // query: nothing to add
+      if (qc >= p.Sq || (p.causal && k0 > qc + kN - 1)) continue;
+      float sp[kN / 2], ds[kN / 2];               // Sᵀ then Pᵀ; dPᵀ then dSᵀ
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) sp[i] = ds[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<kN, 0>(sp, desc_k<HD>(k_base, 0, kk), desc_k<HD>(q_base, c0, kk));
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<kN, 0>(ds, desc_k<HD>(v_base, 0, kk), desc_k<HD>(o_base, c0, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sp);
+      fence_regs(ds);
+      const bool edge = k0 + kBT > p.Sk || qc + kN > p.Sq || (p.causal && k0 + kBT - 1 > qc);
+      dkdv_probs<bf16, kN>(sp, ds, lse_s + st * kBT, d_s + st * kBT, c0, q0, key0, t4, edge, p);
+      uint32_t pa[kN / 16][4], dh[kN / 16][4], dl[kN / 16][4];
+      round_frags<kN>(sp, pa);                    // P rounded as the forward's P.V
+      split_frags<kN>(ds, dh, dl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk)        // dV += Pᵀ dO
+        wgmma_rs<HD, 1>(acc_v, pa[kk], desc_mn<HD>(o_base, c0 + 16 * kk));
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {      // dK += dSᵀ Q, dS = hi + lo
+        wgmma_rs<HD, 1>(acc_k, dh[kk], desc_mn<HD>(q_base, c0 + 16 * kk));
+        wgmma_rs<HD, 1>(acc_k, dl[kk], desc_mn<HD>(q_base, c0 + 16 * kk));
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      fence_regs(pa);
+      fence_regs(dh);
+      fence_regs(dl);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  store_dkdv<bf16, HD>(acc_k, acc_v, p, b, h, kvh, key0, t4);
+}
+
+// dQ of one block of 64 rows of one (batch, head): one warpgroup
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const BwdArgs<bf16> p) {
+  using C = BwdWg<HD>;
+  constexpr int kN = C::kN, kSt = C::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  unsigned char* smem = align1024(smem_tiles);
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* os = qs + C::kTile;                       // dO
+  bf16* ks = os + C::kTile;                       // [stage]
+  bf16* vs = ks + kSt * C::kTile;                 // [stage]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* full = q_full + 1;                    // [stage]
+
+  const int nq = (p.Sq + kBT - 1) / kBT;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kBT;    // longest rows first
+  const int b = blockIdx.x / p.H, h = blockIdx.x - b * p.H;
+  const int kvh = h / (p.H / p.KV);
+  int n_tiles = (p.Sk + kBT - 1) / kBT;
+  if (p.causal) n_tiles = min(n_tiles, (min(q0 + kBT, p.Sq) - 1) / kBT + 1);
+  const int t = threadIdx.x;
+
+  if (t == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kSt; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  auto load_kv = [&](int j) {
+    const int st = j % kSt;
+    mbar_arrive_expect_tx(&full[st], 2 * C::kTileBytes);
+    tma_tile<HD>(ks + st * C::kTile, &tk, &full[st], kvh, j * kBT, b);
+    tma_tile<HD>(vs + st * C::kTile, &tv, &full[st], kvh, j * kBT, b);
+  };
+  if (t == 0) {
+    mbar_arrive_expect_tx(q_full, 2 * C::kTileBytes);
+    tma_tile<HD>(qs, &tq, q_full, h, q0, b);
+    tma_tile<HD>(os, &tdo, q_full, h, q0, b);
+    for (int j = 0; j < kSt - 1 && j < n_tiles; ++j) load_kv(j);
+  }
+
+  const int lane = t & 31, t4 = lane & 3;
+  const int qpos0 = q0 + 16 * (t >> 5) + (lane >> 2), qpos1 = qpos0 + 8;
+  const long long row = ((long long)b * p.H + h) * p.Sq;
+  // the thread's two rows' lse and D; rows past the sequence are masked
+  const float l0 = qpos0 < p.Sq ? p.lse[row + qpos0] : 0.f;
+  const float l1 = qpos1 < p.Sq ? p.lse[row + qpos1] : 0.f;
+  const float d0 = qpos0 < p.Sq ? p.dsum[row + qpos0] : 0.f;
+  const float d1 = qpos1 < p.Sq ? p.dsum[row + qpos1] : 0.f;
+  const uint32_t q_base = smem_u32(qs), o_base = smem_u32(os);
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    // the stage refilled here was read in iteration j - 1
+    if (t == 0 && j + kSt - 1 < n_tiles) load_kv(j + kSt - 1);
+    const int st = j % kSt, k0 = j * kBT;
+    mbar_wait(&full[st], (j / kSt) & 1);
+    const uint32_t k_base = smem_u32(ks + st * C::kTile), v_base = smem_u32(vs + st * C::kTile);
+#pragma unroll 1
+    for (int c0 = 0; c0 < kBT; c0 += kN) {
+      const int kc = k0 + c0;                     // the chunk's first key
+      if (kc >= p.Sk || (p.causal && kc > q0 + kBT - 1)) continue;
+      float s[kN / 2], dp[kN / 2];                // S then dS; dP
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<kN, 0>(s, desc_k<HD>(q_base, 0, kk), desc_k<HD>(k_base, c0, kk));
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<kN, 0>(dp, desc_k<HD>(o_base, 0, kk), desc_k<HD>(v_base, c0, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      const bool edge = kc + kN > p.Sk || q0 + kBT > p.Sq || (p.causal && kc + kN - 1 > q0);
+      dq_probs<bf16, kN>(s, dp, l0, l1, d0, d1, kc, qpos0, t4, edge, p);
+      uint32_t dh[kN / 16][4], dl[kN / 16][4];
+      split_frags<kN>(s, dh, dl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {      // dQ += dS K, dS = hi + lo
+        wgmma_rs<HD, 1>(acc, dh[kk], desc_mn<HD>(k_base, c0 + 16 * kk));
+        wgmma_rs<HD, 1>(acc, dl[kk], desc_mn<HD>(k_base, c0 + 16 * kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(dh);
+      fence_regs(dl);
+    }
+    __syncthreads();
+  }
+
+  const long long q_stride = (long long)p.H * HD;
+  bf16* o0 = p.dq + ((long long)b * p.Sq + qpos0) * q_stride + (long long)h * HD + 2 * t4;
+  bf16* o1 = o0 + 8 * q_stride;
+#pragma unroll
+  for (int nb = 0; nb < HD / 8; ++nb) {
+    if (qpos0 < p.Sq) store_pair(o0 + 8 * nb, acc[4 * nb] * p.scale, acc[4 * nb + 1] * p.scale);
+    if (qpos1 < p.Sq) store_pair(o1 + 8 * nb, acc[4 * nb + 2] * p.scale, acc[4 * nb + 3] * p.scale);
   }
 }
 
-// dK and dV of one block of 64 keys of one (batch, kv head)
-template <typename T, int HD>
+// ---- fp32: split TF32 on mma.sync --------------------------------------------------
+
+template <int HD>
+struct BwdF {
+  static constexpr int kS = HD + 4;                 // shared row stride, floats: conflict-free fragments
+  static constexpr int kTile = kBT * kS;
+  static constexpr int kN = HD <= 64 ? 64 : 32;     // queries (keys) of a chunk of S and dP
+  static constexpr int kStages = HD > 128 ? 1 : 2;
+  // two fixed tiles, two a stage, a stage's 64 lse and 64 D (dK/dV)
+  static constexpr int kSmem = ((2 + 2 * kStages) * kTile + kStages * 2 * kBT) * (int)sizeof(float);
+};
+
+// rows [0, 64) of a (.., rows, .., HD) fp32 tensor, `stride` elements
+// apart, into a shared tile by cp.async; rows at or past `valid` zero
+template <int HD>
+__device__ __forceinline__ void stage_tile_f32(float* dst, const float* src, long long stride,
+                                               int valid) {
+  constexpr int kC = HD / 4;                        // 16-byte chunks a row
+  for (int i = threadIdx.x; i < kBT * kC; i += kBwdThreads) {
+    const int r = i / kC, c = i - r * kC;
+    const bool ok = r < valid;
+    cp_async16_zfill(dst + r * BwdF<HD>::kS + 4 * c, ok ? src + r * stride + 4 * c : src, ok);
+  }
+}
+
+// a warp's products.  rows_x_rows: acc (16 x N) += A Bᵀ, A the warp's 16
+// rows of a shared tile and B N rows of another (both rows of HD): Sᵀ =
+// K Qᵀ, dPᵀ = V dOᵀ, S = Q Kᵀ, dP = dO Vᵀ, in three-term splits (six TF32
+// products: dP - D nearly cancels in a row that one key dominates, and
+// three terms hold fp32's operands exactly where two drop their last two
+// bits).  frag_x_rows: acc (16 x HD) += X B, X (16 x N) in the
+// accumulator layout of a rows_x_rows product and B N rows of a shared
+// tile: dV += Pᵀ dO, dK += dSᵀ Q, dQ += dS K, in two-term splits (three
+// products).  Each k-step's products are summed apart; element 4 nb + i of
+// an accumulator is (row g + 8 (i >> 1), column 8 nb + 2 t + (i & 1))
+template <int HD, int N>
+__device__ __forceinline__ void rows_x_rows(float (&acc)[N / 2], const float* a, const float* b) {
+  constexpr int kS = HD + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* ar = a + g * kS + t;
+  const float* br = b + g * kS + t;
+#pragma unroll 2
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    uint32_t a1[4], a2[4], a3[4];
+    split3_tf32(ar[8 * kk], a1[0], a2[0], a3[0]);
+    split3_tf32(ar[8 * kS + 8 * kk], a1[1], a2[1], a3[1]);
+    split3_tf32(ar[8 * kk + 4], a1[2], a2[2], a3[2]);
+    split3_tf32(ar[8 * kS + 8 * kk + 4], a1[3], a2[3], a3[3]);
+#pragma unroll
+    for (int nb = 0; nb < N / 8; ++nb) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_6xtf32(d, a1, a2, a3, br[8 * nb * kS + 8 * kk], br[8 * nb * kS + 8 * kk + 4]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[4 * nb + i] += d[i];
+    }
+  }
+}
+
+// X's (row, column 2t / 2t + 1) read as A's columns t / t + 4, so B's rows
+// are taken in the order 2t, 2t + 1 (the sum over k allows it); X
+// unrounded
+template <int HD, int N>
+__device__ __forceinline__ void frag_x_rows(float (&acc)[HD / 2], const float (&x)[N / 2],
+                                            const float* b) {
+  constexpr int kS = HD + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* br = b + 2 * t * kS + g;
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    split_tf32(x[4 * kk], ah[0], al[0]);
+    split_tf32(x[4 * kk + 2], ah[1], al[1]);
+    split_tf32(x[4 * kk + 1], ah[2], al[2]);
+    split_tf32(x[4 * kk + 3], ah[3], al[3]);
+    const float* bk = br + 8 * kk * kS;
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_3xtf32(d, ah, al, bk[8 * nb], bk[kS + 8 * nb]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[4 * nb + i] += d[i];
+    }
+  }
+}
+
+// dK and dV of one block of 64 keys of one (batch, query head): four warps
+// of 16 keys
+template <int HD>
 __global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dO,
-                          const float* __restrict__ lse, const float* __restrict__ dsum,
-                          T* __restrict__ dk, T* __restrict__ dv, const BwdParams p) {
-  using C = Bwd<HD>;
-  constexpr int kS = C::kS, kC = HD / 16;
+    flash_bwd_dkdv_f32_kernel(const BwdArgs<float> p) {
+  using C = BwdF<HD>;
+  constexpr int kS = C::kS, kN = C::kN, kSt = C::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ks = reinterpret_cast<float*>(smem_raw);
   float* vs = ks + C::kTile;
-  float* qs = vs + C::kTile;
-  float* os = qs + C::kTile;           // dO
-  float* ps = os + C::kTile;           // [key][query]: P rounded as v
-  float* dss = ps + kBwdRows * kPS;    // [key][query]: dS
-  float* lse_s = dss + kBwdRows * kPS; // base 2
-  float* d_s = lse_s + kBwdRows;
+  float* qs = vs + C::kTile;                      // [stage]
+  float* os = qs + kSt * C::kTile;                // [stage] dO
+  float* lse_s = os + kSt * C::kTile;             // [stage][64], natural log
+  float* d_s = lse_s + kSt * kBT;                 // [stage][64]
 
-  const int k0 = blockIdx.x * kBwdRows;
-  const int b = blockIdx.y / p.KV, kvh = blockIdx.y - b * p.KV;
-  const int G = p.H / p.KV;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int k0 = blockIdx.y * kBT;                // key block 0, the longest when causal, first
+  const int b = blockIdx.x / p.H, h = blockIdx.x - b * p.H;
+  const int kvh = h / (p.H / p.KV);
   const long long kv_stride = (long long)p.KV * HD, q_stride = (long long)p.H * HD;
+  const long long bh = (long long)b * p.H + h;
+  const float* lse_h = p.lse + bh * p.Sq;
+  const float* d_h = p.dsum + bh * p.Sq;
+  const int q_first = p.causal ? k0 : 0;          // causal: rows before k0 see none of these keys
+  const int n_tiles = q_first < p.Sq ? (p.Sq - q_first + kBT - 1) / kBT : 0;
+
+  auto stage = [&](int j) {
+    const int st = j % kSt, q0 = q_first + j * kBT;
+    const long long off = ((long long)b * p.Sq + q0) * q_stride + (long long)h * HD;
+    stage_tile_f32<HD>(qs + st * C::kTile, p.q + off, q_stride, p.Sq - q0);
+    stage_tile_f32<HD>(os + st * C::kTile, p.dO + off, q_stride, p.Sq - q0);
+    stage_lse_d(lse_s + st * kBT, d_s + st * kBT, lse_h + q0, d_h + q0, p.Sq - q0);
+  };
   const long long kv_off = ((long long)b * p.Sk + k0) * kv_stride + (long long)kvh * HD;
-  load_rows<T, HD>(ks, k + kv_off, kv_stride, p.Sk - k0);
-  load_rows<T, HD>(vs, v + kv_off, kv_stride, p.Sk - k0);
-
-  float acc_k[4][kC], acc_v[4][kC];
+  stage_tile_f32<HD>(ks, p.k + kv_off, kv_stride, p.Sk - k0);
+  stage_tile_f32<HD>(vs, p.v + kv_off, kv_stride, p.Sk - k0);
+  // K and V land with the first group; tiles 0 .. kSt - 2 in flight
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < kC; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
-
-  // causal: rows before k0 see none of these keys
-  const int q_first = p.causal ? (k0 / kBwdRows) * kBwdRows : 0;
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const float* lse_h = lse + ((long long)b * p.H + h) * p.Sq;
-    const float* d_h = dsum + ((long long)b * p.H + h) * p.Sq;
-    for (int q0 = q_first; q0 < p.Sq; q0 += kBwdRows) {
-      __syncthreads();                 // the last iteration's tiles are read
-      const long long q_off = ((long long)b * p.Sq + q0) * q_stride + (long long)h * HD;
-      load_rows<T, HD>(qs, q + q_off, q_stride, p.Sq - q0);
-      load_rows<T, HD>(os, dO + q_off, q_stride, p.Sq - q0);
-      if (threadIdx.x < kBwdRows) {
-        const bool ok = q0 + (int)threadIdx.x < p.Sq;
-        lse_s[threadIdx.x] = ok ? lse_h[q0 + threadIdx.x] * kLog2e : 0.f;
-        d_s[threadIdx.x] = ok ? d_h[q0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-
-      // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: keys ty + 16 r, queries tx + 16 c
-      float s[4][4], dp[4][4];
-      two_products<HD>(ks, qs, vs, os, ty, tx, s, dp);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int key = k0 + ty + 16 * r, qi = q0 + tx + 16 * c;
-          const bool ok = key < p.Sk && qi < p.Sq && !(p.causal && key > qi);
-          const float pr = ok ? exp2f(s[r][c] * p.scale_log2 - lse_s[tx + 16 * c]) : 0.f;
-          ps[(ty + 16 * r) * kPS + tx + 16 * c] = round_as(pr, v);
-          dss[(ty + 16 * r) * kPS + tx + 16 * c] = pr * (dp[r][c] - d_s[tx + 16 * c]);
-        }
-      __syncthreads();
-
-      // dV += Pᵀ dO, dK += dSᵀ Q over the block's 64 queries in order
-#pragma unroll 2
-      for (int j = 0; j < kBwdRows; ++j) {
-        float pr[4], dr[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          pr[r] = ps[(ty + 16 * r) * kPS + j];
-          dr[r] = dss[(ty + 16 * r) * kPS + j];
-        }
-#pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          const float ov = os[j * kS + tx + 16 * c], qv = qs[j * kS + tx + 16 * c];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            acc_v[r][c] = fmaf(pr[r], ov, acc_v[r][c]);
-            acc_k[r][c] = fmaf(dr[r], qv, acc_k[r][c]);
-          }
-        }
-      }
-    }
+  for (int j = 0; j < kSt - 1; ++j) {
+    if (j < n_tiles) stage(j);
+    cp_async_commit();
   }
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int r0 = 16 * warp;                       // the warp's first key in the block
+  const int key0 = k0 + r0 + (lane >> 2);
+  float acc_k[HD / 2], acc_v[HD / 2];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int key = k0 + ty + 16 * r;
-    if (key >= p.Sk) continue;
-    const long long off = ((long long)b * p.Sk + key) * kv_stride + (long long)kvh * HD;
+  for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    // the stage refilled here was read in iteration j - 1
+    if (j + kSt - 1 < n_tiles) stage(j + kSt - 1);
+    cp_async_commit();
+    cp_async_wait<kSt - 1>();
+    __syncthreads();
+    const int st = j % kSt, q0 = q_first + j * kBT;
+    const float* qt = qs + st * C::kTile;
+    const float* ot = os + st * C::kTile;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kBT; c0 += kN) {
+      const int qc = q0 + c0;                     // the chunk's first query
+      // past the sequence, or (causal) all the warp's keys after the
+      // chunk's last query: nothing to add
+      if (qc >= p.Sq || (p.causal && k0 + r0 > qc + kN - 1)) continue;
+      float sp[kN / 2], ds[kN / 2];               // Sᵀ then Pᵀ; dPᵀ then dSᵀ
 #pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      narrow(dk + off + tx + 16 * c, acc_k[r][c] * p.scale);
-      narrow(dv + off + tx + 16 * c, acc_v[r][c]);
+      for (int i = 0; i < kN / 2; ++i) sp[i] = ds[i] = 0.f;
+      rows_x_rows<HD, kN>(sp, ks + r0 * kS, qt + c0 * kS);
+      rows_x_rows<HD, kN>(ds, vs + r0 * kS, ot + c0 * kS);
+      const bool edge =
+          k0 + r0 + 16 > p.Sk || qc + kN > p.Sq || (p.causal && k0 + r0 + 15 > qc);
+      dkdv_probs<float, kN>(sp, ds, lse_s + st * kBT, d_s + st * kBT, c0, q0, key0, t4, edge, p);
+      frag_x_rows<HD, kN>(acc_v, sp, ot + c0 * kS);   // dV += Pᵀ dO
+      frag_x_rows<HD, kN>(acc_k, ds, qt + c0 * kS);   // dK += dSᵀ Q
     }
+    __syncthreads();
   }
+  cp_async_wait<0>();                             // (K and V of a block with no rows)
+  store_dkdv<float, HD>(acc_k, acc_v, p, b, h, kvh, key0, t4);
 }
 
-// dQ of one block of 64 rows of one (batch, head)
-template <typename T, int HD>
+// dQ of one block of 64 rows of one (batch, head): four warps of 16 rows
+template <int HD>
 __global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dO,
-                        const float* __restrict__ lse, const float* __restrict__ dsum,
-                        T* __restrict__ dq, const BwdParams p) {
-  using C = Bwd<HD>;
-  constexpr int kS = C::kS, kC = HD / 16;
+    flash_bwd_dq_f32_kernel(const BwdArgs<float> p) {
+  using C = BwdF<HD>;
+  constexpr int kS = C::kS, kN = C::kN, kSt = C::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
-  float* os = qs + C::kTile;           // dO
-  float* ks = os + C::kTile;
-  float* vs = ks + C::kTile;
-  float* dss = vs + C::kTile;          // [query][key]: dS
-  float* lse_s = dss + kBwdRows * kPS; // base 2
-  float* d_s = lse_s + kBwdRows;
+  float* os = qs + C::kTile;                      // dO
+  float* ks = os + C::kTile;                      // [stage]
+  float* vs = ks + kSt * C::kTile;                // [stage]
 
-  const int q0 = blockIdx.x * kBwdRows;
-  const int b = blockIdx.y / p.H, h = blockIdx.y - b * p.H;
+  const int nq = (p.Sq + kBT - 1) / kBT;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kBT;    // longest rows first
+  const int b = blockIdx.x / p.H, h = blockIdx.x - b * p.H;
   const int kvh = h / (p.H / p.KV);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long long kv_stride = (long long)p.KV * HD, q_stride = (long long)p.H * HD;
+  int n_tiles = (p.Sk + kBT - 1) / kBT;
+  if (p.causal) n_tiles = min(n_tiles, (min(q0 + kBT, p.Sq) - 1) / kBT + 1);
+
   const long long q_off = ((long long)b * p.Sq + q0) * q_stride + (long long)h * HD;
-  load_rows<T, HD>(qs, q + q_off, q_stride, p.Sq - q0);
-  load_rows<T, HD>(os, dO + q_off, q_stride, p.Sq - q0);
-  if (threadIdx.x < kBwdRows) {
-    const bool ok = q0 + (int)threadIdx.x < p.Sq;
-    const long long at = ((long long)b * p.H + h) * p.Sq + q0 + threadIdx.x;
-    lse_s[threadIdx.x] = ok ? lse[at] * kLog2e : 0.f;
-    d_s[threadIdx.x] = ok ? dsum[at] : 0.f;
+  stage_tile_f32<HD>(qs, p.q + q_off, q_stride, p.Sq - q0);
+  stage_tile_f32<HD>(os, p.dO + q_off, q_stride, p.Sq - q0);
+  auto stage = [&](int j) {
+    const int st = j % kSt, k0 = j * kBT;
+    const long long off = ((long long)b * p.Sk + k0) * kv_stride + (long long)kvh * HD;
+    stage_tile_f32<HD>(ks + st * C::kTile, p.k + off, kv_stride, p.Sk - k0);
+    stage_tile_f32<HD>(vs + st * C::kTile, p.v + off, kv_stride, p.Sk - k0);
+  };
+#pragma unroll
+  for (int j = 0; j < kSt - 1; ++j) {
+    if (j < n_tiles) stage(j);
+    cp_async_commit();
   }
 
-  float acc[4][kC];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int r0 = 16 * warp;                       // the warp's first row in the block
+  const int qpos0 = q0 + r0 + (lane >> 2), qpos1 = qpos0 + 8;
+  const long long row = ((long long)b * p.H + h) * p.Sq;
+  const float l0 = qpos0 < p.Sq ? p.lse[row + qpos0] : 0.f;
+  const float l1 = qpos1 < p.Sq ? p.lse[row + qpos1] : 0.f;
+  const float d0 = qpos0 < p.Sq ? p.dsum[row + qpos0] : 0.f;
+  const float d1 = qpos1 < p.Sq ? p.dsum[row + qpos1] : 0.f;
+  float acc[HD / 2];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < kC; ++c) acc[r][c] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 
-  int n_tiles = (p.Sk + kBwdRows - 1) / kBwdRows;
-  if (p.causal) n_tiles = min(n_tiles, (min(q0 + kBwdRows, p.Sq) - 1) / kBwdRows + 1);
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBwdRows;
-    __syncthreads();                   // the last tile's K and dS are read
-    const long long kv_off = ((long long)b * p.Sk + k0) * kv_stride + (long long)kvh * HD;
-    load_rows<T, HD>(ks, k + kv_off, kv_stride, p.Sk - k0);
-    load_rows<T, HD>(vs, v + kv_off, kv_stride, p.Sk - k0);
+    if (j + kSt - 1 < n_tiles) stage(j + kSt - 1);
+    cp_async_commit();
+    cp_async_wait<kSt - 1>();
     __syncthreads();
-
-    // S = Q Kᵀ and dP = dO Vᵀ: rows ty + 16 r, keys tx + 16 c
-    float s[4][4], dp[4][4];
-    two_products<HD>(qs, ks, os, vs, ty, tx, s, dp);
+    const int st = j % kSt, k0 = j * kBT;
+    const float* kt = ks + st * C::kTile;
+    const float* vt = vs + st * C::kTile;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kBT; c0 += kN) {
+      const int kc = k0 + c0;                     // the chunk's first key
+      if (kc >= p.Sk || (p.causal && kc > q0 + r0 + 15)) continue;
+      float s[kN / 2], dp[kN / 2];                // S then dS; dP
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int qi = q0 + ty + 16 * r, key = k0 + tx + 16 * c;
-        const bool ok = key < p.Sk && qi < p.Sq && !(p.causal && key > qi);
-        const float pr = ok ? exp2f(s[r][c] * p.scale_log2 - lse_s[ty + 16 * r]) : 0.f;
-        dss[(ty + 16 * r) * kPS + tx + 16 * c] = pr * (dp[r][c] - d_s[ty + 16 * r]);
-      }
-    __syncthreads();
-
-    // dQ += dS K over the tile's 64 keys in order
-#pragma unroll 2
-    for (int kk = 0; kk < kBwdRows; ++kk) {
-      float dr[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) dr[r] = dss[(ty + 16 * r) * kPS + kk];
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const float kv = ks[kk * kS + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r][c] = fmaf(dr[r], kv, acc[r][c]);
-      }
+      for (int i = 0; i < kN / 2; ++i) s[i] = dp[i] = 0.f;
+      rows_x_rows<HD, kN>(s, qs + r0 * kS, kt + c0 * kS);
+      rows_x_rows<HD, kN>(dp, os + r0 * kS, vt + c0 * kS);
+      const bool edge =
+          kc + kN > p.Sk || q0 + r0 + 16 > p.Sq || (p.causal && kc + kN - 1 > q0 + r0);
+      dq_probs<float, kN>(s, dp, l0, l1, d0, d1, kc, qpos0, t4, edge, p);
+      frag_x_rows<HD, kN>(acc, s, kt + c0 * kS);  // dQ += dS K
     }
+    __syncthreads();
   }
 
+  float* o0 = p.dq + ((long long)b * p.Sq + qpos0) * q_stride + (long long)h * HD + 2 * t4;
+  float* o1 = o0 + 8 * q_stride;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + ty + 16 * r;
-    if (qi >= p.Sq) continue;
-    const long long off = ((long long)b * p.Sq + qi) * q_stride + (long long)h * HD;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) narrow(dq + off + tx + 16 * c, acc[r][c] * p.scale);
+  for (int nb = 0; nb < HD / 8; ++nb) {
+    if (qpos0 < p.Sq) store_pair(o0 + 8 * nb, acc[4 * nb] * p.scale, acc[4 * nb + 1] * p.scale);
+    if (qpos1 < p.Sq) store_pair(o1 + 8 * nb, acc[4 * nb + 2] * p.scale, acc[4 * nb + 3] * p.scale);
   }
 }
 
+// ---- launch --------------------------------------------------------------------------
+
+template <typename K>
+int set_smem(K kernel, int smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// blocks an SM (the occupancy API), registers and local (spill) bytes a
+// thread of `kernel` with `smem` bytes of dynamic shared memory
+template <typename K>
+int kernel_occupancy(K kernel, int smem, int* blocks, int* regs, int* local) {
+  int e = set_smem(kernel, smem);
+  if (e == 0)
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kBwdThreads, smem);
+  cudaFuncAttributes a;
+  if (e == 0) e = (int)cudaFuncGetAttributes(&a, kernel);
+  if (e == 0) {
+    *regs = a.numRegs;
+    *local = (int)a.localSizeBytes;
+  }
+  return e;
+}
+
 template <typename T, int HD>
-int launch_bwd(const T* q, const T* k, const T* v, const T* o, const T* dO, const float* lse,
-               T* dq, T* dk, T* dv, float* dsum, const BwdParams& p, cudaStream_t stream) {
+int launch_bwd(const BwdArgs<T>& p, const T* o, cudaStream_t stream) {
+  if (p.H != p.KV && p.part == nullptr) return (int)cudaErrorInvalidValue;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const dim3 grid_k(p.B * p.H, (p.Sk + kBT - 1) / kBT), grid_q(p.B * p.H, (p.Sq + kBT - 1) / kBT);
+  CUtensorMap tq, tdo, tk, tv;
+  int e;
+  if constexpr (kBf16) {
+    const long long qr = (long long)p.H * HD, kr = (long long)p.KV * HD;
+    e = encode_qkv<HD>(&tq, p.q, p.B, p.Sq, p.H, p.Sq * qr, qr, HD, kBT);
+    if (e == 0) e = encode_qkv<HD>(&tdo, p.dO, p.B, p.Sq, p.H, p.Sq * qr, qr, HD, kBT);
+    if (e == 0) e = encode_qkv<HD>(&tk, p.k, p.B, p.Sk, p.KV, p.Sk * kr, kr, HD, kBT);
+    if (e == 0) e = encode_qkv<HD>(&tv, p.v, p.B, p.Sk, p.KV, p.Sk * kr, kr, HD, kBT);
+    if (e == 0) e = set_smem(flash_bwd_dkdv_wg_kernel<HD>, BwdWg<HD>::kSmem);
+    if (e == 0) e = set_smem(flash_bwd_dq_wg_kernel<HD>, BwdWg<HD>::kSmem);
+  } else {
+    e = set_smem(flash_bwd_dkdv_f32_kernel<HD>, BwdF<HD>::kSmem);
+    if (e == 0) e = set_smem(flash_bwd_dq_f32_kernel<HD>, BwdF<HD>::kSmem);
+  }
+  if (e != 0) return e;
   const long long rows = (long long)p.B * p.Sq * p.H;
-  const int per_block = kBwdThreads / 32;
-  flash_bwd_dot_kernel<T><<<(unsigned)((rows + per_block - 1) / per_block), kBwdThreads, 0,
-                            stream>>>(o, dO, dsum, p.B, p.Sq, p.H, HD);
-  const int smem = Bwd<HD>::kSmem;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid_q((p.Sq + kBwdRows - 1) / kBwdRows, p.B * p.H);
-  flash_bwd_dq_kernel<T, HD><<<grid_q, kBwdThreads, smem, stream>>>(q, k, v, dO, lse, dsum, dq,
-                                                                      p);
-  const dim3 grid_k((p.Sk + kBwdRows - 1) / kBwdRows, p.B * p.KV);
-  flash_bwd_dkdv_kernel<T, HD><<<grid_k, kBwdThreads, smem, stream>>>(q, k, v, dO, lse, dsum,
-                                                                        dk, dv, p);
+  constexpr int kRowsABlock = kDotThreads / 8;
+  flash_bwd_dot_kernel<T><<<(unsigned)((rows + kRowsABlock - 1) / kRowsABlock), kDotThreads, 0,
+                            stream>>>(o, p.dO, p.dsum, p.B, p.Sq, p.H, HD);
+  if constexpr (kBf16) {
+    constexpr int smem = BwdWg<HD>::kSmem;
+    flash_bwd_dkdv_wg_kernel<HD><<<grid_k, kBwdThreads, smem, stream>>>(tq, tdo, tk, tv, p);
+    flash_bwd_dq_wg_kernel<HD><<<grid_q, kBwdThreads, smem, stream>>>(tq, tdo, tk, tv, p);
+  } else {
+    constexpr int smem = BwdF<HD>::kSmem;
+    flash_bwd_dkdv_f32_kernel<HD><<<grid_k, kBwdThreads, smem, stream>>>(p);
+    flash_bwd_dq_f32_kernel<HD><<<grid_q, kBwdThreads, smem, stream>>>(p);
+  }
+  if (p.H != p.KV) {
+    const long long n4 = (long long)p.B * p.Sk * p.KV * HD / 4;
+    flash_bwd_sum_kernel<T><<<(unsigned)((2 * n4 + 255) / 256), 256, 0, stream>>>(
+        p.part, p.dk, p.dv, n4, (long long)p.B * p.Sk * p.H * HD, p.KV, p.H / p.KV, HD / 4);
+  }
   return (int)cudaGetLastError();
+}
+
+// out[0], out[1]: blocks an SM of the dK/dV and dQ kernels; out[2..5]
+// their registers and local bytes a thread; out[6] their dynamic shared
+// memory
+template <typename T, int HD>
+int bwd_occupancy(int* out) {
+  int e;
+  if constexpr (sizeof(T) == 2) {
+    out[6] = BwdWg<HD>::kSmem;
+    e = kernel_occupancy(flash_bwd_dkdv_wg_kernel<HD>, out[6], &out[0], &out[2], &out[3]);
+    if (e == 0) e = kernel_occupancy(flash_bwd_dq_wg_kernel<HD>, out[6], &out[1], &out[4], &out[5]);
+  } else {
+    out[6] = BwdF<HD>::kSmem;
+    e = kernel_occupancy(flash_bwd_dkdv_f32_kernel<HD>, out[6], &out[0], &out[2], &out[3]);
+    if (e == 0) e = kernel_occupancy(flash_bwd_dq_f32_kernel<HD>, out[6], &out[1], &out[4], &out[5]);
+  }
+  return e;
 }
 
 template <typename T>
 int bwd_entry(const void* q, const void* k, const void* v, const void* o, const void* dO,
-              const void* lse, void* dq, void* dk, void* dv, void* dsum, int B, int Sq, int Sk,
-              int H, int KV, int hd, int causal, float scale, void* stream) {
+              const void* lse, void* dq, void* dk, void* dv, void* dsum, void* part, int B,
+              int Sq, int Sk, int H, int KV, int hd, int causal, float scale, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H < KV || H % KV != 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  const BwdParams p{B, Sq, Sk, H, KV, causal, scale, scale * kLog2e};
+  const BwdArgs<T> p{static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), static_cast<const T*>(dO),
+                     static_cast<const float*>(lse), static_cast<float*>(dsum),
+                     static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
+                     static_cast<float*>(part), B, Sq, Sk, H, KV, causal, scale,
+                     scale * kLog2e};
+  const T* to = static_cast<const T*>(o);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
-          *tv = static_cast<const T*>(v), *to = static_cast<const T*>(o),
-          *tdo = static_cast<const T*>(dO);
-  const float* tl = static_cast<const float*>(lse);
-  T *gq = static_cast<T*>(dq), *gk = static_cast<T*>(dk), *gv = static_cast<T*>(dv);
-  float* ds = static_cast<float*>(dsum);
   switch (hd) {
-    case 16: return launch_bwd<T, 16>(tq, tk, tv, to, tdo, tl, gq, gk, gv, ds, p, s);
-    case 32: return launch_bwd<T, 32>(tq, tk, tv, to, tdo, tl, gq, gk, gv, ds, p, s);
-    case 64: return launch_bwd<T, 64>(tq, tk, tv, to, tdo, tl, gq, gk, gv, ds, p, s);
-    case 128: return launch_bwd<T, 128>(tq, tk, tv, to, tdo, tl, gq, gk, gv, ds, p, s);
-    case 160: return launch_bwd<T, 160>(tq, tk, tv, to, tdo, tl, gq, gk, gv, ds, p, s);
+    case 16: return launch_bwd<T, 16>(p, to, s);
+    case 32: return launch_bwd<T, 32>(p, to, s);
+    case 64: return launch_bwd<T, 64>(p, to, s);
+    case 128: return launch_bwd<T, 128>(p, to, s);
+    case 160: return launch_bwd<T, 160>(p, to, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int occupancy_entry(int hd, int* out) {
+  switch (hd) {
+    case 16: return bwd_occupancy<T, 16>(out);
+    case 32: return bwd_occupancy<T, 32>(out);
+    case 64: return bwd_occupancy<T, 64>(out);
+    case 128: return bwd_occupancy<T, 128>(out);
+    case 160: return bwd_occupancy<T, 160>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1023,24 +1666,34 @@ int rt_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 // The backward of either instance: q, o, dO, dq (B, Sq, H, hd), k, v, dk,
-// dv (B, Sk, KV, hd), all contiguous, bf16 (rt_flash_attention_bwd) or
-// fp32 (rt_flash_attention_bwd_f32); lse (B, H, Sq) fp32 as the forward
-// wrote it; dsum an fp32 (B, H, Sq) scratch (D).  Three device kernels on
-// the caller's stream; allocates nothing.
+// dv (B, Sk, KV, hd), all contiguous and 16-byte aligned, bf16
+// (rt_flash_attention_bwd) or fp32 (rt_flash_attention_bwd_f32); lse (B,
+// H, Sq) fp32 as the forward wrote it; dsum an fp32 (B, H, Sq) scratch
+// (D); part an fp32 (2, B, Sk, H, hd) scratch (each query head's dK and
+// dV), or null when H == KV.  Three or four device kernels on the
+// caller's stream; allocates nothing.
 int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                            const void* dO, const void* lse, void* dq, void* dk, void* dv,
-                           void* dsum, int B, int Sq, int Sk, int H, int KV, int hd, int causal,
-                           float scale, void* stream) {
-  return bwd_entry<bf16>(q, k, v, o, dO, lse, dq, dk, dv, dsum, B, Sq, Sk, H, KV, hd, causal,
-                         scale, stream);
+                           void* dsum, void* part, int B, int Sq, int Sk, int H, int KV, int hd,
+                           int causal, float scale, void* stream) {
+  return bwd_entry<bf16>(q, k, v, o, dO, lse, dq, dk, dv, dsum, part, B, Sq, Sk, H, KV, hd,
+                         causal, scale, stream);
 }
 
 int rt_flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                                const void* dO, const void* lse, void* dq, void* dk, void* dv,
-                               void* dsum, int B, int Sq, int Sk, int H, int KV, int hd,
-                               int causal, float scale, void* stream) {
-  return bwd_entry<float>(q, k, v, o, dO, lse, dq, dk, dv, dsum, B, Sq, Sk, H, KV, hd, causal,
-                          scale, stream);
+                               void* dsum, void* part, int B, int Sq, int Sk, int H, int KV,
+                               int hd, int causal, float scale, void* stream) {
+  return bwd_entry<float>(q, k, v, o, dO, lse, dq, dk, dv, dsum, part, B, Sq, Sk, H, KV, hd,
+                          causal, scale, stream);
+}
+
+// The backward kernels' residency at head dim hd (f32: the fp32 instance):
+// out[0], out[1] blocks an SM of the dK/dV and dQ kernels (the occupancy
+// API), out[2..5] their registers and local bytes a thread, out[6] their
+// dynamic shared memory.
+int rt_flash_attention_bwd_occupancy(int f32, int hd, int* out) {
+  return f32 ? occupancy_entry<float>(hd, out) : occupancy_entry<bf16>(hd, out);
 }
 
 }  // extern "C"

@@ -14,7 +14,11 @@ registry (``repro_torch.kernels``) and one to its kernel's,
 ``flash_attention/wgmma`` (bf16) or ``flash_attention/tf32x3`` (fp32:
 split TF32 on the tensor cores); each backward launch one to
 ``flash_attention/bwd`` and one to ``flash_attention/bwd_bf16`` or
-``flash_attention/bwd_f32``.
+``flash_attention/bwd_f32``.  The backward runs its products on the
+tensor cores too (bf16 mma.sync with dS in two bf16 terms, fp32 split
+TF32), over a dK/dV grid of one block per (batch, query head, key block)
+whose fp32 partials a last kernel sums per kv head in a fixed order:
+no atomics, so two launches give the same bits.
 """
 from __future__ import annotations
 

@@ -9,8 +9,9 @@ kernel's forward saves, and ``ref_attention_backward`` is the plain
 version of the backward kernel: the gradient as its explicit formula,
 from those saved rows.  ``split_tf32`` and ``emulate_flash_f32`` repeat the
 arithmetic of the kernel's fp32 route (split TF32 products, tiles of 64
-keys, an online softmax), for the tests to hold it against the
-reference.
+keys, an online softmax), and ``emulate_flash_bwd`` that of the backward
+kernel (bf16 products with dS in two bf16 terms, or split TF32), for the
+tests to hold them against the reference.
 """
 from __future__ import annotations
 
@@ -120,6 +121,31 @@ def _split_product(eq: str, a: torch.Tensor, b: torch.Tensor):
             + torch.einsum(eq, ah, bh))
 
 
+def split3_tf32(x: torch.Tensor):
+    """(x1, x2, x3) tf32 terms of fp32 ``x``, each rounded to nearest,
+    ties away, from what the earlier ones leave: x1 + x2 + x3 is x
+    exactly (``split3_tf32`` in the kernel)."""
+    def rna(t):
+        b = t.contiguous().view(torch.int32)
+        return ((b + 0x1000) & -0x2000).view(torch.float32)
+    x = x.float()
+    x1 = rna(x)
+    r = x - x1
+    x2 = rna(r)
+    return x1, x2, rna(r - x2)
+
+
+def _split3_product(eq: str, a: torch.Tensor, b: torch.Tensor):
+    """einsum(eq, a, b) as the kernel's six tf32 products of three-term
+    splits, x3.y1 + x2.y2 + x1.y3 + x2.y1 + x1.y2 + x1.y1, each summed in
+    fp32, added in that order."""
+    (a1, a2, a3), (b1, b2, b3) = split3_tf32(a), split3_tf32(b)
+    out = torch.einsum(eq, a3, b1)
+    for x, y in ((a2, b2), (a1, b3), (a2, b1), (a1, b2), (a1, b1)):
+        out = out + torch.einsum(eq, x, y)
+    return out
+
+
 def key_groups(hd: int) -> int:
     """The fp32 route's key groups a block (``FlashF::kGroups``): two at
     hd <= 64, each taking alternate tiles, else one."""
@@ -170,3 +196,79 @@ def emulate_flash_f32(q, k, v, *, causal: bool = True) -> torch.Tensor:
         m = mn
     o = acc / l.clamp_min(1e-30)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+ROWS_A_TILE = 64      # the backward's query tiles (kBT)
+LOG2E = 1.4426950408889634
+
+
+def emulate_flash_bwd(q, k, v, o, lse, do, *, causal: bool = True):
+    """The backward kernel's arithmetic in plain PyTorch, with the
+    arguments and results of ``ref_attention_backward``.  Per query head,
+    query tiles of ROWS_A_TILE rows in order: S and dP as products of the
+    inputs (bf16: exact products summed in fp32; fp32: six tf32 products
+    of three-term splits, ``_split3_product``); P, 0 where masked, is
+    exp2(S hd^-1/2 log2(e) - lse log2(e)) in bf16 and exp(S hd^-1/2 -
+    lse) with the exponent rounded once (an fma) in fp32; dS = P (dP - D), D =
+    rowsum(dO * O) of the output as stored, summed in float64 and rounded
+    once.  bf16: dV += bf16(P)ᵀ dO, and dS in two terms, hi = bf16(dS)
+    and lo = bf16(dS - hi), a product each for dK and dQ; fp32: P and dS
+    unrounded, three split-TF32 products (``_split_product``).  dK and dV
+    accumulate over the tiles per query head (dK times hd^-1/2 at the
+    end), then each kv head's G partials are added in order g = 0, 1,
+    ...; dQ = dS K hd^-1/2."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    bf = q.dtype == torch.bfloat16
+
+    def sdp(eq, a, b):                  # S and dP
+        return torch.einsum(eq, a, b) if bf else _split3_product(eq, a, b)
+
+    def prod(eq, a, b):                 # dV, dK, dQ
+        return torch.einsum(eq, a, b) if bf else _split_product(eq, a, b)
+    qf, dof = q.float(), do.float()
+    kh = k.float().repeat_interleave(G, dim=2)               # (B,Sk,H,hd)
+    vh = v.float().repeat_interleave(G, dim=2)
+    dsum = (dof.double() * o.double()).sum(-1).float().transpose(1, 2)
+    lse2 = lse.float() * LOG2E
+    scale = hd ** -0.5
+    scale_log2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    scale32 = float(torch.tensor(scale, dtype=torch.float32))
+    keys = torch.arange(Sk, device=q.device)
+    dq = torch.zeros((B, Sq, H, hd), device=q.device)
+    dk = torch.zeros((B, Sk, H, hd), device=q.device)
+    dv = torch.zeros((B, Sk, H, hd), device=q.device)
+    for r0 in range(0, Sq, ROWS_A_TILE):
+        r1 = min(r0 + ROWS_A_TILE, Sq)
+        qt, ot = qf[:, r0:r1], dof[:, r0:r1]
+        s = sdp("bihd,bjhd->bhij", qt, kh)
+        if bf:
+            p = torch.exp2(s * scale_log2 - lse2[:, :, r0:r1, None])
+        else:
+            p = torch.exp((s.double() * scale32 - lse.double()[:, :, r0:r1,
+                                                              None]).float())
+        if causal:
+            rows = torch.arange(r0, r1, device=q.device)
+            p = torch.where(rows[:, None] >= keys[None], p,
+                            torch.zeros((), device=q.device))
+        dp = sdp("bihd,bjhd->bhij", ot, vh)
+        ds = p * (dp - dsum[:, :, r0:r1, None])
+        if bf:
+            hi = ds.to(torch.bfloat16).float()
+            terms = (hi, (ds - hi).to(torch.bfloat16).float())
+            p = p.to(torch.bfloat16).float()
+        else:
+            terms = (ds,)
+        dv += prod("bhij,bihd->bjhd", p, ot)
+        for t in terms:
+            dk += prod("bhij,bihd->bjhd", t, qt)
+            dq[:, r0:r1] += prod("bhij,bjhd->bihd", t, kh)
+    dk = (dk * scale).reshape(B, Sk, KV, G, hd)
+    dv = dv.reshape(B, Sk, KV, G, hd)
+    dk_sum, dv_sum = dk[:, :, :, 0], dv[:, :, :, 0]
+    for g in range(1, G):
+        dk_sum = dk_sum + dk[:, :, :, g]
+        dv_sum = dv_sum + dv[:, :, :, g]
+    return ((dq * scale).to(q.dtype), dk_sum.to(k.dtype),
+            dv_sum.to(v.dtype))

@@ -1731,6 +1731,23 @@ def test_fused_qkv_gemv_refuses_what_it_does_not_take(cuda):
 
 # -- the fp32 flash route: split TF32 on mma.sync ----------------------------
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_grid_balanced_at_the_training_shape(cuda, dtype):
+    """At the training shape (B 4, S 2048, H 14, KV 2, hd 64, causal) no
+    dK/dV or dQ block walks more than half the tile pairs a resident block
+    slot gets on average (the occupancy API's blocks an SM); the bf16
+    kernels (the training path's) do not spill to local memory."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    occ = FK.bwd_occupancy(dtype, 64)
+    if dtype == torch.bfloat16:
+        assert occ["dkdv_local_bytes"] == 0 and occ["dq_local_bytes"] == 0
+    geo = FK.bwd_geometry(
+        4, 2048, 2048, 14, True, {"dkdv": occ["dkdv_blocks_an_sm"],
+                                  "dq": occ["dq_blocks_an_sm"]},
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    assert geo["dkdv"]["balanced"] and geo["dq"]["balanced"], (occ, geo)
+
+
 def _attention_f64(q, k, v, causal):
     """Dense GQA attention evaluated in float64 throughout."""
     B, Sq, H, hd = q.shape
@@ -3017,7 +3034,8 @@ def _bwd_close(got, want, dtype, causal_dq=False):
     (4, 2048, 2048, 14, 2, 64, True), (1, 1024, 1024, 28, 4, 128, True),
     (1, 777, 777, 14, 2, 64, True), (1, 300, 1000, 28, 4, 128, False),
     (2, 128, 128, 4, 2, 32, False), (1, 128, 128, 32, 4, 16, True),
-    (1, 200, 77, 8, 2, 160, True), (1, 2, 2, 4, 1, 64, True)])
+    (1, 200, 77, 8, 2, 160, True), (1, 2, 2, 4, 1, 64, True),
+    (1, 1024, 1024, 28, 4, 160, True), (1, 300, 777, 28, 4, 160, False)])
 def test_flash_backward_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KV,
                                              hd, causal):
     """The backward kernel against ``ref_attention_backward`` on the

@@ -180,3 +180,156 @@ def test_attention_backward_plain_matches_reference_grad(shape, causal,
     want_lse = np.asarray(jax.nn.logsumexp(jnp.asarray(s), axis=-1)
                           ).reshape(B, H, Sq)
     np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-6, atol=1e-6)
+
+
+# -- the backward kernel's arithmetic ------------------------------------------
+# ``emulate_flash_bwd`` repeats what the card's backward kernel computes (64-
+# row tiles, bf16 products with dS in two bf16 terms, or split TF32 in fp32,
+# each kv head's query-head partials added in order).  On the plain test's
+# grid it meets ``jax.vjp`` of the reference's ``dense_attention``: in fp32
+# every row of dq, dk and dv within 1e-4 of that row's largest magnitude (a
+# causal dq's row 0, zero in exact arithmetic, against the gradient's
+# largest); in bf16 within 3e-2 of each gradient's largest, as the plain
+# version (the reference rounds cotangents to bf16 mid-way, and a causal
+# dq's few-key rows take D from the bf16 output: the plain version's own
+# rows reach 4.5e-2 of themselves there), and every row within 2e-2 of the
+# plain version's.  Against the float64 backward it is no worse than twice
+# the plain version's error (the card checks' gate).
+BWD_SHAPES = [((2, 128, 128, 4, 2, 32), True), ((1, 96, 96, 8, 8, 64), False),
+              ((1, 64, 192, 6, 2, 16), False), ((1, 192, 64, 6, 3, 32), True),
+              ((1, 100, 100, 14, 2, 160), True)]
+BWD_ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _bwd_case(shape, causal, dtype):
+    from repro_torch.kernels.flash_attention import ref_attention_lse
+    B, Sq, Sk, H, KV, hd = shape
+    (q, k, v), (tq, tk, tv) = _inputs(B, Sq, Sk, H, KV, hd, dtype,
+                                      sum(shape) + causal)
+    rng = np.random.default_rng(sum(shape))
+    do = jnp.asarray(rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+                     .astype(jnp.dtype(dtype)))
+    tdo = bridge.array_to_tensor(np.asarray(do), device="cpu")
+    o, lse = ref_attention_lse(tq, tk, tv, causal=causal)
+    return (q, k, v, do), (tq, tk, tv, o, lse, tdo)
+
+
+def _row_ratio(got, want, causal_dq):
+    """max over rows of |got - want| / the row's largest |want| (a causal
+    dq's row 0 against the gradient's largest)."""
+    g = np.asarray(got, np.float32)
+    w = np.asarray(want, np.float32)
+    row = np.abs(w).max(-1)
+    den = row.copy()
+    if causal_dq:
+        den[:, 0] = row.max()
+    return float(np.nan_to_num(np.abs(g - w).max(-1) / den, nan=0.0).max())
+
+
+@pytest.mark.parametrize("shape,causal", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_emulation_matches_reference_grad(shape, causal, dtype):
+    from repro.models.attention import dense_attention
+    from repro_torch.kernels.flash_attention import ref_attention_backward
+    from repro_torch.kernels.flash_attention.ref import emulate_flash_bwd
+    (q, k, v, do), args = _bwd_case(shape, causal, dtype)
+    _, vjp = jax.vjp(lambda a, b, c: dense_attention(a, b, c, causal=causal),
+                     q, k, v)
+    got = emulate_flash_bwd(*args, causal=causal)
+    plain = ref_attention_backward(*args, causal=causal)
+    for i, (g, w, pl, t) in enumerate(zip(got, vjp(do), plain, args[:3])):
+        assert g.dtype == t.dtype and tuple(g.shape) == tuple(t.shape)
+        if dtype == "float32":
+            assert _row_ratio(_f32(g), w, causal and i == 0) <= \
+                BWD_ROW_TOL[dtype]
+        else:
+            assert _rel_err(_f32(g), w) < 3e-2
+            assert _row_ratio(_f32(g), _f32(pl), causal and i == 0) <= \
+                BWD_ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("shape,causal", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_emulation_vs_float64_within_twice_plain(shape, causal,
+                                                           dtype):
+    from repro_torch.kernels.flash_attention import ref_attention_backward
+    from repro_torch.kernels.flash_attention.ref import emulate_flash_bwd
+    _, args = _bwd_case(shape, causal, dtype)
+    got = emulate_flash_bwd(*args, causal=causal)
+    want = ref_attention_backward(*args, causal=causal)
+    exact = ref_attention_backward(*(t.double() for t in args),
+                                   causal=causal)
+    for g, w, x in zip(got, want, exact):
+        den = x.abs().max()
+        k_err = ((g.double() - x).abs().max() / den).item()
+        p_err = ((w.double() - x).abs().max() / den).item()
+        assert k_err <= 2.0 * p_err, (k_err, p_err)
+
+
+# -- the backward's grids -------------------------------------------------------
+# ``kernel.bwd_grid`` mirrors how the backward kernels map blockIdx to work:
+# dK/dV a block per (batch, query head, 64-key block), dQ a block per (batch,
+# head, 64-row block), both issued longest first.  Each must cover every
+# (head, key block, row block) tile pair that the causal mask leaves any
+# element of exactly once; at the training shape (B 4, S 2048, H 14) the
+# longest block walks 32 tile pairs against a mean of 16.5, at most half of
+# what a resident block slot gets on average up to three blocks an SM (the
+# bf16 kernels' shared memory at hd 64 holds three).
+
+@pytest.mark.parametrize("B,Sq,Sk,H,causal", [
+    (4, 2048, 2048, 14, True), (1, 777, 777, 14, True),
+    (1, 300, 1000, 28, False), (1, 200, 77, 8, True), (1, 2, 2, 4, True),
+    (1, 128, 300, 4, True), (2, 128, 128, 4, False)])
+def test_flash_bwd_grid_covers_each_tile_pair_once(B, Sq, Sk, H, causal):
+    from repro_torch.kernels.flash_attention import kernel as FK
+    T = FK.BWD_TILE
+    nq, nk = -(-Sq // T), -(-Sk // T)
+    want = {(bh, kb, rb) for bh in range(B * H) for kb in range(nk)
+            for rb in range(nq)
+            if not causal or kb * T <= min(rb * T + T, Sq) - 1}
+    dkdv, dq = FK.bwd_grid(B, Sq, Sk, H, causal)
+    assert len(dkdv) == B * H * nk and len(dq) == B * H * nq
+    for blocks, key in ((dkdv, lambda p: p[:2]), (dq, lambda p: (p[0], p[2]))):
+        pairs = [p for blk in blocks for p in blk]
+        assert len(pairs) == len(set(pairs)) and set(pairs) == want
+        # a block walks one (head, key block) or one (head, row block)
+        assert all(len({key(p) for p in blk}) <= 1 for blk in blocks)
+        # longest first
+        lens = [len(blk) for blk in blocks]
+        assert lens == sorted(lens, reverse=True)
+
+
+@pytest.mark.parametrize("resident,balanced", [(1, True), (2, True),
+                                               (3, True), (4, False)])
+def test_flash_bwd_geometry_at_the_training_shape(resident, balanced):
+    from repro_torch.kernels.flash_attention import kernel as FK
+    geo = FK.bwd_geometry(4, 2048, 2048, 14, True,
+                          {"dkdv": resident, "dq": resident})
+    for name in ("dkdv", "dq"):
+        g = geo[name]
+        assert (g["blocks"], g["tile_pairs"], g["longest"]) == \
+            (1792, 4 * 14 * 528, 32)
+        assert g["mean"] == 16.5
+        assert g["pairs_a_slot"] == 4 * 14 * 528 / (132 * resident)
+        assert g["balanced"] is balanced
+
+
+def test_split3_tf32_is_exact():
+    """The backward's three-term split: x1 + x2 + x3 is x exactly over
+    twelve decades and at the edges, each term keeping 10 explicit
+    mantissa bits (its 13 low bits zero); two terms (``split_tf32``) miss
+    by up to 2^-22 |x|."""
+    from repro_torch.kernels.flash_attention.ref import split3_tf32
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal(200_000)
+         * np.exp(rng.uniform(-14.0, 14.0, 200_000))).astype(np.float32)
+    x = np.concatenate([x, np.array([0.0, 1.0, -1.0, 3.4e38], np.float32)])
+    t = torch.from_numpy(x)
+    terms = split3_tf32(t)
+    for part in terms:
+        assert part.dtype == torch.float32
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    total = sum(p.double() for p in terms)
+    assert torch.equal(total, t.double())
+    hi, lo = split_tf32(t)
+    assert (hi.double() + lo.double() != t.double()).any()
