@@ -45,8 +45,11 @@ Phases (any failure raises and exits non-zero):
 3. serve LLaVA-OneVision-0.5B at full width through ``ServingEngine``:
    random weights from ``init_params`` (seed 0) on the card, packed by
    ``quantize_tree(nanomind-serve)``; four requests (full-resolution and
-   thumbnail images, one shared payload, 16-token text, 16 new tokens);
-   chunked prefill attention, decode through the fused kernels;
+   thumbnail images, one shared payload, 16-token text, 16 new tokens),
+   every one staged before the engine's first step (``stage_all``), so
+   all four are admitted together: fails unless it decoded at the one
+   cohort bucket ``[N_SLOTS]``; chunked prefill attention, decode
+   through the fused kernels;
 4. serve Qwen2-VL-7B the same way with ``attn_q_chunk=0``: prefill
    through the flash kernel in every layer, M-RoPE decode through the
    fused kernels; four requests (a 1024-token image, a repeat of its
@@ -269,9 +272,9 @@ Phases (any failure raises and exits non-zero):
    tokens each, every kernel call held as above (the fused QKV and MLP
    of the dense configs' captured step too).  The MoE steps' decode goes
    through the routed experts' GEMV (``fused_mlp/experts``, held against
-   ``ref_fused_mlp_experts`` in the eager step); DeepSeek's and DBRX's
-   replayed step print beside their device ms before it
-   (``DECODE_MS_BEFORE``);
+   ``ref_fused_mlp_experts`` in the eager step); DeepSeek's, DBRX's and
+   (phase 9) Jamba's replayed step print beside their device ms with
+   the GEMV as first written (``DECODE_MS_BEFORE``);
 9. serve Jamba-1.5-Large at full width and one group of 8 sublayers
    (attention at position 4, Mamba-2 elsewhere, 16 experts top-2 on odd
    positions, ``attn_q_chunk=0``), packed as made, with phase 8's
@@ -384,6 +387,9 @@ STEP_TOL = 5e-2
 # max_len 4096, because the engine's prefill buckets stop below max_len
 # and a 1040-token prompt needs the 2048 bucket
 N_SLOTS, BLOCK_SIZE = 4, 64
+# seconds a serve waits for its requests' staging before its first step
+# (stage_all: phase 3 admits its requests together)
+STAGE_TIMEOUT_S = 120.0
 MAX_LEN = {"llava-onevision-0.5b": 2048, "qwen2-vl-7b": 4096,
            "mamba2-1.3b": 2048}
 # weights' layers rotated through in the decode-kernel timings: LLaVA's 24
@@ -591,10 +597,14 @@ DENSE_LAYERS = 2
 DENSE_PROMPTS = (512, 300)
 DENSE_NEW = 4
 DENSE_MAX_LEN = 1024
-# the replayed decode step's device ms before the routed experts' GEMV
-# (the route that dequantized every expert a step, NVIDIA H100 80GB HBM3,
-# 700.00 W; PERF.md section 5), printed beside this run's
-DECODE_MS_BEFORE = {MOE_PATH: 432.13, "dbrx-132b/2-layer": 168.5}
+# the replayed decode step's device ms with the routed experts' GEMV as
+# first written (four device kernels a call, a grid over all E experts;
+# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 5), printed beside
+# this run's
+DECODE_MS_BEFORE = {MOE_PATH: 51.77, "dbrx-132b/2-layer": 23.53,
+                    "jamba-1.5-large-398b/1-group": 154.23}
+DECODE_MS_BEFORE_SOURCE = ("NVIDIA H100 80GB HBM3, 700.00 W, the routed "
+                           "experts' GEMV of four device kernels a call")
 # the routed experts' GEMV of a decode step (fused_mlp/experts) at each
 # MoE config's widths, (E, top_k, D, F); checked at every cohort of
 # EXPERT_GEMV_BCS, timed at TIME_BC; each row within EXPERT_GEMV_TOL of
@@ -604,6 +614,11 @@ EXPERT_GEMV = {"deepseek-moe-16b": (64, 6, 2048, 1408),
                "jamba-1.5-large-398b": (16, 2, 8192, 24576)}
 EXPERT_GEMV_BCS = (1, 2, 4, 8)
 EXPERT_GEMV_TOL = {"bfloat16": KERNEL_TOL, "float32": 1e-5}
+# the cohorts it is timed at, each over this many routings taken in turn
+EXPERT_TIME_BCS = (1, 4, 8)
+EXPERT_ROTATIONS = 8
+EXPERT_MS_SOURCE = ("a CUDA graph of the rotation's calls replayed, CUDA "
+                    "events (as a decode step's graph runs them)")
 # the SSD kernel at Jamba's Mamba-2 widths: 128 heads of P 128, one B/C
 # group, state 128, chunk 256, at a 2 x 1024 prefill
 SSD_P128_SHAPE = (2, 1024, 128, 128, 1, 128, 256)
@@ -659,13 +674,11 @@ def device_time(fn):
     return sum(r[1] for r in rows), rows, sum(r[2] for r in rows)
 
 
-def timed(fn, n_rot, iters=96):
-    """(device ms, call ms, device kernels) per call of ``fn(i)``, i
-    rotating over ``n_rot`` weight sets: the card's kernel time summed
-    from the profiler's CUDA events (None if it recorded none), wall time
-    per call between CUDA events around the loop — host overhead
-    included, which dominates calls of a few microseconds — and the
-    kernels one call runs on the card."""
+def event_ms(fn, n_rot, iters):
+    """Wall ms a call of ``fn(i)``, i rotating over ``n_rot`` inputs,
+    between CUDA events around ``iters`` calls launched from Python (host
+    overhead included, which dominates calls of a few microseconds),
+    after one warm call of each input."""
     import torch
     for i in range(n_rot):
         fn(i)
@@ -677,7 +690,17 @@ def timed(fn, n_rot, iters=96):
         fn(i % n_rot)
     stop.record()
     torch.cuda.synchronize()
-    call_ms = start.elapsed_time(stop) / iters
+    return start.elapsed_time(stop) / iters
+
+
+def timed(fn, n_rot, iters=96):
+    """(device ms, call ms, device kernels) per call of ``fn(i)``, i
+    rotating over ``n_rot`` weight sets: the card's kernel time summed
+    from the profiler's CUDA events (None if it recorded none), the wall
+    time per call (``event_ms``) and the kernels one call runs on the
+    card."""
+    import torch
+    call_ms = event_ms(fn, n_rot, iters)
 
     def loop():
         for i in range(iters):
@@ -2009,20 +2032,21 @@ def served_vs_eager(sm, cfg, eng, state, fused, held=()):
 
 # the kernels each decode breakdown times by name inside the step
 STEP_KERNELS = ("kv_row_scatter", "cache_row_update", "gemv_kernel",
-                "expert_mv_kernel")
+                "expert_up_kernel", "expert_down_kernel")
 
 
 def step_kernels(per_step):
     """The device kernels of STEP_KERNELS that one decode step with the
     wrapper launches ``per_step`` runs: one KV-row scatter a
     ``kv_scatter``, one row update a ``cache_row_update``, one GEMV a
-    ``fused_qkv/gemv`` and two a ``fused_mlp/gemv`` (one a stage), two
-    routed experts' GEMVs a ``fused_mlp/experts`` (one a stage)."""
+    ``fused_qkv/gemv`` and two a ``fused_mlp/gemv`` (one a stage), one
+    routed experts' up stage and one down stage a ``fused_mlp/experts``."""
     return {"kv_row_scatter": per_step.get("kv_scatter", 0),
             "cache_row_update": per_step.get("cache_row_update", 0),
             "gemv_kernel": per_step.get("fused_qkv/gemv", 0)
             + 2 * per_step.get("fused_mlp/gemv", 0),
-            "expert_mv_kernel": 2 * per_step.get("fused_mlp/experts", 0)}
+            "expert_up_kernel": per_step.get("fused_mlp/experts", 0),
+            "expert_down_kernel": per_step.get("fused_mlp/experts", 0)}
 
 
 def decode_breakdown(eng, host_args, rows, per_step):
@@ -2035,14 +2059,27 @@ def decode_breakdown(eng, host_args, rows, per_step):
     clock to a synchronize, median of 5 turns), device ms (the profiler's
     kernel time), busy share, tokens/s (``rows`` live rows over the wall
     time), the device ms and launches of the kernels named in
-    STEP_KERNELS, and the largest kernels.  Fails unless the profiler
-    sees kernels in each way, and each way runs the kernels of
-    STEP_KERNELS as often as the serve's launches ``per_step`` say
-    (``step_kernels``): the replay's counts are observed, not taken from
-    the registry."""
+    STEP_KERNELS as one profiled run saw them, and the largest kernels.
+    Fails unless the profiler sees kernels in each way, and a CUDA graph
+    that captures the step, as the engine captures it for its replays,
+    holds the kernels of STEP_KERNELS as often as the serve's launches
+    ``per_step`` say (``step_kernels``): counted from the graph's own
+    nodes (``captured_nodes``), not from the registry, nor from the
+    profiler, which can miss a launch of a burst (``device_time``; its
+    misses are reported)."""
     import torch
+    from repro_torch.kernels import captured_nodes
     dev = eng.device
     want = step_kernels(per_step)
+    with torch.no_grad():
+        nodes = captured_nodes(eng._cohort_step,
+                               *(torch.from_numpy(a).to(dev)
+                                 for a in host_args), eng.slots.pool)
+    captured = {k: sum(k in n for n in nodes) for k in STEP_KERNELS}
+    if captured != want:
+        fail(f"{eng.cfg.name}: a capture of the decode step holds "
+             f"{captured} of {STEP_KERNELS} (want {want})")
+    free()
 
     def graph():
         eng._decode(*host_args)
@@ -2063,20 +2100,22 @@ def decode_breakdown(eng, host_args, rows, per_step):
             f()
             walls[name].append(time.perf_counter() - t0)
     out = {"bc": int(host_args[0].shape[0]), "rows": rows,
-           "step_kernels_per_step": want}
+           "step_kernels_per_step": want, "step_kernels_captured": captured,
+           "graph_nodes_captured": len(nodes)}
     for name, f in ways:
         kernel_us, by_name, n = device_time(f)
-        wall_ms = sorted(walls[name])[2] * 1e3
         counts = {k: [sum(us for nm, us, _ in by_name if k in nm) / 1e3,
                       sum(c for nm, _, c in by_name if k in nm)]
                   for k in STEP_KERNELS}
-        seen = {k: c for k, (_, c) in counts.items()}
-        if n == 0 or seen != want:
-            fail(f"{eng.cfg.name}: the profiler saw {n} kernels in the "
-                 f"{name} step, {seen} of {STEP_KERNELS} (want {want})")
+        wall_ms = sorted(walls[name])[2] * 1e3
+        if n == 0:
+            fail(f"{eng.cfg.name}: the profiler saw no kernel in the "
+                 f"{name} step")
         out[name] = {"wall_ms": wall_ms, "device_ms": kernel_us / 1e3,
                      "device_ms_source": "profiler kernel time",
                      "device_kernels": n,
+                     "profiler_missed": {k: want[k] - c for k, (_, c)
+                                         in counts.items() if c != want[k]},
                      "device_busy_share": kernel_us / 1e3 / wall_ms,
                      "tok_s": rows / wall_ms * 1e3,
                      "kernels_ms_launches": counts,
@@ -2098,8 +2137,37 @@ def decode_rates(eng, decs):
                 toks / max(1e-9, span - eng.graph_stats["capture_s"]), 3)}
 
 
+def stage_all(eng, timeout=STAGE_TIMEOUT_S):
+    """Hand every queued vision request of ``eng`` to its staging threads
+    (the engine's own hand-off, ``_feed_staging``, round after round as
+    its per-class budgets allow) and wait until each is staged, failing
+    past ``timeout`` seconds; a request that shares another's slab is
+    staged when that one is bound.  Then the engine's first step admits
+    them all together, whatever the staging threads' timing: its
+    admission takes only staged requests.  The engine's policy is
+    unchanged; only when its first step starts is."""
+    if eng._worker is None:
+        return
+    pending = [r for r in eng.queue
+               if r.vision_feats is not None and r.share_of is None]
+    t_end = time.monotonic() + timeout
+    while True:
+        eng._feed_staging()
+        waiting = [r for r in pending if not r.staged]
+        if not waiting:
+            break
+        if time.monotonic() > t_end:
+            fail(f"{eng.cfg.name}: requests {[r.rid for r in waiting]} "
+                 f"not staged within {timeout} s")
+        waiting[0]._staged_ev.wait(0.05)
+    errors = [r.rid for r in pending if r.error is not None]
+    if errors:
+        fail(f"{eng.cfg.name}: staging failed for requests {errors}")
+
+
 def serve_path(sm, cfg, reqs, use_fused=None, first_logits=None,
-               policy="nanomind-serve", events=None, decode_state=None):
+               policy="nanomind-serve", events=None, decode_state=None,
+               staged=False):
     """Serve ``reqs`` on ``cfg`` at full width with the engine's decode
     step (``use_fused``: None, the engine's default, which must be the
     fused step; False, the composed step); check what the run must show,
@@ -2113,7 +2181,9 @@ def serve_path(sm, cfg, reqs, use_fused=None, first_logits=None,
     packs the weights; ``events`` (a ``BrickEvents``) times each brick's
     calls of the run with CUDA events; ``decode_state``, when given,
     receives the timed cohort state (``host_args``, ``rows``, a clone of
-    the ``pool`` before the step)."""
+    the ``pool`` before the step); ``staged``: every request staged
+    (``stage_all``) before the engine's first step, so the serve admits
+    them together and decodes at one cohort bucket."""
     from repro_torch.core.quantize import PROFILES, quantize_tree
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.fused_decode import ops, ref
@@ -2167,6 +2237,8 @@ def serve_path(sm, cfg, reqs, use_fused=None, first_logits=None,
     reset_launch_counts()
     t0 = time.perf_counter()
     with GemmCalls() as gemms, FlashCalls() as flashes, steps, eng:
+        if staged:
+            stage_all(eng)
         done = eng.run()
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
@@ -5236,50 +5308,122 @@ def time_expert_gemm(sm, shape):
     return out
 
 
+def replayed_ms(fn, n):
+    """ms a call of ``fn(i)``, i over ``n`` inputs, as a CUDA graph of
+    the n calls back to back replays them (CUDA events around 3 replays
+    after one warm replay)."""
+    import torch
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (3 * n)
+
+
 def time_expert_gemv(sm, arch):
     """The routed experts' GEMV at ``arch``'s widths (EXPERT_GEMV), q4
-    g32, bf16, at cohort TIME_BC with distinct experts a row, through
-    ``fused_mlp_experts``, its plain version and the library form: the
-    routed (row, choice) pairs' experts gathered, dequantized and run
-    through batched ``torch.bmm``, a matrix at a time.  The bound's bytes
-    are the routed experts' codes and scales read once, h and the output;
-    its operations 2 x 3 D F a (row, choice)."""
+    g32, bf16, distinct experts a row, through ``fused_mlp_experts``, each
+    cohort of EXPERT_TIME_BCS over EXPERT_ROTATIONS routings drawn once
+    and taken in turn (each call reads other experts from device memory,
+    as a decode step does; DeepSeek's 108 MB a call is about twice the
+    50 MB L2); at TIME_BC also its plain version and the library form:
+    the routed (row, choice) pairs' experts gathered, dequantized and
+    run through batched ``torch.bmm``, a matrix at a time.  The bound's
+    bytes are the routed experts' codes and scales read once, h and the
+    output (the mean over the routings); its operations 2 x 3 D F a
+    (row, choice).  Returns (TIME_BC's (kernel, plain, library, None,
+    bytes, flops), its mean routed experts, {cohort: the kernel's ms a
+    call as a CUDA graph replays the rotation's calls, each device
+    kernel's profiled ms, bytes, bound, rate})."""
     import torch
     from repro_torch.core.quantize import QTensor, dequantize
+    from repro_torch.kernels.fused_decode import expert as EK
     from repro_torch.kernels.fused_decode import ops, ref
     E, k, D, F = EXPERT_GEMV[arch]
     dtype = torch.bfloat16
     up, gate, down = expert_weights(sm, E, D, F, dtype)
-    idx, gates, valid = expert_routes(sm, TIME_BC, k, E)
-    h = sm.randn(TIME_BC, D, dtype=dtype)
-    pairs = idx.reshape(-1)
-    hp = h.repeat_interleave(k, 0)[:, None]                  # (P, 1, D)
-    gp = gates.reshape(-1, 1, 1).to(dtype)
+    per_expert = sum(w.codes[0].numel() * 4 + w.scales[0].numel() * 4
+                     for w in (up, gate, down))
+    cohorts, main = {}, None
+    for bc in EXPERT_TIME_BCS:
+        routes = [expert_routes(sm, bc, k, E)
+                  for _ in range(EXPERT_ROTATIONS)]
+        h = sm.randn(bc, D, dtype=dtype)
+        n_routed = [int(torch.unique(r[0]).numel()) for r in routes]
+        byt = (sum(n_routed) / len(n_routed) * per_expert + 2 * 2 * bc * D)
 
-    def gathered(w):
-        return dequantize(QTensor(w.codes[pairs], w.scales[pairs], w.spec,
-                                  (pairs.numel(),) + tuple(w.shape[1:]),
-                                  w.dtype))
+        def kernel(i):
+            idx, gates, valid = routes[i]
+            return ops.fused_mlp_experts(h, up, down, gate, idx, gates,
+                                         valid, act="swiglu")
+        calls = 2 * EXPERT_ROTATIONS
 
-    def library():
-        u = torch.bmm(hp, gathered(up))
-        g = torch.bmm(hp, gathered(gate))
-        y = torch.bmm(torch.nn.functional.silu(g) * u, gathered(down))
-        return (gp * y).reshape(TIME_BC, k, D).sum(1)
-    with torch.no_grad():
-        t_k = timed(lambda i: ops.fused_mlp_experts(
-            h, up, down, gate, idx, gates, valid, act="swiglu"), 1, iters=20)
-        t_p = timed(lambda i: ref.ref_fused_mlp_experts(
-            h, up, down, gate, idx, gates, valid, act="swiglu"), 1, iters=3)
-        t_l = timed(lambda i: library(), 1, iters=3)
-    routed = torch.unique(pairs)
-    byt = sum(int(routed.numel()) * (w.codes[0].numel() * 4
-                                     + w.scales[0].numel() * 4)
-              for w in (up, gate, down)) + 2 * 2 * TIME_BC * D
-    out = (t_k, t_p, t_l, None, byt, 2 * 3 * D * F * int(pairs.numel()))
+        def loop():
+            for i in range(calls):
+                kernel(i % EXPERT_ROTATIONS)
+            torch.cuda.synchronize()
+        with torch.no_grad():
+            call_ms = event_ms(kernel, EXPERT_ROTATIONS, iters=24)
+            _, rows, n_kernels = device_time(loop)
+            # a call's time as a decode step's graph replays it (no host
+            # launch between the calls); the profiled kernels beside it
+            ms = replayed_ms(kernel, EXPERT_ROTATIONS)
+        per_kernel = {n: {"ms_a_launch": sum(us for nm, us, _ in rows
+                                             if n in nm) / 1e3 / calls,
+                          "launches_a_call": sum(c for nm, _, c in rows
+                                                 if n in nm) / calls}
+                      for n in EK.EXPERT_KERNELS}
+        t_k = (ms, call_ms, n_kernels / calls)
+        cohorts[bc] = {"ms": ms, "ms_source": "CUDA graph replay",
+                       "profiled_kernels_sum_ms": sum(
+                           us for nm, us, _ in rows
+                           if any(n in nm for n in EK.EXPERT_KERNELS))
+                       / 1e3 / calls, "call_ms": call_ms,
+                       "device_kernels_a_call": t_k[2],
+                       "kernels": per_kernel,
+                       "routed_experts_mean": sum(n_routed) / len(n_routed),
+                       "bytes": byt,
+                       "bound_ms": byt / HBM_BYTES_PER_S * 1e3,
+                       "achieved_GB_s": byt / ms / 1e6,
+                       "bound_share": byt / HBM_BYTES_PER_S * 1e3 / ms,
+                       "rotations": EXPERT_ROTATIONS}
+        if bc != TIME_BC:
+            continue
+        idx, gates, valid = routes[0]
+        pairs = idx.reshape(-1)
+        hp = h.repeat_interleave(k, 0)[:, None]              # (P, 1, D)
+        gp = gates.reshape(-1, 1, 1).to(dtype)
+
+        def gathered(w):
+            return dequantize(QTensor(w.codes[pairs], w.scales[pairs], w.spec,
+                                      (pairs.numel(),) + tuple(w.shape[1:]),
+                                      w.dtype))
+
+        def library():
+            u = torch.bmm(hp, gathered(up))
+            g = torch.bmm(hp, gathered(gate))
+            y = torch.bmm(torch.nn.functional.silu(g) * u, gathered(down))
+            return (gp * y).reshape(TIME_BC, k, D).sum(1)
+        with torch.no_grad():
+            t_p = timed(lambda i: ref.ref_fused_mlp_experts(
+                h, up, down, gate, idx, gates, valid, act="swiglu"), 1,
+                iters=3)
+            t_l = timed(lambda i: library(), 1, iters=3)
+        main = ((t_k, t_p, t_l, None, byt, 2 * 3 * D * F * k * TIME_BC),
+                cohorts[bc]["routed_experts_mean"])
     del up, gate, down
     free()
-    return out, int(routed.numel())
+    return main + (cohorts,)
 
 
 def serve_moe_and_dense(sm):
@@ -5327,8 +5471,7 @@ def with_decode_before(path, serve):
         graph = serve["decode_step_breakdown"]["graph"]
         serve["decode_step_device_ms_vs_before"] = {
             "now": graph["device_ms"], "before": DECODE_MS_BEFORE[path],
-            "before_source": "NVIDIA H100 80GB HBM3, "
-                             "700.00 W (every expert dequantized a step)",
+            "before_source": DECODE_MS_BEFORE_SOURCE,
             "tok_s_now": graph["tok_s"]}
     return serve
 
@@ -5364,6 +5507,7 @@ def serve_hybrid(sm):
         del g
     del eng, run
     free()
+    serve = with_decode_before(HYBRID_PATH, serve)
     print(json.dumps({"serve": serve}))
     return serve
 
@@ -6200,10 +6344,11 @@ def main() -> int:
     from repro_torch.kernels.cache_update import kernel as CK
     from repro_torch.kernels.dequant_gemm import kernel as DK
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.fused_decode import expert as EK
     from repro_torch.kernels.fused_decode import kernel as K
     from repro_torch.kernels.linear_attention import kernel as LK
     from repro_torch.kernels.ssd import kernel as SK
-    libs = (K, FK, SK, LK, DK, CK)
+    libs = (K, EK, FK, SK, LK, DK, CK)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6273,7 +6418,11 @@ def main() -> int:
     first3, events3, dstate3 = {}, BrickEvents(), {}
     serve, eng, captured = serve_path(sm, llava, requests(
         llava, llava_reqs, seed=0), first_logits=first3, events=events3,
-        decode_state=dstate3)
+        decode_state=dstate3, staged=True)
+    if serve["cohort_graph"]["buckets"] != [N_SLOTS]:
+        fail(f"{llava.name}: phase 3 decoded at buckets "
+             f"{serve['cohort_graph']['buckets']}, not [{N_SLOTS}]: its "
+             f"requests were not admitted together")
     serve["prefill_breakdown"] = prefill_breakdown(eng, captured,
                                                    ("dequant_gemm",))
     print(json.dumps({"serve": serve}))
@@ -6812,12 +6961,13 @@ def main() -> int:
                if n["fused_mlp/experts"]}
     eg = expert_gemv_ts["deepseek-moe-16b"][0]
     entry = {"name": "fused_mlp/experts", "route": "cuda",
-             "source": "src/repro_torch/csrc/fused_decode.cu",
+             "source": "src/repro_torch/csrc/expert_gemv.cu",
              "replaces": "src/repro/kernels/fused_decode/kernel.py:138",
              "launches": sum(by_path.values()), "launches_by_path": by_path,
              "max_abs_err": sm.errs["fused_mlp/experts"]}
     entry.update(numbers(eg))
     entry.update(
+        ms_source=EXPERT_MS_SOURCE,
         event_ms=eg[0][1], bc=TIME_BC, shape_of="deepseek-moe-16b",
         library="the routed (row, choice) pairs' experts gathered, "
                 "dequantized and run through batched torch.bmm",
@@ -6831,13 +6981,16 @@ def main() -> int:
                       for a, r in records.items()
                       if "expert_served_check" in r},
         kernel_checks=sm.eg_check,
-        times={arch: dict(numbers(t), event_ms=t[0][1],
+        device_kernels_a_call=list(EK.EXPERT_KERNELS),
+        times={arch: dict(numbers(t), ms_source=EXPERT_MS_SOURCE,
+                          event_ms=t[0][1],
                           routed_experts=n_routed,
+                          by_cohort=cohorts,
                           shape=dict(zip(("E", "top_k", "D", "F"),
                                          EXPERT_GEMV[arch]),
                                      bc=TIME_BC, bits=4, group=32,
                                      dtype="bfloat16"))
-               for arch, (t, n_routed) in expert_gemv_ts.items()},
+               for arch, (t, n_routed, cohorts) in expert_gemv_ts.items()},
         decode_step_device_ms={
             a: {k: r["decode_step_breakdown"]["graph"][v]
                 for k, v in (("now", "device_ms"), ("tok_s_now", "tok_s"))}

@@ -1,8 +1,9 @@
 // Fused low-bit cohort-decode kernels for Hopper (sm_90a).
 //
 // Three kernels of the decode step, each the counterpart of a Pallas
-// kernel of the reference package (src/repro/kernels/fused_decode/kernel.py),
-// and fused_mlp with an expert axis (the routed experts' GEMV, at the end):
+// kernel of the reference package (src/repro/kernels/fused_decode/kernel.py;
+// fused_mlp with an expert axis, the routed experts' GEMV, is in
+// expert_gemv.cu):
 //
 //   fused_qkv   <- fused_qkv_pallas      q,k,v = h @ W{q,k,v} (+ bias)
 //   fused_mlp   <- fused_mlp_pallas      mid = act(h @ W_gate) * (h @ W_up);
@@ -79,49 +80,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_math.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int kMaxRows = 8;     // cohort rows per launch
 constexpr int kMaxSegs = 3;     // weights side by side along a GEMV's outputs
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-// round an fp32 value to T and back (the identity for fp32)
-template <typename T> __device__ __forceinline__ float round_t(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// round two fp32 values to T and back (one packed conversion for bf16)
-template <typename T> __device__ __forceinline__ void round2_t(float& a, float& b);
-template <> __device__ __forceinline__ void round2_t<float>(float&, float&) {}
-template <> __device__ __forceinline__ void round2_t<bf16>(float& a, float& b) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
-  a = __low2float(p);
-  b = __high2float(p);
-}
-
-enum Act { kSilu = 0, kGelu = 1, kRelu = 2, kSquaredRelu = 3 };
-
-__device__ __forceinline__ float act_fn(int act, float x) {
-  switch (act) {
-    case kSilu: return x / (1.f + expf(-x));
-    case kGelu: {
-      const float k0 = 0.7978845608028654f;  // sqrt(2/pi)
-      return 0.5f * x * (1.f + tanhf(k0 * (x + 0.044715f * x * x * x)));
-    }
-    case kRelu: return fmaxf(x, 0.f);
-    default: { const float r = fmaxf(x, 0.f); return r * r; }
-  }
-}
 
 __global__ void kv_row_scatter_kernel(const int32_t* __restrict__ blk,
                                       const int32_t* __restrict__ off,
@@ -661,285 +626,6 @@ int fused_qkv_impl(const void* h, int bc, int K, int nseg, const void* const* w,
   return 0;
 }
 
-// ---- the routed experts' GEMV (fused_mlp with an expert axis, decode) ------
-//
-// For a cohort h (bc, D), the router's top-k experts idx (bc, k), their
-// gates (bc, k) fp32 and a row mask valid (bc,): out[r] = sum_j rt(g_rj)
-// * rt(down_e(mid_rj)), e = idx[r, j], mid_rj = rt(rt(act(rt(gate_e(h_r))))
-// * rt(up_e(h_r))) (or rt(act(rt(up_e(h_r))))), summed in fp32 in choice
-// order and rounded to T; an invalid row gets 0.  W is (E, K, N) per
-// expert: packed codes along N with one fp32 scale per group, or dense T.
-// A (row, choice) is a "pair" p = r * k + j.
-//
-// Four device kernels a call.  expert_mv_kernel, once a stage: grid
-// (column tiles, E x segments, K splits), 256 threads, each owning 8
-// consecutive outputs (one q4 word, two q8 words, 16 or 32 dense bytes)
-// of the tile and walking the split's kc rows, a warp reading a row's 256
-// outputs at once.  Each block lists, from idx and valid, the pairs that
-// chose its expert (on the card: no host read, so the step stays
-// capturable) and exits before it reads a code when there are none;
-// otherwise it reads its slice of the expert's codes once for up to 8
-// pairs (more pairs, which only a row choosing one expert twice makes,
-// take further passes) and writes fp32 partial sums (split, segment,
-// pair, n).  expert_act_kernel adds the splits in order and applies the
-// activation into mid (pairs, F) T; expert_sum_kernel adds the down
-// stage's splits in order, rounds, and sums each valid row's pairs with
-// their gates.  No atomics: results are bit-identical from run to run.
-
-constexpr int kExpThreads = 256;
-constexpr int kExpOut = 8;                      // outputs a thread
-constexpr int kExpTile = kExpThreads * kExpOut;  // outputs a block
-constexpr int kExpPairs = 8;                    // pairs a pass
-constexpr int kExpMaxK = 256;                   // K rows a split (kc)
-constexpr int kExpMaxPairs = kMaxRows * 8;      // bc * k
-
-struct ExpertArgs {
-  const void* x;        // stage 1: h (bc, K) T, row p / k; stage 2: mid (P, K) T, row p
-  int xdiv;             // k (stage 1) or 1 (stage 2)
-  const void* w[2];     // per segment: codes (E, K, N / PW) int32, or dense (E, K, N) T
-  const float* sc[2];   // (E, K, N / group) fp32; null when dense
-  int group;
-  const int32_t* idx;   // (bc, k)
-  const int32_t* valid; // (bc,)
-  float* partial;       // (splits, nseg, P, N) fp32
-  int bc, k, K, N, nseg, kc, E;
-};
-
-// the 8 weights of column `col` (outputs 8 col ..) of row k of expert e,
-// dequantized as the reference's dequantize does (code x scale in fp32,
-// rounded to T)
-template <int BITS, typename T>
-__device__ __forceinline__ void expert_w8(const ExpertArgs& a, int seg, int e, int k, int col,
-                                          float (&w)[kExpOut]) {
-  const size_t row = (size_t)e * a.K + k;
-  if constexpr (BITS == 0) {
-    const T* src = static_cast<const T*>(a.w[seg]) + row * a.N + (size_t)col * kExpOut;
-    if constexpr (sizeof(T) == 2) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
-      const T* e8 = reinterpret_cast<const T*>(&v);
-#pragma unroll
-      for (int j = 0; j < kExpOut; ++j) w[j] = to_f(e8[j]);
-    } else {
-      const float4 v0 = __ldg(reinterpret_cast<const float4*>(src));
-      const float4 v1 = __ldg(reinterpret_cast<const float4*>(src) + 1);
-      w[0] = v0.x; w[1] = v0.y; w[2] = v0.z; w[3] = v0.w;
-      w[4] = v1.x; w[5] = v1.y; w[6] = v1.z; w[7] = v1.w;
-    }
-  } else {
-    constexpr int PW = 32 / BITS, NW = kExpOut / PW;   // codes a word, words a thread
-    const int32_t* codes = static_cast<const int32_t*>(a.w[seg]) + row * (a.N / PW) +
-                           (size_t)col * NW;
-    const float s = __ldg(a.sc[seg] + row * (a.N / a.group) + (size_t)col * kExpOut / a.group);
-    uint32_t words[NW];
-    if constexpr (NW == 1) {
-      words[0] = (uint32_t)__ldg(codes);
-    } else {
-      const int2 v = __ldg(reinterpret_cast<const int2*>(codes));
-      words[0] = (uint32_t)v.x;
-      words[1] = (uint32_t)v.y;
-    }
-#pragma unroll
-    for (int j = 0; j < kExpOut; ++j)
-      w[j] = round_t<T>(__fmul_rn(hopper::code<BITS>(words[j / PW], j % PW), s));
-  }
-}
-
-// one pass over the split's rows for R of the block's pairs
-template <int BITS, typename T, int R>
-__device__ __forceinline__ void expert_pass(const ExpertArgs& a, int seg, int e, int col,
-                                            int k0, int kn, const float* xs, const int* pairs,
-                                            int np) {
-  float acc[R][kExpOut];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < kExpOut; ++j) acc[r][j] = 0.f;
-  if (col * kExpOut < a.N) {
-#pragma unroll 4
-    for (int kk = 0; kk < kn; ++kk) {
-      float w[kExpOut];
-      expert_w8<BITS, T>(a, seg, e, k0 + kk, col, w);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float xv = xs[r * kExpMaxK + kk];
-#pragma unroll
-        for (int j = 0; j < kExpOut; ++j) acc[r][j] = fmaf(xv, w[j], acc[r][j]);
-      }
-    }
-    const int P = a.bc * a.k;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r >= np) break;
-      float* dst = a.partial + (((size_t)blockIdx.z * a.nseg + seg) * P + pairs[r]) * a.N +
-                   (size_t)col * kExpOut;
-      *reinterpret_cast<float4*>(dst) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      *reinterpret_cast<float4*>(dst + 4) =
-          make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-    }
-  }
-}
-
-// grid (ceil(N / kExpTile), E * nseg, ceil(K / kc)), kExpThreads threads
-template <int BITS, typename T>
-__global__ void __launch_bounds__(kExpThreads) expert_mv_kernel(const ExpertArgs a) {
-  __shared__ int pairs[kExpMaxPairs];
-  __shared__ int np_all;
-  __shared__ float xs[kExpPairs * kExpMaxK];
-  const int e = blockIdx.y / a.nseg, seg = blockIdx.y % a.nseg;
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    int n = 0;
-    for (int p = 0; p < a.bc * a.k; ++p)
-      if (a.valid[p / a.k] && a.idx[p] == e) pairs[n++] = p;
-    np_all = n;
-  }
-  __syncthreads();
-  const int np = np_all;
-  if (np == 0) return;                  // no valid row chose this expert
-  const int k0 = blockIdx.z * a.kc, kn = max(0, min(a.kc, a.K - k0));
-  const int col = blockIdx.x * kExpThreads + tid;
-  const T* x = static_cast<const T*>(a.x);
-  for (int p0 = 0; p0 < np; p0 += kExpPairs) {
-    const int nb = min(kExpPairs, np - p0);
-    if (p0) __syncthreads();            // the previous pass read xs
-    for (int i = tid; i < kExpPairs * kExpMaxK; i += kExpThreads) {
-      const int r = i / kExpMaxK, kk = i - r * kExpMaxK;
-      xs[i] = (r < nb && kk < kn)
-                  ? to_f(x[(size_t)(pairs[p0 + r] / a.xdiv) * a.K + k0 + kk])
-                  : 0.f;
-    }
-    __syncthreads();
-    const int* pp = pairs + p0;
-    if (nb == 1)
-      expert_pass<BITS, T, 1>(a, seg, e, col, k0, kn, xs, pp, nb);
-    else if (nb == 2)
-      expert_pass<BITS, T, 2>(a, seg, e, col, k0, kn, xs, pp, nb);
-    else if (nb <= 4)
-      expert_pass<BITS, T, 4>(a, seg, e, col, k0, kn, xs, pp, nb);
-    else
-      expert_pass<BITS, T, 8>(a, seg, e, col, k0, kn, xs, pp, nb);
-  }
-}
-
-// mid[p, n] = rt(rt(act(rt(gate))) * rt(up)) (gated) or rt(act(rt(up))),
-// each the sum of the splits in order; 0 for the pairs of invalid rows.
-// grid (P, ceil(F / 256)), 256 threads
-template <typename T>
-__global__ void expert_act_kernel(const float* __restrict__ partial, const int32_t* valid,
-                                  T* mid, int P, int k, int F, int nseg, int splits, int act) {
-  const int p = blockIdx.x, n = blockIdx.y * blockDim.x + threadIdx.x;
-  if (n >= F) return;
-  float up = 0.f, gate = 0.f;
-  if (valid[p / k]) {
-    for (int s = 0; s < splits; ++s) {
-      up = __fadd_rn(up, partial[(((size_t)s * nseg) * P + p) * F + n]);
-      if (nseg == 2) gate = __fadd_rn(gate, partial[(((size_t)s * nseg + 1) * P + p) * F + n]);
-    }
-    if (nseg == 2)
-      up = __fmul_rn(round_t<T>(act_fn(act, round_t<T>(gate))), round_t<T>(up));
-    else
-      up = act_fn(act, round_t<T>(up));
-  }
-  mid[(size_t)p * F + n] = from_f<T>(up);
-}
-
-// out[r, n] = rt(sum_j rt(g_rj) * rt(sum_s partial[s, 0, r k + j, n])), in
-// choice order; 0 for invalid rows.  grid (bc, ceil(D / 256)), 256 threads
-template <typename T>
-__global__ void expert_sum_kernel(const float* __restrict__ partial,
-                                      const float* __restrict__ gates, const int32_t* valid,
-                                      T* out, int bc, int k, int D, int splits) {
-  const int r = blockIdx.x, n = blockIdx.y * blockDim.x + threadIdx.x;
-  if (n >= D) return;
-  float acc = 0.f;
-  if (valid[r]) {
-    const int P = bc * k;
-    for (int j = 0; j < k; ++j) {
-      const int p = r * k + j;
-      float y = 0.f;
-      for (int s = 0; s < splits; ++s) y = __fadd_rn(y, partial[((size_t)s * P + p) * D + n]);
-      acc = __fadd_rn(acc, __fmul_rn(round_t<T>(gates[p]), round_t<T>(y)));
-    }
-  }
-  out[(size_t)r * D + n] = from_f<T>(acc);
-}
-
-template <typename T>
-int launch_expert_gemv(const ExpertArgs& a, int bits, cudaStream_t stream) {
-  const dim3 grid((a.N + kExpTile - 1) / kExpTile, a.E * a.nseg, (a.K + a.kc - 1) / a.kc);
-  switch (bits) {
-    case 0: expert_mv_kernel<0, T><<<grid, kExpThreads, 0, stream>>>(a); break;
-    case 4: expert_mv_kernel<4, T><<<grid, kExpThreads, 0, stream>>>(a); break;
-    case 8: expert_mv_kernel<8, T><<<grid, kExpThreads, 0, stream>>>(a); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int fused_mlp_experts_impl(const void* h, const int32_t* idx, const float* gates,
-                           const int32_t* valid, int bc, int k, int E, int D, int F, int gated,
-                           int act, const void* const* w, const float* const* scales,
-                           const int* bits, const int* group, void* mid, void* out,
-                           float* partial1, float* partial2, int kc1, int kc2,
-                           cudaStream_t stream) {
-  if (bc < 1 || bc > kMaxRows || k < 1 || bc * k > kExpMaxPairs || E < 1 || act < 0 ||
-      act > kSquaredRelu || kc1 < 1 || kc1 > kExpMaxK || kc2 < 1 || kc2 > kExpMaxK ||
-      D % kExpOut != 0 || F % kExpOut != 0 ||
-      (gated && (bits[1] != bits[0] || group[1] != group[0])))
-    return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < 3; ++i) {
-    if (bits[i] != 0 && bits[i] != 4 && bits[i] != 8) return (int)cudaErrorInvalidValue;
-    const int n = i == 2 ? D : F;
-    if (bits[i] != 0 && (group[i] < kExpOut || group[i] % kExpOut != 0 || n % group[i] != 0))
-      return (int)cudaErrorInvalidValue;
-  }
-  const int P = bc * k;
-  // stage 1: up (and gate) of every pair's expert -> partial1
-  ExpertArgs a{};
-  a.x = h;
-  a.xdiv = k;
-  a.w[0] = w[0];
-  a.sc[0] = scales[0];
-  a.w[1] = w[1];
-  a.sc[1] = scales[1];
-  a.group = group[0];
-  a.idx = idx;
-  a.valid = valid;
-  a.partial = partial1;
-  a.bc = bc;
-  a.k = k;
-  a.K = D;
-  a.N = F;
-  a.nseg = gated ? 2 : 1;
-  a.kc = kc1;
-  a.E = E;
-  int err = launch_expert_gemv<T>(a, bits[0], stream);
-  if (err) return err;
-  const int splits1 = (D + kc1 - 1) / kc1, splits2 = (F + kc2 - 1) / kc2;
-  expert_act_kernel<T><<<dim3(P, (F + 255) / 256), 256, 0, stream>>>(
-      partial1, valid, static_cast<T*>(mid), P, k, F, a.nseg, splits1, act);
-  if ((err = (int)cudaGetLastError())) return err;
-  // stage 2: down of every pair's mid -> partial2
-  ExpertArgs d = a;
-  d.x = mid;
-  d.xdiv = 1;
-  d.w[0] = w[2];
-  d.sc[0] = scales[2];
-  d.w[1] = nullptr;
-  d.sc[1] = nullptr;
-  d.group = group[2];
-  d.partial = partial2;
-  d.K = F;
-  d.N = D;
-  d.nseg = 1;
-  d.kc = kc2;
-  if ((err = launch_expert_gemv<T>(d, bits[2], stream))) return err;
-  expert_sum_kernel<T><<<dim3(bc, (D + 255) / 256), 256, 0, stream>>>(
-      partial2, gates, valid, static_cast<T*>(out), bc, k, D, splits2);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -1002,29 +688,6 @@ int rt_kv_row_scatter(const int32_t* blk, const int32_t* off, const void* k_rows
       static_cast<uint4*>(k_pool), static_cast<uint4*>(v_pool), bc, n_blocks,
       block_size, row_vecs);
   return (int)cudaGetLastError();
-}
-
-// The routed experts' GEMV of a decode step (fused_mlp with an expert
-// axis): h (bc, k) ... see fused_mlp_experts_impl.  idx (bc, k) and valid
-// (bc,) int32, gates (bc, k) fp32; w/scales/bits/group: [up, gate, down]
-// of E experts each, up/gate (E, D, F), down (E, F, D) (gate ignored
-// unless gated); mid: (bc k, F) scratch of T; partial1: ceil(D / kc1) *
-// (gated ? 2 : 1) * bc k * F floats, partial2: ceil(F / kc2) * bc k * D
-// floats; out (bc, D) T.  Four device kernels, on the caller's stream.
-int rt_fused_mlp_experts(const void* h, const int32_t* idx, const float* gates,
-                         const int32_t* valid, int bc, int k, int E, int D, int F, int gated,
-                         int act, const void* const* w, const float* const* scales,
-                         const int* bits, const int* group, void* mid, void* out,
-                         float* partial1, float* partial2, int kc1, int kc2, int fp32,
-                         void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fp32)
-    return fused_mlp_experts_impl<float>(h, idx, gates, valid, bc, k, E, D, F, gated, act, w,
-                                         scales, bits, group, mid, out, partial1, partial2, kc1,
-                                         kc2, s);
-  return fused_mlp_experts_impl<bf16>(h, idx, gates, valid, bc, k, E, D, F, gated, act, w,
-                                      scales, bits, group, mid, out, partial1, partial2, kc1,
-                                      kc2, s);
 }
 
 }  // extern "C"

@@ -40,9 +40,17 @@ Only flash attention has a backward kernel.  Every other wrapper calls
 :func:`refuse_grad` before it launches on the card, so a CUDA input that
 requires grad under grad mode raises instead of leaving the kernel's
 output silently detached from the graph.
+
+:func:`captured_nodes` reads the device kernels of a call from a CUDA
+graph that captures it, node by node, so a check can count them without
+a profiler, whose activity records can miss launches of a burst.
 """
+import os
+import re
+import tempfile
 import threading
-from typing import Callable, Dict, Tuple
+import warnings
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -93,6 +101,32 @@ def launches_of(fn: Callable, *args, **kwargs) -> Tuple[object, Dict[str,
     finally:
         delta = deltas.pop()
     return out, {k: n for k, n in delta.items() if n}
+
+
+def captured_nodes(fn: Callable, *args, **kwargs) -> List[str]:
+    """The nodes of a CUDA graph that captures one call ``fn(*args,
+    **kwargs)``: each node's label in the graph's ``debug_dump`` (a kernel
+    node's names its kernel), in the dump's order.  A kernel's launches a
+    call are the labels that hold its name.  The graph is never replayed,
+    and the launches the capture counts stay out of the registry
+    (:func:`launches_of`).  ``fn`` must be capturable."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)   # kept for the dump
+
+    def capture():
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            fn(*args, **kwargs)
+    launches_of(capture)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # its DEBUG notes
+            graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    del graph
+    # a node's definition starts a line: "graph_<g>_node_<n>"[...]
+    return [" ".join(part.split()) for part in re.split(
+        r'(?m)^\s*"graph_\d+_node_\d+"\s*\[', text)[1:]]
 
 
 def count_launches(delta: Dict[str, int]) -> None:

@@ -39,11 +39,7 @@ def library() -> ctypes.CDLL:
                                      _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]
         lib.rt_kv_row_scatter.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                           _I, _I, _P]
-        lib.rt_fused_mlp_experts.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
-                                             _I, _I, _I, _P, _P, _P, _P, _P,
-                                             _P, _P, _P, _I, _I, _I, _P]
-        for fn in (lib.rt_fused_qkv, lib.rt_fused_mlp, lib.rt_kv_row_scatter,
-                   lib.rt_fused_mlp_experts):
+        for fn in (lib.rt_fused_qkv, lib.rt_fused_mlp, lib.rt_kv_row_scatter):
             fn.restype = _I
         lib._typed = True
     return lib
@@ -396,105 +392,6 @@ def launch_fused_mlp(h, w_up, w_down, w_gate, act: str, gated: bool):
             _int_array(p2.args()), s2.data_ptr(), counters.data_ptr(),
             p1.counters, DTYPES[dtype], _stream())
         _check(err, "fused_mlp")
-        launches += 1
-    return out, launches
-
-
-EXPERT_KC = 256       # K rows a split of the routed experts' GEMV (kExpMaxK)
-EXPERT_MAX_PAIRS = 64  # rows x choices a launch (kExpMaxPairs)
-
-
-class _ExpertWeight:
-    """One stacked expert weight (E, K, N) as the routed experts' GEMV
-    reads it in place: packed q4 / q8 codes along N with fp32 scales, or
-    dense in the activations' dtype, contiguous (no copy is made: a
-    full-width Jamba leaf is 3.2 G elements)."""
-
-    def __init__(self, w, E: int, K: int, dtype: torch.dtype, name: str):
-        if isinstance(w, QTensor):
-            if w.padded or w.shape[-1] % w.spec.group_size:
-                raise ValueError(f"{name}: padded packed weight {w.shape}")
-            if w.spec.bits not in (4, 8) or w.spec.group_size % 8:
-                raise ValueError(f"{name}: the experts' GEMV takes q4 or q8 "
-                                 f"codes with groups of a multiple of 8, "
-                                 f"got {w.spec}")
-            ts = (w.codes, w.scales)
-            if (w.codes.dtype != torch.int32
-                    or w.scales.dtype != torch.float32):
-                raise ValueError(f"{name}: codes must be int32 and scales "
-                                 f"float32")
-            self.bits, self.group = w.spec.bits, w.spec.group_size
-        else:
-            ts = (w,)
-            self.bits, self.group = 0, 1
-        _require_cuda(*ts)
-        if tuple(w.shape[:2]) != (E, K) or len(w.shape) != 3:
-            raise ValueError(f"{name}: expert weight {tuple(w.shape)} is not "
-                             f"({E}, {K}, N)")
-        if w.dtype != dtype:
-            raise ValueError(f"{name}: weight dtype {w.dtype} != activation "
-                             f"dtype {dtype}")
-        if not all(t.is_contiguous() for t in ts):
-            raise ValueError(f"{name}: expert weight must be contiguous")
-        self.n = int(w.shape[2])
-        if self.n % 8:
-            raise ValueError(f"{name}: {self.n} outputs, not a multiple of 8")
-        self.ptrs = (ts[0].data_ptr(), ts[1].data_ptr() if len(ts) > 1 else 0)
-
-
-def launch_fused_mlp_experts(h, w_up, w_down, w_gate, idx, gates, valid,
-                             act: str):
-    """h (bc, D) -> (bc, D) on the card: each valid row's gated sum over
-    its top-k experts ``idx`` (bc, k) of the expert MLP, reading only the
-    routed experts' codes (``csrc/fused_decode.cu``: four device kernels a
-    call); ``act`` is the activation of the gate (gated) or of up.  Rows
-    go in launches of at most MAX_ROWS.  Returns (out, launches)."""
-    dtype = _activation_dtype(h, "fused_mlp_experts")
-    if act not in ACTS:
-        raise ValueError(f"fused_mlp_experts: unsupported activation {act!r}")
-    _require_cuda(h, idx, gates, valid)
-    bc, D = h.shape
-    k = int(idx.shape[1])
-    E = int(w_up.shape[0])
-    if k > EXPERT_MAX_PAIRS // MAX_ROWS:
-        raise ValueError(f"fused_mlp_experts: top-{k} is more than "
-                         f"{EXPERT_MAX_PAIRS // MAX_ROWS} choices")
-    up = _ExpertWeight(w_up, E, D, dtype, "w_up")
-    F = up.n
-    gated = w_gate is not None
-    gate = _ExpertWeight(w_gate, E, D, dtype, "w_gate") if gated else up
-    if gate.n != F or (gate.bits, gate.group) != (up.bits, up.group):
-        raise ValueError("fused_mlp_experts: w_gate and w_up differ")
-    down = _ExpertWeight(w_down, E, F, dtype, "w_down")
-    if down.n != D:
-        raise ValueError(f"fused_mlp_experts: w_down gives {down.n} "
-                         f"outputs, expected {D}")
-    ws = (up, gate, down)
-    x = h.contiguous()
-    idx32 = idx.to(torch.int32).contiguous()
-    g32 = gates.to(torch.float32).contiguous()
-    ok = valid.to(torch.int32).contiguous()
-    out = torch.empty((bc, D), dtype=dtype, device=h.device)
-    lib = library()
-    launches = 0
-    for r0, r1 in _rows(x):
-        rows = r1 - r0
-        P = rows * k
-        mid = torch.empty((P, F), dtype=dtype, device=h.device)
-        s1 = torch.empty((-(-D // EXPERT_KC)) * (2 if gated else 1) * P * F,
-                         dtype=torch.float32, device=h.device)
-        s2 = torch.empty((-(-F // EXPERT_KC)) * P * D, dtype=torch.float32,
-                         device=h.device)
-        err = lib.rt_fused_mlp_experts(
-            x[r0:r1].data_ptr(), idx32[r0:r1].data_ptr(),
-            g32[r0:r1].data_ptr(), ok[r0:r1].data_ptr(), rows, k, E, D, F,
-            int(gated), ACTS[act], _ptr_array([w.ptrs[0] for w in ws]),
-            _ptr_array([w.ptrs[1] for w in ws]),
-            _int_array([w.bits for w in ws]),
-            _int_array([w.group for w in ws]), mid.data_ptr(),
-            out[r0:r1].data_ptr(), s1.data_ptr(), s2.data_ptr(), EXPERT_KC,
-            EXPERT_KC, DTYPES[dtype], _stream())
-        _check(err, "fused_mlp_experts")
         launches += 1
     return out, launches
 

@@ -9,8 +9,9 @@ it went through the kernels; ``fused_mlp`` also counts each call under
 ``fused_mlp/gemv`` and ``fused_qkv`` each of its device kernels under
 ``fused_qkv/gemv``, both the split-K GEMV kernel.
 ``fused_mlp_experts``, the MoE's decode (``models/moe.py``), counts each
-call under ``fused_mlp/experts``: four device kernels a call, the routed
-experts' GEMV of each stage and their reductions.  One such call runs
+call under ``fused_mlp/experts``: two device kernels a call
+(``expert.py``), the routed experts' GEMV of each stage with its
+reductions inside.  One such call runs
 several device kernels: ``fused_qkv`` one a distinct bit width among its
 three weights (one for every served profile), ``fused_mlp`` two (the
 GEMV of each stage, its epilogue inside), ``kv_scatter`` one.  The GEMV
@@ -38,6 +39,7 @@ import torch
 
 from repro_torch.core.quantize import QTensor, dequantize, dequantize_tree
 from repro_torch.kernels import count_launch, refuse_grad, register_kernels
+from repro_torch.kernels.fused_decode import expert as EK
 from repro_torch.kernels.fused_decode import kernel as K
 from repro_torch.kernels.fused_decode.ref import (block_and_offset,
                                                   composed_cohort_step,
@@ -98,9 +100,9 @@ def fused_mlp_experts(h, w_up, w_down, w_gate, idx, gates, valid, *,
                                      valid, act=act)
     refuse_grad("fused_mlp/experts", h, w_up, w_down, w_gate, gates)
     gated = w_gate is not None
-    out, n = K.launch_fused_mlp_experts(h, w_up, w_down, w_gate, idx, gates,
-                                        valid,
-                                        GATED[act] if gated else act)
+    out, n = EK.launch_fused_mlp_experts(h, w_up, w_down, w_gate, idx,
+                                         gates, valid,
+                                         GATED[act] if gated else act)
     count_launch("fused_mlp/experts", n)
     return out
 

@@ -9,7 +9,9 @@ against the reference package, and the card's checks hold each kernel
 against them.  ``emulate_fused_mlp`` and ``emulate_fused_qkv`` repeat
 the split-K GEMV's summation order (``kernel.gemv_plan``'s and
 ``kernel.qkv_plan``'s plans) in plain PyTorch, for the tests to hold that
-order against the reference.
+order against the reference; ``emulate_fused_mlp_experts`` repeats the
+routed experts' kernel (``expert.expert_plan``'s order, the scale folded
+into x).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quantize import QTensor, dequantize
+from repro_torch.core.quantize import QTensor, dequantize, unpack_codes
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import model as M
@@ -76,6 +78,87 @@ def ref_fused_mlp_experts(h, w_up, w_down, w_gate, idx, gates, valid, *,
                               None if w_gate is None else _expert(w_gate, e),
                               act=act)
             out[r] += g[r, j] * y[0, 0].float()
+    return out.to(dt)
+
+
+def _expert_sums(x, w, plan):
+    """fp32 sums x (rows, K) @ w (K, n), one expert's packed QTensor or
+    dense weight, in the routed experts' kernel's order and arithmetic
+    (``expert.ExpertPlan`` ``plan``): each product fl(x * scale) * code
+    (dense: x * w) fused into its thread's sum (the product exact in
+    float64, one rounding to fp32), each thread walking K rows k0 + sub +
+    s nsub in turn, a CTA's sub-rows added in order, the splits in
+    order."""
+    x = x.float()
+    rows, K = x.shape
+    n = w.shape[-1]
+    if isinstance(w, QTensor):
+        codes = unpack_codes(w.codes, w.spec)[:, :n].double()
+        scale = w.scales.float().repeat_interleave(w.spec.group_size, 1)
+        scale = scale[:, :n]
+    else:
+        codes, scale = w.double(), None
+
+    def terms(kk):
+        """The exact products of K rows ``kk``: (rows, len(kk), n)."""
+        xk = x[:, kk, None]
+        if scale is not None:
+            xk = xk * scale[kk][None]                   # fl(x * s) in fp32
+        return xk.double() * codes[kk][None]
+    nsub = plan.nsub
+    steps = -(-plan.k_chunk // nsub)
+    out = torch.zeros((rows, n), dtype=torch.float32, device=x.device)
+    for z in range(plan.k_split):
+        k0 = z * plan.k_chunk
+        kn = max(0, min(plan.k_chunk, K - k0))
+        acc = torch.zeros((rows, nsub, n), dtype=torch.float32,
+                          device=x.device)
+        for s in range(steps):
+            kk = torch.arange(nsub, device=x.device) + s * nsub
+            ok = kk < kn
+            if not bool(ok.any()):
+                break
+            t = terms(k0 + kk[ok])
+            acc[:, ok] = (acc[:, ok].double() + t).float()
+        cta = torch.zeros((rows, n), dtype=torch.float32, device=x.device)
+        for q in range(nsub):
+            cta = cta + acc[:, q]
+        out = out + cta
+    return out
+
+
+def emulate_fused_mlp_experts(h, w_up, w_down, w_gate, idx, gates, valid, *,
+                              act: str, plans):
+    """``ref_fused_mlp_experts`` in the routed experts' kernel's order and
+    arithmetic (``plans``: the two stages' ``expert.ExpertPlan``): per
+    (row, expert), up and gate by :func:`_expert_sums` each rounded to
+    h's dtype T, mid = rt(rt(act(rt(gate))) * rt(up)) (or rt(act(rt(up)))),
+    y = rt(down sums); then each valid row's rt(g_j) * y summed in fp32 in
+    choice order and rounded to T (a row choosing an expert twice adds its
+    y twice); an invalid row gets 0.  ``act`` is the config's name."""
+    dt = h.dtype
+    bc, D = h.shape
+
+    def rt(t):
+        return t.to(dt).float()
+    g = gates.to(dt).float()
+    out = torch.zeros((bc, D), dtype=torch.float32, device=h.device)
+    experts, ok = idx.tolist(), valid.tolist()
+    for r in range(bc):
+        if not ok[r]:
+            continue
+        ys = {}
+        for j, e in enumerate(experts[r]):
+            if e not in ys:
+                x = h[r:r + 1].float()
+                up = rt(_expert_sums(x, _expert(w_up, e), plans[0]))
+                if w_gate is not None:
+                    gate = rt(_expert_sums(x, _expert(w_gate, e), plans[0]))
+                    mid = rt(rt(activation(mlp_mod.GATED[act])(gate)) * up)
+                else:
+                    mid = rt(activation(act)(up))
+                ys[e] = rt(_expert_sums(mid, _expert(w_down, e), plans[1]))
+            out[r] = out[r] + g[r, j] * ys[e][0]
     return out.to(dt)
 
 

@@ -14,8 +14,8 @@ import torch
 
 from repro_torch.core.quantize import (QTensor, QuantSpec, dequantize,
                                        quantize)
-from repro_torch.kernels import (launch_counts, launches_of,
-                                 reset_launch_counts)
+from repro_torch.kernels import (captured_nodes, launch_counts,
+                                 launches_of, reset_launch_counts)
 from repro_torch.kernels.cache_update import (cache_row_update,
                                               ref_cache_row_update)
 from repro_torch.kernels.dequant_gemm import (dequant_gemm, quant_einsum,
@@ -2269,6 +2269,163 @@ def test_fused_mlp_experts_fp32_and_dense(cuda, bc, case):
         _expert_rows_close(got, want, ok, dtype)
 
 
+def _expert_kernels(fn):
+    """The routed experts' device kernels of one call of ``fn``, {name:
+    nodes} in a CUDA graph that captures the call, read from the graph
+    itself (``captured_nodes``), as ``chip_smoke.py``'s decode breakdowns
+    count a step's kernels."""
+    from repro_torch.kernels.fused_decode import expert as EK
+    nodes = captured_nodes(fn)
+    return {name: sum(name in n for n in nodes)
+            for name in EK.EXPERT_KERNELS}
+
+
+def _emulation_close(got, emu, valid, dtype):
+    """The kernel against its emulation on the same inputs: they differ
+    only where the activation's exp (the card's expf against PyTorch's)
+    or a double rounding in the emulation's fp32 sum tips a rounding:
+    fp32 within 1e-6 of the largest output, bf16 within two roundings
+    (2^-7) of each row's largest; invalid rows 0 in both."""
+    assert torch.count_nonzero(got[~valid]) == 0
+    assert torch.count_nonzero(emu[~valid]) == 0
+    g, w = got[valid].float(), emu[valid].float()
+    if dtype == torch.float32:
+        assert (g - w).abs().max() <= 1e-6 * w.abs().max()
+    else:
+        ratio = ((g - w).abs().amax(1) / w.abs().amax(1)).max().item()
+        assert ratio <= 2.0 ** -7, ratio
+
+
+@pytest.mark.parametrize("bc", [1, 2, 4, 8])
+@pytest.mark.parametrize("arch", list(EXPERT_WIDTHS))
+def test_fused_mlp_experts_two_kernels_bits_and_emulation(cuda, arch, bc):
+    """At each MoE config's widths, bf16 q4 g32, a row choosing one
+    expert twice and a sentinel row: two device kernels a call
+    (expert_up_kernel and expert_down_kernel, once each in a captured
+    call's graph), two launches equal bit for bit, and the kernel
+    against ``ref.emulate_fused_mlp_experts`` (its order and arithmetic,
+    run on the card) within two roundings."""
+    from repro_torch.kernels.fused_decode import expert as EK
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    from repro_torch.kernels.fused_decode.ref import emulate_fused_mlp_experts
+    E, k, D, F = EXPERT_WIDTHS[arch]
+    dtype = torch.bfloat16
+    up, gate, down = _arch_experts(arch)
+    rng = np.random.default_rng(20 + bc)
+    idx, g, valid = _expert_routes(rng, bc, k, E, "twice")
+    valid[-1] = bc == 1
+    h = torch.from_numpy(rng.standard_normal((bc, D)).astype(
+        np.float32)).to(cuda).to(dtype)
+    args = (torch.from_numpy(idx).to(cuda), torch.from_numpy(g).to(cuda),
+            torch.from_numpy(valid).to(cuda))
+    with torch.no_grad():
+        def call():
+            return fd_ops.fused_mlp_experts(h, up, down, gate, *args,
+                                            act="swiglu")
+        got = call()
+        assert torch.equal(got, call())
+        kernels = _expert_kernels(call)
+        assert kernels == {n: 1 for n in EK.EXPERT_KERNELS}, kernels
+        plans = EK.expert_plans(bc, k, E, D, F, True, (4, 4), 2, (32, 32))
+        emu = emulate_fused_mlp_experts(h, up, down, gate, *args,
+                                        act="swiglu", plans=plans)
+    _emulation_close(got, emu, args[2], dtype)
+
+
+@pytest.mark.parametrize("bc", [1, 4, 8])
+@pytest.mark.parametrize("arch", list(EXPERT_WIDTHS))
+def test_fused_mlp_experts_all_sentinel_cohort_gives_zeros(cuda, arch, bc):
+    """A cohort of sentinel rows only routes no expert: every CTA exits
+    before a load and the output is exactly 0 (written by the down
+    stage's first slot), twice in a row (the counters stay at zero)."""
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    E, k, D, F = EXPERT_WIDTHS[arch]
+    up, gate, down = _arch_experts(arch)
+    rng = np.random.default_rng(30 + bc)
+    idx, g, _ = _expert_routes(rng, bc, k, E, "top")
+    args = (torch.from_numpy(idx).to(cuda), torch.from_numpy(g).to(cuda),
+            torch.zeros(bc, dtype=torch.bool, device=cuda))
+    h = torch.randn(bc, D, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        for _ in range(2):
+            out = fd_ops.fused_mlp_experts(h, up, down, gate, *args,
+                                           act="swiglu")
+            torch.cuda.synchronize()
+            assert out.shape == (bc, D) and torch.count_nonzero(out) == 0
+
+
+def test_fused_mlp_experts_takes_64_pairs(cuda):
+    """bc k = 64 (8 rows, top-8 of DeepSeek-MoE-16B's 64 experts, one row
+    choosing an expert twice): every row within 2e-2 of the plain
+    version, and the emulation's two roundings."""
+    from repro_torch.kernels.fused_decode import expert as EK
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    from repro_torch.kernels.fused_decode.ref import (emulate_fused_mlp_experts,
+                                                      ref_fused_mlp_experts)
+    E, _, D, F = EXPERT_WIDTHS["deepseek-moe-16b"]
+    k, bc = 8, 8
+    up, gate, down = _arch_experts("deepseek-moe-16b")
+    rng = np.random.default_rng(64)
+    idx, g, valid = _expert_routes(rng, bc, k, E, "twice")
+    h = torch.from_numpy(rng.standard_normal((bc, D)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    args = (torch.from_numpy(idx).to(cuda), torch.from_numpy(g).to(cuda),
+            torch.from_numpy(valid).to(cuda))
+    with torch.no_grad():
+        got = fd_ops.fused_mlp_experts(h, up, down, gate, *args,
+                                       act="swiglu")
+        want = ref_fused_mlp_experts(h, up, down, gate, *args, act="swiglu")
+        emu = emulate_fused_mlp_experts(
+            h, up, down, gate, *args, act="swiglu",
+            plans=EK.expert_plans(bc, k, E, D, F, True, (4, 4), 2, (32, 32)))
+    _expert_rows_close(got, want, args[2], torch.bfloat16)
+    _emulation_close(got, emu, args[2], torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("label", ["q8", "q4g8", "q8g8", "dense", "relu"])
+def test_fused_mlp_experts_other_packings(cuda, label, dtype):
+    """At small widths (8 experts, top-2, D 256, F 512, 5 rows, one a
+    sentinel, one choosing an expert twice): q8 g64, groups narrower than
+    a vector (q4 g8, q8 g8: one scale a word), dense experts, and an
+    ungated squared-ReLU MLP (``relu``: q4 g32), each within the plain
+    version's tolerance and the emulation's two roundings."""
+    from repro_torch.kernels.fused_decode import expert as EK
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    from repro_torch.kernels.fused_decode.ref import (emulate_fused_mlp_experts,
+                                                      ref_fused_mlp_experts)
+    E, k, D, F, bc = 8, 2, 256, 512, 5
+    spec = {"q8": (8, 64), "q4g8": (4, 8), "q8g8": (8, 8), "dense": None,
+            "relu": (4, 32)}[label]
+    rng = np.random.default_rng(len(label))
+    ws = []
+    for K, N in ((D, F), (D, F), (F, D)):
+        w = torch.from_numpy((rng.standard_normal((E, K, N)) / np.sqrt(K))
+                             .astype(np.float32)).to(cuda).to(dtype)
+        ws.append(w if spec is None
+                  else quantize(w, QuantSpec(spec[0], group_size=spec[1])))
+    gate = None if label == "relu" else ws[1]
+    act = "squared_relu" if label == "relu" else "swiglu"
+    idx, g, valid = _expert_routes(rng, bc, k, E, "twice")
+    valid[3] = False
+    args = (torch.from_numpy(idx).to(cuda), torch.from_numpy(g).to(cuda),
+            torch.from_numpy(valid).to(cuda))
+    h = torch.from_numpy(rng.standard_normal((bc, D)).astype(
+        np.float32)).to(cuda).to(dtype)
+    bits = spec[0] if spec else 0
+    group = spec[1] if spec else 0
+    with torch.no_grad():
+        got = fd_ops.fused_mlp_experts(h, ws[0], ws[2], gate, *args, act=act)
+        want = ref_fused_mlp_experts(h, ws[0], ws[2], gate, *args, act=act)
+        emu = emulate_fused_mlp_experts(
+            h, ws[0], ws[2], gate, *args, act=act,
+            plans=EK.expert_plans(bc, k, E, D, F, gate is not None,
+                                  (bits, bits), h.element_size(),
+                                  (group, group)))
+    _expert_rows_close(got, want, args[2], dtype)
+    _emulation_close(got, emu, args[2], dtype)
+
+
 def test_fused_mlp_experts_skips_unrouted_experts(cuda):
     """Codes of experts no valid row chose are never read: NaN codes'
     scales in every other expert change nothing."""
@@ -2522,6 +2679,33 @@ def test_cohort_graph_replay_is_the_eager_step(cuda, kind):
                 assert torch.equal(new[~m], old[~m])
         assert eng.graph_stats["replays"] == 4
     assert not eng._cohort_cache
+
+
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_captured_nodes_hold_the_cohort_steps_kernels(cuda, kind):
+    """``captured_nodes`` of the eager cohort step, as ``chip_smoke.py``'s
+    decode breakdowns count a step's kernels: the captured graph holds
+    each hand-written kernel of the step (``chip_smoke.STEP_KERNELS``) as
+    often as the registry counts its wrapper's launches in an eager run
+    of the same step, and the capture adds nothing to the registry."""
+    eng = _graph_engine(kind, cuda)
+    with eng:
+        host = _cohort_host(eng, 4, seed=0)
+        args = [torch.from_numpy(a).to(cuda) for a in host]
+        pool = tuple(tuple(t.clone() for t in pos) for pos in eng.slots.pool)
+        with torch.no_grad():
+            _, eager = launches_of(eng._cohort_step, *args, pool)
+            reset_launch_counts()
+            nodes = captured_nodes(eng._cohort_step, *args, pool)
+        assert not any(launch_counts().values())
+    experts = eager.get("fused_mlp/experts", 0)
+    want = {"kv_row_scatter": eager.get("kv_scatter", 0),
+            "cache_row_update": eager.get("cache_row_update", 0),
+            "gemv_kernel": eager.get("fused_qkv/gemv", 0)
+            + 2 * eager.get("fused_mlp/gemv", 0),
+            "expert_up_kernel": experts, "expert_down_kernel": experts}
+    assert nodes
+    assert {k: sum(k in n for n in nodes) for k in want} == want, want
 
 
 @pytest.mark.parametrize("kind", GRAPH_KINDS)
