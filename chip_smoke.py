@@ -323,16 +323,57 @@ Phases (any failure raises and exits non-zero):
    TFLOP/s; peak GB.  Then a 2-layer fp32 step at full width (the
    tf32x3 forward, the fp32 backward) held the same way (gradients
    within 2e-5, backward rows within 1e-4), and the backward kernel at
-   the training shape beside its plain version and SDPA's backward.
+   the training shape beside its plain version and SDPA's backward;
+12. train DeepSeek-MoE-16B at full width and 4 layers (MHA 16 x 128, 64
+   experts of 1408 top-6, two shared experts of 2816 in all, vocab
+   102400, untied head; ``attn_q_chunk=0``, remat, bf16; 2.77 B
+   parameters: the 28 layers would need ~203 GB of weights, gradients and
+   moments), phase 11's data, optimizer and 8 steps of ``fit``.  Step 1
+   through the kernels against the same step through ``attn_q_chunk=512``
+   (the chunked plain attention): the two runs' routing counted first
+   (``routing_diff``: flipped and dropped choices), then the plain step
+   taken on the kernel step's experts (``RouteLog`` replays them, gates
+   from its own probabilities), every leaf's gradient, the router's
+   included, within 5e-2 of its largest; the loss falls; the aux loss is
+   finite and positive at every step; each step launches 8 flash
+   forwards and 4 backwards; every backward call of step 1 and one of
+   each later step held as phase 11's; one more step under the profiler
+   (device ms, busy, the top kernels, tokens/s, FLOP/s of the active
+   parameters against 989 TFLOP/s, peak GB).  Then a 2-layer fp32 step
+   held the same way within 2e-5, and the flash kernels at this MHA
+   training shape beside their plain versions and SDPA;
+13. train Mamba-2-1.3B at full width and depth (48 layers, 64 heads of
+   64, state 128, chunk 256, tied embeddings; remat, bf16) the same way:
+   the SSD's forward and its backward kernel (``ssd/bwd``) in every
+   layer; each step launches 96 SSD forwards and 48 backwards; every
+   backward call of step 1 and one of each later step held against
+   ``ref_ssd_backward`` on its own inputs (phase 2's measure; a row that
+   cancels to far below its terms at Mamba-2's decay rates, where the
+   plain fp32 version itself is off float64, held by ``rows_hold``);
+   step 1's gradients against the same step with the SSD's plain route
+   (``ref_ssd_chunked`` under autograd): in bf16 a rounding witness
+   moves the plain route's own gradients by more than a leaf's largest
+   magnitude, so the kernel step is held with its SSD outputs replayed
+   into the plain route, within 0.1 (the witnesses printed beside it and
+   beside the direct comparison); in fp32 at full depth within 5e-2 and
+   at 2 layers within 2e-5 of the plain route evaluated in float64, a
+   leaf past that held to no more than the fp32 plain route's own error
+   (the fp32 plain route's ddt sums cancel); the
+   profiled step with the SSD forward's and backward's ms a call and
+   share; the backward at the training shape beside its bound and plain
+   version (``ssd_backward_times``).
 
 Phase 2 also holds the flash backward kernel (``flash_attention/bwd``,
 routes ``bwd_bf16`` / ``bwd_f32``) against ``ref_attention_backward``
 at the training shape (B 4, S 2048, H 14, KV 2, hd 64), Qwen2-VL's head
 counts (hd 128), a ragged S = 777, non-causal with Sq != Sk and the
 reference grid, in bf16 and fp32: every dq / dk / dv row within 2e-2
-(bf16) or 1e-4 (fp32) of that row's largest plain magnitude (a causal
-dq's row 0, exactly 0, against the gradient's largest), against
-float64 no worse than 2x the plain version, two launches bit-equal, and
+of that row's largest plain magnitude (bf16), or within 1e-4 of the
+row's largest magnitude in the float64 backward (fp32: a row of few
+causal keys cancels, and the plain fp32 version's own error nears the
+gate there), a causal dq's row 0, exactly 0, against the gradient's
+largest; against float64 no worse than 2x the plain version, two
+launches bit-equal, and
 the forward bit-equal with and without its lse; then it prints the
 dK/dV and dQ grids' geometry at the training shape in both dtypes
 (``flash_backward_geometry`` line: blocks, resident blocks an SM from
@@ -345,13 +386,22 @@ mma.sync's sustained TF32 rate), the plain version and SDPA's
 backward).  It also holds the
 routed experts' GEMV at DeepSeek-MoE-16B's, DBRX's and Jamba's widths (cohorts 1-8, a row choosing one expert twice,
 a sentinel row; bf16 within 2e-2 a row, fp32 within 1e-5 of the largest)
-and the SSD kernel at P 128; phase 7 times the GEMV beside the routed
+and the SSD kernel at P 128, and the SSD backward kernel (``ssd/bwd``,
+routes ``bwd_bf16`` / ``bwd_f32``) against ``ref_ssd_backward`` at
+Mamba-2-1.3B's training shape (B 4, S 2048, H 64, P 64, N 128, chunk
+256), Jamba's P 128, S under one chunk and two B/C groups, in bf16 and
+fp32 with a nonzero dh: every dx, dB and dC row within 2e-2 (bf16) or
+1e-4 (fp32) of its largest plain magnitude, ddt and dA of their largest,
+each against float64 no worse than 2x the plain version, two launches
+bit-equal, and the forward the same bits whether or not it hands over
+its states; phase 7 times the GEMV beside the routed
 experts gathered, dequantized and run through batched ``bmm``, and SSD
 at P 128 and flash at 64/8 heads.
 
-Output: build, check and serve lines, the ``nvidia-smi`` name/power-limit
-line, one JSON line ``{"kernels": [...]}``, and as the last line
-``{"ok": true, "device": {...}}``.
+Output: build, check, serve and train lines, each phase's seconds
+(``phase_seconds``), the ``nvidia-smi`` name/power-limit line, one JSON
+line ``{"kernels": [...]}``, and as the last line ``{"ok": true,
+"device": {...}}``.
 """
 import contextlib
 import dataclasses
@@ -375,6 +425,7 @@ TF32_FLOPS_PER_S = 495e12        # H100 SXM dense TF32, published
 # what mma.sync m16n8k8 TF32 sustains on an H100 (scripts/mma_sync_rate.py,
 # PERF.md §6): the fp32 flash backward's own route bound
 MMA_SYNC_TF32_FLOPS_PER_S = 320.4e12
+FP64_TENSOR_FLOPS_PER_S = 67e12  # H100 SXM FP64 on the tensor cores, published
 TIME_BC = 4
 # kernel vs plain version, bf16 outputs: both accumulate in fp32 in
 # different orders, so an output may differ by one bf16 rounding step
@@ -625,6 +676,45 @@ SSD_P128_SHAPE = (2, 1024, 128, 128, 1, 128, 256)
 # the flash kernel at Jamba's attention sublayer: GQA 64 / 8, hd 128, at a
 # 2 x 1024 prefill, no RoPE
 FLASH_JAMBA_SHAPE = (2, 1024, 1024, 64, 8, 128, True)
+# the SSD backward held against its plain version (phase 2), (B, S, H, P,
+# G, N, chunk): Mamba-2-1.3B's training shape, Jamba's P 128, S under one
+# chunk, two B/C groups over four chunks; bf16 and fp32, a nonzero dh.
+# dx, dB and dC rows within SSD_BWD_TOL of each row's largest plain
+# magnitude, ddt and dA of their largest (bf16: one output rounding step;
+# fp32: both sum in fp32, in other orders)
+SSD_BWD_SHAPES = ((4, 2048, 64, 64, 1, 128, 256),
+                  (2, 1024, 128, 128, 1, 128, 256),
+                  (2, 200, 8, 64, 1, 128, 256),
+                  (2, 512, 8, 32, 2, 64, 128))
+SSD_BWD_TOL = {"bfloat16": KERNEL_TOL, "float32": 1e-4}
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
+SSD_BWD_ROUTE = {"bfloat16": "bwd_bf16", "float32": "bwd_f32"}
+# the device kernels one ``launch_ssd_backward`` runs: C.Bᵀ, the state
+# contributions, the reverse scan, dx, dC, dB, ddt, the sums over heads, dA
+SSD_BWD_DEVICE_KERNELS = 9
+# phase 12: DeepSeek-MoE-16B trained at full width and MOE_TRAIN_LAYERS
+# layers (the full 28 are 16.9 B parameters, ~203 GB of bf16 weights and
+# gradients and fp32 moments), attn_q_chunk=0, remat, bf16; phase 11's
+# data, optimizer and steps.  Phase 13: Mamba-2-1.3B at full width and
+# depth, the SSD forward and backward through the kernels; the same
+MOE_TRAIN_PATH = "deepseek-moe-16b/train-4-layer"
+MOE_TRAIN_FP32_PATH = "deepseek-moe-16b/train-fp32-2-layer"
+MOE_TRAIN_LAYERS = 4
+MAMBA_TRAIN_PATH = "mamba2-1.3b/train"
+MAMBA_TRAIN_FP32_PATH = "mamba2-1.3b/train-fp32-2-layer"
+# Mamba-2's step 1 in bf16 at 48 layers: a rounding witness (one bf16
+# rounding step on WITNESS_SHARE of the plain SSD's y, or of its dx) moves
+# the plain route's own gradients by more than a leaf's largest
+# magnitude (1.54 on an H100), so the bf16 step is held with the kernel's
+# SSD outputs replayed into the plain route (only the backwards differ),
+# each leaf within MAMBA_BF16_REPLAY_TOL of its largest: an H100 80GB
+# HBM3 at 700 W read 0.066 for the worst leaf there, and 0.076 for the
+# dx witness (the plain
+# route against itself with one rounding step on 10 % of its dx), so 0.1
+# holds the kernel to within about that witness; the fp32 instance at
+# full depth within TRAIN_GRAD_TOL["bfloat16"] (5e-2, the full-depth gate)
+WITNESS_SHARE = 0.1
+MAMBA_BF16_REPLAY_TOL = 0.1
 # phase 9: Jamba-1.5-Large at full width and one group of 8 sublayers
 # (attn_q_chunk=0), packed as made; Mamba-2-1.3B's requests
 HYBRID_PATH = "jamba-1.5-large-398b/1-group"
@@ -693,12 +783,16 @@ def event_ms(fn, n_rot, iters):
     return start.elapsed_time(stop) / iters
 
 
-def timed(fn, n_rot, iters=96):
+def timed(fn, n_rot, iters=96, kernels=1):
     """(device ms, call ms, device kernels) per call of ``fn(i)``, i
     rotating over ``n_rot`` weight sets: the card's kernel time summed
-    from the profiler's CUDA events (None if it recorded none), the wall
-    time per call (``event_ms``) and the kernels one call runs on the
-    card."""
+    from the profiler's CUDA events, the wall time per call
+    (``event_ms``) and the kernels one call runs on the card as the
+    profiler saw them.  ``kernels``: the device kernels one call must
+    run, where known; the device ms is None (``dev_or_call`` then takes
+    the call ms, and the records say which) when the profiler's events
+    account for fewer kernels a call, as when it missed a kernel of the
+    call altogether."""
     import torch
     call_ms = event_ms(fn, n_rot, iters)
 
@@ -712,12 +806,19 @@ def timed(fn, n_rot, iters=96):
     # zero time
     per_call_us = sum(us / n * max(1, round(n / iters))
                       for _, us, n in rows if n)
-    return ((per_call_us / 1e3 if dev_us > 0 else None), call_ms,
-            n_kernels / iters)
+    seen = sum(max(1, round(n / iters)) for _, _, n in rows if n)
+    return ((per_call_us / 1e3 if dev_us > 0 and seen >= kernels else None),
+            call_ms, n_kernels / iters)
 
 
 def dev_or_call(t):
     return t[0] if t[0] is not None else t[1]
+
+
+def ms_source(t):
+    """Which clock gave ``dev_or_call(t)``."""
+    return ("profiler device time" if t[0] is not None
+            else "CUDA events around the calls")
 
 
 def bound(byt, fl, flops_per_s=BF16_FLOPS_PER_S):
@@ -742,6 +843,18 @@ def attention_f64(q, k, v, causal):
     return o.reshape(B, Sq, H, hd)
 
 
+def rows_hold(k_err, p_err, row_max, tol):
+    """Which rows of a gradient hold, given each row's largest error of
+    the kernel (``k_err``) and of the plain version (``p_err``) against
+    the float64 backward and the row's largest float64 magnitude: the
+    kernel within ``tol`` of the row's largest, or, where the plain
+    version itself is not (a row that cancels to far below its terms,
+    which no fp32 evaluation resolves), the kernel no worse than the
+    plain version's own error on that row."""
+    return (k_err <= tol * row_max) | ((p_err > tol * row_max)
+                                       & (k_err <= p_err))
+
+
 class Smoke:
     """The run's shared state: device, random source, helpers."""
 
@@ -754,7 +867,7 @@ class Smoke:
                      "fused_mlp/experts": 0.0,
                      "kv_row_scatter": 0.0, "flash_attention": 0.0,
                      "flash_attention/bwd": 0.0,
-                     "ssd": 0.0, "linear_attention": 0.0,
+                     "ssd": 0.0, "ssd/bwd": 0.0, "linear_attention": 0.0,
                      "dequant_gemm": 0.0, "cache_row_update": 0.0}
         self.eg_check = []               # the routed experts' GEMV
         self.worst_row_ratio = 0.0       # flash: max over rows err/max
@@ -764,6 +877,7 @@ class Smoke:
         self.la_check = []
         self.dg_check = {}
         self.bwd_check = {}
+        self.ssd_bwd_check = {}
 
     def randn(self, *shape, scale=1.0, dtype=None):
         torch = self.torch
@@ -967,16 +1081,19 @@ class Smoke:
 
     def flash_bwd_held(self, q, k, v, o, lse, do, causal, what, got=None,
                        f64=None):
-        """The backward kernel's (dq, dk, dv) against the plain backward
-        on the same q, k, v, o, lse, do: every row of each (b, position,
-        head) within FLASH_BWD_TOL of that row's largest plain magnitude
-        (a causal dq's row 0, exactly 0, of the gradient's largest);
-        with ``f64`` (a dict), kernel and plain each against the float64
-        backward (max |err| over the largest |exact|), the kernel no worse
-        than F64_RATIO x the plain version, the worst kept.  ``got``: the
+        """The backward kernel's (dq, dk, dv) by rows: every row of each
+        (b, position, head) within FLASH_BWD_TOL of that row's largest
+        magnitude (a causal dq's row 0, exactly 0, of the gradient's
+        largest), in bf16 against the plain backward on the same q, k, v,
+        o, lse, do, in fp32 against the float64 backward (where a row of
+        few causal keys cancels, the plain fp32 version's own error nears
+        the gate: ``scripts/flash_bwd_accuracy_sweep.py``); with ``f64``
+        (a dict), kernel and plain each against the float64 backward (max
+        |err| over the largest |exact|), the kernel no worse than
+        F64_RATIO x the plain version, the worst kept.  ``got``: the
         kernel's gradients of a call made already (a trained step's),
-        else the kernel runs here.  Returns (worst row ratio, max abs
-        err)."""
+        else the kernel runs here.  Returns (worst row ratio, max abs err
+        against the plain version)."""
         from repro_torch.kernels.flash_attention import kernel as FK
         from repro_torch.kernels.flash_attention.ref import \
             ref_attention_backward
@@ -987,14 +1104,19 @@ class Smoke:
                                                      causal=causal)
         with plain_sums():
             want = ref_attention_backward(q, k, v, o, lse, do, causal=causal)
+        exact = None
+        if name == "float32" or f64 is not None:
+            exact = ref_attention_backward(*(t.double() for t in (
+                q, k, v, o, lse, do)), causal=causal)
+        rows_of = exact if name == "float32" else want
         worst, err_max = 0.0, 0.0
-        for part, g, w in zip(("dq", "dk", "dv"), got, want):
+        for part, g, w, x in zip(("dq", "dk", "dv"), got, want, rows_of):
             if g.shape != w.shape or g.dtype != w.dtype \
                     or not g.isfinite().all():
                 fail(f"flash_attention/bwd {what}: {part} shape, dtype or "
                      f"non-finite values")
-            err = (g.float() - w.float()).abs().amax(-1)
-            row = w.float().abs().amax(-1)
+            err = (g.double() - x.double()).abs().amax(-1)
+            row = x.double().abs().amax(-1)
             den = row.clone()
             if part == "dq" and causal:
                 den[:, 0] = row.max()
@@ -1005,13 +1127,14 @@ class Smoke:
                 at = divmod(int(ratio.argmax()), ratio.shape[-1])
                 b, i = divmod(at[0], ratio.shape[1])
                 fail(f"flash_attention/bwd {what}: {part} row (b {b}, "
-                     f"position {i}, head {at[1]}) err/max {r}, the row's "
-                     f"largest {row[b, i, at[1]].item()} of the "
-                     f"gradient's {row.max().item()}")
-            worst, err_max = max(worst, r), max(err_max, err.max().item())
+                     f"position {i}, head {at[1]}) err/max {r} against "
+                     f"the {'float64' if x is exact else 'plain'} "
+                     f"backward, the row's largest "
+                     f"{row[b, i, at[1]].item()} of the gradient's "
+                     f"{row.max().item()}")
+            worst = max(worst, r)
+            err_max = max(err_max, (g.float() - w.float()).abs().max().item())
         if f64 is not None:
-            exact = ref_attention_backward(*(t.double() for t in (
-                q, k, v, o, lse, do)), causal=causal)
             for part, g, w, x in zip(("dq", "dk", "dv"), got, want, exact):
                 den = x.abs().max()
                 k_err = ((g.double() - x).abs().max() / den).item()
@@ -1024,8 +1147,7 @@ class Smoke:
                 rec["kernel"] = max(rec["kernel"], k_err)
                 rec["plain"] = max(rec["plain"], p_err)
                 rec["worst_ratio"] = max(rec["worst_ratio"], k_err / p_err)
-            del exact
-        del want
+        del want, exact
         self.errs["flash_attention/bwd"] = max(
             self.errs["flash_attention/bwd"], err_max)
         return worst, err_max
@@ -1197,6 +1319,139 @@ class Smoke:
             "h_max_abs_err": h_abs}
         del args
         self.torch.cuda.synchronize()
+
+    def ssd_bwd_held(self, args, states, dy, dh, chunk, what, got=None,
+                     f64=None):
+        """The SSD backward kernel's (dx, ddt, dA, dB, dC) against
+        ``ref_ssd_backward`` on the same inputs: every row of dx (b,
+        position, head), dB and dC (b, position, group) within
+        SSD_BWD_TOL of that row's largest plain magnitude, ddt and dA
+        within it of their largest.  A row past that gate is held against
+        the float64 backward by ``rows_hold`` (at Mamba-2's decay rates a
+        row can cancel to 1e-6 of its terms, where the plain fp32 version
+        itself is tens of percent off float64); such rows are counted, and
+        apart those of them that ``rows_hold`` takes on the plain
+        version's error.
+        With ``f64`` (a dict), kernel and plain each against the float64
+        backward (max |err| over the largest |exact|), the kernel no worse
+        than F64_RATIO x the plain version, the worst kept.  ``got``: the
+        kernel's gradients of a call made already (a trained step's), else
+        the kernel runs here on the forward's ``states``.  Returns
+        ({gradient: worst ratio over the rows the plain gate holds, and
+        ``rows_held_by_float64``}, max abs err)."""
+        from repro_torch.kernels.ssd import kernel as SK
+        from repro_torch.kernels.ssd.ref import ref_ssd_backward
+        name = str(args[0].dtype).replace("torch.", "")
+        tol = SSD_BWD_TOL[name]
+        if got is None:
+            got = SK.launch_ssd_backward(*args, states, dy, dh, chunk=chunk)
+        with plain_sums():
+            want = ref_ssd_backward(*args, dy, dh, chunk=chunk)
+        exact = None
+
+        def float64():
+            return ref_ssd_backward(
+                *(t.double() for t in args), dy.double(),
+                None if dh is None else dh.double(), chunk=chunk)
+        worst, err_max, by_f64, by_plain = {}, 0.0, 0, 0
+        for i, (part, g, w) in enumerate(zip(SSD_GRADS, got, want)):
+            if g.shape != w.shape or g.dtype != w.dtype \
+                    or not g.isfinite().all():
+                fail(f"ssd/bwd {what}: {part} shape, dtype or non-finite "
+                     f"values")
+            err = (g.float() - w.float()).abs()
+            if part in ("dx", "dB", "dC"):
+                ratio = (err.amax(-1) / w.float().abs().amax(-1)).nan_to_num(
+                    nan=0.0, posinf=1e9)
+                bad = ratio > tol
+                if bad.any():
+                    exact = float64() if exact is None else exact
+                    x = exact[i]
+                    k_err = (g.double() - x).abs().amax(-1)[bad]
+                    row64 = x.abs().amax(-1)[bad]
+                    ok = rows_hold(k_err, (w.double() - x).abs().amax(-1)[bad],
+                                   row64, tol)
+                    by_plain += int((k_err > tol * row64).sum())
+                    if not ok.all():
+                        fail(f"ssd/bwd {what}: {int((~ok).sum())} {part} "
+                             f"rows past {tol} of their largest against "
+                             f"the plain and the float64 backward, worst "
+                             f"{ratio.max().item()}")
+                    by_f64 += int(bad.sum())
+                    ratio = ratio[~bad]
+                r = ratio.max().item() if ratio.numel() else 0.0
+            else:
+                r = err.max().item() / w.float().abs().max().item()
+                if not r <= tol:
+                    fail(f"ssd/bwd {what}: {part} err/max {r} > {tol}")
+            worst[part] = r
+            err_max = max(err_max, err.max().item())
+        worst["rows_held_by_float64"] = by_f64
+        # of those, rows past the gate against float64 too, held because
+        # the plain version is further off float64 than the kernel
+        worst["rows_held_by_the_plain_versions_error"] = by_plain
+        if f64 is not None:
+            exact = float64() if exact is None else exact
+            rec = f64.setdefault(name, {})
+            for part, g, w, x in zip(SSD_GRADS, got, want, exact):
+                den = x.abs().max()
+                k_err = ((g.double() - x).abs().max() / den).item()
+                p_err = ((w.double() - x).abs().max() / den).item()
+                if not k_err <= F64_RATIO * p_err:
+                    fail(f"ssd/bwd {what}: {part} vs float64 {k_err}, "
+                         f"plain {p_err}")
+                r = rec.setdefault(part, {"kernel": 0.0, "plain": 0.0,
+                                          "worst_ratio": 0.0})
+                r["kernel"], r["plain"] = max(r["kernel"], k_err), max(
+                    r["plain"], p_err)
+                r["worst_ratio"] = max(r["worst_ratio"],
+                                       k_err / p_err if p_err else 0.0)
+        del want, exact
+        self.errs["ssd/bwd"] = max(self.errs["ssd/bwd"], err_max)
+        return worst, err_max
+
+    def check_ssd_backward(self):
+        """The SSD backward kernel at SSD_BWD_SHAPES, bf16 and fp32, with
+        a nonzero dh: the forward's y and h_final the same bits whether or
+        not it hands over its states; the gradients held by
+        ``ssd_bwd_held`` (rows, and against float64); two launches
+        bit-equal.  Kept in ``ssd_bwd_check``."""
+        from repro_torch.kernels.ssd import kernel as SK
+        torch = self.torch
+        rows, f64 = [], {}
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            for B, S, H, P, G, N, chunk in SSD_BWD_SHAPES:
+                what = f"{name} B={B} S={S} H={H} P={P} G={G} N={N} " \
+                       f"chunk={chunk}"
+                args = tuple(t.to(dtype) if t.dtype == torch.bfloat16 else t
+                             for t in self.ssd_inputs(B, S, H, P, G, N))
+                dy = self.randn(B, S, H, P, dtype=dtype)
+                dh = self.randn(B, H, P, N, dtype=torch.float32)
+                y, h, states = SK.launch_ssd(*args, chunk=chunk,
+                                             want_states=True)
+                y0, h0 = SK.launch_ssd(*args, chunk=chunk)
+                if not (torch.equal(y, y0) and torch.equal(h, h0)):
+                    fail(f"ssd {what}: the forward differs when it hands "
+                         f"over its states")
+                got = SK.launch_ssd_backward(*args, states, dy, dh,
+                                             chunk=chunk)
+                again = SK.launch_ssd_backward(*args, states, dy, dh,
+                                               chunk=chunk)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"ssd/bwd {what}: two launches differ")
+                worst, err = self.ssd_bwd_held(args, states, dy, dh, chunk,
+                                               what, got=got, f64=f64)
+                rows.append({"case": [B, S, H, P, G, N, chunk],
+                             "dtype": name, "worst_err_over_max": worst,
+                             "max_abs_err": err})
+                del args, dy, dh, y, h, states, y0, h0, got, again
+        torch.cuda.synchronize()
+        self.ssd_bwd_check = {
+            "cases": rows, "vs_float64_err_over_max": f64,
+            "tol": {"rows_and_max": SSD_BWD_TOL, "float64_ratio": F64_RATIO},
+            "forward_bit_equal_with_states": True,
+            "two_launches_bit_equal": True}
 
     def la_inputs(self, B, S, H, KV, hd, dtype):
         """q, k = 0.5 normal and v = normal in ``dtype``, like the
@@ -5937,7 +6192,8 @@ def at_encdec(name, rec, runs, t, numbers):
 
 class FlashBwdCalls:
     """Keeps flash backward launches of a training run (q, k, v, o, lse,
-    do, causal and the kernel's gradients, by reference): every launch of
+    do, causal and the kernel's gradients, by reference, detached): every
+    launch of
     step ``all_of``, the first of every other step.  ``step`` is set by
     ``StepFeed``; ``kernel.launch_flash_attention_backward`` is wrapped
     inside the ``with`` block."""
@@ -5953,7 +6209,10 @@ class FlashBwdCalls:
         n = self.per_step.get(self.step, 0)
         self.per_step[self.step] = n + 1
         if self.step == self.all_of or n == 0:
-            self.calls.append((self.step, q, k, v, o, lse, do, causal, out))
+            # detached: a saved tensor's graph would keep its step's
+            # activations and parameters alive
+            self.calls.append((self.step, *(t.detach() for t in (
+                q, k, v, o, lse, do)), causal, tuple(t.detach() for t in out)))
         return out
 
     def held(self, sm, what, f64_first=False):
@@ -6066,8 +6325,10 @@ def time_flash_backward(sm, shape, dtype):
     v = sm.randn(B, Sk, KV, hd, dtype=dtype)
     do = sm.randn(B, Sq, H, hd, dtype=dtype)
     o, lse = FK.launch_flash_attention(q, k, v, causal=causal, want_lse=True)
+    # D, dK/dV, dQ, and the sum over a kv head's query heads when H > KV
     t_k = timed(lambda i: FK.launch_flash_attention_backward(
-        q, k, v, o, lse, do, causal=causal), 1, iters=10)
+        q, k, v, o, lse, do, causal=causal), 1, iters=10,
+        kernels=3 + (H > KV))
 
     def ten():
         for _ in range(10):
@@ -6125,20 +6386,27 @@ def flash_bwd_times(timings):
     ``["bwd_f32"]``): ms a call and each device kernel's ms a launch
     beside the function's bound (five products at 989 TFLOP/s bf16, 67
     fp32 FFMA), the route's own (bf16: nine wgmma products at 989, dS in
-    two terms; fp32: 33 TF32 products, S and dP (each twice) in six and
-    dV, dK and dQ in three, at mma.sync's sustained 320.4), the plain
-    version and SDPA's backward, with the grids (``flash_bwd_geometry``)."""
+    two terms; fp32: 21 TF32 products, S (twice) in six and dV, dK and dQ
+    in three, at mma.sync's sustained 320.4, and dP twice in double at
+    the FP64 tensor cores' 67), the plain version and SDPA's backward,
+    with the grids (``flash_bwd_geometry``)."""
     out = flash_bwd_geometry()
-    for key, name, rate, terms, route_rate in (
-            ("bwd", "bfloat16", BF16_FLOPS_PER_S, 9, BF16_FLOPS_PER_S),
-            ("bwd_f32", "float32", FP32_FLOPS_PER_S, 33,
-             MMA_SYNC_TF32_FLOPS_PER_S)):
+    for key, name, rate, route in (
+            ("bwd", "bfloat16", BF16_FLOPS_PER_S,
+             ((9, BF16_FLOPS_PER_S),)),
+            ("bwd_f32", "float32", FP32_FLOPS_PER_S,
+             ((21, MMA_SYNC_TF32_FLOPS_PER_S), (2, FP64_TENSOR_FLOPS_PER_S)))):
         t_k, t_p, t_l, byt, fl = timings[key]
         b_ms, b_by = bound(byt, fl, rate)
-        r_ms, _ = bound(byt, fl / 5 * terms, route_rate)
+        r_ms = max(byt / HBM_BYTES_PER_S,
+                   sum(fl / 5 * n / r for n, r in route)) * 1e3
+        terms = {("tf32" if r == MMA_SYNC_TF32_FLOPS_PER_S else
+                  "fp64" if r == FP64_TENSOR_FLOPS_PER_S else "bf16"): n
+                 for n, r in route}
         ms, sdpa = dev_or_call(t_k), dev_or_call(t_l)
         out[name].update(
-            ms=ms, event_ms=t_k[1], device_kernels_per_call=t_k[2],
+            ms=ms, ms_source=ms_source(t_k), event_ms=t_k[1],
+            device_kernels_per_call=t_k[2],
             kernel_ms_a_launch=t_k[3], bound_ms=b_ms, bound_by=b_by,
             route_bound_ms=r_ms, route_products=terms,
             plain_ms=dev_or_call(t_p), sdpa_backward_ms=sdpa,
@@ -6308,6 +6576,631 @@ def train_llava(sm):
     return rec, runs, timings
 
 
+class SsdBwdCalls:
+    """Keeps SSD backward launches of a training run (the inputs and the
+    forward's states by reference, detached; dy, dh and the kernel's
+    gradients as copies: autograd may add another branch's gradient into
+    a returned one in place, Mamba-2's D skip into dx): every launch of step
+    ``all_of``, the first of every other step.  ``step`` is set by
+    ``StepFeed``; ``kernel.launch_ssd_backward`` is wrapped inside the
+    ``with`` block."""
+
+    def __init__(self, all_of=1):
+        from repro_torch.kernels.ssd import kernel as SK
+        self.mod, self.inner = SK, SK.launch_ssd_backward
+        self.all_of, self.step = all_of, 0
+        self.calls, self.per_step = [], {}
+
+    def __call__(self, x, dt, A, Bm, Cm, states, dy, dh=None, *, chunk):
+        out = self.inner(x, dt, A, Bm, Cm, states, dy, dh, chunk=chunk)
+        n = self.per_step.get(self.step, 0)
+        self.per_step[self.step] = n + 1
+        if self.step == self.all_of or n == 0:
+            # detached (a saved tensor's graph would keep its step's
+            # activations and parameters alive), the gradients copied
+            keep = lambda t: None if t is None else t.detach().clone()
+            self.calls.append((self.step, tuple(t.detach() for t in (
+                x, dt, A, Bm, Cm)), states.detach(), keep(dy), keep(dh),
+                chunk, tuple(keep(t) for t in out)))
+        return out
+
+    def held(self, sm, what, f64_first=False):
+        """Every kept call against ``ref_ssd_backward`` on its own inputs
+        (``Smoke.ssd_bwd_held``): calls by step, each gradient's worst
+        ratio, max abs error; with ``f64_first`` the first call also
+        against float64."""
+        worst, err_max, by_step, f64 = {}, 0.0, {}, {}
+        for i, (step, args, states, dy, dh, chunk, out) in enumerate(
+                self.calls):
+            w, err = sm.ssd_bwd_held(
+                args, states, dy, dh, chunk,
+                f"{what} step {step} call at {tuple(args[0].shape)}",
+                got=out, f64=f64 if (f64_first and i == 0) else None)
+            for k, v in w.items():
+                worst[k] = (worst.get(k, 0) + v if k.startswith("rows_held")
+                            else max(worst.get(k, 0.0), v))
+            err_max = max(err_max, err)
+            by_step[step] = by_step.get(step, 0) + 1
+        return {"held_calls_by_step": by_step, "worst_err_over_max": worst,
+                "max_abs_err": err_max, "vs_float64_first_call": f64 or None,
+                "tol": SSD_BWD_TOL}
+
+    def __enter__(self):
+        self.mod.launch_ssd_backward = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.launch_ssd_backward = self.inner
+        self.calls = []
+
+
+def matmul_train_flops(cfg, T):
+    """Model FLOPs of one training step's products with remat, from the
+    parameters a token touches (``count_params_analytic(active_only)``:
+    an MoE's routed experts at top_k; the embedding lookup is no product,
+    a tied head's is): 2 a parameter a token forward, 4 backward, 2 again
+    for the recomputed forward of every group and head chunk."""
+    from repro_torch.models.model import count_params_analytic
+    n = count_params_analytic(cfg, active_only=True)
+    if not cfg.tie_embeddings:
+        n -= cfg.padded_vocab * cfg.d_model
+    return 2 * T * n * (1 + 2 + 1)
+
+
+def fit_counted(sm, cfg, params, batch1, calls, want, what):
+    """``fit`` for TRAIN_STEPS steps on the data pipeline's batches (seed
+    0), every launch counted a step (``StepFeed``; each step must launch
+    ``want``), the kernels' backward calls kept by ``calls``; then one
+    more step alone for its peak and one under the profiler.  Returns
+    (record, the fit's launch counts, the profiler's rows)."""
+    import torch
+    from repro_torch.data import multimodal_batch_iter
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps as TS
+    from repro_torch.training.optimizer import OptConfig, init_opt
+    from repro_torch.training.train_loop import TrainConfig, fit
+    B, S = batch1["tokens"].shape
+    opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    feed = StepFeed(multimodal_batch_iter(cfg, B, S, seed=0), calls)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fit(cfg, opt, TrainConfig(steps=TRAIN_STEPS, log_every=10 ** 9),
+              feed, params=params, log=lambda m: None, device=sm.dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = launch_counts()
+    per_step = feed.per_step()
+    fit_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = res.metrics_history
+    losses = [m["loss"] for m in hist]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"{what}: losses {losses} do not fall")
+    for i, n in enumerate(per_step):
+        if n != want:
+            fail(f"{what}: step {i + 1} launched {n}, want {want}")
+    walls = [m["dt"] for m in hist]
+    wall_ms = statistics.median(walls[1:]) * 1e3
+    del res, feed
+    free()
+    step_fn = TS.build_train_step(cfg, opt)
+    st = init_opt(params, opt)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn(params, st, batch1)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dev_us, rows, n_kernels = device_time(
+        lambda: (step_fn(params, st, batch1), torch.cuda.synchronize()))
+    del st, step_fn
+    free()
+    dev_ms = dev_us / 1e3
+    rec = {"losses": losses, "aux_losses": [m["aux_loss"] for m in hist],
+           "grad_norms": [m["grad_norm"] for m in hist],
+           "lrs": [m["lr"] for m in hist], "fit_s": fit_s,
+           "step_wall_ms": [w * 1e3 for w in walls],
+           "step_wall_ms_median_2_on": wall_ms,
+           "step_device_ms": dev_ms if dev_us > 0 else None,
+           "busy": dev_ms / wall_ms if dev_us > 0 else None,
+           "device_kernels_a_step": n_kernels,
+           "tokens_per_s": B * S / (wall_ms / 1e3),
+           "peak_gb": peak_gb, "allocated_before_fit_gb": base_gb,
+           "fit_peak_gb_with_held_calls": fit_peak_gb,
+           "top_kernels_ms": [(k, us / 1e3, n) for k, us, n in rows[:12]],
+           "launches_a_step": per_step, "launches_a_step_want": want}
+    return rec, counts, rows, dev_us
+
+
+def flops_record(rec, flops, wall_ms):
+    rec.update({"model_flops_a_step": flops,
+                "flops_per_s": flops / (wall_ms / 1e3),
+                "flops_share_of_989T": flops / (wall_ms / 1e3)
+                / BF16_FLOPS_PER_S,
+                "ms_at_peak": flops / BF16_FLOPS_PER_S * 1e3})
+
+
+def moe_step1(sm, cfg, params, batch1, tol, what):
+    """Step 1's gradients of ``cfg`` (flash attention) against the same
+    step through attn_q_chunk=512 (the chunked plain attention, no
+    remat), held on the same experts: the kernel step's routing is
+    logged (``RouteLog``), the plain step's unforced routing counted
+    against it (``routing_diff``: flipped and dropped choices), then the
+    plain step's gradients taken with the kernel step's experts
+    replayed; every leaf within ``tol`` of its largest magnitude."""
+    import torch
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as TM
+    L = cfg.n_layers
+    rows = torch.arange(batch1["tokens"].numel())
+    plain = dataclasses.replace(cfg, attn_q_chunk=512, remat=False)
+    with RouteLog() as log:
+        with log.run() as kcalls:
+            loss_k, parts_k, g_k = TS.loss_and_grads(params, cfg, batch1)
+        kernel = kcalls[:L]       # under remat the recomputation logs again
+        with plain_sums(), torch.no_grad(), log.run() as pcalls:
+            TM.lm_loss(params, plain, batch1)
+        diff = routing_diff(kernel, rows, pcalls, rows)
+        del pcalls
+        with plain_sums(), log.run(force=[c["idx"] for c in kernel]):
+            loss_p, parts_p, g_p = TS.loss_and_grads(params, plain, batch1)
+    per_leaf, worst = grads_check(g_k, g_p, tol, what)
+    aux_k, aux_p = float(parts_k["aux_loss"]), float(parts_p["aux_loss"])
+    if not (math.isfinite(aux_k) and aux_k > 0):
+        fail(f"{what}: step 1's aux loss {aux_k}")
+    return {"routing_kernel_vs_plain_unforced": diff,
+            "grads_vs_chunked_on_the_kernel_steps_experts": {
+                "per_leaf": per_leaf, "worst": worst, "tol": tol},
+            "loss_kernel": float(loss_k), "loss_chunked": float(loss_p),
+            "aux_loss_kernel": aux_k, "aux_loss_chunked": aux_p}
+
+
+def train_moe(sm):
+    """Phase 12: DeepSeek-MoE-16B trained at full width and
+    MOE_TRAIN_LAYERS layers (``attn_q_chunk=0``, remat, bf16), then a
+    2-layer fp32 step at full width; see the module docstring.  Returns
+    (record, runs, timings)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import multimodal_batch_iter
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps as TS
+    from repro_torch.training.train_loop import batch_to
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              n_layers=MOE_TRAIN_LAYERS, attn_q_chunk=0)
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        fail(f"{MOE_TRAIN_PATH}: the config is not bf16 with remat")
+    B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    params = TS.init_params(cfg, device=sm.dev, seed=0)
+    batch1 = batch_to(next(multimodal_batch_iter(cfg, B, S, seed=0)), sm.dev)
+    m = cfg.moe
+    rec = {"shape": {"B": B, "S": S, "layers": L, "d_model": cfg.d_model,
+                     "heads": [cfg.n_heads, cfg.n_kv_heads], "hd": cfg.hd,
+                     "experts": [m.n_experts, m.top_k, m.d_ff_expert],
+                     "shared": m.d_ff_shared, "vocab": cfg.padded_vocab},
+           "params": sum(p.numel() for p in tree_leaves(params)),
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "opt": "OptConfig(lr=3e-4, warmup_steps=2, total_steps=8), "
+                  "fp32 moments"}
+    rec["step1"] = moe_step1(sm, cfg, params, batch1,
+                             TRAIN_GRAD_TOL["bfloat16"], MOE_TRAIN_PATH)
+    free()
+    want = {"flash_attention": 2 * L, "flash_attention/wgmma": 2 * L,
+            "flash_attention/bwd": L, "flash_attention/bwd_bf16": L}
+    with FlashBwdCalls() as calls:
+        fit_rec, counts, rows, dev_us = fit_counted(
+            sm, cfg, params, batch1, calls, want, MOE_TRAIN_PATH)
+        fit_rec["flash_bwd_held"] = calls.held(sm, MOE_TRAIN_PATH,
+                                               f64_first=True)
+    if not all(math.isfinite(a) and a > 0 for a in fit_rec["aux_losses"]):
+        fail(f"{MOE_TRAIN_PATH}: aux losses {fit_rec['aux_losses']}")
+    rec.update(fit_rec)
+    wall_ms = rec["step_wall_ms_median_2_on"]
+    T = B * S
+    attn = 2 * B * cfg.n_heads * cfg.hd * causal_pairs(S, S) * L * (2 + 2 + 5)
+    flops_record(rec, matmul_train_flops(cfg, T) + attn, wall_ms)
+    fwd_us = sum(us for k, us, _ in rows if "flash_attention_kernel" in k)
+    bwd_us = sum(us for k, us, _ in rows if "flash_bwd_" in k)
+    rec.update({"flash_fwd_ms_a_call": fwd_us / 1e3 / (2 * L),
+                "flash_bwd_ms_a_call": bwd_us / 1e3 / L,
+                "flash_fwd_share": fwd_us / dev_us if dev_us > 0 else None,
+                "flash_bwd_share": bwd_us / dev_us if dev_us > 0 else None,
+                "flops_note": "active parameters (top-6 of 64 experts, "
+                              "the shared ones, the router) and attention's "
+                              "causal pairs; the one-hot dispatch and "
+                              "combine products are not counted"})
+    runs = {MOE_TRAIN_PATH: counts}
+    del params, batch1
+    free()
+
+    # a 2-layer fp32 step at full width, held the same way
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=2)
+    params = TS.init_params(cfg32, device=sm.dev, seed=0)
+    batch1 = batch_to(next(multimodal_batch_iter(cfg32, B, S, seed=0)),
+                      sm.dev)
+    with FlashBwdCalls() as calls:
+        calls.step = 1
+        reset_launch_counts()
+        rec32 = moe_step1(sm, cfg32, params, batch1, TRAIN_GRAD_TOL["float32"],
+                          MOE_TRAIN_FP32_PATH)
+        torch.cuda.synchronize()
+        counts32 = launch_counts()
+        rec32["flash_bwd_held"] = calls.held(sm, MOE_TRAIN_FP32_PATH,
+                                             f64_first=True)
+    want32 = {"flash_attention": 4, "flash_attention/tf32x3": 4,
+              "flash_attention/bwd": 2, "flash_attention/bwd_f32": 2}
+    got32 = {k: n for k, n in counts32.items() if n}
+    if got32 != want32:
+        fail(f"{MOE_TRAIN_FP32_PATH}: launched {got32}, want {want32}")
+    rec32["launches"] = got32
+    rec["fp32_2_layer"] = rec32
+    runs[MOE_TRAIN_FP32_PATH] = counts32
+    del params, batch1
+    free()
+
+    # the flash kernels at the training step's MHA 16 x 128 shape
+    shape = (B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True)
+    timings = {"bwd": time_flash_backward(sm, shape, torch.bfloat16),
+               "fwd": time_flash(sm, shape), "shape": shape}
+    free()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec, runs, timings
+
+
+def rounding_witness(t, gen):
+    """``t`` (bf16) with WITNESS_SHARE of its elements, drawn from ``gen``,
+    moved by at most one bf16 rounding step (scaled by 1 +- 2^-8 and
+    rounded)."""
+    import torch
+    move = torch.rand(t.shape, generator=gen, device=t.device) < WITNESS_SHARE
+    sign = torch.where(torch.rand(t.shape, generator=gen, device=t.device)
+                       < 0.5, 1.0, -1.0)
+    alt = (t.float() * (1 + sign * 2.0 ** -8)).to(t.dtype)
+    return torch.where(move, alt, t)
+
+
+def _grad_witness():
+    import torch
+
+    class GradWitness(torch.autograd.Function):
+        """The identity whose backward passes ``rounding_witness`` of the
+        incoming gradient."""
+
+        @staticmethod
+        def forward(ctx, x, gen):
+            ctx.gen = gen
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return rounding_witness(g, ctx.gen), None
+    return GradWitness
+
+
+def ssd_bwd_terms(B, S, H, P, G, N, chunk):
+    """The operations the SSD backward needs, with nothing computed
+    twice, by term.  Per chunk of L rows (L(L+1)/2 causal pairs): ``cb``,
+    C.B^T once per (b, group), 2 N per pair; per head ``scores``, M_ij =
+    dy_i . x_j, 2 P per pair, and ``pair_weights``, T, G and W from M, C.B^T
+    and the decays, 6 per pair; ``dx``, the weights times dy, 2 P per
+    pair; ``dB`` and ``dC``, T^T C and T B, 2 N per pair each; the
+    ``state`` products, 2 N P per row each: the chunk's reverse
+    contribution, dx's and dB's state terms, and dC's inter term from the
+    second chunk on; the reverse ``scan``, 2 P N per chunk boundary."""
+    L = min(chunk, S)
+    nc, pairs = S // L, L * (L + 1) // 2
+    bhc = B * H * nc
+    return {"cb": B * G * nc * 2 * N * pairs,
+            "scores": bhc * 2 * P * pairs,
+            "pair_weights": bhc * 6 * pairs,
+            "dx": bhc * 2 * P * pairs,
+            "dB": bhc * 2 * N * pairs, "dC": bhc * 2 * N * pairs,
+            "state": B * H * (4 * nc - 1) * L * 2 * N * P,
+            "scan": B * H * (nc - 1) * 2 * P * N}
+
+
+def ssd_bwd_work(B, S, H, P, G, N, chunk, esize=2):
+    """(bytes, operations) the SSD backward needs: x, dy, B and C (in
+    x's dtype, ``esize`` bytes), dt and A, the forward's states (fp32)
+    read once; dx, dB, dC, ddt and dA written once; the operations of
+    ``ssd_bwd_terms`` summed."""
+    nc = S // min(chunk, S)
+    byt = (3 * B * S * H * P * esize + 4 * B * S * G * N * esize
+           + 2 * B * S * H * 4 + 2 * H * 4 + B * H * nc * P * N * 4)
+    return byt, sum(ssd_bwd_terms(B, S, H, P, G, N, chunk).values())
+
+
+def time_ssd_backward(sm, shape, dtype):
+    """The SSD backward kernel and its plain version at ``shape`` on the
+    same inputs (dh None, as training gives it), the work
+    (``ssd_bwd_work``) that sets its bound, and each device kernel's ms a
+    launch: (t_k + (kernels,), t_p, bytes, flops)."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd.ref import ref_ssd_backward
+    B, S, H, P, G, N, chunk = shape
+    args = tuple(t.to(dtype) if t.dtype == torch.bfloat16 else t
+                 for t in sm.ssd_inputs(B, S, H, P, G, N))
+    dy = sm.randn(B, S, H, P, dtype=dtype)
+    _, _, states = SK.launch_ssd(*args, chunk=chunk, want_states=True)
+    t_k = timed(lambda i: SK.launch_ssd_backward(*args, states, dy, None,
+                                                 chunk=chunk), 1, iters=10,
+                kernels=SSD_BWD_DEVICE_KERNELS)
+
+    def ten():
+        for _ in range(10):
+            SK.launch_ssd_backward(*args, states, dy, None, chunk=chunk)
+        torch.cuda.synchronize()
+    pat = r"ssd_bwd_\w+|ssd_cb_\w+"
+    t_k += ({re.search(pat, n).group(0): us / c / 1e3
+             for n, us, c in device_time(ten)[1]
+             if c and re.search(pat, n)},)
+    with plain_sums():
+        t_p = timed(lambda i: ref_ssd_backward(*args, dy, None, chunk=chunk),
+                    1, iters=3)
+    return (t_k, t_p) + ssd_bwd_work(*shape, esize=args[0].element_size())
+
+
+SSD_FWD_KERNELS = ("ssd_state_", "ssd_scan_kernel", "ssd_out_")
+
+
+def train_mamba(sm):
+    """Phase 13: Mamba-2-1.3B trained at full width and depth (remat,
+    bf16; the SSD forward and backward through the kernels), then a
+    2-layer fp32 step at full width; see the module docstring.  Returns
+    (record, runs, timings)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import multimodal_batch_iter
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd import ops as SO
+    from repro_torch.kernels.ssd.ref import ref_ssd_chunked
+    from repro_torch.launch import steps as TS
+    from repro_torch.training.train_loop import batch_to
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+    t_phase = time.perf_counter()
+    cfg = get_config("mamba2-1.3b")
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        fail(f"{MAMBA_TRAIN_PATH}: the config is not bf16 with remat")
+    B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
+    s = cfg.ssm
+    H = s.expand * cfg.d_model // s.head_dim
+    shape = (B, S, H, s.head_dim, s.n_groups, s.d_state, s.chunk_size)
+
+    def plain_ssd(x, dt, A, Bm, Cm, *, chunk=256):
+        return ref_ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+
+    def float64_ssd(x, dt, A, Bm, Cm, *, chunk=256):
+        """The plain route evaluated in float64 (``ssd_chunked`` keeps
+        float64 inputs in float64), y and h_final rounded back."""
+        y, h = ref_ssd_chunked(*(t.double() for t in (x, dt, A, Bm, Cm)),
+                               chunk=chunk)
+        return y.to(x.dtype), h.float()
+
+    def grads_of(cfg, params, batch1, route=None):
+        """(loss, gradients) of step 1, the SSD through ``route`` (a
+        stand-in for ``ops.ssd``) or the kernels."""
+        if route is None:
+            loss, _, g = TS.loss_and_grads(params, cfg, batch1)
+        else:
+            with plain_sums(), swapped(SO, "ssd", route):
+                loss, _, g = TS.loss_and_grads(params, cfg, batch1)
+        return float(loss), g
+
+    def step1_fp32(cfg, params, batch1, tol, what):
+        """Step 1's gradients through the fp32 kernels against the same
+        step with the SSD's plain route (``ref_ssd_chunked`` under
+        autograd) evaluated in float64, and the plain route in fp32
+        against the same: every leaf within ``tol`` of its largest or,
+        where the fp32 plain route is not (A_log's sum over the sequence
+        of the exponents' cancelling gradients), no worse than it
+        (``rows_hold``, leaf by leaf)."""
+        loss_k, g_k = grads_of(cfg, params, batch1)
+        loss_x, g_x = grads_of(cfg, params, batch1, float64_ssd)
+        loss_p, g_p = grads_of(cfg, params, batch1, plain_ssd)
+        exact, plain = (dict(tree_leaves_with_path(t)) for t in (g_x, g_p))
+        kernel_err, plain_err = {}, {}
+        for path, g in tree_leaves_with_path(g_k):
+            x = exact[path].double()
+            kernel_err[path] = ((g.double() - x).abs().max()
+                                / x.abs().max()).item()
+            plain_err[path] = ((plain[path].double() - x).abs().max()
+                               / x.abs().max()).item()
+            if not bool(rows_hold(*(torch.tensor(v) for v in (
+                    kernel_err[path], plain_err[path], 1.0)), tol)):
+                fail(f"{what}: gradient of {path} err/max "
+                     f"{kernel_err[path]} against the float64 SSD route, "
+                     f"the fp32 plain route's {plain_err[path]} (> {tol})")
+        return {"grads_vs_plain_ssd_in_float64": {
+                    "per_leaf": kernel_err,
+                    "worst": max(kernel_err.values()), "tol": tol,
+                    "held_by_the_plain_routes_error": sorted(
+                        p for p, e in kernel_err.items() if e > tol)},
+                "plain_fp32_vs_plain_in_float64": {
+                    "per_leaf": plain_err, "worst": max(plain_err.values())},
+                "loss_kernel": loss_k, "loss_plain_ssd_in_float64": loss_x,
+                "loss_plain_ssd_fp32": loss_p}
+
+    def step1_bf16(cfg, params, batch1, what):
+        """Step 1 in bf16 at full depth: the kernel route against the
+        plain route, and a rounding witness of each (``rounding_witness``
+        on the plain SSD's y; with the forward replayed, on its dx).  The
+        kernels are held with their forward outputs replayed into the plain
+        route, each leaf within MAMBA_BF16_REPLAY_TOL of its largest; the
+        witnesses are printed beside it."""
+        gen = torch.Generator(device=sm.dev).manual_seed(5)
+        GradWitness = _grad_witness()
+
+        def witness_y(x, dt, A, Bm, Cm, *, chunk=256):
+            y, h = ref_ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+            return y + (rounding_witness(y.detach(), gen) - y).detach(), h
+
+        def replayed(x, dt, A, Bm, Cm, *, chunk=256, witness_dx=False):
+            if witness_dx:
+                x = GradWitness.apply(x, gen)
+            yp, hp = ref_ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+            with torch.no_grad():
+                yk, hk = SK.launch_ssd(*(t.detach() for t in (
+                    x, dt, A, Bm, Cm)), chunk=chunk)
+            return yp + (yk - yp).detach(), hp + (hk - hp).detach()
+
+        def leafwise(ga, gb):
+            want = dict(tree_leaves_with_path(gb))
+            return {p: ((g.float() - want[p].float()).abs().max()
+                        / want[p].float().abs().max()).item()
+                    for p, g in tree_leaves_with_path(ga)}
+        loss_k, g_k = grads_of(cfg, params, batch1)
+        loss_p, g_p = grads_of(cfg, params, batch1, plain_ssd)
+        direct = leafwise(g_k, g_p)
+        _, g_w = grads_of(cfg, params, batch1, witness_y)
+        witness = leafwise(g_w, g_p)
+        del g_p, g_w
+        free()
+        loss_r, g_r = grads_of(cfg, params, batch1, replayed)
+        replay = leafwise(g_k, g_r)
+        _, g_rw = grads_of(cfg, params, batch1,
+                           lambda *a, chunk=256: replayed(
+                               *a, chunk=chunk, witness_dx=True))
+        bwd_witness = leafwise(g_rw, g_r)
+        del g_r, g_rw, g_k
+        free()
+        for path, r in replay.items():
+            tol = MAMBA_BF16_REPLAY_TOL
+            if not r <= tol:
+                fail(f"{what}: gradient of {path} err/max {r} against the "
+                     f"plain route on the replayed forward > {tol}")
+        top = lambda d: max(d.values())
+        return {"kernel_vs_plain": {"worst": top(direct),
+                                    "per_leaf": direct},
+                "plain_vs_plain_with_y_witness": {"worst": top(witness),
+                                                  "per_leaf": witness},
+                "kernel_vs_plain_on_replayed_forward": {
+                    "worst": top(replay), "per_leaf": replay},
+                "plain_vs_plain_with_dx_witness_on_replayed_forward": {
+                    "worst": top(bwd_witness), "per_leaf": bwd_witness},
+                "tol": {"replayed": MAMBA_BF16_REPLAY_TOL,
+                        "witness_share": WITNESS_SHARE},
+                "loss_kernel": loss_k, "loss_plain_ssd": loss_p,
+                "loss_plain_on_replayed_forward": loss_r}
+
+    params = TS.init_params(cfg, device=sm.dev, seed=0)
+    batch1 = batch_to(next(multimodal_batch_iter(cfg, B, S, seed=0)), sm.dev)
+    rec = {"shape": {"B": B, "S": S, "layers": L, "d_model": cfg.d_model,
+                     "ssd": dict(zip(("H", "P", "G", "N", "chunk"),
+                                     shape[2:])),
+                     "vocab": cfg.padded_vocab, "tied": cfg.tie_embeddings},
+           "params": sum(p.numel() for p in tree_leaves(params)),
+           "opt": "OptConfig(lr=3e-4, warmup_steps=2, total_steps=8), "
+                  "fp32 moments"}
+    rec["step1"] = step1_bf16(cfg, params, batch1, MAMBA_TRAIN_PATH)
+    free()
+    want = {"ssd": 2 * L, "ssd/mma": 2 * L, "ssd/bwd": L,
+            "ssd/bwd_bf16": L}
+    with SsdBwdCalls() as calls:
+        fit_rec, counts, rows, dev_us = fit_counted(
+            sm, cfg, params, batch1, calls, want, MAMBA_TRAIN_PATH)
+        fit_rec["ssd_bwd_held"] = calls.held(sm, MAMBA_TRAIN_PATH,
+                                             f64_first=True)
+    rec.update(fit_rec)
+    wall_ms = rec["step_wall_ms_median_2_on"]
+    ssd_fl = 2 * ssd_work(*shape)[1] + ssd_bwd_work(*shape)[1]
+    flops_record(rec, matmul_train_flops(cfg, B * S) + L * ssd_fl, wall_ms)
+    # C.B^T runs in both: its time split by launches (2 L forward, L
+    # backward a step)
+    cb_us = sum(us for k, us, _ in rows if "ssd_cb_" in k)
+    fwd_us = sum(us for k, us, _ in rows
+                 if any(f in k for f in SSD_FWD_KERNELS)) + cb_us * 2 / 3
+    bwd_us = sum(us for k, us, _ in rows if "ssd_bwd_" in k) + cb_us / 3
+    rec.update({"ssd_fwd_ms_a_call": fwd_us / 1e3 / (2 * L),
+                "ssd_bwd_ms_a_call": bwd_us / 1e3 / L,
+                "ssd_fwd_share": fwd_us / dev_us if dev_us > 0 else None,
+                "ssd_bwd_share": bwd_us / dev_us if dev_us > 0 else None,
+                "flops_note": "parameters' products and the SSD's "
+                              "(ssd_work forward twice, ssd_bwd_work)"})
+    runs = {MAMBA_TRAIN_PATH: counts}
+    del params, batch1
+    free()
+
+    # step 1 in fp32 at full width and depth: the simt forward, the fp32
+    # backward, every leaf within the full-depth gate of the plain route
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = TS.init_params(cfg32, device=sm.dev, seed=0)
+    batch1 = batch_to(next(multimodal_batch_iter(cfg32, B, S, seed=0)),
+                      sm.dev)
+    rec["fp32_full_depth_step1"] = step1_fp32(
+        cfg32, params, batch1, TRAIN_GRAD_TOL["bfloat16"],
+        f"{MAMBA_TRAIN_PATH} fp32")
+    del params, batch1
+    free()
+
+    # a 2-layer fp32 step at full width: the simt forward, the fp32
+    # backward, held the same way
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=2)
+    params = TS.init_params(cfg32, device=sm.dev, seed=0)
+    batch1 = batch_to(next(multimodal_batch_iter(cfg32, B, S, seed=0)),
+                      sm.dev)
+    with SsdBwdCalls() as calls:
+        calls.step = 1
+        reset_launch_counts()
+        rec32 = step1_fp32(cfg32, params, batch1, TRAIN_GRAD_TOL["float32"],
+                           MAMBA_TRAIN_FP32_PATH)
+        torch.cuda.synchronize()
+        counts32 = launch_counts()
+        rec32["ssd_bwd_held"] = calls.held(sm, MAMBA_TRAIN_FP32_PATH,
+                                           f64_first=True)
+    want32 = {"ssd": 4, "ssd/simt": 4, "ssd/bwd": 2, "ssd/bwd_f32": 2}
+    got32 = {k: n for k, n in counts32.items() if n}
+    if got32 != want32:
+        fail(f"{MAMBA_TRAIN_FP32_PATH}: launched {got32}, want {want32}")
+    rec32["launches"] = got32
+    rec["fp32_2_layer"] = rec32
+    runs[MAMBA_TRAIN_FP32_PATH] = counts32
+    del params, batch1
+    free()
+
+    # the SSD kernels at the training shape: the backward in both dtypes
+    # beside its plain version, the forward in bf16
+    timings = {"bwd": time_ssd_backward(sm, shape, torch.bfloat16),
+               "bwd_f32": time_ssd_backward(sm, shape, torch.float32),
+               "fwd": time_ssd(sm, shape=shape), "shape": shape}
+    free()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec, runs, timings
+
+
+def ssd_bwd_times(timings):
+    """The SSD backward at the training shape (``train_mamba``'s
+    timings): ms a call and each device kernel's ms a launch beside the
+    function's bound (``ssd_bwd_work`` at the 67 TFLOP/s fp32 FFMA peak:
+    the kernel's arithmetic is fp32 FFMA in both dtypes) and the plain
+    version; the forward at the same shape."""
+    out = {"card": card_label(),
+           "shape": dict(zip(("B", "S", "H", "P", "G", "N", "chunk"),
+                             timings["shape"]))}
+    for key, name in (("bwd", "bfloat16"), ("bwd_f32", "float32")):
+        t_k, t_p, byt, fl = timings[key]
+        b_ms, b_by = bound(byt, fl, FP32_FLOPS_PER_S)
+        ms = dev_or_call(t_k)
+        out[name] = {"ms": ms, "ms_source": ms_source(t_k), "event_ms": t_k[1],
+                     "device_kernels_per_call": t_k[2],
+                     "kernel_ms_a_launch": t_k[3], "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": byt, "flops": fl,
+                     "plain_ms": dev_or_call(t_p), "library_ms": None,
+                     "over_bound": ms / b_ms}
+    t_k, t_p, byt, fl, phases = timings["fwd"]
+    out["forward_bfloat16"] = {"ms": dev_or_call(t_k), "event_ms": t_k[1],
+                               "plain_ms": dev_or_call(t_p),
+                               "phases_ms": phases,
+                               "bound_ms": bound(byt, fl,
+                                                 FP32_FLOPS_PER_S)[0]}
+    return out
+
+
 def requests(cfg, specs, seed):
     """Requests of ``specs`` ((vision tokens, images, repeat-of index or
     None)): one placeholder token per vision token, then 16 text tokens;
@@ -6354,7 +7247,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. build: one nvcc per library, all at once ------------------------
-    t0 = time.perf_counter()
+    t_start = t_mark = t0 = time.perf_counter()
+    phase_s = {}
     build.build_all({m.LIBRARY: m.SOURCES for m in libs})
     for m in libs:
         m.library()
@@ -6382,6 +7276,8 @@ def main() -> int:
     print(json.dumps({"flash_backward_geometry": flash_bwd_geometry()}))
     sm.check_cache_update(llava)
     sm.check_ssd()
+    sm.check_ssd_backward()
+    free()
     sm.check_linear_attention()
     # LLaVA's projections serve in fp32 too (the fp32 linear-attention
     # instance), Mamba-2's as well
@@ -6400,6 +7296,7 @@ def main() -> int:
         "flash_shapes": [list(s) for s in FLASH_SHAPES],
         "flash_backward": sm.bwd_check,
         "ssd": sm.ssd_check,
+        "ssd/bwd": sm.ssd_bwd_check,
         "dequant_gemm": sm.dg_check,
         "fused_mlp/experts": {"cases": sm.eg_check,
                               "tol": EXPERT_GEMV_TOL},
@@ -6411,6 +7308,9 @@ def main() -> int:
         "kv_pool_blocks": {a: N_SLOTS * n // BLOCK_SIZE
                            for a, n in MAX_LEN.items()}}}))
 
+    phase_s["1-2"] = time.perf_counter() - t_mark
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
+    t_mark = time.perf_counter()
     # -- 3. serve LLaVA-OneVision-0.5B --------------------------------------
     serves, timings = {}, {}
     llava_reqs = [(729, 1, None), (196, 1, None), (729, 1, 0),
@@ -6504,6 +7404,9 @@ def main() -> int:
     del ledger3, fleet
     free()
 
+    phase_s["3"] = time.perf_counter() - t_mark
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
+    t_mark = time.perf_counter()
     # -- 4. serve Qwen2-VL-7B, prefill through the flash kernel -------------
     serve, eng, captured = serve_path(sm, qwen, requests(
         qwen, [(1024, 1, None), (1024, 1, 0), (256, 1, None),
@@ -6517,6 +7420,9 @@ def main() -> int:
     del eng, captured
     free()
 
+    phase_s["4"] = time.perf_counter() - t_mark
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
+    t_mark = time.perf_counter()
     # -- 5. serve LLaVA-OneVision-0.5B with streaming linear attention,
     # prefill through the linear-attention kernel --------------------------
     linear = dataclasses.replace(llava, attn_impl="linear",
@@ -6548,6 +7454,9 @@ def main() -> int:
     del eng, run
     free()
 
+    phase_s["5"] = time.perf_counter() - t_mark
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
+    t_mark = time.perf_counter()
     # -- 6. serve Mamba-2-1.3B, prefill through the SSD kernel -------------
     # The logit checks hold at STEP_TOL on an fp32 instance of the same
     # config and at BF16_LOGIT_TOL in bf16, where a one-step rounding
@@ -6578,6 +7487,9 @@ def main() -> int:
     del eng, run
     free()
 
+    phase_s["6"] = time.perf_counter() - t_mark
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
+    t_mark = time.perf_counter()
     # -- 7. the flash kernel and the packed-weight GEMM at Qwen2-VL's
     # prefill shapes, the SSD and linear-attention kernels at their check
     # shapes ----------------------------------------------------------------
@@ -6600,16 +7512,25 @@ def main() -> int:
     flash_jamba_t = time_flash(sm, FLASH_JAMBA_SHAPE)
     free()
 
+    phase_s["7"] = time.perf_counter() - t_mark
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
+    t_mark = time.perf_counter()
     # -- 8. DeepSeek-MoE-16B at full width and depth, the experts through
     # the packed-weight GEMM's expert axis; the dense configs and DBRX at
     # full width and DENSE_LAYERS layers -----------------------------------
     moe_serves = serve_moe_and_dense(sm)
 
+    phase_s["8"] = time.perf_counter() - t_mark
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
+    t_mark = time.perf_counter()
     # -- 9. Jamba-1.5-Large at full width and one group of 8 sublayers:
     # Mamba-2 and attention sublayers in one pool, the experts' decode
     # through the routed experts' GEMV ------------------------------------
     moe_serves[HYBRID_PATH] = serve_hybrid(sm)
 
+    phase_s["9"] = time.perf_counter() - t_mark
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
+    t_mark = time.perf_counter()
     # -- 10. seamless-m4t-large-v2 at full width and depth: audio frames ->
     # encoder -> cross-attending prefill -> greedy decode through the step
     # builders; the brick chain resident and as the On-Demand Cascade ----
@@ -6617,12 +7538,36 @@ def main() -> int:
     print(json.dumps({"serve": encdec}))
     free()
 
+    phase_s["10"] = time.perf_counter() - t_mark
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
+    t_mark = time.perf_counter()
     # -- 11. train LLaVA-OneVision-0.5B at full width and depth: attention
     # forward and backward through the flash kernels, AdamW, the data
     # pipeline; then a 2-layer fp32 step --------------------------------
     train, train_runs, train_t = train_llava(sm)
     print(json.dumps({"train": train}))
     print(json.dumps({"flash_backward_times": flash_bwd_times(train_t)}))
+    phase_s["11"] = time.perf_counter() - t_mark
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
+    t_mark = time.perf_counter()
+
+    # -- 12. train DeepSeek-MoE-16B at full width and MOE_TRAIN_LAYERS
+    # layers: the aux loss and the routing gradients, attention through
+    # the flash kernels; then a 2-layer fp32 step ------------------------
+    moe_train, moe_train_runs, moe_train_t = train_moe(sm)
+    print(json.dumps({"train": {MOE_TRAIN_PATH: moe_train}}))
+    phase_s["12"] = time.perf_counter() - t_mark
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
+    t_mark = time.perf_counter()
+
+    # -- 13. train Mamba-2-1.3B at full width and depth: the SSD forward
+    # and backward through the kernels; then a 2-layer fp32 step ---------
+    mamba_train, mamba_train_runs, mamba_train_t = train_mamba(sm)
+    print(json.dumps({"train": {MAMBA_TRAIN_PATH: mamba_train}}))
+    print(json.dumps({"ssd_backward_times": ssd_bwd_times(mamba_train_t)}))
+    phase_s["13"] = time.perf_counter() - t_mark
+    print(json.dumps({"phase_seconds": phase_s,
+                      "total_s": time.perf_counter() - t_start}))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6660,6 +7605,8 @@ def main() -> int:
     records[ENCDEC_PATH] = encdec
     runs.update(encdec_runs)
     runs.update(train_runs)
+    runs.update(moe_train_runs)
+    runs.update(mamba_train_runs)
 
     def numbers(t, flops_per_s=BF16_FLOPS_PER_S):
         t_k, t_p, t_l, t_d, byt, fl = t
@@ -6667,8 +7614,7 @@ def main() -> int:
         out = {"ms": dev_or_call(t_k), "plain_ms": dev_or_call(t_p),
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": dev_or_call(t_l),
-               "ms_source": ("profiler device time" if t_k[0] is not None
-                             else "CUDA events per call"),
+               "ms_source": ms_source(t_k),
                "device_kernels_per_call": t_k[2], "call_ms": t_k[1],
                "plain_call_ms": t_p[1], "library_call_ms": t_l[1],
                "bytes": byt, "flops": fl,
@@ -6705,8 +7651,7 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "bound_ms_at_bf16_peak": bound(byt, fl)[0],
             "bound_by_at_bf16_peak": bound(byt, fl)[1],
-            "ms_source": ("profiler device time" if t_k[0] is not None
-                          else "CUDA events per call"),
+            "ms_source": ms_source(t_k),
             "device_kernels_per_call": t_k[2], "call_ms": t_k[1],
             "plain_call_ms": t_p[1], "bytes": byt, "flops": fl,
             "shape": dict(zip(shape_names, shape)),
@@ -7023,8 +7968,9 @@ def main() -> int:
         bound_note="five products (S, dV, dP, dQ, dK) over the causal "
                    "pairs at 989 TFLOP/s bf16; the kernel runs nine on "
                    "wgmma (S and dP again for dQ, dS in two bf16 terms "
-                   "for dQ and dK), fp32 seven in 33 split-TF32 products "
-                   "on mma.sync",
+                   "for dQ and dK), fp32 seven: S twice in six and dV, dQ "
+                   "and dK in three split-TF32 products on mma.sync, dP "
+                   "twice in double on mma.sync m8n8k4",
         launches_per_train_step=train["launches_a_step"][0].get(
             "flash_attention/bwd"),
         kernel_checks=sm.bwd_check,
@@ -7036,8 +7982,53 @@ def main() -> int:
         fp32=dict(numbers(bt32[:3] + (None,) + bt32[3:], FP32_FLOPS_PER_S),
                   event_ms=bt32[0][1], kernel_ms_a_launch=bt32[0][3],
                   library="the same, fp32 (TF32 off)"))
+    mt = moe_train_t
+    entry["at_" + MOE_TRAIN_PATH] = dict(
+        numbers(mt["bwd"][:3] + (None,) + mt["bwd"][3:]),
+        event_ms=mt["bwd"][0][1], kernel_ms_a_launch=mt["bwd"][0][3],
+        shape=dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal"),
+                       mt["shape"])),
+        launches_per_train_step=moe_train["launches_a_step"][0].get(
+            "flash_attention/bwd"),
+        served_check={MOE_TRAIN_PATH: moe_train["flash_bwd_held"],
+                      MOE_TRAIN_FP32_PATH: moe_train["fp32_2_layer"][
+                          "flash_bwd_held"]},
+        forward_at_training_shape=dict(numbers(mt["fwd"]),
+                                       event_ms=mt["fwd"][0][1]))
     if entry["launches"] <= 0:
         fail("flash_attention/bwd: no launch on the training paths")
+    kernels.append(entry)
+    # the SSD backward (the gradient of ssd_pallas, which has none in the
+    # reference: its training differentiates ssd_chunked off the TPU),
+    # timed at phase 13's training shape
+    by_path = {a: n["ssd/bwd"] for a, n in runs.items() if n["ssd/bwd"]}
+    sb = ssd_bwd_times(mamba_train_t)
+    entry = {"name": "ssd/bwd", "route": "cuda",
+             "source": "src/repro_torch/csrc/ssd.cu",
+             "replaces": "src/repro/kernels/ssd/kernel.py:69",
+             "launches": sum(by_path.values()), "launches_by_path": by_path,
+             "launches_by_route": {r: sum(n[f"ssd/{r}"] for n in runs.values())
+                                   for r in SSD_BWD_ROUTE.values()},
+             "max_abs_err": sm.errs["ssd/bwd"]}
+    entry.update({k: sb["bfloat16"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms",
+        "device_kernels_per_call", "kernel_ms_a_launch", "bytes", "flops")})
+    entry.update(
+        ms_source=ms_source(mamba_train_t["bwd"][0]),
+        shape=sb["shape"], inputs="bf16 x, B, C, dy; fp32 dt, A",
+        library="none: no one PyTorch call computes it",
+        bound_note="ssd_bwd_work's operations at the 67 TFLOP/s fp32 FFMA "
+                   "peak (the kernel's arithmetic is fp32 FFMA in both "
+                   "dtypes)",
+        launches_per_train_step=mamba_train["launches_a_step"][0].get(
+            "ssd/bwd"),
+        kernel_checks=sm.ssd_bwd_check,
+        served_check={MAMBA_TRAIN_PATH: mamba_train["ssd_bwd_held"],
+                      MAMBA_TRAIN_FP32_PATH: mamba_train["fp32_2_layer"][
+                          "ssd_bwd_held"]},
+        fp32=sb["float32"], forward_at_training_shape=sb["forward_bfloat16"])
+    if entry["launches"] <= 0:
+        fail("ssd/bwd: no launch on the training path")
     kernels.append(entry)
     print(smi.stdout.strip())
     print(json.dumps({"kernels": kernels}))

@@ -87,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
@@ -682,14 +684,16 @@ int launch_f32(const ParamsF& p, cudaStream_t stream) {
 //    and lo = tf32(x - hi), lo.hi + hi.lo + hi.hi, each k-step's products
 //    summed in a fresh accumulator and then added to the running fp32
 //    sums; fragments are read from tiles of rows of hd + 4 floats
-//    (conflict-free), filled by cp.async.  S and dP take three terms
-//    (x1 + x2 + x3 = x exactly, six products) and D is summed in double:
-//    dS = P (dP - D) cancels to a few parts in 10^3 of dP in a causal row
-//    that one key dominates, and with two terms, which keep 22 of fp32's
-//    24 bits, the kernel missed the card checks' float64 gate (2x the
-//    plain version's error) on their fixed inputs.
-//    scripts/flash_bwd_accuracy_sweep.py shows what is left on random
-//    draws, against the plain version's own error there.
+//    (conflict-free), filled by cp.async.  S takes three terms (x1 + x2
+//    + x3 = x exactly, six products).  dP - D is formed in double: dS =
+//    P (dP - D) cancels to a few parts in 10^4 of dP or less in a causal
+//    row that one key dominates, where rounding dP and D to fp32 apart
+//    (as the plain version does) leaves errors past the 1e-4 row gate
+//    against the float64 backward on some random draws
+//    (scripts/flash_bwd_accuracy_sweep.py).  So dP runs on the FP64
+//    tensor cores (mma.sync m8n8k4: fp32 operands exact in double, the
+//    sum over hd in double), D is summed and kept in double, and only
+//    dP - D is rounded to fp32 (rows_x_rows_dp).
 //  - Keys as rows in dK/dV.  The block's 64 keys are the M of Sᵀ = K Qᵀ
 //    and dPᵀ = V dOᵀ, so Pᵀ and dSᵀ come out in the accumulator layout,
 //    which rounded to bf16 pairs is the A fragment layout of dV += Pᵀ dO
@@ -743,16 +747,24 @@ __device__ __forceinline__ void store_pair(bf16* dst, float a, float b) {
   *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
 }
 
+// D's type: fp32 for the bf16 route, double for the fp32 route, whose
+// dP - D is taken in double (see rows_x_rows_dp)
+template <typename T>
+using DSum = typename std::conditional<sizeof(T) == 2, float, double>::type;
+
 // 64 lse and D values of a tile's rows (threads 0-63 and 64-127) by
 // cp.async; past `valid` zeros
-__device__ __forceinline__ void stage_lse_d(float* lse_dst, float* d_dst, const float* lse_src,
-                                            const float* d_src, int valid) {
+template <typename D>
+__device__ __forceinline__ void stage_lse_d(float* lse_dst, D* d_dst, const float* lse_src,
+                                            const D* d_src, int valid) {
   const int i = threadIdx.x & (kBT - 1);
   const bool ok = i < valid;
   if (threadIdx.x < kBT)
     cp_async4_zfill(lse_dst + i, ok ? lse_src + i : lse_src, ok);
-  else
+  else if constexpr (sizeof(D) == 4)
     cp_async4_zfill(d_dst + i, ok ? d_src + i : d_src, ok);
+  else
+    cp_async8_zfill(d_dst + i, ok ? d_src + i : d_src, ok);
 }
 
 // the backward's operands and shape; the bf16 route reads q, k, v and dO
@@ -761,7 +773,7 @@ template <typename T>
 struct BwdArgs {
   const T *q, *k, *v, *dO;
   const float* lse;                     // (B, H, Sq), natural log
-  float* dsum;                          // (B, H, Sq): D (written by bwd_dot)
+  DSum<T>* dsum;                        // (B, H, Sq): D (written by bwd_dot)
   T *dq, *dk, *dv;
   float* part;                          // (2, B, Sk, H, hd), or null when H == KV
   int B, Sq, Sk, H, KV, causal;
@@ -793,13 +805,13 @@ __device__ __forceinline__ double dot16(const bf16* a, const bf16* b) {
 
 // D[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d]: eight lanes a row, 16
 // bytes a lane a step (a warp's loads are four whole rows), the lanes'
-// sums added in a fixed tree, in double and rounded once to fp32 (D is
-// subtracted from dP, which nearly cancels it in a row that one key
-// dominates)
+// sums added in a fixed tree, in double (D is subtracted from dP, which
+// nearly cancels it in a row that one key dominates); kept in double for
+// the fp32 route, rounded once to fp32 for the bf16 route
 template <typename T>
 __global__ void __launch_bounds__(kDotThreads)
     flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dO,
-                         float* __restrict__ dsum, int B, int Sq, int H, int hd) {
+                         DSum<T>* __restrict__ dsum, int B, int Sq, int H, int hd) {
   constexpr int kE = 16 / (int)sizeof(T);           // elements a 16-byte load
   const long long row = ((long long)blockIdx.x * kDotThreads + threadIdx.x) / 8;
   const int part = threadIdx.x & 7;
@@ -814,7 +826,7 @@ __global__ void __launch_bounds__(kDotThreads)
     const int h = (int)(row % H);
     const long long bi = row / H;
     const int i = (int)(bi % Sq), b = (int)(bi / Sq);
-    dsum[((long long)b * H + h) * Sq + i] = (float)acc;
+    dsum[((long long)b * H + h) * Sq + i] = (DSum<T>)acc;
   }
 }
 
@@ -892,7 +904,8 @@ __device__ __forceinline__ float prob(float s, float lse, const BwdArgs<float>& 
 // accumulator layout: element 4 nb + i at key key0 + 8 (i >> 1), query row
 // c0 + 8 nb + 2 t4 + (i & 1) of the tile starting at q0): sp (Sᵀ) becomes
 // Pᵀ (``prob``) and ds (dPᵀ) dSᵀ = Pᵀ (dPᵀ - D), 0 where masked.  lt, dt:
-// the tile's lse (natural log) and D by row
+// the tile's lse (natural log) and D by row (bf16; the fp32 route's ds
+// arrives as dPᵀ - D, and dt is unused)
 template <typename T, int N>
 __device__ __forceinline__ void dkdv_probs(float (&sp)[N / 2], float (&ds)[N / 2], const float* lt,
                                            const float* dt, int c0, int q0, int key0, int t4,
@@ -908,13 +921,17 @@ __device__ __forceinline__ void dkdv_probs(float (&sp)[N / 2], float (&ds)[N / 2
         if (key >= p.Sk || qi >= p.Sq || (p.causal && key > qi)) pr = 0.f;
       }
       sp[4 * nb + i] = pr;
-      ds[4 * nb + i] = pr * (ds[4 * nb + i] - dt[c]);
+      if constexpr (sizeof(T) == 2)
+        ds[4 * nb + i] = pr * (ds[4 * nb + i] - dt[c]);
+      else
+        ds[4 * nb + i] = pr * ds[4 * nb + i];
     }
 }
 
 // dQ's: s (S, element 4 nb + i at row qpos0 + 8 (i >> 1), key kc + 8 nb +
 // 2 t4 + (i & 1)) becomes dS = P (dP - D) with dp (dP); l0 / l1 the two
-// rows' lse (natural log), d0 / d1 their D
+// rows' lse (natural log), d0 / d1 their D (bf16; the fp32 route's dp
+// arrives as dP - D, and d0 / d1 are unused)
 template <typename T, int N>
 __device__ __forceinline__ void dq_probs(float (&s)[N / 2], const float (&dp)[N / 2], float l0,
                                          float l1, float d0, float d1, int kc, int qpos0, int t4,
@@ -928,7 +945,10 @@ __device__ __forceinline__ void dq_probs(float (&s)[N / 2], const float (&dp)[N 
         const int key = kc + 8 * nb + 2 * t4 + (i & 1), qi = qpos0 + 4 * (i & 2);
         if (key >= p.Sk || qi >= p.Sq || (p.causal && key > qi)) pr = 0.f;
       }
-      s[4 * nb + i] = pr * (dp[4 * nb + i] - ((i & 2) ? d1 : d0));
+      if constexpr (sizeof(T) == 2)
+        s[4 * nb + i] = pr * (dp[4 * nb + i] - ((i & 2) ? d1 : d0));
+      else
+        s[4 * nb + i] = pr * dp[4 * nb + i];
     }
 }
 
@@ -1252,8 +1272,8 @@ struct BwdF {
   static constexpr int kTile = kBT * kS;
   static constexpr int kN = HD <= 64 ? 64 : 32;     // queries (keys) of a chunk of S and dP
   static constexpr int kStages = HD > 128 ? 1 : 2;
-  // two fixed tiles, two a stage, a stage's 64 lse and 64 D (dK/dV)
-  static constexpr int kSmem = ((2 + 2 * kStages) * kTile + kStages * 2 * kBT) * (int)sizeof(float);
+  // two fixed tiles, two a stage, a stage's 64 lse and 64 D in double (dK/dV)
+  static constexpr int kSmem = ((2 + 2 * kStages) * kTile + kStages * 3 * kBT) * (int)sizeof(float);
 };
 
 // rows [0, 64) of a (.., rows, .., HD) fp32 tensor, `stride` elements
@@ -1271,10 +1291,10 @@ __device__ __forceinline__ void stage_tile_f32(float* dst, const float* src, lon
 
 // a warp's products.  rows_x_rows: acc (16 x N) += A Bᵀ, A the warp's 16
 // rows of a shared tile and B N rows of another (both rows of HD): Sᵀ =
-// K Qᵀ, dPᵀ = V dOᵀ, S = Q Kᵀ, dP = dO Vᵀ, in three-term splits (six TF32
-// products: dP - D nearly cancels in a row that one key dominates, and
-// three terms hold fp32's operands exactly where two drop their last two
-// bits).  frag_x_rows: acc (16 x HD) += X B, X (16 x N) in the
+// K Qᵀ and S = Q Kᵀ, in three-term splits (six TF32 products).
+// rows_x_rows_dp: the same product in double on the FP64 tensor cores
+// (dPᵀ = V dOᵀ, dP = dO Vᵀ), D subtracted in double and the difference
+// rounded once to fp32.  frag_x_rows: acc (16 x HD) += X B, X (16 x N) in the
 // accumulator layout of a rows_x_rows product and B N rows of a shared
 // tile: dV += Pᵀ dO, dK += dSᵀ Q, dQ += dS K, in two-term splits (three
 // products).  Each k-step's products are summed apart; element 4 nb + i of
@@ -1300,6 +1320,58 @@ __device__ __forceinline__ void rows_x_rows(float (&acc)[N / 2], const float* a,
       for (int i = 0; i < 4; ++i) acc[4 * nb + i] += d[i];
     }
   }
+}
+
+// d (8 x 8: row g, columns 2t, 2t + 1) += a (8 x 4: row g, column t) b
+// (4 x 8: row t, column g), double in and out
+__device__ __forceinline__ void mma_f64(double& d0, double& d1, double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
+               : "+d"(d0), "+d"(d1)
+               : "d"(a), "d"(b));
+}
+
+// dP - D where it cancels.  In a causal row that one key dominates, dP -
+// D is a few parts in 10^4 of dP or less, so one fp32 rounding of dP and
+// one of D (the plain version's, and a TF32 split's at best) leave
+// errors of 1e-4 of the row's dq; the sweep of random draws
+// (scripts/flash_bwd_accuracy_sweep.py) found such rows past the 1e-4
+// gate against the float64 backward.  Here each fp32 product is exact in
+// double, the sum over hd runs in double on mma.sync m8n8k4 (a k-step
+// of eight is two of its k = 4 steps; A's and B's fragments are the
+// m16n8k8 ones above, the accumulator's rows g and g + 8 two m8n8
+// products), D (double, from bwd_dot) is subtracted in double, and
+// only the difference is rounded.  by_row: D of the accumulator's row
+// (d0 / d1 for rows g / g + 8: dP), else of its column (dt[c0 + column]:
+// dPᵀ)
+template <int HD, int N, bool by_row>
+__device__ __forceinline__ void rows_x_rows_dp(float (&out)[N / 2], const float* a, const float* b,
+                                               double d0, double d1, const double* dt) {
+  constexpr int kS = HD + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* ar = a + g * kS + t;
+  const float* br = b + g * kS + t;
+  double acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0;
+#pragma unroll 2
+  for (int kk = 0; kk < HD / 8; ++kk)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {                   // columns 8 kk + 4 u + t
+      const double a0 = ar[8 * kk + 4 * u], a1 = ar[8 * kS + 8 * kk + 4 * u];
+#pragma unroll
+      for (int nb = 0; nb < N / 8; ++nb) {
+        const double bv = br[8 * nb * kS + 8 * kk + 4 * u];
+        mma_f64(acc[4 * nb], acc[4 * nb + 1], a0, bv);
+        mma_f64(acc[4 * nb + 2], acc[4 * nb + 3], a1, bv);
+      }
+    }
+#pragma unroll
+  for (int nb = 0; nb < N / 8; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const double d = by_row ? ((i & 2) ? d1 : d0) : dt[8 * nb + 2 * t + (i & 1)];
+      out[4 * nb + i] = (float)(acc[4 * nb + i] - d);
+    }
 }
 
 // X's (row, column 2t / 2t + 1) read as A's columns t / t + 4, so B's rows
@@ -1342,7 +1414,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   float* qs = vs + C::kTile;                      // [stage]
   float* os = qs + kSt * C::kTile;                // [stage] dO
   float* lse_s = os + kSt * C::kTile;             // [stage][64], natural log
-  float* d_s = lse_s + kSt * kBT;                 // [stage][64]
+  double* d_s = reinterpret_cast<double*>(lse_s + kSt * kBT);   // [stage][64]
 
   const int k0 = blockIdx.y * kBT;                // key block 0, the longest when causal, first
   const int b = blockIdx.x / p.H, h = blockIdx.x - b * p.H;
@@ -1350,7 +1422,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   const long long kv_stride = (long long)p.KV * HD, q_stride = (long long)p.H * HD;
   const long long bh = (long long)b * p.H + h;
   const float* lse_h = p.lse + bh * p.Sq;
-  const float* d_h = p.dsum + bh * p.Sq;
+  const double* d_h = p.dsum + bh * p.Sq;
   const int q_first = p.causal ? k0 : 0;          // causal: rows before k0 see none of these keys
   const int n_tiles = q_first < p.Sq ? (p.Sq - q_first + kBT - 1) / kBT : 0;
 
@@ -1397,10 +1469,11 @@ __global__ void __launch_bounds__(kBwdThreads)
 #pragma unroll
       for (int i = 0; i < kN / 2; ++i) sp[i] = ds[i] = 0.f;
       rows_x_rows<HD, kN>(sp, ks + r0 * kS, qt + c0 * kS);
-      rows_x_rows<HD, kN>(ds, vs + r0 * kS, ot + c0 * kS);
+      rows_x_rows_dp<HD, kN, false>(ds, vs + r0 * kS, ot + c0 * kS, 0.0, 0.0,
+                                    d_s + st * kBT + c0);   // dPᵀ - D
       const bool edge =
           k0 + r0 + 16 > p.Sk || qc + kN > p.Sq || (p.causal && k0 + r0 + 15 > qc);
-      dkdv_probs<float, kN>(sp, ds, lse_s + st * kBT, d_s + st * kBT, c0, q0, key0, t4, edge, p);
+      dkdv_probs<float, kN>(sp, ds, lse_s + st * kBT, nullptr, c0, q0, key0, t4, edge, p);
       frag_x_rows<HD, kN>(acc_v, sp, ot + c0 * kS);   // dV += Pᵀ dO
       frag_x_rows<HD, kN>(acc_k, ds, qt + c0 * kS);   // dK += dSᵀ Q
     }
@@ -1451,8 +1524,8 @@ __global__ void __launch_bounds__(kBwdThreads)
   const long long row = ((long long)b * p.H + h) * p.Sq;
   const float l0 = qpos0 < p.Sq ? p.lse[row + qpos0] : 0.f;
   const float l1 = qpos1 < p.Sq ? p.lse[row + qpos1] : 0.f;
-  const float d0 = qpos0 < p.Sq ? p.dsum[row + qpos0] : 0.f;
-  const float d1 = qpos1 < p.Sq ? p.dsum[row + qpos1] : 0.f;
+  const double d0 = qpos0 < p.Sq ? p.dsum[row + qpos0] : 0.0;
+  const double d1 = qpos1 < p.Sq ? p.dsum[row + qpos1] : 0.0;
   float acc[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
@@ -1473,10 +1546,10 @@ __global__ void __launch_bounds__(kBwdThreads)
 #pragma unroll
       for (int i = 0; i < kN / 2; ++i) s[i] = dp[i] = 0.f;
       rows_x_rows<HD, kN>(s, qs + r0 * kS, kt + c0 * kS);
-      rows_x_rows<HD, kN>(dp, os + r0 * kS, vt + c0 * kS);
+      rows_x_rows_dp<HD, kN, true>(dp, os + r0 * kS, vt + c0 * kS, d0, d1, nullptr);  // dP - D
       const bool edge =
           kc + kN > p.Sk || q0 + r0 + 16 > p.Sq || (p.causal && kc + kN - 1 > q0 + r0);
-      dq_probs<float, kN>(s, dp, l0, l1, d0, d1, kc, qpos0, t4, edge, p);
+      dq_probs<float, kN>(s, dp, l0, l1, 0.f, 0.f, kc, qpos0, t4, edge, p);
       frag_x_rows<HD, kN>(acc, s, kt + c0 * kS);  // dQ += dS K
     }
     __syncthreads();
@@ -1581,7 +1654,7 @@ int bwd_entry(const void* q, const void* k, const void* v, const void* o, const 
     return (int)cudaErrorInvalidValue;
   const BwdArgs<T> p{static_cast<const T*>(q), static_cast<const T*>(k),
                      static_cast<const T*>(v), static_cast<const T*>(dO),
-                     static_cast<const float*>(lse), static_cast<float*>(dsum),
+                     static_cast<const float*>(lse), static_cast<DSum<T>*>(dsum),
                      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
                      static_cast<float*>(part), B, Sq, Sk, H, KV, causal, scale,
                      scale * kLog2e};
@@ -1668,8 +1741,8 @@ int rt_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
 // The backward of either instance: q, o, dO, dq (B, Sq, H, hd), k, v, dk,
 // dv (B, Sk, KV, hd), all contiguous and 16-byte aligned, bf16
 // (rt_flash_attention_bwd) or fp32 (rt_flash_attention_bwd_f32); lse (B,
-// H, Sq) fp32 as the forward wrote it; dsum an fp32 (B, H, Sq) scratch
-// (D); part an fp32 (2, B, Sk, H, hd) scratch (each query head's dK and
+// H, Sq) fp32 as the forward wrote it; dsum a (B, H, Sq) scratch for D,
+// fp32 (bf16 route) or double (fp32 route); part an fp32 (2, B, Sk, H, hd) scratch (each query head's dK and
 // dV), or null when H == KV.  Three or four device kernels on the
 // caller's stream; allocates nothing.
 int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,

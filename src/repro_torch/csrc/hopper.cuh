@@ -144,6 +144,13 @@ __device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool
                : "memory");
 }
 
+// the same, 8 bytes
+__device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 8 : 0)
+               : "memory");
+}
+
 // 16 bytes through L2 only (streamed once); zeros when !ok
 __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),

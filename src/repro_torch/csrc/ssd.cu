@@ -92,10 +92,51 @@
 // atomics).  The per-chunk cumsum is recomputed by each block (L <= 256
 // adds, in double) instead of stored.
 //
-// Interface: one plain C entry point (loaded with ctypes); it launches on
-// the caller's stream, allocates nothing (the caller passes the
-// (B, H, nc, P, N), (B, H, nc) and (B, G, nc, L, L) fp32 scratch) and
-// returns cudaGetLastError().
+// The backward (rt_ssd_backward) replaces no Pallas kernel: the reference
+// trains Mamba-2 by differentiating ssd_chunked (src/repro/models/
+// mamba2.py:51) off the TPU.  It computes the derivative of the same
+// chunked form (kernels/ssd/ref.py ref_ssd_backward spells it out): from
+// dy and dh, dx, ddt, dA, dB and dC.  Per (b, h, chunk), with M_ij = dy_i .
+// x_j and T_ij = exp(cum_i - cum_j) dt_j M_ij on j <= i, the function
+// needs M (L (L+1) P), dx's weights times dy (L (L+1) P), T B and T^T C
+// (L (L+1) N each), and four products of 2 L P N: the chunk's reverse
+// state contribution, dx's and dB's state terms and dC's inter term; 85.7
+// GFLOP at B 4, S 2048, H 64, P 64, N 128, chunk 256 against 281 MB
+// moved (chip_smoke.py ssd_bwd_work): bound by operations, 1.28 ms at 67
+// TFLOP/s FFMA.  A first, simple design (FFMA with fp32 accumulation, bf16
+// or fp32 inputs read as fp32; M computed twice), nine device kernels a
+// call:
+//   0. C.B^T per group (the forward's phase-0 kernel of the route);
+//   1. ssd_bwd_state: per (b, h, chunk, 64x64 tile of the state), the
+//      chunk's reverse contribution sum_i exp(cum_i) dy_i (x) C_i;
+//   2. ssd_bwd_scan: per (b, h, 4 state elements), the pass over the
+//      chunks from the last, from dh: each contribution is replaced by
+//      the gradient of the state after its chunk, hn;
+//   3. ssd_bwd_dx: per (b, h, chunk, 64 keys, 64-wide P tile), dx over
+//      the row tiles on or below the diagonal, plus dt_j exp(after_j) hn
+//      B_j;
+//   4. ssd_bwd_dc / 5. ssd_bwd_db: per (b, h, chunk, 64 rows or keys), T
+//      tile by tile (M recomputed in each), this head's share of dC (T B
+//      plus exp(cum_i) h_prev^T dy_i, h_prev the forward's states) and of
+//      dB (T^T C plus dt_j exp(after_j) hn^T x_j) into fp32 scratch
+//      (B, H, S, N), and the per-position terms of ddt;
+//   6. ssd_bwd_dt: per (b, h, chunk), d(cum) from those terms, d(la) its
+//      reverse cumsum within the chunk in double, ddt = the direct terms
+//      + d(la) A and the chunk's share of dA;
+//   7. ssd_bwd_heads: dB and dC, the heads' shares summed over each group
+//      in order; 8. ssd_bwd_da: dA, the chunks' shares summed in order.
+// The exponents are the forward's: cum in double (chunk_cumsum), the state
+// weights' exponent summed from the chunk's end (chunk_suffix), exp never
+// evaluated on the masked half.  Every sum over heads, chunks or the
+// batch runs in a fixed order with no atomics: two launches give the same
+// bits.
+//
+// Interface: two plain C entry points (loaded with ctypes); each launches
+// on the caller's stream, allocates nothing (the caller passes the fp32
+// scratch: rt_ssd's (B, H, nc, P, N), (B, H, nc) and (B, G, nc, L, L),
+// rt_ssd_backward's as its comment lists) and returns cudaGetLastError().
+// rt_ssd leaves the state before each chunk in its states scratch, which
+// the caller may keep for rt_ssd_backward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -794,8 +835,8 @@ __global__ void __launch_bounds__(kThreads) ssd_out_simt_kernel(const Params p) 
   }
 }
 
-template <typename K>
-int launch_one(K kernel, dim3 grid, int smem, const Params& p, cudaStream_t stream) {
+template <typename K, typename Q>
+int launch_one(K kernel, dim3 grid, int smem, const Q& p, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -834,6 +875,665 @@ int launch(const Params& p, bool mma, cudaStream_t stream) {
              : launch_one(ssd_out_simt_kernel, g_out, out_simt_smem_bytes(p.N), p, stream);
 }
 
+
+// ---- the backward ------------------------------------------------------------
+
+struct BwdParams {
+  Params f;             // the forward's inputs and strides; f.states: the state
+                        // before each chunk as the forward wrote it, f.decay and
+                        // f.cb this call's scratch
+  const void* dy;       // (B, S, H, P) contiguous, x's dtype
+  const float* dh;      // (B, H, P, N) or nullptr (zero)
+  float* dstate;        // (B, H, nc, P, N): each chunk's reverse contribution,
+                        // then the gradient of the state after the chunk
+  void* dx;             // (B, S, H, P) contiguous, x's dtype
+  float* ddt;           // (B, S, H) contiguous
+  float* dA;            // (H,)
+  void* dbm;            // (B, S, G, N) contiguous, B's dtype
+  void* dcm;
+  float* dbh;           // (B, H, S, N) each head's share of dB
+  float* dch;           //                          and of dC
+  double* vec;          // (kVecs, B, H, S) per-position terms of ddt
+  float* da_part;       // (B, H, nc) each chunk's share of dA
+};
+
+constexpr int kVecs = 5;
+enum { kRowW = 0, kEi = 1, kGsum = 2, kSv = 3, kSd = 4 };
+constexpr int kNS = kMaxN + 1;          // odd row stride of 128-wide fp32 tiles
+
+__device__ __forceinline__ float ld(const float* a) { return *a; }
+__device__ __forceinline__ float ld(const bf16* a) { return __bfloat162float(*a); }
+__device__ __forceinline__ void st(float* a, float v) { *a = v; }
+__device__ __forceinline__ void st(bf16* a, float v) { *a = __float2bfloat16(v); }
+
+template <typename T>
+__device__ __forceinline__ const T* x_at(const Params& p, int b, long long s, int h) {
+  return static_cast<const T*>(p.x) + b * p.x_sb + s * p.x_ss + h * p.x_sh;
+}
+template <typename T>
+__device__ __forceinline__ const T* b_at(const Params& p, int b, long long s, int g) {
+  return static_cast<const T*>(p.bm) + b * p.b_sb + s * p.b_ss + g * p.b_sg;
+}
+template <typename T>
+__device__ __forceinline__ const T* c_at(const Params& p, int b, long long s, int g) {
+  return static_cast<const T*>(p.cm) + b * p.c_sb + s * p.c_ss + g * p.c_sg;
+}
+template <typename T>
+__device__ __forceinline__ const T* dy_at(const BwdParams& q, int b, long long s, int h) {
+  return static_cast<const T*>(q.dy) + (((long long)b * q.f.S + s) * q.f.H + h) * q.f.P;
+}
+__device__ __forceinline__ double* vec_at(const BwdParams& q, int k, int bh, long long s) {
+  return q.vec + ((long long)k * q.f.B * q.f.H + bh) * q.f.S + s;
+}
+
+// Backward 1: grid (nc, B*H, P tiles x N tiles).  The chunk's reverse
+// contribution to the gradient of the state before it, sum_i exp(cum_i)
+// dy_i (x) C_i, into dstate; decay[b, h, c] = exp(cum_last).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_state_kernel(const BwdParams q) {
+  const Params& p = q.f;
+  __shared__ double cum[kMaxChunk];
+  __shared__ float dts[kMaxChunk], ecum[kMaxChunk];
+  __shared__ float ys[kTile * kPadTile], cs[kTile * kPadTile];
+  const int c = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int g = h / (p.H / p.G);
+  const int n_ptiles = (p.P + kTile - 1) / kTile;
+  const int p0 = (blockIdx.z % n_ptiles) * kTile;
+  const int n0 = (blockIdx.z / n_ptiles) * kTile;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  chunk_cumsum(p, b, h, c, dts, cum);
+  for (int j = tid; j < p.L; j += kThreads) ecum[j] = expf((float)cum[j]);
+  if (blockIdx.z == 0 && tid == 0) p.decay[(long long)bh * p.nc + c] = expf((float)cum[p.L - 1]);
+  __syncthreads();
+  const long long row0 = (long long)c * p.L;
+  float acc[4][4] = {};
+  for (int j0 = 0; j0 < p.L; j0 += kTile) {
+    for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
+      const int jj = idx >> 6, e = idx & 63, j = j0 + jj;
+      const bool row = j < p.L;
+      ys[jj * kPadTile + e] =
+          (row && p0 + e < p.P) ? ld(dy_at<T>(q, b, row0 + j, h) + p0 + e) * ecum[j] : 0.f;
+      cs[jj * kPadTile + e] = (row && n0 + e < p.N) ? ld(c_at<T>(p, b, row0 + j, g) + n0 + e) : 0.f;
+    }
+    __syncthreads();
+    const int jn = min(kTile, p.L - j0);
+#pragma unroll 4
+    for (int jj = 0; jj < jn; ++jj) {
+      float yv[4], cv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) yv[r] = ys[jj * kPadTile + ty + 16 * r];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) cv[u] = cs[jj * kPadTile + tx + 16 * u];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[r][u] = fmaf(yv[r], cv[u], acc[r][u]);
+    }
+    __syncthreads();
+  }
+  float* out = q.dstate + ((long long)bh * p.nc + c) * p.P * p.N;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int pp = p0 + ty + 16 * r;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int nn = n0 + tx + 16 * u;
+      if (pp < p.P && nn < p.N) out[(long long)pp * p.N + nn] = acc[r][u];
+    }
+  }
+}
+
+// Backward 2: grid (ceil(P*N / (256 V)), B*H).  The reverse pass over the
+// chunks, last to first, from dh: each chunk's contribution is replaced by
+// the gradient of the state after the chunk, g, and g <- decay_c g + the
+// contribution.  Eight chunks' loads are issued before their updates.
+template <int V>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_scan_kernel(const BwdParams q) {
+  const Params& p = q.f;
+  using Vt = typename std::conditional<V == 4, float4, float>::type;
+  const long long PN = (long long)p.P * p.N;
+  const long long e = ((long long)blockIdx.x * kThreads + threadIdx.x) * V;
+  if (e >= PN) return;
+  const int bh = blockIdx.y;
+  Vt* s = reinterpret_cast<Vt*>(q.dstate + (long long)bh * p.nc * PN + e);
+  const long long step = PN / V;
+  const float* d = p.decay + (long long)bh * p.nc;
+  Vt gv = {};
+  if (q.dh != nullptr) gv = *reinterpret_cast<const Vt*>(q.dh + (long long)bh * PN + e);
+  for (int c1 = p.nc; c1 > 0; c1 -= 8) {
+    Vt v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (c1 - 1 - u >= 0) v[u] = s[(c1 - 1 - u) * step];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int c = c1 - 1 - u;
+      if (c >= 0) {
+        s[c * step] = gv;
+        const float a = d[c];
+        if constexpr (V == 4) {
+          gv.x = a * gv.x + v[u].x;
+          gv.y = a * gv.y + v[u].y;
+          gv.z = a * gv.z + v[u].z;
+          gv.w = a * gv.w + v[u].w;
+        } else {
+          gv = a * gv + v[u];
+        }
+      }
+    }
+  }
+}
+
+// Backward 3: grid (nc * key tiles, B*H, P tiles).  dx_j = sum_{i>=j}
+// (C_i . B_j) exp(cum_i - cum_j) dt_j dy_i + dt_j exp(after_j) hn B_j over
+// a 64-key, 64-wide P tile; the row tiles on or below the diagonal only,
+// masked entries never evaluating exp.  Key tile 0 (the most row tiles) is
+// issued first.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_dx_kernel(const BwdParams q) {
+  const Params& p = q.f;
+  __shared__ double cum[kMaxChunk];
+  __shared__ float dts[kMaxChunk], after[kMaxChunk], wgt[kMaxChunk];
+  __shared__ float ws[kTile * kPadTile], ds[kTile * kPadTile];
+  const int n_t = (p.L + kTile - 1) / kTile;
+  const int c = blockIdx.x / n_t, jt = blockIdx.x - c * n_t;
+  const int j0 = jt * kTile;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
+  const int g = h / (p.H / p.G);
+  const int p0 = blockIdx.z * kTile;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  chunk_cumsum(p, b, h, c, dts, cum);
+  chunk_suffix(p, h, dts, after);
+  for (int j = tid; j < p.L; j += kThreads) wgt[j] = dts[j] * expf(after[j]);
+  __syncthreads();
+  const long long row0 = (long long)c * p.L;
+  const float* cbg = cb_tile(p, b, g, c);
+  float acc[4][4] = {};
+  for (int it = jt; it < n_t; ++it) {
+    const int i0 = it * kTile;
+    for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
+      const int rr = idx >> 6, e = idx & 63;
+      // ws[key j0 + rr][row i0 + e]: the weight, on j <= i only
+      const int j = j0 + rr, i = i0 + e;
+      ws[rr * kPadTile + e] = (j <= i && i < p.L)
+                                  ? cbg[(long long)i * p.L + j] * expf((float)(cum[i] - cum[j])) * dts[j]
+                                  : 0.f;
+      // ds[row i0 + rr][p0 + e]
+      ds[rr * kPadTile + e] =
+          (i0 + rr < p.L && p0 + e < p.P) ? ld(dy_at<T>(q, b, row0 + i0 + rr, h) + p0 + e) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int ii = 0; ii < kTile; ++ii) {
+      float wv[4], dv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) wv[r] = ws[(ty + 16 * r) * kPadTile + ii];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) dv[u] = ds[ii * kPadTile + tx + 16 * u];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[r][u] = fmaf(wv[r], dv[u], acc[r][u]);
+    }
+    __syncthreads();                    // ws, ds are refilled next round
+  }
+  // the state term: B_j wgt_j against the gradient of the state after the chunk
+  const float* hn = q.dstate + ((long long)bh * p.nc + c) * p.P * p.N;
+  for (int n0 = 0; n0 < p.N; n0 += kTile) {
+    for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
+      const int rr = idx >> 6, e = idx & 63, j = j0 + rr;
+      ws[rr * kPadTile + e] =
+          (j < p.L && n0 + e < p.N) ? ld(b_at<T>(p, b, row0 + j, g) + n0 + e) * wgt[j] : 0.f;
+      ds[rr * kPadTile + e] =
+          (p0 + rr < p.P && n0 + e < p.N) ? hn[(long long)(p0 + rr) * p.N + n0 + e] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int e = 0; e < kTile; ++e) {
+      float bv[4], hv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) bv[r] = ws[(ty + 16 * r) * kPadTile + e];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) hv[u] = ds[(tx + 16 * u) * kPadTile + e];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[r][u] = fmaf(bv[r], hv[u], acc[r][u]);
+    }
+    __syncthreads();
+  }
+  const long long HP = (long long)p.H * p.P;
+  T* dxg = static_cast<T*>(q.dx) + ((long long)b * p.S + row0 + j0) * HP + (long long)h * p.P + p0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int jj = ty + 16 * r;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int pp = tx + 16 * u;
+      if (j0 + jj < p.L && p0 + pp < p.P) st(dxg + jj * HP + pp, acc[r][u]);
+    }
+  }
+}
+
+int bwd_tiles_smem_bytes() {
+  return (int)sizeof(double) * (kMaxChunk + kTile) +
+         (int)sizeof(float) * (3 * kMaxChunk + 3 * kTile * kPadTile + kTile * kNS);
+}
+
+// m[r][u] (rows a0 + ty + 16 r of `ra`, rows b0 + tx + 16 u of `rb`) =
+// sum over p of ra[.][p] rb[.][p]: the two (rows, P) operands staged 64
+// columns of P at a time into as / bs ([64][65]); ends synchronised.
+template <typename T, typename FA, typename FB>
+__device__ __forceinline__ void rows_dot(float (&m)[4][4], const Params& p, FA ra, FB rb, int na,
+                                         int nb, float* as, float* bs) {
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  for (int pc = 0; pc < p.P; pc += kTile) {
+    for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
+      const int rr = idx >> 6, e = idx & 63;
+      const bool col = pc + e < p.P;
+      as[rr * kPadTile + e] = (rr < na && col) ? ld(ra(rr) + pc + e) : 0.f;
+      bs[rr * kPadTile + e] = (rr < nb && col) ? ld(rb(rr) + pc + e) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int e = 0; e < kTile; ++e) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) av[r] = as[(ty + 16 * r) * kPadTile + e];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) bv[u] = bs[(tx + 16 * u) * kPadTile + e];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) m[r][u] = fmaf(av[r], bv[u], m[r][u]);
+    }
+    __syncthreads();
+  }
+}
+
+// acc[r][u] (rows ty + 16 r, state columns tx + 16 u, u < 8) += sum over
+// p of ys[row][p] * state[p][column], the (P, N) fp32 state at `st` staged
+// 64 rows at a time into ws ([64][129]) and the (rows, P) operand by `ra`
+// into ys; ends synchronised.
+template <typename T, typename FA>
+__device__ __forceinline__ void rows_state(float (&acc)[4][8], const Params& p, FA ra, int na,
+                                           const float* stt, float* ys, float* ws) {
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  for (int pc = 0; pc < p.P; pc += kTile) {
+    for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
+      const int rr = idx >> 6, e = idx & 63;
+      ys[rr * kPadTile + e] = (rr < na && pc + e < p.P) ? ld(ra(rr) + pc + e) : 0.f;
+    }
+    for (int idx = tid; idx < kTile * kMaxN; idx += kThreads) {
+      const int pp = idx >> 7, n = idx & (kMaxN - 1);
+      ws[pp * kNS + n] = (pc + pp < p.P && n < p.N) ? stt[(long long)(pc + pp) * p.N + n] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int e = 0; e < kTile; ++e) {
+      float yv[4], hv[8];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) yv[r] = ys[(ty + 16 * r) * kPadTile + e];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) hv[u] = ws[e * kNS + tx + 16 * u];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc[r][u] = fmaf(yv[r], hv[u], acc[r][u]);
+    }
+    __syncthreads();
+  }
+}
+
+// sum of v over the 16 threads of a row (a half-warp), in a fixed order
+__device__ __forceinline__ float row_sum16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// Backward 4: grid (nc * row tiles, B*H); dynamic shared memory
+// bwd_tiles_smem_bytes().  For 64 rows i and every state column: this
+// head's share of dC_i = sum_{j<=i} T_ij B_j + exp(cum_i) h_prev^T dy_i,
+// with T_ij = exp(cum_i - cum_j) dt_j (dy_i . x_j), into dch; the row
+// sums sum_j (C_i . B_j) T_ij and E_i = exp(cum_i) dy_i . (h_prev C_i)
+// into vec (summed in double).  Row tiles are issued longest first.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_dc_kernel(const BwdParams q) {
+  const Params& p = q.f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* cum = reinterpret_cast<double*>(smem_raw);
+  double* rs = cum + kMaxChunk;         // row sums, one a row
+  float* dts = reinterpret_cast<float*>(rs + kTile);
+  float* ys = dts + 3 * kMaxChunk;      // dy rows      [64][65]
+  float* xs = ys + kTile * kPadTile;    // x rows       [64][65]
+  float* ts = xs + kTile * kPadTile;    // T            [i][j]
+  float* ws = ts + kTile * kPadTile;    // B rows [j][n], then h_prev [p][n]
+  const int n_t = (p.L + kTile - 1) / kTile;
+  const int c = blockIdx.x / n_t, it = n_t - 1 - (blockIdx.x - c * n_t);
+  const int i0 = it * kTile;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
+  const int g = h / (p.H / p.G);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const long long row0 = (long long)c * p.L;
+  chunk_cumsum(p, b, h, c, dts, cum);
+  if (tid < kTile) rs[tid] = 0.0;
+  const float* cbg = cb_tile(p, b, g, c);
+  const int ni = min(kTile, p.L - i0);
+  auto dy_row = [&](int rr) { return dy_at<T>(q, b, row0 + i0 + rr, h); };
+  float acc[4][8] = {};
+  for (int jt = 0; jt <= it; ++jt) {
+    const int j0 = jt * kTile;
+    float m[4][4] = {};
+    rows_dot<T>(m, p, dy_row, [&](int rr) { return x_at<T>(p, b, row0 + j0 + rr, h); }, ni,
+                min(kTile, p.L - j0), ys, xs);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int ii = ty + 16 * r, jj = tx + 16 * u, i = i0 + ii, j = j0 + jj;
+        ts[ii * kPadTile + jj] =
+            (j <= i && i < p.L) ? expf((float)(cum[i] - cum[j])) * dts[j] * m[r][u] : 0.f;
+      }
+    for (int idx = tid; idx < kTile * kMaxN; idx += kThreads) {
+      const int rr = idx >> 7, n = idx & (kMaxN - 1);
+      ws[rr * kNS + n] = (j0 + rr < p.L && n < p.N) ? ld(b_at<T>(p, b, row0 + j0 + rr, g) + n) : 0.f;
+    }
+    __syncthreads();
+    if (tid < kTile && i0 + tid < p.L) {
+      const int i = i0 + tid, jn = min(kTile, i - j0 + 1);
+      double sum = 0.0;
+      for (int jj = 0; jj < jn; ++jj)
+        sum += (double)cbg[(long long)i * p.L + j0 + jj] * (double)ts[tid * kPadTile + jj];
+      rs[tid] += sum;
+    }
+#pragma unroll 2
+    for (int jj = 0; jj < kTile; ++jj) {
+      float tv[4], bv[8];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) tv[r] = ts[(ty + 16 * r) * kPadTile + jj];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) bv[u] = ws[jj * kNS + tx + 16 * u];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc[r][u] = fmaf(tv[r], bv[u], acc[r][u]);
+    }
+    __syncthreads();                    // ts, ws are refilled next round
+  }
+  // the inter-chunk term, from the state before the chunk (zero in chunk 0)
+  float e_part[4] = {};
+  if (c > 0) {
+    float v[4][8] = {};
+    rows_state<T>(v, p, dy_row, ni, p.states + ((long long)bh * p.nc + c) * p.P * p.N, ys, ws);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + ty + 16 * r;
+      if (i >= p.L) continue;
+      const float ei = expf((float)cum[i]);
+      const T* ci = c_at<T>(p, b, row0 + i, g);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int n = tx + 16 * u;
+        const float t = v[r][u] * ei;
+        acc[r][u] += t;
+        if (n < p.N) e_part[r] = fmaf(t, ld(ci + n), e_part[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) e_part[r] = row_sum16(e_part[r]);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + ty + 16 * r;
+    if (i >= p.L) continue;
+    float* out = q.dch + (((long long)b * p.H + h) * p.S + row0 + i) * p.N;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int n = tx + 16 * u;
+      if (n < p.N) out[n] = acc[r][u];
+    }
+    if (tx == 0) *vec_at(q, kEi, bh, row0 + i) = e_part[r];
+  }
+  if (tid < kTile && i0 + tid < p.L) *vec_at(q, kRowW, bh, row0 + i0 + tid) = rs[tid];
+}
+
+// Backward 5: grid (nc * key tiles, B*H); dynamic shared memory
+// bwd_tiles_smem_bytes().  For 64 keys j and every state column: this
+// head's share of dB_j = dt_j sum_{i>=j} exp(cum_i - cum_j) (dy_i . x_j)
+// C_i + dt_j exp(after_j) hn^T x_j, into dbh; the column sums G_j =
+// sum_i (C_i . B_j) exp(cum_i - cum_j) (dy_i . x_j) and the state term's
+// Sd_j = exp(after_j) <hn, x_j (x) B_j> and dt_j Sd_j into vec.  Key tile
+// 0 (the most row tiles) is issued first.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_db_kernel(const BwdParams q) {
+  const Params& p = q.f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* cum = reinterpret_cast<double*>(smem_raw);
+  double* gs = cum + kMaxChunk;         // column sums, one a key
+  float* dts = reinterpret_cast<float*>(gs + kTile);
+  float* after = dts + kMaxChunk;
+  float* xs = dts + 3 * kMaxChunk;      // x rows       [64][65]
+  float* ys = xs + kTile * kPadTile;    // dy rows      [64][65]
+  float* ts = ys + kTile * kPadTile;    // exp(.) M     [j][i]
+  float* ws = ts + kTile * kPadTile;    // C rows [i][n], then hn [p][n]
+  const int n_t = (p.L + kTile - 1) / kTile;
+  const int c = blockIdx.x / n_t, jt = blockIdx.x - c * n_t;
+  const int j0 = jt * kTile;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
+  const int g = h / (p.H / p.G);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const long long row0 = (long long)c * p.L;
+  chunk_cumsum(p, b, h, c, dts, cum);
+  chunk_suffix(p, h, dts, after);
+  if (tid < kTile) gs[tid] = 0.0;
+  const float* cbg = cb_tile(p, b, g, c);
+  const int nj = min(kTile, p.L - j0);
+  auto x_row = [&](int rr) { return x_at<T>(p, b, row0 + j0 + rr, h); };
+  float acc[4][8] = {};
+  for (int it = jt; it < n_t; ++it) {
+    const int i0 = it * kTile;
+    float m[4][4] = {};
+    rows_dot<T>(m, p, x_row, [&](int rr) { return dy_at<T>(q, b, row0 + i0 + rr, h); }, nj,
+                min(kTile, p.L - i0), xs, ys);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int jj = ty + 16 * r, ii = tx + 16 * u, j = j0 + jj, i = i0 + ii;
+        ts[jj * kPadTile + ii] =
+            (j <= i && i < p.L) ? expf((float)(cum[i] - cum[j])) * m[r][u] : 0.f;
+      }
+    for (int idx = tid; idx < kTile * kMaxN; idx += kThreads) {
+      const int rr = idx >> 7, n = idx & (kMaxN - 1);
+      ws[rr * kNS + n] = (i0 + rr < p.L && n < p.N) ? ld(c_at<T>(p, b, row0 + i0 + rr, g) + n) : 0.f;
+    }
+    __syncthreads();
+    if (tid < kTile && j0 + tid < p.L) {
+      const int j = j0 + tid, ii0 = max(0, j - i0), in_ = min(kTile, p.L - i0);
+      double sum = 0.0;
+      for (int ii = ii0; ii < in_; ++ii)
+        sum += (double)cbg[(long long)(i0 + ii) * p.L + j] * (double)ts[tid * kPadTile + ii];
+      gs[tid] += sum;
+    }
+#pragma unroll 2
+    for (int ii = 0; ii < kTile; ++ii) {
+      float tv[4], cv[8];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) tv[r] = ts[(ty + 16 * r) * kPadTile + ii];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) cv[u] = ws[ii * kNS + tx + 16 * u];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc[r][u] = fmaf(tv[r], cv[u], acc[r][u]);
+    }
+    __syncthreads();
+  }
+  // the state term: hn^T x_j, weighted by dt_j exp(after_j)
+  float v[4][8] = {};
+  rows_state<T>(v, p, x_row, nj, q.dstate + ((long long)bh * p.nc + c) * p.P * p.N, xs, ws);
+  float sd[4] = {};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = j0 + ty + 16 * r;
+    if (j >= p.L) continue;
+    const float w = dts[j] * expf(after[j]);
+    const T* bj = b_at<T>(p, b, row0 + j, g);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int n = tx + 16 * u;
+      acc[r][u] = fmaf(w, v[r][u], dts[j] * acc[r][u]);
+      if (n < p.N) sd[r] = fmaf(v[r][u], ld(bj + n), sd[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) sd[r] = row_sum16(sd[r]);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = j0 + ty + 16 * r;
+    if (j >= p.L) continue;
+    float* out = q.dbh + (((long long)b * p.H + h) * p.S + row0 + j) * p.N;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int n = tx + 16 * u;
+      if (n < p.N) out[n] = acc[r][u];
+    }
+    if (tx == 0) {
+      const double s_d = (double)expf(after[j]) * (double)sd[r];
+      *vec_at(q, kSd, bh, row0 + j) = s_d;
+      *vec_at(q, kSv, bh, row0 + j) = (double)dts[j] * s_d;
+    }
+  }
+  if (tid < kTile && j0 + tid < p.L) *vec_at(q, kGsum, bh, row0 + j0 + tid) = gs[tid];
+}
+
+// Backward 6: grid (nc, B*H).  The exponents' gradient d(cum) from the
+// per-position terms, d(la) its reverse cumsum within the chunk (in
+// double, one thread), ddt and the chunk's share of dA.
+__global__ void __launch_bounds__(kThreads) ssd_bwd_dt_kernel(const BwdParams q) {
+  const Params& p = q.f;
+  __shared__ double cum[kMaxChunk];
+  __shared__ float dts[kMaxChunk];
+  __shared__ double vs[kVecs][kMaxChunk];
+  __shared__ float red[kThreads];
+  const int c = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int tid = threadIdx.x;
+  chunk_cumsum(p, b, h, c, dts, cum);
+  const long long row0 = (long long)c * p.L;
+  for (int idx = tid; idx < kVecs * p.L; idx += kThreads) {
+    const int k = idx / p.L, j = idx - k * p.L;
+    vs[k][j] = *vec_at(q, k, bh, row0 + j);
+  }
+  // <hn, h_prev> over the chunk's state, summed in a fixed order
+  const long long PN = (long long)p.P * p.N;
+  const float* hn = q.dstate + ((long long)bh * p.nc + c) * PN;
+  const float* hp = p.states + ((long long)bh * p.nc + c) * PN;
+  float part = 0.f;
+  for (long long e = tid; e < PN; e += kThreads) part = fmaf(hn[e], hp[e], part);
+  red[tid] = part;
+  __syncthreads();
+  for (int w = kThreads / 2; w > 0; w >>= 1) {
+    if (tid < w) red[tid] += red[tid + w];
+    __syncthreads();
+  }
+  if (tid == 0) {
+    const double d_c = (double)expf((float)cum[p.L - 1]) * (double)red[0];
+    double s_tot = 0.0;
+    for (int j = 0; j < p.L; ++j) s_tot += vs[kSv][j];
+    const float a = p.A[h];
+    double run = 0.0, da = 0.0;
+    float* ddt = q.ddt + ((long long)b * p.S + row0) * p.H + h;
+    for (int k = p.L - 1; k >= 0; --k) {
+      double dcum = vs[kRowW][k] - (double)dts[k] * vs[kGsum][k] + vs[kEi][k] - vs[kSv][k];
+      if (k == p.L - 1) dcum += s_tot + d_c;
+      run += dcum;
+      ddt[(long long)k * p.H] = (float)(vs[kGsum][k] + vs[kSd][k] + run * (double)a);
+      da += run * (double)dts[k];
+    }
+    q.da_part[(long long)bh * p.nc + c] = (float)da;
+  }
+}
+
+// Backward 7: one thread an element of (B, S, G, N): dB and dC, each head's
+// share summed over the group's heads in order, in B's dtype.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_heads_kernel(const BwdParams q) {
+  const Params& p = q.f;
+  const long long total = (long long)p.B * p.S * p.G * p.N;
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= total) return;
+  const int n = (int)(idx % p.N);
+  long long t = idx / p.N;
+  const int g = (int)(t % p.G);
+  t /= p.G;
+  const long long s = t % p.S;
+  const int b = (int)(t / p.S);
+  const int rep = p.H / p.G;
+  float sb = 0.f, sc = 0.f;
+  for (int k = 0; k < rep; ++k) {
+    const long long off = (((long long)b * p.H + g * rep + k) * p.S + s) * p.N + n;
+    sb += q.dbh[off];
+    sc += q.dch[off];
+  }
+  st(static_cast<T*>(q.dbm) + idx, sb);
+  st(static_cast<T*>(q.dcm) + idx, sc);
+}
+
+// Backward 8: one thread a head: dA[h], the chunks' shares summed over the
+// batch and the chunks in order.
+__global__ void __launch_bounds__(kThreads) ssd_bwd_da_kernel(const BwdParams q) {
+  const Params& p = q.f;
+  const int h = blockIdx.x * kThreads + threadIdx.x;
+  if (h >= p.H) return;
+  double s = 0.0;
+  for (int b = 0; b < p.B; ++b)
+    for (int c = 0; c < p.nc; ++c) s += q.da_part[((long long)b * p.H + h) * p.nc + c];
+  q.dA[h] = (float)s;
+}
+
+template <typename T>
+int launch_bwd(const BwdParams& q, cudaStream_t stream) {
+  const Params& p = q.f;
+  const bool mma = std::is_same<T, bf16>::value;
+  const int ptiles = (p.P + kTile - 1) / kTile;
+  const int ntiles = (p.N + kTile - 1) / kTile;
+  const int itiles = (p.L + kTile - 1) / kTile;
+  const int pairs = itiles * (itiles + 1) / 2;
+  const long long PN = (long long)p.P * p.N;
+  const int sv = PN % 4 == 0 ? 4 : 1;
+  const int smem = bwd_tiles_smem_bytes();
+  int e;
+  // C.B^T once per group, as the forward's phase 0
+  if (mma) {
+    if ((e = launch_one(ssd_cb_mma_kernel, dim3(p.nc * pairs, p.B * p.G),
+                        2 * kTile * n_stride(p.N) * (int)sizeof(bf16), p, stream)))
+      return e;
+  } else {
+    if ((e = launch_one(ssd_cb_simt_kernel, dim3(p.nc * pairs, p.B * p.G),
+                        2 * kTile * (p.N | 1) * (int)sizeof(float), p, stream)))
+      return e;
+  }
+  if ((e = launch_one(ssd_bwd_state_kernel<T>, dim3(p.nc, p.B * p.H, ptiles * ntiles), 0, q, stream)))
+    return e;
+  const dim3 g_scan((unsigned)((PN / sv + kThreads - 1) / kThreads), p.B * p.H);
+  if ((e = sv == 4 ? launch_one(ssd_bwd_scan_kernel<4>, g_scan, 0, q, stream)
+                   : launch_one(ssd_bwd_scan_kernel<1>, g_scan, 0, q, stream)))
+    return e;
+  if ((e = launch_one(ssd_bwd_dx_kernel<T>, dim3(p.nc * itiles, p.B * p.H, ptiles), 0, q, stream)))
+    return e;
+  if ((e = launch_one(ssd_bwd_dc_kernel<T>, dim3(p.nc * itiles, p.B * p.H), smem, q, stream))) return e;
+  if ((e = launch_one(ssd_bwd_db_kernel<T>, dim3(p.nc * itiles, p.B * p.H), smem, q, stream))) return e;
+  if ((e = launch_one(ssd_bwd_dt_kernel, dim3(p.nc, p.B * p.H), 0, q, stream))) return e;
+  const long long total = (long long)p.B * p.S * p.G * p.N;
+  if ((e = launch_one(ssd_bwd_heads_kernel<T>, dim3((unsigned)((total + kThreads - 1) / kThreads)), 0,
+                      q, stream)))
+    return e;
+  return launch_one(ssd_bwd_da_kernel, dim3((p.H + kThreads - 1) / kThreads), 0, q, stream);
+}
+
 // bf16 rows of n elements at ptr with these strides (elements) in 16-byte
 // vectors: the base 16-byte aligned, n and every stride multiples of 8
 bool aligned8(const void* ptr, int n, long long s0, long long s1, long long s2) {
@@ -866,6 +1566,40 @@ int rt_ssd(const void* x, const void* dt, const void* A, const void* bm, const v
                  aligned8(x, P, x_sb, x_ss, x_sh), aligned8(bm, N, b_sb, b_ss, b_sg) &&
                                                        aligned8(cm, N, c_sb, c_ss, c_sg)};
   return launch(p, is_bf16 != 0, static_cast<cudaStream_t>(stream));
+}
+
+
+// The backward of rt_ssd.  x, dt, A, bm, cm, the strides, B .. L and
+// is_bf16 as rt_ssd's; states (B, H, S/L, P, N) fp32: the state before each
+// chunk as rt_ssd wrote it; dy (B, S, H, P) contiguous in x's dtype; dh
+// (B, H, P, N) fp32 or null.  Writes dx (B, S, H, P) in x's dtype, ddt (B,
+// S, H) and dA (H,) fp32, dbm and dcm (B, S, G, N) in B's dtype, all
+// contiguous; dstate (B, H, S/L, P, N), decay (B, H, S/L), cb (B, G, S/L,
+// L, L), dbh and dch (B, H, S, N) and da_part (B, H, S/L) are fp32
+// scratch, vec (5, B, H, S) float64 scratch.
+int rt_ssd_backward(const void* x, const void* dt, const void* A, const void* bm, const void* cm,
+                    const void* states, const void* dy, const void* dh, void* dstate, void* decay,
+                    void* cb, void* dx, void* ddt, void* dA, void* dbm, void* dcm, void* dbh,
+                    void* dch, void* vec, void* da_part, int B, int S, int H, int P, int G, int N,
+                    int L, int is_bf16, long long x_sb, long long x_ss, long long x_sh,
+                    long long dt_sb, long long dt_ss, long long dt_sh, long long b_sb,
+                    long long b_ss, long long b_sg, long long c_sb, long long c_ss, long long c_sg,
+                    void* stream) {
+  if (B < 1 || S < 1 || H < 1 || P < 1 || G < 1 || N < 1 || N > kMaxN || L < 1 ||
+      L > kMaxChunk || S % L != 0 || H % G != 0 || (long long)B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Params f{x, static_cast<const float*>(dt), static_cast<const float*>(A), bm, cm, nullptr,
+                 nullptr, const_cast<float*>(static_cast<const float*>(states)),
+                 static_cast<float*>(decay), static_cast<float*>(cb), B, S, H, P, G, N, L, S / L,
+                 x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg,
+                 aligned8(x, P, x_sb, x_ss, x_sh), aligned8(bm, N, b_sb, b_ss, b_sg) &&
+                                                       aligned8(cm, N, c_sb, c_ss, c_sg)};
+  const BwdParams q{f, dy, static_cast<const float*>(dh), static_cast<float*>(dstate), dx,
+                    static_cast<float*>(ddt), static_cast<float*>(dA), dbm, dcm,
+                    static_cast<float*>(dbh), static_cast<float*>(dch), static_cast<double*>(vec),
+                    static_cast<float*>(da_part)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_bwd<bf16>(q, st) : launch_bwd<float>(q, st);
 }
 
 }  // extern "C"

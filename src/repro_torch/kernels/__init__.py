@@ -18,7 +18,8 @@ split TF32 on mma.sync), and the backward kernel's launches under
 ``dequant_gemm/tile`` (bf16 calls outside the wgmma kernel's rule) and
 ``dequant_gemm/tf32x3`` (fp32, split TF32 on mma.sync;
 ``dequant_gemm.kernel.route``); ``ssd/mma`` (bf16, tensor-core
-products) and ``ssd/simt`` (fp32, FFMA); ``fused_mlp/gemv`` (the split-K
+products) and ``ssd/simt`` (fp32, FFMA), and the SSD backward kernel's
+launches under ``ssd/bwd`` and ``ssd/bwd_bf16`` or ``ssd/bwd_f32``; ``fused_mlp/gemv`` (the split-K
 GEMV of both MLP stages, one a call) and ``fused_qkv/gemv`` (the same
 GEMV, one a device kernel: one a distinct bit width of wq, wk, wv);
 ``fused_mlp/experts`` counts the routed experts' GEMV of an MoE's decode
@@ -36,7 +37,7 @@ threads.  A :func:`launches_of` in one thread collects that thread's
 launches apart from the registry, so another thread's launches meanwhile
 are counted, never taken into the delta nor lost.
 
-Only flash attention has a backward kernel.  Every other wrapper calls
+Flash attention and SSD have backward kernels.  Every other wrapper calls
 :func:`refuse_grad` before it launches on the card, so a CUDA input that
 requires grad under grad mode raises instead of leaving the kernel's
 output silently detached from the graph.

@@ -143,7 +143,11 @@ def launch_flash_attention_backward(q, k, v, o, lse, do, *, causal: bool):
                          f"float32 tensor of shape {(B, H, Sq)}")
     q, k, v, o, do, lse = (_dense(t) for t in (q, k, v, o, do, lse))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # D: fp32 for the bf16 route, double for the fp32 route (whose dP - D
+    # is taken in double)
+    dsum = torch.empty((B, H, Sq), dtype=(
+        torch.float64 if q.dtype == torch.float32 else torch.float32),
+        device=q.device)
     part = (torch.empty((2, B, Sk, H, hd), dtype=torch.float32,
                         device=q.device) if H > KV else None)
     err = getattr(library(), BWD_ENTRIES[q.dtype])(

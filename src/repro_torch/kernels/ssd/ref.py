@@ -1,21 +1,136 @@
-"""Plain PyTorch versions of the SSD kernel: the port's ``ssd_chunked``
-(the function the kernel computes, all arithmetic in fp32) and
-``ssd_reference``, the sequential recurrence, as its oracle.
+"""Plain PyTorch versions of the SSD kernels: the port's ``ssd_chunked``
+(the function the forward kernel computes, all arithmetic in fp32),
+``ssd_reference``, the sequential recurrence, as its oracle, and
+``ref_ssd_backward``, the chunked form's derivative written out (the
+function the backward kernel computes).
 
-The wrapper in ``ops.py`` runs ``ref_ssd_chunked`` for CPU tensors; the
-tests hold both against the reference package, and the card's checks
-hold the kernel against ``ref_ssd_chunked``.  ``split3`` and
-``emulate_ssd_mma`` repeat the arithmetic of the kernel's bf16 ("mma")
-route, for the tests to hold it against the reference.
+The wrapper in ``ops.py`` runs ``ref_ssd_chunked`` and
+``ref_ssd_backward`` for CPU tensors; the tests hold them against the
+reference package (``jax.vjp`` of its ``ssd_chunked`` for the backward),
+and the card's checks hold the kernels against them.  ``split3`` and
+``emulate_ssd_mma`` repeat the arithmetic of the forward kernel's bf16
+("mma") route, for the tests to hold it against the reference.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models.mamba2 import _per_head
 from repro_torch.models.mamba2 import ssd_chunked as ref_ssd_chunked
 from repro_torch.models.mamba2 import ssd_reference as ref_ssd
 
-__all__ = ["ref_ssd", "ref_ssd_chunked", "split3", "emulate_ssd_mma"]
+__all__ = ["ref_ssd", "ref_ssd_chunked", "ref_ssd_backward", "split3",
+           "emulate_ssd_mma"]
+
+
+def _rev_cumsum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.flip(torch.cumsum(torch.flip(t, [dim]), dim=dim), [dim])
+
+
+def ref_ssd_backward(x, dt, A, Bm, Cm, dy, dh=None, *, chunk: int = 256):
+    """The gradients (dx, ddt, dA, dB, dC) of ``ssd_chunked(x, dt, A, Bm,
+    Cm, chunk)`` given dy, the gradient of y (B,S,H,P), and dh, that of
+    h_final (B,H,P,N) (None: zero), each in its input's dtype.  All
+    arithmetic in fp32 (float64 for float64 inputs), as ``ssd_chunked``'s.
+
+    Per (batch, head) and chunk of L positions, with la = dt A, cum its
+    inclusive cumsum within the chunk, after_j = sum_{k>j} la_k (summed
+    from the chunk's end, as the forward's state weights), h_prev the
+    state before the chunk and hn the gradient of the state after it:
+
+    - the reverse state pass: hn of the last chunk is dh, and the state
+      before chunk c gets exp(cum_last) hn + sum_i exp(cum_i) dy_i (x) C_i;
+    - M_ij = dy_i . x_j, T_ij = exp(cum_i - cum_j) dt_j M_ij on j <= i
+      (the gradient of C_i . B_j), G_ij = (C_i . B_j) exp(cum_i - cum_j)
+      M_ij (that of dt_j through the weights);
+    - dx_j = sum_{i>=j} (C_i . B_j) exp(cum_i - cum_j) dt_j dy_i
+      + dt_j exp(after_j) hn B_j;
+    - dC_i = sum_{j<=i} T_ij B_j + exp(cum_i) h_prev^T dy_i, and
+      dB_j = sum_{i>=j} T_ij C_i + dt_j exp(after_j) hn^T x_j, each summed
+      over the heads of a group;
+    - the exponents' gradient d(cum_i): sum_j G_ij dt_j over the row less
+      sum_i G_ij dt_j over the column i, plus exp(cum_i) dy_i .
+      (h_prev C_i), less the state weight's dt_i exp(after_i) <hn, x_i (x)
+      B_i>; the last position also takes every state weight's and
+      exp(cum_last) <hn, h_prev>; d(la) is its reverse cumsum within the
+      chunk, ddt = sum_i G_ij + exp(after_j) <hn, x_j (x) B_j> + d(la) A
+      and dA = sum d(la) dt over the batch and the sequence."""
+    b, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    L = min(chunk, S)
+    if S % L:
+        raise ValueError(f"ssd: sequence {S} is not a multiple of the "
+                         f"chunk {L}")
+    nc = S // L
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(acc).reshape(b, nc, L, H, P)
+    dyf = dy.to(acc).reshape(b, nc, L, H, P)
+    dtf = dt.to(acc).reshape(b, nc, L, H)
+    Bf = _per_head(Bm, H, 2).to(acc).reshape(b, nc, L, H, N)
+    Cf = _per_head(Cm, H, 2).to(acc).reshape(b, nc, L, H, N)
+    Af = A.to(acc)
+    la = dtf * Af
+    cum = torch.cumsum(la, dim=2)                            # (b,nc,L,H)
+    after = torch.cat([_rev_cumsum(la, 2)[:, :, 1:],
+                       torch.zeros_like(la[:, :, :1])], 2)
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    dec = torch.exp(torch.where(
+        mask[None, None, :, :, None],
+        cum[:, :, :, None, :] - cum[:, :, None, :, :],
+        torch.full((), -torch.inf, dtype=acc, device=x.device)))
+    cb = torch.einsum("bkihn,bkjhn->bkijh", Cf, Bf)          # (b,nc,i,j,H)
+    ecum = torch.exp(cum)
+    ea = torch.exp(after)
+    wgt = dtf * ea                                           # state weights
+
+    # the forward's state before each chunk, and the reverse pass
+    chunk_decay = torch.exp(cum[:, :, -1])                   # (b,nc,H)
+    sbx = torch.einsum("bkjhp,bkjhn->bkhpn", xf, Bf * wgt[..., None])
+    s_rev = torch.einsum("bkihp,bkihn->bkhpn", dyf * ecum[..., None], Cf)
+    h = torch.zeros((b, H, P, N), dtype=acc, device=x.device)
+    hp = []
+    for k in range(nc):
+        hp.append(h)
+        h = chunk_decay[:, k, :, None, None] * h + sbx[:, k]
+    g = (torch.zeros((b, H, P, N), dtype=acc, device=x.device)
+         if dh is None else dh.to(acc))
+    hn = [None] * nc
+    for k in reversed(range(nc)):
+        hn[k] = g
+        g = chunk_decay[:, k, :, None, None] * g + s_rev[:, k]
+    hp, hn = torch.stack(hp, 1), torch.stack(hn, 1)          # (b,nc,H,P,N)
+
+    M = torch.einsum("bkihp,bkjhp->bkijh", dyf, xf)
+    em = dec * M
+    T = em * dtf[:, :, None]                                 # (b,nc,i,j,H)
+    Gm = cb * em
+    W = Gm * dtf[:, :, None]
+    w = cb * dec * dtf[:, :, None]
+
+    u = torch.einsum("bkhpn,bkjhp->bkjhn", hn, xf)           # hn^T x_j
+    v = torch.einsum("bkhpn,bkihp->bkihn", hp, dyf)          # h_prev^T dy_i
+    dx = (torch.einsum("bkijh,bkihp->bkjhp", w, dyf)
+          + wgt[..., None] * torch.einsum("bkhpn,bkjhn->bkjhp", hn, Bf))
+    dBh = (torch.einsum("bkijh,bkihn->bkjhn", T, Cf)
+           + wgt[..., None] * u)
+    dCh = (torch.einsum("bkijh,bkjhn->bkihn", T, Bf)
+           + ecum[..., None] * v)
+
+    Sd = ea * (Bf * u).sum(-1)                               # (b,nc,L,H)
+    Sv = dtf * Sd
+    E = ecum * (Cf * v).sum(-1)
+    Dc = chunk_decay * (hn * hp).sum((-1, -2))               # (b,nc,H)
+    dcum = W.sum(3) - W.sum(2) + E - Sv
+    dcum[:, :, -1] += Sv.sum(2) + Dc
+    dla = _rev_cumsum(dcum, 2)
+    ddt = Gm.sum(2) + Sd + dla * Af
+    dA = (dla * dtf).sum((0, 1, 2))
+
+    def groups(t):
+        return t.reshape(b, S, G, H // G, N).sum(3)
+    return (dx.reshape(b, S, H, P).to(x.dtype), ddt.reshape(b, S, H).to(
+        dt.dtype), dA.to(A.dtype), groups(dBh).to(Bm.dtype),
+        groups(dCh).to(Cm.dtype))
 
 
 def split3(v: torch.Tensor):

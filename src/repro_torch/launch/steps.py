@@ -1,6 +1,8 @@
-"""The step functions: the train step of the trainable families, the
-prefill and serve steps of every family, and the concrete initializers
-behind them.
+"""The step functions: the train step of the trainable families (the
+decoder-only ones: dense and VLM softmax attention, the mixture of
+experts, Mamba-2; ``models.model.check_trainable``), the prefill and
+serve steps of every family, and the concrete initializers behind
+them.
 
 * ``build_train_step(cfg, opt_cfg)``  -> f(params, opt, batch) -> (params, opt, metrics)
 * ``build_prefill_step(cfg, max_len)`` -> f(params, batch) -> (logits, cache)
@@ -50,14 +52,17 @@ def loss_and_grads(params, cfg: ModelConfig, batch):
 def build_train_step(cfg: ModelConfig, opt_cfg: OptConfig):
     """One AdamW step on ``lm_loss``: f(params, opt_state, batch) ->
     (new params, new opt state, metrics {"loss", "nll", "z_loss",
-    "aux_loss", "grad_norm", "lr"}, fp32 scalar tensors).  Raises at build
-    for the families the port does not train (``model.check_trainable``)."""
+    "aux_loss", "grad_norm", "lr"}, fp32 scalar tensors).  The caller
+    hands ``opt_state`` over: the step updates its moments in place
+    (``adamw_update(donate_state=True)``), and the new state holds them.
+    Raises at build for the families the port does not train
+    (``model.check_trainable``)."""
     M.check_trainable(cfg)
 
     def train_step(params, opt_state, batch):
         loss, parts, grads = loss_and_grads(params, cfg, batch)
         params, opt_state, om = adamw_update(params, grads, opt_state,
-                                             opt_cfg)
+                                             opt_cfg, donate_state=True)
         return params, opt_state, {"loss": loss, **parts, **om}
 
     return train_step

@@ -6,11 +6,18 @@
 
 Without ``--full`` the arch's reduced config trains (the same family at
 CPU-test widths); ``--full`` trains the published widths and depth, on
-the card by default (``--device``, default ``cuda``).  The dense and VLM
-softmax-attention archs train (``models.model.check_trainable``); a
-config with ``attn_q_chunk=0`` runs attention's forward and backward
-through the flash kernels on the card (``chip_smoke.py`` phase 11 trains
-LLaVA-OneVision-0.5B so).
+the card by default (``--device``, default ``cuda``).  The decoder-only
+families train (``models.model.check_trainable``): dense and VLM softmax
+attention, the mixture of experts (its load-balance aux loss in the
+loss) and Mamba-2 (the SSD's forward and backward kernels on the card);
+hybrid groups, linear attention and the encoder-decoder raise.  A config
+with ``attn_q_chunk=0`` runs attention's forward and backward through the
+flash kernels on the card (``chip_smoke.py`` phase 11 trains
+LLaVA-OneVision-0.5B so, phase 12 DeepSeek-MoE-16B at 4 layers, phase 13
+Mamba-2-1.3B).  ``--arch deepseek-moe-16b --full`` does not fit one
+80 GB card: its 28 layers are 16.9 B parameters, ~203 GB at bf16 weights
+and gradients plus fp32 AdamW moments (12 bytes a parameter), before any
+activation.
 """
 from __future__ import annotations
 

@@ -171,14 +171,16 @@ def dequantize_decode(sub):
 
 
 def _ffn(sub, cfg, x, valid=None):
-    """x + the FFN of norm2(x); ``valid`` (B, S) bool masks tokens out of
-    the MoE's routing."""
+    """(x + the FFN of norm2(x), the sublayer's aux loss: the MoE's
+    load-balance term, 0.0 for a dense FFN or none); ``valid`` (B, S)
+    bool masks tokens out of the MoE's routing."""
     if "ffn" not in sub:
-        return x
+        return x, 0.0
     h2 = apply_norm(sub["norm2"], x)
     if "router" in sub["ffn"]:
-        return x + moe_mod.apply_moe(sub["ffn"], cfg, h2, valid)[0]
-    return x + mlp_mod.apply_mlp(sub["ffn"], cfg.act, h2)
+        y, aux = moe_mod.apply_moe(sub["ffn"], cfg, h2, valid)
+        return x + y, aux
+    return x + mlp_mod.apply_mlp(sub["ffn"], cfg.act, h2), 0.0
 
 
 def _mixer_forward(sub, cfg, mixer, x, rope_fn, causal, want_cache,
@@ -217,13 +219,15 @@ def stack_forward(params_layers, cfg, x, rope_fn, *, causal=True,
     linear-attention state is taken at each row's true end, in every such
     sublayer of every group (softmax caches keep the pad positions, which
     decode's length mask never reads), and the pads take no part in any
-    MoE sublayer's routing.  ``aux`` is 0.0: the MoE's load-balance loss
-    is a training term, and the port trains only the dense softmax-
-    attention families (``model.check_trainable``).  With ``cfg.remat``
-    and grad enabled, and no caches asked for, each group runs under
-    ``torch.utils.checkpoint`` (non-reentrant): its activations are
-    recomputed in the backward, the reference's ``jax.checkpoint`` of the
-    scan body."""
+    MoE sublayer's routing.  ``aux`` is the MoE's load-balance loss as
+    the reference sums it: each group's MoE sublayers added in position
+    order (from 0.0), then the groups' sums summed; 0.0 without an MoE.
+    It carries grad through the router's probabilities (``moe.route``),
+    and ``model.lm_loss`` adds it to the loss; prefill and decode ignore
+    it.  With ``cfg.remat`` and grad enabled, and no caches asked for,
+    each group runs under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations, its aux included, are recomputed in the backward, the
+    reference's ``jax.checkpoint`` of the scan body."""
     check_supported(cfg)
     remat = cfg.remat and torch.is_grad_enabled() and not want_cache
     mixers = [mixer_of(cfg, pos) for pos in range(group_size(cfg))]
@@ -236,25 +240,34 @@ def stack_forward(params_layers, cfg, x, rope_fn, *, causal=True,
 
     def run_group(x, g):
         group = layer_slice(params_layers, g)
+        aux = 0.0
         for pos, mixer in enumerate(mixers):
             sub = dequantize_small(group[pos])
             x, (a, b) = _mixer_forward(sub, cfg, mixer, x, rope_fn, causal,
                                        want_cache, decode_len, valid_len)
-            x = _ffn(sub, cfg, x, valid)
+            x, sub_aux = _ffn(sub, cfg, x, valid)
+            aux = aux + sub_aux
             if want_cache:
                 c0[pos].append(a)
                 c1[pos].append(b)
             del sub, a, b
-        return x
+        return x, aux
 
+    auxes = []
     for g in range(n_groups(cfg)):
         if remat:
-            x = checkpoint(run_group, x, g, use_reentrant=False)
+            x, aux = checkpoint(run_group, x, g, use_reentrant=False)
         else:
-            x = run_group(x, g)
+            x, aux = run_group(x, g)
+        auxes.append(aux)
     caches = (tuple((torch.stack(a), torch.stack(b)) for a, b in zip(c0, c1))
               if want_cache else None)
-    return x, caches, 0.0
+    if any(isinstance(a, torch.Tensor) for a in auxes):
+        aux = torch.sum(torch.stack([torch.as_tensor(
+            a, dtype=torch.float32, device=x.device) for a in auxes]))
+    else:
+        aux = 0.0
+    return x, caches, aux
 
 
 def stack_decode(params_layers, cfg, x, caches, index, rope_fn, *,
@@ -299,7 +312,7 @@ def stack_decode(params_layers, cfg, x, caches, index, rope_fn, *,
                                          donate=donate)
             new0[pos].append(a)
             new1[pos].append(b)
-            x = _ffn(sub, cfg, x + y, valid)
+            x, _ = _ffn(sub, cfg, x + y, valid)
             del sub
     out = tuple(caches[pos] if donate and mixer == "attn"
                 else (torch.stack(new0[pos]), torch.stack(new1[pos]))

@@ -11,7 +11,11 @@ attention-like products plus an inter-chunk state-passing scan.
 ``kernels/ssd/ref.py``).  ``mamba_forward`` runs the SSD through
 ``kernels/ssd/ops.ssd`` and packed in/out projections through
 ``kernels/dequant_gemm``: the Hopper kernels for CUDA tensors, the plain
-versions for CPU tensors.
+versions for CPU tensors.  It trains as it serves: under grad the SSD
+call is an autograd Function whose backward is the SSD backward kernel
+on the card (``ref_ssd_backward`` on the CPU); the conv, the softplus on
+dt, the gated norm and the D skip stay autograd in PyTorch, as the
+reference's ``mamba_forward`` leaves them to ``jax.grad``.
 
 One addition to the reference: ``mamba_forward(valid_len=...)`` for
 right-padded prompts.  Positions at or past a row's ``valid_len`` get

@@ -136,20 +136,17 @@ AUX_LOSS = 1e-2
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """The port trains the dense and VLM softmax-attention decoders only.
-    The other families raise: their losses would miss a term (the MoE's
-    load-balance aux) or run a kernel with no backward (SSD, linear
-    attention); ROADMAP 11.4 queues each."""
+    """The port trains the decoder-only families: dense and VLM softmax
+    attention, the mixture of experts (its load-balance aux loss and
+    routing gradients as the reference's) and Mamba-2 (through the SSD
+    backward kernel).  The rest raise, naming the ROADMAP item that
+    queues each: hybrid groups, linear attention's backward and the
+    encoder-decoder's loss."""
     why = None
     if cfg.encdec:
         why = "the encoder-decoder's loss (encdec_loss, ROADMAP 11.4e)"
     elif cfg.hybrid_group:
         why = "hybrid groups (ROADMAP 11.4d)"
-    elif cfg.moe is not None:
-        why = ("the mixture of experts' aux loss and routing gradients "
-               "(ROADMAP 11.4a)")
-    elif cfg.family == "ssm":
-        why = "Mamba-2 with an SSD backward kernel (ROADMAP 11.4b)"
     elif cfg.attn_impl != "softmax":
         why = "linear attention's backward (ROADMAP 11.4c)"
     if why is not None:
@@ -238,6 +235,7 @@ def lm_loss(params, cfg: ModelConfig, batch):
     nll_sum, z_sum, n = head_loss_chunked(params, cfg, x, labels, mask)
     nll = nll_sum / torch.clamp(n, min=1.0)
     z = z_sum / torch.clamp(n, min=1.0)
+    # a tensor aux (the MoE's) is returned as it is, with its graph
     aux = torch.as_tensor(aux, dtype=torch.float32, device=dev)
     loss = nll + Z_LOSS * z + AUX_LOSS * aux
     return loss, {"nll": nll, "z_loss": z, "aux_loss": aux}

@@ -36,6 +36,16 @@ Every one-hot is a comparison against an ``arange``, with no call that
 reads a value back to the host, so the decode step that runs it can be
 captured as a CUDA graph.
 
+Training differentiates it as the reference's ``jax.grad`` does: the
+gradients flow through the combine weights (the gates, ``top_choices``'
+renormalisation, the softmax, the router's logits and, through the
+float64 product rounded once, the fp32 router) and the dispatch
+product's x, not through ``dispatch = (combine > 0)``, the counts or the
+capacity positions (integer and boolean tensors); the aux loss takes its
+gradient through the mean probabilities and not through the routed
+shares.  The expert products go to ``quant_einsum``, which is
+``torch.einsum`` on the dense weights a train step holds.
+
 A decode step (S = 1 with ``valid``) keeps every choice of a valid row
 (each row alone in its group), so the dispatch and combine reduce to
 each row's gated sum over its top-k experts: :func:`_decode_moe` hands

@@ -12,7 +12,8 @@
 path mask.  The state is ``{"m": tree, "v": tree, "step": int32
 scalar}``; the schedule and the bias corrections run in fp32, as the
 reference's do.  ``adamw_update`` returns new trees and leaves its
-inputs as they were.
+inputs as they were, unless the caller donates the state
+(``donate_state``: the moments are then updated in place).
 """
 from __future__ import annotations
 
@@ -90,9 +91,14 @@ def _decay_mask(path: str) -> bool:
 
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: OptConfig,
-                 lr_override: Optional[torch.Tensor] = None):
+                 lr_override: Optional[torch.Tensor] = None,
+                 donate_state: bool = False):
     """One AdamW step.  Returns (new_params, new_state, metrics) with
-    ``metrics`` {"grad_norm", "lr"} as fp32 scalar tensors."""
+    ``metrics`` {"grad_norm", "lr"} as fp32 scalar tensors.  With
+    ``donate_state`` the caller hands over ``state``: each moment is
+    written into its own tensor in place, which the new state holds (the
+    same bits; a large model's step then holds one set of moments, not
+    two: ``train_loop.fit`` owns its state and donates it)."""
     step = state["step"] + 1
     lr = (schedule_lr(cfg, step.cpu()) if lr_override is None
           else _f32(lr_override))
@@ -119,8 +125,12 @@ def adamw_update(params, grads, state, cfg: OptConfig,
         if cfg.weight_decay and _decay_mask(path):
             update = update + cfg.weight_decay * p.to(torch.float32)
         new_p = (p.to(torch.float32) - lr_d * update).to(p.dtype)
+        if donate_state:
+            m.copy_(mf)                         # the rounding of .to()
+            v.copy_(vf)
+            mf, vf = m, v
         out[path] = (new_p, mf.to(m.dtype), vf.to(v.dtype))
-        del gf, update
+        del gf, mf, vf, update
     pick = lambda i: tree_map_with_path(lambda path, _: out[path][i], params)
     new_state = {"m": pick(1), "v": pick(2), "step": step}
     return pick(0), new_state, {"grad_norm": gnorm, "lr": lr}

@@ -39,7 +39,9 @@ def build_accum_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     """The train step with microbatch accumulation: the batch's leading
     dim (A * B) is split into A microbatches run in order, their gradients
     summed in fp32 (each divided by A) and cast to each param's dtype, the
-    loss averaged likewise; metrics then hold no loss parts."""
+    loss averaged likewise; metrics then hold no loss parts.  As
+    ``build_train_step``, the step updates the optimizer's moments in
+    place."""
     check_trainable(cfg)
     if grad_accum == 1:
         return st.build_train_step(cfg, opt_cfg)
@@ -60,7 +62,7 @@ def build_accum_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
             del g
         grads = tree_map(lambda p, g: g.to(p.dtype), params, acc)
         params, opt_state, om = adamw_update(params, grads, opt_state,
-                                             opt_cfg)
+                                             opt_cfg, donate_state=True)
         return params, opt_state, {"loss": loss_acc, **om}
 
     return train_step
@@ -91,7 +93,9 @@ def fit(cfg: ModelConfig, opt_cfg: OptConfig, tcfg: TrainConfig,
     ``ckpt_dir`` holding a checkpoint, params and optimizer state are
     restored from its latest step and training resumes there (the data
     iterator is the caller's: seek it to match).  Each step's metrics go
-    to the history as floats, with the step's wall seconds as ``dt``."""
+    to the history as floats, with the step's wall seconds as ``dt``.
+    The optimizer state is fit's own, its moments updated in place each
+    step; the caller's params are left as they were."""
     check_trainable(cfg)
     device = torch.device(device)
     recovery = RecoveryLog()

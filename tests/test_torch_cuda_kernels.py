@@ -3196,21 +3196,27 @@ def test_encdec_steps_on_card_match_cpu(cuda):
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
-def _bwd_close(got, want, dtype, causal_dq=False):
-    """Each dq / dk / dv row within BWD_TOL of that row's largest plain
-    magnitude.  With ``causal_dq`` the first gradient is a causal dq,
-    whose row 0 is 0 in exact arithmetic (its one key's dS = P (dP - D)
-    with dP = D): that row is held against the gradient's largest."""
-    for i, (g, w) in enumerate(zip(got, want)):
+def _bwd_close(got, want, dtype, causal_dq=False, exact=None):
+    """Each dq / dk / dv row within BWD_TOL of that row's largest
+    magnitude: in bf16 against the plain version (``want``), in fp32
+    against the float64 backward (``exact``; where a row of few causal
+    keys cancels, the plain fp32 version's own error nears the gate,
+    ``scripts/flash_bwd_accuracy_sweep.py``).  With ``causal_dq`` the first gradient is a causal dq, whose row 0 is
+    0 in exact arithmetic (its one key's dS = P (dP - D) with dP = D):
+    that row is held against the gradient's largest."""
+    rows_of = exact if dtype == torch.float32 else want
+    assert rows_of is not None
+    tol = BWD_TOL[dtype]
+    for i, (g, w, x) in enumerate(zip(got, want, rows_of)):
         assert g.shape == w.shape and g.dtype == w.dtype
         assert g.isfinite().all()
-        err = (g.float() - w.float()).abs().amax(-1)
-        row = w.float().abs().amax(-1)
+        err = (g.double() - x.double()).abs().amax(-1)
+        row = x.double().abs().amax(-1)
         den = row.clone()
         if causal_dq and i == 0:
             den[:, 0] = row.max()
-        ratio = err / den
-        assert ratio.nan_to_num(nan=0.0).max().item() <= BWD_TOL[dtype]
+        ratio = (err / den).nan_to_num(nan=0.0)
+        assert ratio.max().item() <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -3224,7 +3230,8 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KV,
                                              hd, causal):
     """The backward kernel against ``ref_attention_backward`` on the
     forward kernel's own o and lse: rows within 2e-2 (bf16) or 1e-4
-    (fp32) of their largest (``_bwd_close``; the shortest causal case is
+    (fp32, against float64) of their largest (``_bwd_close``; the
+    shortest causal case is
     S = 2: at S = 1 dq and dk are 0 by cancellation, with no magnitude to
     hold them against); two launches bit-equal; the forward's output
     the same bits with and without the lse, and its lse within 1e-5 of
@@ -3245,9 +3252,12 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KV,
     again = FK.launch_flash_attention_backward(q, k, v, o, lse, do,
                                                causal=causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    exact = (ref_attention_backward(*(t.double() for t in (
+        q, k, v, o, lse, do)), causal=causal)
+        if dtype == torch.float32 else None)
     _bwd_close(got, ref_attention_backward(q, k, v, o, lse, do,
                                            causal=causal), dtype,
-               causal_dq=causal)
+               causal_dq=causal, exact=exact)
 
 
 def _attention_f64(q, k, v, causal):
@@ -3272,8 +3282,9 @@ def test_flash_function_gradients_match_the_plain_route(cuda, dtype,
     autograd Function: one forward and one backward launch (counted
     under their routes).  Its gradients against autograd of the plain
     ``ref_attention`` (strided q/k/v views, slices of one projection):
-    fp32 rows of dq, dk and dv within 1e-4 (``_bwd_close``; a causal
-    dq's row 0, 0 in exact arithmetic, against its largest); in bf16
+    fp32 rows of dq, dk and dv within 1e-4 of the float64 gradient's
+    (``_bwd_close``; a causal dq's row 0, 0 in exact arithmetic, against
+    its largest); in bf16
     both against the
     float64 gradient, the Function's error (max |err| over the largest
     exact magnitude, each of dq, dk, dv) no worse than twice the plain
@@ -3301,12 +3312,13 @@ def test_flash_function_gradients_match_the_plain_route(cuda, dtype,
                       "flash_attention/bwd": 1, f"flash_attention/{bwd}": 1}
     want = torch.autograd.grad(ref_attention(*split(qkv), causal=causal),
                                qkv, do)[0]
-    if dtype == torch.float32:
-        _bwd_close(split(got), split(want), dtype, causal_dq=causal)
-        return
     q64 = qkv.detach().double().requires_grad_(True)
     exact = torch.autograd.grad(_attention_f64(*split(q64), causal), q64,
                                 do.double())[0]
+    if dtype == torch.float32:
+        _bwd_close(split(got), split(want), dtype, causal_dq=causal,
+                   exact=split(exact))
+        return
     for a, b, x in zip(split(got), split(want), split(exact)):
         den = x.abs().max()
         k_err = ((a.double() - x).abs().max() / den).item()
@@ -3338,9 +3350,10 @@ def test_flash_records_a_graph_only_under_grad(cuda, monkeypatch):
 
 
 def test_kernels_without_backward_refuse_grad_on_card(cuda):
-    """The packed-weight GEMM, SSD, linear attention and the cache-row
-    update raise for a CUDA input that requires grad, and launch nothing;
-    under no_grad they run."""
+    """The packed-weight GEMM, linear attention and the cache-row update
+    raise for a CUDA input that requires grad, and launch nothing; under
+    no_grad they run.  (SSD has a backward kernel: its Function's tests
+    are below.)"""
     x = torch.randn((1, 16, 128), device=cuda, dtype=torch.bfloat16,
                     requires_grad=True)
     w = quantize(torch.randn((128, 64), device=cuda, dtype=torch.bfloat16),
@@ -3352,13 +3365,6 @@ def test_kernels_without_backward_refuse_grad_on_card(cuda):
     with pytest.raises(RuntimeError, match="no backward"):
         linear_attention(qs, qs.detach()[:, :, :2], qs.detach()[:, :, :2],
                          chunk=64)
-    xs = torch.randn((1, 64, 2, 16), device=cuda, dtype=torch.bfloat16,
-                     requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ssd(xs, torch.rand((1, 64, 2), device=cuda),
-            -torch.rand(2, device=cuda), torch.randn((1, 64, 1, 16),
-                                                     device=cuda).to(xs.dtype),
-            torch.randn((1, 64, 1, 16), device=cuda).to(xs.dtype), chunk=32)
     cache = torch.zeros((2, 16, 2, 16), device=cuda)
     with pytest.raises(RuntimeError, match="no backward"):
         cache_row_update(cache, torch.ones((2, 2, 16), device=cuda,
@@ -3400,3 +3406,106 @@ def test_reduced_train_step_through_the_flash_kernels(cuda, dtype):
     for path, t in tree_leaves_with_path(g):
         w = want[path].float()
         assert ((t.float() - w).abs().max() <= tol * w.abs().max()), path
+
+
+# -- the SSD backward (training) ----------------------------------------------
+
+SSD_BWD_SHAPES = [(4, 2048, 64, 64, 1, 128, 256),    # Mamba-2-1.3B training
+                  (2, 1024, 128, 128, 1, 128, 256),  # Jamba's P 128
+                  (2, 200, 8, 64, 1, 128, 256),      # S under one chunk
+                  (2, 512, 8, 32, 2, 64, 128)]       # G 2, four chunks
+SSD_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _ssd_bwd_inputs(dev, shape, dtype, seed):
+    B, S, H, P, G, N, _ = shape
+    args = _ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dy = torch.randn((B, S, H, P), generator=g, device=dev).to(dtype)
+    dh = torch.randn((B, H, P, N), generator=g, device=dev)
+    return args, dy, dh
+
+
+def _ssd_bwd_close(got, want, exact, dtype):
+    """dx (per (b, s, h) row over P), dB and dC (per (b, s, g) row over
+    N) within SSD_BWD_TOL of each row's largest plain magnitude; ddt and
+    dA within it of their largest; each gradient against the float64
+    backward no worse than twice the plain version (max |err| over the
+    largest exact magnitude)."""
+    tol = SSD_BWD_TOL[dtype]
+    for i, (g, w, x) in enumerate(zip(got, want, exact)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert g.isfinite().all()
+        err = (g.float() - w.float()).abs()
+        if i in (0, 3, 4):
+            ratio = (err.amax(-1) / w.float().abs().amax(-1)).nan_to_num(
+                nan=0.0)
+            assert ratio.max().item() <= tol, (i, ratio.max().item())
+        else:
+            assert err.max().item() <= tol * w.float().abs().max().item(), i
+        den = x.abs().max()
+        k_err = ((g.double() - x).abs().max() / den).item()
+        p_err = ((w.double() - x).abs().max() / den).item()
+        assert k_err <= 2 * p_err, (i, k_err, p_err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+def test_ssd_backward_kernel_matches_plain(cuda, shape, dtype):
+    """The backward kernel against ``ref_ssd_backward`` on the forward
+    kernel's own states, with a nonzero dh (``_ssd_bwd_close``); two
+    launches bit-equal; the forward's y and h_final the same bits with
+    and without its states handed over."""
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd.ref import ref_ssd_backward
+    chunk = shape[-1]
+    args, dy, dh = _ssd_bwd_inputs(cuda, shape, dtype, seed=shape[1])
+    y, h, states = SK.launch_ssd(*args, chunk=chunk, want_states=True)
+    y0, h0 = SK.launch_ssd(*args, chunk=chunk)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    got = SK.launch_ssd_backward(*args, states, dy, dh, chunk=chunk)
+    again = SK.launch_ssd_backward(*args, states, dy, dh, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref_ssd_backward(*args, dy, dh, chunk=chunk)
+    exact = ref_ssd_backward(*(t.double() for t in args), dy.double(),
+                             dh.double(), chunk=chunk)
+    _ssd_bwd_close(got, want, exact, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_function_on_card_trains_through_the_kernels(cuda, dtype):
+    """``ssd`` on CUDA tensors that require grad is the autograd Function:
+    one forward and one backward launch, under their routes; h_final's
+    gradient None (only y used); the gradients within the row gates of
+    ``ref_ssd_backward``'s on strided views (slices of one projection,
+    as ``mamba_forward`` passes them)."""
+    from repro_torch.kernels.ssd.ref import ref_ssd_backward
+    B, S, H, P, G, N = 2, 512, 8, 32, 1, 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    xbc = torch.randn((B, S, H * P + 2 * G * N), generator=g,
+                      device=cuda).to(dtype).requires_grad_(True)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (B, S, H), generator=g, device=cuda)).requires_grad_(True)
+    A = (-torch.exp(torch.randn(H, generator=g, device=cuda) * 0.5)
+         ).requires_grad_(True)
+
+    def split(t):
+        x, Bm, Cm = torch.split(t, [H * P, G * N, G * N], dim=-1)
+        return (x.reshape(B, S, H, P), Bm.reshape(B, S, G, N) * 0.3,
+                Cm.reshape(B, S, G, N) * 0.3)
+    x, Bm, Cm = split(xbc)
+    dy = torch.randn((B, S, H, P), generator=g, device=cuda).to(dtype)
+    reset_launch_counts()
+    y, _ = ssd(x, dt, A, Bm, Cm, chunk=128)
+    got = torch.autograd.grad(y, (x, dt, A, Bm, Cm), dy)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in launch_counts().items() if c}
+    fwd = "mma" if dtype == torch.bfloat16 else "simt"
+    bwd = "bwd_bf16" if dtype == torch.bfloat16 else "bwd_f32"
+    assert counts == {"ssd": 1, f"ssd/{fwd}": 1, "ssd/bwd": 1,
+                      f"ssd/{bwd}": 1}
+    plain = tuple(t.detach() for t in (x, dt, A, Bm, Cm))
+    want = ref_ssd_backward(*plain, dy, chunk=128)
+    exact = ref_ssd_backward(*(t.double() for t in plain), dy.double(),
+                             chunk=128)
+    _ssd_bwd_close(got, want, exact, dtype)
