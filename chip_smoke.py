@@ -360,8 +360,10 @@ Phases (any failure raises and exits non-zero):
    leaf past that held to no more than the fp32 plain route's own error
    (the fp32 plain route's ddt sums cancel); the
    profiled step with the SSD forward's and backward's ms a call and
-   share; the backward at the training shape beside its bound and plain
-   version (``ssd_backward_times``).
+   share; the backward at the training shape in both dtypes beside the
+   function's bound (fp32 FFMA), its route's own (``ssd_bwd_mma_bound``:
+   bf16 tensor cores, fp32 split TF32 at mma.sync's sustained rate), its
+   device kernels a call and the plain version (``ssd_backward_times``).
 
 Phase 2 also holds the flash backward kernel (``flash_attention/bwd``,
 routes ``bwd_bf16`` / ``bwd_f32``) against ``ref_attention_backward``
@@ -690,8 +692,9 @@ SSD_BWD_TOL = {"bfloat16": KERNEL_TOL, "float32": 1e-4}
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
 SSD_BWD_ROUTE = {"bfloat16": "bwd_bf16", "float32": "bwd_f32"}
 # the device kernels one ``launch_ssd_backward`` runs: C.Bᵀ, the state
-# contributions, the reverse scan, dx, dC, dB, ddt, the sums over heads, dA
-SSD_BWD_DEVICE_KERNELS = 9
+# contributions, the reverse scan, the keys kernel (dx, dB), the rows
+# kernel (dC), ddt, the head slices' sums with dA
+SSD_BWD_DEVICE_KERNELS = 7
 # phase 12: DeepSeek-MoE-16B trained at full width and MOE_TRAIN_LAYERS
 # layers (the full 28 are 16.9 B parameters, ~203 GB of bf16 weights and
 # gradients and fp32 moments), attn_q_chunk=0, remat, bf16; phase 11's
@@ -6914,6 +6917,36 @@ def ssd_bwd_work(B, S, H, P, G, N, chunk, esize=2):
     return byt, sum(ssd_bwd_terms(B, S, H, P, G, N, chunk).values())
 
 
+# the products of ``ssd_bwd_terms`` with an fp32 operand, which the bf16
+# backward splits into three bf16 terms; C.Bᵀ and M (``scores``, formed
+# in the keys and in the rows kernel) take one product each
+SSD_BWD_SPLIT_PRODUCTS = ("dx", "dB", "dC", "state")
+
+
+def ssd_bwd_mma_bound(B, S, H, P, G, N, chunk, dtype="bfloat16"):
+    """The least ms of the backward route's own count against the bytes
+    of ``ssd_bwd_work`` at 3.35 TB/s.  bf16: C.Bᵀ once, M twice and each
+    split product three times at 989 TFLOP/s, the pair weights and the
+    scan at the 67 TFLOP/s fp32 rate.  fp32: M twice and each split
+    product as three TF32 products at mma.sync's sustained 320.4 TFLOP/s,
+    C.Bᵀ (the forward's FFMA kernel), the pair weights and the scan at 67.
+    Returns (ms, what bounds it, tensor-core flop, fp32 flop)."""
+    terms = ssd_bwd_terms(B, S, H, P, G, N, chunk)
+    split = sum(terms[k] for k in SSD_BWD_SPLIT_PRODUCTS)
+    simt = terms["pair_weights"] + terms["scan"]
+    if dtype == "bfloat16":
+        tc = terms["cb"] + 2 * terms["scores"] + 3 * split
+        t_ops = tc / BF16_FLOPS_PER_S + simt / FP32_FLOPS_PER_S
+        esize = 2
+    else:
+        tc, simt = 3 * (2 * terms["scores"] + split), simt + terms["cb"]
+        t_ops = tc / MMA_SYNC_TF32_FLOPS_PER_S + simt / FP32_FLOPS_PER_S
+        esize = 4
+    t_bytes = ssd_bwd_work(B, S, H, P, G, N, chunk, esize)[0] / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes", tc, simt)
+
+
 def time_ssd_backward(sm, shape, dtype):
     """The SSD backward kernel and its plain version at ``shape`` on the
     same inputs (dh None, as training gives it), the work
@@ -7175,9 +7208,9 @@ def train_mamba(sm):
 
 def ssd_bwd_times(timings):
     """The SSD backward at the training shape (``train_mamba``'s
-    timings): ms a call and each device kernel's ms a launch beside the
-    function's bound (``ssd_bwd_work`` at the 67 TFLOP/s fp32 FFMA peak:
-    the kernel's arithmetic is fp32 FFMA in both dtypes) and the plain
+    timings): ms a call, its device kernels and each one's ms a launch
+    beside the function's bound (``ssd_bwd_work`` at the 67 TFLOP/s fp32
+    FFMA peak), the route's own (``ssd_bwd_mma_bound``) and the plain
     version; the forward at the same shape."""
     out = {"card": card_label(),
            "shape": dict(zip(("B", "S", "H", "P", "G", "N", "chunk"),
@@ -7185,13 +7218,18 @@ def ssd_bwd_times(timings):
     for key, name in (("bwd", "bfloat16"), ("bwd_f32", "float32")):
         t_k, t_p, byt, fl = timings[key]
         b_ms, b_by = bound(byt, fl, FP32_FLOPS_PER_S)
+        r_ms, r_by, r_tc, r_simt = ssd_bwd_mma_bound(*timings["shape"],
+                                                     dtype=name)
         ms = dev_or_call(t_k)
         out[name] = {"ms": ms, "ms_source": ms_source(t_k), "event_ms": t_k[1],
                      "device_kernels_per_call": t_k[2],
                      "kernel_ms_a_launch": t_k[3], "bound_ms": b_ms,
                      "bound_by": b_by, "bytes": byt, "flops": fl,
+                     "bound_ms_route": r_ms, "bound_by_route": r_by,
+                     "route_tensor_core_flops": r_tc,
+                     "route_fp32_flops": r_simt,
                      "plain_ms": dev_or_call(t_p), "library_ms": None,
-                     "over_bound": ms / b_ms}
+                     "over_bound": ms / b_ms, "over_route_bound": ms / r_ms}
     t_k, t_p, byt, fl, phases = timings["fwd"]
     out["forward_bfloat16"] = {"ms": dev_or_call(t_k), "event_ms": t_k[1],
                                "plain_ms": dev_or_call(t_p),
@@ -8012,14 +8050,18 @@ def main() -> int:
              "max_abs_err": sm.errs["ssd/bwd"]}
     entry.update({k: sb["bfloat16"][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms",
-        "device_kernels_per_call", "kernel_ms_a_launch", "bytes", "flops")})
+        "device_kernels_per_call", "kernel_ms_a_launch", "bytes", "flops",
+        "bound_ms_route", "bound_by_route")})
     entry.update(
         ms_source=ms_source(mamba_train_t["bwd"][0]),
         shape=sb["shape"], inputs="bf16 x, B, C, dy; fp32 dt, A",
         library="none: no one PyTorch call computes it",
-        bound_note="ssd_bwd_work's operations at the 67 TFLOP/s fp32 FFMA "
-                   "peak (the kernel's arithmetic is fp32 FFMA in both "
-                   "dtypes)",
+        bound_note="bound_ms: ssd_bwd_work's operations at the 67 TFLOP/s "
+                   "fp32 FFMA peak (the function's); bound_ms_route: the "
+                   "bf16 route's own count (ssd_bwd_mma_bound: C.Bᵀ once, "
+                   "M twice, each split product three times at 989 "
+                   "TFLOP/s); float32.bound_ms_route: three TF32 products "
+                   "each at mma.sync's 320.4",
         launches_per_train_step=mamba_train["launches_a_step"][0].get(
             "ssd/bwd"),
         kernel_checks=sm.ssd_bwd_check,

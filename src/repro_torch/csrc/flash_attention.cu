@@ -397,18 +397,6 @@ __device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
   }
 }
 
-// d += a b as lo.hi + hi.lo + hi.hi of tf32 terms, the small products
-// first; b's fragment (b0, b1) split here
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], float b0, float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
-
 // x = x1 + x2 + x3 exactly: three tf32 terms, each rounded to nearest
 // from what the earlier ones leave (33 bits hold fp32's 24)
 __device__ __forceinline__ void split3_tf32(float x, uint32_t& x1, uint32_t& x2, uint32_t& x3) {

@@ -10,7 +10,10 @@ run), each chunk's decay and each chunk's C.B^T per group; with
 :func:`route` names the forward kernels a call runs, from the inputs'
 dtype: ``mma`` (bf16: tensor-core products, the fp32 operand split into
 three bf16 terms) or ``simt`` (fp32: FFMA); :func:`bwd_route` the
-backward's, ``bwd_bf16`` or ``bwd_f32`` (both FFMA, inputs read as fp32).
+backward's, ``bwd_bf16`` (tensor-core products, each fp32 operand split
+into three bf16 terms) or ``bwd_f32`` (split TF32 on the tensor cores).
+:func:`bwd_slice` sets how many of a group's heads one block of the
+backward's keys and rows kernels sums dB and dC over.
 The library is built on first use (``kernels/build.py``).  Runs on the
 card only; the CPU path is the plain versions in ``ref.py``, chosen by the
 wrapper in ``ops.py``.
@@ -18,6 +21,7 @@ wrapper in ``ops.py``.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -38,7 +42,7 @@ def library() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.rt_ssd.argtypes = [_P] * 10 + [_I] * 8 + [_L] * 12 + [_P]
         lib.rt_ssd.restype = _I
-        lib.rt_ssd_backward.argtypes = [_P] * 20 + [_I] * 8 + [_L] * 12 + [_P]
+        lib.rt_ssd_backward.argtypes = [_P] * 20 + [_I] * 9 + [_L] * 12 + [_P]
         lib.rt_ssd_backward.restype = _I
         lib._typed = True
     return lib
@@ -53,6 +57,24 @@ def route(dtype: torch.dtype) -> str:
 def bwd_route(dtype: torch.dtype) -> str:
     """The backward kernels' launch-count route for x/B/C of ``dtype``."""
     return "bwd_bf16" if dtype == torch.bfloat16 else "bwd_f32"
+
+
+# the blocks a backward's keys (or rows) kernel should have at least: 132
+# SMs hold two each, and row tiles of one chunk differ up to 4x in work
+BWD_BLOCKS = 512
+
+
+def bwd_slice(B: int, S: int, H: int, G: int, chunk: int) -> int:
+    """Heads a slice of the backward: the most of a group's H / G heads,
+    dividing it, whose (batch, group, slice, chunk, 64-row tile) grid has
+    at least BWD_BLOCKS blocks (else one head a slice).  A block sums dB
+    and dC over its slice's heads in registers; the slices' shares are
+    then added in order."""
+    L = min(chunk, S)
+    tiles = B * G * (S // L) * -(-L // 64)
+    rep = H // G
+    return next((hs for hs in range(rep, 0, -1)
+                 if rep % hs == 0 and tiles * (rep // hs) >= BWD_BLOCKS), 1)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -125,11 +147,13 @@ def launch_ssd(x, dt, A, Bm, Cm, *, chunk: int, want_states: bool = False):
 
 
 def launch_ssd_backward(x, dt, A, Bm, Cm, states, dy, dh=None, *,
-                        chunk: int):
+                        chunk: int,
+                        heads_a_slice: Optional[int] = None):
     """The backward of ``launch_ssd`` on the same inputs: ``states`` the
     forward's (``want_states``), dy (B,S,H,P) the gradient of y, dh
-    (B,H,P,N) that of h_final or None (zero).  Returns (dx in x's dtype,
-    ddt fp32, dA fp32, dB and dC in B's dtype)."""
+    (B,H,P,N) that of h_final or None (zero); ``heads_a_slice`` (a
+    divisor of H / G) in place of ``bwd_slice``'s.  Returns (dx in x's
+    dtype, ddt fp32, dA fp32, dB and dC in B's dtype)."""
     B, S, H, P, G, N, L = _check(x, dt, A, Bm, Cm, chunk)
     nc = S // L
     if (not states.is_cuda or states.dtype != torch.float32
@@ -143,6 +167,10 @@ def launch_ssd_backward(x, dt, A, Bm, Cm, states, dy, dh=None, *,
                            or tuple(dh.shape) != (B, H, P, N)):
         raise ValueError(f"ssd backward: dh {tuple(dh.shape)}, want "
                          f"{(B, H, P, N)} on the card")
+    hs = heads_a_slice or bwd_slice(B, S, H, G, chunk)
+    if hs < 1 or (H // G) % hs:
+        raise ValueError(f"ssd backward: {hs} heads a slice of {H // G}")
+    nsl = H // G // hs
     x, Bm, Cm = _rows(x), _rows(Bm), _rows(Cm)
     A, states = A.contiguous(), states.contiguous()
     dy = dy.to(x.dtype).contiguous()
@@ -159,8 +187,9 @@ def launch_ssd_backward(x, dt, A, Bm, Cm, states, dy, dh=None, *,
     dstate = torch.empty((B, H, nc, P, N), **f32)
     decay = torch.empty((B, H, nc), **f32)
     cb = torch.empty((B, G, nc, L, L), **f32)
-    dbh = torch.empty((B, H, S, N), **f32)
-    dch = torch.empty((B, H, S, N), **f32)
+    # each head slice's share of dB and dC, added in order by the sums kernel
+    dbp, dcp = ((torch.empty((nsl, B, S, G, N), **f32) for _ in range(2))
+                if nsl > 1 else (None, None))
     vec = torch.empty((5, B, H, S), dtype=torch.float64, device=dev)
     da_part = torch.empty((B, H, nc), **f32)
     err = library().rt_ssd_backward(
@@ -168,9 +197,11 @@ def launch_ssd_backward(x, dt, A, Bm, Cm, states, dy, dh=None, *,
         Cm.data_ptr(), states.data_ptr(), dy.data_ptr(),
         None if dh is None else dh.data_ptr(), dstate.data_ptr(),
         decay.data_ptr(), cb.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-        dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), dbh.data_ptr(),
-        dch.data_ptr(), vec.data_ptr(), da_part.data_ptr(), B, S, H, P, G,
-        N, L, int(x.dtype == torch.bfloat16), *_strides(x, dt, Bm, Cm),
+        dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        None if dbp is None else dbp.data_ptr(),
+        None if dcp is None else dcp.data_ptr(), vec.data_ptr(),
+        da_part.data_ptr(), B, S, H, P, G, N, L,
+        int(x.dtype == torch.bfloat16), hs, *_strides(x, dt, Bm, Cm),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd backward: CUDA error {err}")

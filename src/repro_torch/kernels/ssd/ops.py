@@ -15,7 +15,7 @@ launch-count registry (``repro_torch.kernels``) and one to ``ssd/mma``
 (bf16 inputs) or ``ssd/simt`` (fp32; ``kernel.route``); one launch runs
 four device kernels (C.B^T per group, chunk states, the scan over chunks,
 the outputs).  Each backward launch adds one to ``ssd/bwd`` and one to
-``ssd/bwd_bf16`` or ``ssd/bwd_f32`` (``kernel.bwd_route``); it runs nine
+``ssd/bwd_bf16`` or ``ssd/bwd_f32`` (``kernel.bwd_route``); it runs seven
 device kernels (``csrc/ssd.cu``).  The gradient of h_final may be None
 (training discards h_final): the backward then starts from a zero state
 gradient.

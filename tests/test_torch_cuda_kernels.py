@@ -3509,3 +3509,116 @@ def test_ssd_function_on_card_trains_through_the_kernels(cuda, dtype):
     exact = ref_ssd_backward(*(t.double() for t in plain), dy.double(),
                              chunk=128)
     _ssd_bwd_close(got, want, exact, dtype)
+
+
+def _rows_gate(got, want, tol):
+    """Each gradient's rows (last axis) within ``tol`` of the row's
+    largest ``want`` magnitude."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert g.isfinite().all(), i
+        err = (g.float() - w.float()).abs()
+        ratio = (err.amax(-1) / w.float().abs().amax(-1)).nan_to_num(nan=0.0)
+        assert ratio.max().item() <= tol, (i, ratio.max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+def test_ssd_backward_kernel_matches_emulation(cuda, shape, dtype):
+    """Both backward routes against ``emulate_ssd_bwd_mma``, their
+    arithmetic in plain PyTorch (bf16 "mma": exact M and C.B^T, three bf16
+    planes of each fp32 operand; fp32 "tf32x3": split TF32), at the
+    kernel's own head slice: every row of each gradient within
+    SSD_BWD_TOL of its largest emulated magnitude."""
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd.ref import emulate_ssd_bwd_mma
+    chunk = shape[-1]
+    args, dy, dh = _ssd_bwd_inputs(cuda, shape, dtype, seed=shape[1] + 1)
+    _, _, states = SK.launch_ssd(*args, chunk=chunk, want_states=True)
+    got = SK.launch_ssd_backward(*args, states, dy, dh, chunk=chunk)
+    route = "mma" if dtype == torch.bfloat16 else "tf32x3"
+    want = emulate_ssd_bwd_mma(*args, dy, dh, chunk=chunk, route=route)
+    _rows_gate(got, want, SSD_BWD_TOL[dtype])
+
+
+def _rows_hold(k_err, p_err, row_max, tol):
+    """chip_smoke.py's rows_hold: the kernel within ``tol`` of the row's
+    largest float64 magnitude or, where the plain version is not, no
+    worse than the plain version."""
+    return (k_err <= tol * row_max) | ((p_err > tol * row_max)
+                                       & (k_err <= p_err))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_backward_at_mamba2_decay_rates(cuda, dtype):
+    """Mamba-2-1.3B's widths and decay rates (A = -linspace(1, 16), dt =
+    softplus(normal + 1), 256-position chunks: log-decay sums in the
+    thousands) with a nonzero dh, by ``Smoke.ssd_bwd_held``'s measure:
+    every row of dx (b, position, head), dB and dC (b, position, group)
+    within SSD_BWD_TOL of its largest plain magnitude, ddt and dA within
+    it of their largest, and a row (ddt, dA: the whole gradient) past
+    that held against the float64 backward by ``_rows_hold`` (the plain
+    fp32 version sums cum in fp32 and drifts there)."""
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd.ref import ref_ssd_backward
+    shape = (2, 1024, 64, 64, 1, 128, 256)
+    args, dy, dh = _ssd_bwd_inputs(cuda, shape, dtype, seed=7)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    dt = torch.nn.functional.softplus(
+        torch.randn(args[1].shape, generator=g, device=cuda) + 1.0)
+    A = -torch.linspace(1.0, 16.0, 64, device=cuda)
+    args = (args[0], dt, A, args[3], args[4])
+    _, _, states = SK.launch_ssd(*args, chunk=256, want_states=True)
+    got = SK.launch_ssd_backward(*args, states, dy, dh, chunk=256)
+    want = ref_ssd_backward(*args, dy, dh, chunk=256)
+    exact = ref_ssd_backward(*(t.double() for t in args), dy.double(),
+                             dh.double(), chunk=256)
+    tol = SSD_BWD_TOL[dtype]
+    for i, (k, p, x) in enumerate(zip(got, want, exact)):
+        assert k.shape == p.shape and k.dtype == p.dtype
+        assert k.isfinite().all(), i
+        k2, p2, x2 = (t.reshape(-1, t.shape[-1]) if i in (0, 3, 4)
+                      else t.reshape(1, -1) for t in (k, p, x))
+        ratio = ((k2.float() - p2.float()).abs().amax(-1)
+                 / p2.float().abs().amax(-1)).nan_to_num(nan=0.0)
+        bad = ratio > tol
+        if bad.any():
+            k_err = (k2.double() - x2).abs().amax(-1)[bad]
+            p_err = (p2.double() - x2).abs().amax(-1)[bad]
+            assert _rows_hold(k_err, p_err, x2.abs().amax(-1)[bad],
+                              tol).all(), (i, ratio.max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads_a_slice", [1, 2, 4])
+def test_ssd_backward_db_dc_bit_equal_across_launches(cuda, heads_a_slice,
+                                                      dtype):
+    """G 2 with four heads a group, each slicing of a group's heads: two
+    launches give the same bits of dB and dC (and of every gradient);
+    the sums over heads and slices run in a fixed order, no atomics."""
+    from repro_torch.kernels.ssd import kernel as SK
+    shape = (2, 512, 8, 32, 2, 64, 128)
+    args, dy, dh = _ssd_bwd_inputs(cuda, shape, dtype, seed=heads_a_slice)
+    _, _, states = SK.launch_ssd(*args, chunk=128, want_states=True)
+    runs = [SK.launch_ssd_backward(*args, states, dy, dh, chunk=128,
+                                   heads_a_slice=heads_a_slice)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_backward_kernel_past_128_wide_heads(cuda, dtype):
+    """P 192: the keys kernel's two passes over 128-wide P windows (dx's
+    columns a pass, M summed over the windows) and the rows kernel's
+    windows, against ``ref_ssd_backward`` as ``_ssd_bwd_close`` holds the
+    served shapes; four slices of one head each, summed in order."""
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd.ref import ref_ssd_backward
+    shape = (1, 256, 4, 192, 1, 64, 128)
+    args, dy, dh = _ssd_bwd_inputs(cuda, shape, dtype, seed=11)
+    _, _, states = SK.launch_ssd(*args, chunk=128, want_states=True)
+    got = SK.launch_ssd_backward(*args, states, dy, dh, chunk=128)
+    want = ref_ssd_backward(*args, dy, dh, chunk=128)
+    exact = ref_ssd_backward(*(t.double() for t in args), dy.double(),
+                             dh.double(), chunk=128)
+    _ssd_bwd_close(got, want, exact, dtype)

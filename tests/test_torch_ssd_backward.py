@@ -18,7 +18,11 @@ h_final, so its gradient may also be None).
   its gradients are autograd's of ``ref_ssd_chunked``;
 - the Function's card branch, its launchers swapped for the plain
   versions (the kernels run only on the card): one ``ssd`` and one
-  ``ssd/bwd`` launch a call, under their routes, and the same gradients.
+  ``ssd/bwd`` launch a call, under their routes, and the same gradients;
+- ``emulate_ssd_bwd_mma``, the backward kernel's arithmetic on its two
+  routes (bf16 "mma", fp32 "tf32x3"), against ``jax.vjp`` at the same
+  cases and GRAD_TOL, and at every head slice of a group of four;
+- ``kernel.bwd_slice``, the heads a block of the backward sums over.
 """
 import jax
 import jax.numpy as jnp
@@ -31,7 +35,8 @@ from repro_torch import bridge
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.ssd import kernel as K
 from repro_torch.kernels.ssd import ops
-from repro_torch.kernels.ssd.ref import ref_ssd_backward, ref_ssd_chunked
+from repro_torch.kernels.ssd.ref import (emulate_ssd_bwd_mma, ref_ssd_backward,
+                                        ref_ssd_chunked)
 
 GRAD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 NAMES = ("dx", "ddt", "dA", "dB", "dC")
@@ -66,25 +71,89 @@ def _rel(want, got):
     return float(np.abs(want - got).max() / np.abs(want).max())
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape,chunk,with_dh", [
-    ((2, 64, 4, 16, 1, 8), 32, True),       # two chunks, G 1
-    ((1, 32, 4, 8, 2, 16), 32, True),       # S at the chunk, G 2
-    ((2, 20, 2, 8, 1, 8), 32, False)])      # S under the chunk, no dh
-def test_plain_backward_matches_reference_vjp(shape, chunk, with_dh, dtype):
-    x, dt, A, Bm, Cm, dy, dh = _inputs(shape, dtype, seed=sum(shape))
+VJP_CASES = [((2, 64, 4, 16, 1, 8), 32, True),      # two chunks, G 1
+             ((1, 32, 4, 8, 2, 16), 32, True),      # S at the chunk, G 2
+             ((2, 20, 2, 8, 1, 8), 32, False)]      # S under the chunk, no dh
+
+
+def _vjp_case(shape, chunk, with_dh, dtype, seed):
+    """(jax.vjp's gradients as numpy, the torch inputs x .. dy, dh or
+    None)."""
+    x, dt, A, Bm, Cm, dy, dh = _inputs(shape, dtype, seed=seed)
     _, vjp = jax.vjp(lambda *a: ref_ssd_chunked_jax(*a, chunk=chunk),
                      *map(jnp.asarray, (x, dt, A, Bm, Cm)))
     # numpy now: torch's CPU arithmetic runs after XLA's has finished
     want = [np.asarray(w) for w in vjp((
         jnp.asarray(dy), jnp.asarray(dh) if with_dh
         else jnp.zeros(dh.shape, jnp.float32)))]
-    args = _torch(x, dt, A, Bm, Cm, dy)
-    got = ref_ssd_backward(*args, _torch(dh)[0] if with_dh else None,
-                           chunk=chunk)
+    return want, _torch(x, dt, A, Bm, Cm, dy), (_torch(dh)[0] if with_dh
+                                                  else None)
+
+
+def _hold(want, got, args, dtype):
     for name, w, g, a in zip(NAMES, want, got, args):
         assert g.dtype == a.dtype and tuple(g.shape) == tuple(a.shape)
         assert _rel(w, g) <= GRAD_TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,chunk,with_dh", VJP_CASES)
+def test_plain_backward_matches_reference_vjp(shape, chunk, with_dh, dtype):
+    want, args, dh = _vjp_case(shape, chunk, with_dh, dtype, sum(shape))
+    _hold(want, ref_ssd_backward(*args, dh, chunk=chunk), args, dtype)
+
+
+ROUTES = [("float32", "tf32x3"), ("bfloat16", "mma")]
+
+
+@pytest.mark.parametrize("dtype,route", ROUTES)
+@pytest.mark.parametrize("shape,chunk,with_dh", VJP_CASES)
+def test_backward_emulation_matches_reference_vjp(shape, chunk, with_dh,
+                                                  dtype, route):
+    """The backward kernel's arithmetic on its route (split planes, the
+    products summed tile by tile, the head slices in order) within the
+    plain version's GRAD_TOL of the reference's ``jax.vjp``."""
+    want, args, dh = _vjp_case(shape, chunk, with_dh, dtype, sum(shape))
+    _hold(want, emulate_ssd_bwd_mma(*args, dh, chunk=chunk, route=route),
+          args, dtype)
+
+
+@pytest.mark.parametrize("dtype,route", ROUTES)
+@pytest.mark.parametrize("heads_a_slice", [1, 2, 4])
+def test_backward_emulation_at_every_head_slice(heads_a_slice, dtype,
+                                                route):
+    """G 2 with four heads a group and three 64-position tiles a chunk
+    (the last ragged): each slicing of the group's heads, its slices
+    added in order, against the float64 backward within GRAD_TOL of each
+    gradient's largest or, where the plain version is not (dA sums
+    terms that cancel: 1.7e-5 in fp32 here), no worse than it."""
+    x, dt, A, Bm, Cm, dy, dh = _inputs((1, 160, 8, 8, 2, 16), dtype,
+                                       seed=heads_a_slice)
+    args, dh = _torch(x, dt, A, Bm, Cm, dy), _torch(dh)[0]
+    exact = ref_ssd_backward(*(t.double() for t in args), dh.double(),
+                             chunk=160)
+    plain = ref_ssd_backward(*args, dh, chunk=160)
+    got = emulate_ssd_bwd_mma(*args, dh, chunk=160, route=route,
+                              heads_a_slice=heads_a_slice)
+    for name, x64, p, g in zip(NAMES, exact, plain, got):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        err = _rel(x64.numpy(), g)
+        assert err <= max(GRAD_TOL[dtype], _rel(x64.numpy(), p)), name
+
+
+@pytest.mark.parametrize("case,want", [
+    ((4, 2048, 64, 1, 256), 16),     # Mamba-2-1.3B training: 128 tiles
+    ((2, 1024, 128, 1, 256), 8),     # Jamba's Mamba-2: 32 tiles
+    ((2, 200, 8, 1, 256), 1),        # 8 tiles: one head a slice
+    ((2, 512, 8, 2, 128), 1),        # 32 tiles
+    ((1, 8192, 64, 1, 256), 16)])    # 128 tiles
+def test_bwd_slice_fills_the_card(case, want):
+    B, S, H, G, chunk = case
+    hs = K.bwd_slice(*case)
+    assert hs == want and (H // G) % hs == 0
+    L = min(chunk, S)
+    blocks = B * G * (S // L) * -(-L // 64) * (H // G // hs)
+    assert blocks >= K.BWD_BLOCKS or hs == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
